@@ -42,17 +42,21 @@ FLAGSHIP = dict(
 BATCH, PROMPT, NEW = 4, 128, 128
 TEMPERATURE, TOP_K = 0.8, 40
 
-# kernel checks: bf16 output, 8 mantissa bits (relative step 2^-8); the kernel
-# rounds unnormalized probabilities to bf16 at its running row max, the plain
-# version at the final row max, so one bf16 step of a value ~1 plus headroom
-ATOL = RTOL = 2e-2
+# kernel checks, per element of the bf16 output:
+#   |out - plain| <= OUT_RTOL * |plain| + OUT_ATOL_RMS * rms(plain)
+# One bf16 step is at most 2^-7 of a value, and the kernel rounds its
+# unnormalized probabilities to bf16 at the running row max where the plain
+# version uses the final one; OUT_RTOL allows two steps. The absolute part
+# follows each case's own output scale (rms ~0.036 at decode pos 2047), so it
+# covers values near zero and still fails a kernel that drops part of the
+# live range, which moves outputs by a sizeable fraction of their rms.
+OUT_RTOL = 2.0 ** -6
+OUT_ATOL_RMS = 0.05
 LSE_ATOL = 1e-3               # fp32 throughout; differs only in summation order
 # card (bf16 weights and activations) vs CPU (fp32) on the last prefill
-# logits of a 2-layer model: bf16 rounds every activation at 2^-8, and the
-# tied head sums 1024 such products into logits of std ~1. The same
-# comparison run entirely on a CPU (plain versions in bf16 vs fp32) differs
-# by 0.064; the bound leaves about 4x headroom over that.
-PARITY_ATOL = 0.25
+# logits of a 2-layer model, logits std ~1: the card measured 0.0699 on an
+# H100 in every run recorded in PERF.md; the limit is twice that.
+PARITY_ATOL = 0.14
 
 
 def log(msg: str) -> None:
@@ -83,6 +87,17 @@ def device_ms(torch, fn, *, cold: bool, iters=30, warmup=3):
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def check_out(o, ref):
+    """(ok, max abs error, worst |error| / tolerance, rms of ref) of a bf16
+    kernel output against its plain version; ``ok`` also needs finite output."""
+    o, ref = o.float(), ref.float()
+    rms = ref.pow(2).mean().sqrt().item()
+    err = (o - ref).abs()
+    ratio = (err / (OUT_RTOL * ref.abs() + OUT_ATOL_RMS * rms)).max().item()
+    ok = bool(o.isfinite().all()) and ratio <= 1.0
+    return ok, err.max().item(), ratio, rms
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -138,13 +153,14 @@ def phase_kernels(torch):
         torch.cuda.synchronize()
         o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        err = (o.float() - o_ref.float()).abs().max().item()
+        ok, err, ratio, rms = check_out(o, o_ref)
         lse_err = (lse - lse_ref).abs().max().item()
-        ok = torch.allclose(o.float(), o_ref.float(), atol=ATOL, rtol=RTOL) and lse_err <= LSE_ATOL
+        ok = ok and lse_err <= LSE_ATOL
         log(f"[kernels] flash_attention_fwd {name}: max_abs_err {err:.3e} "
-            f"lse_err {lse_err:.3e} (atol {ATOL}, rtol {RTOL}, lse atol {LSE_ATOL}) "
+            f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, atol "
+            f"{OUT_ATOL_RMS}*rms) lse_err {lse_err:.3e} (atol {LSE_ATOL}) "
             f"{'ok' if ok else 'FAIL'}")
-        if not ok or not torch.isfinite(o.float()).all():
+        if not ok:
             raise AssertionError(f"flash_attention_fwd disagrees with its plain version ({name})")
         worst = max(worst, err)
 
@@ -190,11 +206,10 @@ def phase_kernels(torch):
         torch.cuda.synchronize()
         o_ref = flash_decode_plain(qd, kg, vg, pos, window=window)
         torch.cuda.synchronize()
-        err = (o.float() - o_ref.float()).abs().max().item()
-        ok = bool(torch.isfinite(o.float()).all()) and torch.allclose(
-            o.float(), o_ref.float(), atol=ATOL, rtol=RTOL)
+        ok, err, ratio, rms = check_out(o, o_ref)
         log(f"[kernels] flash_decode {name} window={window}: max_abs_err {err:.3e} "
-            f"(atol {ATOL}, rtol {RTOL}) {'ok' if ok else 'FAIL'}")
+            f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, atol "
+            f"{OUT_ATOL_RMS}*rms) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_decode disagrees with its plain version ({name})")
         worst = max(worst, err)
@@ -376,10 +391,7 @@ def phase_parity(torch, np):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every measurement to this JSON file")
-    ap.add_argument("--phases", default="build,kernels,generate,parity",
-                    help="comma-separated subset of the phases (default: all)")
     args = ap.parse_args()
-    phases = set(args.phases.split(","))
 
     import numpy as np
     import torch
@@ -401,12 +413,10 @@ def main() -> int:
 
     report = {"card": smi}
     t_all = time.perf_counter()
-    if "build" in phases:
-        phase_build()
-    kernels = phase_kernels(torch) if "kernels" in phases else {}
-    gen = phase_generate(torch, np) if "generate" in phases else {}
-    if "parity" in phases:
-        report["parity"] = phase_parity(torch, np)
+    phase_build()
+    kernels = phase_kernels(torch)
+    gen = phase_generate(torch, np)
+    report["parity"] = phase_parity(torch, np)
     report.update(kernels=kernels, generate=gen, seconds=time.perf_counter() - t_all)
 
     replaces = {
@@ -415,9 +425,8 @@ def main() -> int:
     }
     line = {"kernels": [
         dict(name=name, route="cuda", source=f"kubeflow_tpu_torch/csrc/{name}.cu",
-             replaces=replaces[name],
-             launches=gen.get("launches", {}).get(name, 0), **kernels[name])
-        for name in replaces if name in kernels
+             replaces=replaces[name], launches=gen["launches"][name], **kernels[name])
+        for name in replaces
     ]}
     for k in line["kernels"]:
         log(f"[kernel] {k['name']}: max_abs_err {k['max_abs_err']:.3e} kernel_ms "
