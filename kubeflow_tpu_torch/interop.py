@@ -7,9 +7,10 @@ import here) onto this package's ``TransformerLM`` state dict.
 initializers, so a seeded smoke run sees the activations a real init gives
 (random weights of the wrong scale saturate the softmax and hide bugs).
 
-Both return fp32 tensors; ``TransformerLM.load_state_dict`` casts the
-projection and embedding weights to the model's ``cfg.dtype`` once, as
-flax's Dense layers do on every call.
+Both return fp32 tensors. A training ``TransformerLM`` keeps them in fp32
+(flax's ``param_dtype``) and casts to ``cfg.dtype`` on every call; a decode
+model's ``load_state_dict`` casts the projection and embedding weights to
+``cfg.dtype`` once, at load.
 """
 from __future__ import annotations
 

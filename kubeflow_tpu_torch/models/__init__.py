@@ -1,1 +1,1 @@
-"""Models of the PyTorch port (serving slice: the transformer LM)."""
+"""Models of the PyTorch port: the transformer LM, its decoding loop and its losses."""

@@ -1,36 +1,43 @@
 """Decoder-only transformer LM in PyTorch; counterpart of ``kubeflow_tpu/models/transformer.py``.
 
-The serving half of the model: the same parameters, the same numerics and
-the same three attention branches in KV-cache mode (flash prefill, flash
-decode, and the cache-masked einsum path) as the JAX module, so weights
-carried over by ``interop.params_from_flax`` give the same logits.
+The same parameters, the same numerics and the same attention branches as
+the JAX module, so weights carried over by ``interop.params_from_flax`` give
+the same logits, losses and gradients: ``xla``, ``block`` and ``flash`` for
+training, and in KV-cache mode (``decode=True``) flash prefill, flash decode
+and the cache-masked einsum path.
 
 Numerics follow what the flax module computes, not its comments:
 
-- Dense layers (``DenseGeneral``/``Dense`` with ``dtype=cfg.dtype``) cast
-  their fp32 kernels to ``cfg.dtype`` on every call, so this module holds
-  its projection and embedding weights in ``cfg.dtype`` once, at load;
+- Dense layers and the embedding (``dtype=cfg.dtype``,
+  ``param_dtype=float32``) keep fp32 weights and cast them to ``cfg.dtype`` on
+  every call; so does this module when it trains. A ``decode=True`` model
+  holds those weights in ``cfg.dtype`` once, at load: for serving the numbers
+  are the same, and it saves the cast on every decode step;
 - the tied head (``embed.attend``) promotes both operands to ``cfg.dtype``:
   the logits come out in ``cfg.dtype`` (bf16 when serving), and become fp32
-  only in the decoding loop;
+  only in the decoding loop; ``lm_loss_chunked`` instead multiplies its
+  ``compute_dtype`` operands into fp32 logits;
 - RMSNorm and rope compute in fp32 and cast back; the norm scales stay fp32.
 
-``remat``, the ``block`` and ``ring`` attention impls and the losses belong
-to the training slice of the port.
+``remat`` checkpoints each block (``torch.utils.checkpoint``) under the
+policy ``remat_policy`` names. The ``ring`` impl comes with the port's
+multi-GPU slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from kubeflow_tpu_torch.ops import attention as att
 from kubeflow_tpu_torch.ops.flash_decode import flash_decode
 from kubeflow_tpu_torch.ops.pallas_attention import flash_attention
 
-TRAINING_SLICE = "the training slice of the PyTorch port (flash backward, remat, losses)"
+RING_SLICE = "slice 5 of the PyTorch port (multi-GPU parallelism, parallel/ring_attention.py)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,11 +50,12 @@ class TransformerConfig:
     mlp_dim: int = 3072
     max_seq_len: int = 2048
     rope_theta: float = 10_000.0
-    attention_impl: str = "block"        # xla | flash (block | ring: training slice)
+    attention_impl: str = "block"        # xla | block | flash (ring: slice 5)
     attention_block_size: int = 512
     attention_window: int | None = None  # sliding-window (local) attention
     decode_block_k: int = 256            # flash-decode cache tiling contract
-    remat: bool = False                  # training slice
+    remat: bool = False                  # torch.utils.checkpoint each block
+    remat_policy: str = "full"           # full | dots | flash (resolve_remat_policy)
     decode: bool = False                 # KV-cache mode (prefill / decode)
     dtype: torch.dtype = torch.bfloat16
 
@@ -58,6 +66,33 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+
+def resolve_remat_policy(name: str):
+    """Map a config remat_policy name to a selective-checkpoint policy: a
+    list of ops whose outputs a rematerialized block keeps (None = keep
+    nothing but the block's input). Raises on unknown names.
+
+    The ladder (memory high to low), as in the JAX package:
+    - 'dots': keep every matmul output (jax ``dots_saveable``) — the
+      cheapest recompute;
+    - 'flash': keep ONLY the flash kernel's out and lse — the backward
+      replay redoes the projections and the MLP but never the S^2 attention
+      kernel. With a non-flash attention impl the op never runs and this is
+      exactly 'full';
+    - 'full': keep the block's input only — the most recompute, including a
+      second flash forward per block.
+    """
+    if name == "dots":
+        aten = torch.ops.aten
+        return [aten.mm.default, aten.bmm.default, aten.addmm.default, aten.baddbmm.default]
+    if name == "flash":
+        return [torch.ops.kubeflow_tpu_torch.flash_attention_fwd.default]
+    if name == "full":
+        return None
+    raise ValueError(
+        f"unknown remat_policy {name!r}; expected 'full', 'dots' or 'flash'"
+    )
 
 
 def resolve_device(device=None) -> torch.device:
@@ -109,8 +144,47 @@ class RMSNorm(nn.Module):
         return (normed * self.weight).to(x.dtype)
 
 
-def _linear(n_in: int, n_out: int, cfg: TransformerConfig, device):
-    return nn.Linear(n_in, n_out, bias=False, dtype=cfg.dtype, device=device)
+def _param_dtype(cfg: TransformerConfig) -> torch.dtype:
+    """fp32 weights for training (flax's ``param_dtype``); ``cfg.dtype``
+    weights for a decode model, which only ever uses them cast."""
+    return cfg.dtype if cfg.decode else torch.float32
+
+
+def _cast_dtype(cfg: TransformerConfig):
+    """The dtype a layer casts its operands to on every call, or None for a
+    decode model: its weights and activations are already ``cfg.dtype``, and
+    a decode step, bound by the host, makes no cast calls."""
+    return None if cfg.decode else cfg.dtype
+
+
+class Dense(nn.Linear):
+    """flax ``Dense``/``DenseGeneral`` without bias: in training, input and
+    fp32 weight are cast to ``cfg.dtype`` on every call."""
+
+    def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig, device=None):
+        super().__init__(n_in, n_out, bias=False, dtype=_param_dtype(cfg), device=device)
+        self.compute_dtype = _cast_dtype(cfg)
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return F.linear(x, self.weight)
+        return F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
+
+
+class Embed(nn.Embedding):
+    """flax ``Embed``: in training, the fp32 table is cast to ``cfg.dtype``
+    before the lookup and before the tied head."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__(cfg.vocab_size, cfg.embed_dim, dtype=_param_dtype(cfg), device=device)
+        self.compute_dtype = _cast_dtype(cfg)
+
+    def table(self):
+        """The table in the dtype the model computes in."""
+        return self.weight if self.compute_dtype is None else self.weight.to(self.compute_dtype)
+
+    def forward(self, tokens):
+        return F.embedding(tokens, self.table())
 
 
 class Attention(nn.Module):
@@ -118,10 +192,10 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         H, KV, D, E = cfg.num_heads, cfg.kv_heads, cfg.head_dim, cfg.embed_dim
-        self.q_proj = _linear(E, H * D, cfg, device)
-        self.k_proj = _linear(E, KV * D, cfg, device)
-        self.v_proj = _linear(E, KV * D, cfg, device)
-        self.o_proj = _linear(H * D, E, cfg, device)
+        self.q_proj = Dense(E, H * D, cfg, device)
+        self.k_proj = Dense(E, KV * D, cfg, device)
+        self.v_proj = Dense(E, KV * D, cfg, device)
+        self.o_proj = Dense(H * D, E, cfg, device)
 
     def forward(self, x, rope_cs, start: int = 0, cache=None, pos=None):
         cfg = self.cfg
@@ -131,6 +205,11 @@ class Attention(nn.Module):
         k = apply_rope(self.k_proj(x).view(B, S, KV, D), *rope_cs)
         v = self.v_proj(x).view(B, S, KV, D)
 
+        if not cfg.decode and KV != H and cfg.attention_impl in ("xla", "block"):
+            # GQA: expand kv heads to query heads for the paths that need
+            # per-head alignment; the flash kernels take grouped K/V
+            k = k.repeat_interleave(H // KV, dim=2)
+            v = v.repeat_interleave(H // KV, dim=2)
         if cfg.attention_window is not None and cfg.attention_impl not in ("xla", "flash"):
             raise ValueError(
                 "attention_window is supported by the 'xla' and 'flash' "
@@ -139,20 +218,16 @@ class Attention(nn.Module):
         if cfg.decode:
             o = self._cached_attention(q, k, v, start, cache, pos)
         elif cfg.attention_impl == "xla":
-            if KV != H:
-                # GQA: expand kv heads to query heads for the oracle path
-                k = k.repeat_interleave(H // KV, dim=2)
-                v = v.repeat_interleave(H // KV, dim=2)
             o = att.naive_attention(q, k, v, causal=True, window=cfg.attention_window)
+        elif cfg.attention_impl == "block":
+            o = att.blockwise_attention(q, k, v, causal=True, block_size=cfg.attention_block_size)
         elif cfg.attention_impl == "flash":
             o = flash_attention(
                 q, k, v, True, cfg.attention_block_size,
                 cfg.attention_block_size, cfg.attention_window,
             )
-        elif cfg.attention_impl in ("block", "ring"):
-            raise NotImplementedError(
-                f"attention_impl={cfg.attention_impl!r} comes with {TRAINING_SLICE}"
-            )
+        elif cfg.attention_impl == "ring":
+            raise NotImplementedError(f"attention_impl='ring' comes with {RING_SLICE}")
         else:
             raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
         return self.o_proj(o.reshape(B, S, H * D))
@@ -213,9 +288,9 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        self.gate_proj = _linear(cfg.embed_dim, cfg.mlp_dim, cfg, device)
-        self.up_proj = _linear(cfg.embed_dim, cfg.mlp_dim, cfg, device)
-        self.down_proj = _linear(cfg.mlp_dim, cfg.embed_dim, cfg, device)
+        self.gate_proj = Dense(cfg.embed_dim, cfg.mlp_dim, cfg, device)
+        self.up_proj = Dense(cfg.embed_dim, cfg.mlp_dim, cfg, device)
+        self.down_proj = Dense(cfg.mlp_dim, cfg.embed_dim, cfg, device)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -239,11 +314,14 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError(f"remat comes with {TRAINING_SLICE}")
         device = resolve_device(device)
         self.cfg = cfg
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim, dtype=cfg.dtype, device=device)
+        policy = resolve_remat_policy(cfg.remat_policy)
+        self._remat_context = (
+            functools.partial(create_selective_checkpoint_contexts, policy)
+            if policy is not None else None
+        )
+        self.embed = Embed(cfg, device)
         self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.embed_dim, device=device)
 
@@ -262,9 +340,9 @@ class TransformerLM(nn.Module):
         ]
 
     def head(self, x):
-        """Tied output head: operands in ``cfg.dtype``, as flax's
+        """Tied output head: both operands in ``cfg.dtype``, as flax's
         ``Embed.attend`` promotes them; logits in ``cfg.dtype``."""
-        return F.linear(x.to(self.cfg.dtype), self.embed.weight)
+        return F.linear(x.to(self.cfg.dtype), self.embed.table())
 
     def forward(self, tokens, start: int = 0, cache=None, return_hidden: bool = False):
         """tokens [B, S] at positions ``start .. start+S-1`` -> logits [B, S, V].
@@ -279,9 +357,94 @@ class TransformerLM(nn.Module):
         positions = torch.arange(start, start + S, device=tokens.device)
         rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         pos = torch.full((B,), start, dtype=torch.int32, device=tokens.device) if cfg.decode else None
+        remat = cfg.remat and not cfg.decode and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, rope_cs, start, cache[i] if cfg.decode else None, pos)
+            if remat:
+                kw = {} if self._remat_context is None else {"context_fn": self._remat_context}
+                x = checkpoint(layer, x, rope_cs, use_reentrant=False, **kw)
+            else:
+                x = layer(x, rope_cs, start, cache[i] if cfg.decode else None, pos)
         x = self.final_norm(x)
         if return_hidden:
             return x
         return self.head(x)
+
+
+def lm_loss(logits, tokens):
+    """Next-token cross entropy (shift inside; tokens [B, S])."""
+    logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    return nll.mean()
+
+
+def _matmul_f32(a, b):
+    """a [N, K] @ b [M, K]^T -> [N, M] in fp32 from operands of one dtype.
+
+    bf16 and fp16 operands on the card go through ``torch.mm(...,
+    out_dtype=torch.float32)``: products of the operands as they are, summed
+    in fp32, and the logits never rounded to the operand dtype (XLA's
+    ``preferred_element_type=f32``). Elsewhere the operands, already rounded
+    to their dtype, are multiplied in fp32, which gives the same numbers."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(a, b.t(), out_dtype=torch.float32)
+    return a.float() @ b.float().t()
+
+
+class _LogitsF32(torch.autograd.Function):
+    """fp32 logits from ``compute_dtype`` operands, with XLA's transpose
+    rule for ``preferred_element_type``: each operand's gradient is the fp32
+    cotangent times the other operand in fp32, rounded to the operand's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, h, e):
+        ctx.save_for_backward(h, e)
+        return _matmul_f32(h, e)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, e = ctx.saved_tensors
+        dh = (g @ e.float()).to(h.dtype) if ctx.needs_input_grad[0] else None
+        de = (g.t() @ h.float()).to(e.dtype) if ctx.needs_input_grad[1] else None
+        return dh, de
+
+
+def lm_loss_chunked(hidden, embedding, tokens, *, chunk: int = 512, compute_dtype=None):
+    """Next-token cross entropy with the tied head folded in, chunked over
+    the sequence so the [B, S, vocab] fp32 logits never exist at once.
+
+    ``hidden`` is the model's ``return_hidden=True`` output [B, S, E];
+    ``embedding`` the tied [vocab, E] table. Each chunk's logits come from
+    ``compute_dtype`` operands (default bf16) in fp32 and reduce to a scalar
+    under ``torch.utils.checkpoint``, so the backward recomputes them instead
+    of keeping them (the JAX scan body is ``jax.checkpoint``-ed). Everything
+    past the logits (logsumexp, gather, sums) is fp32. Same math as
+    ``lm_loss(embed.attend(hidden), tokens)``.
+    """
+    B, S, E = hidden.shape
+    compute_dtype = compute_dtype or torch.bfloat16
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"chunk {c} must divide seq len {S}")
+    # predict token t+1 from position t; the final position has no target
+    tgt = torch.roll(tokens, -1, dims=1).long()
+    mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    mask[:, -1] = 0.0
+
+    def body(h_c, emb, t_c, m_c):
+        logits = _LogitsF32.apply(
+            h_c.reshape(-1, E).to(compute_dtype), emb.to(compute_dtype)
+        ).view(B, c, -1)
+        logz = torch.logsumexp(logits, dim=-1)                     # [B, c]
+        gold = logits.gather(-1, t_c[..., None])[..., 0]
+        return ((logz - gold) * m_c).sum()
+
+    nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, S, c):
+        part = (hidden[:, start:start + c], embedding,
+                tgt[:, start:start + c], mask[:, start:start + c])
+        if torch.is_grad_enabled():
+            nll_sum = nll_sum + checkpoint(body, *part, use_reentrant=False)
+        else:
+            nll_sum = nll_sum + body(*part)
+    return nll_sum / mask.sum()

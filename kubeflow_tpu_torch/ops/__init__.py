@@ -1,1 +1,1 @@
-"""Attention ops of the PyTorch port and the wrappers of their CUDA kernels."""
+"""Ops of the PyTorch port: attention, optimizers, and the wrappers of the CUDA kernels."""

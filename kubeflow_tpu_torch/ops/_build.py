@@ -43,6 +43,18 @@ SIGNATURES = {
         # q, k_cache, v_cache, pos, o, B, G, R, L, D, window, scale, stream
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
+    "flash_attention_bwd_dq": (
+        "flash_attention_bwd_dq_launch",
+        # q, k, v, o, lse, do, dq, B, Sq, Sk, H, KV, D, causal, window, scale,
+        # out_f32, stream
+        [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    ),
+    "flash_attention_bwd_dkv": (
+        "flash_attention_bwd_dkv_launch",
+        # q, k, v, o, lse, do, dk, dv, B, Sq, Sk, H, KV, D, causal, window,
+        # scale, out_f32, stream
+        [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,29 +1,40 @@
-"""Flash-attention forward for the PyTorch port.
+"""Flash attention for the PyTorch port: forward and backward.
 
-Counterpart of ``kubeflow_tpu/ops/pallas_attention.py`` (forward only; the
-backward kernels come with the training slice). The CUDA kernel
-(``csrc/flash_attention_fwd.cu``) replaces the Pallas ``_fwd_kernel``
-(``kubeflow_tpu/ops/pallas_attention.py:160``).
+Counterpart of ``kubeflow_tpu/ops/pallas_attention.py``. Three CUDA kernels
+replace the three Pallas kernels of that module:
 
-What bounds it on an H100: at the serving path's prefill shape (B4 H8 KV4
-S128 D128, causal) the kernel moves ~3 MB and does ~0.14 GFLOP, so HBM bytes
-bound it (under a microsecond); at long prompts the FLOPs grow as S^2 and the
-tensor cores become the bound. This first kernel multiplies with scalar fp32
-FMAs from shared memory, so past a few thousand tokens it is compute-bound
-far below the card's bf16 peak; ``mma``/``wgmma`` tiles are later work.
+- ``csrc/flash_attention_fwd.cu`` replaces ``_fwd_kernel`` (``:160``);
+- ``csrc/flash_attention_bwd_dq.cu`` replaces ``_dq_kernel`` (``:290``);
+- ``csrc/flash_attention_bwd_dkv.cu`` replaces ``_dkv_kernel`` (``:336``).
+
+What bounds them on an H100: at the serving path's prefill shape (B4 H8 KV4
+S128 D128, causal) the forward moves ~3 MB and does ~0.14 GFLOP, so HBM bytes
+bound it; at the training shape (B4 H8 S2048 D128, causal) all three are
+bound by FLOPs (forward 2, dq 3, dk/dv 4 causal matmuls of 1.7e10 FLOP each,
+against ~84 MB of bf16 operands). These first kernels multiply with scalar
+fp32 FMAs from shared memory, so there they run far below the tensor cores'
+bf16 rate; ``mma``/``wgmma`` tiles are later work.
 
 What the design does:
 
-- one thread block per (64-row query tile, head, batch row); a loop inside
-  the block over 64-key tiles staged in shared memory takes the place of the
-  TPU kernel's sequential ``ik`` grid axis;
-- the online-softmax state (m, l, and the context accumulator) stays in
-  registers in fp32 across the loop; only probabilities go through shared
-  memory, rounded to bf16 before the value product as the TPU kernel does;
-- causal block skipping: k tiles above the diagonal and left of the sliding
-  window are never loaded;
+- one thread block per (64-row tile, head, batch row); a loop inside the
+  block over the other side's 64-row tiles takes the place of the TPU
+  kernels' sequential grid axis, and the accumulators stay in fp32 registers
+  across it;
+- causal and sliding-window tile skipping: a tile that no row of the block
+  can see is never loaded;
 - GQA: query head ``h`` reads kv head ``h // group``; grouped K/V are never
-  expanded.
+  expanded. The dk/dv kernel owns one kv head and loops over its group's
+  query heads, so it sums the group in fp32 inside the block: no per-head
+  partials, no atomics, a deterministic result;
+- the bf16 rounding points of the TPU kernels: probabilities before the
+  value products, ``ds`` before the key and query products.
+
+Autograd: :func:`flash_attention` always calls the custom op
+``kubeflow_tpu_torch::flash_attention_fwd`` (the forward kernel with lse), so
+that selective checkpointing can see it and keep its outputs (the ``flash``
+remat policy). The op's registered backward launches the dq and dk/dv
+kernels.
 """
 from __future__ import annotations
 
@@ -54,6 +65,36 @@ def _block_plan(Sq, Sk, block_q, block_k):
     return bq, bk
 
 
+def _keep_mask(Sq, Sk, causal, window, device):
+    """[Sq, Sk] bool: key k is visible to query q (positions from 0 on both)."""
+    if not causal:
+        return torch.ones(Sq, Sk, dtype=torch.bool, device=device)
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    keep = kpos <= qpos
+    if window is not None:
+        keep = keep & (kpos > qpos - window)
+    return keep
+
+
+def _check_kernel_inputs(what, **tensors):
+    """The CUDA kernels take contiguous bf16 CUDA operands with D in 64/128."""
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+            raise TypeError(f"{what} kernel takes bf16 CUDA tensors; {name} is {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel needs {name} contiguous")
+    D = next(iter(tensors.values())).shape[-1]
+    if D not in _KERNEL_D:
+        raise ValueError(f"{what} kernel supports head_dim {_KERNEL_D}, got {D}")
+
+
+def _acc(t):
+    """The plain versions' working type: fp32, or fp64 for fp64 inputs
+    (``torch.autograd.gradcheck``)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def flash_attention_plain(q, k, v, *, causal=True, window=None):
     """Plain PyTorch version of the kernel: (o [B,Sq,H,D], lse [B,H,Sq] f32).
 
@@ -66,43 +107,202 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None):
     Sk, KV = k.shape[1], k.shape[2]
     group = H // KV
     # fold query heads into [KV, group] so grouped K/V are read as they are
-    qg = q.float().reshape(B, Sq, KV, group, D)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * (D ** -0.5)
-    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
-    if causal:
-        qpos = torch.arange(Sq, device=q.device)[:, None]
-        kpos = torch.arange(Sk, device=q.device)[None, :]
-        keep = kpos <= qpos
-        if window is not None:
-            keep = keep & (kpos > qpos - window)
+    qg = _acc(q).reshape(B, Sq, KV, group, D)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, _acc(k)) * (D ** -0.5)
+    keep = _keep_mask(Sq, Sk, causal, window, q.device)
     s = s.masked_fill(~keep, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * keep
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bgrqk,bkgd->bqgrd", _acc(p.to(v.dtype)), _acc(v))
     l_q = l.squeeze(-1).permute(0, 3, 1, 2)[..., None]     # [B, Sq, KV, group, 1]
     o = (o / torch.where(l_q == 0, 1.0, l_q)).reshape(B, Sq, H, D)
     lse = torch.where(l == 0, torch.inf, m + torch.log(torch.where(l == 0, 1.0, l)))
     return o.to(q.dtype), lse.reshape(B, H, Sq)
 
 
+def _forward(q, k, v, causal, window):
+    """(o, lse) from the plain version on the CPU or the kernel on the card."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    _check_kernel_inputs("flash_attention", q=q, k=k, v=v)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    _build.launch(
+        "flash_attention_fwd",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        B, Sq, Sk, H, KV, D, int(causal), window or 0, D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal=True, window=None,
+                                   grad_dtype=None):
+    """Plain PyTorch version of the two backward kernels: (dq, dk, dv).
+
+    An explicit formula with the TPU kernels' rounding points, not autograd
+    through the forward:
+
+    - ``delta = rowsum(do * o)`` in fp32 from the stored dtypes (``:300-304``);
+    - ``p = exp(s - lse)`` in fp32; a masked score or an lse of +inf gives 0;
+    - ``p`` rounded to do's dtype before ``p^T do`` (``:363-365``);
+    - ``ds = p * (dp - delta) * scale`` rounded to the operand dtype before
+      ``ds k`` (``:325-327``) and ``ds^T q`` (``:370-372``);
+    - fp32 accumulation; under GQA dk and dv sum the group in fp32
+      (``:454-456``);
+    - outputs in ``grad_dtype`` or else each input's dtype.
+
+    Layouts as the forward: q, o, do [B, Sq, H, D]; k, v [B, Sk, KV, D];
+    lse [B, H, Sq] fp32.
+    """
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    group = H // KV
+    scale = D ** -0.5
+    qg = _acc(q).reshape(B, Sq, KV, group, D)
+    dog = _acc(do).reshape(B, Sq, KV, group, D)
+    delta = (_acc(do) * _acc(o)).sum(-1)                   # [B, Sq, H]
+    delta = delta.permute(0, 2, 1).reshape(B, KV, group, Sq, 1)
+    lse = lse.reshape(B, KV, group, Sq, 1)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, _acc(k)) * scale
+    keep = _keep_mask(Sq, Sk, causal, window, q.device)
+    p = torch.where(keep, torch.exp(s - lse), 0.0)             # [B, KV, group, Sq, Sk]
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, _acc(v))
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", _acc(ds.to(k.dtype)), _acc(k))
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", _acc(p.to(do.dtype)), dog)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", _acc(ds.to(q.dtype)), qg)
+    return (dq.reshape(B, Sq, H, D).to(grad_dtype or q.dtype),
+            dk.to(grad_dtype or k.dtype), dv.to(grad_dtype or v.dtype))
+
+
+def _check_backward(q, k, v, o, lse, do, causal, window, grad_dtype):
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    _group_of(q, k, v)
+    if tuple(k.shape) != (B, Sk, KV, D) or tuple(v.shape) != (B, Sk, KV, D):
+        raise ValueError(f"k and v must be [B={B}, Sk, KV, D={D}], got {tuple(k.shape)}, {tuple(v.shape)}")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and do must be shaped like q {tuple(q.shape)}")
+    if tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"lse must be [B={B}, H={H}, Sq={Sq}], got {tuple(lse.shape)}")
+    if window is not None and (window < 1 or not causal):
+        raise ValueError("window requires causal=True and window >= 1")
+    if grad_dtype not in (None, torch.float32, q.dtype):
+        raise ValueError(f"grad_dtype must be None, fp32 or {q.dtype}, got {grad_dtype}")
+
+
+def _launch_backward(name, q, k, v, o, lse, do, outs, causal, window):
+    _check_kernel_inputs(name, q=q, k=k, v=v, o=o, do=do)
+    if lse.device != q.device or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{name} kernel needs lse fp32 and contiguous on {q.device}")
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    _build.launch(
+        name,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        do.data_ptr(), *(t.data_ptr() for t in outs),
+        B, Sq, Sk, H, KV, D, int(causal), window or 0, D ** -0.5,
+        int(outs[0].dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal=True, window=None,
+                           grad_dtype=None):
+    """dq [B, Sq, H, D] in ``grad_dtype`` (default q's dtype).
+
+    CPU tensors take the plain version; CUDA tensors launch the dq kernel
+    or raise."""
+    _check_backward(q, k, v, o, lse, do, causal, window, grad_dtype)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(
+            q, k, v, o, lse, do, causal=causal, window=window, grad_dtype=grad_dtype)[0]
+    dq = torch.empty(q.shape, dtype=grad_dtype or q.dtype, device=q.device)
+    _launch_backward("flash_attention_bwd_dq", q, k, v, o, lse, do, (dq,), causal, window)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, o, lse, do, *, causal=True, window=None,
+                            grad_dtype=None):
+    """(dk, dv), each [B, Sk, KV, D] in ``grad_dtype`` (default k's dtype).
+
+    CPU tensors take the plain version; CUDA tensors launch the dk/dv kernel
+    or raise."""
+    _check_backward(q, k, v, o, lse, do, causal, window, grad_dtype)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(
+            q, k, v, o, lse, do, causal=causal, window=window, grad_dtype=grad_dtype)[1:]
+    dk = torch.empty(k.shape, dtype=grad_dtype or k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=grad_dtype or v.dtype, device=v.device)
+    _launch_backward("flash_attention_bwd_dkv", q, k, v, o, lse, do, (dk, dv), causal, window)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+@torch.library.custom_op(
+    "kubeflow_tpu_torch::flash_attention_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int window) -> (Tensor, Tensor)",
+)
+def flash_attention_fwd_op(q, k, v, causal, window):
+    """The forward with lse as one dispatcher op (``window`` 0 = none), so a
+    selective-checkpoint policy can name it (``models/transformer.py``)."""
+    return _forward(q, k, v, causal, window or None)
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, causal, window):
+    B, Sq, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, Sq), dtype=_acc(q).dtype)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window = inputs
+    o, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.window = causal, window or None
+
+
+def _backward(ctx, do, _):
+    """The op's backward (``jax.custom_vjp`` there): the residuals are the
+    ones the TPU op saves, (q, k, v, o, lse), and the dq and dk/dv kernels
+    recompute block scores from them, so no [S, S] tensor is ever kept."""
+    q, k, v, o, lse = ctx.saved_tensors
+    do = do.contiguous()
+    kw = dict(causal=ctx.causal, window=ctx.window)
+    dq = flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw)
+    return dq, dk, dv, None, None
+
+
+flash_attention_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
                     block_k: int = 512, window: int | None = None, *,
                     return_lse: bool = False):
-    """Fused attention forward. Layout [B, S, H, D] (matching ops/attention.py).
+    """Fused attention. Layout [B, S, H, D] (matching ops/attention.py).
 
     GQA/MQA: pass k/v with fewer heads than q (H % KV == 0); query head h
     reads kv head h // (H // KV).
 
     ``window``: sliding-window (local) attention — position q attends
     [q - window + 1, q]. ``block_q``/``block_k`` keep the TPU op's tiling
-    contract (the sequence lengths must divide them); the CUDA kernel tiles
+    contract (the sequence lengths must divide them); the CUDA kernels tile
     at 64 rows by 64 keys whatever they are.
 
     ``return_lse`` also returns the row logsumexp [B, H, Sq] in fp32 (+inf on
-    rows that see no key), the residual the training slice's backward needs.
+    rows that see no key; it carries no gradient). When an input requires
+    grad, the call saves the backward's residuals; under ``inference_mode``,
+    as in serving, it is the forward kernel alone.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    CPU tensors take the plain versions; CUDA tensors launch the kernels or
     raise.
     """
     B, Sq, H, D = q.shape
@@ -111,29 +311,13 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
     _block_plan(Sq, Sk, block_q, block_k)
     if window is not None and (window < 1 or not causal):
         raise ValueError("window requires causal=True and window >= 1")
-    if q.device.type == "cpu":
-        o, lse = flash_attention_plain(q, k, v, causal=causal, window=window)
-        return (o, lse) if return_lse else o
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention kernel takes bf16 CUDA tensors; {name} is {t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention kernel needs {name} contiguous")
-    if tuple(k.shape) != (B, Sk, KV, D) or tuple(v.shape) != (B, Sk, KV, D):
+    if q.device.type != "cpu" and (
+            tuple(k.shape) != (B, Sk, KV, D) or tuple(v.shape) != (B, Sk, KV, D)):
         raise ValueError(f"k and v must be [B={B}, Sk, KV, D={D}], got {tuple(k.shape)}, {tuple(v.shape)}")
-    if D not in _KERNEL_D:
-        raise ValueError(f"flash_attention kernel supports head_dim {_KERNEL_D}, got {D}")
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
-    _build.launch(
-        "flash_attention_fwd",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr() if return_lse else None,
-        B, Sq, Sk, H, KV, D, int(causal), window or 0, D ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    flash_attention.launches += 1
+    o, lse = flash_attention_fwd_op(q, k, v, causal, window or 0)
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

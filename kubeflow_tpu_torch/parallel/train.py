@@ -1,0 +1,89 @@
+"""LM training-step builder; counterpart of ``kubeflow_tpu/parallel/train.py``.
+
+One device for now: the model's parameters and the optimizer state are
+updated in place, the counterpart of the JAX step's donated state. The
+``mesh`` argument and the sharding rules (``param_rule``, batch sharding)
+come with the port's multi-GPU slice (slice 5).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from kubeflow_tpu_torch.models.transformer import lm_loss_chunked
+from kubeflow_tpu_torch.ops.optimizers import GradientTransformation, apply_updates
+
+
+@dataclasses.dataclass
+class TrainStepBundle:
+    """Everything a notebook (or bench harness) needs to run training."""
+
+    init: Callable  # () -> state {"opt_state", "step"} over the model's parameters
+    step: Callable  # (state, tokens) -> (state, {"loss": ...}); updates in place
+
+
+def make_lm_train_step(
+    model,
+    tx: GradientTransformation,
+    *,
+    loss_fn: Callable | None = None,
+    accum_steps: int = 1,
+    chunk: int = 512,
+    loss_dtype=None,
+) -> TrainStepBundle:
+    """Build an LM train step (tokens [B, S] -> next-token loss).
+
+    ``loss_fn(model, tokens) -> scalar`` defaults to the chunked tied-head
+    loss for ``TransformerLM``-shaped models: ``lm_loss_chunked(hidden,
+    model.embed.weight, tokens, chunk=chunk, compute_dtype=loss_dtype)``;
+    ``loss_dtype`` None is bf16 operands with fp32 accumulation, fp32 gives
+    parity with the unchunked loss.
+
+    ``accum_steps > 1`` runs gradient accumulation: the batch is split into
+    A microbatches along dim 0, the MEAN gradient accumulates in fp32 as
+    g / A (each microbatch carries equal token count, so the mean of
+    per-microbatch means equals the full-batch gradient), and ONE optimizer
+    update applies.
+    """
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    if loss_fn is None:
+        def loss_fn(model, tokens):
+            hidden = model(tokens, return_hidden=True)
+            return lm_loss_chunked(
+                hidden, model.embed.weight, tokens, chunk=chunk,
+                compute_dtype=loss_dtype,
+            )
+
+    def grads_of(tokens):
+        loss = loss_fn(model, tokens)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    def init():
+        return {"opt_state": tx.init(params), "step": 0}
+
+    def train_step(state, tokens):
+        with torch.enable_grad():
+            if accum_steps == 1:
+                loss, grads = grads_of(tokens)
+            else:
+                B = tokens.shape[0]
+                if B % accum_steps:
+                    raise ValueError(f"accum_steps {accum_steps} must divide batch {B}")
+                micro = tokens.reshape(accum_steps, B // accum_steps, *tokens.shape[1:])
+                loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+                grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                         for p in params]
+                for mb in micro:
+                    mb_loss, mb_grads = grads_of(mb)
+                    loss = loss + mb_loss / accum_steps
+                    for acc, g in zip(grads, mb_grads):
+                        acc.add_(g.float() / accum_steps)
+                grads = [g.to(p.dtype) for g, p in zip(grads, params)]
+        apply_updates(params, tx.update(grads, state["opt_state"], params))
+        state["step"] += 1
+        return state, {"loss": loss}
+
+    return TrainStepBundle(init=init, step=train_step)

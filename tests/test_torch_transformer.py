@@ -91,20 +91,26 @@ def test_seeded_init_matches_flax_scale():
         assert w.abs().max().item() <= 2 * (1 / fan_in) ** 0.5 / 0.87962566103423978
     assert abs(a["embed.weight"].std().item() * 256 ** 0.5 - 1.0) < 0.03
     assert torch.equal(a["final_norm.weight"], torch.ones(256))
-    model = tt.TransformerLM(cfg, device="cpu")
-    model.load_state_dict(a)
-    assert model.layers[0].attn.q_proj.weight.dtype == torch.bfloat16
-    assert model.final_norm.weight.dtype == torch.float32
+    # training keeps flax's fp32 params; a decode model stores cfg.dtype
+    for model_cfg, want in [(cfg, torch.float32), (kt.decode_config(cfg), torch.bfloat16)]:
+        model = tt.TransformerLM(model_cfg, device="cpu")
+        model.load_state_dict(a)
+        assert model.layers[0].attn.q_proj.weight.dtype == want
+        assert model.embed.weight.dtype == want
+        assert model.final_norm.weight.dtype == torch.float32
 
 
 def test_training_slice_paths_raise():
-    for impl in ("block", "ring"):
-        _, tcfg = configs(attention_impl=impl)
-        with pytest.raises(NotImplementedError, match="training slice"):
-            tt.TransformerLM(tcfg, device="cpu")(torch.zeros((1, 8), dtype=torch.long))
-    _, tcfg = configs(remat=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tt.TransformerLM(tcfg, device="cpu")
+    """Only 'ring' still raises, naming the multi-GPU slice; the 'block' impl
+    and remat run."""
+    _, tcfg = configs(attention_impl="ring")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tt.TransformerLM(tcfg, device="cpu")(torch.zeros((1, 8), dtype=torch.long))
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    for kw in (dict(attention_impl="block"), dict(attention_impl="flash", remat=True)):
+        _, tcfg = configs(**kw)
+        logits = tt.TransformerLM(tcfg, device="cpu")(tokens)
+        assert logits.shape == (1, 8, 97) and torch.isfinite(logits).all()
 
 
 def test_entry_points_without_a_device_raise(monkeypatch):
