@@ -55,6 +55,16 @@ SIGNATURES = {
         # scale, out_f32, stream
         [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     ),
+    "moe_gather": (
+        "moe_gather_launch",
+        # x, idx, out, B, R, J, M, elem_bytes, stream
+        [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "moe_scatter": (
+        "moe_scatter_launch",
+        # dy, idx, out, B, J, R, M, dtype, accumulate, stream
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
