@@ -37,7 +37,18 @@ Phases, each of which fails the run with a non-zero exit:
             just after;
 9. moe train parity  one MoE step's loss, gradient norm and routing choices
             on the card (bf16) against the CPU (fp32) at 2 layers of the MoE
-            flagship width.
+            flagship width;
+10. head kernels  hold the fused tied head's forward, dh and dE kernels
+            against their plain versions in bf16 at the MoE flagship's head
+            shape (T 8192, V 32000, E 1024) and at edge cases (ragged T, V
+            97, 40 and 50257, E 128 and 100, targets outside [0, V) and in
+            the last vocabulary tile, logits near +-80, each cotangent
+            alone), time kernel, plain version, library and bound, and the
+            whole head forward + backward fused against chunked;
+11. moe train fused  the MoE flagship of phase 8 through
+            ``moe_lm_loss_fused`` (``moe_bench.py --fused-head``), with the
+            head's three launch counters added;
+12. moe train fused parity  phase 9 through ``moe_lm_loss_fused``.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -121,6 +132,17 @@ MOE_ACC_EPS = 2.0 ** -23
 MOE_LOSS_ATOL = 0.004
 MOE_GNORM_RTOL = 4e-4
 MOE_FLIP_SHARE = 0.04         # routing choices that differ, of all choices
+# fused head kernel checks: fp32 unit roundoff, and the one bf16 step
+# (2^-8 of itself) a dlogit may land apart where p differs in its last fp32
+# bits; the limits are the summation bounds of _check_head_case
+HEAD_EPS = 2.0 ** -24
+HEAD_DL_STEP = 2.0 ** -8
+# one MoE train step through the fused head at 2 layers of the MoE width, B2
+# S256, card (bf16) vs CPU (fp32): on an H100 the loss differed by 0.00143
+# and the global gradient norm by 8.06e-5 of itself, with the same 33 routing
+# flips as the chunked head; the limits are about 2.8x and 3x those
+MOE_FUSED_LOSS_ATOL = 0.004
+MOE_FUSED_GNORM_RTOL = 2.5e-4
 
 
 def log(msg: str) -> None:
@@ -615,6 +637,7 @@ def _train_cell(torch, np, tag, bundle, tokens, counters, per_step, flops_tok, s
     classes: dict[str, float] = {}
     for name, ms in ranked:
         cls = ("flash kernels" if "flash_" in name else "moe kernels" if "moe_" in name else
+               "head kernels" if "fused_head" in name else
                "GEMM" if any(t in name for t in ("gemm", "nvjet", "xmma")) else "other")
         classes[cls] = classes.get(cls, 0.0) + ms
     med = float(np.median(step_ms))
@@ -883,11 +906,248 @@ def phase_moe_kernels(torch):
     return results, launches
 
 
-def phase_moe_train(torch, np):
+def _head_abs_products(torch, h, emb, tgt, lse, dlse, dgold):
+    """(|dl| @ |emb|, |dl|^T @ |h|) in fp32, dl the plain version's bf16
+    dlogits: the sums of absolute products that bound the backward kernels'
+    rounding and summation differences."""
+    from kubeflow_tpu_torch.ops import fused_head_loss as fh
+
+    T, E = h.shape
+    V = emb.shape[0]
+    cols = torch.arange(V, device=h.device)
+    ah, ae = h.abs(), emb.abs()
+    a_dh = torch.empty((T, E), dtype=torch.float32, device=h.device)
+    a_de = torch.zeros((V, E), dtype=torch.float32, device=h.device)
+    for s in range(0, T, fh.PLAIN_CHUNK):
+        sl = slice(s, s + fh.PLAIN_CHUNK)
+        logits = torch.mm(h[sl], emb.t(), out_dtype=torch.float32)
+        y = (cols[None, :] == tgt[sl, None]).float()
+        dl = (dlse[sl, None] * torch.exp(logits - lse[sl, None]) + dgold[sl, None] * y)
+        dl = dl.to(h.dtype).abs()
+        a_dh[sl] = torch.mm(dl, ae, out_dtype=torch.float32)
+        a_de += torch.mm(dl.t(), ah[sl], out_dtype=torch.float32)
+    return a_dh, a_de
+
+
+def _check_head_case(torch, fh, name, h, emb, tgt, dlse, dgold):
+    """The three head kernels on one case against their plain versions; the
+    backward kernels take the plain forward's lse. Returns the worst
+    absolute errors (lse and gold, dh, dE)."""
+    T, E = h.shape
+    V = emb.shape[0]
+    lse, gold = fh.fused_head_fwd(h, emb, tgt)
+    torch.cuda.synchronize()
+    lse_p, gold_p = fh.lse_gold_plain(h, emb, tgt)
+    dh = fh.fused_head_bwd_dh(h, emb, tgt, lse_p, dlse, dgold)
+    de = fh.fused_head_bwd_de(h, emb, tgt, lse_p, dlse, dgold)
+    torch.cuda.synchronize()
+    dh_p, de_p = fh.head_grads_plain(h, emb, tgt, lse_p, dlse, dgold)
+    a_dh, a_de = _head_abs_products(torch, h, emb, tgt, lse_p, dlse, dgold)
+    torch.cuda.synchronize()
+    # a logit is a sum of E products: each order within E 2^-24 sum|products|
+    # of the exact sum, and sum|products| <= |h_t| max_v |emb_v|
+    logit_tol = (2 * E * HEAD_EPS * h.float().norm(dim=1)
+                 * emb.float().norm(dim=1).max())
+    # lse: the logits' error, plus the V-term sum of exponentials in two
+    # orders (relative 2 V 2^-24 of the sum, so absolute in its log), plus
+    # the rounding of exp and log
+    lse_tol = logit_tol + 2 * V * HEAD_EPS + 4 * HEAD_EPS * lse_p.abs()
+    ratios = {
+        "lse": ((lse - lse_p).abs() / lse_tol).max().item(),
+        "gold": ((gold - gold_p).abs() / logit_tol).max().item(),
+        # a dlogit may land one bf16 step (2^-8) apart where p differs in its
+        # last fp32 bits; then V (dh) or T (dE) products summed in two orders
+        "dh": ((dh - dh_p).abs() / ((HEAD_DL_STEP + 2 * V * HEAD_EPS) * a_dh)
+               .clamp_min(1e-30)).max().item(),
+        "de": ((de - de_p).abs() / ((HEAD_DL_STEP + 2 * T * HEAD_EPS) * a_de)
+               .clamp_min(1e-30)).max().item(),
+    }
+    errs = {"lse": max((lse - lse_p).abs().max().item(), (gold - gold_p).abs().max().item()),
+            "dh": (dh - dh_p).abs().max().item(), "de": (de - de_p).abs().max().item()}
+    finite = all(bool(x.isfinite().all()) for x in (lse, gold, dh, de))
+    ok = finite and all(r <= 1.0 for r in ratios.values())
+    log(f"[head kernels] {name} T{T} V{V} E{E}: worst err/tol " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ratios.items()) + f"; max_abs_err lse/gold {errs['lse']:.3e} "
+        f"dh {errs['dh']:.3e} dE {errs['de']:.3e} (|dh| max {dh_p.abs().max().item():.3e}, "
+        f"|dE| max {de_p.abs().max().item():.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fused head kernels disagree with their plain versions ({name})")
+    return errs
+
+
+def phase_head_kernels(torch, np):
+    """The fused head's three kernels against their plain versions on the
+    card in bf16, at the MoE flagship's head shape and at edge cases, then
+    timed with the plain versions, the library yardstick and the bound; and
+    the whole head, forward and backward, fused against chunked."""
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.ops import fused_head_loss as fh
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    bf16 = torch.bfloat16
+    T, V, E = MOE_BATCH * MOE_SEQ, MOE["vocab_size"], MOE["embed_dim"]
+
+    def operands(T, V, E, tgt=None):
+        """h ~ N(0, 1) (a final norm's output) and the table at flax's init
+        scale, std 1/sqrt(E), so logits ~ N(0, 1); targets uniform."""
+        h = torch.randn((T, E), generator=gen, device="cuda").to(bf16)
+        emb = (torch.randn((V, E), generator=gen, device="cuda") / E ** 0.5).to(bf16)
+        if tgt is None:
+            tgt = torch.randint(0, V, (T,), generator=gen, device="cuda")
+        return h, emb, tgt
+
+    def nll_cot(T):
+        """The mean NLL's cotangents: dlse = 1/n, dgold = -1/n on every
+        position but the last of each row."""
+        mask = torch.ones((MOE_BATCH, T // MOE_BATCH), device="cuda")
+        mask[:, -1] = 0
+        mask = mask.reshape(T) / mask.sum()
+        return mask, -mask
+
+    def randn_rows(T):
+        return torch.randn((T,), generator=gen, device="cuda")
+
+    # the flagship: the MoE train phase's tokens, targets roll(tokens, -1)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, V, (MOE_BATCH, MOE_SEQ))).to("cuda")
+    tgt_flag = torch.roll(tokens, -1, dims=1).reshape(T)
+    h, emb, _ = operands(T, V, E, tgt_flag)
+    dlse, dgold = nll_cot(T)
+    worst = {"lse": 0.0, "dh": 0.0, "de": 0.0}
+
+    def run(name, h, emb, tgt, dlse, dgold):
+        for k, v in _check_head_case(torch, fh, name, h, emb, tgt, dlse, dgold).items():
+            worst[k] = max(worst[k], v)
+
+    run("flagship_nll", h, emb, tgt_flag, dlse, dgold)
+    # cotangents: dlse only, dgold only, both at random (T 1024 of the flagship)
+    hs, ts = h[:1024].contiguous(), tgt_flag[:1024].contiguous()
+    zero = torch.zeros(1024, device="cuda")
+    run("dlse_only", hs, emb, ts, randn_rows(1024), zero)
+    run("dgold_only", hs, emb, ts, zero, randn_rows(1024))
+    run("mixed_random", hs, emb, ts, randn_rows(1024), randn_rows(1024))
+    # T not a multiple of the 64-token tile
+    run("t300", *operands(300, 5000, E), randn_rows(300), randn_rows(300))
+    # V with no 128-multiple divisor; GPT-2's vocabulary with targets in the
+    # last, partial vocabulary tile, and targets outside [0, V)
+    run("v97", *operands(512, 97, E), randn_rows(512), randn_rows(512))
+    h2, e2, t2 = operands(1024, 50_257, E)
+    t2[::3] = 50_257 - 1 - torch.arange(0, 1024, 3, device="cuda") % 17
+    t2[1::50], t2[2::50] = 50_257, -1
+    run("v50257_last_tile", h2, e2, t2, randn_rows(1024), randn_rows(1024))
+    # V smaller than one tile; E = 128; E not a multiple of 8 (element loads)
+    run("v40", *operands(256, 40, 256), randn_rows(256), randn_rows(256))
+    run("e128", *operands(1024, 4096, 128), randn_rows(1024), randn_rows(1024))
+    run("e100", *operands(200, 300, 100), randn_rows(200), randn_rows(200))
+    # rows whose logits are all large: a shared column of the table and an
+    # h entry of +-80 there put every logit of the row near +80 or -80
+    h3, e3, t3 = operands(256, 5000, E)
+    e3[:, 0] = 1.0
+    h3[5, 0], h3[6, 0] = 80.0, -80.0
+    run("large_logits", h3, e3, t3, randn_rows(256), randn_rows(256))
+
+    # timed at the flagship head shape, L2 warm (h and the table come
+    # straight from the final norm and the optimizer; neither fits in L2)
+    lse, _ = fh.lse_gold_plain(h, emb, tgt_flag)
+    tg = tgt_flag.long()[:, None]
+
+    def lib_fwd():
+        logits = torch.mm(h, emb.t(), out_dtype=torch.float32)
+        return torch.logsumexp(logits, -1), logits.gather(1, tg)
+
+    def lib_dl():
+        logits = torch.mm(h, emb.t(), out_dtype=torch.float32)
+        p = torch.exp(logits - lse[:, None])
+        return p.mul_(dlse[:, None]).scatter_add_(1, tg, dgold[:, None]).to(bf16)
+
+    times = dict(
+        fwd=device_ms(torch, lambda: fh.fused_head_fwd(h, emb, tgt_flag), cold=False, iters=10),
+        fwd_plain=device_ms(torch, lambda: fh.lse_gold_plain(h, emb, tgt_flag), cold=False, iters=10),
+        fwd_lib=device_ms(torch, lib_fwd, cold=False, iters=10),
+        dh=device_ms(torch, lambda: fh.fused_head_bwd_dh(h, emb, tgt_flag, lse, dlse, dgold),
+                     cold=False, iters=5),
+        dh_plain=device_ms(torch, lambda: fh.head_grads_plain(h, emb, tgt_flag, lse, dlse, dgold,
+                                                              de=False), cold=False, iters=5),
+        dh_lib=device_ms(torch, lambda: torch.mm(lib_dl(), emb, out_dtype=torch.float32),
+                         cold=False, iters=5),
+        de=device_ms(torch, lambda: fh.fused_head_bwd_de(h, emb, tgt_flag, lse, dlse, dgold),
+                     cold=False, iters=5),
+        de_plain=device_ms(torch, lambda: fh.head_grads_plain(h, emb, tgt_flag, lse, dlse, dgold,
+                                                              dh=False), cold=False, iters=5),
+        de_lib=device_ms(torch, lambda: torch.mm(lib_dl().t(), h, out_dtype=torch.float32),
+                         cold=False, iters=5),
+    )
+    rows = 16 * T                                    # tgt, lse, dlse, dgold
+    operand = 2 * T * E + 2 * V * E
+    tve = T * V * E
+    bounds = {"fwd": bound_ms(operand + 4 * T + 8 * T, 2 * tve),
+              "dh": bound_ms(operand + rows + 4 * T * E, 4 * tve),
+              "de": bound_ms(operand + rows + 4 * V * E, 4 * tve)}
+    names = {"fwd": "fused_head_fwd", "dh": "fused_head_bwd_dh", "de": "fused_head_bwd_de"}
+    errs = {"fwd": worst["lse"], "dh": worst["dh"], "de": worst["de"]}
+    results = {}
+    log(f"[head kernels] timed at T{T} V{V} E{E} bf16, L2 warm; library = torch.mm(out_dtype="
+        f"fp32) + logsumexp + gather (forward), + exp, bf16 dlogits, torch.mm (dh, dE):")
+    for key, name in names.items():
+        (bms, by) = bounds[key]
+        results[name] = dict(max_abs_err=errs[key], ms=times[key], plain_ms=times[key + "_plain"],
+                             library_ms=times[key + "_lib"], bound_ms=bms, bound_by=by)
+        log(f"[head kernels]   {name} kernel_ms {times[key]:.4f} plain_ms "
+            f"{times[key + '_plain']:.4f} library_ms {times[key + '_lib']:.4f} bound_ms "
+            f"{bms:.5f} ({by}; {2 * tve * (1 if key == 'fwd' else 2) / times[key] / 1e9:.1f} "
+            f"TFLOP/s of the bound's work)")
+
+    # the whole head, forward + backward, fused against the chunked head
+    # (chunk 1024): the choice moe_bench.py --ab measured on the TPU
+    hidden = h.reshape(MOE_BATCH, MOE_SEQ, E).detach().requires_grad_()
+    table = emb.float().requires_grad_()
+
+    def head(fn):
+        def step():
+            loss = fn(hidden, table, tokens)
+            return torch.autograd.grad(loss, (hidden, table))
+        return step
+
+    fused = head(lambda hd, tb, tk: kt.fused_head_nll(hd, tb, tk))
+    chunked = head(lambda hd, tb, tk: kt.lm_loss_chunked(hd, tb, tk, chunk=MOE_CHUNK))
+    whole = {}
+    for name, fn in (("fused", fused), ("chunked", chunked)):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        whole[name] = dict(ms=device_ms(torch, fn, cold=False, iters=5), peak_gb_above_inputs=peak)
+        log(f"[head kernels] whole head fwd+bwd, {name}: {whole[name]['ms']:.3f} device ms, peak "
+            f"{peak:.3f} GB above its inputs")
+    return results, whole
+
+
+def _head_counters():
+    from kubeflow_tpu_torch.ops import fused_head_loss as fh
+
+    return {"fused_head_fwd": fh.fused_head_fwd, "fused_head_bwd_dh": fh.fused_head_bwd_dh,
+            "fused_head_bwd_de": fh.fused_head_bwd_de}
+
+
+def _moe_loss_fn(kt, fused: bool):
+    """The MoE flagship's loss: the chunked tied head (``moe_bench.py``'s
+    default) or the fused one (``--fused-head``, ``moe_bench.py:116-120``)."""
     import functools
 
+    if fused:
+        return kt.moe_lm_loss_fused
+    return functools.partial(kt.moe_lm_loss_chunked, chunk=MOE_CHUNK)
+
+
+def phase_moe_train(torch, np, fused: bool = False):
     import kubeflow_tpu_torch as kt
     from kubeflow_tpu_torch.ops import moe_dispatch as md
+
+    tag = "moe train fused" if fused else "moe train"
 
     cfg = kt.MoEConfig(**MOE, dtype=torch.bfloat16)
     E, k, L, C = cfg.num_experts, cfg.experts_per_token, cfg.num_layers, cfg.capacity(MOE_SEQ)
@@ -901,12 +1161,12 @@ def phase_moe_train(torch, np):
     n_active = n_params - n_expert * (1 - k / E)
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise AssertionError("a training model must hold fp32 parameters")
-    log(f"[moe train] flagship: {L} layers, {E} experts top-{k}, capacity {C}, "
+    log(f"[{tag}] flagship: {L} layers, {E} experts top-{k}, capacity {C}, "
         f"{n_params / 1e6:.1f}M fp32 parameters ({n_active / 1e6:.1f}M active a token), "
-        f"seeded init in {time.perf_counter() - t0:.2f} s")
+        f"seeded init in {time.perf_counter() - t0:.2f} s; "
+        + ("fused tied head" if fused else f"chunked tied head, chunk {MOE_CHUNK}"))
     bundle = kt.make_lm_train_step(
-        model, kt.adamw_lowmem(3e-4, b2=0.99, weight_decay=0.1),
-        loss_fn=functools.partial(kt.moe_lm_loss_chunked, chunk=MOE_CHUNK))
+        model, kt.adamw_lowmem(3e-4, b2=0.99, weight_decay=0.1), loss_fn=_moe_loss_fn(kt, fused))
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ))
     ).to("cuda")
@@ -930,11 +1190,15 @@ def phase_moe_train(torch, np):
     counters = dict(_flash_counters(), moe_gather=md.gather, moe_scatter=md.scatter)
     per_step = {name: L for name in _flash_counters()}
     per_step.update(moe_gather=3 * L, moe_scatter=3 * L)
-    res = _train_cell(torch, np, "moe train", bundle, tokens, counters, per_step, flops_tok,
+    if fused:
+        # one forward, one dh and one dE launch a step
+        counters.update(_head_counters())
+        per_step.update({name: 1 for name in _head_counters()})
+    res = _train_cell(torch, np, tag, bundle, tokens, counters, per_step, flops_tok,
                       MOE_STEPS, cfg.vocab_size)
     # the routing after the steps (its forward runs after the counters were read)
     aux, dropped = routing()
-    log(f"[moe train] mean aux loss (1.0 = balanced) and share of routed choices dropped: "
+    log(f"[{tag}] mean aux loss (1.0 = balanced) and share of routed choices dropped: "
         f"{routing_init[0]:.4f}, {routing_init[1]:.4f} at init; {aux:.4f}, {dropped:.4f} after "
         f"{MOE_STEPS + 2} steps")
     return dict(params_m=n_params / 1e6, active_params_m=n_active / 1e6, **res,
@@ -942,11 +1206,13 @@ def phase_moe_train(torch, np):
                 mean_aux_loss=aux, dropped_share=dropped)
 
 
-def phase_moe_train_parity(torch, np):
-    import functools
-
+def phase_moe_train_parity(torch, np, fused: bool = False):
     import kubeflow_tpu_torch as kt
 
+    tag = "moe train fused parity" if fused else "moe train parity"
+    loss_atol, gnorm_rtol, flip_share = (
+        (MOE_FUSED_LOSS_ATOL, MOE_FUSED_GNORM_RTOL, MOE_FLIP_SHARE) if fused
+        else (MOE_LOSS_ATOL, MOE_GNORM_RTOL, MOE_FLIP_SHARE))
     cfg = kt.MoEConfig(**dict(MOE, num_layers=2), dtype=torch.bfloat16)
     seq = 256
     sd = kt.moe_init_state_dict(cfg, seed=1, device="cpu")
@@ -964,8 +1230,7 @@ def phase_moe_train_parity(torch, np):
             layer.moe.register_forward_hook(hook)
         return model
 
-    got = _one_step_vs_cpu(torch, kt, make_model, sd, tokens,
-                           loss_fn=functools.partial(kt.moe_lm_loss_chunked, chunk=MOE_CHUNK))
+    got = _one_step_vs_cpu(torch, kt, make_model, sd, tokens, loss_fn=_moe_loss_fn(kt, fused))
     (loss_c, norm_c), (loss_h, norm_h) = got["cuda"], got["cpu"]
     exp_c, exp_h, keep_c, keep_h = (torch.stack([getattr(p, name) for p in plans[where]]).cpu()
                                     for name in ("experts", "keep") for where in ("cuda", "cpu"))
@@ -973,13 +1238,13 @@ def phase_moe_train_parity(torch, np):
     flips = int((exp_c != exp_h).sum())
     keep_flips = int((keep_c != keep_h).sum())
     share = flips / exp_c.numel()
-    log(f"[moe train parity] 2-layer MoE width, B2 S{seq}, one step card(bf16) vs cpu(fp32): "
-        f"loss {loss_c:.5f} vs {loss_h:.5f} (|diff| {d_loss:.5f}, atol {MOE_LOSS_ATOL}); grad norm "
-        f"{norm_c:.5f} vs {norm_h:.5f} (rel diff {d_norm:.2e}, rtol {MOE_GNORM_RTOL}); routing "
-        f"choices that differ {flips} of {exp_c.numel()} ({share:.4f}, limit {MOE_FLIP_SHARE}), "
+    log(f"[{tag}] 2-layer MoE width, B2 S{seq}, one step card(bf16) vs cpu(fp32): "
+        f"loss {loss_c:.5f} vs {loss_h:.5f} (|diff| {d_loss:.5f}, atol {loss_atol}); grad norm "
+        f"{norm_c:.5f} vs {norm_h:.5f} (rel diff {d_norm:.2e}, rtol {gnorm_rtol}); routing "
+        f"choices that differ {flips} of {exp_c.numel()} ({share:.4f}, limit {flip_share}), "
         f"keep flags that differ {keep_flips}")
-    if (not np.isfinite([loss_c, norm_c]).all() or d_loss > MOE_LOSS_ATOL
-            or d_norm > MOE_GNORM_RTOL or share > MOE_FLIP_SHARE):
+    if (not np.isfinite([loss_c, norm_c]).all() or d_loss > loss_atol
+            or d_norm > gnorm_rtol or share > flip_share):
         raise AssertionError(f"card MoE train step disagrees with the CPU: {got}")
     return dict(loss_card=loss_c, loss_cpu=loss_h, grad_norm_card=norm_c, grad_norm_cpu=norm_h,
                 loss_abs_diff=d_loss, grad_norm_rel_diff=d_norm, routing_choices=exp_c.numel(),
@@ -1023,13 +1288,19 @@ def main() -> int:
     kernels.update(moe_kernels)
     moe_train = phase_moe_train(torch, np)
     report["moe_train_parity"] = phase_moe_train_parity(torch, np)
+    head_kernels, report["head_whole"] = phase_head_kernels(torch, np)
+    kernels.update(head_kernels)
+    moe_fused = phase_moe_train(torch, np, fused=True)
+    report["moe_train_fused_parity"] = phase_moe_train_parity(torch, np, fused=True)
     report.update(kernels=kernels, fwd_at_train_shape=fwd_train, generate=gen, train=train,
-                  moe_train=moe_train, seconds=time.perf_counter() - t_all)
+                  moe_train=moe_train, moe_train_fused=moe_fused,
+                  seconds=time.perf_counter() - t_all)
 
     # each kernel's launches come from the main path that drives it: the
     # forward and flash-decode from one generate request, the backward
     # kernels from the timed train steps, the MoE gather and scatter from
-    # the timed MoE train steps
+    # the timed MoE train steps, the fused head's three kernels from the timed
+    # MoE train steps through the fused head
     replaces = {
         "flash_attention_fwd": ("kubeflow_tpu/ops/pallas_attention.py:160", gen),
         "flash_decode": ("kubeflow_tpu/ops/flash_decode.py:53", gen),
@@ -1037,6 +1308,9 @@ def main() -> int:
         "flash_attention_bwd_dkv": ("kubeflow_tpu/ops/pallas_attention.py:336", train),
         "moe_gather": ("kubeflow_tpu/ops/moe_dispatch.py:57", moe_train),
         "moe_scatter": ("kubeflow_tpu/ops/moe_dispatch.py:93", moe_train),
+        "fused_head_fwd": ("kubeflow_tpu/ops/fused_head_loss.py:76", moe_fused),
+        "fused_head_bwd_dh": ("kubeflow_tpu/ops/fused_head_loss.py:157", moe_fused),
+        "fused_head_bwd_de": ("kubeflow_tpu/ops/fused_head_loss.py:183", moe_fused),
     }
     line = {"kernels": [
         dict(name=name, route="cuda", source=f"kubeflow_tpu_torch/csrc/{name}.cu",

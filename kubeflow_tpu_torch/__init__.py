@@ -6,12 +6,13 @@ far: the serving path (``models/decoding.py``: prefill, then single-token
 decode with a KV cache), LM training (``parallel/train.py``'s
 ``make_lm_train_step`` with the chunked tied-head loss and
 ``ops/optimizers.py``'s low-memory AdamW) and MoE LM training
-(``models/moe.py`` with gather dispatch, through the same train step), with
+(``models/moe.py`` with gather dispatch, through the same train step, with
+the chunked or the fused tied head, ``ops/fused_head_loss.py``), with
 hand-written CUDA kernels in ``csrc/`` for the flash-attention forward, its
-dq and dk/dv backward, flash-decode, and the MoE row gather and its scatter
-backward. Entry points run on the card unless the caller passes
-``device="cpu"``; on CPU tensors each kernel wrapper runs its plain PyTorch
-version.
+dq and dk/dv backward, flash-decode, the MoE row gather and its scatter
+backward, and the fused head's forward, dh and dE. Entry points run on the
+card unless the caller passes ``device="cpu"``; on CPU tensors each kernel
+wrapper runs its plain PyTorch version.
 """
 from kubeflow_tpu_torch.interop import (
     init_state_dict,
@@ -30,6 +31,7 @@ from kubeflow_tpu_torch.models.moe import (
     MoETransformerLM,
     moe_lm_loss,
     moe_lm_loss_chunked,
+    moe_lm_loss_fused,
 )
 from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -38,6 +40,7 @@ from kubeflow_tpu_torch.models.transformer import (
     lm_loss_chunked,
     resolve_remat_policy,
 )
+from kubeflow_tpu_torch.ops.fused_head_loss import fused_head_nll, fused_lse_gold
 from kubeflow_tpu_torch.ops.optimizers import adamw_lowmem, with_f32_master
 from kubeflow_tpu_torch.parallel.train import TrainStepBundle, make_lm_train_step
 
@@ -50,6 +53,8 @@ __all__ = [
     "adamw_lowmem",
     "decode_config",
     "decode_steps",
+    "fused_head_nll",
+    "fused_lse_gold",
     "generate",
     "init_state_dict",
     "lm_loss",
@@ -58,6 +63,7 @@ __all__ = [
     "moe_init_state_dict",
     "moe_lm_loss",
     "moe_lm_loss_chunked",
+    "moe_lm_loss_fused",
     "moe_params_from_flax",
     "params_from_flax",
     "prefill",

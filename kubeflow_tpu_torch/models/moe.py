@@ -42,10 +42,10 @@ from kubeflow_tpu_torch.models.transformer import (
     resolve_remat_policy,
     rope_tables,
 )
+from kubeflow_tpu_torch.ops.fused_head_loss import fused_head_nll
 from kubeflow_tpu_torch.ops.moe_dispatch import gather_rows
 
 EXPERT_SLICE = "slice 5 of the PyTorch port (multi-GPU parallelism: the expert mesh)"
-FUSED_HEAD_SLICE = "slice 3b of the PyTorch port (ops/fused_head_loss.py, kernels 5-7)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,5 +363,12 @@ def moe_lm_loss_chunked(model: MoETransformerLM, tokens, *, chunk: int = 512,
 
 
 def moe_lm_loss_fused(model: MoETransformerLM, tokens, *, compute_dtype=None):
-    """The fused-head loss: its three kernels are not ported yet."""
-    raise NotImplementedError(f"moe_lm_loss_fused comes with {FUSED_HEAD_SLICE}")
+    """``moe_lm_loss`` through the fused tied head (``ops/fused_head_loss.py``):
+    the [B, S, vocab] logits exist only as tiles inside its kernels, and the
+    fp32 table's gradient comes back from the dE kernel in fp32.
+    ``compute_dtype`` as in ``moe_lm_loss_chunked`` (default bf16 operands;
+    fp32 on the CPU for parity tests)."""
+    hidden, aux = model(tokens, return_hidden=True, return_aux=True)
+    nll = fused_head_nll(hidden, model.embed.weight, tokens,
+                         compute_dtype=compute_dtype or torch.bfloat16)
+    return nll + model.cfg.aux_loss_weight * aux.mean()

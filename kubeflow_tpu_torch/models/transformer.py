@@ -377,7 +377,7 @@ def lm_loss(logits, tokens):
     return nll.mean()
 
 
-def _matmul_f32(a, b):
+def matmul_f32(a, b):
     """a [N, K] @ b [M, K]^T -> [N, M] in fp32 from operands of one dtype.
 
     bf16 and fp16 operands on the card go through ``torch.mm(...,
@@ -399,7 +399,7 @@ class _LogitsF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, e):
         ctx.save_for_backward(h, e)
-        return _matmul_f32(h, e)
+        return matmul_f32(h, e)
 
     @staticmethod
     def backward(ctx, g):

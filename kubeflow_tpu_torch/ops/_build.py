@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface and loaded with ``ctypes``. Nothing
 here includes PyTorch's headers, so a build takes seconds. Libraries land in
-``kubeflow_tpu_torch/_build/`` (git-ignored), named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one loads.
+``kubeflow_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+rebuilds and an unchanged one loads.
 
 The build happens at first use (a wrapper's first launch) or, for every
 kernel at once and in parallel, through :func:`build_all`. Neither this
@@ -65,6 +66,21 @@ SIGNATURES = {
         # dy, idx, out, B, J, R, M, dtype, accumulate, stream
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
+    "fused_head_fwd": (
+        "fused_head_fwd_launch",
+        # h, emb, tgt, lse, gold, T, V, E, stream
+        [_P] * 5 + [_I] * 3 + [_P],
+    ),
+    "fused_head_bwd_dh": (
+        "fused_head_bwd_dh_launch",
+        # h, emb, tgt, lse, dlse, dgold, dh, T, V, E, stream
+        [_P] * 7 + [_I] * 3 + [_P],
+    ),
+    "fused_head_bwd_de": (
+        "fused_head_bwd_de_launch",
+        # h, emb, tgt, lse, dlse, dgold, de, T, V, E, stream
+        [_P] * 7 + [_I] * 3 + [_P],
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -90,6 +106,8 @@ def _target(name: str, compiler: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # shared by several sources
+        h.update(header.read_bytes())
     h.update(" ".join([compiler] + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 

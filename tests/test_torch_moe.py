@@ -124,10 +124,10 @@ def test_logits_losses_and_gradients_match_jax(dispatch):
         _close(g.numpy(), want_g[name].numpy(), 1e-5, name)
 
 
-def test_train_step_matches_the_jax_step():
-    """One ``make_lm_train_step`` step with ``adamw_lowmem`` against the JAX
-    step (``jax.value_and_grad`` + the optax update, as
-    ``benchmarks/moe_bench.py`` builds it) from the same weights.
+def _check_adam_step(want_loss, want_grads, loss_fn):
+    """One ``make_lm_train_step`` step with ``adamw_lowmem`` through
+    ``loss_fn`` against the optax update of the JAX gradients from the same
+    weights.
 
     Adam's first update is ~lr * g / (|g| + eps) per element. Where the
     gradient is above 1e-4 of its table's largest (~70x the two sides'
@@ -136,21 +136,20 @@ def test_train_step_matches_the_jax_step():
     or g^2 a step apart, 2^-8 of an update). Below that, a gradient of
     ~1e-9 can differ in sign between the sides, and the update only to its
     own bound, 2 lr."""
-    want = _jax_reference("gather")
     params = _flax_params()
     jtx = jopt.adamw_lowmem(LR, b2=0.99, weight_decay=0.1)
-    updates, _ = jtx.update(jax.tree_util.tree_map(jnp.asarray, want["grads"]),
+    updates, _ = jtx.update(jax.tree_util.tree_map(jnp.asarray, want_grads),
                             jtx.init(params), params)
     want_p = kt.moe_params_from_flax(
         jax.tree_util.tree_map(np.asarray, optax.apply_updates(params, updates)))
-    want_g = kt.moe_params_from_flax(want["grads"])
+    want_g = kt.moe_params_from_flax(want_grads)
 
     model = _port_model("gather")
     bundle = kt.make_lm_train_step(model, kt.adamw_lowmem(LR, b2=0.99, weight_decay=0.1),
-                                   loss_fn=_chunked)
+                                   loss_fn=loss_fn)
     state, metrics = bundle.step(bundle.init(), torch.from_numpy(TOKENS).long())
     assert state["step"] == 1
-    np.testing.assert_allclose(metrics["loss"].item(), want["loss_chunked"], rtol=1e-5)
+    np.testing.assert_allclose(metrics["loss"].item(), want_loss, rtol=1e-5)
     n_ill = 0
     for name, p in model.named_parameters():
         g = np.abs(want_g[name].numpy())
@@ -160,6 +159,53 @@ def test_train_step_matches_the_jax_step():
         assert diff[well].max(initial=0) <= LR / 100, name
         assert diff.max() <= 2 * LR, name
     assert n_ill < 1e-2 * sum(p.numel() for p in model.parameters())
+
+
+def test_train_step_matches_the_jax_step():
+    """The chunked loss's step against the JAX step (``jax.value_and_grad``
+    + the optax update, as ``benchmarks/moe_bench.py`` builds it)."""
+    want = _jax_reference("gather")
+    _check_adam_step(want["loss_chunked"], want["grads"], _chunked)
+
+
+@functools.cache
+def _jax_fused(compute):
+    """``moe_lm_loss_fused`` and its gradients in JAX (the fused head's three
+    Pallas kernels in interpret mode: T = 512, V = 512), gather dispatch."""
+    model = jm.MoETransformerLM(jm.MoEConfig(**SMALL, dispatch="gather", dtype=jnp.float32))
+    loss, grads = jax.jit(jax.value_and_grad(lambda p: jm.moe_lm_loss_fused(
+        model, p, jnp.asarray(TOKENS), compute_dtype=compute)))(_flax_params())
+    return float(loss), jax.tree_util.tree_map(np.asarray, grads)
+
+
+@pytest.mark.parametrize("compute,rel", [
+    # fp32 head operands: summation order only (measured 1.7e-6)
+    (torch.float32, 1e-5),
+    # bf16 head operands on fp32 activations: the dlogits and dh round to
+    # bf16 on both sides, and a last-bit difference before a rounding moves
+    # that element one bf16 step (measured 1.5e-4, on embed.weight)
+    (torch.bfloat16, 1e-3),
+])
+def test_fused_loss_and_gradients_match_jax(compute, rel):
+    """``moe_lm_loss_fused`` against the JAX one on the same weights: the
+    loss to 1e-6 and every parameter's gradient to ``rel`` of its largest."""
+    want_loss, want = _jax_fused({torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[compute])
+    model = _port_model("gather")
+    loss = kt.moe_lm_loss_fused(model, torch.from_numpy(TOKENS).long(), compute_dtype=compute)
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=1e-6)
+    names, params = zip(*model.named_parameters())
+    want_g = kt.moe_params_from_flax(want)
+    assert set(names) == set(want_g)
+    for name, g in zip(names, torch.autograd.grad(loss, params)):
+        assert g.dtype == torch.float32
+        _close(g.numpy(), want_g[name].numpy(), rel, name)
+
+
+def test_fused_train_step_matches_the_jax_step():
+    """The same AdamW step through ``moe_lm_loss_fused`` (fp32 head)."""
+    want_loss, want_grads = _jax_fused(jnp.float32)
+    _check_adam_step(want_loss, want_grads, functools.partial(
+        kt.moe_lm_loss_fused, compute_dtype=torch.float32))
 
 
 def test_bf16_model_trains():
@@ -212,9 +258,6 @@ def test_unported_paths_and_bad_configs_raise(monkeypatch):
         kt.MoETransformerLM(kt.MoEConfig(**SMALL, dispatch="a2a"), device="cpu")
     with pytest.raises(ValueError, match="unknown dispatch"):
         kt.MoETransformerLM(kt.MoEConfig(**SMALL, dispatch="onehot"), device="cpu")
-    model = _port_model("gather")
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        tm.moe_lm_loss_fused(model, torch.from_numpy(TOKENS).long())
     with pytest.raises(ValueError, match="exceeds num_experts"):
         tm.route_top_k(torch.zeros((1, 8, 4)), 5, 8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
