@@ -48,7 +48,30 @@ Phases, each of which fails the run with a non-zero exit:
 11. moe train fused  the MoE flagship of phase 8 through
             ``moe_lm_loss_fused`` (``moe_bench.py --fused-head``), with the
             head's three launch counters added;
-12. moe train fused parity  phase 9 through ``moe_lm_loss_fused``.
+12. moe train fused parity  phase 9 through ``moe_lm_loss_fused``;
+13. bn kernels  hold the BatchNorm moments and grad-sums kernels against
+            their plain versions at ResNet-50's 12 distinct activation shapes at batch
+            256 and at edge cases (ragged row counts, C 3, 11, 100, fp32, a
+            channel whose variance must clamp at 0), and the stats probe's
+            scaled moments at its six batch-16 shapes with a multiplier of
+            1.25; time kernel, plain version, library reductions and bound
+            (L2 flushed), one train step's 53 launches summed, and the whole
+            ``batch_norm_train`` forward + backward a shape; then run the
+            stats probe's ``main()``;
+14. bwd probe   hold the fused BN + ReLU + 1x1-conv backward kernel against
+            its plain version at the probe's shape (N 802,816, CI 256, CO
+            128) and two smaller ones, time kernel, plain version, the two
+            library products and bound, and run the probe's ``main()``;
+15. resnet train  ``make_classifier_train_step`` on ResNet-50 (1000 classes,
+            bf16, 224x224, ``bn_impl="pallas"``, nesterov SGD 0.1/0.9, seeded
+            weights): one warm-up step, then 5 steps on one batch of 256 with
+            the launch counters set to 0 just before and read just after (53
+            moments and 53 grad-sums launches a step); then, without the
+            launch check, batch 16 and ``bn_impl`` ``"xla"`` and ``"mxu"`` at
+            batch 256 (2 warm-up steps, 3 timed);
+16. resnet train parity  one SGD step of a small ResNet on the card (bf16,
+            through the kernels) against the CPU (fp32): loss, gradient norm
+            and the running statistics after the step.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -144,13 +167,50 @@ HEAD_DL_STEP = 2.0 ** -8
 MOE_FUSED_LOSS_ATOL = 0.004
 MOE_FUSED_GNORM_RTOL = 2.5e-4
 
+# the ResNet training cell: bench.py:81-103 (ResNet-50, 1000 classes, bf16,
+# 224x224 standard-normal images, nesterov SGD 0.1/0.9) with bn_impl="pallas",
+# the configuration that runs the two BatchNorm kernels; bench.py's own batch
+# is 16 a chip, batch 256 is what fills an 80 GB card
+RESNET = dict(stage_sizes=[3, 4, 6, 3], num_classes=1000, width=64)
+RESNET_IMAGE, RESNET_BATCH, RESNET_SMALL_BATCH, RESNET_STEPS = 224, 256, 16, 5
+# reduction kernels (BatchNorm sums, the bwd probe's dW) against their plain
+# versions: a sum taken as a tree or in blocks is within depth * 2^-24 *
+# sum|terms| of the exact sum. Both versions sum in blocks (the kernels: a
+# thread's run of rows, then fixed-order trees over lanes and blocks; PyTorch:
+# its cascaded reductions and split GEMMs); 64 roundings between the two is
+# several times what either needs at these sizes and far under what a dropped
+# tile or row shows at the edge-case sizes.
+SUM_DEPTH = 64
+SUM_EPS = 2.0 ** -24
+BF16_STEP = 2.0 ** -7         # the largest relative spacing of bf16 values
+# one SGD step of ResNet [1, 1, 1, 1], width 16, 100 classes, batch 8 of 64x64,
+# card (bf16 activations, the kernels) vs CPU (fp32, the plain versions): on
+# an H100 the loss (~4.82) differed by 0.00056, the global gradient norm by
+# 2.56e-3 of itself and the running means and variances after the step by at
+# most 1.02e-3; the limits are about 3x those
+RESNET_LOSS_ATOL = 0.002
+RESNET_GNORM_RTOL = 8e-3
+RESNET_STATS_ATOL = 3e-3
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def device_ms(torch, fn, *, cold: bool, iters=30, warmup=3):
     """Mean device ms of one call of ``fn``, between CUDA events around it.
+
+    This is the timer behind every number of the ``kernels`` line, and it
+    lives in this script, outside the package it measures (the probes'
+    ``main()`` have a timer of their own for what they print).
 
     The stream first runs a ~50 ms spin kernel while the host enqueues every
     timed call, so the events measure the device's work and not the host's
@@ -202,8 +262,9 @@ def phase_build():
 
     t0 = time.perf_counter()
     libs = _build.build_all()
-    log(f"[build] {len(libs)} kernels built in {time.perf_counter() - t0:.2f} s "
-        f"with {_build.nvcc()}")
+    log(f"[build] {len(libs)} libraries built in {time.perf_counter() - t0:.2f} s "
+        f"with {_build.nvcc()} (13 kernels: bn_moments.cu serves the BatchNorm moments and "
+        f"the stats probe's scaled moments)")
     for name in libs:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -897,7 +958,8 @@ def phase_moe_kernels(torch):
     for kernel, err in (("moe_gather", worst_g), ("moe_scatter", worst_a)):
         mine = [t for t in launches if t["kernel"] == kernel]
         results[kernel] = dict(
-            max_abs_err=err, **{key: sum(t[key] for t in mine)
+            max_abs_err=err, per=f"one layer's {len(mine)} launches, summed",
+            **{key: sum(t[key] for t in mine)
                                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
             bound_by="bytes" if all(t["bound_by"] == "bytes" for t in mine) else "operations")
         log(f"[moe kernels] {kernel}, one layer's 3 launches: kernel_ms {results[kernel]['ms']:.4f} "
@@ -1251,6 +1313,521 @@ def phase_moe_train_parity(torch, np, fused: bool = False):
                 routing_flips=flips, keep_flips=keep_flips)
 
 
+def resnet_bn_shapes(batch: int, image: int = RESNET_IMAGE, stage_sizes=None, width: int = 64):
+    """The BatchNorm inputs of one ResNet train step as {(rows, channels):
+    count}: the stem's, three a block, and a fourth where the block projects
+    its residual (the first block of every stage)."""
+    stage_sizes = stage_sizes or RESNET["stage_sizes"]
+    shapes: dict[tuple[int, int], int] = {}
+
+    def add(side, ch):
+        key = (batch * side * side, ch)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    side = -(-image // 2)                 # the 7x7 stride-2 stem
+    add(side, width)
+    side = -(-side // 2)                  # the 3x3 stride-2 max-pool
+    for i, count in enumerate(stage_sizes):
+        filters = width * 2 ** i
+        for j in range(count):
+            stride = 2 if i > 0 and j == 0 else 1
+            add(side, filters)            # bn1, before conv2's stride
+            side = -(-side // stride)
+            add(side, filters)            # bn2
+            add(side, filters * 4)        # bn3
+            if j == 0:
+                add(side, filters * 4)    # proj_bn
+    return shapes
+
+
+def _sum_tol(abs_terms):
+    """The reduction tolerance of SUM_DEPTH on a sum whose terms' absolute
+    values add up to ``abs_terms``."""
+    return SUM_DEPTH * SUM_EPS * abs_terms + 1e-30
+
+
+def _check_bn_case(torch, bn, probe, name, x, dy, c):
+    """Kernels 8, 9 and 13 on one activation against their plain versions;
+    returns the worst absolute errors (moments, grad sums, scaled moments)."""
+    ch = x.shape[-1]
+    m = x.numel() // ch
+    xf = x.float().reshape(m, ch)
+    abs_x, abs_x2 = xf.abs().sum(0), (xf * xf).sum(0)
+    ratios, errs = {}, {}
+
+    # kernel 8 through channel_moments: the sums' tolerance over m on the
+    # mean; on the variance the same for sum x^2 plus what the mean's
+    # difference moves mean^2 by
+    mean_k, var_k = bn.channel_moments(x)
+    torch.cuda.synchronize()
+    mean_p, var_p = bn.channel_moments_plain(x)
+    tol_mean = _sum_tol(abs_x) / m
+    tol_var = _sum_tol(abs_x2) / m + 2 * (mean_p.abs() + tol_mean) * tol_mean + 4 * SUM_EPS * mean_p ** 2
+    ratios["mean"] = ((mean_k - mean_p).abs() / tol_mean).max().item()
+    ratios["var"] = ((var_k - var_p).abs() / tol_var).max().item()
+    errs["moments"] = max((mean_k - mean_p).abs().max().item(), (var_k - var_p).abs().max().item())
+    clamped = bool((var_k >= 0).all()) and bool(torch.isfinite(torch.rsqrt(var_k + 1e-5)).all())
+
+    # kernel 9 at the plain statistics
+    rinv = torch.rsqrt(var_p + 1e-5)
+    db_k, dg_k = bn.bn_grad_sums(dy, x, mean_p, rinv)
+    torch.cuda.synchronize()
+    db_p, dg_p = bn.bn_grad_sums_plain(dy, x, mean_p, rinv)
+    dyf = dy.float().reshape(m, ch)
+    abs_dy, abs_dg = dyf.abs().sum(0), (dyf * ((xf - mean_p) * rinv)).abs().sum(0)
+    ratios["dbeta"] = ((db_k - db_p).abs() / _sum_tol(abs_dy)).max().item()
+    ratios["dgamma"] = ((dg_k - dg_p).abs() / _sum_tol(abs_dg)).max().item()
+    errs["grad_sums"] = max((db_k - db_p).abs().max().item(), (dg_k - dg_p).abs().max().item())
+
+    # kernel 13: the same sums of c * x
+    s_k, q_k = probe.moments_scaled(x, c)
+    torch.cuda.synchronize()
+    s_p, q_p = probe.moments_scaled_plain(x, c)
+    ratios["scaled_sum"] = ((s_k - s_p).abs() / _sum_tol(abs(c) * abs_x)).max().item()
+    ratios["scaled_sq"] = ((q_k - q_p).abs() / _sum_tol(c * c * abs_x2)).max().item()
+    errs["scaled"] = max((s_k - s_p).abs().max().item(), (q_k - q_p).abs().max().item())
+
+    finite = all(bool(t.isfinite().all()) for t in (mean_k, var_k, db_k, dg_k, s_k, q_k))
+    ok = finite and clamped and all(r <= 1.0 for r in ratios.values())
+    log(f"[bn kernels] {name} {tuple(x.shape)} {str(x.dtype)[6:]} c={c}: worst err/tol "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ratios.items())
+        + f" (tol {SUM_DEPTH}*2^-24*sum|terms|); min var {var_k.min().item():.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"BatchNorm kernels disagree with their plain versions ({name})")
+    return errs
+
+
+def phase_bn_kernels(torch, np):
+    """Kernels 8, 9 and 13 against their plain versions, then timed."""
+    from kubeflow_tpu_torch.benchmarks import bn_stats_probe as probe
+    from kubeflow_tpu_torch.ops import bn_pallas as bn
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16, mean=0.0, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(dtype)
+
+    zoo = resnet_bn_shapes(RESNET_BATCH)
+    if sum(zoo.values()) != 53:
+        raise AssertionError(f"ResNet-50 has 53 BatchNorms, the shape list {sum(zoo.values())}")
+    worst = {"moments": 0.0, "grad_sums": 0.0, "scaled": 0.0}
+
+    def run(name, x, dy, c=1.25, reported=True):
+        for k, v in _check_bn_case(torch, bn, probe, name, x, dy, c).items():
+            if reported:
+                worst[k] = max(worst[k], v)
+
+    # the train step's shapes: conv outputs of mean ~0.3 and unit scale
+    for (m, ch) in zoo:
+        run(f"resnet50_b{RESNET_BATCH}", randn(m, ch, mean=0.3), randn(m, ch))
+    # the stats probe's own shapes (NHWC, batch 16)
+    for shape in probe.SHAPES:
+        run("probe_b16", randn(*shape), randn(*shape))
+    # edge cases: rows no multiple of any tile, channels that allow no
+    # 16-byte vector, fp32 input, a negative multiplier
+    run("ragged_rows", randn(12347, 64), randn(12347, 64))
+    run("one_row", randn(1, 256), randn(1, 256))
+    run("c3", randn(5001, 3), randn(5001, 3), c=-0.5)
+    run("c11", randn(3, 5, 7, 11), randn(3, 5, 7, 11))
+    run("c100_bf16", randn(3001, 100), randn(3001, 100))
+    run("c100_fp32", randn(3001, 100, dtype=torch.float32), randn(3001, 100, dtype=torch.float32))
+    run("c2048_fp32", randn(777, 2048, dtype=torch.float32), randn(777, 2048, dtype=torch.float32))
+    run("c1_fp32", randn(100_000, 1, dtype=torch.float32), randn(100_000, 1, dtype=torch.float32))
+    # channels of large mean and low variance: E[x^2] - mean^2 cancels to
+    # below zero in some of them and must clamp at 0
+    x = randn(200_000, 64, dtype=torch.float32, mean=1000.0, std=1e-3)
+    raw_s, raw_q = probe.moments_scaled(x, 1.0)
+    raw_var = raw_q / x.shape[0] - (raw_s / x.shape[0]) ** 2
+    log(f"[bn kernels] large_mean: unclamped var min {raw_var.min().item():.3e}, "
+        f"{int((raw_var < 0).sum())} of 64 channels below 0")
+    if not bool((raw_var < 0).any()):
+        raise AssertionError("the large-mean case must drive some unclamped variance below 0")
+    # held to its bound like every case, but left out of the reported
+    # max_abs_err: its sums are of order 1e11, so their absolute error says
+    # nothing of the activations' scale
+    run("large_mean_fp32", x, randn(200_000, 64, dtype=torch.float32), reported=False)
+
+    # a rows view that needs a copy raises, as does a CPU mean for a CUDA x
+    xt = randn(64, 4096).t()
+    for what, call in (("channel_moments", lambda: bn.channel_moments(xt)),
+                       ("bn_grad_sums", lambda: bn.bn_grad_sums(xt, xt, xt[0].float(), xt[0].float()))):
+        try:
+            call()
+        except ValueError as e:
+            log(f"[bn kernels] {what} on a transposed view raises: {str(e)[:60]}...")
+        else:
+            raise AssertionError(f"{what} took a non-contiguous input")
+
+    # timed per distinct shape of the ResNet-50 step at batch 256, L2 flushed;
+    # library: torch.var_mean (moments), three torch.sum reductions (grad sums)
+    per_shape = []
+    for (m, ch), count in zoo.items():
+        x, dy = randn(m, ch, mean=0.3), randn(m, ch)
+        scale, bias = torch.ones(ch, device="cuda"), torch.zeros(ch, device="cuda")
+        mean, var = bn.channel_moments_plain(x)
+        rinv = torch.rsqrt(var + 1e-5)
+        xg = x.clone().requires_grad_()
+        it = 10
+
+        def whole():
+            y, _ = bn.batch_norm_train(xg, scale, bias)
+            return torch.autograd.grad(y, xg, dy)
+
+        t = dict(
+            m=m, ch=ch, count=count, bytes=2 * m * ch,
+            mom_ms=device_ms(torch, lambda: bn.channel_moments(x), cold=True, iters=it),
+            mom_plain_ms=device_ms(torch, lambda: bn.channel_moments_plain(x), cold=True, iters=it),
+            mom_lib_ms=device_ms(torch, lambda: torch.var_mean(x, dim=0, correction=0),
+                                 cold=True, iters=it),
+            gs_ms=device_ms(torch, lambda: bn.bn_grad_sums(dy, x, mean, rinv), cold=True, iters=it),
+            gs_plain_ms=device_ms(torch, lambda: bn.bn_grad_sums_plain(dy, x, mean, rinv),
+                                  cold=True, iters=it),
+            gs_lib_ms=device_ms(torch, lambda: (dy.sum(0, dtype=torch.float32),
+                                                x.sum(0, dtype=torch.float32),
+                                                (dy * x).sum(0, dtype=torch.float32)),
+                                cold=True, iters=it),
+            whole_ms=device_ms(torch, whole, cold=True, iters=it),
+        )
+        # fp32 adds outside the tensor cores: 3 (moments) and 5 (grad sums) an element
+        t["mom_bound_ms"], t["mom_bound_by"] = bound_ms(
+            t["bytes"] + 8 * ch, 3 * m * ch, FP32_FLOPS_PER_S)
+        t["gs_bound_ms"], t["gs_bound_by"] = bound_ms(
+            2 * t["bytes"] + 16 * ch, 5 * m * ch, FP32_FLOPS_PER_S)
+        per_shape.append(t)
+        log(f"[bn kernels] [{m}, {ch}] bf16 x{count} a step, L2 flushed: moments kernel_ms "
+            f"{t['mom_ms']:.4f} plain_ms {t['mom_plain_ms']:.4f} library_ms {t['mom_lib_ms']:.4f} "
+            f"bound_ms {t['mom_bound_ms']:.5f} ({t['mom_bound_by']}) | grad sums kernel_ms "
+            f"{t['gs_ms']:.4f} plain_ms {t['gs_plain_ms']:.4f} library_ms {t['gs_lib_ms']:.4f} "
+            f"bound_ms {t['gs_bound_ms']:.5f} ({t['gs_bound_by']}) "
+            f"| batch_norm_train fwd+bwd {t['whole_ms']:.4f} ms")
+
+    def step_sum(key):
+        return sum(t[key] * t["count"] for t in per_shape)
+
+    def row(prefix, err):
+        """One kernel's row of the ``kernels`` line. Like every other row its
+        times are those of one launch: here the mean over the 53 launches of
+        one ResNet-50 step (each distinct shape timed, weighted by how often
+        the step has it); ``step_ms`` and ``step_bound_ms`` are the 53 summed."""
+        keys = dict(ms="ms", plain_ms="plain_ms", library_ms="lib_ms", bound_ms="bound_ms")
+        launches = sum(t["count"] for t in per_shape)
+        r = {out: step_sum(f"{prefix}_{key}") / launches for out, key in keys.items()}
+        r.update(
+            max_abs_err=err, per=f"launch, mean of the {launches} of one step",
+            bound_by=("bytes" if all(t[f"{prefix}_bound_by"] == "bytes" for t in per_shape)
+                      else "operations"),
+            step_ms=step_sum(f"{prefix}_ms"), step_bound_ms=step_sum(f"{prefix}_bound_ms"))
+        return r
+
+    results = {"bn_moments": row("mom", worst["moments"]),
+               "bn_grad_sums": row("gs", worst["grad_sums"])}
+    bn_whole = step_sum("whole_ms")
+    for name, r in results.items():
+        log(f"[bn kernels] {name}, one ResNet-50 step's 53 launches at batch {RESNET_BATCH}: "
+            f"kernel_ms {r['step_ms']:.4f} bound_ms {r['step_bound_ms']:.5f} "
+            f"({step_sum('bytes') / 1e9:.3f} GB an activation sweep); a launch on average: kernel_ms "
+            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.5f} ({r['bound_by']})")
+    log(f"[bn kernels] batch_norm_train forward + backward, the 53 of a step one by one: "
+        f"{bn_whole:.3f} ms, of which the two kernels "
+        f"{results['bn_moments']['step_ms'] + results['bn_grad_sums']['step_ms']:.3f} ms and the "
+        f"elementwise passes the rest")
+
+    # kernel 13 at the probe's six shapes, c = 1.25, and the probe's main()
+    c = 1.25
+    timed = []
+    for shape in probe.SHAPES:
+        x = randn(*shape)
+        n_bytes = 2 * x.numel() + 8 * shape[-1]
+        timed.append(dict(
+            shape=shape,
+            ms=device_ms(torch, lambda: probe.moments_scaled(x, c), cold=True, iters=10),
+            plain_ms=device_ms(torch, lambda: probe.moments_scaled_plain(x, c), cold=True, iters=10),
+            library_ms=device_ms(torch, lambda: torch.var_mean(x, dim=(0, 1, 2), correction=0),
+                                 cold=True, iters=10),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(n_bytes, 4 * x.numel(), FP32_FLOPS_PER_S)))))
+        t = timed[-1]
+        log(f"[bn kernels] moments_scaled {shape} bf16 c={c}, L2 flushed: kernel_ms {t['ms']:.4f} "
+            f"plain_ms {t['plain_ms']:.4f} library_ms {t['library_ms']:.4f} bound_ms "
+            f"{t['bound_ms']:.5f} ({t['bound_by']})")
+    # one launch, the mean over the probe's six shapes
+    results["bn_moments_scaled"] = dict(
+        max_abs_err=worst["scaled"], per=f"launch, mean of the probe's {len(timed)} shapes",
+        bound_by="bytes" if all(t["bound_by"] == "bytes" for t in timed) else "operations",
+        **{key: sum(t[key] for t in timed) / len(timed)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    probe.moments_scaled.launches = 0
+    probe.main()
+    probe_launches = probe.moments_scaled.launches
+    log(f"[bn kernels] bn_stats_probe.main(): {probe_launches} launches of the scaled moments kernel")
+    if probe_launches < len(probe.SHAPES):
+        raise AssertionError("the stats probe did not launch its kernel at every shape")
+    return results, dict(per_shape=per_shape, batch_norm_train_ms=bn_whole,
+                         scaled=timed), probe_launches
+
+
+def _check_bwd_case(torch, probe, name, n, ci, co, seed):
+    args = probe.probe_operands(n, ci, co, seed=seed)
+    dr, y, x, wt, scal = args
+    dx_k, dw_k = probe.fused_bn_relu_conv1x1_bwd(*args)
+    torch.cuda.synchronize()
+    dx_p, dw_p = probe.fused_bn_relu_conv1x1_bwd_plain(*args)
+    dy16 = probe.bn_relu_bwd_dy(dr, y, scal)
+    abs_dx = torch.mm(dy16.abs(), wt.abs(), out_dtype=torch.float32)
+    abs_dw = torch.mm(x.abs().t(), dy16.abs(), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    # dX: CO products summed in fp32 in two orders, then one rounding to bf16
+    # each: the values may land one bf16 step apart
+    tol_dx = BF16_STEP * dx_p.float().abs() + _sum_tol(abs_dx)
+    err_dx, err_dw = (dx_k.float() - dx_p.float()).abs(), (dw_k - dw_p).abs()
+    r_dx = (err_dx / tol_dx).max().item()
+    r_dw = (err_dw / _sum_tol(abs_dw)).max().item()
+    ok = (dx_k.dtype == torch.bfloat16 and dw_k.dtype == torch.float32
+          and bool(dx_k.isfinite().all()) and bool(dw_k.isfinite().all())
+          and r_dx <= 1.0 and r_dw <= 1.0)
+    log(f"[bwd probe] {name} N{n} CI{ci} CO{co}: worst err/tol dX {r_dx:.4f} (one bf16 step + "
+        f"{SUM_DEPTH}*2^-24*sum|terms|), dW {r_dw:.4f} ({SUM_DEPTH}*2^-24*sum|terms|); max_abs_err "
+        f"dX {err_dx.max().item():.3e} (|dX| max {dx_p.float().abs().max().item():.3e}, "
+        f"{int((err_dx > 0).sum())} of {dx_p.numel()} elements differ) dW {err_dw.max().item():.3e} "
+        f"(|dW| max {dw_p.abs().max().item():.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fused BN+ReLU+conv1x1 backward disagrees with its plain version ({name})")
+    return max(err_dx.max().item(), err_dw.max().item())
+
+
+def phase_bwd_probe(torch, np):
+    """Kernel 12 against its plain version, then timed at the probe's shape."""
+    from kubeflow_tpu_torch.benchmarks import pallas_bwd_probe as probe
+
+    n, ci, co = probe.N, probe.CI, probe.CO
+    worst = 0.0
+    for i, (name, shape) in enumerate((
+            ("probe_shape", (n, ci, co)),
+            ("ragged_n", (4133, 48, 80)),           # N no multiple of 64; one partial slice
+            ("co256", (8192, 192, 256)),            # the 64-channel slices
+            ("one_tile", (50, 16, 16)))):
+        worst = max(worst, _check_bwd_case(torch, probe, name, *shape, seed=10 + i))
+
+    args = probe.probe_operands(n, ci, co, seed=0)
+    dr, y, x, wt, scal = args
+    dy16 = probe.bn_relu_bwd_dy(dr, y, scal)
+    ms = device_ms(torch, lambda: probe.fused_bn_relu_conv1x1_bwd(*args), cold=True, iters=10)
+    plain_ms = device_ms(torch, lambda: probe.fused_bn_relu_conv1x1_bwd_plain(*args),
+                         cold=True, iters=10)
+    lib_ms = device_ms(torch, lambda: (torch.mm(dy16, wt),
+                                       torch.mm(x.t(), dy16, out_dtype=torch.float32)),
+                       cold=True, iters=10)
+    n_bytes = 2 * n * (2 * co + ci) + 2 * co * ci + 28 * co + 2 * n * ci + 4 * ci * co
+    flops = 4 * n * ci * co
+    bms, by = bound_ms(n_bytes, flops)
+    log(f"[bwd probe] N{n} CI{ci} CO{co} bf16, L2 flushed: kernel_ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {lib_ms:.4f} (the two torch.mm on a ready bf16 dy) bound_ms "
+        f"{bms:.5f} ({by}: {n_bytes} B, {flops} FLOP); {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{n_bytes / ms / 1e6:.0f} GB/s of the bound's work")
+    probe.fused_bn_relu_conv1x1_bwd.launches = 0
+    probe.main()
+    launches = probe.fused_bn_relu_conv1x1_bwd.launches
+    log(f"[bwd probe] pallas_bwd_probe.main(): {launches} launches of the fused kernel")
+    if launches < 1:
+        raise AssertionError("the backward probe did not launch its kernel")
+    return {"fused_bn_relu_conv1x1_bwd": dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+        bound_by=by)}, launches
+
+
+def _resnet_batch(torch, batch, image=RESNET_IMAGE, classes=RESNET["num_classes"], seed=0):
+    """bench.py's batch: standard-normal bf16 images, uniform labels."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return {
+        "image": torch.randn((batch, image, image, 3), generator=gen, device="cuda").to(torch.bfloat16),
+        "label": torch.randint(0, classes, (batch,), generator=gen, device="cuda"),
+    }
+
+
+def _resnet_kernel_class(name: str) -> str:
+    """The class a device event of the ResNet step counts under, by its
+    name. A name that matches nothing is 'unclassified' and is logged, so
+    that a renamed kernel or library engine does not pass for elementwise
+    work."""
+    low = name.lower()
+    if "bn::column_sums" in low:
+        return "bn kernels"
+    if any(t in low for t in ("fprop", "dgrad", "wgrad", "conv", "cudnn", "nhwc")) and "pool" not in low:
+        return "convolutions"
+    if any(t in low for t in ("gemm", "nvjet", "cublas")):
+        return "GEMM"
+    if "pool" in low:
+        return "pooling"
+    if "at::native" in low or "softmax" in low or low.startswith(("memcpy", "memset")):
+        return "elementwise, reductions, copies"
+    return "unclassified"
+
+
+def _resnet_cell(torch, np, tag, bn_impl, batch_size, warmup, steps, per_step=None):
+    """ResNet-50 through ``make_classifier_train_step``: ``warmup`` steps,
+    then ``steps`` timed ones on one batch, with the BatchNorm launch
+    counters set to 0 just before and read just after and, where ``per_step``
+    is given, held to it; then one profiled step."""
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.ops import bn_pallas as bn
+
+    t0 = time.perf_counter()
+    model = kt.ResNet(**RESNET, dtype=torch.bfloat16, bn_impl=bn_impl, device="cuda")
+    model.load_state_dict(kt.resnet_init_state_dict(**RESNET, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError("a training model must hold fp32 parameters")
+    log(f"[{tag}] ResNet-50, bn_impl={bn_impl}: {n_params / 1e6:.2f}M fp32 parameters, "
+        f"{len(model.blocks())} blocks, batch {batch_size} of {RESNET_IMAGE}x{RESNET_IMAGE} bf16, "
+        f"seeded init in {time.perf_counter() - t0:.2f} s")
+    tx = kt.sgd(0.1, momentum=0.9, nesterov=True)
+    bundle = kt.make_classifier_train_step(model, tx)
+    batch = _resnet_batch(torch, batch_size)
+    state = bundle.init()
+    log_metrics = []
+
+    def step():
+        _, metrics = bundle.step(state, batch)
+        log_metrics.append(metrics)
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"bn_moments": bn.channel_moments, "bn_grad_sums": bn.bn_grad_sums}
+    for fn in counters.values():
+        fn.launches = 0
+    step_ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if per_step is not None:
+        want = {name: n * steps for name, n in per_step.items()}
+        log(f"[{tag}] launches in {steps} steps: {launches} (expected {want}: {per_step} a step)")
+        if launches != want:
+            raise AssertionError(f"kernel launch counts {launches} != {want}")
+    losses = [m["loss"].item() for m in log_metrics]
+    accs = [m["accuracy"].item() for m in log_metrics]
+    classes = RESNET["num_classes"]
+    log(f"[{tag}] losses (warm-up, then the timed steps): {[round(x, 4) for x in losses]} "
+        f"(ln {classes} = {np.log(classes):.4f}); accuracy {[round(a, 3) for a in accs]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - np.log(classes)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near ln {classes}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss does not fall over the steps: {losses}")
+    stats = torch.cat([b.flatten() for b in model.buffers()])
+    if not bool(torch.isfinite(stats).all()):
+        raise AssertionError("non-finite BatchNorm running statistics")
+
+    busy, events, ranked = _profile(torch, step, reps=1, top=14)
+    by_class: dict[str, float] = {}
+    unclassified = []
+    for name, ms in ranked:
+        cls = _resnet_kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        if cls == "unclassified":
+            unclassified.append((name, ms))
+    if per_step is not None and not by_class.get("bn kernels", 0.0) > 0.0:
+        raise AssertionError(f"the profiled step shows no time in the BatchNorm kernels: {by_class}")
+    med = float(np.median(step_ms))
+    img_s = batch_size / (med / 1e3)
+    # bench.py:162-163: training ~ 3x the forward pass's FLOPs
+    mfu = img_s * 3 * kt.flops_per_image(RESNET_IMAGE) / BF16_FLOPS_PER_S
+    idle = 1.0 - busy / med if busy > 0 else None
+    log(f"[{tag}] step {med:.2f} ms median of {[round(x, 2) for x in step_ms]}; {img_s:.1f} img/s; "
+        f"MFU {mfu:.4f} of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s "
+        f"({3 * kt.flops_per_image(RESNET_IMAGE) / 1e9:.2f} GFLOP an image); peak memory {peak_gb:.2f} GB")
+    log(f"[{tag}] one step: device busy {busy:.2f} ms, {events:.0f} device events, idle share "
+        + (f"{idle:.4f}" if idle is not None else "not measured (no device time in the trace)"))
+    log(f"[{tag}]   by class: " + ", ".join(f"{cls} {ms:.3f} ms" for cls, ms in by_class.items()))
+    for name, ms in ranked[:14]:
+        log(f"[{tag}]   {ms:9.3f} ms  {name}")
+    for name, ms in unclassified[:10]:
+        log(f"[{tag}]   unclassified: {ms:9.3f} ms  {name[:120]}")
+
+    # the optimizer alone: tx.update + apply_updates on zero gradients and a
+    # fresh state (every update is zero, so the parameters stay as they are)
+    from kubeflow_tpu_torch.ops.optimizers import apply_updates
+    params = [p for p in model.parameters()]
+    zeros = [torch.zeros_like(p) for p in params]
+    opt_state = tx.init(params)
+    opt_ms = device_ms(torch, lambda: apply_updates(params, tx.update(zeros, opt_state, params)),
+                       cold=False, iters=5)
+    log(f"[{tag}] optimizer alone (nesterov SGD update + apply over {len(params)} tensors): "
+        f"{opt_ms:.3f} device ms")
+    return dict(bn_impl=bn_impl, batch=batch_size, params_m=n_params / 1e6, losses=losses,
+                accuracy=accs, step_ms=step_ms, step_ms_median=med, img_s=img_s, mfu=mfu,
+                peak_memory_gb=peak_gb, device_busy_ms=busy, device_events=events, idle_share=idle,
+                top_kernels=ranked[:14], device_ms_by_class=by_class, optimizer_ms=opt_ms,
+                launches=launches)
+
+
+def phase_resnet_train(torch, np):
+    main_cell = _resnet_cell(torch, np, "resnet train", "pallas", RESNET_BATCH, 1, RESNET_STEPS,
+                             per_step={"bn_moments": 53, "bn_grad_sums": 53})
+    others = {}
+    for tag, impl, batch in (("resnet train b16", "pallas", RESNET_SMALL_BATCH),
+                             ("resnet train xla", "xla", RESNET_BATCH),
+                             ("resnet train mxu", "mxu", RESNET_BATCH)):
+        torch.cuda.empty_cache()
+        others[tag] = _resnet_cell(torch, np, tag, impl, batch, 2, 3)
+    return main_cell, others
+
+
+def phase_resnet_train_parity(torch, np):
+    """One SGD step of a small ResNet, card (bf16, the kernels) vs CPU (fp32,
+    the plain versions), from one state dict and one batch."""
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.ops import optimizers as opt
+
+    small = dict(stage_sizes=[1, 1, 1, 1], num_classes=100, width=16)
+    sd = kt.resnet_init_state_dict(**small, seed=1, device="cpu")
+    rng = np.random.default_rng(1)
+    image = torch.from_numpy(rng.standard_normal((8, 64, 64, 3)).astype(np.float32))
+    label = torch.from_numpy(rng.integers(0, 100, 8))
+    got = {}
+    for where, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        model = kt.ResNet(**small, dtype=dtype, bn_impl="pallas", device=where)
+        model.load_state_dict(sd)
+        norms = []
+        sgd = opt.sgd(0.1)
+
+        def update(grads, state, params):
+            norms.append(torch.sqrt(sum(g.float().pow(2).sum() for g in grads)).item())
+            return sgd.update(grads, state, params)
+
+        bundle = kt.make_classifier_train_step(model, opt.GradientTransformation(sgd.init, update))
+        _, metrics = bundle.step(bundle.init(), {"image": image.to(where), "label": label.to(where)})
+        got[where] = (metrics["loss"].item(), norms[0],
+                      {name: b.detach().float().cpu() for name, b in model.named_buffers()})
+    (loss_c, norm_c, stats_c), (loss_h, norm_h, stats_h) = got["cuda"], got["cpu"]
+    d_loss, d_norm = abs(loss_c - loss_h), abs(norm_c - norm_h) / norm_h
+    d_stats = max((stats_c[name] - stats_h[name]).abs().max().item() for name in stats_h)
+    log(f"[resnet train parity] ResNet [1, 1, 1, 1] width 16, batch 8 of 64x64, one step card(bf16) "
+        f"vs cpu(fp32): loss {loss_c:.5f} vs {loss_h:.5f} (|diff| {d_loss:.5f}, atol "
+        f"{RESNET_LOSS_ATOL}); grad norm {norm_c:.5f} vs {norm_h:.5f} (rel diff {d_norm:.2e}, rtol "
+        f"{RESNET_GNORM_RTOL}); running mean/var of {len(stats_h)} buffers max abs diff "
+        f"{d_stats:.2e} (atol {RESNET_STATS_ATOL})")
+    if (not np.isfinite([loss_c, norm_c, d_stats]).all() or d_loss > RESNET_LOSS_ATOL
+            or d_norm > RESNET_GNORM_RTOL or d_stats > RESNET_STATS_ATOL):
+        raise AssertionError("card ResNet train step disagrees with the CPU")
+    return dict(loss_card=loss_c, loss_cpu=loss_h, grad_norm_card=norm_c, grad_norm_cpu=norm_h,
+                loss_abs_diff=d_loss, grad_norm_rel_diff=d_norm, running_stats_max_abs_diff=d_stats)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every measurement to this JSON file")
@@ -1266,13 +1843,11 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import kubeflow_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     report = {"card": smi}
     t_all = time.perf_counter()
@@ -1292,6 +1867,15 @@ def main() -> int:
     kernels.update(head_kernels)
     moe_fused = phase_moe_train(torch, np, fused=True)
     report["moe_train_fused_parity"] = phase_moe_train_parity(torch, np, fused=True)
+    bn_kernels, report["bn_kernel_shapes"], scaled_launches = phase_bn_kernels(torch, np)
+    kernels.update(bn_kernels)
+    bwd_kernels, bwd_launches = phase_bwd_probe(torch, np)
+    kernels.update(bwd_kernels)
+    resnet, report["resnet_train_others"] = phase_resnet_train(torch, np)
+    report["resnet_train_parity"] = phase_resnet_train_parity(torch, np)
+    probes = {"launches": {"bn_moments_scaled": scaled_launches,
+                           "fused_bn_relu_conv1x1_bwd": bwd_launches}}
+    report.update(resnet_train=resnet)
     report.update(kernels=kernels, fwd_at_train_shape=fwd_train, generate=gen, train=train,
                   moe_train=moe_train, moe_train_fused=moe_fused,
                   seconds=time.perf_counter() - t_all)
@@ -1300,7 +1884,8 @@ def main() -> int:
     # forward and flash-decode from one generate request, the backward
     # kernels from the timed train steps, the MoE gather and scatter from
     # the timed MoE train steps, the fused head's three kernels from the timed
-    # MoE train steps through the fused head
+    # MoE train steps through the fused head, the BatchNorm kernels from the
+    # timed ResNet-50 steps, the two probe kernels from their probes' main()
     replaces = {
         "flash_attention_fwd": ("kubeflow_tpu/ops/pallas_attention.py:160", gen),
         "flash_decode": ("kubeflow_tpu/ops/flash_decode.py:53", gen),
@@ -1311,9 +1896,15 @@ def main() -> int:
         "fused_head_fwd": ("kubeflow_tpu/ops/fused_head_loss.py:76", moe_fused),
         "fused_head_bwd_dh": ("kubeflow_tpu/ops/fused_head_loss.py:157", moe_fused),
         "fused_head_bwd_de": ("kubeflow_tpu/ops/fused_head_loss.py:183", moe_fused),
+        "bn_moments": ("kubeflow_tpu/ops/bn_pallas.py:96", resnet),
+        "bn_grad_sums": ("kubeflow_tpu/ops/bn_pallas.py:140", resnet),
+        "fused_bn_relu_conv1x1_bwd": ("benchmarks/pallas_bwd_probe.py:25", probes),
+        "bn_moments_scaled": ("benchmarks/bn_stats_probe.py:43", probes),
     }
+    sources = {"bn_moments_scaled": "bn_moments"}    # one source, two TPU kernels
     line = {"kernels": [
-        dict(name=name, route="cuda", source=f"kubeflow_tpu_torch/csrc/{name}.cu",
+        dict(name=name, route="cuda",
+             source=f"kubeflow_tpu_torch/csrc/{sources.get(name, name)}.cu",
              replaces=where, launches=phase["launches"][name], **kernels[name])
         for name, (where, phase) in replaces.items()
     ]}

@@ -10,7 +10,10 @@ decode with a KV cache), LM training (``parallel/train.py``'s
 the chunked or the fused tied head, ``ops/fused_head_loss.py``), with
 hand-written CUDA kernels in ``csrc/`` for the flash-attention forward, its
 dq and dk/dv backward, flash-decode, the MoE row gather and its scatter
-backward, and the fused head's forward, dh and dE. Entry points run on the
+backward, and the fused head's forward, dh and dE; and ResNet-50 training
+(``models/resnet.py`` through ``make_classifier_train_step``) with kernels
+for the BatchNorm moments and gradient sums (``ops/bn_pallas.py``). The two
+kernel probes are under ``benchmarks/``. Entry points run on the
 card unless the caller passes ``device="cpu"``; on CPU tensors each kernel
 wrapper runs its plain PyTorch version.
 """
@@ -19,6 +22,8 @@ from kubeflow_tpu_torch.interop import (
     moe_init_state_dict,
     moe_params_from_flax,
     params_from_flax,
+    resnet_init_state_dict,
+    resnet_params_from_flax,
 )
 from kubeflow_tpu_torch.models.decoding import (
     decode_config,
@@ -33,6 +38,16 @@ from kubeflow_tpu_torch.models.moe import (
     moe_lm_loss_chunked,
     moe_lm_loss_fused,
 )
+from kubeflow_tpu_torch.models.resnet import (
+    PallasBatchNorm,
+    ResNet,
+    ResNet18,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+    SpaceToDepthStem,
+    flops_per_image,
+)
 from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
@@ -40,25 +55,44 @@ from kubeflow_tpu_torch.models.transformer import (
     lm_loss_chunked,
     resolve_remat_policy,
 )
+from kubeflow_tpu_torch.ops.bn_pallas import batch_norm_train, bn_grad_sums, channel_moments
 from kubeflow_tpu_torch.ops.fused_head_loss import fused_head_nll, fused_lse_gold
-from kubeflow_tpu_torch.ops.optimizers import adamw_lowmem, with_f32_master
-from kubeflow_tpu_torch.parallel.train import TrainStepBundle, make_lm_train_step
+from kubeflow_tpu_torch.ops.optimizers import adamw_lowmem, sgd, with_f32_master
+from kubeflow_tpu_torch.parallel.train import (
+    TrainStepBundle,
+    cross_entropy_loss,
+    make_classifier_train_step,
+    make_lm_train_step,
+)
 
 __all__ = [
     "MoEConfig",
     "MoETransformerLM",
+    "PallasBatchNorm",
+    "ResNet",
+    "ResNet18",
+    "ResNet50",
+    "ResNet101",
+    "ResNet152",
+    "SpaceToDepthStem",
     "TrainStepBundle",
     "TransformerConfig",
     "TransformerLM",
     "adamw_lowmem",
+    "batch_norm_train",
+    "bn_grad_sums",
+    "channel_moments",
+    "cross_entropy_loss",
     "decode_config",
     "decode_steps",
+    "flops_per_image",
     "fused_head_nll",
     "fused_lse_gold",
     "generate",
     "init_state_dict",
     "lm_loss",
     "lm_loss_chunked",
+    "make_classifier_train_step",
     "make_lm_train_step",
     "moe_init_state_dict",
     "moe_lm_loss",
@@ -67,6 +101,9 @@ __all__ = [
     "moe_params_from_flax",
     "params_from_flax",
     "prefill",
+    "resnet_init_state_dict",
+    "resnet_params_from_flax",
     "resolve_remat_policy",
+    "sgd",
     "with_f32_master",
 ]

@@ -4,12 +4,14 @@
 ``kubeflow_tpu.models.transformer.TransformerLM`` (as numpy arrays; no JAX
 import here) onto this package's ``TransformerLM`` state dict, and
 ``moe_params_from_flax`` that of ``kubeflow_tpu.models.moe.MoETransformerLM``
-onto ``MoETransformerLM``'s. ``init_state_dict`` and ``moe_init_state_dict``
-draw fresh weights at the scale of flax's default initializers, so a seeded
-smoke run sees the activations a real init gives (random weights of the wrong
-scale saturate the softmax and hide bugs).
+onto ``MoETransformerLM``'s, and ``resnet_params_from_flax`` the variables
+(params and batch statistics) of ``kubeflow_tpu.models.resnet.ResNet`` onto
+``ResNet``'s. ``init_state_dict``, ``moe_init_state_dict`` and
+``resnet_init_state_dict`` draw fresh weights at the scale of flax's default
+initializers, so a seeded smoke run sees the activations a real init gives
+(random weights of the wrong scale saturate the softmax and hide bugs).
 
-All four return fp32 tensors. A training ``TransformerLM`` keeps them in fp32
+All of them return fp32 tensors. A training ``TransformerLM`` keeps them in fp32
 (flax's ``param_dtype``) and casts to ``cfg.dtype`` on every call; a decode
 model's ``load_state_dict`` casts the projection and embedding weights to
 ``cfg.dtype`` once, at load.
@@ -171,4 +173,75 @@ def moe_init_state_dict(cfg: MoEConfig, seed: int = 0, device=None) -> dict[str,
         sd[pre + "moe.router"] = init.dense((M, E), fan_in=M)
         sd[pre + "moe.experts_wi"] = init.dense((E, M, H), fan_in=E * M)
         sd[pre + "moe.experts_wo"] = init.dense((E, H, M), fan_in=E * H)
+    return sd
+
+
+def resnet_params_from_flax(variables) -> dict[str, torch.Tensor]:
+    """flax ``{"params": ..., "batch_stats": ...}`` of the JAX ``ResNet`` ->
+    state dict of the port's.
+
+    - conv kernels go from HWIO to OIHW (``stem_conv``, ``convN``,
+      ``proj_conv``; the space-to-depth stem keeps the same 7x7 kernel);
+    - the head's ``[in, out]`` kernel becomes ``[out, in]``;
+    - each norm's ``scale``/``bias`` and its running ``mean``/``var`` keep
+      their names.
+    """
+    sd = {}
+
+    def walk(tree, pre):
+        for name, leaf in tree.items():
+            if hasattr(leaf, "items"):
+                walk(leaf, f"{pre}{name}.")
+            elif name == "kernel":
+                k = _t(leaf)
+                sd[pre + "weight"] = (k.permute(3, 2, 0, 1) if k.dim() == 4 else k.T).contiguous()
+            else:
+                sd[pre + name] = _t(leaf)
+
+    walk(variables["params"], "")
+    walk(variables.get("batch_stats", {}), "")
+    return sd
+
+
+def resnet_init_state_dict(stage_sizes, num_classes: int = 1000, width: int = 64,
+                           seed: int = 0, device=None) -> dict[str, torch.Tensor]:
+    """Fresh fp32 ResNet weights from ``seed`` at flax's default scale.
+
+    Conv and head kernels: lecun-normal with the fan-in kh*kw*c_in (or the
+    head's input width); head bias zeros. Norm scales ones, but zeros on the
+    last norm of every block (``bn3``: the residual branch starts as the
+    identity); norm biases and running means zeros, running variances ones.
+    """
+    init = _Init(seed, device)
+    sd = {}
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.float32, device=init.device)
+
+    def conv(name, c_in, c_out, k):
+        sd[name + ".weight"] = init.dense((c_out, c_in, k, k), fan_in=k * k * c_in)
+
+    def norm(name, ch, zero_scale=False):
+        sd[name + ".scale"] = zeros(ch) if zero_scale else init.ones(ch)
+        sd[name + ".bias"], sd[name + ".mean"], sd[name + ".var"] = zeros(ch), zeros(ch), init.ones(ch)
+
+    conv("stem_conv", 3, width, 7)
+    norm("stem_bn", width)
+    c_in = width
+    for i, block_count in enumerate(stage_sizes):
+        filters = width * 2 ** i
+        for j in range(block_count):
+            pre = f"stage{i + 1}_block{j + 1}."
+            conv(pre + "conv1", c_in, filters, 1)
+            norm(pre + "bn1", filters)
+            conv(pre + "conv2", filters, filters, 3)
+            norm(pre + "bn2", filters)
+            conv(pre + "conv3", filters, filters * 4, 1)
+            norm(pre + "bn3", filters * 4, zero_scale=True)
+            if c_in != filters * 4 or (i > 0 and j == 0):
+                conv(pre + "proj_conv", c_in, filters * 4, 1)
+                norm(pre + "proj_bn", filters * 4)
+            c_in = filters * 4
+    sd["head.weight"] = init.dense((num_classes, c_in), fan_in=c_in)
+    sd["head.bias"] = zeros(num_classes)
     return sd

@@ -81,6 +81,21 @@ SIGNATURES = {
         # h, emb, tgt, lse, dlse, dgold, de, T, V, E, stream
         [_P] * 7 + [_I] * 3 + [_P],
     ),
+    "bn_moments": (
+        "bn_moments_launch",
+        # x, part, out, m, C, dtype, vec, tx, gy, c, stream
+        [_P] * 3 + [_I] * 6 + [_F, _P],
+    ),
+    "bn_grad_sums": (
+        "bn_grad_sums_launch",
+        # x, dy, mean, rinv, part, out, m, C, dtype, vec, tx, gy, stream
+        [_P] * 6 + [_I] * 6 + [_P],
+    ),
+    "fused_bn_relu_conv1x1_bwd": (
+        "fused_bn_relu_conv1x1_bwd_launch",
+        # dr, y, x, wt, scal, dx, part, dw, N, CI, CO, gx, stream
+        [_P] * 8 + [_I] * 4 + [_P],
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,304 @@
+"""BatchNorm statistics and gradient reductions; counterpart of ``kubeflow_tpu/ops/bn_pallas.py``.
+
+Train-mode BatchNorm needs four per-channel reductions over the ``[rows, C]``
+view of an NHWC activation: Σx and Σx² forward, Σdy and Σdy·x̂ backward. Two
+CUDA kernels replace the two Pallas kernels of the JAX module:
+
+- ``csrc/bn_moments.cu`` replaces ``_moments_kernel`` (``:96``): Σx and Σx²
+  in one sweep, fp32 sums;
+- ``csrc/bn_grad_sums.cu`` replaces ``_bn_bwd_kernel`` (``:140``): Σdy and
+  Σdy·(x − mean)·rinv in one sweep over dy and x, x̂ recomputed from x.
+
+The normalisation itself (``y = x·a + b``) and dx stay elementwise tensor
+code, as they stay in XLA in the JAX module.
+
+What bounds the kernels on an H100: bytes. Each activation is read once (two
+of them backward) and 2·C floats come out, so the least time is the
+activation's size over 3.35 TB/s: 123 µs for the ResNet-50 stem's
+``[256·112², 64]`` bf16 tensor forward, twice that backward.
+
+What the design does (``csrc/bn_common.cuh``): the TPU grid is sequential and
+carries the two ``[1, C]`` sums in VMEM from block to block. Here the rows
+are split over ``gy`` thread blocks that run in parallel; C is the
+contiguous dimension, so neighbouring threads take neighbouring 16-byte
+vectors of channels (8 bf16 or 4 fp32 values; single elements where C does
+not allow the vector) and each keeps fp32 partial sums of its channels over
+its rows. A block adds its threads' partials through shared memory in a
+fixed order and writes one row of a ``[2, gy, C]`` scratch tensor; a second,
+small kernel adds the ``gy`` rows in order. No atomics: the result is the
+same on every run, as the TPU kernel's is. :func:`_plan` picks the split so
+that both ends of the ResNet zoo fill the card: ``[B·112², 64]`` is one
+column group and hundreds of row groups, ``[B·7², 2048]`` eight column groups
+and fewer row groups.
+
+``_pick_block_rows`` and ``_rows_view`` of the JAX module are helpers for the
+TPU's (8, 128) tiling and its conv layout and are not carried over: the
+kernels take any ``m`` and ``C`` (ragged tails masked), so there is no shape
+fallback either, where the JAX functions fall back to XLA
+(``:116-119, 162-165``). What the port asks for instead is that the
+``[rows, C]`` view is free: an input that is not contiguous raises rather
+than being copied, because a silent copy of every activation is exactly what
+made this path a net loss on the TPU (module docstring of the JAX file).
+
+The ``mxu`` strategy computes the same four reductions as plain matrix
+products (``ones @ x`` and the diagonal of ``xᵀ x``), outside any kernel in
+the JAX module too, so here they are ``torch`` matmuls with fp32 accumulation.
+
+CPU tensors take the plain versions; CUDA tensors launch the kernels or
+raise. Each wrapper counts its launches in ``.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from kubeflow_tpu_torch.models.transformer import matmul_f32
+from kubeflow_tpu_torch.ops import _build
+
+THREADS = 256            # threads a block (csrc/bn_common.cuh)
+_MAX_TX = 32             # column vectors a block spans at most
+_BLOCKS_PER_SM = 4       # row groups are cut so that about this many blocks run per SM
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _rows(x):
+    """The free ``[rows, C]`` view of ``x``; raises where it needs a copy."""
+    if x.dim() < 1 or x.numel() == 0:
+        raise ValueError(f"expected a non-empty [..., C] tensor, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(
+            f"the [rows, C] view of a tensor with shape {tuple(x.shape)} and strides "
+            f"{x.stride()} needs a copy: pass a contiguous [..., C] tensor (an NHWC "
+            "activation, e.g. permute(0, 2, 3, 1) of a channels_last conv output)")
+    return x.view(-1, x.shape[-1])
+
+
+def moments_sums_plain(x, c: float = 1.0):
+    """(Σ(c·x), Σ(c·x)²) per channel over the rows of ``x`` [..., C], fp32
+    [C] each: what the moments kernel computes (``_moments_kernel``)."""
+    xf = _rows(x).float() * c
+    return xf.sum(dim=0), (xf * xf).sum(dim=0)
+
+
+def _mean_var(s, q, m: int):
+    mean = s / m
+    return mean, torch.clamp(q / m - mean * mean, min=0.0)
+
+
+def channel_moments_plain(x):
+    """Plain version of :func:`channel_moments`: (mean, biased var clamped
+    at 0) from Σx and Σx² (``channel_moments``, ``:136-137``)."""
+    s, q = moments_sums_plain(x)
+    return _mean_var(s, q, x.numel() // x.shape[-1])
+
+
+def bn_grad_sums_plain(dy, x, mean, rinv):
+    """Plain version of :func:`bn_grad_sums`: (Σdy, Σdy·x̂) per channel with
+    x̂ = (x − mean)·rinv in fp32 (``_bn_bwd_kernel``, ``:148-151``)."""
+    dyf = _rows(dy).float()
+    xhat = (_rows(x).float() - mean) * rinv
+    return dyf.sum(dim=0), (dyf * xhat).sum(dim=0)
+
+
+# ------------------------------------------------------------ kernels
+
+
+def _plan(m: int, ch: int, dtype, sms: int):
+    """How the two reduction kernels cut ``[m, ch]``: (vec, tx, gx, gy).
+
+    ``vec`` channels a thread (one 16-byte load where ``ch`` allows it, else
+    single elements), ``tx`` column vectors and ``THREADS // tx`` rows a
+    block, ``gx`` column groups, and ``gy`` row groups, each writing one row
+    of partial sums."""
+    wide = 16 // torch.empty((), dtype=dtype).element_size()
+    vec = wide if ch % wide == 0 else 1
+    cols = ch // vec
+    tx = 1
+    while tx < min(cols, _MAX_TX):
+        tx *= 2
+    gx = -(-cols // tx)
+    ty = THREADS // tx
+    gy = max(1, min(-(-m // ty), (_BLOCKS_PER_SM * sms) // gx))
+    return vec, tx, gx, gy
+
+
+def _check_kernel_operand(what, name, t, like=None):
+    if t.device.type != "cuda":
+        raise TypeError(f"{what} kernel takes CUDA tensors; {name} is on {t.device}")
+    if like is not None and (t.device != like.device or t.shape != like.shape
+                             or t.dtype != like.dtype):
+        raise ValueError(
+            f"{what}: {name} must match x in device, shape and dtype; got "
+            f"{t.device} {tuple(t.shape)} {t.dtype} for {like.device} {tuple(like.shape)} "
+            f"{like.dtype}")
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes {list(_DTYPE_CODES)}, got {t.dtype} for {name}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs {name} 16-byte aligned")
+
+
+def _channel_vector(what, name, v, x2):
+    if v.shape != (x2.shape[1],) or v.dtype != torch.float32 or v.device != x2.device:
+        raise ValueError(
+            f"{what}: {name} must be float32 [{x2.shape[1]}] on {x2.device}, got "
+            f"{v.dtype} {tuple(v.shape)} on {v.device}")
+    return v.contiguous()
+
+
+def _launch_sums(name, x2, extra_ptrs, scalars, counter):
+    """Launch reduction kernel ``name`` over ``x2`` [m, C]: returns the two
+    fp32 [C] sums. ``extra_ptrs`` and ``scalars`` go between x and the
+    outputs in the launcher's signature; the launch is counted in
+    ``counter.launches``, the wrapper the caller came through."""
+    m, ch = x2.shape
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    vec, tx, gx, gy = _plan(m, ch, x2.dtype, sms)
+    out = torch.empty((2, ch), dtype=torch.float32, device=x2.device)
+    part = torch.empty((2, gy, ch), dtype=torch.float32, device=x2.device)
+    _build.launch(
+        name, x2.data_ptr(), *extra_ptrs, part.data_ptr(), out.data_ptr(), m, ch,
+        _DTYPE_CODES[x2.dtype], vec, tx, gy, *scalars,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    counter.launches += 1
+    return out[0], out[1]
+
+
+def moments_sums(x, c: float, counter):
+    """(Σ(c·x), Σ(c·x)²) per channel, fp32 [C] each: the moments kernel on a
+    CUDA tensor, the plain version on a CPU tensor. The two wrappers of the
+    one kernel call it, each passing itself as ``counter`` so that the launch
+    is counted as its own: :func:`channel_moments` with c = 1, the stats
+    probe's ``moments_scaled`` (``benchmarks/bn_stats_probe.py``) with its
+    multiplier."""
+    x2 = _rows(x)
+    if x.device.type == "cpu":
+        return moments_sums_plain(x, c)
+    _check_kernel_operand("bn_moments", "x", x2)
+    return _launch_sums("bn_moments", x2, (), (float(c),), counter)
+
+
+def channel_moments(x):
+    """(mean, biased var) over all leading dims of ``x`` [..., C], fp32 [C]
+    each, the variance clamped at 0 (cancellation in E[x²] − mean² goes
+    negative for a channel of large mean and low variance)."""
+    s, q = moments_sums(x, 1.0, channel_moments)
+    return _mean_var(s, q, x.numel() // x.shape[-1])
+
+
+def bn_grad_sums(dy, x, mean, rinv):
+    """(Σdy, Σdy·x̂) per channel in one sweep over dy and x [..., C], fp32
+    [C] each; mean and rinv fp32 [C]. The grad-sums kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    x2, dy2 = _rows(x), _rows(dy)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} and x {tuple(x.shape)} differ in shape")
+    if x.device.type == "cpu":
+        return bn_grad_sums_plain(dy, x, mean, rinv)
+    _check_kernel_operand("bn_grad_sums", "x", x2)
+    _check_kernel_operand("bn_grad_sums", "dy", dy2, like=x2)
+    mean = _channel_vector("bn_grad_sums", "mean", mean, x2)
+    rinv = _channel_vector("bn_grad_sums", "rinv", rinv, x2)
+    return _launch_sums("bn_grad_sums", x2, (dy2.data_ptr(), mean.data_ptr(), rinv.data_ptr()), (),
+                        bn_grad_sums)
+
+
+channel_moments.launches = 0
+bn_grad_sums.launches = 0
+
+
+# ------------------------------------------------------------ MXU stats
+# Reductions as matrix products: sum(x) is a ones-vector product and the
+# (sum x_i x_j) family a Gram product. Plain dots in the JAX module (no Pallas
+# kernel), so plain matmuls with fp32 accumulation here. Worthwhile when
+# rows >= channels (the [C, C] Gram write is then bounded by the data read).
+
+
+def _mxu_ok(m: int, ch: int) -> bool:
+    return m >= ch
+
+
+def channel_moments_mxu(x):
+    """(mean [C], var [C]) fp32 via matrix products: sum = ones @ x, sumsq =
+    diag(xᵀ x). Operands of x's dtype multiply exactly into the fp32 sum."""
+    ch = x.shape[-1]
+    m = x.numel() // ch
+    xt = x.reshape(m, ch).t()
+    ones = torch.ones((1, m), dtype=x.dtype, device=x.device)
+    s1 = matmul_f32(ones, xt)[0]
+    s2 = torch.diagonal(matmul_f32(xt, xt))
+    return _mean_var(s1, s2, m)
+
+
+def _bn_grad_sums_mxu(dy, x, mean, rinv):
+    """(dbeta, dgamma) via matrix products on the raw tensors: sum(dy) =
+    ones @ dy and sum(dy·x̂) = (diag(dyᵀ x) − mean·sum(dy))·rinv."""
+    ch = x.shape[-1]
+    m = x.numel() // ch
+    dyt = dy.reshape(m, ch).to(x.dtype).t()
+    xt = x.reshape(m, ch).t()
+    ones = torch.ones((1, m), dtype=x.dtype, device=x.device)
+    dbeta = matmul_f32(ones, dyt)[0]
+    sum_dyx = torch.diagonal(matmul_f32(dyt, xt))
+    return dbeta, (sum_dyx - mean * dbeta) * rinv
+
+
+def _moments(x, strategy: str):
+    ch = x.shape[-1]
+    if strategy == "mxu" and _mxu_ok(x.numel() // ch, ch):
+        return channel_moments_mxu(x)
+    if strategy == "mxu":
+        # small-m/large-C tail: a plain reduction is already cheap there
+        return channel_moments_plain(x)
+    return channel_moments(x)
+
+
+def _grad_sums(dy, x, mean, rinv, strategy: str):
+    ch = x.shape[-1]
+    if strategy == "mxu" and _mxu_ok(x.numel() // ch, ch):
+        return _bn_grad_sums_mxu(dy, x, mean, rinv)
+    if strategy == "mxu":
+        return bn_grad_sums_plain(dy, x, mean, rinv)
+    return bn_grad_sums(dy, x, mean, rinv)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """``_bn_train_vjp`` of the JAX module: forward ``_bn_train_fwd``
+    (``:281-287``), backward ``_bn_train_bwd`` (``:290-303``). The statistics
+    carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, strategy):
+        mean, var = _moments(x, strategy)
+        rinv = torch.rsqrt(var + eps)
+        a = (scale * rinv).float()
+        b = bias - mean * a
+        y = (x.float() * a + b).to(x.dtype)
+        ctx.save_for_backward(x, mean, rinv, scale)
+        ctx.strategy = strategy
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, rinv, scale = ctx.saved_tensors
+        m = x.numel() // x.shape[-1]
+        dbeta, dgamma = _grad_sums(dy, x, mean, rinv, ctx.strategy)
+        g = (scale * rinv).float()
+        # dx = g * (dy - dbeta/m - xhat * dgamma/m), all elementwise
+        xhat_coeff = (rinv * dgamma) / m
+        dx = (g * (dy.float() - dbeta / m) - g * xhat_coeff * (x.float() - mean)).to(x.dtype)
+        return dx, dgamma.to(scale.dtype), dbeta.to(scale.dtype), None, None
+
+
+def batch_norm_train(x, scale, bias, eps: float = 1e-5, strategy: str = "pallas"):
+    """Train-mode BN over the leading dims of ``x`` [..., C]: returns
+    ``(y, (mean, var))``, y in x's dtype; the statistics carry no gradient
+    (they exist to update the running averages). ``strategy``: 'pallas' (the
+    single-sweep kernels) or 'mxu' (the reductions as matrix products)."""
+    if strategy not in ("pallas", "mxu"):
+        # anything else would silently fall through to the kernels
+        raise ValueError(f"strategy must be 'pallas' or 'mxu', got {strategy!r}")
+    y, mean, var = _BatchNormTrain.apply(x, scale, bias, eps, strategy)
+    return y, (mean, var)

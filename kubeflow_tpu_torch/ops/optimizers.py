@@ -18,6 +18,7 @@ representable). ``scale_by_adam_lowmem`` enforces this pairing.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -110,9 +111,41 @@ def chain(*txs: GradientTransformation):
     return GradientTransformation(init, update)
 
 
-def sgd(learning_rate: float):
-    """``optax.sgd`` without momentum: updates = -learning_rate * grads."""
-    return chain(scale(-learning_rate))
+@functools.cache
+def _rounded(value: float, dtype) -> float:
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def trace(decay: float, nesterov: bool = False, accumulator_dtype=None):
+    """``optax.trace``: ``t <- g + decay * t``; the update is ``t``, or with
+    ``nesterov`` ``g + decay * t``. The trace is stored in
+    ``accumulator_dtype`` (None: the parameter's dtype); ``decay * t`` is
+    computed in the stored trace's dtype with ``decay`` itself rounded to
+    it, as optax's weakly typed scalar is (0.9 is 0.8984375 against a bf16
+    trace), and the update comes from the trace before it is rounded for
+    storage."""
+
+    def init(params):
+        return {"trace": [torch.zeros_like(p, dtype=accumulator_dtype or p.dtype) for p in params]}
+
+    def update(grads, state, params=None):
+        del params
+        updates = []
+        for g, t in zip(grads, state["trace"]):
+            new_t = g + _rounded(decay, t.dtype) * t
+            updates.append(g + decay * new_t if nesterov else new_t)
+            t.copy_(new_t)
+        return updates
+
+    return GradientTransformation(init, update)
+
+
+def sgd(learning_rate: float, momentum: float | None = None, nesterov: bool = False,
+        accumulator_dtype=None):
+    """``optax.sgd``: updates = -learning_rate * grads, through
+    :func:`trace` when ``momentum`` is given."""
+    txs = [] if momentum is None else [trace(momentum, nesterov, accumulator_dtype)]
+    return chain(*txs, scale(-learning_rate))
 
 
 def adamw_lowmem(learning_rate: float, *, b1: float = 0.9, b2: float = 0.99,

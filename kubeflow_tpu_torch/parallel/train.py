@@ -1,4 +1,4 @@
-"""LM training-step builder; counterpart of ``kubeflow_tpu/parallel/train.py``.
+"""Train steps for LM and classifier models; counterpart of ``kubeflow_tpu/parallel/train.py``.
 
 One device for now: the model's parameters and the optimizer state are
 updated in place, the counterpart of the JAX step's donated state. The
@@ -11,6 +11,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from kubeflow_tpu_torch.models.transformer import lm_loss_chunked
 from kubeflow_tpu_torch.ops.optimizers import GradientTransformation, apply_updates
@@ -21,7 +22,46 @@ class TrainStepBundle:
     """Everything a notebook (or bench harness) needs to run training."""
 
     init: Callable  # () -> state {"opt_state", "step"} over the model's parameters
-    step: Callable  # (state, tokens) -> (state, {"loss": ...}); updates in place
+    step: Callable  # (state, batch) -> (state, metrics); updates in place
+
+
+def cross_entropy_loss(logits, labels):
+    """Mean softmax cross entropy of fp32 ``logits`` [B, classes] against
+    integer ``labels`` [B]."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels.long()[:, None]).mean()
+
+
+def make_classifier_train_step(
+    model,
+    tx: GradientTransformation,
+    *,
+    loss_fn: Callable = cross_entropy_loss,
+) -> TrainStepBundle:
+    """Build a train step for a classifier with BatchNorm state (``ResNet``).
+
+    The returned ``step`` consumes batches of ``{"image": [B, H, W, C],
+    "label": [B]}`` and returns ``(state, {"loss", "accuracy"})``. The
+    model's parameters, the optimizer state and the BatchNorm running
+    statistics (the model's buffers, updated by its train-mode forward) all
+    change in place.
+    """
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def init():
+        return {"opt_state": tx.init(params), "step": 0}
+
+    def train_step(state, batch):
+        with torch.enable_grad():
+            logits = model(batch["image"], train=True)
+            loss = loss_fn(logits, batch["label"])
+            grads = torch.autograd.grad(loss, params)
+        apply_updates(params, tx.update(grads, state["opt_state"], params))
+        state["step"] += 1
+        accuracy = (logits.argmax(dim=-1) == batch["label"]).float().mean()
+        return state, {"loss": loss.detach(), "accuracy": accuracy}
+
+    return TrainStepBundle(init=init, step=train_step)
 
 
 def make_lm_train_step(
