@@ -11,7 +11,11 @@ Phases, each of which fails the run with a non-zero exit:
             in bf16, at the main paths' shapes and at edge cases, and time
             kernel, plain version, one PyTorch library call as a yardstick,
             and the least time the card could take (bound); the forward and
-            the two backward kernels also at the training shape;
+            the two backward kernels also at the training shape, with their
+            TFLOP/s of the bound's work, and on their fp32 route (fp32 cases
+            against the plain versions, TF32 off); the build phase counts the
+            tensor-core instructions (HGMMA) of the flash libraries, which
+            the bf16 forward and dq must have;
 3. generate run ``generate`` at the full flagship decode config (24 layers,
             GQA 8/4 heads, 410.3M parameters, seeded weights): batch 4, prompt 128, 128 new
             tokens, temperature 0.8, top_k 40, with every kernel launch
@@ -23,8 +27,9 @@ Phases, each of which fails the run with a non-zero exit:
             ``adamw_lowmem`` and the chunked loss: one warm-up step, then 5
             steps on one batch [4, 2048] with the launch counters set to 0
             just before and read just after;
-6. train parity  one step's loss and global gradient norm on the card (bf16)
-            against the CPU (fp32) at 2 layers of the flagship width;
+6. train parity  one step's loss and global gradient norm on the card (bf16,
+            then fp32 through the flash kernels' fp32 route) against the CPU
+            (fp32) at 2 layers of the flagship width;
 7. moe kernels  hold the MoE row gather and both modes of its scatter
             backward against their plain versions at the MoE flagship's four
             launch shapes (indices from the port's own routing) and at edge
@@ -128,6 +133,9 @@ MOE_BATCH, MOE_SEQ, MOE_CHUNK, MOE_STEPS = 4, 2048, 1024, 5
 OUT_RTOL = 2.0 ** -6
 OUT_ATOL_RMS = 0.05
 LSE_ATOL = 1e-3               # fp32 throughout; differs only in summation order
+# the first port's scalar flash kernels on this card (PERF.md's kernel table:
+# H100 80GB HBM3, 700 W), printed beside this run's times
+SCALAR_FLASH_MS = {"fwd_serving": 0.0428, "fwd_train": 3.1914, "dq_train": 3.5763}
 # card (bf16 weights and activations) vs CPU (fp32) on the last prefill
 # logits of a 2-layer model, logits std ~1: the card measured 0.0699 on an
 # H100 in every run recorded in PERF.md; the limit is twice that.
@@ -246,6 +254,21 @@ def check_out(o, ref):
     return ok, err.max().item(), ratio, rms
 
 
+def check_lse(lse, ref):
+    """(ok, max abs error over finite entries) of an lse against its plain
+    version: +inf (a row that sees no key) exactly where the plain one is."""
+    fin = ref.isfinite()
+    same = bool(((lse == float("inf")) == ~fin).all())
+    err = (lse[fin] - ref[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    return same and err <= LSE_ATOL, err
+
+
+def check_dead_rows(o, lse_ref):
+    """A row that sees no key gives exactly 0 (the port's contract)."""
+    dead = ~lse_ref.isfinite()                       # [B, H, Sq]
+    return bool((o.float().permute(0, 2, 1, 3)[dead] == 0).all())
+
+
 def causal_pairs(B, H, Sq, Sk):
     """(query, key) pairs a causal mask keeps: the work of one causal matmul
     is 2 * D FLOP per pair."""
@@ -272,11 +295,40 @@ def phase_build():
     return libs
 
 
+def tensor_core_counts(libs):
+    """Tensor-core instructions in each flash library: HGMMA (wgmma) and HMMA
+    (mma.sync) in the SASS that ``cuobjdump`` shows, or, without it,
+    ``wgmma.mma_async`` and ``mma.sync`` in ``nvcc -ptx`` output. The bf16
+    route of the forward and dq must issue wgmma; the scalar kernels none."""
+    from kubeflow_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    counts = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if tool.is_file():
+            text = subprocess.run([str(tool), "-sass", str(libs[name])], capture_output=True,
+                                  text=True, check=True, timeout=300).stdout
+            counts[name] = {"HGMMA": text.count("HGMMA"), "HMMA": text.count("HMMA")}
+        else:
+            text = subprocess.run(
+                [_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-ptx",
+                 "-o", "-", str(_build.CSRC / f"{name}.cu")],
+                capture_output=True, text=True, check=True, timeout=300).stdout
+            counts[name] = {"wgmma": text.count("wgmma.mma_async"), "mma": text.count("mma.sync")}
+        log(f"[build] {name}: tensor-core instructions {counts[name]} "
+            f"({'cuobjdump -sass' if tool.is_file() else 'nvcc -ptx'})")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq"):
+        if not max(counts[name].values()):
+            raise AssertionError(f"{name} has no tensor-core instruction: its bf16 route must use wgmma")
+    return counts
+
+
 def phase_kernels(torch):
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
     from kubeflow_tpu_torch.ops.pallas_attention import (
+        _plan,
         flash_attention,
         flash_attention_plain,
     )
@@ -292,32 +344,62 @@ def phase_kernels(torch):
 
     # ---- flash_attention_fwd: prefill
     worst = 0.0
+    f32 = torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
-        # name, B, S, H, KV, D, causal, window, block
-        ("prefill_flagship", BATCH, PROMPT, 8, 4, 128, True, None, 128),
+        # name, B, Sq, Sk, H, KV, D, causal, window, dtype
+        ("prefill_flagship", BATCH, PROMPT, PROMPT, 8, 4, 128, True, None, bf16),
         # the training path's shape: 32 key tiles of online-softmax rescale
-        ("train_flagship", TRAIN_BATCH, TRAIN_SEQ, 8, 8, 128, True, None, 1024),
-        ("windowed", BATCH, PROMPT, 8, 4, 128, True, 48, 128),
-        ("gqa_group_1", BATCH, PROMPT, 8, 8, 128, True, None, 128),
-        ("ragged_s96_d64", 2, 96, 4, 2, 64, True, None, 96),
-        ("noncausal_s96", 2, 96, 4, 2, 128, False, None, 96),
+        ("train_flagship", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 8, 8, 128, True, None, bf16),
+        ("windowed", BATCH, PROMPT, PROMPT, 8, 4, 128, True, 48, bf16),
+        ("gqa_group_1", BATCH, PROMPT, PROMPT, 8, 8, 128, True, None, bf16),
+        ("ragged_s96_d64", 2, 96, 96, 4, 2, 64, True, None, bf16),
+        ("noncausal_s96", 2, 96, 96, 4, 2, 128, False, None, bf16),
+        # rows 9-15 see no key: o = 0 and lse = +inf
+        ("causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, bf16),
+        ("noncausal_sq64_sk192", 2, 64, 192, 4, 2, 128, False, None, bf16),
+        # 9 x 8 x 2 = 144 blocks take 128-row tiles; the second is 72 rows
+        ("s200_ragged_128_row_tile", 9, 200, 200, 8, 4, 128, True, None, bf16),
+        ("mqa_8_1", 2, 256, 256, 8, 1, 128, True, None, bf16),
+        ("b1_h16_kv8_window100", 1, 2048, 2048, 16, 8, 128, True, 100, bf16),
+        ("window_1000_over_s256", 2, 256, 256, 8, 4, 128, True, 1000, bf16),
+        # the fp32 route (scalar kernel)
+        ("fp32_prefill", BATCH, PROMPT, PROMPT, 8, 4, 128, True, None, f32),
+        ("fp32_ragged_s96_d64_window", 2, 96, 96, 4, 2, 64, True, 48, f32),
+        ("fp32_causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, f32),
+        ("fp32_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 128, False, None, f32),
     ]
-    for name, B, S, H, KV, D, causal, window, blk in cases:
-        q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
-        o, lse = flash_attention(q, k, v, causal, blk, blk, window, return_lse=True)
+    for name, B, Sq, Sk, H, KV, D, causal, window, dt in cases:
+        q, k, v = (randn(*shape).to(dt) for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+        o, lse = flash_attention(q, k, v, causal, Sq, Sk, window, return_lse=True)
         torch.cuda.synchronize()
         o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ok, err, ratio, rms = check_out(o, o_ref)
-        lse_err = (lse - lse_ref).abs().max().item()
-        ok = ok and lse_err <= LSE_ATOL
-        log(f"[kernels] flash_attention_fwd {name}: max_abs_err {err:.3e} "
+        lse_ok, lse_err = check_lse(lse, lse_ref)
+        dead_ok = check_dead_rows(o, lse_ref)
+        ok = ok and lse_ok and dead_ok and o.dtype == dt
+        plan = _plan("fwd", B, Sq, Sk, H, KV, D, dt, sms)
+        log(f"[kernels] flash_attention_fwd {name} ({dt}; {plan.route}, {plan.block}-row tiles): "
+            f"max_abs_err {err:.3e} "
             f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, atol "
-            f"{OUT_ATOL_RMS}*rms) lse_err {lse_err:.3e} (atol {LSE_ATOL}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{OUT_ATOL_RMS}*rms) lse_err {lse_err:.3e} (atol {LSE_ATOL}; +inf rows "
+            f"{int((~lse_ref.isfinite()).sum())}, o = 0 there: {dead_ok}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention_fwd disagrees with its plain version ({name})")
-        worst = max(worst, err)
+        if dt == bf16:
+            worst = max(worst, err)
+
+    # another head size is a stated refusal on the card, never the plain version
+    q96 = randn(1, 64, 2, 96)
+    try:
+        flash_attention(q96, q96, q96, True, 64, 64)
+    except ValueError as e:
+        if "Queue 3b #4" not in str(e):
+            raise
+        log(f"[kernels] flash_attention_fwd D 96 (bf16): refused: {e}")
+    else:
+        raise AssertionError("flash_attention ran at head_dim 96")
 
     B, S, H, KV, D = BATCH, PROMPT, 8, 4, 128
     q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
@@ -334,8 +416,9 @@ def phase_kernels(torch):
         bound_ms=bms, bound_by=by,
     )
     log(f"[kernels] flash_attention_fwd B{B} S{S} H{H} KV{KV} D{D} causal, L2 warm: "
-        f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-        f"(scaled_dot_product_attention) bound_ms {bms:.5f} ({by}: "
+        f"kernel_ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s of the bound's work; the first "
+        f"scalar kernel {SCALAR_FLASH_MS['fwd_serving']}) plain_ms {plain_ms:.4f} library_ms "
+        f"{lib_ms:.4f} (scaled_dot_product_attention) bound_ms {bms:.5f} ({by}: "
         f"{n_bytes} B, {flops} FLOP)")
 
     # ---- flash_decode: every decode step
@@ -408,36 +491,55 @@ def phase_kernels_bwd(torch):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(bf16)
 
     S_T, H_T, D_T = TRAIN_SEQ, TRAIN["num_heads"], TRAIN["embed_dim"] // TRAIN["num_heads"]
+    f32 = torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {"dq": 0.0, "dkv": 0.0}
     cases = [
-        # name, B, S, H, KV, D, causal, window, grad_dtype
-        ("train_flagship", TRAIN_BATCH, S_T, H_T, H_T, D_T, True, None, None),
-        ("gqa_8_4", BATCH, 256, 8, 4, 128, True, None, None),
-        ("window_48", BATCH, 256, 8, 4, 128, True, 48, None),
-        ("window_100", BATCH, 256, 8, 4, 128, True, 100, None),
-        ("ragged_s96_d64", 2, 96, 4, 2, 64, True, None, None),
-        ("noncausal_s96", 2, 96, 4, 2, 128, False, None, None),
-        ("gqa_8_4_fp32_grads", BATCH, 256, 8, 4, 128, True, 100, torch.float32),
+        # name, B, Sq, Sk, H, KV, D, causal, window, grad_dtype, operand dtype
+        ("train_flagship", TRAIN_BATCH, S_T, S_T, H_T, H_T, D_T, True, None, None, bf16),
+        ("gqa_8_4", BATCH, 256, 256, 8, 4, 128, True, None, None, bf16),
+        ("window_48", BATCH, 256, 256, 8, 4, 128, True, 48, None, bf16),
+        ("window_100", BATCH, 256, 256, 8, 4, 128, True, 100, None, bf16),
+        ("ragged_s96_d64", 2, 96, 96, 4, 2, 64, True, None, None, bf16),
+        ("noncausal_s96", 2, 96, 96, 4, 2, 128, False, None, None, bf16),
+        ("gqa_8_4_fp32_grads", BATCH, 256, 256, 8, 4, 128, True, 100, f32, bf16),
+        # rows 9-15 see no key (lse +inf): their dq is 0
+        ("causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, None, bf16),
+        ("noncausal_sq64_sk192", 2, 64, 192, 4, 2, 128, False, None, None, bf16),
+        # 144 blocks of 128-row tiles, the second 72 rows
+        ("s200_ragged_128_row_tile", 9, 200, 200, 8, 4, 128, True, None, None, bf16),
+        ("mqa_8_1", 2, 256, 256, 8, 1, 128, True, None, None, bf16),
+        ("b1_h16_kv8_window100_d64", 1, 2048, 2048, 16, 8, 64, True, 100, f32, bf16),
+        ("window_1000_over_s256", 2, 256, 256, 8, 4, 128, True, 1000, None, bf16),
+        # the fp32 route (scalar kernels, dq, dk and dv in fp32)
+        ("fp32_gqa_8_4_window100", BATCH, 256, 256, 8, 4, 128, True, 100, None, f32),
+        ("fp32_ragged_s96_d64", 2, 96, 96, 4, 2, 64, True, None, None, f32),
+        ("fp32_causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, None, f32),
+        ("fp32_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 128, False, None, None, f32),
     ]
-    for name, B, S, H, KV, D, causal, window, gd in cases:
-        q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
-        o, lse = pa.flash_attention(q, k, v, causal, S, S, window, return_lse=True)
+    for name, B, Sq, Sk, H, KV, D, causal, window, gd, dt in cases:
+        q, k, v, do = (randn(*shape).to(dt) for shape in (
+            (B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
+        o, lse = pa.flash_attention(q, k, v, causal, Sq, Sk, window, return_lse=True)
         kw = dict(causal=causal, window=window, grad_dtype=gd)
         got = (pa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw),
                *pa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw))
         torch.cuda.synchronize()
         want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        route = pa._plan("dq", B, Sq, Sk, H, KV, D, dt, sms)
         for grad, g, w in zip(("dq", "dk", "dv"), got, want):
             ok, err, ratio, rms = check_out(g, w)
             ok = ok and g.dtype == w.dtype
-            log(f"[kernels] flash_attention_bwd {name} {grad} ({g.dtype}): max_abs_err "
-                f"{err:.3e} (rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, "
+            where = f"dq: {route.route}, {route.block}-row tiles; " if grad == "dq" else ""
+            log(f"[kernels] flash_attention_bwd {name} {grad} ({where}operands {dt}, {g.dtype}): "
+                f"max_abs_err {err:.3e} (rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, "
                 f"atol {OUT_ATOL_RMS}*rms) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_attention_bwd {grad} disagrees with the plain backward ({name})")
             key = "dq" if grad == "dq" else "dkv"
-            worst[key] = max(worst[key], err)
+            if dt == bf16:
+                worst[key] = max(worst[key], err)
 
     # timed at the training shape, L2 warm (q, k, v, o and do come straight
     # from the layer's forward and the backward of its output projection)
@@ -459,6 +561,17 @@ def phase_kernels_bwd(torch):
         bwd_lib=device_ms(torch, lambda: torch.autograd.grad(
             o_lib, (qt, kt, vt), do_lib, retain_graph=True), cold=False),
     )
+    # the fp32 route at the same shape (scalar kernels; TF32 plays no part)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    of, lsef = pa.flash_attention(qf, kf, vf, True, S, S, return_lse=True)
+    times.update(
+        fwd_f32=device_ms(torch, lambda: pa.flash_attention(qf, kf, vf, True, S, S), cold=False, iters=5),
+        dq_f32=device_ms(torch, lambda: pa.flash_attention_bwd_dq(qf, kf, vf, of, lsef, dof),
+                         cold=False, iters=5),
+        dkv_f32=device_ms(torch, lambda: pa.flash_attention_bwd_dkv(qf, kf, vf, of, lsef, dof),
+                          cold=False, iters=5),
+    )
+    del qf, kf, vf, dof, of, lsef
     pairs = causal_pairs(B, H, S, S)
     operand = 2 * B * S * H * D                      # one bf16 [B, S, H, D] tensor
     lse_bytes = 4 * B * H * S
@@ -467,10 +580,16 @@ def phase_kernels_bwd(torch):
     dkv_b, dkv_f = bound_ms(5 * operand + lse_bytes + 2 * operand, 4 * 2 * D * pairs)
     log(f"[kernels] training shape B{B} S{S} H{H} KV{H} D{D} causal, L2 warm "
         f"({pairs} causal (q, k) pairs per matmul):")
-    log(f"[kernels]   flash_attention_fwd kernel_ms {times['fwd']:.4f} plain_ms "
+    tflops = {name: n * 2 * D * pairs / times[name] / 1e9 for name, n in (("fwd", 2), ("dq", 3), ("dkv", 4))}
+    log(f"[kernels]   flash_attention_fwd kernel_ms {times['fwd']:.4f} ({tflops['fwd']:.1f} TFLOP/s "
+        f"of the bound's work; the first scalar kernel {SCALAR_FLASH_MS['fwd_train']}) plain_ms "
         f"{times['fwd_plain']:.4f} library_ms {times['fwd_lib']:.4f} bound_ms {fwd_b:.5f} ({fwd_f})")
-    log(f"[kernels]   flash_attention_bwd_dq kernel_ms {times['dq']:.4f} bound_ms {dq_b:.5f} ({dq_f})")
-    log(f"[kernels]   flash_attention_bwd_dkv kernel_ms {times['dkv']:.4f} bound_ms {dkv_b:.5f} ({dkv_f})")
+    log(f"[kernels]   flash_attention_bwd_dq kernel_ms {times['dq']:.4f} ({tflops['dq']:.1f} TFLOP/s; "
+        f"the first scalar kernel {SCALAR_FLASH_MS['dq_train']}) bound_ms {dq_b:.5f} ({dq_f})")
+    log(f"[kernels]   flash_attention_bwd_dkv kernel_ms {times['dkv']:.4f} ({tflops['dkv']:.1f} TFLOP/s) "
+        f"bound_ms {dkv_b:.5f} ({dkv_f})")
+    log(f"[kernels]   fp32 route (fp32 operands, scalar kernels): forward {times['fwd_f32']:.4f} ms, "
+        f"dq {times['dq_f32']:.4f} ms, dk/dv {times['dkv_f32']:.4f} ms")
     log(f"[kernels]   plain backward (dq, dk, dv together) {times['bwd_plain']:.4f} ms; "
         f"library: scaled_dot_product_attention backward (dq, dk, dv together) "
         f"{times['bwd_lib']:.4f} ms")
@@ -483,7 +602,8 @@ def phase_kernels_bwd(torch):
             library_ms=times["bwd_lib"], bound_ms=dkv_b, bound_by=dkv_f),
     }
     fwd_train = dict(ms=times["fwd"], plain_ms=times["fwd_plain"], library_ms=times["fwd_lib"],
-                     bound_ms=fwd_b, bound_by=fwd_f)
+                     bound_ms=fwd_b, bound_by=fwd_f, tflops=tflops,
+                     fp32_route_ms={k: times[f"{k}_f32"] for k in ("fwd", "dq", "dkv")})
     return results, fwd_train
 
 
@@ -755,13 +875,13 @@ def phase_train(torch, np):
     return dict(params_m=n_params / 1e6, **res)
 
 
-def _one_step_vs_cpu(torch, kt, make_model, sd, tokens, **step_kw):
-    """One SGD step of the model on the card (bf16) and on the CPU (fp32)
-    from one state dict: {where: (loss, global gradient norm, model)}."""
+def _one_step_vs_cpu(torch, kt, make_model, sd, tokens, card_dtype=None, **step_kw):
+    """One SGD step of the model on the card (bf16, or ``card_dtype``) and on
+    the CPU (fp32) from one state dict: {where: (loss, global gradient norm)}."""
     from kubeflow_tpu_torch.ops import optimizers as opt
 
     got = {}
-    for where, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+    for where, dtype in (("cuda", card_dtype or torch.bfloat16), ("cpu", torch.float32)):
         model = make_model(dtype, where)
         model.load_state_dict(sd)
         norms = []
@@ -795,8 +915,23 @@ def phase_train_parity(torch, np):
         f"grad norm {norm_c:.5f} vs {norm_h:.5f} (rel diff {d_norm:.2e}, rtol {TRAIN_GNORM_RTOL})")
     if not np.isfinite([loss_c, norm_c]).all() or d_loss > TRAIN_LOSS_ATOL or d_norm > TRAIN_GNORM_RTOL:
         raise AssertionError(f"card train step disagrees with the CPU: {got}")
+    # the same step with fp32 activations on the card: the flash kernels'
+    # fp32 route (TF32 off), held to the same limits
+    got32 = _one_step_vs_cpu(
+        torch, kt,
+        lambda dtype, where: kt.TransformerLM(dataclasses.replace(cfg, dtype=dtype), device=where),
+        sd, tokens, card_dtype=torch.float32, chunk=TRAIN_CHUNK)
+    loss_f, norm_f = got32["cuda"]
+    d_loss32, d_norm32 = abs(loss_f - loss_h), abs(norm_f - norm_h) / norm_h
+    log(f"[train parity] the same step card(fp32, flash fp32 route) vs cpu(fp32): loss {loss_f:.5f} "
+        f"(|diff| {d_loss32:.2e}, atol {TRAIN_LOSS_ATOL}); grad norm {norm_f:.5f} (rel diff "
+        f"{d_norm32:.2e}, rtol {TRAIN_GNORM_RTOL})")
+    if (not np.isfinite([loss_f, norm_f]).all() or d_loss32 > TRAIN_LOSS_ATOL
+            or d_norm32 > TRAIN_GNORM_RTOL):
+        raise AssertionError(f"card fp32 train step disagrees with the CPU: {got32}")
     return dict(loss_card=loss_c, loss_cpu=loss_h, grad_norm_card=norm_c,
-                grad_norm_cpu=norm_h, loss_abs_diff=d_loss, grad_norm_rel_diff=d_norm)
+                grad_norm_cpu=norm_h, loss_abs_diff=d_loss, grad_norm_rel_diff=d_norm,
+                fp32_card_loss_abs_diff=d_loss32, fp32_card_grad_norm_rel_diff=d_norm32)
 
 
 def _index_stats(torch, idx, R):
@@ -1851,7 +1986,7 @@ def main() -> int:
 
     report = {"card": smi}
     t_all = time.perf_counter()
-    phase_build()
+    report["tensor_core_instructions"] = tensor_core_counts(phase_build())
     kernels = phase_kernels(torch)
     bwd, fwd_train = phase_kernels_bwd(torch)
     kernels.update(bwd)

@@ -1,9 +1,10 @@
-// Flash-attention backward, dk and dv, for Hopper (sm_90a): bf16 operands, fp32 math.
+// Flash-attention backward, dk and dv, for Hopper (sm_90a): bf16 or fp32
+// operands (the same scalar kernel for both), fp32 math.
 //
 // Replaces the Pallas kernel _dkv_kernel (kubeflow_tpu/ops/pallas_attention.py:336).
-// Layout: q, o, do [B, Sq, H, D], k/v [B, Sk, KV, D], all contiguous bf16;
+// Layout: q, o, do [B, Sq, H, D], k/v [B, Sk, KV, D], all contiguous, one type;
 // lse [B, H, Sq] fp32 (+inf on rows that see no key); dk, dv [B, Sk, KV, D]
-// in bf16 or fp32 (out_f32). Query head h reads kv head h / (H / KV).
+// in fp32 (out_f32) or the operands' type. Query head h reads kv head h / (H / KV).
 //
 // One thread block per (64-key tile, KV head, batch row), 256 threads as a
 // 16 x 16 grid. The k and v tiles stay in shared memory for the whole block.
@@ -16,8 +17,9 @@
 // c*64 + tx*4 .. +3 (c < D/64) in fp32 registers across every head and tile.
 // delta = rowsum(do * o) is recomputed per query tile from the do and o tiles
 // (the TPU kernel does the same, :352-355). p = exp(s * scale - lse) is
-// rounded to bf16 before p^T do, and ds = p * (dp - delta) * scale before
-// ds^T q, as the TPU kernel rounds them to do's and q's dtype.
+// rounded to the operands' type before p^T do, and ds = p * (dp - delta) *
+// scale before ds^T q, as the TPU kernel rounds them to do's and q's dtype
+// (in fp32 both roundings are the identity).
 //
 // The TPU kernel's grid runs per query head, so under GQA it writes
 // [B, H, Sk, D] fp32 partials and sums them afterwards (:428-456). Here one
@@ -36,11 +38,13 @@
 // fp32, one p/ds^T tile and per-row delta and lse: 222,720 bytes, under the
 // 227 KB a block may take, through the dynamic shared-memory attribute.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::from_f;
+using flash::round_to;
+using flash::to_f;
 
 constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per block
@@ -50,10 +54,6 @@ constexpr int LD = 64 + 4;      // leading dim of the transposed tiles; keeps fl
 __host__ __device__ constexpr size_t smem_floats(int d) {
   // k^T, v^T, q^T, do^T [D][LD]; q, do [BQ][D]; p^T / ds^T [BQ][LD]; delta, lse [BQ]
   return (size_t)4 * d * LD + (size_t)2 * BQ * d + (size_t)BQ * LD + 2 * BQ;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 template <int DC>
@@ -79,14 +79,11 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ pt,
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ o,
-                     const float* __restrict__ lse,
-                     const __nv_bfloat16* __restrict__ dout,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ o,
+                     const float* __restrict__ lse, const T* __restrict__ dout,
                      void* __restrict__ dk, void* __restrict__ dv,
                      int Sq, int Sk, int H, int KV, int causal, int window,
                      float scale, int out_f32) {
@@ -115,8 +112,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     const int c = i / D, d = i % D;
     const int kp = k0 + c;
     const bool in = kp < Sk;
-    kt[d * LD + c] = in ? __bfloat162float(k[kv_base + kp * kv_stride + d]) : 0.f;
-    vt[d * LD + c] = in ? __bfloat162float(v[kv_base + kp * kv_stride + d]) : 0.f;
+    kt[d * LD + c] = in ? to_f(k[kv_base + kp * kv_stride + d]) : 0.f;
+    vt[d * LD + c] = in ? to_f(v[kv_base + kp * kv_stride + d]) : 0.f;
   }
 
   // query rows that can see any key of this tile: causal starts at the
@@ -141,8 +138,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
         const int qp = q0 + r;
         float qq = 0.f, gg = 0.f;
         if (qp < Sq) {
-          qq = __bfloat162float(q[q_base + qp * q_stride + d]);
-          gg = __bfloat162float(dout[q_base + qp * q_stride + d]);
+          qq = to_f(q[q_base + qp * q_stride + d]);
+          gg = to_f(dout[q_base + qp * q_stride + d]);
         }
         qt[d * LD + r] = qq;
         dot[d * LD + r] = gg;
@@ -156,8 +153,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
         float acc = 0.f;
         if (qp < Sq) {
           for (int d = part; d < D; d += 4)
-            acc += __bfloat162float(dout[q_base + qp * q_stride + d]) *
-                   __bfloat162float(o[q_base + qp * q_stride + d]);
+            acc += to_f(dout[q_base + qp * q_stride + d]) *
+                   to_f(o[q_base + qp * q_stride + d]);
         }
         acc += __shfl_xor_sync(0xffffffffu, acc, 1);
         acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -205,8 +202,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
           if (causal) keep = keep && kp <= qp && (window <= 0 || kp > qp - window);
           // masked scores and rows with lse = +inf give p = 0 explicitly
           const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-          ds[i][j] = bf16_round(p * (dp[i][j] - delta_s[r]) * scale);
-          pt[r * LD + ty * 4 + i] = bf16_round(p);
+          ds[i][j] = round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);
+          pt[r * LD + ty * 4 + i] = round_to<T>(p);
         }
       }
       __syncthreads();
@@ -235,49 +232,47 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
           static_cast<float*>(dk)[row + col] = acc_dk[i][c * 4 + e];
           static_cast<float*>(dv)[row + col] = acc_dv[i][c * 4 + e];
         } else {
-          static_cast<__nv_bfloat16*>(dk)[row + col] = __float2bfloat16(acc_dk[i][c * 4 + e]);
-          static_cast<__nv_bfloat16*>(dv)[row + col] = __float2bfloat16(acc_dv[i][c * 4 + e]);
+          static_cast<T*>(dk)[row + col] = from_f<T>(acc_dk[i][c * 4 + e]);
+          static_cast<T*>(dv)[row + col] = from_f<T>(acc_dv[i][c * 4 + e]);
         }
       }
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* lse, const void* dout, void* dk, void* dv, int B, int Sq,
            int Sk, int H, int KV, int causal, int window, float scale,
-           int out_f32, cudaStream_t stream) {
-  const size_t smem = smem_floats(D) * sizeof(float);
+           int out_f32, int smem, cudaStream_t stream) {
+  if (smem != (int)(smem_floats(D) * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkv_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sk + BK - 1) / BK, KV, B);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
-      static_cast<const float*>(lse), static_cast<const __nv_bfloat16*>(dout), dk, dv,
-      Sq, Sk, H, KV, causal, window, scale, out_f32);
+  flash_bwd_dkv_kernel<D, T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const float*>(lse), static_cast<const T*>(dout),
+      dk, dv, Sq, Sk, H, KV, causal, window, scale, out_f32);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// f32: 0 for bf16 operands, 1 for fp32 (dk and dv in fp32); block_k: 64,
+// the keys a block owns; smem: the plan's shared-memory bytes, checked
+// against the kernel's own layout.
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
-    int D, int causal, int window, float scale, int out_f32, void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0)
+    int D, int causal, int window, float scale, int out_f32, int f32, int block_k,
+    int smem, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || block_k != BK ||
+      (f32 && !out_f32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch<128>(q, k, v, o, lse, dout, dk, dv, B, Sq, Sk, H, KV, causal,
-                       window, scale, out_f32, s);
-  if (D == 64)
-    return launch<64>(q, k, v, o, lse, dout, dk, dv, B, Sq, Sk, H, KV, causal,
-                      window, scale, out_f32, s);
+#define ARGS q, k, v, o, lse, dout, dk, dv, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
+  if (D == 128) return f32 ? launch<128, float>(ARGS) : launch<128, flash::bf16>(ARGS);
+  if (D == 64) return f32 ? launch<64, float>(ARGS) : launch<64, flash::bf16>(ARGS);
+#undef ARGS
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

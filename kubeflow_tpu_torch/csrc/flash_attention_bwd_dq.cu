@@ -1,38 +1,47 @@
-// Flash-attention backward, dq, for Hopper (sm_90a): bf16 operands, fp32 math.
+// Flash-attention backward, dq, for Hopper (sm_90a): fp32 math.
 //
 // Replaces the Pallas kernel _dq_kernel (kubeflow_tpu/ops/pallas_attention.py:290).
-// Layout: q, o, do [B, Sq, H, D], k/v [B, Sk, KV, D], all contiguous bf16;
+// Layout: q, o, do [B, Sq, H, D], k/v [B, Sk, KV, D], all contiguous;
 // lse [B, H, Sq] fp32 (+inf on rows that see no key); dq [B, Sq, H, D] in
-// bf16 or fp32 (out_f32). Query head h reads kv head h / (H / KV).
+// fp32 (out_f32) or the operands' type. Query head h reads kv head
+// h / (H / KV). delta = rowsum(do * o) is computed per row in fp32 inside
+// the kernel (the TPU kernel's _init); no [B, H, S] delta array exists.
+// p = exp(s * scale - lse); ds = p * (dp - delta) * scale, rounded to the
+// operands' type before the ds k product, as the TPU kernel rounds it to k's
+// dtype. Key tiles above the causal diagonal and left of the sliding window
+// are never loaded (the TPU kernel's _kv_valid, pallas_attention.py:104-116).
 //
-// One thread block per (64-row query tile, query head, batch row), 256
-// threads as a 16 x 16 grid. Thread (ty, tx) owns query rows ty*4 .. ty*4+3:
-// in each key tile it computes the 4 x 4 scores s = q k^T and dp = do v^T of
-// those rows against keys tx*4 .. tx*4+3, and it accumulates dq of those rows
-// in columns c*64 + tx*4 .. +3 (c < D/64) in registers across the loop over
-// key tiles, which takes the place of the TPU kernel's sequential ik axis.
-// delta = rowsum(do * o) is computed once per row at the start, in fp32 from
-// the bf16 tiles (the TPU kernel's _init); no [B, H, S] delta array exists.
-// p = exp(s * scale - lse); ds = p * (dp - delta) * scale is rounded to bf16
-// before the ds k product, as the TPU kernel rounds it to k's dtype.
+// Bound at the training shape (B4 H8 S2048 D128, causal): FLOPs, three
+// causal matmuls (q k^T, do v^T, ds k) = 5.2e10 FLOP, 0.052 ms at the card's
+// 989 TFLOP/s bf16 peak, against ~84 MB of bf16 operands.
 //
-// Causal: key tiles above the diagonal and left of the sliding window are
-// never loaded (the TPU kernel's _kv_valid, pallas_attention.py:104-116).
+// bf16 operands: the tensor-core kernel flash_dq_wgmma, built as the forward
+// (flash_attention_fwd.cu): one block per (head, batch row, query tile of
+// 64 * NWG rows), heaviest causal tiles first; a producer warpgroup loads
+// the Q and dO tiles once and keeps K/V tiles of 64 keys in flight by TMA
+// through a 2-stage mbarrier ring; each consumer warpgroup owns 64 query
+// rows and per key tile computes S = Q K^T and dP = dO V^T with wgmma from
+// shared memory (K and V stored [keys, D] are K-major for both), p and ds in
+// fp32 registers (masks only on edge tiles), and dQ += dS K with dS's bf16 A
+// fragments taken from the accumulator registers and K read MN-major from
+// the same tile. dQ stays in fp32 registers across the key loop.
 //
-// Bound at the flagship training shape (B4 H8 S2048 D128, causal): FLOPs,
-// three causal matmuls (q k^T, do v^T, ds k) = 5.2e10 FLOP, 0.052 ms at the
-// card's 989 TFLOP/s bf16 peak, against ~84 MB of bf16 operands (0.025 ms at
-// 3.35 TB/s). These scalar fp32 FMAs from shared memory cannot approach the
-// tensor cores' rate; what the design does is keep every operand tile in
-// shared memory and the accumulator in registers, so HBM traffic stays near
-// one read of each operand per key-tile pass, and skip masked tiles, which
-// halves the work under the causal mask. Tensor-core tiles are later work.
+// fp32 operands: the scalar kernel flash_bwd_dq_scalar (the first port's
+// design): 256 threads as a 16 x 16 grid over a 64-row query tile, fp32
+// tiles in shared memory, fp32 FMAs; ds is not rounded in fp32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::bf16;
+using flash::from_f;
+using flash::round_to;
+using flash::to_f;
+
+// ---- the scalar route (fp32)
+
+namespace scalar {
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per tile
@@ -44,18 +53,11 @@ __host__ __device__ constexpr size_t smem_floats(int d) {
   return (size_t)4 * d * LD + (size_t)BK * d + (size_t)BK * LD;
 }
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ o,
-                    const float* __restrict__ lse,
-                    const __nv_bfloat16* __restrict__ dout,
+flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const float* __restrict__ lse, const T* __restrict__ dout,
                     void* __restrict__ dq, int Sq, int Sk, int H, int KV,
                     int causal, int window, float scale, int out_f32) {
   extern __shared__ float4 smem4[];
@@ -75,15 +77,15 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t q_stride = (size_t)H * D;    // between consecutive positions
   const size_t kv_stride = (size_t)KV * D;
   const size_t q_base = ((size_t)b * Sq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * Sk * KV + kvh) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * Sk * KV + kvh) * D;
+  const T* kb = k + ((size_t)b * Sk * KV + kvh) * D;
+  const T* vb = v + ((size_t)b * Sk * KV + kvh) * D;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const int qp = q0 + r;
     const bool in = qp < Sq;
-    qt[d * LD + r] = in ? __bfloat162float(q[q_base + qp * q_stride + d]) : 0.f;
-    dot[d * LD + r] = in ? __bfloat162float(dout[q_base + qp * q_stride + d]) : 0.f;
+    qt[d * LD + r] = in ? to_f(q[q_base + qp * q_stride + d]) : 0.f;
+    dot[d * LD + r] = in ? to_f(dout[q_base + qp * q_stride + d]) : 0.f;
   }
 
   // delta and lse of this thread's rows; the 16 threads of a row share them
@@ -94,8 +96,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     float acc = 0.f;
     if (qp < Sq) {
       for (int d = tx; d < D; d += 16)
-        acc += __bfloat162float(dout[q_base + qp * q_stride + d]) *
-               __bfloat162float(o[q_base + qp * q_stride + d]);
+        acc += to_f(dout[q_base + qp * q_stride + d]) *
+               to_f(o[q_base + qp * q_stride + d]);
     }
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
@@ -123,8 +125,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       const int kp = k0 + c;
       float kk = 0.f, vv = 0.f;
       if (kp < Sk) {
-        kk = __bfloat162float(kb[kp * kv_stride + d]);
-        vv = __bfloat162float(vb[kp * kv_stride + d]);
+        kk = to_f(kb[kp * kv_stride + d]);
+        vv = to_f(vb[kp * kv_stride + d]);
       }
       kt[d * LD + c] = kk;
       vt[d * LD + c] = vv;
@@ -167,7 +169,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
         // masked scores and rows with lse = +inf give p = 0 explicitly
         const float p = keep ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
         const float ds = p * (dp[i][j] - delta[i]) * scale;
-        dst[(tx * 4 + j) * LD + ty * 4 + i] = bf16_round(ds);
+        dst[(tx * 4 + j) * LD + ty * 4 + i] = round_to<T>(ds);
       }
     }
     __syncthreads();
@@ -202,47 +204,255 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
         if (out_f32)
           static_cast<float*>(dq)[row + col] = acc[i][c * 4 + e];
         else
-          static_cast<__nv_bfloat16*>(dq)[row + col] = __float2bfloat16(acc[i][c * 4 + e]);
+          static_cast<T*>(dq)[row + col] = from_f<T>(acc[i][c * 4 + e]);
       }
   }
 }
 
+
+}  // namespace scalar
+
+// ---- the tensor-core route (bf16)
+
+// Shared memory of flash_dq_wgmma, in bytes from a 1024-aligned base: the Q
+// and dO tiles (D / 64 slabs of BQ rows each), STAGES K and STAGES V tiles,
+// delta [BQ] fp32, then the mbarriers: Q/dO, full[STAGES], empty[STAGES].
+// ops/pallas_attention.py (_plan) computes the same bytes; the launcher
+// checks them.
+template <int D, int NWG>
+struct DqLayout {
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int NS = D / 64;
+  static constexpr int SLAB_Q = BQ * 128;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + NS * SLAB_Q;
+  static constexpr int K = DO + NS * SLAB_Q;
+  static constexpr int V = K + flash::STAGES * NS * flash::SLAB_K;
+  static constexpr int DELTA = V + flash::STAGES * NS * flash::SLAB_K;
+  static constexpr int BAR = DELTA + 4 * BQ;
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+               const bf16* __restrict__ o, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, void* __restrict__ dq, int Sq, int Sk, int H,
+               int KV, int causal, int window, float scale, int out_f32) {
+  using namespace flash;
+  using L = DqLayout<D, NWG>;
+  constexpr int NS = L::NS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t s_base = smem_u32(smem);
+  float* delta_s = reinterpret_cast<float*>(smem + L::DELTA);
+  const uint32_t bar_q = s_base + L::BAR;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * L::BQ;  // heaviest causal tiles first
+  const int kvh = h / (H / KV);
+  const KeyTiles kt = key_tiles(q0, L::BQ, Sq, Sk, causal, window);
+  init_barriers(bar_q, NWG * 128);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer
+    if (NWG > 1) setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, 2 * NS * L::SLAB_Q);
+      for (int s = 0; s < NS; ++s) {
+        tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 64 * s, h, q0, b, bar_q);
+        tma_load(s_base + L::DO + s * L::SLAB_Q, &tdo, 64 * s, h, q0, b, bar_q);
+      }
+      produce_kv(&tk, &tv, s_base + L::K, s_base + L::V, NS, bar_q, kt, kvh, b);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns query rows r0 .. r0 + 63
+  if (NWG > 1) setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * c;
+  const int r1 = min(r0 + 63, Sq - 1);
+  const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  const float sl2 = scale * LOG2E;
+
+  // delta of the warpgroup's rows: two threads a row, D / 2 columns each
+  {
+    const int i = threadIdx.x % 128, rr = i / 2, half = i % 2;
+    const int qp = r0 + rr;
+    float sum = 0.f;
+    if (qp < Sq) {
+      const size_t off = (((size_t)b * Sq + qp) * H + h) * D + half * (D / 2);
+#pragma unroll
+      for (int x = 0; x < D / 2; x += 8) {
+        const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + x);
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + off + x);
+        const bf16* dp = reinterpret_cast<const bf16*>(&dv);
+        const bf16* op = reinterpret_cast<const bf16*>(&ov);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum += to_f(dp[e]) * to_f(op[e]);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) delta_s[64 * c + rr] = sum;
+    named_sync(1 + c, 128);
+  }
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    delta[i] = delta_s[64 * c + 16 * warp + g + 8 * i];
+    lse2[i] = row[i] < Sq ? lse[((size_t)b * H + h) * Sq + row[i]] * LOG2E : INFINITY;
+  }
+
+  const uint32_t q_tile = s_base + L::Q + c * 64 * 128;
+  const uint32_t do_tile = s_base + L::DO + c * 64 * 128;
+  float acc[D / 2];               // dQ [64, D]: D / 8 column blocks of 4
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < kt.count; ++it) {
+    const int st = it % STAGES;
+    const int k0 = (kt.first + it) * BK;
+    mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
+    if (!tile_hidden(k0, r0, r1, Sq, causal, window)) {
+      const uint32_t k_tile = s_base + L::K + st * NS * SLAB_K;
+      const uint32_t v_tile = s_base + L::V + st * NS * SLAB_K;
+      float s[BK / 2], dp[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(s, desc_k(q_tile, L::SLAB_Q, kk), desc_k(k_tile, SLAB_K, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k(do_tile, L::SLAB_Q, kk), desc_k(v_tile, SLAB_K, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      const bool edge = tile_edge(k0, r0, r1, Sk, causal, window);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * i + e;
+            const bool keep = !edge || visible(k0 + 8 * j + 2 * t + e, row[i], Sk, causal, window);
+            // masked scores and rows with lse = +inf give p = 0
+            const float p = keep ? exp2f(fmaf(s[x], sl2, -lse2[i])) : 0.f;
+            s[x] = p * (dp[x] - delta[i]) * scale;
+          }
+      uint32_t da[BK / 16][4];    // dS in bf16: the A operand of dS K
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = flash::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if constexpr (D == 128)
+          wgmma_rs_n128(acc, da[kk], desc_mn(k_tile, kk), 1);
+        else
+          wgmma_rs_n64(acc, da[kk], desc_mn(k_tile, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    mbar_arrive(bar_empty(bar_q, st));
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Sq) continue;
+    const size_t off = (((size_t)b * Sq + row[i]) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float x0 = acc[4 * j + 2 * i], x1 = acc[4 * j + 2 * i + 1];
+      if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(dq) + off + 8 * j) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dq) + off + 8 * j) =
+            __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+template <int D, int NWG>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                 const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int causal,
+                 int window, float scale, int out_f32, int smem, cudaStream_t stream) {
+  using L = DqLayout<D, NWG>;
+  if (smem != L::bytes) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = flash::make_map(&tq, q, D, H, Sq, B, L::BQ);
+  if (!err) err = flash::make_map(&tdo, dout, D, H, Sq, B, L::BQ);
+  if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, flash::BK);
+  if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, flash::BK);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_wgmma<D, NWG>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (Sq + L::BQ - 1) / L::BQ);
+  flash_dq_wgmma<D, NWG><<<grid, 128 * (NWG + 1), smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), dq, Sq, Sk, H, KV, causal, window, scale, out_f32);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* lse, const void* dout, void* dq, int B, int Sq, int Sk,
-           int H, int KV, int causal, int window, float scale, int out_f32,
-           cudaStream_t stream) {
-  const size_t smem = smem_floats(D) * sizeof(float);
+int launch_scalar(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                  const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int causal,
+                  int window, float scale, int out_f32, int smem, cudaStream_t stream) {
+  if (smem != (int)(scalar::smem_floats(D) * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      scalar::flash_bwd_dq_scalar<D, float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
-      static_cast<const float*>(lse), static_cast<const __nv_bfloat16*>(dout), dq,
-      Sq, Sk, H, KV, causal, window, scale, out_f32);
+  const dim3 grid((Sq + scalar::BQ - 1) / scalar::BQ, H, B);
+  scalar::flash_bwd_dq_scalar<D, float><<<grid, scalar::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<const float*>(dout), dq, Sq, Sk, H, KV, causal, window, scale, out_f32);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// f32: 0 for bf16 operands (tensor-core kernel, block_q 64 or 128), 1 for
+// fp32 (scalar kernel, block_q 64, dq in fp32). smem: the plan's
+// shared-memory bytes, checked against the kernel's own layout.
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int D,
-    int causal, int window, float scale, int out_f32, void* stream) {
+    int causal, int window, float scale, int out_f32, int f32, int block_q, int smem,
+    void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch<128>(q, k, v, o, lse, dout, dq, B, Sq, Sk, H, KV, causal, window,
-                       scale, out_f32, s);
-  if (D == 64)
-    return launch<64>(q, k, v, o, lse, dout, dq, B, Sq, Sk, H, KV, causal, window,
-                      scale, out_f32, s);
+#define ARGS q, k, v, o, lse, dout, dq, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
+  if (f32) {
+    if (block_q != scalar::BQ || !out_f32) return (int)cudaErrorInvalidValue;
+    if (D == 128) return launch_scalar<128>(ARGS);
+    if (D == 64) return launch_scalar<64>(ARGS);
+  } else {
+    if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);
+    if (D == 128 && block_q == 64) return launch_wgmma<128, 1>(ARGS);
+    if (D == 64 && block_q == 128) return launch_wgmma<64, 2>(ARGS);
+    if (D == 64 && block_q == 64) return launch_wgmma<64, 1>(ARGS);
+  }
+#undef ARGS
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

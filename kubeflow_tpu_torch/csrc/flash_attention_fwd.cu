@@ -1,26 +1,47 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 in and out, fp32 softmax.
+// Flash-attention forward for Hopper (sm_90a): o = softmax(q k^T * scale) v
+// and lse, fp32 softmax.
 //
 // Replaces the Pallas kernel _fwd_kernel (kubeflow_tpu/ops/pallas_attention.py:160).
 // Layout: q [B, Sq, H, D], k/v [B, Sk, KV, D], o [B, Sq, H, D], all contiguous;
-// optional lse [B, H, Sq] fp32. Query head h reads kv head h / (H / KV).
+// lse [B, H, Sq] fp32. Query head h reads kv head h / (H / KV); grouped K/V
+// are never expanded. A row that sees no key gives o = 0 and lse = +inf.
 //
-// One thread block per (64-row query tile, head, batch row), 256 threads as a
-// 16 x 16 grid. Thread (ty, tx) owns query rows ty*4 .. ty*4+3: in each key
-// tile it computes the 4 x 4 scores of those rows against keys tx*4 .. tx*4+3,
-// and it accumulates the context of those rows in output columns
-// c*64 + tx*4 .. +3 (c < D/64). The 16 threads of a row sit in one half-warp,
-// so row max and row sum are shuffles. The loop over 64-key tiles (staged in
-// shared memory as fp32) takes the place of the TPU kernel's sequential ik
-// grid axis; m, l and the accumulator stay in registers across it.
+// Bound: FLOPs at the training shape (B4 S2048 H8 D128 causal: two causal
+// matmuls, 3.4e10 FLOP, 0.035 ms at 989 TFLOP/s bf16); HBM bytes at the
+// serving prefill (B4 S128 H8 KV4), where launch latency dominates.
 //
-// Bound: HBM bytes at the serving path's prefill shapes; FLOPs at long
-// prompts, where these scalar FMAs run far below the tensor cores' rate.
+// bf16 operands: the tensor-core kernel flash_fwd_wgmma. One block per
+// (head, batch row, query tile of 64 * NWG rows), heaviest causal tiles
+// first. Warpgroup 0 is the producer: one thread loads the block's Q tile,
+// then keeps K and V tiles of 64 keys in flight by TMA through a 2-stage
+// ring of shared memory (full/empty mbarriers); it gives up registers
+// (setmaxnreg) to the NWG consumer warpgroups, each of which owns 64 query
+// rows. Per key tile a consumer computes S = Q K^T with wgmma from shared
+// memory (K stored [keys, D] is K-major), the online softmax in fp32 with
+// exp2 (scale * log2 e folded in), masks only on tiles that cross the
+// diagonal, the window's edge or the ragged end, and O += P V with P's bf16
+// A fragments taken straight from S's accumulator registers and V read
+// MN-major (transposed) from the same swizzled tile. P is rounded to bf16
+// before P V and the row sum l is taken from the unrounded p, the TPU
+// kernel's rounding points.
+//
+// fp32 operands: the scalar kernel flash_fwd_scalar (the first port's
+// design): one block per (64-row query tile, head, batch row), 256 threads
+// as a 16 x 16 grid, fp32 tiles in shared memory and fp32 FMAs; p is not
+// rounded (the plain version's p.to(v.dtype) is the identity in fp32).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::bf16;
+using flash::from_f;
+using flash::round_to;
+using flash::to_f;
+
+// ---- the scalar route (fp32)
+
+namespace scalar {
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per tile
@@ -32,16 +53,10 @@ __host__ __device__ constexpr size_t smem_floats(int d) {
   return (size_t)2 * d * LD + (size_t)BK * d + (size_t)BK * LD;
 }
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int H, int KV, int causal, int window,
                  float scale) {
   extern __shared__ float4 smem4[];
@@ -58,14 +73,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int kvh = h / (H / KV);
   const size_t q_stride = (size_t)H * D;    // between consecutive positions
   const size_t kv_stride = (size_t)KV * D;
-  const __nv_bfloat16* qb = q + ((size_t)b * Sq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * Sk * KV + kvh) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * Sk * KV + kvh) * D;
+  const T* qb = q + ((size_t)b * Sq * H + h) * D;
+  const T* kb = k + ((size_t)b * Sk * KV + kvh) * D;
+  const T* vb = v + ((size_t)b * Sk * KV + kvh) * D;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const int qp = q0 + r;
-    qt[d * LD + r] = qp < Sq ? __bfloat162float(qb[qp * q_stride + d]) : 0.f;
+    qt[d * LD + r] = qp < Sq ? to_f(qb[qp * q_stride + d]) : 0.f;
   }
 
   // keys any row of this tile can see: causal skips tiles above the
@@ -91,8 +106,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       const int kp = k0 + c;
       float kk = 0.f, vv = 0.f;
       if (kp < Sk) {
-        kk = __bfloat162float(kb[kp * kv_stride + d]);
-        vv = __bfloat162float(vb[kp * kv_stride + d]);
+        kk = to_f(kb[kp * kv_stride + d]);
+        vv = to_f(vb[kp * kv_stride + d]);
       }
       kt[d * LD + c] = kk;
       vs[c * D + d] = vv;
@@ -140,7 +155,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
         rs += p;
-        pt[(tx * 4 + j) * LD + ty * 4 + i] = bf16_round(p);
+        pt[(tx * 4 + j) * LD + ty * 4 + i] = round_to<T>(p);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -175,50 +190,253 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     if (qp >= Sq) continue;
     // a row that saw no key gives 0 (and lse +inf), the TPU kernel's l_safe
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    __nv_bfloat16* orow = o + ((size_t)b * Sq * H + h) * D + qp * q_stride;
+    T* orow = o + ((size_t)b * Sq * H + h) * D + qp * q_stride;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        orow[c * 64 + tx * 4 + e] = __float2bfloat16(acc[i][c * 4 + e] / l_safe);
+        orow[c * 64 + tx * 4 + e] = from_f<T>(acc[i][c * 4 + e] / l_safe);
     if (lse != nullptr && tx == 0)
       lse[((size_t)b * H + h) * Sq + qp] =
           l[i] == 0.f ? INFINITY : m[i] + logf(l_safe);
   }
 }
 
+
+}  // namespace scalar
+
+// ---- the tensor-core route (bf16)
+
+// Shared memory of flash_fwd_wgmma, in bytes from a 1024-aligned base: the Q
+// tile (D / 64 slabs of BQ rows), STAGES K tiles, STAGES V tiles (D / 64
+// slabs of BK rows each), then the mbarriers: Q, full[STAGES], empty[STAGES].
+// `bytes` adds the slack for aligning the dynamic base; ops/pallas_attention.py
+// (_plan) computes the same number and the launcher checks it.
+template <int D, int NWG>
+struct FwdLayout {
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int NS = D / 64;
+  static constexpr int SLAB_Q = BQ * 128;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + NS * SLAB_Q;
+  static constexpr int V = K + flash::STAGES * NS * flash::SLAB_K;
+  static constexpr int BAR = V + flash::STAGES * NS * flash::SLAB_K;
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
+                int window, float scale) {
+  using namespace flash;
+  using L = FwdLayout<D, NWG>;
+  constexpr int NS = L::NS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar_q = s_base + L::BAR;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * L::BQ;  // heaviest causal tiles first
+  const int kvh = h / (H / KV);
+  const KeyTiles kt = key_tiles(q0, L::BQ, Sq, Sk, causal, window);
+  init_barriers(bar_q, NWG * 128);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer
+    if (NWG > 1) setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, NS * L::SLAB_Q);
+      for (int s = 0; s < NS; ++s)
+        tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 64 * s, h, q0, b, bar_q);
+      produce_kv(&tk, &tv, s_base + L::K, s_base + L::V, NS, bar_q, kt, kvh, b);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns query rows r0 .. r0 + 63
+  if (NWG > 1) setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * c;
+  const int r1 = min(r0 + 63, Sq - 1);
+  const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  const float sl2 = scale * LOG2E;
+  const uint32_t q_tile = s_base + L::Q + c * 64 * 128;
+
+  float acc[D / 2];               // O [64, D]: D / 8 column blocks of 4
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};        // this thread's part of the row sums
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < kt.count; ++it) {
+    const int st = it % STAGES;
+    const int k0 = (kt.first + it) * BK;
+    mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
+    if (!tile_hidden(k0, r0, r1, Sq, causal, window)) {
+      const uint32_t k_tile = s_base + L::K + st * NS * SLAB_K;
+      const uint32_t v_tile = s_base + L::V + st * NS * SLAB_K;
+      float s[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(s, desc_k(q_tile, L::SLAB_Q, kk), desc_k(k_tile, SLAB_K, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      if (tile_edge(k0, r0, r1, Sk, causal, window)) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (!visible(k0 + 8 * j + 2 * t + e, row[i], Sk, causal, window))
+                s[4 * j + 2 * i + e] = -INFINITY;
+      }
+
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = m[i];
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a row that has seen no key yet keeps m = -inf: its p is 0 and its
+        // correction 0 (acc and l are still 0)
+        const float m_use = mx == -INFINITY ? 0.f : mx;
+        corr[i] = exp2f((m[i] - m_use) * sl2);
+        const float off = m_use * sl2;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(fmaf(s[4 * j + 2 * i + e], sl2, -off));
+            s[4 * j + 2 * i + e] = p;
+            rs += p;
+          }
+        l[i] = l[i] * corr[i] + rs;
+        m[i] = mx;
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= corr[0];
+        acc[4 * j + 1] *= corr[0];
+        acc[4 * j + 2] *= corr[1];
+        acc[4 * j + 3] *= corr[1];
+      }
+      uint32_t pa[BK / 16][4];    // P in bf16: the A operand of P V
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = flash::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if constexpr (D == 128)
+          wgmma_rs_n128(acc, pa[kk], desc_mn(v_tile, kk), 1);
+        else
+          wgmma_rs_n64(acc, pa[kk], desc_mn(v_tile, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    mbar_arrive(bar_empty(bar_q, st));
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (row[i] >= Sq) continue;
+    // a row that saw no key gives 0 (and lse +inf), the TPU kernel's l_safe
+    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    bf16* orow = o + (((size_t)b * Sq + row[i]) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+    if (t == 0)
+      lse[((size_t)b * H + h) * Sq + row[i]] = l[i] == 0.f ? INFINITY : m[i] * scale + logf(l[i]);
+  }
+}
+
+template <int D, int NWG>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Sq,
+                 int Sk, int H, int KV, int causal, int window, float scale, int smem,
+                 cudaStream_t stream) {
+  using L = FwdLayout<D, NWG>;
+  if (smem != L::bytes) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int err = flash::make_map(&tq, q, D, H, Sq, B, L::BQ);
+  if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, flash::BK);
+  if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, flash::BK);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<D, NWG>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (Sq + L::BQ - 1) / L::BQ);
+  flash_fwd_wgmma<D, NWG><<<grid, 128 * (NWG + 1), smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Sk, H, KV, causal,
+      window, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int Sq, int Sk, int H, int KV, int causal, int window,
-           float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats(D) * sizeof(float);
+int launch_scalar(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                  int Sq, int Sk, int H, int KV, int causal, int window, float scale, int smem,
+                  cudaStream_t stream) {
+  if (smem != (int)(scalar::smem_floats(D) * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      scalar::flash_fwd_scalar<D, float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), Sq, Sk, H, KV, causal, window, scale);
+  const dim3 grid((Sq + scalar::BQ - 1) / scalar::BQ, H, B);
+  scalar::flash_fwd_scalar<D, float><<<grid, scalar::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), Sq, Sk, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// f32: 0 for bf16 operands (tensor-core kernel, block_q 64 or 128), 1 for
+// fp32 (scalar kernel, block_q 64). smem: the plan's shared-memory bytes,
+// checked against the kernel's own layout.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int Sq, int Sk, int H, int KV, int D, int causal, int window, float scale,
-    void* stream) {
+    int f32, int block_q, int smem, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, s);
-  if (D == 64)
-    return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, s);
+#define ARGS q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, smem, s
+  if (f32) {
+    if (block_q != scalar::BQ) return (int)cudaErrorInvalidValue;
+    if (D == 128) return launch_scalar<128>(ARGS);
+    if (D == 64) return launch_scalar<64>(ARGS);
+  } else {
+    if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);
+    if (D == 128 && block_q == 64) return launch_wgmma<128, 1>(ARGS);
+    if (D == 64 && block_q == 128) return launch_wgmma<64, 2>(ARGS);
+    if (D == 64 && block_q == 64) return launch_wgmma<64, 1>(ARGS);
+  }
+#undef ARGS
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -36,8 +36,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_attention_fwd": (
         "flash_attention_fwd_launch",
-        # q, k, v, o, lse, B, Sq, Sk, H, KV, D, causal, window, scale, stream
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, o, lse, B, Sq, Sk, H, KV, D, causal, window, scale, f32,
+        # block_q, smem, stream
+        [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
     ),
     "flash_decode": (
         "flash_decode_launch",
@@ -47,14 +48,14 @@ SIGNATURES = {
     "flash_attention_bwd_dq": (
         "flash_attention_bwd_dq_launch",
         # q, k, v, o, lse, do, dq, B, Sq, Sk, H, KV, D, causal, window, scale,
-        # out_f32, stream
-        [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+        # out_f32, f32, block_q, smem, stream
+        [_P] * 7 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
     ),
     "flash_attention_bwd_dkv": (
         "flash_attention_bwd_dkv_launch",
         # q, k, v, o, lse, do, dk, dv, B, Sq, Sk, H, KV, D, causal, window,
-        # scale, out_f32, stream
-        [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+        # scale, out_f32, f32, block_k, smem, stream
+        [_P] * 8 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
     ),
     "moe_gather": (
         "moe_gather_launch",

@@ -9,26 +9,39 @@ replace the three Pallas kernels of that module:
 
 What bounds them on an H100: at the serving path's prefill shape (B4 H8 KV4
 S128 D128, causal) the forward moves ~3 MB and does ~0.14 GFLOP, so HBM bytes
-bound it; at the training shape (B4 H8 S2048 D128, causal) all three are
-bound by FLOPs (forward 2, dq 3, dk/dv 4 causal matmuls of 1.7e10 FLOP each,
-against ~84 MB of bf16 operands). These first kernels multiply with scalar
-fp32 FMAs from shared memory, so there they run far below the tensor cores'
-bf16 rate; ``mma``/``wgmma`` tiles are later work.
+and launch latency bound it; at the training shape (B4 H8 S2048 D128, causal)
+all three are bound by FLOPs (forward 2, dq 3, dk/dv 4 causal matmuls of
+1.7e10 FLOP each, against ~84 MB of bf16 operands).
 
-What the design does:
+Two routes, chosen by :func:`_plan` from the operands' dtype:
 
-- one thread block per (64-row tile, head, batch row); a loop inside the
-  block over the other side's 64-row tiles takes the place of the TPU
-  kernels' sequential grid axis, and the accumulators stay in fp32 registers
-  across it;
+- **bf16, forward and dq: tensor cores.** A producer warpgroup keeps K/V
+  tiles of 64 keys in flight by TMA into a 2-stage shared-memory ring; one
+  or two consumer warpgroups (64 query rows each) multiply with ``wgmma``
+  (bf16 operands, fp32 accumulators) and keep P (forward) or dS (dq) in
+  registers as the next product's operand. ``_plan`` takes 128-row query
+  tiles where they still give every SM a block, else 64.
+- **fp32, and dk/dv in both dtypes: scalar kernels.** fp32 tiles in shared
+  memory and fp32 FMAs, 64-row tiles, 256 threads; in fp32 the bf16
+  rounding points are the identity, as in the plain versions.
+
+Both routes take D in {64, 128}; another head size is a stated refusal
+(``ROADMAP.md`` Queue 3b #4).
+
+What every kernel does:
+
+- one thread block per query tile (key tile for dk/dv), head and batch row;
+  a loop inside the block over the other side's tiles takes the place of the
+  TPU kernels' sequential grid axis, and the accumulators stay in fp32
+  registers across it;
 - causal and sliding-window tile skipping: a tile that no row of the block
   can see is never loaded;
 - GQA: query head ``h`` reads kv head ``h // group``; grouped K/V are never
   expanded. The dk/dv kernel owns one kv head and loops over its group's
   query heads, so it sums the group in fp32 inside the block: no per-head
   partials, no atomics, a deterministic result;
-- the bf16 rounding points of the TPU kernels: probabilities before the
-  value products, ``ds`` before the key and query products.
+- the TPU kernels' rounding points: probabilities rounded to the operands'
+  dtype before the value products, ``ds`` before the key and query products.
 
 Autograd: :func:`flash_attention` always calls the custom op
 ``kubeflow_tpu_torch::flash_attention_fwd`` (the forward kernel with lse), so
@@ -37,6 +50,9 @@ remat policy). The op's registered backward launches the dq and dk/dv
 kernels.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -77,16 +93,80 @@ def _keep_mask(Sq, Sk, causal, window, device):
     return keep
 
 
+_SMS = 132                  # streaming multiprocessors of an H100 SXM
+SMEM_LIMIT = 232_448        # bytes of shared memory a block may take on Hopper
+_TILE_K = 64                # keys a tile on both routes
+_STAGES = 2                 # K/V tiles in flight on the tensor-core route
+_SCALAR_LD = 68             # fp32 leading dim of the scalar kernels' transposed tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one flash kernel launches. ``route`` "wgmma" is the bf16
+    tensor-core kernel, "scalar" the fp32-FMA kernel; ``block`` is the query
+    rows a block (forward, dq) or the keys a block (dk/dv)."""
+
+    route: str
+    block: int
+    grid: tuple[int, int, int]
+    threads: int
+    smem_bytes: int
+
+
+def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
+          sms: int = _SMS) -> Plan:
+    """The launch of ``kernel`` ("fwd", "dq" or "dkv") for these shapes.
+
+    bf16 forward and dq take the tensor-core route: a producer warpgroup and
+    ``block // 64`` consumer warpgroups, a grid of (H, B, query tiles).
+    128-row tiles where ``B * H * ceil(Sq / 128)`` blocks still fill ``sms``
+    SMs (the training shape: 512 blocks), else 64-row tiles (the serving
+    prefill B4 H8 S128: 64 blocks where 128 rows would give 32). Shared
+    memory: 1024 bytes of alignment slack, the Q (and dO) tile, ``_STAGES``
+    K and V tiles of 64 keys, dq's delta row, the mbarriers; the launchers
+    check the same sum. fp32, and dk/dv in either dtype, take the scalar
+    route: 64-row tiles, 256 threads, fp32 tiles in shared memory.
+    """
+    if D not in _KERNEL_D:
+        raise ValueError(
+            f"flash kernels support head_dim {_KERNEL_D}, got {D}; other head sizes are "
+            "ROADMAP.md Queue 3b #4")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash kernels take bf16 or fp32 operands, got {dtype}")
+    if dtype == torch.bfloat16 and kernel in ("fwd", "dq"):
+        rows = 128 if B * H * -(-Sq // 128) >= sms else 64
+        slab = 64 * 2 * rows                       # one 64-column bf16 slab of a query tile
+        tiles = (1 if kernel == "fwd" else 2) * (D // 64) * slab
+        kv = 2 * _STAGES * (D // 64) * _TILE_K * 128
+        delta = 4 * rows if kernel == "dq" else 0
+        smem = 1024 + tiles + kv + delta + 8 * (1 + 2 * _STAGES)
+        return Plan("wgmma", rows, (H, B, -(-Sq // rows)), 128 * (rows // 64 + 1), smem)
+    ld, t = _SCALAR_LD, _TILE_K
+    floats = {"fwd": 2 * D * ld + t * D + t * ld,
+              "dq": 4 * D * ld + t * D + t * ld,
+              "dkv": 4 * D * ld + 2 * t * D + t * ld + 2 * t}[kernel]
+    grid = (-(-Sk // t), KV, B) if kernel == "dkv" else (-(-Sq // t), H, B)
+    return Plan("scalar", t, grid, 256, 4 * floats)
+
+
+@functools.cache
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check_kernel_inputs(what, **tensors):
-    """The CUDA kernels take contiguous bf16 CUDA operands with D in 64/128."""
+    """The CUDA kernels take contiguous CUDA operands of one dtype, bf16 or
+    fp32, 16-byte aligned (the tensor maps' rule); :func:`_plan` checks D."""
+    first = next(iter(tensors.values()))
     for name, t in tensors.items():
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-            raise TypeError(f"{what} kernel takes bf16 CUDA tensors; {name} is {t.dtype} on {t.device}")
+        if t.device.type != "cuda" or t.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"{what} kernel takes bf16 or fp32 CUDA tensors; {name} is {t.dtype} on {t.device}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"{what} kernel takes operands of one dtype; {name} is {t.dtype}, not {first.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what} kernel needs {name} contiguous")
-    D = next(iter(tensors.values())).shape[-1]
-    if D not in _KERNEL_D:
-        raise ValueError(f"{what} kernel supports head_dim {_KERNEL_D}, got {D}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel needs {name} 16-byte aligned")
 
 
 def _acc(t):
@@ -128,12 +208,14 @@ def _forward(q, k, v, causal, window):
     _check_kernel_inputs("flash_attention", q=q, k=k, v=v)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    plan = _plan("fwd", B, Sq, Sk, H, KV, D, q.dtype, _sms_of(q.device.index))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _build.launch(
         "flash_attention_fwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, Sq, Sk, H, KV, D, int(causal), window or 0, D ** -0.5,
+        int(q.dtype == torch.float32), plan.block, plan.smem_bytes,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     flash_attention.launches += 1
@@ -202,12 +284,15 @@ def _launch_backward(name, q, k, v, o, lse, do, outs, causal, window):
         raise ValueError(f"{name} kernel needs lse fp32 and contiguous on {q.device}")
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    kernel = "dq" if name == "flash_attention_bwd_dq" else "dkv"
+    plan = _plan(kernel, B, Sq, Sk, H, KV, D, q.dtype, _sms_of(q.device.index))
     _build.launch(
         name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), *(t.data_ptr() for t in outs),
         B, Sq, Sk, H, KV, D, int(causal), window or 0, D ** -0.5,
-        int(outs[0].dtype == torch.float32),
+        int(outs[0].dtype == torch.float32), int(q.dtype == torch.float32),
+        plan.block, plan.smem_bytes,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
 
@@ -294,8 +379,8 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
 
     ``window``: sliding-window (local) attention — position q attends
     [q - window + 1, q]. ``block_q``/``block_k`` keep the TPU op's tiling
-    contract (the sequence lengths must divide them); the CUDA kernels tile
-    at 64 rows by 64 keys whatever they are.
+    contract (the sequence lengths must divide them); the CUDA kernels' tiles
+    are :func:`_plan`'s, whatever they are.
 
     ``return_lse`` also returns the row logsumexp [B, H, Sq] in fp32 (+inf on
     rows that see no key; it carries no gradient). When an input requires

@@ -1,9 +1,12 @@
 """Train steps for LM and classifier models; counterpart of ``kubeflow_tpu/parallel/train.py``.
 
-One device for now: the model's parameters and the optimizer state are
-updated in place, the counterpart of the JAX step's donated state. The
-``mesh`` argument and the sharding rules (``param_rule``, batch sharding)
-come with the port's multi-GPU slice (slice 5).
+The step factories take the reference's arguments in the reference's order
+(``model, tx, mesh, *, param_rule, ..., donate``). One device for now:
+``mesh=None`` is the only mesh, the parameter rule has nothing to place, and
+``TrainStepBundle.state_shardings`` is None. The model's parameters and the
+optimizer state are updated in place, the counterpart of the JAX step's
+donated state, so ``donate`` must stay True. Meshes and the sharding rules
+come with the port's multi-GPU slice (slice 5a).
 """
 from __future__ import annotations
 
@@ -23,6 +26,19 @@ class TrainStepBundle:
 
     init: Callable  # () -> state {"opt_state", "step"} over the model's parameters
     step: Callable  # (state, batch) -> (state, metrics); updates in place
+    state_shardings: object = None  # the state's placement over a mesh; None on one device
+
+
+def _one_device(mesh, donate):
+    """The port's steps run on one device and update in place."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the port's train steps run on one device (mesh=None); meshes and sharding "
+            "rules come with slice 5a (ROADMAP.md Queue 1)")
+    if not donate:
+        raise ValueError(
+            "donate=False is not supported: the port's step updates the parameters and "
+            "the optimizer state in place")
 
 
 def cross_entropy_loss(logits, labels):
@@ -35,10 +51,16 @@ def cross_entropy_loss(logits, labels):
 def make_classifier_train_step(
     model,
     tx: GradientTransformation,
+    mesh=None,
     *,
+    param_rule=None,
     loss_fn: Callable = cross_entropy_loss,
+    donate: bool = True,
 ) -> TrainStepBundle:
     """Build a train step for a classifier with BatchNorm state (``ResNet``).
+
+    ``mesh`` must be None (one device) and ``donate`` True; ``param_rule``
+    places parameters over a mesh and has nothing to do on one device.
 
     The returned ``step`` consumes batches of ``{"image": [B, H, W, C],
     "label": [B]}`` and returns ``(state, {"loss", "accuracy"})``. The
@@ -46,6 +68,7 @@ def make_classifier_train_step(
     statistics (the model's buffers, updated by its train-mode forward) all
     change in place.
     """
+    _one_device(mesh, donate)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def init():
@@ -67,13 +90,19 @@ def make_classifier_train_step(
 def make_lm_train_step(
     model,
     tx: GradientTransformation,
+    mesh=None,
     *,
+    param_rule=None,
     loss_fn: Callable | None = None,
     accum_steps: int = 1,
     chunk: int = 512,
     loss_dtype=None,
+    donate: bool = True,
 ) -> TrainStepBundle:
     """Build an LM train step (tokens [B, S] -> next-token loss).
+
+    ``mesh`` must be None (one device) and ``donate`` True; ``param_rule``
+    places parameters over a mesh and has nothing to do on one device.
 
     ``loss_fn(model, tokens) -> scalar`` defaults to the chunked tied-head
     loss for ``TransformerLM``-shaped models: ``lm_loss_chunked(hidden,
@@ -87,6 +116,7 @@ def make_lm_train_step(
     per-microbatch means equals the full-batch gradient), and ONE optimizer
     update applies.
     """
+    _one_device(mesh, donate)
     params = [p for p in model.parameters() if p.requires_grad]
 
     if loss_fn is None:
