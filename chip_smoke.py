@@ -13,15 +13,19 @@ Phases, each of which fails the run with a non-zero exit:
             and the least time the card could take (bound); the forward and
             the two backward kernels also at the training shape, with their
             TFLOP/s of the bound's work, and on their fp32 route (fp32 cases
-            against the plain versions, TF32 off); the build phase counts the
+            against the plain versions, TF32 off); flash-decode also in fp32
+            and at 12 and 16 query heads a group; the build phase counts the
             tensor-core instructions (HGMMA) of the flash libraries, which
-            the bf16 forward and dq must have;
+            the bf16 forward, dq and dk/dv must have;
 3. generate run ``generate`` at the full flagship decode config (24 layers,
             GQA 8/4 heads, 410.3M parameters, seeded weights): batch 4, prompt 128, 128 new
             tokens, temperature 0.8, top_k 40, with every kernel launch
             counter set to 0 just before and read just after;
 4. parity   the card's prefill logits against the same module on the CPU
             (plain versions, fp32 weights) at 2 layers of the same width;
+            then ``generate`` on a 2-layer fp32 flash model of that width
+            (the fp32 prefill and flash-decode kernels, launches counted) and
+            one decode step's logits against the CPU;
 5. train    ``make_lm_train_step`` on the full flagship training config (24
             layers, 8 heads, 435.5M fp32 parameters, seeded weights) with
             ``adamw_lowmem`` and the chunked loss: one warm-up step, then 5
@@ -135,11 +139,19 @@ OUT_ATOL_RMS = 0.05
 LSE_ATOL = 1e-3               # fp32 throughout; differs only in summation order
 # the first port's scalar flash kernels on this card (PERF.md's kernel table:
 # H100 80GB HBM3, 700 W), printed beside this run's times
-SCALAR_FLASH_MS = {"fwd_serving": 0.0428, "fwd_train": 3.1914, "dq_train": 3.5763}
+SCALAR_FLASH_MS = {"fwd_serving": 0.0428, "fwd_train": 3.1914, "dq_train": 3.5763,
+                   "dkv_train": 3.2523}
 # card (bf16 weights and activations) vs CPU (fp32) on the last prefill
 # logits of a 2-layer model, logits std ~1: the card measured 0.0699 on an
 # H100 in every run recorded in PERF.md; the limit is twice that.
 PARITY_ATOL = 0.14
+# generate() on a 2-layer fp32 flash model at the decode flagship's width
+# (the fp32 prefill and flash-decode kernels), card vs CPU (plain versions):
+# fp32 on both sides and TF32 off, so the logits of one decode step differ
+# by summation order only (~1e-5 at logits std ~1); a wrong or missing
+# attention row moves them by a sizeable fraction of their std
+GEN_FP32_LAYERS, GEN_FP32_NEW = 2, 16
+GEN_FP32_LOGITS_ATOL = 1e-3
 # one train step at 2 layers of the training width, B2 S256, card (bf16
 # activations) vs CPU (fp32): on an H100 the loss (~10.95) differed by
 # 0.00083 and the global gradient norm by 6.75e-5 of itself, the inputs and
@@ -290,8 +302,10 @@ def phase_build():
         f"the stats probe's scaled moments)")
     for name in libs:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                log(f"[build] {name}: {line.split(chr(39))[1][:90]}")
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}:   {line.strip()}")
     return libs
 
 
@@ -299,7 +313,8 @@ def tensor_core_counts(libs):
     """Tensor-core instructions in each flash library: HGMMA (wgmma) and HMMA
     (mma.sync) in the SASS that ``cuobjdump`` shows, or, without it,
     ``wgmma.mma_async`` and ``mma.sync`` in ``nvcc -ptx`` output. The bf16
-    route of the forward and dq must issue wgmma; the scalar kernels none."""
+    route of the forward, dq and dk/dv must issue wgmma; the scalar kernels
+    none."""
     from kubeflow_tpu_torch.ops import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -317,7 +332,7 @@ def tensor_core_counts(libs):
             counts[name] = {"wgmma": text.count("wgmma.mma_async"), "mma": text.count("mma.sync")}
         log(f"[build] {name}: tensor-core instructions {counts[name]} "
             f"({'cuobjdump -sass' if tool.is_file() else 'nvcc -ptx'})")
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         if not max(counts[name].values()):
             raise AssertionError(f"{name} has no tensor-core instruction: its bf16 route must use wgmma")
     return counts
@@ -425,12 +440,20 @@ def phase_kernels(torch):
     B, G, R, D, L = BATCH, 4, 2, 128, FLAGSHIP["max_seq_len"]
     flagship = (B, G, R, D, L)
     worst = 0.0
-    dec_cases = [(f"pos={p}", flagship, [p] * B, None) for p in (0, 127, 255, 256, 2047)]
-    dec_cases += [("per_row_pos", flagship, [0, 255, 1024, 2047], None),
-                  ("window_100", flagship, [5, 300, 1500, 2047], 100),
-                  ("d64_r4", (2, 2, 4, 64, 512), [63, 500], None)]
-    for name, (B, G, R, D, L), pos_list, window in dec_cases:
-        kc, vc, qd = randn(B, G, L, D), randn(B, G, L, D), randn(B, G, R, D)
+    dec_cases = [(f"pos={p}", flagship, [p] * B, None, bf16) for p in (0, 127, 255, 256, 2047)]
+    dec_cases += [("per_row_pos", flagship, [0, 255, 1024, 2047], None, bf16),
+                  ("window_100", flagship, [5, 300, 1500, 2047], 100, bf16),
+                  ("d64_r4", (2, 2, 4, 64, 512), [63, 500], None, bf16),
+                  # more than 8 query heads a group: chunks of 8 on a grid axis
+                  ("mqa_r16", (2, 1, 16, 128, 512), [100, 511], None, bf16),
+                  ("r12_g2_d64_window_48", (2, 2, 12, 64, 512), [63, 500], 48, bf16),
+                  # fp32 operands: probabilities kept in fp32, as the TPU kernel's astype
+                  ("fp32_per_row_pos", flagship, [0, 255, 1024, 2047], None, f32),
+                  ("fp32_window_100", flagship, [5, 300, 1500, 2047], 100, f32),
+                  ("fp32_mqa_r16_window_48", (2, 1, 16, 128, 512), [100, 511], 48, f32),
+                  ("fp32_r12_g2_d64", (2, 2, 12, 64, 512), [63, 500], None, f32)]
+    for name, (B, G, R, D, L), pos_list, window, dt in dec_cases:
+        kc, vc, qd = (randn(*shape).to(dt) for shape in ((B, G, L, D), (B, G, L, D), (B, G, R, D)))
         kpos = torch.arange(L, device="cuda")
         pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
         live = kpos[None, :] <= pos[:, None].long()
@@ -445,12 +468,14 @@ def phase_kernels(torch):
         o_ref = flash_decode_plain(qd, kg, vg, pos, window=window)
         torch.cuda.synchronize()
         ok, err, ratio, rms = check_out(o, o_ref)
-        log(f"[kernels] flash_decode {name} window={window}: max_abs_err {err:.3e} "
+        ok = ok and o.dtype == dt
+        log(f"[kernels] flash_decode {name} ({dt}, R {R}) window={window}: max_abs_err {err:.3e} "
             f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, atol "
             f"{OUT_ATOL_RMS}*rms) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_decode disagrees with its plain version ({name})")
-        worst = max(worst, err)
+        if dt == bf16:
+            worst = max(worst, err)
 
     # timed at the request's mean decode position: steps run at 128 .. 254
     B, G, R, D, L = flagship
@@ -465,14 +490,17 @@ def phase_kernels(torch):
     n_bytes = 2 * (2 * B * G * R * D) + 2 * (2 * B * G * (p_mean + 1) * D) + 4 * B
     flops = 4 * B * G * R * (p_mean + 1) * D
     bms, by = bound_ms(n_bytes, flops)
+    # the fp32 route at the same shape (an fp32 decode_config model's step)
+    kf, vf, qf = kc.float(), vc.float(), qd.float()
+    f32_ms = device_ms(torch, lambda: flash_decode(qf, kf, vf, pos), cold=True)
     results["flash_decode"] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=bms, bound_by=by,
+        bound_ms=bms, bound_by=by, fp32_ms=f32_ms,
     )
     log(f"[kernels] flash_decode B{B} G{G} R{R} D{D} L{L} pos {p_mean}, L2 flushed: "
         f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
         f"(scaled_dot_product_attention) bound_ms {bms:.5f} ({by}: "
-        f"{n_bytes} B, {flops} FLOP)")
+        f"{n_bytes} B, {flops} FLOP); fp32 operands kernel_ms {f32_ms:.4f}")
     return results
 
 
@@ -511,6 +539,8 @@ def phase_kernels_bwd(torch):
         ("mqa_8_1", 2, 256, 256, 8, 1, 128, True, None, None, bf16),
         ("b1_h16_kv8_window100_d64", 1, 2048, 2048, 16, 8, 64, True, 100, f32, bf16),
         ("window_1000_over_s256", 2, 256, 256, 8, 4, 128, True, 1000, None, bf16),
+        # dk/dv's 2-warpgroup variant at D 64 walking a group of 4 query heads
+        ("gqa_8_2_s2048_d64", 8, 2048, 2048, 8, 2, 64, True, None, None, bf16),
         # the fp32 route (scalar kernels, dq, dk and dv in fp32)
         ("fp32_gqa_8_4_window100", BATCH, 256, 256, 8, 4, 128, True, 100, None, f32),
         ("fp32_ragged_s96_d64", 2, 96, 96, 4, 2, 64, True, None, None, f32),
@@ -528,10 +558,12 @@ def phase_kernels_bwd(torch):
         want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
         route = pa._plan("dq", B, Sq, Sk, H, KV, D, dt, sms)
+        route_kv = pa._plan("dkv", B, Sq, Sk, H, KV, D, dt, sms)
         for grad, g, w in zip(("dq", "dk", "dv"), got, want):
             ok, err, ratio, rms = check_out(g, w)
             ok = ok and g.dtype == w.dtype
-            where = f"dq: {route.route}, {route.block}-row tiles; " if grad == "dq" else ""
+            where = (f"dq: {route.route}, {route.block}-row tiles; " if grad == "dq" else
+                     f"dk/dv: {route_kv.route}, {route_kv.block} keys a block; ")
             log(f"[kernels] flash_attention_bwd {name} {grad} ({where}operands {dt}, {g.dtype}): "
                 f"max_abs_err {err:.3e} (rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, "
                 f"atol {OUT_ATOL_RMS}*rms) {'ok' if ok else 'FAIL'}")
@@ -586,8 +618,8 @@ def phase_kernels_bwd(torch):
         f"{times['fwd_plain']:.4f} library_ms {times['fwd_lib']:.4f} bound_ms {fwd_b:.5f} ({fwd_f})")
     log(f"[kernels]   flash_attention_bwd_dq kernel_ms {times['dq']:.4f} ({tflops['dq']:.1f} TFLOP/s; "
         f"the first scalar kernel {SCALAR_FLASH_MS['dq_train']}) bound_ms {dq_b:.5f} ({dq_f})")
-    log(f"[kernels]   flash_attention_bwd_dkv kernel_ms {times['dkv']:.4f} ({tflops['dkv']:.1f} TFLOP/s) "
-        f"bound_ms {dkv_b:.5f} ({dkv_f})")
+    log(f"[kernels]   flash_attention_bwd_dkv kernel_ms {times['dkv']:.4f} ({tflops['dkv']:.1f} TFLOP/s; "
+        f"the first scalar kernel {SCALAR_FLASH_MS['dkv_train']}) bound_ms {dkv_b:.5f} ({dkv_f})")
     log(f"[kernels]   fp32 route (fp32 operands, scalar kernels): forward {times['fwd_f32']:.4f} ms, "
         f"dq {times['dq_f32']:.4f} ms, dk/dv {times['dkv_f32']:.4f} ms")
     log(f"[kernels]   plain backward (dq, dk, dv together) {times['bwd_plain']:.4f} ms; "
@@ -767,6 +799,50 @@ def phase_parity(torch, np):
     if not torch.isfinite(got).all() or err > PARITY_ATOL:
         raise AssertionError(f"card prefill disagrees with the CPU: {err}")
     return dict(max_abs_err=err, argmax_agreement=agree)
+
+
+def phase_generate_fp32(torch, np):
+    """``generate`` on a 2-layer fp32 flash model: the prefill and every
+    decode step go through the fp32 kernels (launches counted), and one
+    decode step's logits match the same model on the CPU."""
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.ops.flash_decode import flash_decode
+    from kubeflow_tpu_torch.ops.pallas_attention import flash_attention
+
+    cfg = kt.TransformerConfig(**dict(FLAGSHIP, num_layers=GEN_FP32_LAYERS), dtype=torch.float32)
+    sd = kt.init_state_dict(cfg, seed=2, device="cpu")
+    models = {}
+    for where in ("cuda", "cpu"):
+        models[where] = kt.TransformerLM(kt.decode_config(cfg), device=where)
+        models[where].load_state_dict(sd)
+    prompt = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (BATCH, PROMPT)))
+    flash_attention.launches = flash_decode.launches = 0
+    out = kt.generate(models["cuda"], prompt, max_new_tokens=GEN_FP32_NEW)
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "flash_decode": flash_decode.launches}
+    want = {"flash_attention_fwd": cfg.num_layers,
+            "flash_decode": cfg.num_layers * (GEN_FP32_NEW - 1)}
+    log(f"[generate fp32] {cfg.num_layers}-layer fp32 flash model, greedy B{BATCH} P{PROMPT} "
+        f"+{GEN_FP32_NEW}: launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"fp32 generate launch counts {launches} != {want}")
+    ref = kt.generate(models["cpu"], prompt, max_new_tokens=GEN_FP32_NEW)
+    agree = (out.cpu()[:, PROMPT:] == ref[:, PROMPT:]).float().mean().item()
+    steps = {}
+    with torch.inference_mode():
+        for where, model in models.items():
+            cache, last = kt.prefill(model, prompt)
+            tok = ref[:, PROMPT].to(model.device, torch.int64)
+            steps[where] = model(tok[:, None], start=PROMPT, cache=cache)[:, -1].float().cpu()
+    err = (steps["cuda"] - steps["cpu"]).abs().max().item()
+    log(f"[generate fp32] one decode step's logits card vs cpu (fp32 both): max_abs_err "
+        f"{err:.3e} (atol {GEN_FP32_LOGITS_ATOL}; logits std {steps['cpu'].std().item():.3f}); "
+        f"greedy tokens agree {agree:.3f}")
+    if not torch.isfinite(steps["cuda"]).all() or err > GEN_FP32_LOGITS_ATOL:
+        raise AssertionError(f"fp32 decode step disagrees with the CPU: {err}")
+    return dict(launches=launches, step_logits_max_abs_err=err, token_agreement=agree)
 
 
 def _train_cell(torch, np, tag, bundle, tokens, counters, per_step, flops_tok, steps, vocab):
@@ -1992,6 +2068,7 @@ def main() -> int:
     kernels.update(bwd)
     gen = phase_generate(torch, np)
     report["parity"] = phase_parity(torch, np)
+    report["generate_fp32"] = phase_generate_fp32(torch, np)
     train = phase_train(torch, np)
     report["train_parity"] = phase_train_parity(torch, np)
     moe_kernels, report["moe_kernel_launches"] = phase_moe_kernels(torch)

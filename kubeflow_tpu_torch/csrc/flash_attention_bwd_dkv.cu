@@ -1,50 +1,75 @@
-// Flash-attention backward, dk and dv, for Hopper (sm_90a): bf16 or fp32
-// operands (the same scalar kernel for both), fp32 math.
+// Flash-attention backward, dk and dv, for Hopper (sm_90a): fp32 math.
 //
 // Replaces the Pallas kernel _dkv_kernel (kubeflow_tpu/ops/pallas_attention.py:336).
 // Layout: q, o, do [B, Sq, H, D], k/v [B, Sk, KV, D], all contiguous, one type;
 // lse [B, H, Sq] fp32 (+inf on rows that see no key); dk, dv [B, Sk, KV, D]
 // in fp32 (out_f32) or the operands' type. Query head h reads kv head h / (H / KV).
 //
-// One thread block per (64-key tile, KV head, batch row), 256 threads as a
-// 16 x 16 grid. The k and v tiles stay in shared memory for the whole block.
-// The block loops over the group's H / KV query heads and, for each head,
-// over the query tiles that can see its keys: from the diagonal to the
-// sliding window's far edge (the TPU kernel's _q_valid, :119-130). Thread
-// (ty, tx) owns keys ty*4 .. ty*4+3: per query tile it computes the 4 x 4
-// transposed scores s^T = k q^T and dp^T = v do^T of those keys against query
-// rows tx*4 .. tx*4+3, and it accumulates dk and dv of those keys in columns
-// c*64 + tx*4 .. +3 (c < D/64) in fp32 registers across every head and tile.
-// delta = rowsum(do * o) is recomputed per query tile from the do and o tiles
-// (the TPU kernel does the same, :352-355). p = exp(s * scale - lse) is
-// rounded to the operands' type before p^T do, and ds = p * (dp - delta) *
-// scale before ds^T q, as the TPU kernel rounds them to do's and q's dtype
-// (in fp32 both roundings are the identity).
+// For one kv head and its keys, over every query head of the GQA group and
+// every query tile that can see those keys (from the diagonal to the
+// sliding window's far edge, the TPU kernel's _q_valid, :119-130):
+// dV += P^T dO and dK += dS^T Q, with P = exp(S * scale - lse) and dS = P *
+// (dP - delta) * scale. delta = rowsum(do * o) is recomputed in fp32 from the
+// do and o tiles (the TPU kernel does the same, :352-355), so the launch
+// takes no delta array. P is rounded to the operands' type only as the
+// operand of P^T dO, dS only as the operand of dS^T Q, and dS is formed from
+// the fp32 P (the TPU kernel's rounding points, :363-372; in fp32 both
+// roundings are the identity).
 //
 // The TPU kernel's grid runs per query head, so under GQA it writes
 // [B, H, Sk, D] fp32 partials and sums them afterwards (:428-456). Here one
-// block owns the kv head and sums its group in registers: no partials, no
-// atomics, and the result is deterministic.
+// block owns the kv head and sums its group in fp32 registers: no partials,
+// no atomics, and the result is deterministic.
 //
 // Bound at the flagship training shape (B4 H8 S2048 D128, causal): FLOPs,
 // four causal matmuls (k q^T, v do^T, p^T do, ds^T q) = 6.9e10 FLOP, 0.070 ms
 // at the card's 989 TFLOP/s bf16 peak, against ~84 MB of bf16 operands
-// (0.025 ms at 3.35 TB/s). These scalar fp32 FMAs from shared memory cannot
-// approach the tensor cores' rate; what the design does is hold k, v and the
-// accumulators on chip for the whole block, read each visible q/do tile once
-// per kv head, and skip masked tiles. Tensor-core tiles are later work.
+// (0.025 ms at 3.35 TB/s).
 //
-// Shared memory at D = 128: k^T, v^T, q^T, do^T [D][68] and q, do [64][D] in
-// fp32, one p/ds^T tile and per-row delta and lse: 222,720 bytes, under the
-// 227 KB a block may take, through the dynamic shared-memory attribute.
+// bf16 operands: the tensor-core kernel flash_dkv_wgmma, FA3's backward
+// shape without dQ (flash_attention_bwd_dq.cu computes dq). One block per
+// (kv head, batch row, 64 * NWG keys), the lowest keys (the most query tiles
+// under a causal mask) first. Thread 0 loads the block's K and V tiles once
+// by TMA (they stay resident) and walks the (query head, 64-row query tile)
+// pairs that can see them, feeding the Q, dO and O tiles through a 2-stage
+// mbarrier ring: it refills a stage as soon as both warpgroups released it,
+// polling at the top of each tile and while the tile's last products run.
+// Each of the NWG consumer warpgroups owns 64 keys and per tile computes
+// S^T = K Q^T and dP^T = V dO^T with wgmma from shared memory (K, V, Q and dO
+// stored [rows, D] are K-major for both), delta and lse of the tile's 64
+// queries while those run, P^T and dS^T in fp32 registers (the queries are
+// the accumulators' columns; masks only on edge tiles), and dV += P^T dO,
+// dK += dS^T Q with P^T's and dS^T's bf16 A fragments taken from the
+// accumulator registers and dO, Q read MN-major from the same tiles. dK and
+// dV stay in fp32 registers across the whole walk.
+//
+// Registers are the design question: at D 128 a consumer thread holds dK 64
+// + dV 64 + S^T 32 + dP^T 32 fp32 accumulators (255 registers in all, no
+// spills). A producer warpgroup beside two consumers (the forward's and
+// dq's shape) puts three warps on each of the SM's four register files, and
+// CUDA 12.8's ptxas then caps every thread at 168 registers whatever
+// setmaxnreg asks for at run time: that build spilled 804 bytes, serialised
+// its wgmmas (C7512) and took 0.94 ms at the training shape on an H100 80GB
+// HBM3. Without it, two warps a register file may take 255.
+//
+// fp32 operands: the scalar kernel flash_bwd_dkv_kernel (the first port's
+// design): one block per (64-key tile, kv head, batch row), 256 threads as
+// a 16 x 16 grid, fp32 tiles in shared memory (222,720 bytes at D 128), fp32
+// FMAs; thread (ty, tx) owns keys ty*4 .. ty*4+3 and columns c*64 + tx*4 ..
+// +3 of dk and dv.
 
 #include "flash_common.cuh"
 
 namespace {
 
+using flash::bf16;
 using flash::from_f;
 using flash::round_to;
 using flash::to_f;
+
+// ---- the scalar route (fp32)
+
+namespace scalar {
 
 constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per block
@@ -239,40 +264,331 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* lse, const void* dout, void* dk, void* dv, int B, int Sq,
-           int Sk, int H, int KV, int causal, int window, float scale,
-           int out_f32, int smem, cudaStream_t stream) {
-  if (smem != (int)(smem_floats(D) * sizeof(float))) return (int)cudaErrorInvalidValue;
+}  // namespace scalar
+
+// ---- the tensor-core route (bf16)
+
+// Shared memory of flash_dkv_wgmma, in bytes from a 1024-aligned base: the
+// block's K and V tiles (D / 64 slabs of BKB rows each, resident), STAGES
+// Q, dO and O tiles (D / 64 slabs of 64 rows each), each consumer
+// warpgroup's two [delta 64 | lse * log2(e) 64] fp32 rows, then the
+// mbarriers: K/V, full[STAGES], empty[STAGES]. ops/pallas_attention.py
+// (_plan) computes the same bytes; the launcher checks them.
+template <int D, int NWG>
+struct DkvLayout {
+  static constexpr int BKB = 64 * NWG;
+  static constexpr int NS = D / 64;
+  static constexpr int SLAB_KB = BKB * 128;
+  static constexpr int SLAB_Q = flash::QROWS * 128;
+  static constexpr int K = 0;
+  static constexpr int V = K + NS * SLAB_KB;
+  static constexpr int Q = V + NS * SLAB_KB;
+  static constexpr int DO = Q + flash::STAGES * NS * SLAB_Q;
+  static constexpr int O = DO + flash::STAGES * NS * SLAB_Q;
+  static constexpr int ROWS = O + flash::STAGES * NS * SLAB_Q;
+  static constexpr int BAR = ROWS + NWG * 2 * 2 * flash::QROWS * 4;
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1)
+flash_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tout,
+                const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                void* __restrict__ dk, void* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                int causal, int window, float scale, int out_f32) {
+  using namespace flash;
+  using L = DkvLayout<D, NWG>;
+  constexpr int NS = L::NS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar_kv = s_base + L::BAR;
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * L::BKB;  // the lowest keys, the heaviest causal blocks, first
+  const int group = H / KV;
+  const QueryTiles qt = query_tiles(k0, L::BKB, Sq, Sk, causal, window);
+  const int n = group * qt.count;      // (query head, query tile) pairs, head by head
+  init_barriers(bar_kv, NWG * 128);
+
+  // ---- thread 0 also produces: ring tile j (query head kvh * group + j /
+  // count) goes into stage j % STAGES once the consumers of tile j - STAGES
+  // released it. It blocks only for the tile its own warpgroup needs next,
+  // `must`, and otherwise issues what is free, at most STAGES - 1 ahead.
+  int issued = 0;
+  auto refill = [&](int must) {
+    while (issued < n && issued < must + STAGES) {
+      const int j = issued, sj = j % STAGES;
+      const uint32_t empty = bar_empty(bar_kv, sj), full = bar_full(bar_kv, sj);
+      const int parity = ((j / STAGES) & 1) ^ 1;
+      if (j > must && !mbar_try_wait(empty, parity)) break;
+      mbar_wait(empty, parity);
+      const int h = kvh * group + j / qt.count;
+      const int q0 = (qt.first + j % qt.count) * QROWS;
+      mbar_expect_tx(full, 3 * NS * L::SLAB_Q);
+      for (int s = 0; s < NS; ++s) {
+        const uint32_t off = (sj * NS + s) * L::SLAB_Q;
+        tma_load(s_base + L::Q + off, &tq, 64 * s, h, q0, b, full);
+        tma_load(s_base + L::DO + off, &tdo, 64 * s, h, q0, b, full);
+        tma_load(s_base + L::O + off, &tout, 64 * s, h, q0, b, full);
+      }
+      ++issued;
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_kv, 2 * NS * L::SLAB_KB);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(s_base + L::K + s * L::SLAB_KB, &tk, 64 * s, kvh, k0, b, bar_kv);
+      tma_load(s_base + L::V + s * L::SLAB_KB, &tv, 64 * s, kvh, k0, b, bar_kv);
+    }
+    refill(0);
+  }
+  __syncwarp();
+
+  // ---- consumers: warpgroup c owns keys kc0 .. kc0 + 63
+  const int c = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kc0 = k0 + 64 * c;
+  const int key[2] = {kc0 + 16 * warp + g, kc0 + 16 * warp + g + 8};
+  const float sl2 = scale * LOG2E;
+  const uint32_t k_tile = s_base + L::K + c * 64 * 128;
+  const uint32_t v_tile = s_base + L::V + c * 64 * 128;
+  float* rows_c = reinterpret_cast<float*>(smem + L::ROWS) + c * 2 * 2 * QROWS;
+
+  float acc_dk[D / 2], acc_dv[D / 2];  // dK, dV [64, D]: D / 8 column blocks of 4
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  int done = 0;                        // tiles this warpgroup computed: picks its rows buffer
+  for (int it = 0; it < n; ++it) {
+    const int st = it % STAGES;
+    const int h = kvh * group + it / qt.count;
+    const int q0 = (qt.first + it % qt.count) * QROWS;
+    if (threadIdx.x == 0) refill(it);
+    __syncwarp();
+    mbar_wait(bar_full(bar_kv, st), (it / STAGES) & 1);
+    if (!qtile_hidden(kc0, q0, Sq, Sk, causal, window)) {
+      const int qr = q0 + (threadIdx.x % 128) / 2;   // this thread's row of the delta pass
+      const float lse2_r = qr < Sq ? lse[((size_t)b * H + h) * Sq + qr] * LOG2E : INFINITY;
+      const uint32_t q_tile = s_base + L::Q + st * NS * L::SLAB_Q;
+      const uint32_t do_tile = s_base + L::DO + st * NS * L::SLAB_Q;
+      const uint32_t o_tile = s_base + L::O + st * NS * L::SLAB_Q;
+      float s[QROWS / 2], dp[QROWS / 2];   // S^T, dP^T [64 keys, 64 queries]
+#pragma unroll
+      for (int i = 0; i < QROWS / 2; ++i) s[i] = dp[i] = 0.f;
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(s, desc_k(k_tile, L::SLAB_KB, kk), desc_k(q_tile, L::SLAB_Q, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k(v_tile, L::SLAB_KB, kk), desc_k(do_tile, L::SLAB_Q, kk), kk > 0);
+      wgmma_commit();
+
+      // while they run: delta = rowsum(dO * O) and lse * log2(e) of the
+      // tile's 64 query rows, two threads a row, from the swizzled tiles
+      float* rows = rows_c + (done++ & 1) * 2 * QROWS;
+      {
+        const int i = threadIdx.x % 128, r = i / 2, half = i % 2;
+        const uint8_t* do_row = smem + (do_tile - s_base) + r * 128;
+        const uint8_t* o_row = smem + (o_tile - s_base) + r * 128;
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < D / 16; ++u) {
+          const int cc = half * (D / 16) + u;   // 16-byte chunk of the row
+          const int off = (cc / 8) * L::SLAB_Q + (((cc % 8) ^ (r % 8)) << 4);
+          const uint4 d4 = *reinterpret_cast<const uint4*>(do_row + off);
+          const uint4 o4 = *reinterpret_cast<const uint4*>(o_row + off);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d4);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = __bfloat1622float2(d2[e]), y = __bfloat1622float2(o2[e]);
+            sum = fmaf(x.x, y.x, sum);
+            sum = fmaf(x.y, y.y, sum);
+          }
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        if (half == 0) {
+          rows[r] = sum;
+          rows[QROWS + r] = lse2_r;
+        }
+        named_sync(1 + c, 128);
+      }
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // columns are queries: element x = 4j + 2i + e is (key[i], query
+      // q0 + 8j + 2t + e); p and ds in place, from the fp32 p. Only edge
+      // tiles test each pair: a test per element on every tile cost a
+      // quarter of the kernel's time.
+      if (qtile_edge(kc0, q0, Sq, Sk, causal, window)) {
+#pragma unroll
+        for (int j = 0; j < QROWS / 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float2 delta = *reinterpret_cast<const float2*>(rows + col);
+          const float2 lse2 = *reinterpret_cast<const float2*>(rows + QROWS + col);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * j + 2 * i + e, qp = q0 + col + e;
+              const bool keep = qp < Sq && visible(key[i], qp, Sk, causal, window);
+              // masked pairs, queries past Sq and rows with lse = +inf give p = 0
+              const float p = keep ? exp2f(fmaf(s[x], sl2, -(e ? lse2.y : lse2.x))) : 0.f;
+              s[x] = p;
+              dp[x] = p * (dp[x] - (e ? delta.y : delta.x)) * scale;
+            }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < QROWS / 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float2 delta = *reinterpret_cast<const float2*>(rows + col);
+          const float2 lse2 = *reinterpret_cast<const float2*>(rows + QROWS + col);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * j + 2 * i + e;
+              // a row with lse = +inf gives p = 0
+              const float p = exp2f(fmaf(s[x], sl2, -(e ? lse2.y : lse2.x)));
+              s[x] = p;
+              dp[x] = p * (dp[x] - (e ? delta.y : delta.x)) * scale;
+            }
+        }
+      }
+      uint32_t pa[QROWS / 16][4], da[QROWS / 16][4];   // P^T, dS^T in bf16: A operands
+#pragma unroll
+      for (int kk = 0; kk < QROWS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        }
+
+      fence_regs(acc_dv);
+      fence_regs(acc_dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QROWS / 16; ++kk) {
+        if constexpr (D == 128)
+          wgmma_rs_n128(acc_dv, pa[kk], desc_mn(do_tile, kk), 1);
+        else
+          wgmma_rs_n64(acc_dv, pa[kk], desc_mn(do_tile, kk), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < QROWS / 16; ++kk) {
+        if constexpr (D == 128)
+          wgmma_rs_n128(acc_dk, da[kk], desc_mn(q_tile, kk), 1);
+        else
+          wgmma_rs_n64(acc_dk, da[kk], desc_mn(q_tile, kk), 1);
+      }
+      wgmma_commit();
+      if (threadIdx.x == 0) refill(it);   // while they run
+      __syncwarp();
+      wgmma_wait_all();
+      fence_regs(acc_dv);
+      fence_regs(acc_dk);
+    }
+    mbar_arrive(bar_empty(bar_kv, st));
+  }
+
+  // keys past Sk are never stored; a block no query sees stores zeros
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= Sk) continue;
+    const size_t off = (((size_t)b * Sk + key[i]) * KV + kvh) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int x = 4 * j + 2 * i;
+      if (out_f32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(dk) + off + 8 * j) =
+            make_float2(acc_dk[x], acc_dk[x + 1]);
+        *reinterpret_cast<float2*>(static_cast<float*>(dv) + off + 8 * j) =
+            make_float2(acc_dv[x], acc_dv[x + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dk) + off + 8 * j) =
+            __floats2bfloat162_rn(acc_dk[x], acc_dk[x + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dv) + off + 8 * j) =
+            __floats2bfloat162_rn(acc_dv[x], acc_dv[x + 1]);
+      }
+    }
+  }
+}
+
+template <int D, int NWG>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                 const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+                 int causal, int window, float scale, int out_f32, int smem,
+                 cudaStream_t stream) {
+  using L = DkvLayout<D, NWG>;
+  if (smem != L::bytes) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tout, tdo;
+  int err = flash::make_map(&tq, q, D, H, Sq, B, flash::QROWS);
+  if (!err) err = flash::make_map(&tdo, dout, D, H, Sq, B, flash::QROWS);
+  if (!err) err = flash::make_map(&tout, o, D, H, Sq, B, flash::QROWS);
+  if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, L::BKB);
+  if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, L::BKB);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_dkv_wgmma<D, NWG>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(KV, B, (Sk + L::BKB - 1) / L::BKB);
+  flash_dkv_wgmma<D, NWG><<<grid, 128 * NWG, smem, stream>>>(
+      tq, tk, tv, tout, tdo, static_cast<const float*>(lse), dk, dv, Sq, Sk, H, KV, causal,
+      window, scale, out_f32);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_scalar(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                  const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+                  int causal, int window, float scale, int out_f32, int smem,
+                  cudaStream_t stream) {
+  using scalar::flash_bwd_dkv_kernel;
+  if (smem != (int)(scalar::smem_floats(D) * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dkv_kernel<D, float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sk + BK - 1) / BK, KV, B);
-  flash_bwd_dkv_kernel<D, T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const float*>(lse), static_cast<const T*>(dout),
-      dk, dv, Sq, Sk, H, KV, causal, window, scale, out_f32);
+  const dim3 grid((Sk + scalar::BK - 1) / scalar::BK, KV, B);
+  flash_bwd_dkv_kernel<D, float><<<grid, scalar::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<const float*>(dout), dk, dv, Sq, Sk, H, KV, causal, window, scale, out_f32);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// f32: 0 for bf16 operands, 1 for fp32 (dk and dv in fp32); block_k: 64,
-// the keys a block owns; smem: the plan's shared-memory bytes, checked
-// against the kernel's own layout.
+// f32: 0 for bf16 operands (tensor-core kernel, block_k 64 or 128 keys a
+// block), 1 for fp32 (scalar kernel, block_k 64, dk and dv in fp32). smem:
+// the plan's shared-memory bytes, checked against the kernel's own layout.
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
     int D, int causal, int window, float scale, int out_f32, int f32, int block_k,
     int smem, void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || block_k != BK ||
-      (f32 && !out_f32))
+  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || (f32 && !out_f32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, dout, dk, dv, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
-  if (D == 128) return f32 ? launch<128, float>(ARGS) : launch<128, flash::bf16>(ARGS);
-  if (D == 64) return f32 ? launch<64, float>(ARGS) : launch<64, flash::bf16>(ARGS);
+  if (f32) {
+    if (block_k != scalar::BK) return (int)cudaErrorInvalidValue;
+    if (D == 128) return launch_scalar<128>(ARGS);
+    if (D == 64) return launch_scalar<64>(ARGS);
+  } else {
+    if (D == 128 && block_k == 128) return launch_wgmma<128, 2>(ARGS);
+    if (D == 128 && block_k == 64) return launch_wgmma<128, 1>(ARGS);
+    if (D == 64 && block_k == 128) return launch_wgmma<64, 2>(ARGS);
+    if (D == 64 && block_k == 64) return launch_wgmma<64, 1>(ARGS);
+  }
 #undef ARGS
   return (int)cudaErrorInvalidValue;
 }

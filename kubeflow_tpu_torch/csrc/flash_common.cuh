@@ -1,13 +1,15 @@
 // Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu).
+// flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu) and of
+// flash_decode.cu (the fp32 / bf16 conversions).
 //
-// Two routes. bf16 operands take the tensor-core kernels of the forward and
-// dq: K/V tiles arrive by TMA (cp.async.bulk.tensor) into a ring of shared
-// memory stages guarded by mbarriers, one producer warpgroup issues the
-// copies, and consumer warpgroups multiply with wgmma (Hopper's warpgroup
-// MMA, bf16 operands, fp32 accumulators). fp32 operands take the scalar
-// kernels, which stage tiles as fp32 in shared memory and multiply with fp32
-// FMAs; the dk/dv kernel is scalar on both routes.
+// Two routes. bf16 operands take the tensor-core kernels: tiles arrive by
+// TMA (cp.async.bulk.tensor) into a ring of shared memory stages guarded by
+// mbarriers, a producer (a warpgroup for the forward and dq, thread 0 for
+// dk/dv) issues the copies, and consumer warpgroups multiply with wgmma
+// (Hopper's warpgroup MMA, bf16 operands, fp32 accumulators). The forward
+// and dq stream K/V tiles past a resident query tile; dk/dv streams Q/dO/O
+// tiles past resident K/V. fp32 operands take the scalar kernels, which
+// stage tiles as fp32 in shared memory and multiply with fp32 FMAs.
 //
 // Shared-memory tiles of the tensor-core route are bf16 rows of 128 bytes
 // (64 head-dim columns, or 64 keys), in "slabs" of R rows x 64 columns with
@@ -51,7 +53,8 @@ __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(
 
 // ---- the tensor-core route
 
-constexpr int BK = 64;                // keys a tile
+constexpr int BK = 64;                // keys a tile (forward, dq)
+constexpr int QROWS = 64;             // query rows a ring tile (dk/dv)
 constexpr int STAGES = 2;             // K/V tiles in flight
 constexpr int SLAB_K = BK * 128;      // bytes of one 64-column slab of a K or V tile
 constexpr float LOG2E = 1.4426950408889634f;
@@ -178,8 +181,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// ---- what both tensor-core kernels share: the key range, the masks, the
-// barriers and the producer
+// ---- what the tensor-core kernels share: the tile ranges, the masks, the
+// barriers and the forward's and dq's producer
 
 // The key tiles query rows q0 .. q0 + rows - 1 can see: causal skips tiles
 // above the diagonal, the window those left of the first row's window.
@@ -213,9 +216,41 @@ __device__ __forceinline__ bool tile_edge(int k0, int r0, int r1, int Sk, int ca
   return k0 + BK > Sk || (causal && (k0 + BK - 1 > r0 || (window > 0 && k0 <= r1 - window)));
 }
 
-// The block's mbarriers, from bar_q on: the Q (and dO) tile's, then
-// full[STAGES] (one arrival and the tile's bytes) and empty[STAGES] (one
-// arrival from each of the `consumers` threads). One thread initialises them.
+// The query tiles (QROWS rows) that can see keys k0 .. k0 + keys - 1 (the
+// dk/dv kernel's counterpart of key_tiles): causal starts at the diagonal,
+// the window ends window - 1 rows after the last key (Sk cuts it).
+struct QueryTiles {
+  int first, count;
+};
+
+__device__ __forceinline__ QueryTiles query_tiles(int k0, int keys, int Sq, int Sk, int causal,
+                                                  int window) {
+  const int k_last = min(k0 + keys - 1, Sk - 1);
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = (causal && window > 0) ? min(Sq - 1, k_last + window - 1) : Sq - 1;
+  return {q_lo / QROWS, q_hi >= q_lo ? q_hi / QROWS - q_lo / QROWS + 1 : 0};
+}
+
+// The transposed tile of dk/dv: no query row q0 .. q0 + 63 (q0 < Sq) sees a
+// key kc0 .. kc0 + 63: the warpgroup skips it.
+__device__ __forceinline__ bool qtile_hidden(int kc0, int q0, int Sq, int Sk, int causal,
+                                             int window) {
+  const int q1 = min(q0 + QROWS - 1, Sq - 1);
+  return kc0 >= Sk || (causal && (kc0 > q1 || (window > 0 && kc0 + 63 <= q0 - window)));
+}
+
+// Some (key, query) pair of the transposed tile is not visible (the
+// diagonal, the window's edge, Sq or Sk crosses it): only such tiles mask.
+__device__ __forceinline__ bool qtile_edge(int kc0, int q0, int Sq, int Sk, int causal,
+                                           int window) {
+  return q0 + QROWS > Sq || kc0 + 64 > Sk ||
+         (causal && (kc0 + 63 > q0 || (window > 0 && kc0 <= q0 + QROWS - 1 - window)));
+}
+
+// The block's mbarriers, from bar_q on: the resident tiles' (Q and dO of
+// the forward and dq, K and V of dk/dv), then full[STAGES] (one arrival and
+// the tile's bytes) and empty[STAGES] (one arrival from each of the
+// `consumers` threads). One thread initialises them.
 __device__ __forceinline__ uint32_t bar_full(uint32_t bar_q, int st) { return bar_q + 8 + 8 * st; }
 __device__ __forceinline__ uint32_t bar_empty(uint32_t bar_q, int st) {
   return bar_q + 8 + 8 * STAGES + 8 * st;

@@ -42,8 +42,8 @@ SIGNATURES = {
     ),
     "flash_decode": (
         "flash_decode_launch",
-        # q, k_cache, v_cache, pos, o, B, G, R, L, D, window, scale, stream
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k_cache, v_cache, pos, o, B, G, R, L, D, window, scale, f32, stream
+        [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     ),
     "flash_attention_bwd_dq": (
         "flash_attention_bwd_dq_launch",

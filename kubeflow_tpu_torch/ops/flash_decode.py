@@ -13,19 +13,23 @@ bounded by launch latency and by how few SMs 16 blocks occupy.
 
 What the design does about it:
 
-- one thread block per (row, kv group): the R = H/G query heads of the group
-  share each K/V tile, so the cache is read once per group, never per head
-  (the TPU kernel's batched-``dot_general`` over groups, the GPU way);
+- one thread block per (row, kv group, chunk of up to 8 query heads): the
+  heads of a chunk share each K/V tile, so the cache is read once per group
+  for R <= 8 (the flagship's R 2), never per head (the TPU kernel's
+  batched-``dot_general`` over groups, the GPU way); a group of more heads
+  (MQA with 16) takes more chunks in the same launch;
 - the block computes the live key range ``[lo, hi]`` from ``pos[b]`` and the
   window itself and loops over only those keys: dead slots are never read.
   This is the counterpart of the TPU kernel's scalar-prefetch clamp of the
   k/v block index (``flash_decode.py:131-142``);
 - streaming softmax in fp32 (m, l per head in shared memory, the context
-  accumulator in registers), probabilities rounded to bf16 before the value
-  product as the TPU kernel does.
+  accumulator in registers), probabilities rounded to the operands' dtype
+  before the value product as the TPU kernel does (bf16 rounds, fp32 keeps).
 
-B * G = 16 blocks fill 16 of the card's 132 SMs at the flagship shape;
-splitting the key range across blocks (with a combine pass) is later work.
+bf16 and fp32 operands (one dtype), D in {64, 128}; another head size is a
+stated refusal. B * G = 16 blocks fill 16 of the card's 132 SMs at the
+flagship shape; splitting the key range across blocks (with a combine pass)
+is later work.
 """
 from __future__ import annotations
 
@@ -34,7 +38,6 @@ import torch
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 
-_MAX_R = 8          # query heads per kv group the kernel holds in registers
 _KERNEL_D = (64, 128)
 
 
@@ -102,17 +105,20 @@ def flash_decode(q, k_cache, v_cache, pos, *, window=None, block_k: int = 256):
         return flash_decode_plain(q, k_cache, v_cache, pos, window=window)
     B, G, R, D = q.shape
     L = k_cache.shape[2]
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_decode kernel takes bf16 CUDA tensors; {name} is {t.dtype} on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_decode kernel needs {name} contiguous and 16-byte aligned")
+    operands = (("q", q), ("k_cache", k_cache), ("v_cache", v_cache))
+    for name, t in operands:
+        if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != q.dtype:
+            raise TypeError(f"flash_decode kernel takes bf16 or fp32 operands of one dtype; "
+                            f"{name} is {t.dtype}, q {q.dtype}")
     if D not in _KERNEL_D:
         raise ValueError(f"flash_decode kernel supports head_dim {_KERNEL_D}, got {D}")
-    if R > _MAX_R:
-        raise ValueError(f"flash_decode kernel supports at most {_MAX_R} query heads per group, got {R}")
     if window is not None and window < 1:
         raise ValueError("window must be >= 1")
+    for name, t in operands:
+        if t.device.type != "cuda":
+            raise TypeError(f"flash_decode kernel takes CUDA tensors; {name} is on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_decode kernel needs {name} contiguous and 16-byte aligned")
     if pos.device != q.device or pos.dtype != torch.int32 or tuple(pos.shape) != (B,):
         raise ValueError(f"pos must be an int32 [B={B}] tensor on {q.device}")
     out = torch.empty_like(q)
@@ -120,7 +126,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, window=None, block_k: int = 256):
         "flash_decode",
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         out.data_ptr(), B, G, R, L, D, window or 0, D ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
     )
     flash_decode.launches += 1
     return out

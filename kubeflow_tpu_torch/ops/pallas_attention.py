@@ -15,15 +15,19 @@ all three are bound by FLOPs (forward 2, dq 3, dk/dv 4 causal matmuls of
 
 Two routes, chosen by :func:`_plan` from the operands' dtype:
 
-- **bf16, forward and dq: tensor cores.** A producer warpgroup keeps K/V
-  tiles of 64 keys in flight by TMA into a 2-stage shared-memory ring; one
-  or two consumer warpgroups (64 query rows each) multiply with ``wgmma``
-  (bf16 operands, fp32 accumulators) and keep P (forward) or dS (dq) in
-  registers as the next product's operand. ``_plan`` takes 128-row query
-  tiles where they still give every SM a block, else 64.
-- **fp32, and dk/dv in both dtypes: scalar kernels.** fp32 tiles in shared
-  memory and fp32 FMAs, 64-row tiles, 256 threads; in fp32 the bf16
-  rounding points are the identity, as in the plain versions.
+- **bf16: tensor cores.** A producer (a warpgroup for the forward and dq,
+  thread 0 for dk/dv) keeps tiles in flight by TMA into a 2-stage
+  shared-memory ring; one or two consumer warpgroups (64 rows each)
+  multiply with ``wgmma`` (bf16 operands, fp32 accumulators) and
+  keep P (forward), dS (dq) or P^T and dS^T (dk/dv) in registers as the next
+  product's operand. The forward and dq hold a query tile and stream K/V
+  tiles of 64 keys; ``_plan`` takes 128-row query tiles where they still
+  give every SM a block, else 64. dk/dv holds 64 or 128 keys (by the same
+  rule) and streams the Q, dO and O tiles of 64 query rows that can see
+  them, over every query head of the GQA group.
+- **fp32: scalar kernels.** fp32 tiles in shared memory and fp32 FMAs,
+  64-row tiles, 256 threads; in fp32 the bf16 rounding points are the
+  identity, as in the plain versions.
 
 Both routes take D in {64, 128}; another head size is a stated refusal
 (``ROADMAP.md`` Queue 3b #4).
@@ -96,7 +100,8 @@ def _keep_mask(Sq, Sk, causal, window, device):
 _SMS = 132                  # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448        # bytes of shared memory a block may take on Hopper
 _TILE_K = 64                # keys a tile on both routes
-_STAGES = 2                 # K/V tiles in flight on the tensor-core route
+_STAGES = 2                 # ring tiles in flight on the tensor-core route
+_QROWS = 64                 # query rows of a dk/dv ring tile
 _SCALAR_LD = 68             # fp32 leading dim of the scalar kernels' transposed tiles
 
 
@@ -117,15 +122,20 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
           sms: int = _SMS) -> Plan:
     """The launch of ``kernel`` ("fwd", "dq" or "dkv") for these shapes.
 
-    bf16 forward and dq take the tensor-core route: a producer warpgroup and
-    ``block // 64`` consumer warpgroups, a grid of (H, B, query tiles).
-    128-row tiles where ``B * H * ceil(Sq / 128)`` blocks still fill ``sms``
-    SMs (the training shape: 512 blocks), else 64-row tiles (the serving
-    prefill B4 H8 S128: 64 blocks where 128 rows would give 32). Shared
-    memory: 1024 bytes of alignment slack, the Q (and dO) tile, ``_STAGES``
-    K and V tiles of 64 keys, dq's delta row, the mbarriers; the launchers
-    check the same sum. fp32, and dk/dv in either dtype, take the scalar
-    route: 64-row tiles, 256 threads, fp32 tiles in shared memory.
+    bf16 takes the tensor-core route: ``block // 64`` consumer warpgroups,
+    with a producer warpgroup beside them for the forward and dq (for dk/dv
+    thread 0 produces). The forward and dq: a grid of (H, B, query tiles),
+    128-row tiles where ``B * H * ceil(Sq / 128)`` blocks still fill
+    ``sms`` SMs (the training shape: 512 blocks), else 64-row tiles (the
+    serving prefill B4 H8 S128: 64 blocks where 128 rows would give 32).
+    Shared memory: 1024 bytes of alignment slack, the Q (and dO) tile,
+    ``_STAGES`` K and V tiles of 64 keys, dq's delta row, the mbarriers.
+    dk/dv: a grid of (KV, B, key blocks), 128 keys a block where ``B * KV *
+    ceil(Sk / 128)`` blocks fill the SMs, else 64; shared memory: the slack,
+    the block's K and V tiles, ``_STAGES`` Q, dO and O tiles of 64 rows,
+    each consumer warpgroup's two delta/lse rows, the mbarriers. The
+    launchers check the same sums. fp32 takes the scalar route: 64-row
+    tiles, 256 threads, fp32 tiles in shared memory.
     """
     if D not in _KERNEL_D:
         raise ValueError(
@@ -133,20 +143,42 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
             "ROADMAP.md Queue 3b #4")
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash kernels take bf16 or fp32 operands, got {dtype}")
+    bars = 8 * (1 + 2 * _STAGES)
     if dtype == torch.bfloat16 and kernel in ("fwd", "dq"):
         rows = 128 if B * H * -(-Sq // 128) >= sms else 64
         slab = 64 * 2 * rows                       # one 64-column bf16 slab of a query tile
         tiles = (1 if kernel == "fwd" else 2) * (D // 64) * slab
         kv = 2 * _STAGES * (D // 64) * _TILE_K * 128
         delta = 4 * rows if kernel == "dq" else 0
-        smem = 1024 + tiles + kv + delta + 8 * (1 + 2 * _STAGES)
+        smem = 1024 + tiles + kv + delta + bars
         return Plan("wgmma", rows, (H, B, -(-Sq // rows)), 128 * (rows // 64 + 1), smem)
+    if dtype == torch.bfloat16:
+        keys = 128 if B * KV * -(-Sk // 128) >= sms else 64
+        kv = 2 * (D // 64) * keys * 128                # resident K and V
+        ring = 3 * _STAGES * (D // 64) * _QROWS * 128  # Q, dO, O tiles
+        rows = (keys // 64) * 2 * 2 * _QROWS * 4       # [2][delta | lse] a consumer
+        smem = 1024 + kv + ring + rows + bars
+        return Plan("wgmma", keys, (KV, B, -(-Sk // keys)), 128 * (keys // 64), smem)
     ld, t = _SCALAR_LD, _TILE_K
     floats = {"fwd": 2 * D * ld + t * D + t * ld,
               "dq": 4 * D * ld + t * D + t * ld,
               "dkv": 4 * D * ld + 2 * t * D + t * ld + 2 * t}[kernel]
     grid = (-(-Sk // t), KV, B) if kernel == "dkv" else (-(-Sq // t), H, B)
     return Plan("scalar", t, grid, 256, 4 * floats)
+
+
+def _query_tiles(k0: int, keys: int, Sq: int, Sk: int, causal: bool,
+                 window: int | None) -> tuple[int, int]:
+    """(first, count) of the ``_QROWS``-row query tiles that can see keys
+    ``k0 .. k0 + keys - 1``: the dk/dv kernel's walk (``query_tiles`` in
+    ``csrc/flash_common.cuh``, mirrored here for the CPU tests). Causal
+    starts at the diagonal; the window ends ``window - 1`` rows after the
+    last key."""
+    k_last = min(k0 + keys - 1, Sk - 1)
+    q_lo = k0 if causal else 0
+    q_hi = min(Sq - 1, k_last + window - 1) if causal and window else Sq - 1
+    first = q_lo // _QROWS
+    return first, (q_hi // _QROWS - first + 1 if q_hi >= q_lo else 0)
 
 
 @functools.cache

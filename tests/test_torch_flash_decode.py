@@ -85,3 +85,56 @@ def test_cpu_tensors_take_the_plain_version():
     before = flash_decode.launches
     flash_decode(q, k, v, torch.zeros(2, dtype=torch.int32))
     assert flash_decode.launches == before
+
+
+def _bf16_both(q, k, v, pos, window):
+    """bf16 operands on both sides: JAX's kernel with one block over the
+    cache, so it rounds p to bf16 at the same row max as the plain version."""
+    pos = np.asarray(pos, np.int32)
+    L = k.shape[2]
+    want = jax_flash_decode(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), jnp.asarray(pos),
+                            window=window, block_k=L, interpret=True)
+    got = flash_decode(*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+                       torch.from_numpy(pos), window=window, block_k=L)
+    assert got.dtype == torch.bfloat16
+    return got.float().numpy(), np.asarray(want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("window", [None, 32])
+def test_more_than_eight_heads_a_group_fp32(G, window):
+    """R 16 (the kernel takes two chunks of 8 heads), fp32 throughout."""
+    got, want = _both(*_mats(G=G, R=16, seed=G), [200, 37], window=window)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("window", [None, 48])
+def test_more_than_eight_heads_a_group_bf16(G, window):
+    """R 12 in bf16: fp32 softmax on both sides, then one rounding of the
+    output to bf16, which may land one bf16 step (2^-8 of the value) apart
+    where the fp32 sums differ in their last bits."""
+    got, want = _bf16_both(*_mats(G=G, R=12, L=128, seed=10 + G), [127, 60], window)
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=1e-6)
+
+
+def test_card_operand_checks_take_fp32_and_wide_groups():
+    """Off the CPU the wrapper checks the operands before any build: fp32
+    and R 16 are taken (the meta tensors here only stop at the device
+    check, as no card is present); fp16, mixed dtypes and D 96 raise."""
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    pos = meta(2, dtype=torch.int32)
+    for dt, R in ((torch.float32, 16), (torch.bfloat16, 12), (torch.float32, 1)):
+        with pytest.raises(TypeError, match="takes CUDA tensors"):
+            flash_decode(meta(2, 1, R, 64, dtype=dt), meta(2, 1, 256, 64, dtype=dt),
+                         meta(2, 1, 256, 64, dtype=dt), pos, block_k=64)
+    with pytest.raises(TypeError, match="bf16 or fp32 operands of one dtype"):
+        flash_decode(meta(2, 1, 4, 64, dtype=torch.float16), meta(2, 1, 256, 64, dtype=torch.float16),
+                     meta(2, 1, 256, 64, dtype=torch.float16), pos, block_k=64)
+    with pytest.raises(TypeError, match="bf16 or fp32 operands of one dtype"):
+        flash_decode(meta(2, 1, 4, 64), meta(2, 1, 256, 64, dtype=torch.bfloat16),
+                     meta(2, 1, 256, 64), pos, block_k=64)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_decode(meta(2, 1, 4, 96), meta(2, 1, 256, 96), meta(2, 1, 256, 96), pos, block_k=64)

@@ -25,12 +25,16 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     B, Sq, Sk, H, KV = shape
     plan = pa._plan(kernel, B, Sq, Sk, H, KV, D, dtype)
     assert 0 < plan.smem_bytes <= pa.SMEM_LIMIT
-    if dtype == torch.bfloat16 and kernel != "dkv":
-        # 128-row tiles at the training shape (512 blocks for 132 SMs); the
-        # serving prefill would get 32, so it takes 64-row tiles (64 blocks)
+    if dtype == torch.bfloat16:
+        # 128-row tiles (128 keys for dk/dv) at the training shape (512
+        # blocks for 132 SMs); the serving prefill would get 32 (16 for
+        # dk/dv), so it takes 64 (64 and 32 blocks)
         rows = 128 if shape == TRAINING else 64
-        assert (plan.route, plan.block, plan.threads) == ("wgmma", rows, 128 * (rows // 64 + 1))
-        assert plan.grid == (H, B, Sq // rows)
+        # a producer warpgroup beside the consumers; dk/dv's thread 0 produces
+        consumers = 128 * (rows // 64)
+        threads = consumers if kernel == "dkv" else consumers + 128
+        assert (plan.route, plan.block, plan.threads) == ("wgmma", rows, threads)
+        assert plan.grid == ((KV, B, Sk // rows) if kernel == "dkv" else (H, B, Sq // rows))
     else:
         assert (plan.route, plan.block, plan.threads) == ("scalar", 64, 256)
         assert plan.grid == ((Sk // 64, KV, B) if kernel == "dkv" else (Sq // 64, H, B))
@@ -44,7 +48,11 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     ("dq", torch.bfloat16, SERVING, 99_624),
     ("fwd", torch.float32, TRAINING, 119_808),    # the scalar kernels' fp32 tiles
     ("dq", torch.float32, SERVING, 189_440),
-    ("dkv", torch.bfloat16, TRAINING, 222_720),
+    # K + V 64 KiB resident + 2 x (Q, dO, O) 96 KiB + two delta/lse rows a
+    # consumer 2 KiB + slack, barriers
+    ("dkv", torch.bfloat16, TRAINING, 166_952),
+    ("dkv", torch.bfloat16, SERVING, 133_160),    # 64 keys: K + V 32 KiB, one consumer
+    ("dkv", torch.float32, TRAINING, 222_720),    # the scalar kernel's fp32 tiles
 ])
 def test_plan_shared_memory_bytes_at_d128(kernel, dtype, shape, want):
     assert pa._plan(kernel, *shape, 128, dtype).smem_bytes == want
@@ -56,8 +64,36 @@ def test_plan_ragged_and_small_grids():
     assert pa._plan("fwd", 9, 200, 200, 8, 4, 128, torch.bfloat16).grid == (8, 9, 2)
     assert pa._plan("dq", 1, 16, 8, 4, 2, 64, torch.bfloat16).grid == (4, 1, 1)
     assert pa._plan("dkv", 2, 64, 192, 4, 2, 128, torch.float32).grid == (3, 2, 2)
+    # dk/dv: 128 keys where B * KV * ceil(Sk / 128) fills the SMs (the GQA 8/2 case at S 2048)
+    assert pa._plan("dkv", 8, 2048, 2048, 8, 2, 64, torch.bfloat16).grid == (2, 8, 16)
+    assert pa._plan("dkv", 4, 2048, 2048, 8, 2, 64, torch.bfloat16).grid == (2, 4, 32)
+    assert pa._plan("dkv", 9, 200, 200, 8, 4, 128, torch.bfloat16).grid == (4, 9, 4)
     assert pa._plan("fwd", 1, 2048, 2048, 8, 8, 128, torch.bfloat16, sms=64).block == 128
     assert pa._plan("fwd", 1, 2048, 2048, 8, 8, 128, torch.bfloat16, sms=132).block == 64
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (2048, 2048, True, None),
+    (256, 256, True, 2), (256, 256, True, 48), (256, 256, True, 100), (256, 256, True, 1000),
+    (200, 200, True, None), (200, 200, True, 48),        # ragged query and key tiles
+    (96, 96, False, None), (64, 192, False, None),       # non-causal, Sq != Sk
+    (16, 8, True, 2), (300, 130, True, 100), (130, 300, True, None),
+])
+@pytest.mark.parametrize("keys", [64, 128])
+def test_query_tiles_cover_exactly_the_visible_tiles(keys, Sq, Sk, causal, window):
+    """dk/dv's walk: every (key block, query tile) pair with a visible
+    element lies in ``_query_tiles``' range, and no pair outside it has
+    one."""
+    keep = pa._keep_mask(Sq, Sk, causal, window, "cpu")
+    rows = pa._QROWS
+    n_tiles = -(-Sq // rows)
+    for k0 in range(0, Sk, keys):
+        first, count = pa._query_tiles(k0, keys, Sq, Sk, causal, window)
+        assert count == 0 or 0 <= first and first + count <= n_tiles
+        seen = torch.nn.functional.pad(keep[:, k0:k0 + keys], (0, 0, 0, n_tiles * rows - Sq))
+        visible = seen.reshape(n_tiles, rows, -1).any(dim=(1, 2)).tolist()
+        walked = [first <= i < first + count for i in range(n_tiles)]
+        assert all(w for v, w in zip(visible, walked) if v)
 
 
 def test_other_head_sizes_and_dtypes_are_stated_refusals():
