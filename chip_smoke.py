@@ -15,8 +15,9 @@ Phases, each of which fails the run with a non-zero exit:
             TFLOP/s of the bound's work, and on their fp32 route (fp32 cases
             against the plain versions, TF32 off); flash-decode also in fp32
             and at 12 and 16 query heads a group; the build phase counts the
-            tensor-core instructions (HGMMA) of the flash libraries, which
-            the bf16 forward, dq and dk/dv must have;
+            tensor-core instructions (HGMMA) of the flash libraries and the
+            fused head's dh and dE libraries, which the bf16 flash forward,
+            dq and dk/dv and the head's dh and dE must have;
 3. generate run ``generate`` at the full flagship decode config (24 layers,
             GQA 8/4 heads, 410.3M parameters, seeded weights): batch 4, prompt 128, 128 new
             tokens, temperature 0.8, top_k 40, with every kernel launch
@@ -51,13 +52,21 @@ Phases, each of which fails the run with a non-zero exit:
             against their plain versions in bf16 at the MoE flagship's head
             shape (T 8192, V 32000, E 1024) and at edge cases (ragged T, V
             97, 40 and 50257, E 128 and 100, targets outside [0, V) and in
-            the last vocabulary tile, logits near +-80, each cotangent
-            alone), time kernel, plain version, library and bound, and the
-            whole head forward + backward fused against chunked;
+            the last vocabulary tile, logits near +-80 (dh and dE there
+            held to the exact sums of the route's own dlogits), each
+            cotangent alone, E 768 and 2048 on clusters of 3 and 8 blocks,
+            E 4096 in two passes), and on their fp32 route (the flagship E,
+            V 97, E 100); check that two dh and two dE launches agree bit
+            for bit, also when launched while another stream's kernel holds
+            every SM; time kernel, plain version, library, bound and the
+            fp32 route, and the whole head forward + backward fused against
+            chunked;
 11. moe train fused  the MoE flagship of phase 8 through
             ``moe_lm_loss_fused`` (``moe_bench.py --fused-head``), with the
             head's three launch counters added;
-12. moe train fused parity  phase 9 through ``moe_lm_loss_fused``;
+12. moe train fused parity  phase 9 through ``moe_lm_loss_fused``, then
+            the same step with fp32 activations and fp32 head operands on
+            the card (the head's fp32 route) against the CPU's fp32 step;
 13. bn kernels  hold the BatchNorm moments and grad-sums kernels against
             their plain versions at ResNet-50's 12 distinct activation shapes at batch
             256 and at edge cases (ragged row counts, C 3, 11, 100, fp32, a
@@ -186,6 +195,13 @@ HEAD_DL_STEP = 2.0 ** -8
 # flips as the chunked head; the limits are about 2.8x and 3x those
 MOE_FUSED_LOSS_ATOL = 0.004
 MOE_FUSED_GNORM_RTOL = 2.5e-4
+# the same step with fp32 activations and fp32 head operands on the card
+# (the head's scalar kernels) against the CPU's fp32 step: on an H100 the
+# loss and the global gradient norm came out equal at fp32 resolution (the
+# dense fp32 step differs by 1.9e-6 and 6.2e-8 of itself); the limits leave
+# room for summation order and stay far under the bf16 step's differences
+MOE_FUSED_F32_LOSS_ATOL = 1e-4
+MOE_FUSED_F32_GNORM_RTOL = 1e-5
 
 # the ResNet training cell: bench.py:81-103 (ResNet-50, 1000 classes, bf16,
 # 224x224 standard-normal images, nesterov SGD 0.1/0.9) with bn_impl="pallas",
@@ -300,26 +316,34 @@ def phase_build():
     log(f"[build] {len(libs)} libraries built in {time.perf_counter() - t0:.2f} s "
         f"with {_build.nvcc()} (13 kernels: bn_moments.cu serves the BatchNorm moments and "
         f"the stats probe's scaled moments)")
+    registers = {}
     for name in libs:
+        entry = None
         for line in _build.build_log(name).splitlines():
             if "Compiling entry function" in line:
-                log(f"[build] {name}: {line.split(chr(39))[1][:90]}")
+                entry = line.split(chr(39))[1]
+                log(f"[build] {name}: {entry[:90]}")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}:   {line.strip()}")
-    return libs
+                registers.setdefault(name, {}).setdefault(entry, []).append(line.strip())
+    return libs, registers
+
+
+WGMMA_LIBS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+              "fused_head_bwd_dh", "fused_head_bwd_de")
 
 
 def tensor_core_counts(libs):
-    """Tensor-core instructions in each flash library: HGMMA (wgmma) and HMMA
-    (mma.sync) in the SASS that ``cuobjdump`` shows, or, without it,
-    ``wgmma.mma_async`` and ``mma.sync`` in ``nvcc -ptx`` output. The bf16
-    route of the forward, dq and dk/dv must issue wgmma; the scalar kernels
-    none."""
+    """Tensor-core instructions in each library whose bf16 route is a wgmma
+    kernel: HGMMA (wgmma) and HMMA (mma.sync) in the SASS that ``cuobjdump``
+    shows, or, without it, ``wgmma.mma_async`` and ``mma.sync`` in ``nvcc
+    -ptx`` output. The bf16 route of the flash forward, dq and dk/dv and of
+    the fused head's dh and dE must issue wgmma; the scalar kernels none."""
     from kubeflow_tpu_torch.ops import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     counts = {}
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+    for name in WGMMA_LIBS:
         if tool.is_file():
             text = subprocess.run([str(tool), "-sass", str(libs[name])], capture_output=True,
                                   text=True, check=True, timeout=300).stdout
@@ -332,9 +356,9 @@ def tensor_core_counts(libs):
             counts[name] = {"wgmma": text.count("wgmma.mma_async"), "mma": text.count("mma.sync")}
         log(f"[build] {name}: tensor-core instructions {counts[name]} "
             f"({'cuobjdump -sass' if tool.is_file() else 'nvcc -ptx'})")
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        if not max(counts[name].values()):
-            raise AssertionError(f"{name} has no tensor-core instruction: its bf16 route must use wgmma")
+    for name in WGMMA_LIBS:
+        if not counts[name].get("HGMMA", counts[name].get("wgmma")):
+            raise AssertionError(f"{name} has no wgmma instruction: its bf16 route must use wgmma")
     return counts
 
 
@@ -1179,10 +1203,15 @@ def phase_moe_kernels(torch):
     return results, launches
 
 
+def _mm_f32(torch, a, b):
+    """a @ b in fp32 from operands of one dtype, on the card."""
+    return torch.mm(a, b) if a.dtype == torch.float32 else torch.mm(a, b, out_dtype=torch.float32)
+
+
 def _head_abs_products(torch, h, emb, tgt, lse, dlse, dgold):
-    """(|dl| @ |emb|, |dl|^T @ |h|) in fp32, dl the plain version's bf16
-    dlogits: the sums of absolute products that bound the backward kernels'
-    rounding and summation differences."""
+    """(|dl| @ |emb|, |dl|^T @ |h|) in fp32, dl the plain version's dlogits
+    in h's dtype: the sums of absolute products that bound the backward
+    kernels' rounding and summation differences."""
     from kubeflow_tpu_torch.ops import fused_head_loss as fh
 
     T, E = h.shape
@@ -1193,19 +1222,87 @@ def _head_abs_products(torch, h, emb, tgt, lse, dlse, dgold):
     a_de = torch.zeros((V, E), dtype=torch.float32, device=h.device)
     for s in range(0, T, fh.PLAIN_CHUNK):
         sl = slice(s, s + fh.PLAIN_CHUNK)
-        logits = torch.mm(h[sl], emb.t(), out_dtype=torch.float32)
+        logits = _mm_f32(torch, h[sl], emb.t())
         y = (cols[None, :] == tgt[sl, None]).float()
         dl = (dlse[sl, None] * torch.exp(logits - lse[sl, None]) + dgold[sl, None] * y)
         dl = dl.to(h.dtype).abs()
-        a_dh[sl] = torch.mm(dl, ae, out_dtype=torch.float32)
-        a_de += torch.mm(dl.t(), ah[sl], out_dtype=torch.float32)
+        a_dh[sl] = _mm_f32(torch, dl, ae)
+        a_de += _mm_f32(torch, dl.t(), ah[sl])
     return a_dh, a_de
 
 
-def _check_head_case(torch, fh, name, h, emb, tgt, dlse, dgold):
+def _route_dlogits(torch, fh, h, emb, tgt, lse, dlse, dgold):
+    """(route, plain): the bf16 dlogits [T, V] that the tensor-core route
+    forms, and the plain version's. The route's logits are the partial
+    logits of each cluster block over its own E slice (one fp32 tensor-core
+    product of the slice), summed in block order; then dlse * exp(logit -
+    lse) + dgold * [v == tgt] in fp32 without FMA, rounded to bf16. dh and
+    dE form the same dlogits. One pass, E a multiple of 8."""
+    T, E = h.shape
+    V = emb.shape[0]
+    plan = fh._plan(T, V, E, h.dtype)
+    assert plan.route == "wgmma" and plan.passes == 1 and plan.e_pad == E, plan
+    w = plan.slice
+    logits = torch.zeros((T, V), dtype=torch.float32, device=h.device)
+    for c in range(plan.cluster):
+        logits += _mm_f32(torch, h[:, c * w:(c + 1) * w], emb[:, c * w:(c + 1) * w].t())
+    cols = torch.arange(V, device=h.device)
+    gold = torch.where(cols[None, :] == tgt[:, None], dgold[:, None], 0.0)
+    route = (dlse[:, None] * torch.exp(logits - lse[:, None]) + gold).to(h.dtype)
+    logits = _mm_f32(torch, h, emb.t())
+    y = (cols[None, :] == tgt[:, None]).float()
+    plain = (dlse[:, None] * torch.exp(logits - lse[:, None]) + dgold[:, None] * y).to(h.dtype)
+    return route, plain
+
+
+def _bf16_steps(torch, a, b):
+    """How many bf16 values lie between a and b, elementwise, plus one
+    (0 where equal, 1 where neighbours; +0 and -0 are one value)."""
+    def key(x):
+        k = x.view(torch.int16).to(torch.int32)
+        return torch.where(k < 0, -(k & 0x7FFF), k)
+    return (key(a) - key(b)).abs()
+
+
+def _head_witness(torch, fh, h, emb, tgt, lse_p, dlse, dgold, dh, de):
+    """The bf16 backward kernels held to the exact sums of the route's own
+    dlogits: no route dlogit lies more than one bf16 step from the plain
+    version's, and dh and dE are within 2 V (2 T) 2^-24 sum|products| of the
+    float64 products of the route's dlogits, the summation term of
+    _check_head_case without its one-step term. Returns the ratios and the
+    dlogit counts."""
+    T, E = h.shape
+    V = emb.shape[0]
+    route, plain = _route_dlogits(torch, fh, h, emb, tgt, lse_p, dlse, dgold)
+    steps = _bf16_steps(torch, route, plain)
+    d, hd, ed = route.double(), h.double(), emb.double()
+    a_dh, a_de = d.abs() @ ed.abs(), d.abs().t() @ hd.abs()
+    out = {
+        "dh": ((dh.double() - d @ ed).abs() / (2 * V * HEAD_EPS * a_dh).clamp_min(1e-30))
+        .max().item(),
+        "de": ((de.double() - d.t() @ hd).abs() / (2 * T * HEAD_EPS * a_de).clamp_min(1e-30))
+        .max().item(),
+        "dlogits": int(route.numel()),
+        "one_step_from_plain": int((steps == 1).sum().item()),
+        "further_from_plain": int((steps > 1).sum().item()),
+    }
+    out["ok"] = bool(out["dh"] <= 1.0 and out["de"] <= 1.0 and out["further_from_plain"] == 0)
+    return out
+
+
+def _check_head_case(torch, fh, name, h, emb, tgt, dlse, dgold, witness=False):
     """The three head kernels on one case against their plain versions; the
     backward kernels take the plain forward's lse. Returns the worst
-    absolute errors (lse and gold, dh, dE)."""
+    absolute errors (lse and gold, dh, dE) and the ratios of error to bound.
+    bf16 operands take the tensor-core route, fp32 the scalar kernels
+    (unrounded dlogits: the one-step term is fp32's unit roundoff).
+
+    ``witness``: a case whose logits are so large that the route's and the
+    plain version's fp32 logits differ in enough bits to round many dlogits
+    to neighbouring bf16 values, where one step of bf16 may be up to 2^-7 of
+    the dlogit (twice the one-step term). dh and dE are then held to the
+    exact sums of the route's own dlogits (_head_witness), and their ratios
+    to the one-step bound are reported."""
     T, E = h.shape
     V = emb.shape[0]
     lse, gold = fh.fused_head_fwd(h, emb, tgt)
@@ -1225,27 +1322,73 @@ def _check_head_case(torch, fh, name, h, emb, tgt, dlse, dgold):
     # orders (relative 2 V 2^-24 of the sum, so absolute in its log), plus
     # the rounding of exp and log
     lse_tol = logit_tol + 2 * V * HEAD_EPS + 4 * HEAD_EPS * lse_p.abs()
+    # a dlogit may land one step (bf16: 2^-8 of itself; fp32 dlogits are not
+    # rounded: 2^-24) apart where p differs in its last fp32 bits; then V
+    # (dh) or T (dE) products summed in two orders
+    step = HEAD_DL_STEP if h.dtype == torch.bfloat16 else HEAD_EPS
     ratios = {
         "lse": ((lse - lse_p).abs() / lse_tol).max().item(),
         "gold": ((gold - gold_p).abs() / logit_tol).max().item(),
-        # a dlogit may land one bf16 step (2^-8) apart where p differs in its
-        # last fp32 bits; then V (dh) or T (dE) products summed in two orders
-        "dh": ((dh - dh_p).abs() / ((HEAD_DL_STEP + 2 * V * HEAD_EPS) * a_dh)
+        "dh": ((dh - dh_p).abs() / ((step + 2 * V * HEAD_EPS) * a_dh)
                .clamp_min(1e-30)).max().item(),
-        "de": ((de - de_p).abs() / ((HEAD_DL_STEP + 2 * T * HEAD_EPS) * a_de)
+        "de": ((de - de_p).abs() / ((step + 2 * T * HEAD_EPS) * a_de)
                .clamp_min(1e-30)).max().item(),
     }
     errs = {"lse": max((lse - lse_p).abs().max().item(), (gold - gold_p).abs().max().item()),
             "dh": (dh - dh_p).abs().max().item(), "de": (de - de_p).abs().max().item()}
     finite = all(bool(x.isfinite().all()) for x in (lse, gold, dh, de))
-    ok = finite and all(r <= 1.0 for r in ratios.values())
-    log(f"[head kernels] {name} T{T} V{V} E{E}: worst err/tol " + ", ".join(
+    held = ("lse", "gold") if witness else tuple(ratios)
+    ok = finite and all(ratios[k] <= 1.0 for k in held)
+    log(f"[head kernels] {name} T{T} V{V} E{E} {str(h.dtype)[6:]}: worst err/tol " + ", ".join(
         f"{k} {v:.3f}" for k, v in ratios.items()) + f"; max_abs_err lse/gold {errs['lse']:.3e} "
         f"dh {errs['dh']:.3e} dE {errs['de']:.3e} (|dh| max {dh_p.abs().max().item():.3e}, "
-        f"|dE| max {de_p.abs().max().item():.3e}) {'ok' if ok else 'FAIL'}")
+        f"|dE| max {de_p.abs().max().item():.3e}) "
+        f"{'held to the witness below' if witness else 'ok' if ok else 'FAIL'}")
+    if witness:
+        w = _head_witness(torch, fh, h, emb, tgt, lse_p, dlse, dgold, dh, de)
+        ratios["witness"] = w
+        ok = ok and w["ok"]
+        log(f"[head kernels] {name} witness: of {w['dlogits']} route dlogits "
+            f"{w['one_step_from_plain']} lie one bf16 step from the plain version's, "
+            f"{w['further_from_plain']} further (limit 0); dh, dE against the float64 sums of "
+            f"the route's dlogits: worst err/tol {w['dh']:.3f}, {w['de']:.3f} (tol 2 V (T) "
+            f"2^-24 sum|products|) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"fused head kernels disagree with their plain versions ({name})")
-    return errs
+    return errs, ratios
+
+
+def _check_head_contention(torch, fh, h, emb, tgt, lse, dlse, dgold, solo):
+    """dh and dE at the MoE flagship (more row tiles than clusters fit at
+    once, so clusters wait on each other's flags), launched while another
+    stream's kernel (the fp32 dh of 2048 tokens, every SM busy) holds the
+    SMs: each must launch, finish and equal its solo launch bit for bit."""
+    side = torch.cuda.Stream()
+    h32, emb32 = h[:2048].float(), emb.float()
+    rows = [x[:2048].contiguous() for x in (tgt, lse, dlse, dgold)]
+    ev = {k: torch.cuda.Event(enable_timing=True) for k in ("side0", "side1", "main0", "main1")}
+    out = {}
+    for key, fn in (("dh", fh.fused_head_bwd_dh), ("dE", fh.fused_head_bwd_de)):
+        torch.cuda.synchronize()
+        with torch.cuda.stream(side):
+            ev["side0"].record()
+            fh.fused_head_bwd_dh(h32, emb32, *rows)
+            ev["side1"].record()
+        ev["main0"].record()
+        got = fn(h, emb, tgt, lse, dlse, dgold)
+        ev["main1"].record()
+        torch.cuda.synchronize()
+        out[key] = dict(bitwise_equal_solo=bool(torch.equal(got, solo[key])),
+                        side_ms=ev["side0"].elapsed_time(ev["side1"]),
+                        launched_at_ms=ev["side0"].elapsed_time(ev["main0"]),
+                        finished_at_ms=ev["side0"].elapsed_time(ev["main1"]))
+        log(f"[head kernels] {key} under contention: launched {out[key]['launched_at_ms']:.3f} "
+            f"ms into the other stream's {out[key]['side_ms']:.3f} ms kernel, finished at "
+            f"{out[key]['finished_at_ms']:.3f} ms; bitwise equal to its solo launch: "
+            f"{out[key]['bitwise_equal_solo']}")
+    if not all(v["bitwise_equal_solo"] for v in out.values()):
+        raise AssertionError(f"fused head backward differs under contention: {out}")
+    return out
 
 
 def phase_head_kernels(torch, np):
@@ -1261,11 +1404,11 @@ def phase_head_kernels(torch, np):
     bf16 = torch.bfloat16
     T, V, E = MOE_BATCH * MOE_SEQ, MOE["vocab_size"], MOE["embed_dim"]
 
-    def operands(T, V, E, tgt=None):
+    def operands(T, V, E, tgt=None, dtype=bf16):
         """h ~ N(0, 1) (a final norm's output) and the table at flax's init
         scale, std 1/sqrt(E), so logits ~ N(0, 1); targets uniform."""
-        h = torch.randn((T, E), generator=gen, device="cuda").to(bf16)
-        emb = (torch.randn((V, E), generator=gen, device="cuda") / E ** 0.5).to(bf16)
+        h = torch.randn((T, E), generator=gen, device="cuda").to(dtype)
+        emb = (torch.randn((V, E), generator=gen, device="cuda") / E ** 0.5).to(dtype)
         if tgt is None:
             tgt = torch.randint(0, V, (T,), generator=gen, device="cuda")
         return h, emb, tgt
@@ -1288,10 +1431,16 @@ def phase_head_kernels(torch, np):
     h, emb, _ = operands(T, V, E, tgt_flag)
     dlse, dgold = nll_cot(T)
     worst = {"lse": 0.0, "dh": 0.0, "de": 0.0}
+    detail = {"cases": {}}
 
-    def run(name, h, emb, tgt, dlse, dgold):
-        for k, v in _check_head_case(torch, fh, name, h, emb, tgt, dlse, dgold).items():
-            worst[k] = max(worst[k], v)
+    def run(name, h, emb, tgt, dlse, dgold, witness=False):
+        errs, ratios = _check_head_case(torch, fh, name, h, emb, tgt, dlse, dgold, witness)
+        detail["cases"][name] = dict(shape=[h.shape[0], emb.shape[0], h.shape[1]],
+                                     dtype=str(h.dtype)[6:], worst_err_over_tol=ratios,
+                                     max_abs_err=errs)
+        if h.dtype == bf16:     # the kernels line holds the bf16 route
+            for k, v in errs.items():
+                worst[k] = max(worst[k], v)
 
     run("flagship_nll", h, emb, tgt_flag, dlse, dgold)
     # cotangents: dlse only, dgold only, both at random (T 1024 of the flagship)
@@ -1318,7 +1467,32 @@ def phase_head_kernels(torch, np):
     h3, e3, t3 = operands(256, 5000, E)
     e3[:, 0] = 1.0
     h3[5, 0], h3[6, 0] = 80.0, -80.0
-    run("large_logits", h3, e3, t3, randn_rows(256), randn_rows(256))
+    run("large_logits", h3, e3, t3, randn_rows(256), randn_rows(256), witness=True)
+    # E split across clusters of 3 and 8 blocks (GPT-2's 768, 2048), and
+    # above E 2048 in two passes over each block's 512 columns
+    run("e768_cluster3", *operands(512, 3000, 768), randn_rows(512), randn_rows(512))
+    run("e2048_cluster8", *operands(384, 2000, 2048), randn_rows(384), randn_rows(384))
+    run("e4096_passes2", *operands(256, 1500, 4096), randn_rows(256), randn_rows(256))
+    # the fp32 route (scalar kernels, no TF32): the flagship E, V with no
+    # 128-multiple divisor, E not a multiple of 8
+    f32 = torch.float32
+    run("f32_e1024", *operands(1024, 4096, E, dtype=f32), randn_rows(1024), randn_rows(1024))
+    run("f32_v97", *operands(512, 97, E, dtype=f32), randn_rows(512), randn_rows(512))
+    run("f32_e100", *operands(200, 300, 100, dtype=f32), randn_rows(200), randn_rows(200))
+
+    # no atomics: two launches of each backward kernel agree bit for bit
+    lse_d, _ = fh.lse_gold_plain(h, emb, tgt_flag)
+    same, solo = {}, {}
+    for key, fn in (("dh", fh.fused_head_bwd_dh), ("dE", fh.fused_head_bwd_de)):
+        solo[key] = fn(h, emb, tgt_flag, lse_d, dlse, dgold)
+        same[key] = bool(torch.equal(solo[key], fn(h, emb, tgt_flag, lse_d, dlse, dgold)))
+    detail["bitwise_equal_relaunch"] = same
+    log(f"[head kernels] determinism at the flagship, two launches bitwise equal: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"fused head backward differs between two launches: {same}")
+    detail["contention"] = _check_head_contention(torch, fh, h, emb, tgt_flag, lse_d, dlse,
+                                                  dgold, solo)
+    del solo
 
     # timed at the flagship head shape, L2 warm (h and the table come
     # straight from the final norm and the optimizer; neither fits in L2)
@@ -1351,6 +1525,17 @@ def phase_head_kernels(torch, np):
         de_lib=device_ms(torch, lambda: torch.mm(lib_dl().t(), h, out_dtype=torch.float32),
                          cold=False, iters=5),
     )
+    # the fp32 route at the same shape (scalar kernels), for its time alone
+    h32, emb32 = h.float(), emb.float()
+    times.update(
+        fwd_f32=device_ms(torch, lambda: fh.fused_head_fwd(h32, emb32, tgt_flag), cold=False,
+                          iters=2, warmup=1),
+        dh_f32=device_ms(torch, lambda: fh.fused_head_bwd_dh(h32, emb32, tgt_flag, lse, dlse,
+                                                             dgold), cold=False, iters=2, warmup=1),
+        de_f32=device_ms(torch, lambda: fh.fused_head_bwd_de(h32, emb32, tgt_flag, lse, dlse,
+                                                             dgold), cold=False, iters=2, warmup=1),
+    )
+    del h32, emb32
     rows = 16 * T                                    # tgt, lse, dlse, dgold
     operand = 2 * T * E + 2 * V * E
     tve = T * V * E
@@ -1360,8 +1545,12 @@ def phase_head_kernels(torch, np):
     names = {"fwd": "fused_head_fwd", "dh": "fused_head_bwd_dh", "de": "fused_head_bwd_de"}
     errs = {"fwd": worst["lse"], "dh": worst["dh"], "de": worst["de"]}
     results = {}
+    plan = fh._plan(T, V, E, bf16)
+    detail["plan"] = dataclasses.asdict(plan)
+    detail["fp32_route_ms"] = {k: times[k + "_f32"] for k in ("fwd", "dh", "de")}
     log(f"[head kernels] timed at T{T} V{V} E{E} bf16, L2 warm; library = torch.mm(out_dtype="
-        f"fp32) + logsumexp + gather (forward), + exp, bf16 dlogits, torch.mm (dh, dE):")
+        f"fp32) + logsumexp + gather (forward), + exp, bf16 dlogits, torch.mm (dh, dE); "
+        f"backward plan: {plan}:")
     for key, name in names.items():
         (bms, by) = bounds[key]
         results[name] = dict(max_abs_err=errs[key], ms=times[key], plain_ms=times[key + "_plain"],
@@ -1369,7 +1558,7 @@ def phase_head_kernels(torch, np):
         log(f"[head kernels]   {name} kernel_ms {times[key]:.4f} plain_ms "
             f"{times[key + '_plain']:.4f} library_ms {times[key + '_lib']:.4f} bound_ms "
             f"{bms:.5f} ({by}; {2 * tve * (1 if key == 'fwd' else 2) / times[key] / 1e9:.1f} "
-            f"TFLOP/s of the bound's work)")
+            f"TFLOP/s of the bound's work); fp32 route {times[key + '_f32']:.4f} ms")
 
     # the whole head, forward + backward, fused against the chunked head
     # (chunk 1024): the choice moe_bench.py --ab measured on the TPU
@@ -1396,7 +1585,7 @@ def phase_head_kernels(torch, np):
         whole[name] = dict(ms=device_ms(torch, fn, cold=False, iters=5), peak_gb_above_inputs=peak)
         log(f"[head kernels] whole head fwd+bwd, {name}: {whole[name]['ms']:.3f} device ms, peak "
             f"{peak:.3f} GB above its inputs")
-    return results, whole
+    return results, whole, detail
 
 
 def _head_counters():
@@ -1519,9 +1708,38 @@ def phase_moe_train_parity(torch, np, fused: bool = False):
     if (not np.isfinite([loss_c, norm_c]).all() or d_loss > loss_atol
             or d_norm > gnorm_rtol or share > flip_share):
         raise AssertionError(f"card MoE train step disagrees with the CPU: {got}")
-    return dict(loss_card=loss_c, loss_cpu=loss_h, grad_norm_card=norm_c, grad_norm_cpu=norm_h,
-                loss_abs_diff=d_loss, grad_norm_rel_diff=d_norm, routing_choices=exp_c.numel(),
-                routing_flips=flips, keep_flips=keep_flips)
+    res = dict(loss_card=loss_c, loss_cpu=loss_h, grad_norm_card=norm_c, grad_norm_cpu=norm_h,
+               loss_abs_diff=d_loss, grad_norm_rel_diff=d_norm, routing_choices=exp_c.numel(),
+               routing_flips=flips, keep_flips=keep_flips)
+    if fused:
+        res.update(_moe_fused_fp32_step(torch, np, kt, make_model, sd, tokens, loss_h, norm_h))
+    return res
+
+
+def _moe_fused_fp32_step(torch, np, kt, make_model, sd, tokens, loss_h, norm_h):
+    """The fused MoE step of phase 12 with fp32 activations and fp32 head
+    operands on the card (the head's scalar kernels, the flash kernels' fp32
+    route, TF32 off) against the CPU's fp32 step through the same loss."""
+    import functools
+
+    loss_fn = functools.partial(kt.moe_lm_loss_fused, compute_dtype=torch.float32)
+    before = [c.launches for c in _head_counters().values()]
+    got = _one_step_vs_cpu(torch, kt, make_model, sd, tokens, card_dtype=torch.float32,
+                           loss_fn=loss_fn)
+    launched = [c.launches - b for c, b in zip(_head_counters().values(), before)]
+    (loss_f, norm_f), (loss_c32, norm_c32) = got["cuda"], got["cpu"]
+    d_loss, d_norm = abs(loss_f - loss_c32), abs(norm_f - norm_c32) / norm_c32
+    log(f"[moe train fused parity] the same step card(fp32, head fp32 route) vs cpu(fp32, fp32 "
+        f"head): loss {loss_f:.6f} vs {loss_c32:.6f} (|diff| {d_loss:.2e}, atol "
+        f"{MOE_FUSED_F32_LOSS_ATOL}); grad norm {norm_f:.6f} vs {norm_c32:.6f} (rel diff "
+        f"{d_norm:.2e}, rtol {MOE_FUSED_F32_GNORM_RTOL}); head launches {launched}; cpu bf16-head "
+        f"step above: loss {loss_h:.5f}, grad norm {norm_h:.5f}")
+    if (not np.isfinite([loss_f, norm_f]).all() or d_loss > MOE_FUSED_F32_LOSS_ATOL
+            or d_norm > MOE_FUSED_F32_GNORM_RTOL or launched != [1, 1, 1]):
+        raise AssertionError(f"card fp32 fused MoE step disagrees with the CPU: {got}, {launched}")
+    return dict(fp32_loss_card=loss_f, fp32_loss_cpu=loss_c32, fp32_grad_norm_card=norm_f,
+                fp32_grad_norm_cpu=norm_c32, fp32_loss_abs_diff=d_loss,
+                fp32_grad_norm_rel_diff=d_norm)
 
 
 def resnet_bn_shapes(batch: int, image: int = RESNET_IMAGE, stage_sizes=None, width: int = 64):
@@ -2062,7 +2280,8 @@ def main() -> int:
 
     report = {"card": smi}
     t_all = time.perf_counter()
-    report["tensor_core_instructions"] = tensor_core_counts(phase_build())
+    libs, report["ptxas"] = phase_build()
+    report["tensor_core_instructions"] = tensor_core_counts(libs)
     kernels = phase_kernels(torch)
     bwd, fwd_train = phase_kernels_bwd(torch)
     kernels.update(bwd)
@@ -2075,7 +2294,7 @@ def main() -> int:
     kernels.update(moe_kernels)
     moe_train = phase_moe_train(torch, np)
     report["moe_train_parity"] = phase_moe_train_parity(torch, np)
-    head_kernels, report["head_whole"] = phase_head_kernels(torch, np)
+    head_kernels, report["head_whole"], report["head_detail"] = phase_head_kernels(torch, np)
     kernels.update(head_kernels)
     moe_fused = phase_moe_train(torch, np, fused=True)
     report["moe_train_fused_parity"] = phase_moe_train_parity(torch, np, fused=True)

@@ -13,12 +13,13 @@
 // (fused_head_common.cuh), land in shared memory, and fold into each row's
 // running (max m, sum s, gold), kept in registers by the four threads that
 // share the row: m starts at -inf, s rescales by exp(m_old - m_new).
-// lse = m + log(s).
+// lse = m + log(s). fp32 h and emb take the scalar kernel head_fwd_scalar
+// (fused_head_scalar.cuh): the same fold over logits tiles of fp32 FMAs.
 //
 // Bound: operations (2 T V E FLOP; at T 8192, V 32000, E 1024 that is 537
 // GFLOP against 82 MB of operands). Each tile re-reads its h rows from L2.
 
-#include "fused_head_common.cuh"
+#include "fused_head_scalar.cuh"
 
 using namespace fused_head;
 
@@ -42,33 +43,7 @@ fused_head_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ emb,
   for (int v0 = 0; v0 < V; v0 += BV) {
     logits_tile(ls, hs, es, h, emb, t0, T, v0, V, E);
     __syncthreads();
-    const float* row = ls + r * LDL;
-    float mx = -INFINITY, gl = 0.f;
-#pragma unroll
-    for (int i = 0; i < BV / 4; ++i) {
-      const int c = i * 4 + q, col = v0 + c;
-      if (col < V) {
-        mx = fmaxf(mx, row[c]);
-        if (col == target) gl += row[c];
-      }
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    // column v0 < V is in every tile, so m_new is finite
-    const float m_new = fmaxf(m, mx);
-    float se = 0.f;
-#pragma unroll
-    for (int i = 0; i < BV / 4; ++i) {
-      const int c = i * 4 + q;
-      if (v0 + c < V) se += expf(row[c] - m_new);
-    }
-    se += __shfl_xor_sync(0xffffffffu, se, 1);
-    se += __shfl_xor_sync(0xffffffffu, se, 2);
-    gl += __shfl_xor_sync(0xffffffffu, gl, 1);
-    gl += __shfl_xor_sync(0xffffffffu, gl, 2);
-    s = s * expf(m - m_new) + se;
-    m = m_new;
-    gsum += gl;
+    fold_tile(ls, r, q, v0, V, target, m, s, gsum);
   }
   if (q == 0 && t < T) {
     lse[t] = m + logf(s);
@@ -78,14 +53,22 @@ fused_head_fwd_kernel(const bf16* __restrict__ h, const bf16* __restrict__ emb,
 
 }  // namespace
 
+// f32: 0 for bf16 h and emb (the tensor-core kernel), 1 for fp32 (scalar).
 extern "C" int fused_head_fwd_launch(const void* h, const void* emb, const void* tgt,
-                                     void* lse, void* gold, int T, int V, int E,
+                                     void* lse, void* gold, int T, int V, int E, int f32,
                                      void* stream) {
   if (T < 1 || V < 1 || E < 1) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((T + BT - 1) / BT);
-  fused_head_fwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(emb),
-      static_cast<const int*>(tgt), static_cast<float*>(lse), static_cast<float*>(gold),
-      T, V, E);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    scalar::head_fwd_scalar<<<blocks, THREADS, 0, s>>>(
+        static_cast<const float*>(h), static_cast<const float*>(emb),
+        static_cast<const int*>(tgt), static_cast<float*>(lse), static_cast<float*>(gold),
+        T, V, E);
+  else
+    fused_head_fwd_kernel<<<blocks, THREADS, 0, s>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(emb),
+        static_cast<const int*>(tgt), static_cast<float*>(lse), static_cast<float*>(gold),
+        T, V, E);
   return (int)cudaGetLastError();
 }

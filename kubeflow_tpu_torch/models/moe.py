@@ -367,7 +367,8 @@ def moe_lm_loss_fused(model: MoETransformerLM, tokens, *, compute_dtype=None):
     the [B, S, vocab] logits exist only as tiles inside its kernels, and the
     fp32 table's gradient comes back from the dE kernel in fp32.
     ``compute_dtype`` as in ``moe_lm_loss_chunked`` (default bf16 operands;
-    fp32 on the CPU for parity tests)."""
+    fp32 for parity runs, on the CPU or through the head's fp32 kernels on
+    the card)."""
     hidden, aux = model(tokens, return_hidden=True, return_aux=True)
     nll = fused_head_nll(hidden, model.embed.weight, tokens,
                          compute_dtype=compute_dtype or torch.bfloat16)

@@ -69,18 +69,20 @@ SIGNATURES = {
     ),
     "fused_head_fwd": (
         "fused_head_fwd_launch",
-        # h, emb, tgt, lse, gold, T, V, E, stream
-        [_P] * 5 + [_I] * 3 + [_P],
+        # h, emb, tgt, lse, gold, T, V, E, f32, stream
+        [_P] * 5 + [_I] * 4 + [_P],
     ),
     "fused_head_bwd_dh": (
         "fused_head_bwd_dh_launch",
-        # h, emb, tgt, lse, dlse, dgold, dh, T, V, E, stream
-        [_P] * 7 + [_I] * 3 + [_P],
+        # h, emb, tgt, lse, dlse, dgold, dh, T, V, E, f32, cluster, slabs,
+        # passes, rows, smem, cap, ws, flags, stream
+        [_P] * 7 + [_I] * 10 + [_P] * 3,
     ),
     "fused_head_bwd_de": (
         "fused_head_bwd_de_launch",
-        # h, emb, tgt, lse, dlse, dgold, de, T, V, E, stream
-        [_P] * 7 + [_I] * 3 + [_P],
+        # h, emb, tgt, lse, dlse, dgold, de, T, V, E, f32, cluster, slabs,
+        # passes, rows, smem, cap, ws, flags, stream
+        [_P] * 7 + [_I] * 10 + [_P] * 3,
     ),
     "bn_moments": (
         "bn_moments_launch",

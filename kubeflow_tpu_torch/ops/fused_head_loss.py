@@ -2,25 +2,42 @@
 
 The chunked head (``models/transformer.py lm_loss_chunked``) materialises
 fp32 logits per chunk ([1024, 32000] is 131 MB). Here the [T, V] logits
-exist only as [64, 64] tiles on chip: the forward keeps per-token ``lse``
-and gold logit, and the backward recomputes each tile from them. Three CUDA
-kernels replace the three Pallas kernels of the JAX module:
+exist only as tiles on chip: the forward keeps per-token ``lse`` and gold
+logit, and the backward recomputes each tile from them. Three CUDA kernels
+replace the three Pallas kernels of the JAX module:
 
 - ``csrc/fused_head_fwd.cu`` replaces ``_fwd_kernel`` (``:76``): per-token
   logsumexp and gold logit of h @ embᵀ, streamed over vocabulary tiles;
 - ``csrc/fused_head_bwd_dh.cu`` replaces ``_dh_kernel`` (``:157``):
   dh = Σ_v bf16(dlogits) · emb_v;
 - ``csrc/fused_head_bwd_de.cu`` replaces ``_de_kernel`` (``:183``):
-  dE = Σ_t bf16(dlogits)ᵀ · h_t, one block walking every token for its
-  vocabulary tile, so no atomics.
+  dE = Σ_t bf16(dlogits)ᵀ · h_t; no atomics in either, every element a
+  fixed-order sum.
 
 with dlogits = dlse · exp(logit − lse) + dgold · [v == tgt] in fp32, rounded
 to the operand dtype before both products (``:174``, ``:202``), and the
 products summed in fp32. What bounds them on an H100: operations (2 T V E
-FLOP forward, 4 T V E each backward kernel). The kernels multiply on the
-tensor cores (``mma.sync`` m16n8k16, bf16 in, fp32 accumulate); each
-backward block accumulates a [64, 256] slice of its output in registers and
-recomputes the full-E logits per slice (``csrc/fused_head_common.cuh``).
+FLOP forward, 4 T V E each backward kernel). Routes, by h's dtype
+(:func:`_plan`):
+
+- bf16: the forward multiplies on the tensor cores with ``mma.sync``
+  m16n8k16 (64×64 logits tiles). dh and dE are one ``wgmma`` kernel
+  mirrored (``csrc/fused_head_common.cuh``): a block keeps 128 rows of one
+  operand resident and streams 64-row tiles of the other through a TMA
+  ring; E is split across the C = min(8, ⌈E/256⌉) blocks of a thread-block
+  cluster, each computing the partial logits over its own E slice, which
+  the cluster sums through distributed shared memory, so the logits are
+  computed once (4 T V E FLOP up to E 2048; above it, ⌈E/2048⌉ passes
+  recompute them, up to E 8192). With one pass the launch takes no more
+  clusters than fit on the card at once and splits the row tiles' work
+  evenly between them, a row tile shared by two clusters summed in a fixed
+  order through a small scratch buffer (:func:`_scratch`). E not a
+  multiple of 8 (TMA needs 16-byte rows) is zero-padded: the wrapper copies
+  h and emb to E rounded up to 8, which adds 0 to every logit, and drops
+  the padded output columns.
+- fp32: scalar kernels for all three (``csrc/fused_head_scalar.cuh``),
+  fp32 FMAs, no TF32, dlogits unrounded, as the JAX kernels' ``astype`` on
+  fp32 operands.
 
 Contract, the same as the JAX module's where its kernels run:
 
@@ -39,14 +56,17 @@ when T % 256 ≠ 0 or V has no 128-multiple divisor under each kernel's block
 limit (``:306-314``), and there autodiff of the einsum neither rounds the
 dlogits to the operand dtype nor keeps dE in fp32 (it rounds dE and dh to the
 operand dtype). The port has no shape fallback: the kernels take any T, V
-and E, with the kernels' rounding at every shape, so the two agree exactly
-only at the shapes where the JAX kernels run.
+and E (E up to 8192 on the bf16 backward), with the kernels' rounding at
+every shape, so the two agree exactly only at the shapes where the JAX
+kernels run.
 
 CPU tensors take the plain versions (fp32 sums of the operands' products, T
-walked in chunks); CUDA tensors launch the kernels, which take bf16 operands
-only, or raise. Each wrapper counts its launches in ``.launches``.
+walked in chunks); CUDA tensors launch the kernels, which take bf16 or fp32
+h and emb, or raise. Each wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -54,6 +74,94 @@ from kubeflow_tpu_torch.models.transformer import matmul_f32
 from kubeflow_tpu_torch.ops import _build
 
 PLAIN_CHUNK = 1024    # tokens a chunk in the plain versions: [1024, V] fp32 logits
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may take on Hopper
+_SUB = 256            # E columns a backward block accumulates in one pass (bf16)
+_MAX_CLUSTER = 8      # blocks a portable thread-block cluster may hold
+_MAX_PASSES = 4       # passes over E the bf16 backward takes (E <= 8192)
+_XROWS = 64           # rows of a streamed tile
+_LDS = 72             # fp32 leading dim of the receive buffer
+# the fp32 route's backward: [32][68] transposed chunks x 2, the [64][68]
+# dlogits tile, a [64][132] staged slice, four row vectors of 64
+_SCALAR_COLS = 128
+_SCALAR_SMEM = 4 * (2 * 32 * 68 + 64 * 68 + 64 * 132 + 4 * 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """How the backward kernels launch. ``route`` "wgmma" is the bf16
+    tensor-core kernel, "scalar" the fp32-FMA kernel. ``cluster`` blocks
+    share one tile's rows along E, each owning ``slice`` columns (in
+    ``passes`` passes of ``slice // passes``; ``slabs`` 64-column slabs a
+    pass); ``rows`` resident rows a block; ``stages`` streamed tiles in
+    flight (3 where they fit); ``e_pad`` the E the kernels see
+    (bf16: E rounded up to 8, the operands zero-padded to it); ``grid_dh``
+    and ``grid_de`` the blocks of each launch (clusters of ``cluster``
+    consecutive blocks; one pass launches at most as many as fit on the card
+    at once, see ``_scratch``); ``smem_bytes`` each block's dynamic shared
+    memory."""
+
+    route: str
+    cluster: int
+    slice: int
+    passes: int
+    slabs: int
+    rows: int
+    stages: int
+    e_pad: int
+    grid_dh: tuple[int, ...]
+    grid_de: tuple[int, ...]
+    threads: int
+    smem_bytes: int
+
+
+def _plan(T: int, V: int, E: int, dtype) -> HeadPlan:
+    """The launch of the dh and dE kernels for these shapes.
+
+    bf16: E is padded to ``e_pad`` (a multiple of 8) and split across a
+    cluster of C = ⌈e_pad / 256⌉ blocks, each owning 256 columns (at C = 1
+    e_pad rounded up to 64, 128 or 256); 128 resident rows a block, two
+    consumer warpgroups. Above e_pad 2048: P = ⌈e_pad / 2048⌉ passes, each
+    block owning 256 P columns, C = ⌈e_pad / (256 P)⌉, 64 resident rows (the
+    resident slice grows with P). Shared memory: 1024 bytes of alignment
+    slack, the resident slice, 3 streamed sub-tiles (2 where 3 do not fit),
+    the bf16 dP tile, the fp32 receive buffer of the cluster's partial
+    logits (``rows + 8`` rows), four row vectors of 128, the mbarriers;
+    ``csrc/fused_head_common.cuh`` (BwdLayout) sums the same bytes and the
+    launcher checks them. fp32: the scalar kernels, 64 rows by
+    128 columns of E a block."""
+    if dtype == torch.float32:
+        cols = -(-E // _SCALAR_COLS)
+        return HeadPlan("scalar", 1, _SCALAR_COLS, 1, _SCALAR_COLS // 64, 64, 1, E,
+                        (-(-T // 64), cols), (-(-V // 64), cols), 256, _SCALAR_SMEM)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"fused head kernels take bf16 or fp32 operands, got {dtype}")
+    e_pad = -(-E // 8) * 8
+    passes = -(-e_pad // (_MAX_CLUSTER * _SUB))
+    if passes > _MAX_PASSES:
+        raise ValueError(
+            f"the bf16 fused head backward takes E up to {_MAX_CLUSTER * _SUB * _MAX_PASSES}, "
+            f"got {E}: its resident E slice would not fit a block's shared memory")
+    if passes == 1:
+        cluster = -(-e_pad // _SUB)
+        slabs = next(n for n in (1, 2, 4) if cluster > 1 and n == 4 or 64 * n >= e_pad)
+        rows = 128
+    else:
+        cluster = -(-e_pad // (_SUB * passes))
+        slabs, rows = 4, 64
+    fixed = 1024 + passes * slabs * rows * 128 + rows * 128 + (rows + 8) * _LDS * 4 + 4 * 128 * 4
+    stages = 3 if fixed + 3 * slabs * _XROWS * 128 + 8 * 9 <= SMEM_LIMIT else 2
+    smem = fixed + stages * slabs * _XROWS * 128 + 8 * (3 + 2 * stages)
+    assert smem <= SMEM_LIMIT, smem
+    return HeadPlan("wgmma", cluster, passes * slabs * 64, passes, slabs, rows, stages, e_pad,
+                    (cluster * -(-T // rows),), (cluster * -(-V // rows),), 2 * rows, smem)
+
+
+def _pad_e(x, e_pad: int):
+    """x [R, E] zero-padded to [R, e_pad] columns (x itself when E = e_pad):
+    a zero column adds 0 to every logit and its output column is dropped."""
+    if x.shape[1] == e_pad:
+        return x
+    return torch.nn.functional.pad(x, (0, e_pad - x.shape[1]))
 
 
 def lse_gold_plain(h, emb, tgt):
@@ -108,10 +216,12 @@ def _check_shapes(h, emb, tgt, *rows):
 
 
 def _kernel_args(what, h, emb, tgt, *rows):
-    """The kernel's operands: bf16 h and emb, int32 targets, fp32 rows, all
-    on h's CUDA device, contiguous, 16-byte aligned; raise otherwise."""
-    if h.dtype != torch.bfloat16 or emb.dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel takes bf16 h and emb, got {h.dtype} and {emb.dtype}")
+    """The kernel's operands: bf16 or fp32 h and emb of one dtype, int32
+    targets, fp32 rows, all on h's CUDA device, contiguous, 16-byte aligned;
+    raise otherwise."""
+    if h.dtype not in (torch.bfloat16, torch.float32) or emb.dtype != h.dtype:
+        raise TypeError(f"{what} kernel takes bf16 or fp32 h and emb of one dtype, got "
+                        f"{h.dtype} and {emb.dtype}")
     if tgt.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"{what}: tgt must be an integer tensor, got {tgt.dtype}")
     if any(r.dtype != torch.float32 for r in rows):
@@ -143,19 +253,42 @@ def fused_head_fwd(h, emb, tgt):
     lse = torch.empty(T, dtype=torch.float32, device=h.device)
     gold = torch.empty(T, dtype=torch.float32, device=h.device)
     _build.launch("fused_head_fwd", h.data_ptr(), emb.data_ptr(), tgt.data_ptr(),
-                  lse.data_ptr(), gold.data_ptr(), T, emb.shape[0], E, _stream(h))
+                  lse.data_ptr(), gold.data_ptr(), T, emb.shape[0], E,
+                  int(h.dtype == torch.float32), _stream(h))
     fused_head_fwd.launches += 1
     return lse, gold
 
 
-def _backward(name, h, emb, tgt, lse, dlse, dgold, shape):
+def _scratch(plan, rows_out, device):
+    """(cap, ws, flags) of a tensor-core launch with one pass: room for the
+    sums of row tiles split between clusters. The launcher takes as many
+    clusters as fit on the card at once, at most the row tiles' count and
+    ``cap``, here the row tiles' count or one cluster an SM, whichever is
+    fewer (``launch_bwd_wgmma`` in ``csrc/fused_head_common.cuh``)."""
+    nrt = -(-rows_out // plan.rows)
+    if plan.route == "scalar" or plan.passes > 1 or nrt == 1:
+        return 0, None, None
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    cap = min(nrt, max(1, sms // plan.cluster))
+    ws = torch.empty(cap * plan.cluster * plan.rows * plan.slabs * 64, dtype=torch.float32,
+                     device=device)
+    return cap, ws, torch.zeros(cap * plan.cluster, dtype=torch.int32, device=device)
+
+
+def _backward(name, h, emb, tgt, lse, dlse, dgold, rows_out):
     tgt, lse, dlse, dgold = _kernel_args(name, h, emb, tgt, lse, dlse, dgold)
-    out = torch.empty(shape, dtype=torch.float32, device=h.device)
     T, E = h.shape
-    _build.launch(name, h.data_ptr(), emb.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
-                  dlse.data_ptr(), dgold.data_ptr(), out.data_ptr(), T, emb.shape[0], E,
-                  _stream(h))
-    return out
+    V = emb.shape[0]
+    plan = _plan(T, V, E, h.dtype)
+    h_k, emb_k = _pad_e(h, plan.e_pad), _pad_e(emb, plan.e_pad)
+    out = torch.empty((rows_out, plan.e_pad), dtype=torch.float32, device=h.device)
+    cap, ws, flags = _scratch(plan, rows_out, h.device)
+    _build.launch(name, h_k.data_ptr(), emb_k.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
+                  dlse.data_ptr(), dgold.data_ptr(), out.data_ptr(), T, V, plan.e_pad,
+                  int(plan.route == "scalar"), plan.cluster, plan.slabs, plan.passes,
+                  plan.rows, plan.smem_bytes, cap, ws.data_ptr() if ws is not None else None,
+                  flags.data_ptr() if flags is not None else None, _stream(h))
+    return out if plan.e_pad == E else out[:, :E].contiguous()
 
 
 def fused_head_bwd_dh(h, emb, tgt, lse, dlse, dgold):
@@ -164,7 +297,7 @@ def fused_head_bwd_dh(h, emb, tgt, lse, dlse, dgold):
     _check_shapes(h, emb, tgt, lse, dlse, dgold)
     if h.device.type == "cpu":
         return head_grads_plain(h, emb, tgt, lse, dlse, dgold, de=False)[0]
-    out = _backward("fused_head_bwd_dh", h, emb, tgt, lse, dlse, dgold, h.shape)
+    out = _backward("fused_head_bwd_dh", h, emb, tgt, lse, dlse, dgold, h.shape[0])
     fused_head_bwd_dh.launches += 1
     return out
 
@@ -175,7 +308,7 @@ def fused_head_bwd_de(h, emb, tgt, lse, dlse, dgold):
     _check_shapes(h, emb, tgt, lse, dlse, dgold)
     if h.device.type == "cpu":
         return head_grads_plain(h, emb, tgt, lse, dlse, dgold, dh=False)[1]
-    out = _backward("fused_head_bwd_de", h, emb, tgt, lse, dlse, dgold, emb.shape)
+    out = _backward("fused_head_bwd_de", h, emb, tgt, lse, dlse, dgold, emb.shape[0])
     fused_head_bwd_de.launches += 1
     return out
 
@@ -207,8 +340,8 @@ class _FusedLseGold(torch.autograd.Function):
 
 def fused_lse_gold(h, emb, tgt):
     """(lse [T], gold [T]) fp32 of logits = h @ embᵀ without materialising
-    them, differentiable in h and emb. h [T, E] in the compute dtype (bf16 on
-    the card), emb [V, E] in any float dtype (cast to h's inside; its
+    them, differentiable in h and emb. h [T, E] in the compute dtype (bf16 or
+    fp32 on the card), emb [V, E] in any float dtype (cast to h's inside; its
     gradient keeps emb's dtype), tgt [T] int. Every shape takes the kernels
     on the card; CPU tensors take the plain versions."""
     return _FusedLseGold.apply(h, emb, tgt)

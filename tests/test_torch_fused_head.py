@@ -215,9 +215,11 @@ def test_any_shape_and_targets_outside_the_vocabulary():
 
 def test_cpu_wrappers_count_no_launch_and_card_operands_are_checked():
     """CPU tensors take the plain versions and count no launch. Off the CPU
-    the wrappers check the operands before any build: non-bf16 h or emb,
-    other dtypes of the row vectors, and a device other than CUDA raise (the
-    checks run on meta tensors here, as no card is present)."""
+    the wrappers check the operands before any build: h and emb other than
+    bf16 or fp32 (or of two dtypes), other dtypes of the row vectors, and a
+    device other than CUDA raise (the checks run on meta tensors here, as no
+    card is present). fp32 h and emb pass the dtype check: they take the
+    scalar kernels on the card."""
     counters = (fh.fused_head_fwd, fh.fused_head_bwd_dh, fh.fused_head_bwd_de)
     before = [c.launches for c in counters]
     h, emb, tgt, _ = _inputs(64, 128)
@@ -231,10 +233,17 @@ def test_cpu_wrappers_count_no_launch_and_card_operands_are_checked():
 
     rows = [meta(8, dtype=torch.float32) for _ in range(3)]
     tg = meta(8, dtype=torch.int64)
-    with pytest.raises(TypeError, match="takes bf16 h and emb"):
-        fh.fused_head_fwd(meta(8, 16, dtype=torch.float32), meta(5, 16, dtype=torch.float32), tg)
-    with pytest.raises(TypeError, match="takes bf16 h and emb"):
+    f32 = torch.float32
+    with pytest.raises(TypeError, match="takes CUDA tensors"):
+        fh.fused_head_fwd(meta(8, 16, dtype=f32), meta(5, 16, dtype=f32), tg)
+    with pytest.raises(TypeError, match="takes CUDA tensors"):
+        fh.fused_head_bwd_dh(meta(8, 16, dtype=f32), meta(5, 16, dtype=f32), tg, *rows)
+    with pytest.raises(TypeError, match="takes bf16 or fp32 h and emb of one dtype"):
         fh.fused_head_bwd_de(meta(8, 16), meta(5, 16, dtype=torch.float16), tg, *rows)
+    with pytest.raises(TypeError, match="takes bf16 or fp32 h and emb of one dtype"):
+        fh.fused_head_fwd(meta(8, 16, dtype=torch.float16), meta(5, 16, dtype=torch.float16), tg)
+    with pytest.raises(TypeError, match="takes bf16 or fp32 h and emb of one dtype"):
+        fh.fused_head_bwd_dh(meta(8, 16), meta(5, 16, dtype=f32), tg, *rows)
     with pytest.raises(TypeError, match="must be float32"):
         fh.fused_head_bwd_dh(meta(8, 16), meta(5, 16), tg, rows[0], rows[1].half(), rows[2])
     with pytest.raises(TypeError, match="takes CUDA tensors"):
