@@ -13,11 +13,16 @@ Phases, each of which fails the run with a non-zero exit:
             and the least time the card could take (bound); the forward and
             the two backward kernels also at the training shape, with their
             TFLOP/s of the bound's work, and on their fp32 route (fp32 cases
-            against the plain versions, TF32 off); flash-decode also in fp32
-            and at 12 and 16 query heads a group; the build phase counts the
-            tensor-core instructions (HGMMA) of the flash libraries and the
-            fused head's dh and dE libraries, which the bf16 flash forward,
-            dq and dk/dv and the head's dh and dE must have;
+            against the plain versions, TF32 off); flash-decode also in fp32,
+            at 12 and 16 query heads a group, at positions on and around the
+            edges of its per-row runs and a window across one, each against
+            its own order of operations (``_split_reference``) too, two
+            launches bitwise equal, timed at the request's mean position
+            (191) and at the full 2,048-token cache; the build phase counts
+            the tensor-core instructions (HGMMA) of the flash libraries, the
+            fused head's dh and dE libraries and the fused BN + ReLU +
+            1x1-conv backward, which the bf16 flash forward, dq and dk/dv,
+            the head's dh and dE and that backward must have;
 3. generate run ``generate`` at the full flagship decode config (24 layers,
             GQA 8/4 heads, 410.3M parameters, seeded weights): batch 4, prompt 128, 128 new
             tokens, temperature 0.8, top_k 40, with every kernel launch
@@ -78,8 +83,11 @@ Phases, each of which fails the run with a non-zero exit:
             stats probe's ``main()``;
 14. bwd probe   hold the fused BN + ReLU + 1x1-conv backward kernel against
             its plain version at the probe's shape (N 802,816, CI 256, CO
-            128) and two smaller ones, time kernel, plain version, the two
-            library products and bound, and run the probe's ``main()``;
+            128; the activations read once) and four smaller ones (CO 256,
+            the limit; two input-channel slices), check that CO 272 is
+            refused before any launch and that two launches agree bit for
+            bit, time kernel, plain version, the two library products and
+            bound, and run the probe's ``main()``;
 15. resnet train  ``make_classifier_train_step`` on ResNet-50 (1000 classes,
             bf16, 224x224, ``bn_impl="pallas"``, nesterov SGD 0.1/0.9, seeded
             weights): one warm-up step, then 5 steps on one batch of 256 with
@@ -100,6 +108,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -330,15 +339,16 @@ def phase_build():
 
 
 WGMMA_LIBS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-              "fused_head_bwd_dh", "fused_head_bwd_de")
+              "fused_head_bwd_dh", "fused_head_bwd_de", "fused_bn_relu_conv1x1_bwd")
 
 
 def tensor_core_counts(libs):
     """Tensor-core instructions in each library whose bf16 route is a wgmma
     kernel: HGMMA (wgmma) and HMMA (mma.sync) in the SASS that ``cuobjdump``
     shows, or, without it, ``wgmma.mma_async`` and ``mma.sync`` in ``nvcc
-    -ptx`` output. The bf16 route of the flash forward, dq and dk/dv and of
-    the fused head's dh and dE must issue wgmma; the scalar kernels none."""
+    -ptx`` output. The bf16 route of the flash forward, dq and dk/dv, of
+    the fused head's dh and dE and the fused BN + ReLU + 1x1-conv backward
+    must issue wgmma; the scalar kernels none."""
     from kubeflow_tpu_torch.ops import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -365,7 +375,13 @@ def tensor_core_counts(libs):
 def phase_kernels(torch):
     import torch.nn.functional as F
 
-    from kubeflow_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from kubeflow_tpu_torch.ops.flash_decode import (
+        _launch as _decode_launch,
+        _plan as _decode_plan,
+        _split_reference,
+        flash_decode,
+        flash_decode_plain,
+    )
     from kubeflow_tpu_torch.ops.pallas_attention import (
         _plan,
         flash_attention,
@@ -463,17 +479,22 @@ def phase_kernels(torch):
     # ---- flash_decode: every decode step
     B, G, R, D, L = BATCH, 4, 2, 128, FLAGSHIP["max_seq_len"]
     flagship = (B, G, R, D, L)
-    worst = 0.0
-    dec_cases = [(f"pos={p}", flagship, [p] * B, None, bf16) for p in (0, 127, 255, 256, 2047)]
+    worst, worst_witness = 0.0, 0.0
+    dec_cases = [(f"pos={p}", flagship, [p] * B, None, bf16)
+                 for p in (0, 63, 64, 65, 127, 128, 129, 255, 256, 2047)]
     dec_cases += [("per_row_pos", flagship, [0, 255, 1024, 2047], None, bf16),
                   ("window_100", flagship, [5, 300, 1500, 2047], 100, bf16),
+                  # the window's first key and pos in different splits of 128
+                  ("window_across_split_edge", flagship, [130, 200, 1100, 2047], 100, bf16),
                   ("d64_r4", (2, 2, 4, 64, 512), [63, 500], None, bf16),
                   # more than 8 query heads a group: chunks of 8 on a grid axis
                   ("mqa_r16", (2, 1, 16, 128, 512), [100, 511], None, bf16),
                   ("r12_g2_d64_window_48", (2, 2, 12, 64, 512), [63, 500], 48, bf16),
+                  ("pos_below_zero_l100", (2, 2, 2, 64, 100), [-1, 99], None, bf16),
                   # fp32 operands: probabilities kept in fp32, as the TPU kernel's astype
                   ("fp32_per_row_pos", flagship, [0, 255, 1024, 2047], None, f32),
                   ("fp32_window_100", flagship, [5, 300, 1500, 2047], 100, f32),
+                  ("fp32_pos_63_64_65", flagship, [63, 64, 65, 2047], None, f32),
                   ("fp32_mqa_r16_window_48", (2, 1, 16, 128, 512), [100, 511], 48, f32),
                   ("fp32_r12_g2_d64", (2, 2, 12, 64, 512), [63, 500], None, f32)]
     for name, (B, G, R, D, L), pos_list, window, dt in dec_cases:
@@ -490,42 +511,100 @@ def phase_kernels(torch):
         o = flash_decode(qd, kg, vg, pos, window=window)
         torch.cuda.synchronize()
         o_ref = flash_decode_plain(qd, kg, vg, pos, window=window)
+        plan = _decode_plan(B, G, R, L, D, dt, sms)
+        o_split = _split_reference(qd, kg, vg, pos, window, plan)
         torch.cuda.synchronize()
         ok, err, ratio, rms = check_out(o, o_ref)
-        ok = ok and o.dtype == dt
+        w_ratio = _decode_witness(torch, o, o_split)
+        ok = ok and o.dtype == dt and w_ratio <= 1.0
         log(f"[kernels] flash_decode {name} ({dt}, R {R}) window={window}: max_abs_err {err:.3e} "
             f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, atol "
-            f"{OUT_ATOL_RMS}*rms) {'ok' if ok else 'FAIL'}")
+            f"{OUT_ATOL_RMS}*rms); vs _split_reference (split {plan.split} x {plan.splits}) "
+            f"worst err/tol {w_ratio:.3f} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_decode disagrees with its plain version ({name})")
+        worst_witness = max(worst_witness, w_ratio)
         if dt == bf16:
             worst = max(worst, err)
 
-    # timed at the request's mean decode position: steps run at 128 .. 254
+    # two launches on the same inputs give the same bits (the combine's order is fixed)
     B, G, R, D, L = flagship
-    p_mean = PROMPT + (NEW - 2) // 2
     kc, vc, qd = randn(B, G, L, D), randn(B, G, L, D), randn(B, G, R, D)
-    pos = torch.full((B,), p_mean, dtype=torch.int32, device="cuda")
-    ms = device_ms(torch, lambda: flash_decode(qd, kc, vc, pos), cold=True)
-    plain_ms = device_ms(torch, lambda: flash_decode_plain(qd, kc, vc, pos), cold=True)
-    k_live, v_live = kc[:, :, :p_mean + 1], vc[:, :, :p_mean + 1]
-    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        qd.view(B, G * R, 1, D), k_live, v_live, enable_gqa=True), cold=True)
-    n_bytes = 2 * (2 * B * G * R * D) + 2 * (2 * B * G * (p_mean + 1) * D) + 4 * B
-    flops = 4 * B * G * R * (p_mean + 1) * D
-    bms, by = bound_ms(n_bytes, flops)
-    # the fp32 route at the same shape (an fp32 decode_config model's step)
+    for pos_list in ([191] * B, [0, 700, 1500, 2047]):
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        o1, o2 = flash_decode(qd, kc, vc, pos), flash_decode(qd, kc, vc, pos)
+        torch.cuda.synchronize()
+        if not torch.equal(o1, o2):
+            raise AssertionError(f"two flash_decode launches differ (pos {pos_list})")
+    log("[kernels] flash_decode: two launches bitwise equal at pos 191 and at per-row pos")
+
+    # the flagship's 16 splits combine through a cluster; the workspace and
+    # ticket combine (batch 1, longer caches, fp32) on the same inputs
+    plan = _decode_plan(B, G, R, L, D, bf16, sms)
+    plan_ws = dataclasses.replace(plan, cluster=False)
+    for pos_list in ([191] * B, [0, 700, 1500, 2047]):
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        o_cl = flash_decode(qd, kc, vc, pos)
+        o_ws = _decode_launch(qd, kc, vc, pos, None, plan_ws)
+        torch.cuda.synchronize()
+        ok, err, ratio, _ = check_out(o_ws, flash_decode_plain(qd, kc, vc, pos))
+        log(f"[kernels] flash_decode workspace combine at the flagship, pos {pos_list}: worst "
+            f"err/tol {ratio:.3f}; bitwise equal to the cluster combine: "
+            f"{torch.equal(o_cl, o_ws)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_decode's workspace combine disagrees (pos {pos_list})")
+
+    # timed at the request's mean decode position (steps run at 128 .. 254)
+    # and at the full 2,048-token cache
+    p_mean = PROMPT + (NEW - 2) // 2
+    timed = {}
+    for p in (p_mean, L - 1):
+        pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+        ms = device_ms(torch, lambda: flash_decode(qd, kc, vc, pos), cold=True)
+        # the two combines alternated: cluster (above), workspace, workspace, cluster
+        ws_ms = [device_ms(torch, lambda: _decode_launch(qd, kc, vc, pos, None, plan_ws),
+                           cold=True) for _ in range(2)]
+        cl_ms = device_ms(torch, lambda: flash_decode(qd, kc, vc, pos), cold=True)
+        plain_ms = device_ms(torch, lambda: flash_decode_plain(qd, kc, vc, pos), cold=True)
+        k_live, v_live = kc[:, :, :p + 1], vc[:, :, :p + 1]
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd.view(B, G * R, 1, D), k_live, v_live, enable_gqa=True), cold=True)
+        n_bytes = 2 * (2 * B * G * R * D) + 2 * (2 * B * G * (p + 1) * D) + 4 * B
+        flops = 4 * B * G * R * (p + 1) * D
+        bms, by = bound_ms(n_bytes, flops)
+        timed[p] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                        workspace_combine_ms=sum(ws_ms) / 2)
+        log(f"[kernels] flash_decode pos {p}, L2 flushed, combine through the cluster "
+            f"{ms:.4f}, {cl_ms:.4f} ms; through the workspace {ws_ms[0]:.4f}, {ws_ms[1]:.4f} ms")
+        log(f"[kernels] flash_decode B{B} G{G} R{R} D{D} L{L} pos {p}, L2 flushed (split "
+            f"{plan.split} x {plan.splits}, grid {plan.grid}, {plan.smem_bytes} B shared memory a "
+            f"block): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+            f"(scaled_dot_product_attention) bound_ms {bms:.5f} ({by}: {n_bytes} B, {flops} FLOP)")
+    # the fp32 route at the mean position (an fp32 decode_config model's step)
     kf, vf, qf = kc.float(), vc.float(), qd.float()
+    pos = torch.full((B,), p_mean, dtype=torch.int32, device="cuda")
     f32_ms = device_ms(torch, lambda: flash_decode(qf, kf, vf, pos), cold=True)
     results["flash_decode"] = dict(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=bms, bound_by=by, fp32_ms=f32_ms,
+        max_abs_err=worst, **timed[p_mean], fp32_ms=f32_ms, pos2047=timed[L - 1],
+        split_witness_worst=worst_witness,
     )
-    log(f"[kernels] flash_decode B{B} G{G} R{R} D{D} L{L} pos {p_mean}, L2 flushed: "
-        f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-        f"(scaled_dot_product_attention) bound_ms {bms:.5f} ({by}: "
-        f"{n_bytes} B, {flops} FLOP); fp32 operands kernel_ms {f32_ms:.4f}")
+    log(f"[kernels] flash_decode fp32 operands pos {p_mean}: kernel_ms {f32_ms:.4f} (split "
+        f"{_decode_plan(B, G, R, L, D, f32, sms).split}); worst err/tol against "
+        f"_split_reference over every case {worst_witness:.3f}")
     return results
+
+
+def _decode_witness(torch, o, o_split):
+    """Worst |error| / tolerance of the kernel against ``_split_reference``,
+    its own order of operations in plain PyTorch: the two round the same
+    probabilities against the same per-split maxima, so they differ only in
+    fp32 summation order (a probability near a bf16 rounding edge may land
+    one step apart) and in the final cast: bf16 within 2^-7·|ref| + 2^-8·rms,
+    fp32 within 2^-14·|ref| + 2^-14·rms."""
+    rtol, atol = (2.0 ** -14, 2.0 ** -14) if o.dtype == torch.float32 else (2.0 ** -7, 2.0 ** -8)
+    o, ref = o.float(), o_split.float()
+    rms = ref.pow(2).mean().sqrt().item()
+    return ((o - ref).abs() / (rtol * ref.abs() + atol * rms + 1e-30)).max().item()
 
 
 def phase_kernels_bwd(torch):
@@ -2032,17 +2111,51 @@ def phase_bwd_probe(torch, np):
     """Kernel 12 against its plain version, then timed at the probe's shape."""
     from kubeflow_tpu_torch.benchmarks import pallas_bwd_probe as probe
 
+    from kubeflow_tpu_torch.ops import _build
+
     n, ci, co = probe.N, probe.CI, probe.CO
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entry = None     # ptxas' registers and spills of each instantiation
+    for line in _build.build_log("fused_bn_relu_conv1x1_bwd").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"fused_bwd_wgmmaILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            entry = f"fused_bwd_wgmma<{', '.join(m.groups())}>" if m else None
+        elif entry and ("registers" in line or "spill" in line):
+            log(f"[bwd probe] {entry}: {line.strip()}")
     worst = 0.0
     for i, (name, shape) in enumerate((
             ("probe_shape", (n, ci, co)),
             ("ragged_n", (4133, 48, 80)),           # N no multiple of 64; one partial slice
-            ("co256", (8192, 192, 256)),            # the 64-channel slices
+            ("co256_at_the_limit", (8192, 192, 256)),   # 128-channel slices, one ring stage
+            ("co64_ci512", (9000, 512, 64)),        # two 256-channel slices
+            ("ci320_partial_slice", (4133, 320, 128)),  # 256-channel slices, the second partial
             ("one_tile", (50, 16, 16)))):
+        plan = probe._plan(*shape, sms)
+        log(f"[bwd probe] {name}: plan ci_slice {plan.ci_slice} co_pad {plan.co_pad} slices "
+            f"{plan.slices} (dr and y read {plan.slices}x) stages {plan.stages} grid {plan.grid} "
+            f"{plan.smem_bytes} B shared memory a block")
         worst = max(worst, _check_bwd_case(torch, probe, name, *shape, seed=10 + i))
+
+    # past the CO limit: a stated refusal before any launch, never the plain version
+    before = probe.fused_bn_relu_conv1x1_bwd.launches
+    try:
+        probe.fused_bn_relu_conv1x1_bwd(*probe.probe_operands(256, 64, probe.MAX_CO + 16, seed=3))
+    except ValueError as e:
+        log(f"[bwd probe] CO {probe.MAX_CO + 16}: refused: {e}")
+    else:
+        raise AssertionError(f"the fused backward took CO {probe.MAX_CO + 16}")
+    if probe.fused_bn_relu_conv1x1_bwd.launches != before:
+        raise AssertionError("a refused shape launched the fused backward")
 
     args = probe.probe_operands(n, ci, co, seed=0)
     dr, y, x, wt, scal = args
+    dx1, dw1 = probe.fused_bn_relu_conv1x1_bwd(*args)
+    dx2, dw2 = probe.fused_bn_relu_conv1x1_bwd(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(dx1, dx2) and torch.equal(dw1, dw2)):
+        raise AssertionError("two launches of the fused backward differ")
+    log("[bwd probe] two launches at the probe's shape bitwise equal (dX and dW)")
+    del dx1, dw1, dx2, dw2
     dy16 = probe.bn_relu_bwd_dy(dr, y, scal)
     ms = device_ms(torch, lambda: probe.fused_bn_relu_conv1x1_bwd(*args), cold=True, iters=10)
     plain_ms = device_ms(torch, lambda: probe.fused_bn_relu_conv1x1_bwd_plain(*args),

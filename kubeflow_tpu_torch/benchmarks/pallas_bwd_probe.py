@@ -16,20 +16,28 @@ CO 128.
 
 What bounds the kernel on an H100: bytes (dr, y, x read once, dX written
 once: 1.23 GB, 0.37 ms at 3.35 TB/s, against 105 GFLOP, 0.11 ms). The design
-is in the source's header: a block owns a slice of input channels, keeps
-that slice of dW in registers over its row tiles, and writes a partial that a
-second pass adds in order (the TPU kernel carries dW across a sequential
-grid).
+is in the source's header: a persistent block an SM owns a slice of input
+channels (all 256 at the probe's shape, so the activations are read once),
+keeps that slice of dW in registers over its row tiles, which TMA brings
+through a ring of shared memory, multiplies on the tensor cores (wgmma) and
+writes a partial that a second pass adds in order (the TPU kernel carries dW
+across a sequential grid). :func:`_plan` is the launch: the slice, the ring
+depth and the shared memory part by part.
 
 The kernel takes any N, CI a multiple of 16, and CO a multiple of 16 up to
-256 (a block's dW slice has to fit its registers); other shapes raise. CPU
-tensors take the plain version.
+256 (a block's dW slice has to fit its registers, and its ring its shared
+memory); other shapes raise, on any device but the CPU, before a launch. The
+JAX kernel runs at the probe's one bf16 shape only
+(``benchmarks/pallas_bwd_probe.py:19-22, 56-75``). CPU tensors take the
+plain version.
 
     python3 -m kubeflow_tpu_torch.benchmarks.pallas_bwd_probe
 
 prints the kernel's and the plain version's device time at the probe's shape.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -40,8 +48,70 @@ from kubeflow_tpu_torch.ops import _build
 N = 256 * 56 * 56
 CI = 256
 CO = 128
-TILE_ROWS = 64     # rows a tile (csrc/fused_bn_relu_conv1x1_bwd.cu)
+TILE_ROWS = 64       # rows a tile (csrc/fused_bn_relu_conv1x1_bwd.cu)
 MAX_CO = 256
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may take on Hopper
+_ACC_FP32 = 32_768   # dW accumulators of two consumer warpgroups: 128 fp32 a thread
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How the kernel launches. A block owns ``ci_slice`` input channels
+    (``slices`` blocks along CI, so dr and y are read ``slices`` times) and
+    CO padded to ``co_pad`` (64, 128 or 256) and keeps that [ci_slice,
+    co_pad] slice of dW in registers; ``stages`` row tiles in flight. Shared
+    memory part by part, from a 1024-byte-aligned base: W^T's slice
+    (``w_bytes``), each stage's dr, y and x tiles (``stage_bytes``: a slot
+    of the dr/y ring and one of the x ring), dy (``dy_bytes``), scal
+    (``scal_bytes``), the mbarriers (``barrier_bytes``: W's and a full
+    barrier of each slot); ``csrc/fused_bn_relu_conv1x1_bwd.cu`` (Layout) sums
+    the same bytes and the launcher checks them. ``grid`` (row groups,
+    slices), at most one block an SM."""
+
+    ci_slice: int
+    co_pad: int
+    slices: int
+    stages: int
+    w_bytes: int
+    stage_bytes: int
+    dy_bytes: int
+    scal_bytes: int
+    barrier_bytes: int
+    smem_bytes: int
+    grid: tuple[int, int]
+
+
+def _kernel_shape(ci: int, co: int) -> None:
+    if ci % 16 or co % 16 or ci < 16 or co < 16 or co > MAX_CO:
+        raise ValueError(
+            f"fused_bn_relu_conv1x1_bwd kernel takes CI and CO that are multiples of 16 and "
+            f"CO <= {MAX_CO} (dW's slice of at least 128 input channels x CO must fit 128 fp32 "
+            f"registers a thread); got CI {ci}, CO {co}")
+
+
+def _plan(n: int, ci: int, co: int, sms: int) -> BwdPlan:
+    """The kernel's launch: CO padded to 64, 128 or 256; the whole of CI up
+    to 256 channels a block where ``ci_slice * co_pad`` fits the two
+    warpgroups' 32,768 accumulators (CO <= 128), else 128; two ring stages
+    where they fit the 232,448 bytes, else one; ``sms // slices`` blocks
+    along N (fewer with fewer row tiles)."""
+    _kernel_shape(ci, co)
+    co_pad = 64 if co <= 64 else 128 if co <= 128 else 256
+    ci_slice = 256 if co_pad <= 128 and ci > 128 else 128
+    assert ci_slice * co_pad <= _ACC_FP32
+    slices = -(-ci // ci_slice)
+    w = ci_slice * co_pad * 2
+    stage = (2 * co_pad + ci_slice) * TILE_ROWS * 2
+    dy = co_pad * TILE_ROWS * 2
+    scal = 7 * co_pad * 4
+
+    def total(stages):
+        return 1024 + w + stages * stage + dy + scal + 8 * (1 + 2 * stages)
+
+    stages = 2 if total(2) <= SMEM_LIMIT else 1
+    gx = max(1, min(-(-n // TILE_ROWS), sms // slices))
+    return BwdPlan(ci_slice, co_pad, slices, stages, w, stage, dy, scal, 8 * (1 + 2 * stages),
+                   total(stages), (gx, slices))
 
 
 def bn_relu_bwd_dy(dr, y, scal):
@@ -85,25 +155,23 @@ def fused_bn_relu_conv1x1_bwd(dr, y, x, wt, scal):
     n, ci, co = _check(dr, y, x, wt, scal)
     if dr.device.type == "cpu":
         return fused_bn_relu_conv1x1_bwd_plain(dr, y, x, wt, scal)
+    _kernel_shape(ci, co)
     if dr.device.type != "cuda":
         raise TypeError(f"fused_bn_relu_conv1x1_bwd kernel takes CUDA tensors; dr is on {dr.device}")
-    if ci % 16 or co % 16 or co > MAX_CO:
-        raise ValueError(
-            f"fused_bn_relu_conv1x1_bwd kernel takes CI and CO that are multiples of 16 and "
-            f"CO <= {MAX_CO}; got CI {ci}, CO {co}")
     for name, t in (("dr", dr), ("y", y), ("x", x), ("wt", wt), ("scal", scal)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
                 f"fused_bn_relu_conv1x1_bwd kernel needs {name} contiguous and 16-byte aligned")
     sms = torch.cuda.get_device_properties(dr.device).multi_processor_count
-    slices = -(-ci // (128 if co <= 128 else 64))
-    gx = max(1, min(-(-n // TILE_ROWS), (2 * sms) // slices))
+    plan = _plan(n, ci, co, sms)
+    gx = plan.grid[0]
     dx = torch.empty((n, ci), dtype=torch.bfloat16, device=dr.device)
     dw = torch.empty((ci, co), dtype=torch.float32, device=dr.device)
     part = torch.empty((gx, ci, co), dtype=torch.float32, device=dr.device)
     _build.launch(
         "fused_bn_relu_conv1x1_bwd", dr.data_ptr(), y.data_ptr(), x.data_ptr(), wt.data_ptr(),
         scal.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(), n, ci, co, gx,
+        plan.ci_slice, plan.co_pad, plan.stages, plan.smem_bytes,
         torch.cuda.current_stream(dr.device).cuda_stream)
     fused_bn_relu_conv1x1_bwd.launches += 1
     return dx, dw

@@ -42,8 +42,9 @@ SIGNATURES = {
     ),
     "flash_decode": (
         "flash_decode_launch",
-        # q, k_cache, v_cache, pos, o, B, G, R, L, D, window, scale, f32, stream
-        [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+        # q, k_cache, v_cache, pos, o, ws_o, ws_ml, tickets, B, G, R, L, D,
+        # window, scale, f32, splits, split, cluster, smem, stream
+        [_P] * 8 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     ),
     "flash_attention_bwd_dq": (
         "flash_attention_bwd_dq_launch",
@@ -96,8 +97,9 @@ SIGNATURES = {
     ),
     "fused_bn_relu_conv1x1_bwd": (
         "fused_bn_relu_conv1x1_bwd_launch",
-        # dr, y, x, wt, scal, dx, part, dw, N, CI, CO, gx, stream
-        [_P] * 8 + [_I] * 4 + [_P],
+        # dr, y, x, wt, scal, dx, part, dw, N, CI, CO, gx, ci_slice, co_pad,
+        # stages, smem, stream
+        [_P] * 8 + [_I] * 8 + [_P],
     ),
 }
 
