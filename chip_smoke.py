@@ -20,9 +20,9 @@ Phases, each of which fails the run with a non-zero exit:
             launches bitwise equal, timed at the request's mean position
             (191) and at the full 2,048-token cache; the build phase counts
             the tensor-core instructions (HGMMA) of the flash libraries, the
-            fused head's dh and dE libraries and the fused BN + ReLU +
-            1x1-conv backward, which the bf16 flash forward, dq and dk/dv,
-            the head's dh and dE and that backward must have;
+            fused head's forward, dh and dE libraries and the fused BN +
+            ReLU + 1x1-conv backward, which the bf16 flash forward, dq and
+            dk/dv, the head's three kernels and that backward must have;
 3. generate run ``generate`` at the full flagship decode config (24 layers,
             GQA 8/4 heads, 410.3M parameters, seeded weights): batch 4, prompt 128, 128 new
             tokens, temperature 0.8, top_k 40, with every kernel launch
@@ -56,14 +56,16 @@ Phases, each of which fails the run with a non-zero exit:
 10. head kernels  hold the fused tied head's forward, dh and dE kernels
             against their plain versions in bf16 at the MoE flagship's head
             shape (T 8192, V 32000, E 1024) and at edge cases (ragged T, V
-            97, 40 and 50257, E 128 and 100, targets outside [0, V) and in
+            97, 40 and 50257, E 128 and 100, E 256 and 200 in two E chunks a
+            forward tile over ranges of three tiles, targets outside [0, V) and in
             the last vocabulary tile, logits near +-80 (dh and dE there
             held to the exact sums of the route's own dlogits), each
             cotangent alone, E 768 and 2048 on clusters of 3 and 8 blocks,
             E 4096 in two passes), and on their fp32 route (the flagship E,
-            V 97, E 100); check that two dh and two dE launches agree bit
-            for bit, also when launched while another stream's kernel holds
-            every SM; time kernel, plain version, library, bound and the
+            V 97, E 100); check that two forward, two dh and two dE launches
+            agree bit for bit, dh and dE also when launched while another
+            stream's kernel holds every SM; print the forward's plan and
+            ptxas lines; time kernel, plain version, library, bound and the
             fp32 route, and the whole head forward + backward fused against
             chunked;
 11. moe train fused  the MoE flagship of phase 8 through
@@ -77,7 +79,9 @@ Phases, each of which fails the run with a non-zero exit:
             256 and at edge cases (ragged row counts, C 3, 11, 100, fp32, a
             channel whose variance must clamp at 0), and the stats probe's
             scaled moments at its six batch-16 shapes with a multiplier of
-            1.25; time kernel, plain version, library reductions and bound
+            1.25; show from a profile that a moments call is one device
+            kernel, and that two of its launches agree bit for bit; time
+            kernel, plain version, library reductions and bound
             (L2 flushed), one train step's 53 launches summed, and the whole
             ``batch_norm_train`` forward + backward a shape; then run the
             stats probe's ``main()``;
@@ -339,7 +343,8 @@ def phase_build():
 
 
 WGMMA_LIBS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-              "fused_head_bwd_dh", "fused_head_bwd_de", "fused_bn_relu_conv1x1_bwd")
+              "fused_head_fwd", "fused_head_bwd_dh", "fused_head_bwd_de",
+              "fused_bn_relu_conv1x1_bwd")
 
 
 def tensor_core_counts(libs):
@@ -347,8 +352,8 @@ def tensor_core_counts(libs):
     kernel: HGMMA (wgmma) and HMMA (mma.sync) in the SASS that ``cuobjdump``
     shows, or, without it, ``wgmma.mma_async`` and ``mma.sync`` in ``nvcc
     -ptx`` output. The bf16 route of the flash forward, dq and dk/dv, of
-    the fused head's dh and dE and the fused BN + ReLU + 1x1-conv backward
-    must issue wgmma; the scalar kernels none."""
+    the fused head's forward, dh and dE and the fused BN + ReLU + 1x1-conv
+    backward must issue wgmma; the scalar kernels none."""
     from kubeflow_tpu_torch.ops import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -762,6 +767,33 @@ def _profile(torch, fn, reps: int, top: int = 8):
     return (sum(by_name.values()) / 1e3 / reps, n / reps,
             [(name if i >= top else name[:80], us / 1e3 / reps)
              for i, (name, us) in enumerate(ranked)])
+
+
+def _device_kernels(torch, fn, reps: int, tries: int = 5):
+    """The names of the device operations (kernels, copies, memsets) that
+    ``reps`` calls of ``fn`` ran, one list a profile, from the profiler's
+    raw activity records (launches made outside any PyTorch op, as the
+    port's ctypes launchers make them, are not always attached to
+    ``prof.events()``). A profile may drop some of these records (on an
+    H100 one profile held 2 records for 5 one-kernel calls) but invents none,
+    so up to ``tries`` profiles are taken, until one holds a record for
+    each of its ``reps`` calls or more. A first profile of the same calls
+    is discarded: it warms the tracer up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for t in range(tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        if t:
+            seen.append([e.name() for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == DeviceType.CUDA])
+            if len(seen[-1]) >= reps:
+                break
+    return seen
 
 
 def phase_generate(torch, np):
@@ -1476,6 +1508,7 @@ def phase_head_kernels(torch, np):
     timed with the plain versions, the library yardstick and the bound; and
     the whole head, forward and backward, fused against chunked."""
     import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.ops import _build
     from kubeflow_tpu_torch.ops import fused_head_loss as fh
 
     gen = torch.Generator(device="cuda")
@@ -1541,6 +1574,10 @@ def phase_head_kernels(torch, np):
     run("v40", *operands(256, 40, 256), randn_rows(256), randn_rows(256))
     run("e128", *operands(1024, 4096, 128), randn_rows(1024), randn_rows(1024))
     run("e100", *operands(200, 300, 100), randn_rows(200), randn_rows(200))
+    # two E chunks a forward tile (E 256 and 200), blocks walking ranges of
+    # two and three vocabulary tiles
+    run("e256_two_chunks", *operands(1024, 5000, 256), randn_rows(1024), randn_rows(1024))
+    run("e200_two_chunks", *operands(2048, 3000, 200), randn_rows(2048), randn_rows(2048))
     # rows whose logits are all large: a shared column of the table and an
     # h entry of +-80 there put every logit of the row near +80 or -80
     h3, e3, t3 = operands(256, 5000, E)
@@ -1559,16 +1596,20 @@ def phase_head_kernels(torch, np):
     run("f32_v97", *operands(512, 97, E, dtype=f32), randn_rows(512), randn_rows(512))
     run("f32_e100", *operands(200, 300, 100, dtype=f32), randn_rows(200), randn_rows(200))
 
-    # no atomics: two launches of each backward kernel agree bit for bit
+    # no atomics on the sums: two launches of each kernel agree bit for bit
+    # (the forward's ranges combine in range order whichever block is last)
     lse_d, _ = fh.lse_gold_plain(h, emb, tgt_flag)
     same, solo = {}, {}
+    first, again = fh.fused_head_fwd(h, emb, tgt_flag), fh.fused_head_fwd(h, emb, tgt_flag)
+    same["fwd"] = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
+    del first, again
     for key, fn in (("dh", fh.fused_head_bwd_dh), ("dE", fh.fused_head_bwd_de)):
         solo[key] = fn(h, emb, tgt_flag, lse_d, dlse, dgold)
         same[key] = bool(torch.equal(solo[key], fn(h, emb, tgt_flag, lse_d, dlse, dgold)))
     detail["bitwise_equal_relaunch"] = same
     log(f"[head kernels] determinism at the flagship, two launches bitwise equal: {same}")
     if not all(same.values()):
-        raise AssertionError(f"fused head backward differs between two launches: {same}")
+        raise AssertionError(f"fused head kernels differ between two launches: {same}")
     detail["contention"] = _check_head_contention(torch, fh, h, emb, tgt_flag, lse_d, dlse,
                                                   dgold, solo)
     del solo
@@ -1625,8 +1666,15 @@ def phase_head_kernels(torch, np):
     errs = {"fwd": worst["lse"], "dh": worst["dh"], "de": worst["de"]}
     results = {}
     plan = fh._plan(T, V, E, bf16)
+    fwd_plan = fh._fwd_plan(T, V, E, bf16, torch.cuda.get_device_properties(0).multi_processor_count)
     detail["plan"] = dataclasses.asdict(plan)
+    detail["fwd_plan"] = dataclasses.asdict(fwd_plan)
+    detail["fwd_registers"] = [ln.strip() for ln in _build.build_log("fused_head_fwd").splitlines()
+                               if "registers" in ln or "spill" in ln or "C75" in ln]
     detail["fp32_route_ms"] = {k: times[k + "_f32"] for k in ("fwd", "dh", "de")}
+    log(f"[head kernels] forward plan: {fwd_plan}")
+    for ln in detail["fwd_registers"]:
+        log(f"[head kernels] forward ptxas: {ln[:160]}")
     log(f"[head kernels] timed at T{T} V{V} E{E} bf16, L2 warm; library = torch.mm(out_dtype="
         f"fp32) + logsumexp + gather (forward), + exp, bf16 dlogits, torch.mm (dh, dE); "
         f"backward plan: {plan}:")
@@ -1958,6 +2006,29 @@ def phase_bn_kernels(torch, np):
     # nothing of the activations' scale
     run("large_mean_fp32", x, randn(200_000, 64, dtype=torch.float32), reported=False)
 
+    # one device kernel a moments call (its finish in the same launch), and
+    # two launches bitwise equal (a fixed order whichever block finishes last)
+    # (every profile's records must name the moments kernel alone, and the
+    # last, whose records are complete, hold one a call)
+    x = randn(802_816, 64, mean=0.3)
+    counted = bn.channel_moments.launches
+    seen = _device_kernels(torch, lambda: bn.moments_sums(x, 1.0, bn.channel_moments), reps=5)
+    launched = bn.channel_moments.launches - counted
+    kinds = sorted({n for names in seen for n in names})
+    per_call = len(seen[-1]) / 5
+    first = bn.moments_sums(x, 1.0, bn.channel_moments)
+    again = bn.moments_sums(x, 1.0, bn.channel_moments)
+    bitwise = all(bool(torch.equal(p, q)) for p, q in zip(first, again))
+    log(f"[bn kernels] bn_moments at [802816, 64]: {per_call:.1f} device kernels a call "
+        f"({[n[:40] for n in kinds]}; records a profile of 5 calls: "
+        f"{[len(names) for names in seen]}), {launched} launches counted for "
+        f"{5 * (len(seen) + 1)} profiled calls; two launches bitwise equal: {bitwise}")
+    if (per_call != 1.0 or len(kinds) != 1 or "column_sums_once" not in kinds[0]
+            or launched != 5 * (len(seen) + 1) or not bitwise):
+        raise AssertionError("bn_moments must be one device kernel a call, counted once, and "
+                             "repeat bit for bit")
+    one_launch = dict(kernels_a_call=per_call, bitwise_equal_relaunch=bitwise)
+
     # a rows view that needs a copy raises, as does a CPU mean for a CUDA x
     xt = randn(64, 4096).t()
     for what, call in (("channel_moments", lambda: bn.channel_moments(xt)),
@@ -1987,6 +2058,10 @@ def phase_bn_kernels(torch, np):
         t = dict(
             m=m, ch=ch, count=count, bytes=2 * m * ch,
             mom_ms=device_ms(torch, lambda: bn.channel_moments(x), cold=True, iters=it),
+            # the kernel's launch alone, without channel_moments' mean and
+            # variance (four small elementwise launches)
+            mom_alone_ms=device_ms(torch, lambda: bn.moments_sums(x, 1.0, bn.channel_moments),
+                                   cold=True, iters=it),
             mom_plain_ms=device_ms(torch, lambda: bn.channel_moments_plain(x), cold=True, iters=it),
             mom_lib_ms=device_ms(torch, lambda: torch.var_mean(x, dim=0, correction=0),
                                  cold=True, iters=it),
@@ -2006,7 +2081,8 @@ def phase_bn_kernels(torch, np):
             2 * t["bytes"] + 16 * ch, 5 * m * ch, FP32_FLOPS_PER_S)
         per_shape.append(t)
         log(f"[bn kernels] [{m}, {ch}] bf16 x{count} a step, L2 flushed: moments kernel_ms "
-            f"{t['mom_ms']:.4f} plain_ms {t['mom_plain_ms']:.4f} library_ms {t['mom_lib_ms']:.4f} "
+            f"{t['mom_ms']:.4f} (launch alone {t['mom_alone_ms']:.4f}) plain_ms "
+            f"{t['mom_plain_ms']:.4f} library_ms {t['mom_lib_ms']:.4f} "
             f"bound_ms {t['mom_bound_ms']:.5f} ({t['mom_bound_by']}) | grad sums kernel_ms "
             f"{t['gs_ms']:.4f} plain_ms {t['gs_plain_ms']:.4f} library_ms {t['gs_lib_ms']:.4f} "
             f"bound_ms {t['gs_bound_ms']:.5f} ({t['gs_bound_by']}) "
@@ -2039,6 +2115,9 @@ def phase_bn_kernels(torch, np):
             f"({step_sum('bytes') / 1e9:.3f} GB an activation sweep); a launch on average: kernel_ms "
             f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
             f"bound_ms {r['bound_ms']:.5f} ({r['bound_by']})")
+    log(f"[bn kernels] bn_moments' launches alone (channel_moments without its mean and variance), "
+        f"the 53 of a step: {step_sum('mom_alone_ms'):.4f} ms")
+    results["bn_moments"]["step_alone_ms"] = step_sum("mom_alone_ms")
     log(f"[bn kernels] batch_norm_train forward + backward, the 53 of a step one by one: "
         f"{bn_whole:.3f} ms, of which the two kernels "
         f"{results['bn_moments']['step_ms'] + results['bn_grad_sums']['step_ms']:.3f} ms and the "
@@ -2075,7 +2154,7 @@ def phase_bn_kernels(torch, np):
     if probe_launches < len(probe.SHAPES):
         raise AssertionError("the stats probe did not launch its kernel at every shape")
     return results, dict(per_shape=per_shape, batch_norm_train_ms=bn_whole,
-                         scaled=timed), probe_launches
+                         scaled=timed, moments_one_launch=one_launch), probe_launches
 
 
 def _check_bwd_case(torch, probe, name, n, ci, co, seed):

@@ -70,8 +70,9 @@ SIGNATURES = {
     ),
     "fused_head_fwd": (
         "fused_head_fwd_launch",
-        # h, emb, tgt, lse, gold, T, V, E, f32, stream
-        [_P] * 5 + [_I] * 4 + [_P],
+        # h, emb, tgt, lse, gold, ws, tickets, T, V, E, f32, ranges, stages,
+        # smem, stream
+        [_P] * 7 + [_I] * 7 + [_P],
     ),
     "fused_head_bwd_dh": (
         "fused_head_bwd_dh_launch",
@@ -87,8 +88,8 @@ SIGNATURES = {
     ),
     "bn_moments": (
         "bn_moments_launch",
-        # x, part, out, m, C, dtype, vec, tx, gy, c, stream
-        [_P] * 3 + [_I] * 6 + [_F, _P],
+        # x, part, tickets, out, m, C, dtype, vec, tx, gy, c, stream
+        [_P] * 4 + [_I] * 6 + [_F, _P],
     ),
     "bn_grad_sums": (
         "bn_grad_sums_launch",

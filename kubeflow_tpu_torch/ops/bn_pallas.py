@@ -24,12 +24,19 @@ contiguous dimension, so neighbouring threads take neighbouring 16-byte
 vectors of channels (8 bf16 or 4 fp32 values; single elements where C does
 not allow the vector) and each keeps fp32 partial sums of its channels over
 its rows. A block adds its threads' partials through shared memory in a
-fixed order and writes one row of a ``[2, gy, C]`` scratch tensor; a second,
-small kernel adds the ``gy`` rows in order. No atomics: the result is the
-same on every run, as the TPU kernel's is. :func:`_plan` picks the split so
-that both ends of the ResNet zoo fill the card: ``[B·112², 64]`` is one
-column group and hundreds of row groups, ``[B·7², 2048]`` eight column groups
-and fewer row groups.
+fixed order and writes one row of partial sums. No atomics on the sums: the
+result is the same on every run, as the TPU kernel's is.
+
+- The moments kernel is one launch (:func:`_moments_plan`): each thread
+  issues eight row loads before it adds them, two blocks of 256 threads an
+  SM sweep the rows, and the last block of each column group to finish (an
+  atomic ticket, cached zeroed per stream and left zeroed by the kernel)
+  adds the group's partial rows in a fixed order.
+- The grad-sums kernel writes ``[2, gy, C]`` partials and a second, small
+  kernel adds the ``gy`` rows in order; :func:`_plan` picks its split so
+  that both ends of the ResNet zoo fill the card: ``[B·112², 64]`` is one
+  column group and hundreds of row groups, ``[B·7², 2048]`` eight column
+  groups and fewer row groups.
 
 ``_pick_block_rows`` and ``_rows_view`` of the JAX module are helpers for the
 TPU's (8, 128) tiling and its conv layout and are not carried over: the
@@ -49,10 +56,12 @@ raise. Each wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from kubeflow_tpu_torch.models.transformer import matmul_f32
-from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import _build, _workspace
 
 THREADS = 256            # threads a block (csrc/bn_common.cuh)
 _MAX_TX = 32             # column vectors a block spans at most
@@ -124,6 +133,90 @@ def _plan(m: int, ch: int, dtype, sms: int):
     return vec, tx, gx, gy
 
 
+_MOM_MAX_TX = 16         # column vectors a moments block spans at most ...
+_MOM_WIDE_TX = 32        # ... and at rows of 256 vectors or more (2,048 bf16 channels)
+_MOM_BLOCKS_PER_SM = 2   # moments blocks an SM: 8 row loads of 16 bytes in flight a thread
+_MOM_UNROLL = 8          # row loads a thread issues before adding them (ONCE_UNROLL)
+_MOM_MIN_SWEEPS = 2      # a block's threads take at least this many batches of 8 rows
+
+
+@dataclasses.dataclass(frozen=True)
+class MomentsPlan:
+    """How the one-launch moments kernel cuts ``[m, ch]``: ``vec`` channels a
+    thread, ``tx`` column vectors and ``ty`` rows a block step, ``gx`` column
+    groups of ``width`` channels, ``gy`` row groups; each block leaves a
+    partial row of 2 ``width4`` floats (``width`` padded to 4) in ``part``
+    (``part_floats`` in all), and ``gx`` tickets pick each group's last
+    block."""
+
+    vec: int
+    tx: int
+    ty: int
+    gx: int
+    gy: int
+    width: int
+    width4: int
+    part_floats: int
+
+
+def _moments_plan(m: int, ch: int, dtype, sms: int) -> MomentsPlan:
+    """The moments kernel's split: 16-byte vectors where ``ch`` allows, up to
+    16 column vectors a block (so that a group's finish reads at most 2 x 128
+    floats a partial row; 32 where a row holds 256 vectors or more, whose
+    wider slices of each row read faster), and ``gy`` row groups: enough for
+    two blocks an SM across the column groups, but no more than leave each
+    thread two batches of 8 rows, so a small activation takes fewer, fuller
+    blocks and its finish few partial rows."""
+    wide = 16 // torch.empty((), dtype=dtype).element_size()
+    vec = wide if ch % wide == 0 else 1
+    cols = ch // vec
+    tx = 1
+    while tx < min(cols, _MOM_WIDE_TX if cols >= 256 else _MOM_MAX_TX):
+        tx *= 2
+    gx = -(-cols // tx)
+    ty = THREADS // tx
+    gy = max(1, min(-(-m // (ty * _MOM_UNROLL * _MOM_MIN_SWEEPS)),
+                    -(-(_MOM_BLOCKS_PER_SM * sms) // gx)))
+    width = tx * vec
+    width4 = max(width, 4)
+    return MomentsPlan(vec, tx, ty, gx, gy, width, width4, gx * gy * 2 * width4)
+
+
+def _moments_split_reference(x, c: float, plan: MomentsPlan):
+    """The moments kernel's order of operations in plain PyTorch (a witness,
+    never on the main path): thread (row group y, row lane ry) adds the terms
+    of rows y ty + ry, + gy ty, ... in row order; a block adds its ty lanes in
+    lane order; the finish lane l adds the partial rows y = l, l + lanes, ...
+    (lanes = 256 // (width4 / 2)) in order, then the lanes in lane order. fp32
+    throughout; the kernel may fuse a square and its add into one rounding,
+    so the sums of squares may differ in their last bits."""
+    x2 = _rows(x).float() * c
+    m, ch = x2.shape
+    step = plan.gy * plan.ty
+    cols = plan.gx * plan.width
+    xp = torch.zeros((-(-m // step) * step, cols), dtype=torch.float32)
+    xp[:m, :ch] = x2
+    rows = xp.view(-1, plan.gy, plan.ty, cols)
+    lanes = THREADS // (plan.width4 // 2)
+    out = []
+    for terms in (rows, rows * rows):
+        thread = torch.zeros((plan.gy, plan.ty, cols), dtype=torch.float32)
+        for k in range(terms.shape[0]):
+            thread = thread + terms[k]
+        block = thread[:, 0]
+        for ry in range(1, plan.ty):
+            block = block + thread[:, ry]
+        part = [None] * lanes
+        for y in range(plan.gy):
+            part[y % lanes] = block[y] if part[y % lanes] is None else part[y % lanes] + block[y]
+        total = part[0]
+        for p in part[1:]:
+            if p is not None:
+                total = total + p
+        out.append(total[:ch])
+    return out[0], out[1]
+
+
 def _check_kernel_operand(what, name, t, like=None):
     if t.device.type != "cuda":
         raise TypeError(f"{what} kernel takes CUDA tensors; {name} is on {t.device}")
@@ -165,6 +258,23 @@ def _launch_sums(name, x2, extra_ptrs, scalars, counter):
     return out[0], out[1]
 
 
+def _launch_moments(x2, c: float, counter):
+    """Launch the moments kernel over ``x2`` [m, C] with multiplier ``c``,
+    one launch with the cached scratch of :func:`_moments_plan`: returns the
+    two fp32 [C] sums; the launch is counted in ``counter.launches``."""
+    m, ch = x2.shape
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    plan = _moments_plan(m, ch, x2.dtype, sms)
+    part, tickets = _workspace.workspace(x2.device, stream, plan.part_floats, plan.gx)
+    out = torch.empty((2, ch), dtype=torch.float32, device=x2.device)
+    _build.launch("bn_moments", x2.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                  out.data_ptr(), m, ch, _DTYPE_CODES[x2.dtype], plan.vec, plan.tx, plan.gy,
+                  float(c), stream)
+    counter.launches += 1
+    return out[0], out[1]
+
+
 def moments_sums(x, c: float, counter):
     """(Σ(c·x), Σ(c·x)²) per channel, fp32 [C] each: the moments kernel on a
     CUDA tensor, the plain version on a CPU tensor. The two wrappers of the
@@ -176,7 +286,7 @@ def moments_sums(x, c: float, counter):
     if x.device.type == "cpu":
         return moments_sums_plain(x, c)
     _check_kernel_operand("bn_moments", "x", x2)
-    return _launch_sums("bn_moments", x2, (), (float(c),), counter)
+    return _launch_moments(x2, c, counter)
 
 
 def channel_moments(x):

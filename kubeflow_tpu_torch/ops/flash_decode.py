@@ -46,7 +46,7 @@ import functools
 
 import torch
 
-from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import _build, _workspace
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 
 _KERNEL_D = (64, 128)
@@ -197,23 +197,6 @@ def _split_reference(q, k_cache, v_cache, pos, window, plan):
     return out
 
 
-# (device index, stream) -> (workspace, tickets): kernels on one stream run
-# in order, so one stream's launches share them; the kernel leaves every
-# ticket at 0, so they are zeroed once, when allocated.
-_WORKSPACES: dict = {}
-
-
-def _workspace(device, stream, n_ws: int, n_tickets: int):
-    key = (device.index, stream)
-    ws, tickets = _WORKSPACES.get(key, (None, None))
-    if ws is None or ws.numel() < n_ws:
-        ws = torch.empty(n_ws, dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < n_tickets:
-        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
-    _WORKSPACES[key] = (ws, tickets)
-    return ws, tickets
-
-
 def flash_decode(q, k_cache, v_cache, pos, *, window=None, block_k: int = 256):
     """Attend one query token per row against the grouped KV cache.
 
@@ -263,7 +246,7 @@ def _launch(q, k_cache, v_cache, pos, window, plan):
     L = k_cache.shape[2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     n_part = B * G * R * plan.splits
-    ws, tickets = _workspace(q.device, stream, n_part * (D + 2), B * G * plan.chunks)
+    ws, tickets = _workspace.workspace(q.device, stream, n_part * (D + 2), B * G * plan.chunks)
     out = torch.empty_like(q)
     _build.launch(
         "flash_decode",

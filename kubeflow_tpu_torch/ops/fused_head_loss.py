@@ -20,8 +20,14 @@ products summed in fp32. What bounds them on an H100: operations (2 T V E
 FLOP forward, 4 T V E each backward kernel). Routes, by h's dtype
 (:func:`_plan`):
 
-- bf16: the forward multiplies on the tensor cores with ``mma.sync``
-  m16n8k16 (64×64 logits tiles). dh and dE are one ``wgmma`` kernel
+- bf16: the forward is a ``wgmma`` GEMM whose epilogue is the softmax
+  fold (:func:`_fwd_plan`): a block keeps 128 tokens' accumulators of a
+  128-column vocabulary tile in registers, streams E through a TMA ring,
+  folds each finished tile into the rows' running (max, sum) while the next
+  tile's products run, forms gold as a dot product of the two rows, and the
+  vocabulary is cut into ranges whose partials the last block of each token
+  tile combines in range order, in the same launch. dh and dE are one
+  ``wgmma`` kernel
   mirrored (``csrc/fused_head_common.cuh``): a block keeps 128 rows of one
   operand resident and streams 64-row tiles of the other through a TMA
   ring; E is split across the C = min(8, ⌈E/256⌉) blocks of a thread-block
@@ -71,7 +77,7 @@ import dataclasses
 import torch
 
 from kubeflow_tpu_torch.models.transformer import matmul_f32
-from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import _build, _workspace
 
 PLAIN_CHUNK = 1024    # tokens a chunk in the plain versions: [1024, V] fp32 logits
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may take on Hopper
@@ -154,6 +160,118 @@ def _plan(T: int, V: int, E: int, dtype) -> HeadPlan:
     assert smem <= SMEM_LIMIT, smem
     return HeadPlan("wgmma", cluster, passes * slabs * 64, passes, slabs, rows, stages, e_pad,
                     (cluster * -(-T // rows),), (cluster * -(-V // rows),), 2 * rows, smem)
+
+
+_FWD_ROWS = 128         # token rows a forward block (two consumer warpgroups)
+_FWD_COLS = 128         # vocabulary columns a forward tile
+_FWD_CHUNK = 128        # E columns a forward ring stage (SLABS 64-column slabs)
+_FWD_STAGES = 3         # ring stages of the forward (ST in csrc/fused_head_fwd.cu)
+_FWD_MAX_RANGES = 32    # vocabulary ranges a token tile is cut into at most
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """How the forward kernel launches. ``route`` "wgmma" is the bf16
+    tensor-core kernel, "scalar" the fp32-FMA kernel. A block owns ``rows``
+    tokens and walks a range of ``cols``-column vocabulary tiles; E (padded to
+    ``e_pad``, a multiple of 8) streams through ``stages`` ring stages of
+    ``chunk`` columns. The ``vocab_tiles`` tiles are cut into ``ranges``
+    ranges of whole tiles (range r: tiles ``nv r // S`` to ``nv (r + 1) //
+    S``). ``grid`` is the launch's blocks, range-major, of ``threads``
+    (two consumer warpgroups and a producer warp); ``smem_bytes`` each
+    block's dynamic shared memory: ``align`` slack, the ring's h and emb
+    chunks, ``barrier_bytes`` of mbarriers."""
+
+    route: str
+    rows: int
+    cols: int
+    chunk: int
+    stages: int
+    e_pad: int
+    token_tiles: int
+    vocab_tiles: int
+    ranges: int
+    grid: tuple[int, ...]
+    threads: int
+    align: int
+    h_stage_bytes: int
+    emb_stage_bytes: int
+    barrier_bytes: int
+    smem_bytes: int
+
+    def range_tiles(self, r: int) -> tuple[int, int]:
+        """The vocabulary tiles [lo, hi) of range r."""
+        return self.vocab_tiles * r // self.ranges, self.vocab_tiles * (r + 1) // self.ranges
+
+
+def _fwd_smem(stages: int) -> int:
+    """``fwd_smem_bytes`` of ``csrc/fused_head_fwd.cu``."""
+    return 1024 + stages * 2 * _FWD_CHUNK * (_FWD_ROWS + _FWD_COLS) + 16 * stages
+
+
+def _fwd_plan(T: int, V: int, E: int, dtype, sms: int = 132) -> FwdPlan:
+    """The launch of the forward kernel for these shapes on a card of ``sms``
+    SMs.
+
+    bf16: 128-token blocks, 128-column vocabulary tiles, three ring stages
+    of 128 E columns (as many as fit). The vocabulary is cut into S
+    ranges, S the one that minimises waves(S) * (tiles a range + 1) (a wave
+    is ``sms`` blocks, one an SM; the + 1 a block's start and its partials),
+    the fewest on a tie, at most 32 and at most the tiles: at the MoE
+    flagship (64 token tiles, 250 vocabulary tiles) 2 ranges, 128 blocks in
+    one wave. fp32: the scalar kernel, one block per 64 tokens, the whole
+    vocabulary, no dynamic shared memory."""
+    if dtype == torch.float32:
+        return FwdPlan("scalar", 64, 64, 64, 1, E, -(-T // 64), -(-V // 64), 1,
+                       (-(-T // 64),), 256, 0, 0, 0, 0, 0)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"fused head kernels take bf16 or fp32 operands, got {dtype}")
+    e_pad = -(-E // 8) * 8
+    ntt, nv = -(-T // _FWD_ROWS), -(-V // _FWD_COLS)
+    stages = _FWD_STAGES
+    assert _fwd_smem(stages) <= SMEM_LIMIT < _fwd_smem(stages + 1)
+
+    def cost(S):
+        return -(-ntt * S // sms) * (-(-nv // S) + 1), S
+
+    ranges = min(range(1, min(nv, _FWD_MAX_RANGES) + 1), key=cost)
+    return FwdPlan("wgmma", _FWD_ROWS, _FWD_COLS, _FWD_CHUNK, stages, e_pad, ntt, nv, ranges,
+                   (ntt * ranges,), 288, 1024, 2 * _FWD_CHUNK * _FWD_ROWS,
+                   2 * _FWD_CHUNK * _FWD_COLS, 16 * stages, _fwd_smem(stages))
+
+
+def _fwd_split_reference(h, emb, tgt, plan: FwdPlan):
+    """The forward kernel's partition in plain PyTorch (a witness, never on
+    the main path): each of the plan's vocabulary ranges gives per row its
+    max m_r, its sum of exp(logit − m_r) and its gold logit (0 where the
+    target lies outside the range), fp32 logits from the operands as they
+    are; the ranges combine in range order, a range with no column (m_r =
+    −inf: past V, or empty) adding nothing, and lse = m + log(s). Sums differ
+    from the kernel's in order only (it folds tile by tile)."""
+    T, V = h.shape[0], emb.shape[0]
+    m = torch.full((T,), -torch.inf, dtype=torch.float32, device=h.device)
+    parts = []
+    for r in range(plan.ranges):
+        lo, hi = (min(V, x * plan.cols) for x in plan.range_tiles(r))
+        if hi <= lo:
+            parts.append(None)
+            continue
+        logits = matmul_f32(h, emb[lo:hi])
+        m_r = logits.amax(dim=1)
+        s_r = torch.exp(logits - m_r[:, None]).sum(dim=1)
+        inside = (tgt >= lo) & (tgt < hi)
+        g_r = torch.where(inside, logits.gather(1, torch.where(inside, tgt - lo, 0)
+                                                 .long()[:, None])[:, 0], 0.0)
+        parts.append((m_r, s_r, g_r))
+        m = torch.maximum(m, m_r)
+    s = torch.zeros_like(m)
+    gold = torch.zeros_like(m)
+    for part in parts:
+        if part is not None:
+            m_r, s_r, g_r = part
+            s = s + s_r * torch.exp(m_r - m)
+            gold = gold + g_r
+    return m + torch.log(s), gold
 
 
 def _pad_e(x, e_pad: int):
@@ -250,11 +368,20 @@ def fused_head_fwd(h, emb, tgt):
         return lse_gold_plain(h, emb, tgt)
     (tgt,) = _kernel_args("fused_head_fwd", h, emb, tgt)
     T, E = h.shape
+    V = emb.shape[0]
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    plan = _fwd_plan(T, V, E, h.dtype, sms)
+    h_k, emb_k = _pad_e(h, plan.e_pad), _pad_e(emb, plan.e_pad)
+    stream = _stream(h)
+    # with ranges: 3 fp32 rows of 128 a (token tile, range), a ticket a token tile
+    ws, tickets = (None, None) if plan.ranges == 1 else _workspace.workspace(
+        h.device, stream, plan.token_tiles * plan.ranges * 3 * plan.rows, plan.token_tiles)
     lse = torch.empty(T, dtype=torch.float32, device=h.device)
     gold = torch.empty(T, dtype=torch.float32, device=h.device)
-    _build.launch("fused_head_fwd", h.data_ptr(), emb.data_ptr(), tgt.data_ptr(),
-                  lse.data_ptr(), gold.data_ptr(), T, emb.shape[0], E,
-                  int(h.dtype == torch.float32), _stream(h))
+    _build.launch("fused_head_fwd", h_k.data_ptr(), emb_k.data_ptr(), tgt.data_ptr(),
+                  lse.data_ptr(), gold.data_ptr(), ws.data_ptr() if ws is not None else None,
+                  tickets.data_ptr() if tickets is not None else None, T, V, plan.e_pad,
+                  int(plan.route == "scalar"), plan.ranges, plan.stages, plan.smem_bytes, stream)
     fused_head_fwd.launches += 1
     return lse, gold
 

@@ -200,8 +200,11 @@ def test_a_launch_is_counted_where_it_is_made(monkeypatch):
     for fn in counters:
         monkeypatch.setattr(fn, "launches", 0)
     x2 = torch.zeros(64, 16, dtype=torch.bfloat16)
-    for i, (name, owner) in enumerate(zip(("bn_moments", "bn_grad_sums", "bn_moments"), counters)):
-        bn._launch_sums(name, x2, (), (), owner)
+    launchers = (lambda owner: bn._launch_moments(x2, 1.0, owner),
+                 lambda owner: bn._launch_sums("bn_grad_sums", x2, (), (), owner),
+                 lambda owner: bn._launch_moments(x2, 1.25, owner))
+    for i, (launch, owner) in enumerate(zip(launchers, counters)):
+        launch(owner)
         assert calls == ["bn_moments", "bn_grad_sums", "bn_moments"][:i + 1]
         assert [fn.launches for fn in counters] == [1] * (i + 1) + [0] * (2 - i)
     # CPU tensors take the plain versions: no launch, no count
@@ -249,3 +252,77 @@ def test_kernel_plan_covers_every_shape(m, ch, dtype):
     assert 1 <= gy <= max(1, -(-m // (bn.THREADS // tx)))
     if m * ch >= 1 << 24:
         assert gx * gy >= 2 * 132
+
+
+# ResNet-50's BatchNorm inputs at batch 256 (rows, channels), the stats
+# probe's at batch 16, and the chip smoke's edge cases
+RESNET50_B256 = [(3211264, 64), (802816, 64), (802816, 256), (802816, 128), (200704, 128),
+                 (200704, 512), (200704, 256), (50176, 256), (50176, 1024), (50176, 512),
+                 (12544, 512), (12544, 2048)]
+PROBE_B16 = [(200704, 64), (50176, 64), (50176, 256), (12544, 512), (3136, 1024), (784, 2048)]
+EDGE = [(12347, 64, torch.bfloat16), (1, 256, torch.bfloat16), (5001, 3, torch.bfloat16),
+        (105, 11, torch.bfloat16), (3001, 100, torch.bfloat16), (3001, 100, torch.float32),
+        (777, 2048, torch.float32), (100_000, 1, torch.float32), (200_000, 64, torch.float32)]
+
+
+@pytest.mark.parametrize("m,ch,dtype", [(m, c, torch.bfloat16) for m, c in RESNET50_B256 + PROBE_B16]
+                         + EDGE)
+def test_moments_plan_covers_every_shape(m, ch, dtype):
+    """The one-launch moments kernel's split: 16-byte vectors where C
+    allows, a power-of-two block width of at most 16 vectors (32 on rows of
+    256 vectors or more), every column covered, a partial row of 2 x width4
+    floats a block whose float4 quads the finish's lanes divide evenly, two
+    blocks an SM at most and at least two batches of 8 rows a thread, and at
+    least a block an SM on every activation of 16 M elements or more."""
+    p = bn._moments_plan(m, ch, dtype, sms=132)
+    wide = 8 if dtype == torch.bfloat16 else 4
+    assert p.vec == (wide if ch % wide == 0 else 1) and ch % p.vec == 0
+    cols = ch // p.vec
+    cap = 32 if cols >= 256 else 16
+    assert p.tx & (p.tx - 1) == 0 and p.tx // 2 < min(cols, cap) <= p.tx <= cap
+    assert p.ty * p.tx == bn.THREADS and p.width == p.tx * p.vec <= bn.THREADS
+    assert p.width4 == max(p.width, 4) and bn.THREADS % (p.width4 // 2) == 0
+    assert p.gx * p.width >= ch > (p.gx - 1) * p.width
+    assert 1 <= p.gy <= 65535 and p.gy <= -(-2 * 132 // p.gx)
+    assert p.gy <= max(1, -(-m // (p.ty * 8 * 2)))
+    assert p.part_floats == p.gx * p.gy * 2 * p.width4
+    if m * ch >= 1 << 24:
+        assert p.gx * p.gy >= 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 6, 6, 16), (3, 5, 7, 11), (2, 8, 8, 128), (40, 24),
+                                   (2, 7, 7, 256)])
+def test_moments_finish_order_matches_the_pallas_kernel(shape, dtype):
+    """The kernel's order of operations (``_moments_split_reference``: row
+    lanes, block lanes, the last block's finish lanes) against the Pallas
+    ``_moments_kernel`` in interpret mode and against the plain sums; fp32
+    sums on every side, so they differ in summation order only."""
+    x, _ = _inputs(shape, dtype, seed=2)
+    xt = torch.from_numpy(x).to(dtype)
+    ch = shape[-1]
+    m = xt.numel() // ch
+    plan = bn._moments_plan(m, ch, dtype, sms=132)
+    s, q = bn._moments_split_reference(xt, 1.0, plan)
+    mean, var = bn._mean_var(s, q, m)
+    mean_w, var_w = jbn.channel_moments(jnp.asarray(x).astype(JDT[dtype]), interpret=True)
+    _assert_close(mean, mean_w, torch.float32, "mean")
+    _assert_close(var, var_w, torch.float32, "var")
+    s0, q0 = bn.moments_sums_plain(xt)
+    torch.testing.assert_close(s, s0, rtol=1e-5, atol=1e-5 * s0.abs().max().item())
+    torch.testing.assert_close(q, q0, rtol=1e-5, atol=1e-5 * q0.abs().max().item())
+
+
+def test_moments_split_reference_splits_rows_and_columns_like_the_kernel():
+    """A split with several row groups, column groups and finish lanes (the
+    ResNet stem's channel count at a small row count on a card of 4 SMs),
+    and the multiplier of the stats probe: the reference's sums match the
+    plain version's to summation order, so each row is added exactly once."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((4099, 96)).astype(np.float32) * 2 + 0.5)
+    plan = bn._moments_plan(4099, 96, torch.float32, sms=4)
+    assert plan.gx > 1 and plan.gy > 1 and bn.THREADS // (plan.width4 // 2) > 1
+    s, q = bn._moments_split_reference(x, -1.25, plan)
+    s0, q0 = bn.moments_sums_plain(x, -1.25)
+    torch.testing.assert_close(s, s0, rtol=1e-5, atol=1e-5 * s0.abs().max().item())
+    torch.testing.assert_close(q, q0, rtol=1e-5, atol=1e-5 * q0.abs().max().item())
