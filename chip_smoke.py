@@ -18,7 +18,10 @@ Phases, each of which fails the run with a non-zero exit:
             edges of its per-row runs and a window across one, each against
             its own order of operations (``_split_reference``) too, two
             launches bitwise equal, timed at the request's mean position
-            (191) and at the full 2,048-token cache; the build phase counts
+            (191) and at the full 2,048-token cache; the forward, dq and
+            dk/dv also at head sizes 16, 32 and 96 and flash-decode at 16,
+            32, 96 and 100 (bf16 and fp32, run padded to 64 or 128), and a
+            head size of 256 refused with its limits; the build phase counts
             the tensor-core instructions (HGMMA) of the flash libraries, the
             fused head's forward, dh and dE libraries and the fused BN +
             ReLU + 1x1-conv backward, which the bf16 flash forward, dq and
@@ -31,7 +34,9 @@ Phases, each of which fails the run with a non-zero exit:
             (plain versions, fp32 weights) at 2 layers of the same width;
             then ``generate`` on a 2-layer fp32 flash model of that width
             (the fp32 prefill and flash-decode kernels, launches counted) and
-            one decode step's logits against the CPU;
+            one decode step's logits against the CPU; then ``generate`` on a
+            2-layer bf16 model of 4 heads of D 32 (launches counted) and an
+            fp32 copy's decode step against the CPU;
 5. train    ``make_lm_train_step`` on the full flagship training config (24
             layers, 8 heads, 435.5M fp32 parameters, seeded weights) with
             ``adamw_lowmem`` and the chunked loss: one warm-up step, then 5
@@ -43,7 +48,12 @@ Phases, each of which fails the run with a non-zero exit:
 7. moe kernels  hold the MoE row gather and both modes of its scatter
             backward against their plain versions at the MoE flagship's four
             launch shapes (indices from the port's own routing) and at edge
-            cases, and time kernel, plain version, library call and bound;
+            cases (all 4,096 sources on one row, R 1, J 5120 with 1,600 on
+            one row among them), the accumulating scatter also bit for bit
+            against its own order of operations (``scatter_replay``) and a
+            second launch; show from profiles that a scatter call is one
+            device kernel in each mode; time kernel, plain version, library
+            call and bound, each launch apart;
 8. moe train    ``make_lm_train_step`` on the full MoE training config (8
             layers, 8 experts, top-2, gather dispatch, 334.8M fp32 parameters,
             133.5M active a token) with ``adamw_lowmem`` and
@@ -174,6 +184,11 @@ PARITY_ATOL = 0.14
 # attention row moves them by a sizeable fraction of their std
 GEN_FP32_LAYERS, GEN_FP32_NEW = 2, 16
 GEN_FP32_LOGITS_ATOL = 1e-3
+# a small model of 4 heads of D 32 (the reference's own test width,
+# tests/test_attention.py:16), which the kernels run padded to 64
+SMALL_HEADS = dict(vocab_size=4096, num_layers=2, num_heads=4, embed_dim=128, mlp_dim=512,
+                   max_seq_len=256, attention_impl="flash")
+SMALL_HEADS_PROMPT, SMALL_HEADS_NEW = 64, 32
 # one train step at 2 layers of the training width, B2 S256, card (bf16
 # activations) vs CPU (fp32): on an H100 the loss (~10.95) differed by
 # 0.00083 and the global gradient norm by 6.75e-5 of itself, the inputs and
@@ -428,6 +443,14 @@ def phase_kernels(torch):
         ("fp32_ragged_s96_d64_window", 2, 96, 96, 4, 2, 64, True, 48, f32),
         ("fp32_causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, f32),
         ("fp32_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 128, False, None, f32),
+        # head sizes the kernels run zero-padded to 64 or 128
+        ("d16_gqa_4_2", 2, 256, 256, 4, 2, 16, True, None, bf16),
+        ("d32_window_48", 2, 256, 256, 4, 4, 32, True, 48, bf16),
+        ("d96_train_tiles", 4, 1024, 1024, 8, 8, 96, True, None, bf16),
+        ("d96_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 96, False, None, bf16),
+        ("fp32_d16", 2, 128, 128, 4, 2, 16, True, None, f32),
+        ("fp32_d32_window_48", 2, 256, 256, 4, 4, 32, True, 48, f32),
+        ("fp32_d96", 2, 128, 128, 4, 2, 96, True, None, f32),
     ]
     for name, B, Sq, Sk, H, KV, D, causal, window, dt in cases:
         q, k, v = (randn(*shape).to(dt) for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
@@ -440,7 +463,8 @@ def phase_kernels(torch):
         dead_ok = check_dead_rows(o, lse_ref)
         ok = ok and lse_ok and dead_ok and o.dtype == dt
         plan = _plan("fwd", B, Sq, Sk, H, KV, D, dt, sms)
-        log(f"[kernels] flash_attention_fwd {name} ({dt}; {plan.route}, {plan.block}-row tiles): "
+        log(f"[kernels] flash_attention_fwd {name} ({dt}; {plan.route}, {plan.block}-row tiles, "
+            f"D {D} at width {plan.width}): "
             f"max_abs_err {err:.3e} "
             f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, atol "
             f"{OUT_ATOL_RMS}*rms) lse_err {lse_err:.3e} (atol {LSE_ATOL}; +inf rows "
@@ -450,16 +474,16 @@ def phase_kernels(torch):
         if dt == bf16:
             worst = max(worst, err)
 
-    # another head size is a stated refusal on the card, never the plain version
-    q96 = randn(1, 64, 2, 96)
+    # a head size past 128 is a stated refusal on the card, never the plain version
+    q256 = randn(1, 64, 2, 256)
     try:
-        flash_attention(q96, q96, q96, True, 64, 64)
+        flash_attention(q256, q256, q256, True, 64, 64)
     except ValueError as e:
-        if "Queue 3b #4" not in str(e):
+        if "head_dim up to 128" not in str(e) or "232,448" not in str(e):
             raise
-        log(f"[kernels] flash_attention_fwd D 96 (bf16): refused: {e}")
+        log(f"[kernels] flash_attention_fwd D 256 (bf16): refused: {e}")
     else:
-        raise AssertionError("flash_attention ran at head_dim 96")
+        raise AssertionError("flash_attention ran at head_dim 256")
 
     B, S, H, KV, D = BATCH, PROMPT, 8, 4, 128
     q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
@@ -501,7 +525,15 @@ def phase_kernels(torch):
                   ("fp32_window_100", flagship, [5, 300, 1500, 2047], 100, f32),
                   ("fp32_pos_63_64_65", flagship, [63, 64, 65, 2047], None, f32),
                   ("fp32_mqa_r16_window_48", (2, 1, 16, 128, 512), [100, 511], 48, f32),
-                  ("fp32_r12_g2_d64", (2, 2, 12, 64, 512), [63, 500], None, f32)]
+                  ("fp32_r12_g2_d64", (2, 2, 12, 64, 512), [63, 500], None, f32),
+                  # head sizes read in place and zero-filled up to 64 or 128 in
+                  # shared memory: 16-byte pieces, and element loads at D 100
+                  ("d16_r4", (2, 2, 4, 16, 512), [63, 500], None, bf16),
+                  ("d32_window_100", (2, 4, 2, 32, 2048), [130, 2047], 100, bf16),
+                  ("d96_per_row_pos", (4, 4, 2, 96, 2048), [0, 255, 1024, 2047], None, bf16),
+                  ("d100_r16", (2, 1, 16, 100, 512), [100, 511], None, bf16),
+                  ("fp32_d32", (2, 2, 4, 32, 512), [63, 500], None, f32),
+                  ("fp32_d100_window_48", (2, 2, 2, 100, 512), [63, 500], 48, f32)]
     for name, (B, G, R, D, L), pos_list, window, dt in dec_cases:
         kc, vc, qd = (randn(*shape).to(dt) for shape in ((B, G, L, D), (B, G, L, D), (B, G, R, D)))
         kpos = torch.arange(L, device="cuda")
@@ -522,7 +554,8 @@ def phase_kernels(torch):
         ok, err, ratio, rms = check_out(o, o_ref)
         w_ratio = _decode_witness(torch, o, o_split)
         ok = ok and o.dtype == dt and w_ratio <= 1.0
-        log(f"[kernels] flash_decode {name} ({dt}, R {R}) window={window}: max_abs_err {err:.3e} "
+        log(f"[kernels] flash_decode {name} ({dt}, R {R}, D {D} at width {plan.width}) "
+            f"window={window}: max_abs_err {err:.3e} "
             f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, atol "
             f"{OUT_ATOL_RMS}*rms); vs _split_reference (split {plan.split} x {plan.splits}) "
             f"worst err/tol {w_ratio:.3f} {'ok' if ok else 'FAIL'}")
@@ -531,6 +564,17 @@ def phase_kernels(torch):
         worst_witness = max(worst_witness, w_ratio)
         if dt == bf16:
             worst = max(worst, err)
+
+    q256 = randn(1, 1, 2, 256)
+    k256 = randn(1, 1, 64, 256)
+    try:
+        flash_decode(q256, k256, k256, torch.zeros(1, dtype=torch.int32, device="cuda"), block_k=64)
+    except ValueError as e:
+        if "head_dim up to 128" not in str(e):
+            raise
+        log(f"[kernels] flash_decode D 256 (bf16): refused: {e}")
+    else:
+        raise AssertionError("flash_decode ran at head_dim 256")
 
     # two launches on the same inputs give the same bits (the combine's order is fixed)
     B, G, R, D, L = flagship
@@ -654,6 +698,14 @@ def phase_kernels_bwd(torch):
         ("fp32_ragged_s96_d64", 2, 96, 96, 4, 2, 64, True, None, None, f32),
         ("fp32_causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, None, f32),
         ("fp32_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 128, False, None, None, f32),
+        # head sizes the kernels run zero-padded to 64 or 128
+        ("d16_gqa_4_2", 2, 256, 256, 4, 2, 16, True, None, None, bf16),
+        ("d32_window_48_fp32_grads", 2, 256, 256, 4, 4, 32, True, 48, f32, bf16),
+        ("d96_train_tiles", 4, 1024, 1024, 8, 8, 96, True, None, None, bf16),
+        ("d96_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 96, False, None, None, bf16),
+        ("fp32_d16", 2, 128, 128, 4, 2, 16, True, None, None, f32),
+        ("fp32_d32_window_48", 2, 256, 256, 4, 4, 32, True, 48, None, f32),
+        ("fp32_d96", 2, 128, 128, 4, 2, 96, True, None, None, f32),
     ]
     for name, B, Sq, Sk, H, KV, D, causal, window, gd, dt in cases:
         q, k, v, do = (randn(*shape).to(dt) for shape in (
@@ -671,7 +723,8 @@ def phase_kernels_bwd(torch):
             ok, err, ratio, rms = check_out(g, w)
             ok = ok and g.dtype == w.dtype
             where = (f"dq: {route.route}, {route.block}-row tiles; " if grad == "dq" else
-                     f"dk/dv: {route_kv.route}, {route_kv.block} keys a block; ")
+                     f"dk/dv: {route_kv.route}, {route_kv.block} keys a block; ") + (
+                f"D {D} at width {route.width}; ")
             log(f"[kernels] flash_attention_bwd {name} {grad} ({where}operands {dt}, {g.dtype}): "
                 f"max_abs_err {err:.3e} (rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, "
                 f"atol {OUT_ATOL_RMS}*rms) {'ok' if ok else 'FAIL'}")
@@ -980,6 +1033,59 @@ def phase_generate_fp32(torch, np):
     return dict(launches=launches, step_logits_max_abs_err=err, token_agreement=agree)
 
 
+def phase_generate_small_heads(torch, np):
+    """``generate`` on a 2-layer flash model of 4 heads of D 32 (bf16): the
+    prefill and every decode step run the kernels at D 32, padded to 64
+    (launches counted); then the same model in fp32 (the scalar forward and
+    flash-decode's fp32 route at D 32), one decode step's logits against
+    the CPU."""
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.ops.flash_decode import flash_decode
+    from kubeflow_tpu_torch.ops.pallas_attention import flash_attention
+
+    cfg = kt.TransformerConfig(**SMALL_HEADS, dtype=torch.bfloat16)
+    prompt = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (BATCH, SMALL_HEADS_PROMPT)))
+    model = kt.TransformerLM(kt.decode_config(cfg), device="cuda")
+    model.load_state_dict(kt.init_state_dict(cfg, seed=3, device="cuda"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    flash_attention.launches = flash_decode.launches = 0
+    out = kt.generate(model, prompt.to("cuda"), max_new_tokens=SMALL_HEADS_NEW,
+                      temperature=TEMPERATURE, top_k=TOP_K, generator=g)
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "flash_decode": flash_decode.launches}
+    want = {"flash_attention_fwd": cfg.num_layers,
+            "flash_decode": cfg.num_layers * (SMALL_HEADS_NEW - 1)}
+    log(f"[generate D 32] {cfg.num_layers}-layer bf16 flash model, {cfg.num_heads} heads of "
+        f"D {cfg.head_dim}, B{BATCH} P{SMALL_HEADS_PROMPT} +{SMALL_HEADS_NEW}: launches "
+        f"{launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"D 32 generate launch counts {launches} != {want}")
+    if (tuple(out.shape) != (BATCH, SMALL_HEADS_PROMPT + SMALL_HEADS_NEW)
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size):
+        raise AssertionError(f"D 32 generate returned {tuple(out.shape)} or ids outside the vocabulary")
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    sd = kt.init_state_dict(cfg32, seed=4, device="cpu")
+    steps = {}
+    with torch.inference_mode():
+        for where in ("cuda", "cpu"):
+            m = kt.TransformerLM(kt.decode_config(cfg32), device=where)
+            m.load_state_dict(sd)
+            cache, last = kt.prefill(m, prompt)
+            tok = last.argmax(-1).to("cpu")
+            steps[where] = m(tok[:, None].to(m.device), start=SMALL_HEADS_PROMPT,
+                             cache=cache)[:, -1].float().cpu()
+    err = (steps["cuda"] - steps["cpu"]).abs().max().item()
+    log(f"[generate D 32] fp32 model, one decode step's logits card vs cpu: max_abs_err "
+        f"{err:.3e} (atol {GEN_FP32_LOGITS_ATOL}; logits std {steps['cpu'].std().item():.3f})")
+    if not torch.isfinite(steps["cuda"]).all() or err > GEN_FP32_LOGITS_ATOL:
+        raise AssertionError(f"D 32 fp32 decode step disagrees with the CPU: {err}")
+    return dict(launches=launches, fp32_step_logits_max_abs_err=err)
+
+
 def _train_cell(torch, np, tag, bundle, tokens, counters, per_step, flops_tok, steps, vocab):
     """One warm-up step of ``bundle``, then ``steps`` timed steps with the
     launch counters (name -> wrapper) set to 0 just before and read just
@@ -1156,17 +1262,22 @@ def _index_stats(torch, idx, R):
 
 def _check_moe_case(torch, md, name, x, idx, gen):
     """The gather and both scatter modes on (x, idx) against the plain
-    versions; returns (gather max abs err, accumulate max abs err)."""
+    versions; the accumulating scatter also against its own order of
+    operations (``scatter_replay``, bit for bit) and against a second
+    launch (bit for bit); returns (gather max abs err, accumulate max abs
+    err)."""
     B, R, M = x.shape
     J = idx.shape[1]
     dy = torch.randn((B, J, M), generator=gen, device="cuda").to(x.dtype)
     out = md.gather(x, idx)
     dx_acc = md.scatter(idx, dy, R, accumulate=True)
+    dx_acc2 = md.scatter(idx, dy, R, accumulate=True)
     dx_uni = md.scatter(idx, dy, R, accumulate=False)
     torch.cuda.synchronize()
     out_ref = md.gather_rows_plain(x, idx)
     acc_ref = md.scatter_rows_plain(idx, dy, R, accumulate=True)
     uni_ref = md.scatter_rows_plain(idx, dy, R, accumulate=False)
+    replay = md.scatter_replay(idx, dy, R)
     torch.cuda.synchronize()
     _, _, n = _index_stats(torch, idx, R)
     abs_sum = md.scatter_rows_plain(idx, dy.float().abs(), R, accumulate=True)
@@ -1178,15 +1289,19 @@ def _check_moe_case(torch, md, name, x, idx, gen):
     few = (n <= 2).expand(B, R, M)
     ratio = (err / bound.clamp_min(1e-30)).max().item() if err.numel() else 0.0
     a_err = err.max().item() if err.numel() else 0.0
+    same = torch.equal(dx_acc, dx_acc2)
+    own = torch.equal(dx_acc, replay)
     acc_ok = (dx_acc.dtype == torch.float32 and bool(torch.isfinite(dx_acc).all())
-              and bool((err <= bound).all()) and torch.equal(dx_acc[few], acc_ref[few]))
+              and bool((err <= bound).all()) and torch.equal(dx_acc[few], acc_ref[few])
+              and same and own)
     ok = torch.equal(out, out_ref) and uni_ok and acc_ok
     log(f"[moe kernels] {name} B{B} R{R} M{M} J{J} {str(x.dtype)[6:]}: gather bit-equal "
         f"{torch.equal(out, out_ref)}; unique scatter bit-equal on {int(single[..., 0].sum())} "
         f"single-source rows {uni_ok}; accumulate max_abs_err {a_err:.3e}, worst "
         f"err/bound {ratio:.3f} (bound n*2^-23*sum|src|, rows of <= 2 sources exact: "
-        f"{torch.equal(dx_acc[few], acc_ref[few])}; max sources a row {int(n.max().item()) if n.numel() else 0}) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{torch.equal(dx_acc[few], acc_ref[few])}; max sources a row {int(n.max().item()) if n.numel() else 0}; "
+        f"rows of > {md.SEG} sources {int((n > md.SEG).sum())}), bit-equal to scatter_replay "
+        f"{own}, two launches bit-equal {same} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"MoE gather/scatter kernels disagree with their plain versions ({name})")
     return g_err, a_err
@@ -1231,6 +1346,9 @@ def phase_moe_kernels(torch):
     sentinels[:, 5::101] = -1
     unique = torch.stack([torch.randperm(1000, generator=gen, device="cuda")[:64]
                           for _ in range(2)]).int()
+    one_row_heavy = randint(0, 2048, 4, 5120)
+    for b in range(4):
+        one_row_heavy[b, torch.randperm(5120, generator=gen, device="cuda")[:1600]] = 2048
     cases = [
         ("dispatch_flagship", x_pad, slot_token),
         ("combine_flagship_0", out_pad, combine_idx[0]),
@@ -1244,11 +1362,35 @@ def phase_moe_kernels(torch):
         ("m100_bf16", randn(2, 77, 100), randint(-3, 80, 2, 300)),
         ("m7_bf16", randn(3, 20, 7), randint(0, 22, 3, 33)),
         ("m3_fp32", randn(3, 20, 3, dtype=torch.float32), randint(0, 22, 3, 33)),
+        # every source on one row: 128 segments of 32 combined in order
+        ("one_row_4096_sources", randn(2, 300, 1024), torch.full((2, 4096), 7, dtype=torch.int32,
+                                                                  device="cuda")),
+        ("r1", randn(2, 1, 256), randint(-1, 3, 2, 512)),
+        ("m1024_j5120_1600_on_one_row", randn(4, 2049, 1024), one_row_heavy),
     ]
     worst_g = worst_a = 0.0
     for name, x, idx in cases:
         g_err, a_err = _check_moe_case(torch, md, name, x, idx, gen)
         worst_g, worst_a = max(worst_g, g_err), max(worst_a, a_err)
+
+    # one device kernel a call in each mode (the index pass, the rows and
+    # the heavy rows' combine are one cooperative launch): every record of
+    # every profile names the mode's kernel alone, and no profile holds more
+    # records than calls (a profile may drop records: on an H100 every one
+    # of five profiles of this kernel held 3 or 4 for 5 calls)
+    dy_disp, dy_comb = randn(B, EC, M), randn(B, S, M)
+    for mode, kernel, fn in (
+            ("accumulate", "scatter_add_kernel",
+             lambda: md.scatter(slot_token, dy_disp, S + 1, accumulate=True)),
+            ("direct store", "scatter_store_kernel",
+             lambda: md.scatter(combine_idx[0], dy_comb, EC + 1, accumulate=False))):
+        seen = _device_kernels(torch, fn, reps=5)
+        kinds = sorted({n for names in seen for n in names})
+        counts = [len(names) for names in seen]
+        log(f"[moe kernels] moe_scatter {mode} at the flagship: device kernels "
+            f"{[n[:60] for n in kinds]}; records a profile of 5 calls: {counts}")
+        if len(kinds) != 1 or kernel not in kinds[0] or not 0 < max(counts) <= 5:
+            raise AssertionError(f"moe_scatter {mode} must be one device kernel a call")
 
     # timed at the flagship's four launch shapes, L2 flushed before each call
     # (bound: HBM bytes, counted from this run's indices)
@@ -1268,7 +1410,6 @@ def phase_moe_kernels(torch):
             plain_ms=device_ms(torch, lambda: md.gather_rows_plain(x, idx), cold=True),
             library_ms=device_ms(torch, lambda: torch.gather(x, 1, ie), cold=True),
             bytes=n_bytes, flops=0, **dict(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, 0)))))
-    dy_disp, dy_comb = randn(B, EC, M), randn(B, S, M)
     for name, idx, dy, R, acc in (("dispatch_accumulate", slot_token, dy_disp, S + 1, True),
                                   ("combine_0_store", combine_idx[0], dy_comb, EC + 1, False),
                                   ("combine_1_store", combine_idx[1], dy_comb, EC + 1, False)):
@@ -2480,6 +2621,7 @@ def main() -> int:
     gen = phase_generate(torch, np)
     report["parity"] = phase_parity(torch, np)
     report["generate_fp32"] = phase_generate_fp32(torch, np)
+    report["generate_small_heads"] = phase_generate_small_heads(torch, np)
     train = phase_train(torch, np)
     report["train_parity"] = phase_train_parity(torch, np)
     moe_kernels, report["moe_kernel_launches"] = phase_moe_kernels(torch)

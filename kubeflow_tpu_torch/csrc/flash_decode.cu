@@ -2,8 +2,14 @@
 // grouped KV cache. bf16 or fp32 in and out (one type), fp32 softmax.
 //
 // Replaces the Pallas kernel _decode_kernel (kubeflow_tpu/ops/flash_decode.py:53).
-// Layout: q [B, G, R, D], k/v cache [B, G, L, D], pos [B] int32, o [B, G, R, D],
-// all contiguous. R = H / G query heads share the group's cache.
+// Layout: q [B, G, R, D], k/v cache [B, G, L, dk], pos [B] int32, o [B, G, R, D],
+// all contiguous. R = H / G query heads share the group's cache. D is the
+// width the kernel is compiled for (64 or 128); the cache's head size dk may
+// be smaller (the wrapper pads q and cuts o): the kernel reads the cache's
+// rows at dk and zero-fills their columns dk .. D - 1 in shared memory, so
+// the scores and the value product are the unpadded ones and no step copies
+// the cache. Rows of dk elements whose bytes are a multiple of 16 load in
+// 16-byte pieces, other rows element by element.
 //
 // Bound: HBM bytes (the live K/V: 1.6 MB at the serving flagship's mean
 // position, under a microsecond), and in practice latency: a decode step's
@@ -154,8 +160,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
                    const T* __restrict__ vc, const int* __restrict__ pos,
                    T* __restrict__ o, float* __restrict__ ws_o, float2* __restrict__ ws_ml,
-                   int* __restrict__ tickets, int G, int R, int L, int window, float scale,
-                   int chunk) {
+                   int* __restrict__ tickets, int G, int R, int L, int dk, int window,
+                   float scale, int chunk) {
   constexpr int VEC = 16 / sizeof(T);   // elements a 16-byte piece
   constexpr int NCH = D / VEC;          // pieces a row (8 to 32)
   constexpr int PPT = NCH / TPK;        // pieces a thread scores of its key
@@ -193,16 +199,37 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
 
   if (n > 0) {
     const bool mma = MMA && n >= MMA_KEYS;
-    const T* kb = kc + ((size_t)bg * L + k0) * D;
-    const T* vb = vc + ((size_t)bg * L + k0) * D;
+    const T* kb = kc + ((size_t)bg * L + k0) * dk;
+    const T* vb = vc + ((size_t)bg * L + k0) * dk;
     // the tensor-core route keeps 16-byte piece c of row j at c ^ (j % 8), so
     // that 8 rows read at one column hit 8 bank groups
     auto at = [&](int i) { return mma ? (i & ~7) | ((i ^ (i / NCH)) & 7) : i; };
-    for (int i = t; i < n * NCH; i += THREADS) cp_async16(ks + at(i) * VEC, kb + i * VEC);
+    // piece c of row j: the cache's 16 bytes where c < dk / VEC, else zeros
+    const bool whole = (dk * (int)sizeof(T)) % 16 == 0;
+    const int nck = dk / VEC;
+    auto stage = [&](T* dst, const T* src) {
+      if (whole) {
+        for (int i = t; i < n * NCH; i += THREADS) {
+          const int j = i / NCH, c = i % NCH;
+          if (c < nck)
+            cp_async16(dst + at(i) * VEC, src + (size_t)j * dk + c * VEC);
+          else
+            *reinterpret_cast<uint4*>(dst + at(i) * VEC) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      } else {
+#pragma unroll 4
+        for (int i = t; i < n * D; i += THREADS) {
+          const int j = i / D, c = i % D;
+          dst[at(j * NCH + c / VEC) * VEC + c % VEC] =
+              c < dk ? src[(size_t)j * dk + c] : from_f<T>(0.f);
+        }
+      }
+    };
+    stage(ks, kb);
     for (int i = t; i < nr * NCH; i += THREADS)
       cp_async16(qs + i * VEC, q + ((size_t)bg * R + r0) * D + i * VEC);
     cp_async_commit();
-    for (int i = t; i < n * NCH; i += THREADS) cp_async16(vs + at(i) * VEC, vb + i * VEC);
+    stage(vs, vb);
     cp_async_commit();
     for (int i = nr * NCH + t; i < MAX_R * NCH; i += THREADS)
       *reinterpret_cast<uint4*>(qs + i * VEC) = make_uint4(0u, 0u, 0u, 0u);
@@ -549,8 +576,8 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
 
 template <int D, typename T, int NR, bool CL>
 int launch(const void* q, const void* k, const void* v, const void* pos, void* o, void* ws_o,
-           void* ws_ml, void* tickets, int B, int G, int R, int L, int window, float scale,
-           int S, int chunk, int smem, cudaStream_t s) {
+           void* ws_ml, void* tickets, int B, int G, int R, int L, int dk, int window,
+           float scale, int S, int chunk, int smem, cudaStream_t s) {
   auto kernel = flash_decode_split<D, T, NR, CL>;
   static int smem_set = 0;   // the attributes are set once per instantiation
   if (smem > smem_set) {
@@ -576,15 +603,16 @@ int launch(const void* q, const void* k, const void* v, const void* pos, void* o
       &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pos), static_cast<T*>(o),
       static_cast<float*>(ws_o), static_cast<float2*>(ws_ml), static_cast<int*>(tickets), G, R,
-      L, window, scale, chunk);
+      L, dk, window, scale, chunk);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 template <int D, typename T>
 int route(int R, const void* q, const void* k, const void* v, const void* pos, void* o,
-          void* ws_o, void* ws_ml, void* tickets, int B, int G, int L, int window, float scale,
-          int S, int chunk, int cluster, int smem, cudaStream_t s) {
-#define ARGS q, k, v, pos, o, ws_o, ws_ml, tickets, B, G, R, L, window, scale, S, chunk, smem, s
+          void* ws_o, void* ws_ml, void* tickets, int B, int G, int L, int dk, int window,
+          float scale, int S, int chunk, int cluster, int smem, cudaStream_t s) {
+#define ARGS q, k, v, pos, o, ws_o, ws_ml, tickets, B, G, R, L, dk, window, scale, S, chunk, \
+             smem, s
 #define BY_R(CL)                                  \
   if (R == 1) return launch<D, T, 1, CL>(ARGS);   \
   if (R == 2) return launch<D, T, 2, CL>(ARGS);   \
@@ -600,6 +628,8 @@ int route(int R, const void* q, const void* k, const void* v, const void* pos, v
 
 }  // namespace
 
+// D: the width the kernel runs at (64 or 128), dk: the cache's head size (1 ..
+// D); q and o are [B, G, R, D], the caches [B, G, L, dk].
 // f32: 0 for bf16 operands, 1 for fp32; any R >= 1 (a grid axis over chunks
 // of MAX_R query heads). S blocks a (row, group, chunk of heads), each taking
 // at most `chunk` keys (a multiple of 16, S * chunk >= L); cluster: 1 to
@@ -611,14 +641,15 @@ int route(int R, const void* q, const void* k, const void* v, const void* pos, v
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* pos, void* o, void* ws_o, void* ws_ml,
                                    void* tickets, int B, int G, int R, int L, int D,
-                                   int window, float scale, int f32, int S, int chunk,
+                                   int dk, int window, float scale, int f32, int S, int chunk,
                                    int cluster, int smem, void* stream) {
   if (B < 1 || G < 1 || R < 1 || L < 1 || S < 1 || B * G > 65535 || chunk < UNIT ||
+      dk < 1 || dk > D ||
       chunk % UNIT || (long long)S * chunk < L || (cluster && S > MAX_CLUSTER) ||
       smem != smem_bytes(chunk, S, D, f32 ? 4 : 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS R, q, k, v, pos, o, ws_o, ws_ml, tickets, B, G, L, window, scale, S, chunk, \
+#define ARGS R, q, k, v, pos, o, ws_o, ws_ml, tickets, B, G, L, dk, window, scale, S, chunk, \
              cluster, smem, s
   if (D == 128) return f32 ? route<128, float>(ARGS) : route<128, flash::bf16>(ARGS);
   if (D == 64) return f32 ? route<64, float>(ARGS) : route<64, flash::bf16>(ARGS);

@@ -43,8 +43,8 @@ SIGNATURES = {
     "flash_decode": (
         "flash_decode_launch",
         # q, k_cache, v_cache, pos, o, ws_o, ws_ml, tickets, B, G, R, L, D,
-        # window, scale, f32, splits, split, cluster, smem, stream
-        [_P] * 8 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+        # dk, window, scale, f32, splits, split, cluster, smem, stream
+        [_P] * 8 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
     ),
     "flash_attention_bwd_dq": (
         "flash_attention_bwd_dq_launch",
@@ -65,8 +65,9 @@ SIGNATURES = {
     ),
     "moe_scatter": (
         "moe_scatter_launch",
-        # dy, idx, out, B, J, R, M, dtype, accumulate, stream
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # dy, idx, out, ws, tickets, B, J, R, M, dtype, accumulate,
+        # item_max, stream
+        [_P] * 5 + [_I] * 7 + [_P],
     ),
     "fused_head_fwd": (
         "fused_head_fwd_launch",

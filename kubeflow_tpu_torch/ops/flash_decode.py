@@ -36,8 +36,12 @@ What the design does about it (the source's header has the details):
   the result is the same on every run. :func:`_split_reference` is that order in plain PyTorch, a
   witness for the tests and the chip smoke.
 
-bf16 and fp32 operands (one dtype), D in {64, 128}; another head size is a
-stated refusal.
+bf16 and fp32 operands (one dtype). The kernel is compiled for head widths 64
+and 128; any head size D up to 128 runs at D padded to 64 (D <= 64) or 128:
+the wrapper zero-pads q (one row a head) and cuts o, and the kernel reads the
+cache at its true D and zero-fills the columns past D in shared memory, so
+no step copies the cache. D above 128 is a stated refusal (the combine's
+registers, :func:`_wide_head_refusal`).
 """
 from __future__ import annotations
 
@@ -49,8 +53,9 @@ import torch
 from kubeflow_tpu_torch.ops import _build, _workspace
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 
-_KERNEL_D = (64, 128)
+_KERNEL_D = (64, 128)  # head widths the kernel is compiled for
 MAX_R = 8              # query heads a block holds (csrc/flash_decode.cu)
+THREADS = 128          # threads a block (csrc/flash_decode.cu)
 SPLIT_UNIT = 16        # a row's split is a multiple of this many keys
 _WAVES = 2             # the grid should fill about this many waves of SMs
 _KV_BYTES_MAX = 65536  # K and V of one block, staged whole: 3 blocks fit an SM
@@ -68,7 +73,7 @@ class DecodePlan:
     ``smem_bytes`` each block's dynamic shared memory: K and V rows of
     ``split`` keys (``kv_bytes``), the chunk's queries (``q_bytes``), the
     scores in fp32 (``score_bytes``) and the combine's weights in fp32
-    (``weight_bytes``)."""
+    (``weight_bytes``), all at ``width``, the head size padded to 64 or 128."""
 
     split: int
     splits: int
@@ -80,29 +85,48 @@ class DecodePlan:
     score_bytes: int
     weight_bytes: int
     smem_bytes: int
+    width: int
+
+
+def _wide_head_refusal(D: int) -> str:
+    pairs = MAX_R * 256 // THREADS
+    return (f"flash_decode kernel takes head_dim up to {_KERNEL_D[-1]} (zero-padded to 64 or "
+            f"128), got {D}. At D 256 its value product, one output column a thread, would "
+            f"need 256 threads where a block has {THREADS}, and its cluster combine would hold "
+            f"{pairs} (head, column) pairs x {MAX_CLUSTER} blocks = {pairs * MAX_CLUSTER} fp32 "
+            f"registers a thread, where a thread has 255")
+
+
+def _kernel_width(D: int) -> int:
+    """The head width the kernel runs at: D zero-padded to 64 or 128."""
+    if not 1 <= D <= _KERNEL_D[-1]:
+        raise ValueError(_wide_head_refusal(D))
+    return _KERNEL_D[0] if D <= _KERNEL_D[0] else _KERNEL_D[1]
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(B: int, G: int, R: int, L: int, D: int, dtype, sms: int) -> DecodePlan:
-    """The kernel's grid and shared memory for a cache of ``L`` slots.
+    """The kernel's grid and shared memory for a cache of ``L`` slots of
+    head size ``D``, planned at its padded width (:func:`_kernel_width`).
 
     Enough blocks a (row, group, chunk) that the grid fills about two waves
     of ``sms`` SMs, each holding at most 64 KB of K and V (staged whole, so
     three blocks fit an SM). The plan is made at the cache's full length;
     the kernel cuts each row's live range itself (:func:`_row_splits`),
     since the positions live on the card."""
+    width = _kernel_width(D)
     elem = 4 if dtype == torch.float32 else 2
     chunks = -(-R // MAX_R)
     want = max(1, -(-_WAVES * sms // (B * G * chunks)))
     splits = min(want, -(-L // SPLIT_UNIT))
     split = -(-(-(-L // splits)) // SPLIT_UNIT) * SPLIT_UNIT
-    cap = _KV_BYTES_MAX // (2 * D * elem) // SPLIT_UNIT * SPLIT_UNIT
+    cap = _KV_BYTES_MAX // (2 * width * elem) // SPLIT_UNIT * SPLIT_UNIT
     split = min(split, cap)
     splits = -(-L // split)
-    kv, q_bytes, scores = 2 * split * D * elem, MAX_R * D * elem, MAX_R * split * 4
+    kv, q_bytes, scores = 2 * split * width * elem, MAX_R * width * elem, MAX_R * split * 4
     weights = MAX_R * splits * 4
     return DecodePlan(split, splits, chunks, (splits, chunks, B * G), splits <= MAX_CLUSTER, kv,
-                      q_bytes, scores, weights, kv + q_bytes + scores + weights)
+                      q_bytes, scores, weights, kv + q_bytes + scores + weights, width)
 
 
 def _row_splits(pos: int, L: int, window, splits: int):
@@ -131,8 +155,9 @@ def _check(q, k_cache, v_cache, block_k):
         )
 
 
-def flash_decode_plain(q, k_cache, v_cache, pos, *, window=None):
-    """Plain PyTorch version of the kernel: same contract as ``flash_decode``.
+def flash_decode_plain(q, k_cache, v_cache, pos, *, window=None, scale=None):
+    """Plain PyTorch version of the kernel: same contract as ``flash_decode``
+    (``scale`` defaults to ``D ** -0.5``; a padded head passes its true D's).
 
     Follows ``decode_attention_reference`` (``flash_decode.py:176-189``) with
     the kernel's own two guarantees made explicit: dead slots contribute
@@ -149,7 +174,7 @@ def flash_decode_plain(q, k_cache, v_cache, pos, *, window=None):
     live4 = live[:, None, :, None]                           # [B, 1, L, 1]
     k = torch.where(live4, k_cache, 0).float()
     v = torch.where(live4, v_cache, 0)
-    s = torch.einsum("bgrd,bgkd->bgrk", q.float(), k) * (D ** -0.5)
+    s = torch.einsum("bgrd,bgkd->bgrk", q.float(), k) * (D ** -0.5 if scale is None else scale)
     s = s.masked_fill(~live[:, None, None, :], NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * live[:, None, None, :]
@@ -224,8 +249,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, window=None, block_k: int = 256):
         if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != q.dtype:
             raise TypeError(f"flash_decode kernel takes bf16 or fp32 operands of one dtype; "
                             f"{name} is {t.dtype}, q {q.dtype}")
-    if D not in _KERNEL_D:
-        raise ValueError(f"flash_decode kernel supports head_dim {_KERNEL_D}, got {D}")
+    _kernel_width(D)
     if window is not None and window < 1:
         raise ValueError("window must be >= 1")
     for name, t in operands:
@@ -241,22 +265,26 @@ def flash_decode(q, k_cache, v_cache, pos, *, window=None, block_k: int = 256):
 
 def _launch(q, k_cache, v_cache, pos, window, plan):
     """One launch of the kernel on checked operands, as ``plan`` says (its
-    ``cluster`` picks the combine; the chip smoke times both at one shape)."""
+    ``cluster`` picks the combine; the chip smoke times both at one shape).
+    q is padded to the plan's width and o cut back to D; the cache is read
+    as it is."""
     B, G, R, D = q.shape
     L = k_cache.shape[2]
+    W = plan.width
     stream = torch.cuda.current_stream(q.device).cuda_stream
     n_part = B * G * R * plan.splits
-    ws, tickets = _workspace.workspace(q.device, stream, n_part * (D + 2), B * G * plan.chunks)
-    out = torch.empty_like(q)
+    ws, tickets = _workspace.workspace(q.device, stream, n_part * (W + 2), B * G * plan.chunks)
+    qp = q if W == D else torch.nn.functional.pad(q, (0, W - D))
+    out = torch.empty_like(qp)
     _build.launch(
         "flash_decode",
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_part * D, tickets.data_ptr(),
-        B, G, R, L, D, window or 0, D ** -0.5, int(q.dtype == torch.float32), plan.splits,
+        qp.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_part * W, tickets.data_ptr(),
+        B, G, R, L, W, D, window or 0, D ** -0.5, int(q.dtype == torch.float32), plan.splits,
         plan.split, int(plan.cluster), plan.smem_bytes, stream,
     )
     flash_decode.launches += 1
-    return out
+    return out if W == D else out[..., :D].contiguous()
 
 
 flash_decode.launches = 0

@@ -29,8 +29,14 @@ Two routes, chosen by :func:`_plan` from the operands' dtype:
   64-row tiles, 256 threads; in fp32 the bf16 rounding points are the
   identity, as in the plain versions.
 
-Both routes take D in {64, 128}; another head size is a stated refusal
-(``ROADMAP.md`` Queue 3b #4).
+Both routes are compiled for head widths 64 and 128. Any head size D up to
+128 runs on them: :func:`_pad_heads` zero-pads the head axis to 64 (D <= 64)
+or 128 and launches with the true ``D ** -0.5`` as the softmax scale, so the
+scores, the softmax and delta = rowsum(dO·O) are the unpadded ones, and cuts
+the padded columns off o, dq, dk and dv (products with zero columns). At D 64
+and 128 nothing is copied. D above 128 is a stated refusal: the message gives
+the shared memory and accumulator registers the kernels would need at D 256
+(:func:`_wgmma_sums`) against the card's limits.
 
 What every kernel does:
 
@@ -59,11 +65,12 @@ import dataclasses
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 
-_KERNEL_D = (64, 128)
+_KERNEL_D = (64, 128)        # head widths the kernels are compiled for
 
 
 def _group_of(q, k, v):
@@ -99,6 +106,8 @@ def _keep_mask(Sq, Sk, causal, window, device):
 
 _SMS = 132                  # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448        # bytes of shared memory a block may take on Hopper
+_REGS_BESIDE_PRODUCER = 168  # registers a thread keeps beside a producer warpgroup (CUDA 12.8 ptxas)
+_REGS_MAX = 255             # registers a thread may hold
 _TILE_K = 64                # keys a tile on both routes
 _STAGES = 2                 # ring tiles in flight on the tensor-core route
 _QROWS = 64                 # query rows of a dk/dv ring tile
@@ -109,18 +118,64 @@ _SCALAR_LD = 68             # fp32 leading dim of the scalar kernels' transposed
 class Plan:
     """How one flash kernel launches. ``route`` "wgmma" is the bf16
     tensor-core kernel, "scalar" the fp32-FMA kernel; ``block`` is the query
-    rows a block (forward, dq) or the keys a block (dk/dv)."""
+    rows a block (forward, dq) or the keys a block (dk/dv); ``width`` the
+    head width the kernel runs at (the head size zero-padded to 64 or 128)."""
 
     route: str
     block: int
     grid: tuple[int, int, int]
     threads: int
     smem_bytes: int
+    width: int
+
+
+def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
+    """(shared-memory bytes, fp32 accumulator registers of a consumer
+    thread) of the bf16 tensor-core ``kernel`` with ``block`` query rows
+    (forward, dq) or keys (dk/dv) at head width ``width``.
+
+    Shared memory: 1024 bytes of alignment slack and the mbarriers; the
+    forward and dq hold the Q (and dO) tile, ``_STAGES`` K and V tiles of 64
+    keys and dq's delta row; dk/dv holds its K and V, ``_STAGES`` Q, dO and O
+    tiles of 64 rows and each consumer warpgroup's two delta/lse rows. The
+    launchers check the same sums. Registers: a consumer warpgroup's 64 rows
+    of fp32 accumulators over its 128 threads: O and S (forward), dQ, S and
+    dP (dq), dK, dV, S^T and dP^T (dk/dv)."""
+    bars = 8 * (1 + 2 * _STAGES)
+    slabs = width // 64                     # 64-column bf16 slabs of a row
+    if kernel in ("fwd", "dq"):
+        tiles = (1 if kernel == "fwd" else 2) * slabs * 64 * 2 * block
+        kv = 2 * _STAGES * slabs * _TILE_K * 128
+        delta = 4 * block if kernel == "dq" else 0
+        return 1024 + tiles + kv + delta + bars, width // 2 + (32 if kernel == "fwd" else 64)
+    kv = 2 * slabs * block * 128                   # resident K and V
+    ring = 3 * _STAGES * slabs * _QROWS * 128      # Q, dO, O tiles
+    rows = (block // 64) * 2 * 2 * _QROWS * 4      # [2][delta | lse] a consumer
+    return 1024 + kv + ring + rows + bars, width + 64
+
+
+def _wide_head_refusal(D: int) -> str:
+    sums = {k: _wgmma_sums(k, 64, 256) for k in ("fwd", "dq", "dkv")}
+    need = "; ".join(f"{name} {sums[k][0]:,} bytes and {sums[k][1]}" for k, name in
+                     (("fwd", "forward"), ("dq", "dq"), ("dkv", "dk/dv")))
+    return (f"flash kernels take head_dim up to {_KERNEL_D[-1]} (zero-padded to 64 or 128), "
+            f"got {D}. At D 256 the bf16 kernels would need, at their smallest tiles, shared "
+            f"memory a block and fp32 accumulator registers a thread of: {need}; the card "
+            f"gives a block {SMEM_LIMIT:,} bytes and a thread {_REGS_BESIDE_PRODUCER} registers "
+            f"beside a producer warpgroup ({_REGS_MAX} without), and a train step needs all three")
+
+
+def _kernel_width(D: int) -> int:
+    """The head width the kernels run at: D zero-padded to 64 or 128."""
+    if not 1 <= D <= _KERNEL_D[-1]:
+        raise ValueError(_wide_head_refusal(D))
+    return _KERNEL_D[0] if D <= _KERNEL_D[0] else _KERNEL_D[1]
 
 
 def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
           sms: int = _SMS) -> Plan:
-    """The launch of ``kernel`` ("fwd", "dq" or "dkv") for these shapes.
+    """The launch of ``kernel`` ("fwd", "dq" or "dkv") for these shapes, at
+    head size ``D`` (planned at its padded ``width``, :func:`_kernel_width`).
 
     bf16 takes the tensor-core route: ``block // 64`` consumer warpgroups,
     with a producer warpgroup beside them for the forward and dq (for dk/dv
@@ -128,43 +183,46 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     128-row tiles where ``B * H * ceil(Sq / 128)`` blocks still fill
     ``sms`` SMs (the training shape: 512 blocks), else 64-row tiles (the
     serving prefill B4 H8 S128: 64 blocks where 128 rows would give 32).
-    Shared memory: 1024 bytes of alignment slack, the Q (and dO) tile,
-    ``_STAGES`` K and V tiles of 64 keys, dq's delta row, the mbarriers.
     dk/dv: a grid of (KV, B, key blocks), 128 keys a block where ``B * KV *
-    ceil(Sk / 128)`` blocks fill the SMs, else 64; shared memory: the slack,
-    the block's K and V tiles, ``_STAGES`` Q, dO and O tiles of 64 rows,
-    each consumer warpgroup's two delta/lse rows, the mbarriers. The
-    launchers check the same sums. fp32 takes the scalar route: 64-row
+    ceil(Sk / 128)`` blocks fill the SMs, else 64. Shared memory as
+    :func:`_wgmma_sums` counts it. fp32 takes the scalar route: 64-row
     tiles, 256 threads, fp32 tiles in shared memory.
     """
-    if D not in _KERNEL_D:
-        raise ValueError(
-            f"flash kernels support head_dim {_KERNEL_D}, got {D}; other head sizes are "
-            "ROADMAP.md Queue 3b #4")
+    width = _kernel_width(D)
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash kernels take bf16 or fp32 operands, got {dtype}")
-    bars = 8 * (1 + 2 * _STAGES)
     if dtype == torch.bfloat16 and kernel in ("fwd", "dq"):
         rows = 128 if B * H * -(-Sq // 128) >= sms else 64
-        slab = 64 * 2 * rows                       # one 64-column bf16 slab of a query tile
-        tiles = (1 if kernel == "fwd" else 2) * (D // 64) * slab
-        kv = 2 * _STAGES * (D // 64) * _TILE_K * 128
-        delta = 4 * rows if kernel == "dq" else 0
-        smem = 1024 + tiles + kv + delta + bars
-        return Plan("wgmma", rows, (H, B, -(-Sq // rows)), 128 * (rows // 64 + 1), smem)
+        smem, _ = _wgmma_sums(kernel, rows, width)
+        return Plan("wgmma", rows, (H, B, -(-Sq // rows)), 128 * (rows // 64 + 1), smem, width)
     if dtype == torch.bfloat16:
         keys = 128 if B * KV * -(-Sk // 128) >= sms else 64
-        kv = 2 * (D // 64) * keys * 128                # resident K and V
-        ring = 3 * _STAGES * (D // 64) * _QROWS * 128  # Q, dO, O tiles
-        rows = (keys // 64) * 2 * 2 * _QROWS * 4       # [2][delta | lse] a consumer
-        smem = 1024 + kv + ring + rows + bars
-        return Plan("wgmma", keys, (KV, B, -(-Sk // keys)), 128 * (keys // 64), smem)
+        smem, _ = _wgmma_sums(kernel, keys, width)
+        return Plan("wgmma", keys, (KV, B, -(-Sk // keys)), 128 * (keys // 64), smem, width)
     ld, t = _SCALAR_LD, _TILE_K
-    floats = {"fwd": 2 * D * ld + t * D + t * ld,
-              "dq": 4 * D * ld + t * D + t * ld,
-              "dkv": 4 * D * ld + 2 * t * D + t * ld + 2 * t}[kernel]
+    floats = {"fwd": 2 * width * ld + t * width + t * ld,
+              "dq": 4 * width * ld + t * width + t * ld,
+              "dkv": 4 * width * ld + 2 * t * width + t * ld + 2 * t}[kernel]
     grid = (-(-Sk // t), KV, B) if kernel == "dkv" else (-(-Sq // t), H, B)
-    return Plan("scalar", t, grid, 256, 4 * floats)
+    return Plan("scalar", t, grid, 256, 4 * floats, width)
+
+
+def _pad_heads(inner, heads, width: int):
+    """``inner(*heads, scale=D ** -0.5)`` with every tensor of ``heads``
+    zero-padded on its last axis from the head size D to ``width``; of the
+    tuple ``inner`` returns, the 4-D tensors (o, dq, dk, dv: head axis last)
+    come back cut to D and the rest (lse) as they are.
+
+    A zero column adds nothing to a score q·k or to delta = rowsum(dO·O),
+    and the padded columns of o, dq, dk and dv are products with zero
+    columns, so with the true D's scale the cut outputs are the unpadded
+    ones. At D == width nothing is copied. ``inner`` is the kernel launch on
+    the card and the plain version in the CPU tests."""
+    D = heads[0].shape[-1]
+    if D == width:
+        return inner(*heads, scale=D ** -0.5)
+    out = inner(*(F.pad(t, (0, width - D)) for t in heads), scale=D ** -0.5)
+    return tuple(t[..., :D].contiguous() if t.dim() == 4 else t for t in out)
 
 
 def _query_tiles(k0: int, keys: int, Sq: int, Sk: int, causal: bool,
@@ -207,9 +265,10 @@ def _acc(t):
     return t if t.dtype == torch.float64 else t.float()
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=None):
+def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None):
     """Plain PyTorch version of the kernel: (o [B,Sq,H,D], lse [B,H,Sq] f32).
 
+    ``scale`` defaults to ``D ** -0.5`` (a padded head passes its true D's).
     Scores and softmax in fp32; unnormalized probabilities are cast to v's
     dtype before the value product and divided by the fp32 row sum after it,
     as the TPU kernel does. A row that sees no key gives output 0 and lse
@@ -220,7 +279,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None):
     group = H // KV
     # fold query heads into [KV, group] so grouped K/V are read as they are
     qg = _acc(q).reshape(B, Sq, KV, group, D)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, _acc(k)) * (D ** -0.5)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, _acc(k)) * (D ** -0.5 if scale is None else scale)
     keep = _keep_mask(Sq, Sk, causal, window, q.device)
     s = s.masked_fill(~keep, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
@@ -238,6 +297,11 @@ def _forward(q, k, v, causal, window):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _check_kernel_inputs("flash_attention", q=q, k=k, v=v)
+    return _pad_heads(functools.partial(_launch_forward, causal=causal, window=window),
+                      (q, k, v), _kernel_width(q.shape[-1]))
+
+
+def _launch_forward(q, k, v, *, scale, causal, window):
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     plan = _plan("fwd", B, Sq, Sk, H, KV, D, q.dtype, _sms_of(q.device.index))
@@ -246,7 +310,7 @@ def _forward(q, k, v, causal, window):
     _build.launch(
         "flash_attention_fwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, Sq, Sk, H, KV, D, int(causal), window or 0, D ** -0.5,
+        B, Sq, Sk, H, KV, D, int(causal), window or 0, scale,
         int(q.dtype == torch.float32), plan.block, plan.smem_bytes,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -255,8 +319,9 @@ def _forward(q, k, v, causal, window):
 
 
 def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal=True, window=None,
-                                   grad_dtype=None):
+                                   grad_dtype=None, scale=None):
     """Plain PyTorch version of the two backward kernels: (dq, dk, dv).
+    ``scale`` defaults to ``D ** -0.5``, as in the forward.
 
     An explicit formula with the TPU kernels' rounding points, not autograd
     through the forward:
@@ -276,7 +341,7 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal=True, window=N
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     group = H // KV
-    scale = D ** -0.5
+    scale = D ** -0.5 if scale is None else scale
     qg = _acc(q).reshape(B, Sq, KV, group, D)
     dog = _acc(do).reshape(B, Sq, KV, group, D)
     delta = (_acc(do) * _acc(o)).sum(-1)                   # [B, Sq, H]
@@ -310,23 +375,37 @@ def _check_backward(q, k, v, o, lse, do, causal, window, grad_dtype):
         raise ValueError(f"grad_dtype must be None, fp32 or {q.dtype}, got {grad_dtype}")
 
 
-def _launch_backward(name, q, k, v, o, lse, do, outs, causal, window):
+def _check_backward_inputs(name, q, k, v, o, lse, do):
     _check_kernel_inputs(name, q=q, k=k, v=v, o=o, do=do)
     if lse.device != q.device or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"{name} kernel needs lse fp32 and contiguous on {q.device}")
+    return _kernel_width(q.shape[-1])
+
+
+def _launch_backward(name, q, k, v, o, do, *, lse, scale, causal, window, grad_dtype):
+    """One backward kernel on (padded) operands: (dq,) or (dk, dv)."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     kernel = "dq" if name == "flash_attention_bwd_dq" else "dkv"
     plan = _plan(kernel, B, Sq, Sk, H, KV, D, q.dtype, _sms_of(q.device.index))
+    outs = ((torch.empty(q.shape, dtype=grad_dtype or q.dtype, device=q.device),)
+            if kernel == "dq" else
+            tuple(torch.empty(t.shape, dtype=grad_dtype or t.dtype, device=t.device)
+                  for t in (k, v)))
     _build.launch(
         name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), *(t.data_ptr() for t in outs),
-        B, Sq, Sk, H, KV, D, int(causal), window or 0, D ** -0.5,
+        B, Sq, Sk, H, KV, D, int(causal), window or 0, scale,
         int(outs[0].dtype == torch.float32), int(q.dtype == torch.float32),
         plan.block, plan.smem_bytes,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if kernel == "dq":
+        flash_attention_bwd_dq.launches += 1
+    else:
+        flash_attention_bwd_dkv.launches += 1
+    return outs
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal=True, window=None,
@@ -339,9 +418,11 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal=True, window=None,
     if q.device.type == "cpu":
         return flash_attention_backward_plain(
             q, k, v, o, lse, do, causal=causal, window=window, grad_dtype=grad_dtype)[0]
-    dq = torch.empty(q.shape, dtype=grad_dtype or q.dtype, device=q.device)
-    _launch_backward("flash_attention_bwd_dq", q, k, v, o, lse, do, (dq,), causal, window)
-    flash_attention_bwd_dq.launches += 1
+    name = "flash_attention_bwd_dq"
+    width = _check_backward_inputs(name, q, k, v, o, lse, do)
+    (dq,) = _pad_heads(functools.partial(_launch_backward, name, lse=lse, causal=causal,
+                                         window=window, grad_dtype=grad_dtype),
+                       (q, k, v, o, do), width)
     return dq
 
 
@@ -355,11 +436,11 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, *, causal=True, window=None,
     if q.device.type == "cpu":
         return flash_attention_backward_plain(
             q, k, v, o, lse, do, causal=causal, window=window, grad_dtype=grad_dtype)[1:]
-    dk = torch.empty(k.shape, dtype=grad_dtype or k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=grad_dtype or v.dtype, device=v.device)
-    _launch_backward("flash_attention_bwd_dkv", q, k, v, o, lse, do, (dk, dv), causal, window)
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    name = "flash_attention_bwd_dkv"
+    width = _check_backward_inputs(name, q, k, v, o, lse, do)
+    return _pad_heads(functools.partial(_launch_backward, name, lse=lse, causal=causal,
+                                        window=window, grad_dtype=grad_dtype),
+                      (q, k, v, o, do), width)
 
 
 @torch.library.custom_op(
