@@ -21,11 +21,20 @@ Phases, each of which fails the run with a non-zero exit:
             (191) and at the full 2,048-token cache; the forward, dq and
             dk/dv also at head sizes 16, 32 and 96 and flash-decode at 16,
             32, 96 and 100 (bf16 and fp32, run padded to 64 or 128), and a
-            head size of 256 refused with its limits; the build phase counts
+            head size of 320 refused with its limits; the build phase counts
             the tensor-core instructions (HGMMA) of the flash libraries, the
             fused head's forward, dh and dE libraries and the fused BN +
             ReLU + 1x1-conv backward, which the bf16 flash forward, dq and
             dk/dv, the head's three kernels and that backward must have;
+2b. wide heads  the flash forward, dq and dk/dv at head sizes 160, 192 and
+            256 (run at width 256 on the scalar route, bf16 and fp32: causal,
+            windowed, non-causal, GQA, ragged, rows that see no key) and
+            flash-decode at 160, 192 and 256 (positions 191 and 2047, a
+            window, R 16), each against its plain version under the bounds
+            above; each timed at D 256 with its bound, plain version and
+            scaled_dot_product_attention; a ``generate`` request (launches
+            counted) and one train step of a 2-layer model of heads of 256
+            against the CPU;
 3. generate run ``generate`` at the full flagship decode config (24 layers,
             GQA 8/4 heads, 410.3M parameters, seeded weights): batch 4, prompt 128, 128 new
             tokens, temperature 0.8, top_k 40, with every kernel launch
@@ -111,7 +120,19 @@ Phases, each of which fails the run with a non-zero exit:
             batch 256 (2 warm-up steps, 3 timed);
 16. resnet train parity  one SGD step of a small ResNet on the card (bf16,
             through the kernels) against the CPU (fp32): loss, gradient norm
-            and the running statistics after the step.
+            and the running statistics after the step;
+17. sharded  the sharded train steps (``parallel/train.py`` under a mesh)
+            in a world of one rank (nccl, an in-memory store,
+            ``MeshPlan()``): the dense flagship, the MoE flagship and
+            ResNet-50 at batch 256 (BatchNorm statistics through the batch
+            group), each against its ``mesh=None`` step on the same weights
+            (every step's loss, the parameters and buffers after the last
+            step, within ``SHARDED_ATOL``),
+            the launch counts of the unsharded steps, both steps' ms;
+18. bench entries  each of ``kubeflow_tpu_torch/benchmarks/{transformer,
+            moe,decode,resnet}_bench.py`` once, in a subprocess, with few
+            windows: its line's metric, a positive value, this card's name
+            and power limit.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -132,31 +153,16 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 
-FLAGSHIP = dict(
-    vocab_size=32_000, num_layers=24, num_heads=8, num_kv_heads=4,
-    embed_dim=1024, mlp_dim=4096, max_seq_len=2048, attention_impl="flash",
+# the flagship cells (decode, dense train, MoE train, ResNet-50 train) are
+# built by the package's benchmarks/_cells.py, which the bench entry points
+# build theirs from too
+from kubeflow_tpu_torch.benchmarks import _cells as cells  # noqa: E402
+from kubeflow_tpu_torch.benchmarks._cells import (  # noqa: E402
+    BATCH, FLAGSHIP, MOE, MOE_BATCH, MOE_SEQ, NEW, PROMPT, RESNET, RESNET_BATCH, RESNET_IMAGE,
+    TEMPERATURE, TOP_K, TRAIN, TRAIN_BATCH, TRAIN_CHUNK, TRAIN_SEQ,
 )
-BATCH, PROMPT, NEW = 4, 128, 128
-TEMPERATURE, TOP_K = 0.8, 40
 
-# the training flagship: benchmarks/transformer_bench.py:85-118 (no GQA,
-# attention block 1024, no remat at seq 2048), AdamW as there (:118), the
-# chunked loss with chunk 1024 (:58)
-TRAIN = dict(
-    vocab_size=32_000, num_layers=24, num_heads=8, embed_dim=1024, mlp_dim=4096,
-    max_seq_len=2048, attention_impl="flash", attention_block_size=1024,
-)
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_STEPS = 4, 2048, 1024, 5
-
-# the MoE training flagship: benchmarks/moe_bench.py:74-94 (gather dispatch,
-# the chunked tied head, flash attention with block 1024, no remat), batch
-# and chunk as there (:54-56), AdamW as there (:94)
-MOE = dict(
-    vocab_size=32_000, num_layers=8, num_heads=8, embed_dim=1024, expert_hidden_dim=2048,
-    num_experts=8, experts_per_token=2, capacity_factor=1.25, max_seq_len=2048,
-    dispatch="gather", attention_impl="flash", attention_block_size=1024,
-)
-MOE_BATCH, MOE_SEQ, MOE_CHUNK, MOE_STEPS = 4, 2048, 1024, 5
+TRAIN_STEPS, MOE_STEPS = 5, 5
 
 # kernel checks, per element of the bf16 output:
 #   |out - plain| <= OUT_RTOL * |plain| + OUT_ATOL_RMS * rms(plain)
@@ -231,12 +237,9 @@ MOE_FUSED_GNORM_RTOL = 2.5e-4
 MOE_FUSED_F32_LOSS_ATOL = 1e-4
 MOE_FUSED_F32_GNORM_RTOL = 1e-5
 
-# the ResNet training cell: bench.py:81-103 (ResNet-50, 1000 classes, bf16,
-# 224x224 standard-normal images, nesterov SGD 0.1/0.9) with bn_impl="pallas",
-# the configuration that runs the two BatchNorm kernels; bench.py's own batch
-# is 16 a chip, batch 256 is what fills an 80 GB card
-RESNET = dict(stage_sizes=[3, 4, 6, 3], num_classes=1000, width=64)
-RESNET_IMAGE, RESNET_BATCH, RESNET_SMALL_BATCH, RESNET_STEPS = 224, 256, 16, 5
+# beside the ResNet-50 cell (batch 256, bn_impl="pallas"): bench.py's own
+# batch of 16 a chip, without the launch check
+RESNET_SMALL_BATCH, RESNET_STEPS = 16, 5
 # reduction kernels (BatchNorm sums, the bwd probe's dW) against their plain
 # versions: a sum taken as a tree or in blocks is within depth * 2^-24 *
 # sum|terms| of the exact sum. Both versions sum in blocks (the kernels: a
@@ -474,16 +477,16 @@ def phase_kernels(torch):
         if dt == bf16:
             worst = max(worst, err)
 
-    # a head size past 128 is a stated refusal on the card, never the plain version
-    q256 = randn(1, 64, 2, 256)
+    # a head size past 256 is a stated refusal on the card, never the plain version
+    q320 = randn(1, 64, 2, 320)
     try:
-        flash_attention(q256, q256, q256, True, 64, 64)
+        flash_attention(q320, q320, q320, True, 64, 64)
     except ValueError as e:
-        if "head_dim up to 128" not in str(e) or "232,448" not in str(e):
+        if "head_dim up to 256" not in str(e) or "232,448" not in str(e):
             raise
-        log(f"[kernels] flash_attention_fwd D 256 (bf16): refused: {e}")
+        log(f"[kernels] flash_attention_fwd D 320 (bf16): refused: {e}")
     else:
-        raise AssertionError("flash_attention ran at head_dim 256")
+        raise AssertionError("flash_attention ran at head_dim 320")
 
     B, S, H, KV, D = BATCH, PROMPT, 8, 4, 128
     q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
@@ -565,16 +568,16 @@ def phase_kernels(torch):
         if dt == bf16:
             worst = max(worst, err)
 
-    q256 = randn(1, 1, 2, 256)
-    k256 = randn(1, 1, 64, 256)
+    q320 = randn(1, 1, 2, 320)
+    k320 = randn(1, 1, 64, 320)
     try:
-        flash_decode(q256, k256, k256, torch.zeros(1, dtype=torch.int32, device="cuda"), block_k=64)
+        flash_decode(q320, k320, k320, torch.zeros(1, dtype=torch.int32, device="cuda"), block_k=64)
     except ValueError as e:
-        if "head_dim up to 128" not in str(e):
+        if "head_dim up to 256" not in str(e):
             raise
-        log(f"[kernels] flash_decode D 256 (bf16): refused: {e}")
+        log(f"[kernels] flash_decode D 320 (bf16): refused: {e}")
     else:
-        raise AssertionError("flash_decode ran at head_dim 256")
+        raise AssertionError("flash_decode ran at head_dim 320")
 
     # two launches on the same inputs give the same bits (the combine's order is fixed)
     B, G, R, D, L = flagship
@@ -800,6 +803,238 @@ def phase_kernels_bwd(torch):
     return results, fwd_train
 
 
+# heads of 256 at a small width (Gemma-class heads): generate and one train
+# step against the CPU, through the width-256 route of every flash kernel
+WIDE_HEADS = dict(vocab_size=4096, num_layers=2, num_heads=2, embed_dim=512, mlp_dim=1024,
+                  max_seq_len=256, attention_impl="flash")
+WIDE_HEADS_PROMPT, WIDE_HEADS_NEW = 64, 16
+
+
+def phase_wide_heads(torch, np):
+    """The flash forward, dq and dk/dv at head sizes 160, 192 and 256 (run at
+    width 256 on the scalar route, bf16 and fp32) and flash-decode at 160,
+    192 and 256, each against its plain version under the bounds of the
+    kernels phases; each kernel timed at D 256 beside its bound, its plain
+    version and scaled_dot_product_attention on the same inputs; then a
+    generate request and a dense train step of heads of 256 against the CPU."""
+    import torch.nn.functional as F
+
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.ops import pallas_attention as pa
+    from kubeflow_tpu_torch.ops.flash_decode import _plan as decode_plan
+    from kubeflow_tpu_torch.ops.flash_decode import (
+        _split_reference,
+        flash_decode,
+        flash_decode_plain,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "decode": 0.0}
+    cases = [
+        # name, B, Sq, Sk, H, KV, D, causal, window, grad_dtype, dtype
+        ("d256_causal_gqa_8_2", 2, 256, 256, 8, 2, 256, True, None, None, bf16),
+        ("d256_window_48", 2, 256, 256, 4, 4, 256, True, 48, None, bf16),
+        ("d256_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 256, False, None, None, bf16),
+        ("d256_causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 256, True, 2, None, bf16),
+        ("d256_fp32_grads_s200", 3, 200, 200, 4, 2, 256, True, None, f32, bf16),
+        ("d160_gqa_4_2_window_100", 2, 256, 256, 4, 2, 160, True, 100, None, bf16),
+        ("d192_noncausal", 2, 128, 128, 4, 4, 192, False, None, None, bf16),
+        ("fp32_d256_gqa_8_2", 2, 256, 256, 8, 2, 256, True, None, None, f32),
+        ("fp32_d256_window_48_ragged", 2, 200, 200, 4, 4, 256, True, 48, None, f32),
+        ("fp32_d256_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 256, False, None, None, f32),
+        ("fp32_d160", 2, 128, 128, 4, 2, 160, True, None, None, f32),
+        ("fp32_d192_window_48", 2, 128, 128, 4, 4, 192, True, 48, None, f32),
+    ]
+    for name, B, Sq, Sk, H, KV, D, causal, window, gd, dt in cases:
+        q, k, v, do = (randn(*shape, dtype=dt) for shape in (
+            (B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
+        o, lse = pa.flash_attention(q, k, v, causal, Sq, Sk, window, return_lse=True)
+        kw = dict(causal=causal, window=window, grad_dtype=gd)
+        grads = (pa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw),
+                 *pa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw))
+        torch.cuda.synchronize()
+        o_ref, lse_ref = pa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        ok, err, ratio, rms = check_out(o, o_ref)
+        lse_ok, lse_err = check_lse(lse, lse_ref)
+        ok = ok and lse_ok and check_dead_rows(o, lse_ref) and o.dtype == dt
+        plans = {kn: pa._plan(kn, B, Sq, Sk, H, KV, D, dt, sms) for kn in ("fwd", "dq", "dkv")}
+        line = [f"fwd err/tol {ratio:.3f} lse_err {lse_err:.2e}"]
+        if dt == bf16:
+            worst["fwd"] = max(worst["fwd"], err)
+        for grad, g, w in zip(("dq", "dk", "dv"), grads, want):
+            g_ok, g_err, g_ratio, _ = check_out(g, w)
+            ok = ok and g_ok and g.dtype == w.dtype
+            line.append(f"{grad} err/tol {g_ratio:.3f}")
+            key = "dq" if grad == "dq" else "dkv"
+            if dt == bf16:
+                worst[key] = max(worst[key], g_err)
+        log(f"[wide heads] flash {name} ({dt}; D {D} at width {plans['fwd'].width}; "
+            + ", ".join(f"{kn} {p.route} {p.block}-row tiles {p.smem_bytes} B"
+                        for kn, p in plans.items())
+            + f"): {'; '.join(line)} (rtol {OUT_RTOL}, atol {OUT_ATOL_RMS}*rms) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"a flash kernel disagrees with its plain version at D {D} ({name})")
+
+    dec_cases = [
+        # name, (B, G, R, D, L), positions, window, dtype
+        ("d256_pos191", (4, 4, 2, 256, 2048), [191] * 4, None, bf16),
+        ("d256_pos2047", (4, 4, 2, 256, 2048), [2047] * 4, None, bf16),
+        ("d256_per_row_pos_window_100", (4, 4, 2, 256, 2048), [0, 255, 1024, 2047], 100, bf16),
+        ("d256_r16_cluster", (2, 1, 16, 256, 256), [100, 255], None, bf16),
+        ("d160_pos191", (2, 4, 2, 160, 512), [191, 511], None, bf16),
+        ("d192_r4", (2, 2, 4, 192, 512), [63, 500], None, bf16),
+        ("fp32_d256_pos191", (4, 4, 2, 256, 2048), [191] * 4, None, f32),
+        ("fp32_d256_pos2047", (4, 4, 2, 256, 2048), [2047] * 4, None, f32),
+        ("fp32_d256_r4_window_48", (2, 2, 4, 256, 256), [63, 200], 48, f32),
+    ]
+    for name, (B, G, R, D, L), pos_list, window, dt in dec_cases:
+        kc, vc, qd = (randn(*shape, dtype=dt) for shape in ((B, G, L, D), (B, G, L, D), (B, G, R, D)))
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        kpos = torch.arange(L, device="cuda")
+        live = kpos[None, :] <= pos[:, None].long()
+        if window is not None:
+            live = live & (kpos[None, :] > pos[:, None].long() - window)
+        live = live[:, None, :, None]
+        kg, vg = torch.where(live, kc, torch.nan), torch.where(live, vc, torch.nan)
+        o = flash_decode(qd, kg, vg, pos, window=window)
+        torch.cuda.synchronize()
+        o_ref = flash_decode_plain(qd, kg, vg, pos, window=window)
+        plan = decode_plan(B, G, R, L, D, dt, sms)
+        w_ratio = _decode_witness(torch, o, _split_reference(qd, kg, vg, pos, window, plan))
+        ok, err, ratio, rms = check_out(o, o_ref)
+        ok = ok and o.dtype == dt and w_ratio <= 1.0
+        log(f"[wide heads] flash_decode {name} ({dt}, R {R}, D {D} at width {plan.width}, split "
+            f"{plan.split} x {plan.splits}, {'cluster' if plan.cluster else 'workspace'} combine) "
+            f"window={window}: max_abs_err {err:.3e} (worst err/tol {ratio:.3f}); vs "
+            f"_split_reference worst err/tol {w_ratio:.3f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_decode disagrees with its plain version at D {D} ({name})")
+        if dt == bf16:
+            worst["decode"] = max(worst["decode"], err)
+
+    # timed at D 256: the training flagship's shape with heads of 256
+    # (B4 S2048 H8, causal), and flash-decode at the serving flagship's
+    # cache with heads of 256 (B4 G4 R2 L2048, pos 191 and 2047)
+    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, TRAIN["num_heads"], 256
+    q, k, v, do = (randn(B, S, H, D) for _ in range(4))
+    o, lse = pa.flash_attention(q, k, v, True, S, S, return_lse=True)
+    qt, kt_, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt_, vt, is_causal=True)
+    do_lib = do.transpose(1, 2).contiguous()
+    times = dict(
+        fwd=device_ms(torch, lambda: pa.flash_attention(q, k, v, True, S, S), cold=False, iters=5),
+        fwd_plain=device_ms(torch, lambda: pa.flash_attention_plain(q, k, v), cold=False, iters=3),
+        fwd_lib=device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt.detach(), kt_.detach(), vt.detach(), is_causal=True), cold=False),
+        dq=device_ms(torch, lambda: pa.flash_attention_bwd_dq(q, k, v, o, lse, do), cold=False,
+                     iters=5),
+        dkv=device_ms(torch, lambda: pa.flash_attention_bwd_dkv(q, k, v, o, lse, do),
+                      cold=False, iters=5),
+        bwd_plain=device_ms(torch, lambda: pa.flash_attention_backward_plain(
+            q, k, v, o, lse, do), cold=False, iters=3),
+        bwd_lib=device_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qt, kt_, vt), do_lib, retain_graph=True), cold=False),
+    )
+    pairs = causal_pairs(B, H, S, S)
+    operand = 2 * B * S * H * D
+    lse_bytes = 4 * B * H * S
+    bounds = {"fwd": bound_ms(4 * operand + lse_bytes, 2 * 2 * D * pairs),
+              "dq": bound_ms(6 * operand + lse_bytes, 3 * 2 * D * pairs),
+              "dkv": bound_ms(7 * operand + lse_bytes, 4 * 2 * D * pairs)}
+    res = {"worst_bf16_err": worst, "times_d256_train_shape": times, "bounds": bounds}
+    log(f"[wide heads] D 256 at the training shape B{B} S{S} H{H} causal, L2 warm: forward "
+        f"{times['fwd']:.4f} ms (bound {bounds['fwd'][0]:.5f}, {bounds['fwd'][1]}; plain "
+        f"{times['fwd_plain']:.4f}; library {times['fwd_lib']:.4f}), dq {times['dq']:.4f} ms "
+        f"(bound {bounds['dq'][0]:.5f}), dk/dv {times['dkv']:.4f} ms (bound "
+        f"{bounds['dkv'][0]:.5f}); plain backward {times['bwd_plain']:.4f}, library backward "
+        f"(scaled_dot_product_attention, dq dk dv together) {times['bwd_lib']:.4f}")
+    del q, k, v, do, o, lse, qt, kt_, vt, o_lib, do_lib
+    B, G, R, D, L = BATCH, 4, 2, 256, FLAGSHIP["max_seq_len"]
+    kc, vc, qd = randn(B, G, L, D), randn(B, G, L, D), randn(B, G, R, D)
+    for p in (PROMPT + (NEW - 2) // 2, L - 1):
+        pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+        ms = device_ms(torch, lambda: flash_decode(qd, kc, vc, pos), cold=True)
+        plain_ms = device_ms(torch, lambda: flash_decode_plain(qd, kc, vc, pos), cold=True)
+        k_live, v_live = kc[:, :, :p + 1], vc[:, :, :p + 1]
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd.view(B, G * R, 1, D), k_live, v_live, enable_gqa=True), cold=True)
+        n_bytes = 2 * (2 * B * G * R * D) + 2 * (2 * B * G * (p + 1) * D) + 4 * B
+        bms, by = bound_ms(n_bytes, 4 * B * G * R * (p + 1) * D)
+        res[f"decode_d256_pos{p}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                          bound_ms=bms, bound_by=by)
+        log(f"[wide heads] flash_decode D 256 B{B} G{G} R{R} L{L} pos {p}, L2 flushed: kernel_ms "
+            f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {bms:.5f} ({by})")
+
+    # a generate request of heads of 256 (launches counted), an fp32 copy's
+    # decode step against the CPU, and one train step against the CPU
+    cfg = kt.TransformerConfig(**WIDE_HEADS, dtype=bf16)
+    prompt = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (BATCH, WIDE_HEADS_PROMPT)))
+    model = kt.TransformerLM(kt.decode_config(cfg), device="cuda")
+    model.load_state_dict(kt.init_state_dict(cfg, seed=6, device="cuda"))
+    counters = {"flash_attention_fwd": pa.flash_attention, "flash_decode": flash_decode}
+    for fn in counters.values():
+        fn.launches = 0
+    out = kt.generate(model, prompt.to("cuda"), max_new_tokens=WIDE_HEADS_NEW)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {"flash_attention_fwd": cfg.num_layers,
+            "flash_decode": cfg.num_layers * (WIDE_HEADS_NEW - 1)}
+    log(f"[wide heads] generate, {cfg.num_layers}-layer bf16 model of {cfg.num_heads} heads of D "
+        f"{cfg.head_dim}, B{BATCH} P{WIDE_HEADS_PROMPT} +{WIDE_HEADS_NEW}: launches {launches} "
+        f"(expected {want})")
+    if launches != want or tuple(out.shape) != (BATCH, WIDE_HEADS_PROMPT + WIDE_HEADS_NEW):
+        raise AssertionError(f"D 256 generate: launches {launches}, shape {tuple(out.shape)}")
+    cfg32 = dataclasses.replace(cfg, dtype=f32)
+    sd = kt.init_state_dict(cfg32, seed=7, device="cpu")
+    steps = {}
+    with torch.inference_mode():
+        for where in ("cuda", "cpu"):
+            m = kt.TransformerLM(kt.decode_config(cfg32), device=where)
+            m.load_state_dict(sd)
+            cache, last = kt.prefill(m, prompt)
+            tok = last.argmax(-1).to("cpu")
+            steps[where] = m(tok[:, None].to(m.device), start=WIDE_HEADS_PROMPT,
+                             cache=cache)[:, -1].float().cpu()
+    err = (steps["cuda"] - steps["cpu"]).abs().max().item()
+    log(f"[wide heads] fp32 model, one decode step's logits card vs cpu: max_abs_err {err:.3e} "
+        f"(atol {GEN_FP32_LOGITS_ATOL})")
+    if not torch.isfinite(steps["cuda"]).all() or err > GEN_FP32_LOGITS_ATOL:
+        raise AssertionError(f"D 256 fp32 decode step disagrees with the CPU: {err}")
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 256)))
+    sd = kt.init_state_dict(cfg, seed=8, device="cpu")
+    make = lambda dtype, where: kt.TransformerLM(dataclasses.replace(cfg, dtype=dtype), device=where)  # noqa: E731
+    before = [c.launches for c in _flash_counters().values()]
+    got = _one_step_vs_cpu(torch, kt, make, sd, tokens, chunk=TRAIN_CHUNK)
+    launched = [c.launches - b for c, b in zip(_flash_counters().values(), before)]
+    got32 = _one_step_vs_cpu(torch, kt, make, sd, tokens, card_dtype=f32, chunk=TRAIN_CHUNK)
+    (loss_c, norm_c), (loss_h, norm_h) = got["cuda"], got["cpu"]
+    (loss_f, norm_f) = got32["cuda"]
+    diffs = dict(bf16=(abs(loss_c - loss_h), abs(norm_c - norm_h) / norm_h),
+                 fp32=(abs(loss_f - loss_h), abs(norm_f - norm_h) / norm_h))
+    log(f"[wide heads] one train step, {cfg.num_layers} layers of {cfg.num_heads} heads of D "
+        f"{cfg.head_dim}, B2 S256, card vs cpu(fp32): loss {loss_h:.5f}; |diff| bf16 "
+        f"{diffs['bf16'][0]:.2e}, fp32 {diffs['fp32'][0]:.2e} (atol {TRAIN_LOSS_ATOL}); grad norm "
+        f"rel diff bf16 {diffs['bf16'][1]:.2e}, fp32 {diffs['fp32'][1]:.2e} (rtol "
+        f"{TRAIN_GNORM_RTOL}); flash launches in the bf16 step {launched} (expected "
+        f"{[cfg.num_layers] * 3})")
+    if (launched != [cfg.num_layers] * 3 or not np.isfinite([loss_c, norm_c, loss_f, norm_f]).all()
+            or any(d_l > TRAIN_LOSS_ATOL or d_n > TRAIN_GNORM_RTOL for d_l, d_n in diffs.values())):
+        raise AssertionError(f"D 256 train step disagrees with the CPU: {got}, {got32}")
+    res.update(generate_launches=launches, decode_step_err=err, train_step_diffs=diffs)
+    return res
+
+
 def _profile(torch, fn, reps: int, top: int = 8):
     """Device time of ``fn`` from a torch.profiler trace, per repetition:
     (busy ms, device events, [(kernel, ms), ...] largest first, the first
@@ -822,28 +1057,38 @@ def _profile(torch, fn, reps: int, top: int = 8):
              for i, (name, us) in enumerate(ranked)])
 
 
-def _device_kernels(torch, fn, reps: int, tries: int = 5):
+PROFILE_PRIMERS = 8
+
+
+def _device_kernels(torch, fn, reps: int, tries: int = 10):
     """The names of the device operations (kernels, copies, memsets) that
     ``reps`` calls of ``fn`` ran, one list a profile, from the profiler's
     raw activity records (launches made outside any PyTorch op, as the
     port's ctypes launchers make them, are not always attached to
-    ``prof.events()``). A profile may drop some of these records (on an
-    H100 one profile held 2 records for 5 one-kernel calls) but invents none,
-    so up to ``tries`` profiles are taken, until one holds a record for
-    each of its ``reps`` calls or more. A first profile of the same calls
-    is discarded: it warms the tracer up."""
+    ``prof.events()``). A profile may drop records but invents none: on an
+    H100 its first one or two device records went missing once earlier
+    phases had run (4 or 3 records for 5 one-kernel calls, every profile
+    alike), so each profile first runs ``PROFILE_PRIMERS`` spin kernels,
+    which ``fn`` never launches, and their records are left out; a whole
+    profile may still come back empty (on an H100, two of three in a row).
+    Up to ``tries`` profiles are taken, until one holds a record for each of
+    its ``reps`` calls or more. A first profile of the same calls is discarded:
+    it warms the tracer up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     seen = []
     for t in range(tries + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PRIMERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         if t:
             seen.append([e.name() for e in prof.profiler.kineto_results.events()
-                         if e.device_type() == DeviceType.CUDA])
+                         if e.device_type() == DeviceType.CUDA and "spin_kernel" not in e.name()])
             if len(seen[-1]) >= reps:
                 break
     return seen
@@ -858,17 +1103,12 @@ def phase_generate(torch, np):
         flash_attention_bwd_dq,
     )
 
-    cfg = kt.TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16)
-    model = kt.TransformerLM(kt.decode_config(cfg), device="cuda")
     t0 = time.perf_counter()
-    model.load_state_dict(kt.init_state_dict(cfg, seed=0, device="cuda"))
+    cfg, model, prompt = cells.decode_model()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[generate] flagship: {cfg.num_layers} layers, {n_params / 1e6:.1f}M parameters "
         f"(bf16), seeded init in {time.perf_counter() - t0:.2f} s")
-    prompt = torch.from_numpy(
-        np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, PROMPT))
-    ).to("cuda")
 
     def gen(seed, n=NEW):
         g = torch.Generator(device="cuda")
@@ -1165,30 +1405,18 @@ def _flash_counters():
 
 
 def phase_train(torch, np):
-    import kubeflow_tpu_torch as kt
-
-    cfg = kt.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    model = kt.TransformerLM(cfg, device="cuda")
-    model.load_state_dict(kt.init_state_dict(cfg, seed=0, device="cuda"))
+    cell = cells.dense_train()
+    cfg, n_params = cell.cfg, cell.n_params
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    if any(p.dtype != torch.float32 for p in model.parameters()):
+    if any(p.dtype != torch.float32 for p in cell.model.parameters()):
         raise AssertionError("a training model must hold fp32 parameters")
     log(f"[train] flagship: {cfg.num_layers} layers, {n_params / 1e6:.1f}M fp32 parameters, "
         f"seeded init in {time.perf_counter() - t0:.2f} s")
-    bundle = kt.make_lm_train_step(
-        model, kt.adamw_lowmem(3e-4, b2=0.99, weight_decay=0.1), chunk=TRAIN_CHUNK)
-    tokens = torch.from_numpy(
-        np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
-    ).to("cuda")
-    # transformer_bench.py:208-212: 6 P for the matmuls + 12 L E S / 2 for
-    # the causal attention, fwd + bwd, per token
-    flops_tok = 6 * n_params + 12 * cfg.num_layers * cfg.embed_dim * TRAIN_SEQ * 0.5
     counters = _flash_counters()
-    res = _train_cell(torch, np, "train", bundle, tokens, counters,
-                      {name: cfg.num_layers for name in counters}, flops_tok, TRAIN_STEPS,
-                      cfg.vocab_size)
+    res = _train_cell(torch, np, "train", cell.bundle, cell.tokens, counters,
+                      {name: cfg.num_layers for name in counters}, cell.flops_per_token,
+                      TRAIN_STEPS, cfg.vocab_size)
     return dict(params_m=n_params / 1e6, **res)
 
 
@@ -1840,7 +2068,7 @@ def phase_head_kernels(torch, np):
         return step
 
     fused = head(lambda hd, tb, tk: kt.fused_head_nll(hd, tb, tk))
-    chunked = head(lambda hd, tb, tk: kt.lm_loss_chunked(hd, tb, tk, chunk=MOE_CHUNK))
+    chunked = head(lambda hd, tb, tk: kt.lm_loss_chunked(hd, tb, tk, chunk=cells.MOE_CHUNK))
     whole = {}
     for name, fn in (("fused", fused), ("chunked", chunked)):
         fn()
@@ -1863,43 +2091,23 @@ def _head_counters():
             "fused_head_bwd_de": fh.fused_head_bwd_de}
 
 
-def _moe_loss_fn(kt, fused: bool):
-    """The MoE flagship's loss: the chunked tied head (``moe_bench.py``'s
-    default) or the fused one (``--fused-head``, ``moe_bench.py:116-120``)."""
-    import functools
-
-    if fused:
-        return kt.moe_lm_loss_fused
-    return functools.partial(kt.moe_lm_loss_chunked, chunk=MOE_CHUNK)
-
-
 def phase_moe_train(torch, np, fused: bool = False):
-    import kubeflow_tpu_torch as kt
     from kubeflow_tpu_torch.ops import moe_dispatch as md
 
     tag = "moe train fused" if fused else "moe train"
 
-    cfg = kt.MoEConfig(**MOE, dtype=torch.bfloat16)
-    E, k, L, C = cfg.num_experts, cfg.experts_per_token, cfg.num_layers, cfg.capacity(MOE_SEQ)
     t0 = time.perf_counter()
-    model = kt.MoETransformerLM(cfg, device="cuda")
-    model.load_state_dict(kt.moe_init_state_dict(cfg, seed=0, device="cuda"))
+    cell = cells.moe_train(head="fused" if fused else "chunked")
+    cfg, model, bundle, tokens = cell.cfg, cell.model, cell.bundle, cell.tokens
+    n_params, n_active = cell.n_params, cell.n_active
+    E, k, L, C = cfg.num_experts, cfg.experts_per_token, cfg.num_layers, cfg.capacity(MOE_SEQ)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    n_expert = sum(p.numel() for name, p in model.named_parameters() if "experts_w" in name)
-    # moe_bench.py:106-114: all but the un-routed share of the expert tables
-    n_active = n_params - n_expert * (1 - k / E)
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise AssertionError("a training model must hold fp32 parameters")
     log(f"[{tag}] flagship: {L} layers, {E} experts top-{k}, capacity {C}, "
         f"{n_params / 1e6:.1f}M fp32 parameters ({n_active / 1e6:.1f}M active a token), "
         f"seeded init in {time.perf_counter() - t0:.2f} s; "
-        + ("fused tied head" if fused else f"chunked tied head, chunk {MOE_CHUNK}"))
-    bundle = kt.make_lm_train_step(
-        model, kt.adamw_lowmem(3e-4, b2=0.99, weight_decay=0.1), loss_fn=_moe_loss_fn(kt, fused))
-    tokens = torch.from_numpy(
-        np.random.default_rng(0).integers(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ))
-    ).to("cuda")
+        + ("fused tied head" if fused else f"chunked tied head, chunk {cells.MOE_CHUNK}"))
 
     def routing():
         """(mean aux loss, share of routed choices dropped) of the batch,
@@ -1915,8 +2123,6 @@ def phase_moe_train(torch, np, fused: bool = False):
                 float(np.mean([(p.keep == 0).float().mean().item() for p in plans])))
 
     routing_init = routing()
-    # moe_bench.py:250-253: 6 * active params + 12 L E S / 2 per token
-    flops_tok = 6 * n_active + 12 * L * cfg.embed_dim * MOE_SEQ * 0.5
     counters = dict(_flash_counters(), moe_gather=md.gather, moe_scatter=md.scatter)
     per_step = {name: L for name in _flash_counters()}
     per_step.update(moe_gather=3 * L, moe_scatter=3 * L)
@@ -1924,7 +2130,7 @@ def phase_moe_train(torch, np, fused: bool = False):
         # one forward, one dh and one dE launch a step
         counters.update(_head_counters())
         per_step.update({name: 1 for name in _head_counters()})
-    res = _train_cell(torch, np, tag, bundle, tokens, counters, per_step, flops_tok,
+    res = _train_cell(torch, np, tag, bundle, tokens, counters, per_step, cell.flops_per_token,
                       MOE_STEPS, cfg.vocab_size)
     # the routing after the steps (its forward runs after the counters were read)
     aux, dropped = routing()
@@ -1960,7 +2166,7 @@ def phase_moe_train_parity(torch, np, fused: bool = False):
             layer.moe.register_forward_hook(hook)
         return model
 
-    got = _one_step_vs_cpu(torch, kt, make_model, sd, tokens, loss_fn=_moe_loss_fn(kt, fused))
+    got = _one_step_vs_cpu(torch, kt, make_model, sd, tokens, loss_fn=cells.moe_loss_fn("fused" if fused else "chunked"))
     (loss_c, norm_c), (loss_h, norm_h) = got["cuda"], got["cpu"]
     exp_c, exp_h, keep_c, keep_h = (torch.stack([getattr(p, name) for p in plans[where]]).cpu()
                                     for name in ("experts", "keep") for where in ("cuda", "cpu"))
@@ -2401,16 +2607,6 @@ def phase_bwd_probe(torch, np):
         bound_by=by)}, launches
 
 
-def _resnet_batch(torch, batch, image=RESNET_IMAGE, classes=RESNET["num_classes"], seed=0):
-    """bench.py's batch: standard-normal bf16 images, uniform labels."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    return {
-        "image": torch.randn((batch, image, image, 3), generator=gen, device="cuda").to(torch.bfloat16),
-        "label": torch.randint(0, classes, (batch,), generator=gen, device="cuda"),
-    }
-
-
 def _resnet_kernel_class(name: str) -> str:
     """The class a device event of the ResNet step counts under, by its
     name. A name that matches nothing is 'unclassified' and is logged, so
@@ -2439,18 +2635,14 @@ def _resnet_cell(torch, np, tag, bn_impl, batch_size, warmup, steps, per_step=No
     from kubeflow_tpu_torch.ops import bn_pallas as bn
 
     t0 = time.perf_counter()
-    model = kt.ResNet(**RESNET, dtype=torch.bfloat16, bn_impl=bn_impl, device="cuda")
-    model.load_state_dict(kt.resnet_init_state_dict(**RESNET, seed=0, device="cuda"))
+    cell = cells.resnet_train(bn_impl=bn_impl, batch=batch_size)
+    model, tx, bundle, batch, n_params = cell.model, cell.tx, cell.bundle, cell.batch, cell.n_params
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise AssertionError("a training model must hold fp32 parameters")
     log(f"[{tag}] ResNet-50, bn_impl={bn_impl}: {n_params / 1e6:.2f}M fp32 parameters, "
         f"{len(model.blocks())} blocks, batch {batch_size} of {RESNET_IMAGE}x{RESNET_IMAGE} bf16, "
         f"seeded init in {time.perf_counter() - t0:.2f} s")
-    tx = kt.sgd(0.1, momentum=0.9, nesterov=True)
-    bundle = kt.make_classifier_train_step(model, tx)
-    batch = _resnet_batch(torch, batch_size)
     state = bundle.init()
     log_metrics = []
 
@@ -2590,6 +2782,149 @@ def phase_resnet_train_parity(torch, np):
                 loss_abs_diff=d_loss, grad_norm_rel_diff=d_norm, running_stats_max_abs_diff=d_stats)
 
 
+SHARDED_STEPS = 5
+# the sharded steps in a world of one against the mesh=None steps: every
+# collective is an identity and BatchNorm divides by the same int row count,
+# so both runs do the same arithmetic (on an H100 all three cells came out
+# bit-equal after 7 steps); the limit, on every loss and on every parameter
+# and buffer after all the steps, leaves room only for a library kernel
+# (cuDNN's) that may sum in another order from one call to the next
+SHARDED_ATOL = 1e-6
+
+
+def _sharded_vs_unsharded(torch, np, tag, build, mesh, counters, per_step):
+    """One cell built twice from the same seed, once with ``mesh=None`` and
+    once on ``mesh``: a first step, then ``SHARDED_STEPS`` timed steps, the
+    sharded run's launch counts held to ``per_step`` a step, then one
+    profiled step (device busy ms: wall times follow the host). Every
+    step's loss, and the parameters (gathered from their shards) and
+    buffers after the last step, are held to the unsharded run's within
+    ``SHARDED_ATOL``."""
+    runs = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        cell = build(m)
+        batch = cell.tokens if hasattr(cell, "tokens") else cell.batch
+        state = cell.bundle.init()
+        losses = [cell.bundle.step(state, batch)[1]["loss"].item()]
+        for fn in counters.values():
+            fn.launches = 0
+        ms = []
+        for _ in range(SHARDED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = cell.bundle.step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {k: n * SHARDED_STEPS for k, n in per_step.items()}
+        if launches != want:
+            raise AssertionError(f"[sharded {tag}] {name} launches {launches} != {want}")
+        losses_last = []
+        busy = _profile(torch, lambda: losses_last.append(cell.bundle.step(state, batch)[1]["loss"]),
+                        reps=1)[0]
+        losses.append(losses_last[-1].item())
+        params = (cell.bundle.gather(state["params"]) if m is not None else
+                  {n: p.detach() for n, p in cell.model.named_parameters()})
+        params = {n: t.to("cpu", torch.float32, copy=True) for n, t in params.items()}
+        buffers = {n: b.to("cpu", torch.float32, copy=True) for n, b in cell.model.named_buffers()}
+        runs[name] = dict(losses=losses, ms=ms, launches=launches, busy=busy, params=params,
+                          buffers=buffers)
+        del cell, state
+        torch.cuda.empty_cache()
+    a, b = runs["unsharded"], runs["sharded"]
+    d_loss = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    d_params = max(float((a["params"][n] - b["params"][n]).abs().max()) for n in a["params"])
+    d_buffers = max((float((a["buffers"][n] - b["buffers"][n]).abs().max()) for n in a["buffers"]),
+                    default=0.0)
+    med = {k: float(np.median(r["ms"])) for k, r in runs.items()}
+    log(f"[sharded {tag}] world of one (nccl), MeshPlan() (every rule's fsdp split of 1): "
+        f"losses {[round(x, 5) for x in b['losses']]} vs mesh=None {[round(x, 5) for x in a['losses']]}; "
+        f"after {SHARDED_STEPS + 2} steps max |diff| losses {d_loss:.2e}, parameters "
+        f"{d_params:.2e}, buffers {d_buffers:.2e} (atol {SHARDED_ATOL}; bit-equal: "
+        f"{d_loss == d_params == d_buffers == 0.0}); launches a step "
+        f"{ {k: v // SHARDED_STEPS for k, v in b['launches'].items()} }; step ms median "
+        f"{med['sharded']:.2f} sharded vs {med['unsharded']:.2f} mesh=None "
+        f"({[round(x, 2) for x in b['ms']]} vs {[round(x, 2) for x in a['ms']]}); device busy "
+        f"{b['busy']:.2f} vs {a['busy']:.2f} ms a step; full depth")
+    if (not np.isfinite(b["losses"]).all() or set(a["params"]) != set(b["params"])
+            or max(d_loss, d_params, d_buffers) > SHARDED_ATOL):
+        raise AssertionError(f"the sharded {tag} step disagrees with the mesh=None step")
+    return dict(losses=b["losses"], losses_unsharded=a["losses"], loss_max_abs_diff=d_loss,
+                params_max_abs_diff=d_params, buffers_max_abs_diff=d_buffers,
+                step_ms=b["ms"], step_ms_unsharded=a["ms"], step_ms_median=med["sharded"],
+                step_ms_median_unsharded=med["unsharded"], device_busy_ms=b["busy"],
+                device_busy_ms_unsharded=a["busy"], launches=b["launches"])
+
+
+def phase_sharded(torch, np):
+    """The sharded train steps (``parallel/train.py`` under a mesh) in a
+    world of one rank (nccl, an in-memory store, ``MeshPlan()``): the dense
+    flagship, the MoE flagship and ResNet-50 at batch 256 (global-batch
+    BatchNorm through the batch group), each against its ``mesh=None`` step
+    on the same weights, with the launch counts of the unsharded steps and
+    both steps' ms (the difference is the machinery's cost)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.ops import bn_pallas as bn
+    from kubeflow_tpu_torch.ops import moe_dispatch as md
+    from kubeflow_tpu_torch.parallel import mesh as tmesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = tmesh.create_mesh(tmesh.MeshPlan())
+        flash = _flash_counters()
+        moe = dict(flash, moe_gather=md.gather, moe_scatter=md.scatter)
+        bn_counters = {"bn_moments": bn.channel_moments, "bn_grad_sums": bn.bn_grad_sums}
+        L, Lm = TRAIN["num_layers"], MOE["num_layers"]
+        moe_steps = dict({k: Lm for k in flash}, moe_gather=3 * Lm, moe_scatter=3 * Lm)
+        out = {}
+        for tag, build, counters, per_step in (
+                ("dense", lambda m: cells.dense_train(mesh=m), flash, {k: L for k in flash}),
+                ("moe", lambda m: cells.moe_train(mesh=m), moe, moe_steps),
+                ("resnet50", lambda m: cells.resnet_train(mesh=m), bn_counters,
+                 {"bn_moments": 53, "bn_grad_sums": 53})):
+            out[tag] = _sharded_vs_unsharded(torch, np, tag, build, mesh, counters, per_step)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+# each entry point once with few windows: (module, windows, metric)
+BENCH_ENTRIES = (
+    ("transformer_bench", (2, 6, 1), "transformer_train_tokens_per_sec_per_chip"),
+    ("moe_bench", (2, 6, 1), "moe_train_tokens_per_sec_per_chip"),
+    ("decode_bench", (1, 3, 1), "decode_tokens_per_sec_per_row"),
+    ("resnet_bench", (2, 6, 1), "resnet50_train_imgs_per_sec_per_chip"),
+)
+
+
+def phase_bench_entries(torch, smi: str):
+    """Each bench entry point (``python3 -m kubeflow_tpu_torch.benchmarks.<name>``'s
+    ``main``) once, in a subprocess of its own, with few windows: its last
+    line is its reference's metric, a positive value, and this card's name
+    and power limit."""
+    limit = float(smi.rsplit(",", 1)[-1].split()[0])
+    out = {}
+    for name, windows, metric in BENCH_ENTRIES:
+        code = (f"from kubeflow_tpu_torch.benchmarks import {name}; "
+                f"{name}.main([], windows={windows!r})")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"{name} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"[bench entries] {name} (windows {windows}, {seconds:.1f} s): {json.dumps(line)}")
+        if (line.get("metric") != metric or not line.get("value", 0) > 0
+                or line.get("card") != torch.cuda.get_device_name(0)
+                or line.get("power_limit_w") != limit or "vs_baseline" in line):
+            raise AssertionError(f"{name} printed an unexpected line: {line}")
+        out[name] = line
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write every measurement to this JSON file")
@@ -2602,8 +2937,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    import kubeflow_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     smi = card()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
@@ -2618,6 +2951,7 @@ def main() -> int:
     kernels = phase_kernels(torch)
     bwd, fwd_train = phase_kernels_bwd(torch)
     kernels.update(bwd)
+    report["wide_heads"] = phase_wide_heads(torch, np)
     gen = phase_generate(torch, np)
     report["parity"] = phase_parity(torch, np)
     report["generate_fp32"] = phase_generate_fp32(torch, np)
@@ -2638,6 +2972,10 @@ def main() -> int:
     kernels.update(bwd_kernels)
     resnet, report["resnet_train_others"] = phase_resnet_train(torch, np)
     report["resnet_train_parity"] = phase_resnet_train_parity(torch, np)
+    torch.cuda.empty_cache()
+    report["sharded"] = phase_sharded(torch, np)
+    torch.cuda.empty_cache()
+    report["bench_entries"] = phase_bench_entries(torch, smi)
     probes = {"launches": {"bn_moments_scaled": scaled_launches,
                            "fused_bn_relu_conv1x1_bwd": bwd_launches}}
     report.update(resnet_train=resnet)

@@ -13,9 +13,11 @@ dq and dk/dv backward, flash-decode, the MoE row gather and its scatter
 backward, and the fused head's forward, dh and dE; and ResNet-50 training
 (``models/resnet.py`` through ``make_classifier_train_step``) with kernels
 for the BatchNorm moments and gradient sums (``ops/bn_pallas.py``). The two
-kernel probes are under ``benchmarks/``. Entry points run on the
-card unless the caller passes ``device="cpu"``; on CPU tensors each kernel
-wrapper runs its plain PyTorch version.
+kernel probes and the bench entry points are under ``benchmarks/``; meshes,
+sharding rules and the distributed bootstrap under ``parallel/``, where the
+train steps also run sharded over the dcn, data and fsdp axes. Entry points
+run on the card unless the caller passes ``device="cpu"``; on CPU tensors
+each kernel wrapper runs its plain PyTorch version.
 """
 from kubeflow_tpu_torch.interop import (
     init_state_dict,

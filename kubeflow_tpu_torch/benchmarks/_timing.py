@@ -1,5 +1,7 @@
-"""Device timing for the probes' ``main()``: CUDA events around calls that
-queue behind a spin kernel, and the card's name and power limit."""
+"""Timing for the port's benchmarks: device time of a kernel for the probes'
+``main()`` (CUDA events around calls that queue behind a spin kernel), the
+reference's long-minus-short window estimator for the bench entry points,
+and the card's name and power limit."""
 from __future__ import annotations
 
 import subprocess
@@ -35,3 +37,40 @@ def device_ms(fn, *, iters: int = 20, warmup: int = 3, flush_l2: bool = True) ->
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def min_window_step_seconds(window, n_short: int, n_long: int, repeats: int):
+    """Seconds a unit from interleaved short and long windows: ``window(n)``
+    runs n units and returns its elapsed seconds, its work finished
+    (:func:`sync` closes it). Stalls only lengthen a window, so the
+    minimum of each length over the repeats is its clean time, and the fixed
+    cost of a window cancels in the difference (the reference's
+    ``benchmarks/_timing.py``). Returns ``(sec_per_unit, shorts, longs)``."""
+    shorts, longs = [], []
+    for _ in range(repeats):
+        shorts.append(window(n_short))
+        longs.append(window(n_long))
+    return (min(longs) - min(shorts)) / (n_long - n_short), shorts, longs
+
+
+def sync(device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def device_fields(device) -> dict:
+    """The device a bench line was measured on: the card's name and power
+    limit in watts (``nvidia-smi``), or ``"cpu"`` and None."""
+    if torch.device(device).type != "cuda":
+        return {"card": "cpu", "power_limit_w": None}
+    limit = card().rsplit(",", 1)[-1].strip()
+    return {"card": torch.cuda.get_device_name(0),
+            "power_limit_w": float(limit.split()[0]) if limit[:1].isdigit() else None}
+
+
+def require_card(device, what: str) -> None:
+    """A bench entry point measures the card: without one it stops with a
+    message, unless the caller asked for the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"{what}: no CUDA device; the benchmark runs on the card")

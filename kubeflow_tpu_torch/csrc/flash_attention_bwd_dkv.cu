@@ -52,11 +52,14 @@
 // its wgmmas (C7512) and took 0.94 ms at the training shape on an H100 80GB
 // HBM3. Without it, two warps a register file may take 255.
 //
-// fp32 operands: the scalar kernel flash_bwd_dkv_kernel (the first port's
-// design): one block per (64-key tile, kv head, batch row), 256 threads as
-// a 16 x 16 grid, fp32 tiles in shared memory (222,720 bytes at D 128), fp32
-// FMAs; thread (ty, tx) owns keys ty*4 .. ty*4+3 and columns c*64 + tx*4 ..
-// +3 of dk and dv.
+// fp32 operands, and both types at head width 256: the scalar kernel
+// flash_bwd_dkv_kernel (the first port's design): one block per (key tile,
+// kv head, batch row), 256 threads as a 16 x 16 grid, tiles staged as fp32
+// in shared memory, fp32 FMAs; thread (ty, tx) owns keys ty*R .. ty*R+R-1
+// and columns c*64 + tx*4 .. +3 of dk and dv. Tiles of 64 keys and 64 query
+// rows (R 4; 222,720 bytes at D 128); at D 256, 32 and 32 (R 2; 217,856
+// bytes, where 64 would need 427,520). P and dS are rounded to the
+// operands' type as the operands of their products (the identity in fp32).
 
 #include "flash_common.cuh"
 
@@ -67,36 +70,36 @@ using flash::from_f;
 using flash::round_to;
 using flash::to_f;
 
-// ---- the scalar route (fp32)
+// ---- the scalar route (fp32 operands; bf16 at width 256)
 
 namespace scalar {
 
-constexpr int BQ = 64;          // query rows per tile
-constexpr int BK = 64;          // keys per block
-constexpr int THREADS = 256;
-constexpr int LD = 64 + 4;      // leading dim of the transposed tiles; keeps float4 alignment
+constexpr int THREADS = 256;    // a 16 x 16 grid over the TILE x TILE score tile
 
-__host__ __device__ constexpr size_t smem_floats(int d) {
-  // k^T, v^T, q^T, do^T [D][LD]; q, do [BQ][D]; p^T / ds^T [BQ][LD]; delta, lse [BQ]
-  return (size_t)4 * d * LD + (size_t)2 * BQ * d + (size_t)BQ * LD + 2 * BQ;
+// shared floats of a block at head width d, TILE keys a block and TILE
+// query rows a tile: k^T, v^T, q^T, do^T [d][LD]; q, do [TILE][d]; p^T / ds^T
+// [TILE][LD]; delta, lse [TILE], LD = TILE + 4; ops/pallas_attention.py
+// (_plan) computes the same sum
+__host__ __device__ constexpr size_t smem_floats(int d, int tile) {
+  return (size_t)4 * d * (tile + 4) + (size_t)2 * tile * d + (size_t)tile * (tile + 4) + 2 * tile;
 }
 
-template <int DC>
+template <int DC, int TILE>
 __device__ __forceinline__ void accumulate(const float* __restrict__ pt,
                                            const float* __restrict__ rows,
-                                           float (&acc)[4][DC * 4], int tx, int ty) {
+                                           float (&acc)[TILE / 16][DC * 4], int tx, int ty) {
   // acc[key][col] += sum_q pt[q][key] * rows[q][col]
-  constexpr int D = DC * 64;
+  constexpr int D = DC * 64, LD = TILE + 4, R = TILE / 16;
 #pragma unroll 4
-  for (int qq = 0; qq < BQ; ++qq) {
-    const float4 p4 = *reinterpret_cast<const float4*>(&pt[qq * LD + ty * 4]);
-    const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+  for (int qq = 0; qq < TILE; ++qq) {
+    float pv[R];
+    flash::ld_run<R>(&pt[qq * LD + ty * R], pv);
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const float4 r4 = *reinterpret_cast<const float4*>(&rows[qq * D + c * 64 + tx * 4]);
       const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           acc[i][c * 4 + e] = fmaf(pv[i], rv[e], acc[i][c * 4 + e]);
@@ -104,7 +107,7 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ pt,
   }
 }
 
-template <int D, typename T>
+template <int D, int TILE, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ o,
@@ -112,6 +115,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      void* __restrict__ dk, void* __restrict__ dv,
                      int Sq, int Sk, int H, int KV, int causal, int window,
                      float scale, int out_f32) {
+  constexpr int BQ = TILE, BK = TILE, LD = TILE + 4;
+  constexpr int R = TILE / 16;  // keys (and query rows) of the score tile a thread owns
+  constexpr int PARTS = THREADS / BQ;   // threads that sum one row's delta
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);
   float* vt = kt + D * LD;
@@ -147,9 +153,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_lo = causal ? k0 : 0;
   const int q_hi = (causal && window > 0) ? min(Sq - 1, k_last + window - 1) : Sq - 1;
 
-  float acc_dk[4][DC * 4], acc_dv[4][DC * 4];
+  float acc_dk[R][DC * 4], acc_dv[R][DC * 4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < DC * 4; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
 
@@ -172,17 +178,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dos[r * D + d] = gg;
       }
       {
-        // delta of row r from four threads (lanes 4r' .. 4r'+3 of a warp)
-        const int r = tid / 4, part = tid % 4;
+        // delta of row r from PARTS neighbouring lanes of a warp
+        const int r = tid / PARTS, part = tid % PARTS;
         const int qp = q0 + r;
         float acc = 0.f;
         if (qp < Sq) {
-          for (int d = part; d < D; d += 4)
+          for (int d = part; d < D; d += PARTS)
             acc += to_f(dout[q_base + qp * q_stride + d]) *
                    to_f(o[q_base + qp * q_stride + d]);
         }
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+#pragma unroll
+        for (int off = 1; off < PARTS; off <<= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
         if (part == 0) {
           delta_s[r] = acc;
           lse_s[r] = qp < Sq ? lse[((size_t)b * H + h) * Sq + qp] : INFINITY;
@@ -190,62 +197,59 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
 
-      float s[4][4], dp[4][4];
+      float s[R][R], dp[R][R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        const float4 kc = *reinterpret_cast<const float4*>(&kt[d * LD + ty * 4]);
-        const float4 vc = *reinterpret_cast<const float4*>(&vt[d * LD + ty * 4]);
-        const float4 a = *reinterpret_cast<const float4*>(&qt[d * LD + tx * 4]);
-        const float4 gd = *reinterpret_cast<const float4*>(&dot[d * LD + tx * 4]);
-        const float kv[4] = {kc.x, kc.y, kc.z, kc.w};
-        const float vv[4] = {vc.x, vc.y, vc.z, vc.w};
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float gv[4] = {gd.x, gd.y, gd.z, gd.w};
+        float kv[R], vv[R], av[R], gv[R];
+        flash::ld_run<R>(&kt[d * LD + ty * R], kv);
+        flash::ld_run<R>(&vt[d * LD + ty * R], vv);
+        flash::ld_run<R>(&qt[d * LD + tx * R], av);
+        flash::ld_run<R>(&dot[d * LD + tx * R], gv);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < R; ++j) {
             s[i][j] = fmaf(kv[i], av[j], s[i][j]);
             dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
           }
       }
 
       // p^T into shared memory now, ds^T after dv has read p^T
-      float ds[4][4];
+      float ds[R][R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kp = k0 + ty * 4 + i;
+      for (int i = 0; i < R; ++i) {
+        const int kp = k0 + ty * R + i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = tx * 4 + j;
+        for (int j = 0; j < R; ++j) {
+          const int r = tx * R + j;
           const int qp = q0 + r;
           bool keep = kp < Sk && qp < Sq;
           if (causal) keep = keep && kp <= qp && (window <= 0 || kp > qp - window);
           // masked scores and rows with lse = +inf give p = 0 explicitly
           const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
           ds[i][j] = round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);
-          pt[r * LD + ty * 4 + i] = round_to<T>(p);
+          pt[r * LD + ty * R + i] = round_to<T>(p);
         }
       }
       __syncthreads();
-      accumulate<DC>(pt, dos, acc_dv, tx, ty);
+      accumulate<DC, TILE>(pt, dos, acc_dv, tx, ty);
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) pt[(tx * 4 + j) * LD + ty * 4 + i] = ds[i][j];
+        for (int j = 0; j < R; ++j) pt[(tx * R + j) * LD + ty * R + i] = ds[i][j];
       __syncthreads();
-      accumulate<DC>(pt, qs, acc_dk, tx, ty);
+      accumulate<DC, TILE>(pt, qs, acc_dk, tx, ty);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int kp = k0 + ty * R + i;
     if (kp >= Sk) continue;
     const size_t row = kv_base + kp * kv_stride;
 #pragma unroll
@@ -547,29 +551,31 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int TILE, typename T>
 int launch_scalar(const void* q, const void* k, const void* v, const void* o, const void* lse,
                   const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
                   int causal, int window, float scale, int out_f32, int smem,
                   cudaStream_t stream) {
   using scalar::flash_bwd_dkv_kernel;
-  if (smem != (int)(scalar::smem_floats(D) * sizeof(float))) return (int)cudaErrorInvalidValue;
+  if (smem != (int)(scalar::smem_floats(D, TILE) * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dkv_kernel<D, TILE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sk + scalar::BK - 1) / scalar::BK, KV, B);
-  flash_bwd_dkv_kernel<D, float><<<grid, scalar::THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(lse),
-      static_cast<const float*>(dout), dk, dv, Sq, Sk, H, KV, causal, window, scale, out_f32);
+  const dim3 grid((Sk + TILE - 1) / TILE, KV, B);
+  flash_bwd_dkv_kernel<D, TILE, T><<<grid, scalar::THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const float*>(lse),
+      static_cast<const T*>(dout), dk, dv, Sq, Sk, H, KV, causal, window, scale, out_f32);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// f32: 0 for bf16 operands (tensor-core kernel, block_k 64 or 128 keys a
-// block), 1 for fp32 (scalar kernel, block_k 64, dk and dv in fp32). smem:
-// the plan's shared-memory bytes, checked against the kernel's own layout.
+// f32: 0 for bf16 operands, 1 for fp32. D 64 and 128: bf16 takes the
+// tensor-core kernel (block_k 64 or 128 keys a block), fp32 the scalar
+// kernel (block_k 64, dk and dv in fp32); D 256: the scalar kernel in both
+// types (block_k 32; fp32 operands give dk and dv in fp32). smem: the plan's
+// shared-memory bytes, checked against the kernel's own layout.
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
@@ -579,10 +585,11 @@ extern "C" int flash_attention_bwd_dkv_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, dout, dk, dv, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
+  if (D == 256 && block_k == 32)
+    return f32 ? launch_scalar<256, 32, float>(ARGS) : launch_scalar<256, 32, bf16>(ARGS);
   if (f32) {
-    if (block_k != scalar::BK) return (int)cudaErrorInvalidValue;
-    if (D == 128) return launch_scalar<128>(ARGS);
-    if (D == 64) return launch_scalar<64>(ARGS);
+    if (D == 128 && block_k == 64) return launch_scalar<128, 64, float>(ARGS);
+    if (D == 64 && block_k == 64) return launch_scalar<64, 64, float>(ARGS);
   } else {
     if (D == 128 && block_k == 128) return launch_wgmma<128, 2>(ARGS);
     if (D == 128 && block_k == 64) return launch_wgmma<128, 1>(ARGS);

@@ -26,9 +26,12 @@
 // fragments taken from the accumulator registers and K read MN-major from
 // the same tile. dQ stays in fp32 registers across the key loop.
 //
-// fp32 operands: the scalar kernel flash_bwd_dq_scalar (the first port's
-// design): 256 threads as a 16 x 16 grid over a 64-row query tile, fp32
-// tiles in shared memory, fp32 FMAs; ds is not rounded in fp32.
+// fp32 operands, and both types at head width 256: the scalar kernel
+// flash_bwd_dq_scalar (the first port's design): 256 threads as a 16 x 16
+// grid over a query tile of 64 rows (32 at D 256, where 64 would need
+// 361,472 bytes of shared memory; 32 take 184,832), tiles staged as fp32,
+// fp32 FMAs; ds is rounded to the operands' type before ds k (the identity
+// in fp32).
 
 #include "flash_common.cuh"
 
@@ -39,27 +42,28 @@ using flash::from_f;
 using flash::round_to;
 using flash::to_f;
 
-// ---- the scalar route (fp32)
+// ---- the scalar route (fp32 operands; bf16 at width 256)
 
 namespace scalar {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int THREADS = 256;
-constexpr int LD = 64 + 4;      // leading dim of the transposed tiles; keeps float4 alignment
+constexpr int THREADS = 256;    // a 16 x 16 grid over the TILE x TILE score tile
 
-__host__ __device__ constexpr size_t smem_floats(int d) {
-  // q^T, do^T, k^T, v^T [D][LD]; k [BK][D]; ds^T [BK][LD]
-  return (size_t)4 * d * LD + (size_t)BK * d + (size_t)BK * LD;
+// shared floats of a block at head width d and TILE-row tiles: q^T, do^T,
+// k^T, v^T [d][LD]; k [TILE][d]; ds^T [TILE][LD], LD = TILE + 4;
+// ops/pallas_attention.py (_plan) computes the same sum
+__host__ __device__ constexpr size_t smem_floats(int d, int tile) {
+  return (size_t)4 * d * (tile + 4) + (size_t)tile * d + (size_t)tile * (tile + 4);
 }
 
-template <int D, typename T>
+template <int D, int TILE, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const float* __restrict__ lse, const T* __restrict__ dout,
                     void* __restrict__ dq, int Sq, int Sk, int H, int KV,
                     int causal, int window, float scale, int out_f32) {
+  constexpr int BQ = TILE, BK = TILE, LD = TILE + 4;
+  constexpr int R = TILE / 16;  // rows (and keys) of the score tile a thread owns
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);
   float* dot = qt + D * LD;
@@ -89,10 +93,10 @@ flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // delta and lse of this thread's rows; the 16 threads of a row share them
-  float delta[4], row_lse[4];
+  float delta[R], row_lse[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int qp = q0 + ty * R + i;
     float acc = 0.f;
     if (qp < Sq) {
       for (int d = tx; d < D; d += 16)
@@ -112,9 +116,9 @@ flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
   const int k_hi = causal ? min(Sk - 1, q_last) : Sk - 1;
   const int k_lo = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
 
-  float acc[4][DC * 4];
+  float acc[R][DC * 4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < DC * 4; ++c) acc[i][c] = 0.f;
 
@@ -134,56 +138,53 @@ flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qt[d * LD + ty * 4]);
-      const float4 g = *reinterpret_cast<const float4*>(&dot[d * LD + ty * 4]);
-      const float4 kc = *reinterpret_cast<const float4*>(&kt[d * LD + tx * 4]);
-      const float4 vc = *reinterpret_cast<const float4*>(&vt[d * LD + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float gv[4] = {g.x, g.y, g.z, g.w};
-      const float kv[4] = {kc.x, kc.y, kc.z, kc.w};
-      const float vv[4] = {vc.x, vc.y, vc.z, vc.w};
+      float av[R], gv[R], kv[R], vv[R];
+      flash::ld_run<R>(&qt[d * LD + ty * R], av);
+      flash::ld_run<R>(&dot[d * LD + ty * R], gv);
+      flash::ld_run<R>(&kt[d * LD + tx * R], kv);
+      flash::ld_run<R>(&vt[d * LD + tx * R], vv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] = fmaf(av[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
         }
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int qp = q0 + ty * R + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx * 4 + j;
+      for (int j = 0; j < R; ++j) {
+        const int kp = k0 + tx * R + j;
         bool keep = qp < Sq && kp < Sk;
         if (causal) keep = keep && kp <= qp && (window <= 0 || kp > qp - window);
         // masked scores and rows with lse = +inf give p = 0 explicitly
         const float p = keep ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
         const float ds = p * (dp[i][j] - delta[i]) * scale;
-        dst[(tx * 4 + j) * LD + ty * 4 + i] = round_to<T>(ds);
+        dst[(tx * R + j) * LD + ty * R + i] = round_to<T>(ds);
       }
     }
     __syncthreads();
 
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 d4 = *reinterpret_cast<const float4*>(&dst[kk * LD + ty * 4]);
-      const float dsv[4] = {d4.x, d4.y, d4.z, d4.w};
+      float dsv[R];
+      flash::ld_run<R>(&dst[kk * LD + ty * R], dsv);
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const float4 k4 = *reinterpret_cast<const float4*>(&ks[kk * D + c * 64 + tx * 4]);
         const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             acc[i][c * 4 + e] = fmaf(dsv[i], kv[e], acc[i][c * 4 + e]);
@@ -192,8 +193,8 @@ flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int qp = q0 + ty * R + i;
     if (qp >= Sq) continue;
     const size_t row = q_base + qp * q_stride;
 #pragma unroll
@@ -413,40 +414,43 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int TILE, typename T>
 int launch_scalar(const void* q, const void* k, const void* v, const void* o, const void* lse,
                   const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int causal,
                   int window, float scale, int out_f32, int smem, cudaStream_t stream) {
-  if (smem != (int)(scalar::smem_floats(D) * sizeof(float))) return (int)cudaErrorInvalidValue;
+  if (smem != (int)(scalar::smem_floats(D, TILE) * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      scalar::flash_bwd_dq_scalar<D, float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      scalar::flash_bwd_dq_scalar<D, TILE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + scalar::BQ - 1) / scalar::BQ, H, B);
-  scalar::flash_bwd_dq_scalar<D, float><<<grid, scalar::THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(lse),
-      static_cast<const float*>(dout), dq, Sq, Sk, H, KV, causal, window, scale, out_f32);
+  const dim3 grid((Sq + TILE - 1) / TILE, H, B);
+  scalar::flash_bwd_dq_scalar<D, TILE, T><<<grid, scalar::THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const float*>(lse),
+      static_cast<const T*>(dout), dq, Sq, Sk, H, KV, causal, window, scale, out_f32);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// f32: 0 for bf16 operands (tensor-core kernel, block_q 64 or 128), 1 for
-// fp32 (scalar kernel, block_q 64, dq in fp32). smem: the plan's
-// shared-memory bytes, checked against the kernel's own layout.
+// f32: 0 for bf16 operands, 1 for fp32. D 64 and 128: bf16 takes the
+// tensor-core kernel (block_q 64 or 128), fp32 the scalar kernel (block_q 64,
+// dq in fp32); D 256: the scalar kernel in both types (block_q 32; fp32
+// operands give dq in fp32). smem: the plan's shared-memory bytes, checked
+// against the kernel's own layout.
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int D,
     int causal, int window, float scale, int out_f32, int f32, int block_q, int smem,
     void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0)
+  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || (f32 && !out_f32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, dout, dq, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
+  if (D == 256 && block_q == 32)
+    return f32 ? launch_scalar<256, 32, float>(ARGS) : launch_scalar<256, 32, bf16>(ARGS);
   if (f32) {
-    if (block_q != scalar::BQ || !out_f32) return (int)cudaErrorInvalidValue;
-    if (D == 128) return launch_scalar<128>(ARGS);
-    if (D == 64) return launch_scalar<64>(ARGS);
+    if (D == 128 && block_q == 64) return launch_scalar<128, 64, float>(ARGS);
+    if (D == 64 && block_q == 64) return launch_scalar<64, 64, float>(ARGS);
   } else {
     if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);
     if (D == 128 && block_q == 64) return launch_wgmma<128, 1>(ARGS);

@@ -25,10 +25,13 @@
 // before P V and the row sum l is taken from the unrounded p, the TPU
 // kernel's rounding points.
 //
-// fp32 operands: the scalar kernel flash_fwd_scalar (the first port's
-// design): one block per (64-row query tile, head, batch row), 256 threads
-// as a 16 x 16 grid, fp32 tiles in shared memory and fp32 FMAs; p is not
-// rounded (the plain version's p.to(v.dtype) is the identity in fp32).
+// fp32 operands, and both types at head width 256: the scalar kernel
+// flash_fwd_scalar (the first port's design): one block per (64-row query
+// tile, head, batch row), 256 threads as a 16 x 16 grid, tiles staged as
+// fp32 in shared memory (222,208 bytes at D 256), fp32 FMAs; p is rounded
+// to the operands' type before P V (the identity in fp32). At D 256 the
+// tensor-core kernel's accumulators would not fit beside its producer
+// warpgroup (ops/pallas_attention.py _wgmma_sums).
 
 #include "flash_common.cuh"
 
@@ -39,26 +42,27 @@ using flash::from_f;
 using flash::round_to;
 using flash::to_f;
 
-// ---- the scalar route (fp32)
+// ---- the scalar route (fp32 operands; bf16 at width 256)
 
 namespace scalar {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int THREADS = 256;
-constexpr int LD = 64 + 4;      // leading dim of the transposed tiles; keeps float4 alignment
+constexpr int THREADS = 256;    // a 16 x 16 grid over the TILE x TILE score tile
 
-__host__ __device__ constexpr size_t smem_floats(int d) {
-  // q^T [D][LD], k^T [D][LD], v [BK][D], p^T [BK][LD]
-  return (size_t)2 * d * LD + (size_t)BK * d + (size_t)BK * LD;
+// shared floats of a block at head width d and TILE-row tiles: q^T [d][LD],
+// k^T [d][LD], v [TILE][d], p^T [TILE][LD], LD = TILE + 4 (keeps the runs
+// of a thread aligned); ops/pallas_attention.py (_plan) computes the same sum
+__host__ __device__ constexpr size_t smem_floats(int d, int tile) {
+  return (size_t)2 * d * (tile + 4) + (size_t)tile * d + (size_t)tile * (tile + 4);
 }
 
-template <int D, typename T>
+template <int D, int TILE, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int H, int KV, int causal, int window,
                  float scale) {
+  constexpr int BQ = TILE, BK = TILE, LD = TILE + 4;
+  constexpr int R = TILE / 16;  // rows (and keys) of the score tile a thread owns
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);
   float* kt = qt + D * LD;
@@ -89,10 +93,10 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int k_hi = causal ? min(Sk - 1, q_last) : Sk - 1;
   const int k_lo = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
 
-  float acc[4][DC * 4];
-  float m[4], l[4];
+  float acc[R][DC * 4];
+  float m[R], l[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -114,30 +118,29 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     __syncthreads();
 
-    float s[4][4];
+    float s[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qt[d * LD + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&kt[d * LD + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
+      float av[R], cv[R];
+      flash::ld_run<R>(&qt[d * LD + ty * R], av);
+      flash::ld_run<R>(&kt[d * LD + tx * R], cv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+        for (int j = 0; j < R; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int qp = q0 + ty * R + i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx * 4 + j;
+      for (int j = 0; j < R; ++j) {
+        const int kp = k0 + tx * R + j;
         bool keep = kp < Sk;
         if (causal) keep = keep && kp <= qp && (window <= 0 || kp > qp - window);
         s[i][j] = keep ? s[i][j] * scale : -INFINITY;
@@ -152,10 +155,10 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const float corr = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
         rs += p;
-        pt[(tx * 4 + j) * LD + ty * 4 + i] = round_to<T>(p);
+        pt[(tx * R + j) * LD + ty * R + i] = round_to<T>(p);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -169,14 +172,14 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&pt[kk * LD + ty * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+      float pv[R];
+      flash::ld_run<R>(&pt[kk * LD + ty * R], pv);
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const float4 v4 = *reinterpret_cast<const float4*>(&vs[kk * D + c * 64 + tx * 4]);
         const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             acc[i][c * 4 + e] = fmaf(pv[i], vv[e], acc[i][c * 4 + e]);
@@ -185,8 +188,8 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int qp = q0 + ty * R + i;
     if (qp >= Sq) continue;
     // a row that saw no key gives 0 (and lse +inf), the TPU kernel's l_safe
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
@@ -399,26 +402,27 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int TILE, typename T>
 int launch_scalar(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                   int Sq, int Sk, int H, int KV, int causal, int window, float scale, int smem,
                   cudaStream_t stream) {
-  if (smem != (int)(scalar::smem_floats(D) * sizeof(float))) return (int)cudaErrorInvalidValue;
+  if (smem != (int)(scalar::smem_floats(D, TILE) * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      scalar::flash_fwd_scalar<D, float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      scalar::flash_fwd_scalar<D, TILE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + scalar::BQ - 1) / scalar::BQ, H, B);
-  scalar::flash_fwd_scalar<D, float><<<grid, scalar::THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), Sq, Sk, H, KV, causal, window, scale);
+  const dim3 grid((Sq + TILE - 1) / TILE, H, B);
+  scalar::flash_fwd_scalar<D, TILE, T><<<grid, scalar::THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), Sq, Sk, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// f32: 0 for bf16 operands (tensor-core kernel, block_q 64 or 128), 1 for
-// fp32 (scalar kernel, block_q 64). smem: the plan's shared-memory bytes,
-// checked against the kernel's own layout.
+// f32: 0 for bf16 operands, 1 for fp32. D 64 and 128: bf16 takes the
+// tensor-core kernel (block_q 64 or 128), fp32 the scalar kernel (block_q 64);
+// D 256: the scalar kernel in both types (block_q 64). smem: the plan's
+// shared-memory bytes, checked against the kernel's own layout.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int Sq, int Sk, int H, int KV, int D, int causal, int window, float scale,
@@ -427,10 +431,11 @@ extern "C" int flash_attention_fwd_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, smem, s
+  if (D == 256 && block_q == 64)
+    return f32 ? launch_scalar<256, 64, float>(ARGS) : launch_scalar<256, 64, bf16>(ARGS);
   if (f32) {
-    if (block_q != scalar::BQ) return (int)cudaErrorInvalidValue;
-    if (D == 128) return launch_scalar<128>(ARGS);
-    if (D == 64) return launch_scalar<64>(ARGS);
+    if (D == 128 && block_q == 64) return launch_scalar<128, 64, float>(ARGS);
+    if (D == 64 && block_q == 64) return launch_scalar<64, 64, float>(ARGS);
   } else {
     if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);
     if (D == 128 && block_q == 64) return launch_wgmma<128, 1>(ARGS);

@@ -24,6 +24,22 @@ namespace flash {
 
 using namespace hopper;
 
+// ---- the scalar route: 256 threads as a 16 x 16 grid over a TILE x TILE
+// score tile, each thread R = TILE / 16 rows and R columns of it
+
+// R (4 or 2) consecutive fp32 values of shared memory (4R-byte aligned)
+template <int R>
+__device__ __forceinline__ void ld_run(const float* p, float (&v)[R]) {
+  static_assert(R == 4 || R == 2, "runs of 4 or 2 floats");
+  if constexpr (R == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  }
+}
+
 // ---- the tensor-core route
 
 constexpr int BK = 64;                // keys a tile (forward, dq)

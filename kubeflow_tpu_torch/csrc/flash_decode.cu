@@ -4,7 +4,7 @@
 // Replaces the Pallas kernel _decode_kernel (kubeflow_tpu/ops/flash_decode.py:53).
 // Layout: q [B, G, R, D], k/v cache [B, G, L, dk], pos [B] int32, o [B, G, R, D],
 // all contiguous. R = H / G query heads share the group's cache. D is the
-// width the kernel is compiled for (64 or 128); the cache's head size dk may
+// width the kernel is compiled for (64, 128 or 256); the cache's head size dk may
 // be smaller (the wrapper pads q and cuts o): the kernel reads the cache's
 // rows at dk and zero-fills their columns dk .. D - 1 in shared memory, so
 // the scores and the value product are the unpadded ones and no step copies
@@ -51,7 +51,8 @@
 //   8% faster than the workspace combine at pos 191, 1.5% slower at pos
 //   2047): each keeps its partial in shared memory, a cluster barrier, and
 //   block 0 reads all S partials through
-//   distributed shared memory (one round trip), rescales each by
+//   distributed shared memory (one round trip for up to 8 (head, column)
+//   pairs a thread; at D 256 a thread's 16 pairs take two), rescales each by
 //   exp(m_s - m), divides by the sum of the rescaled l (0 where no run has a
 //   live key: the TPU kernel's l_safe) and casts once; a second barrier
 //   keeps the others alive until it has read them. With more blocks the
@@ -165,7 +166,9 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
   constexpr int VEC = 16 / sizeof(T);   // elements a 16-byte piece
   constexpr int NCH = D / VEC;          // pieces a row (8 to 32)
   constexpr int PPT = NCH / TPK;        // pieces a thread scores of its key
-  constexpr int KS = THREADS / D;       // key groups of the value product: 1 (D 128) or 2
+  constexpr int KS = THREADS / D > 1 ? THREADS / D : 1;   // key groups of the value product: 2 (D 64) or 1
+  constexpr int CPT = D / THREADS > 1 ? D / THREADS : 1;  // columns a thread of it: 2 (D 256) or 1
+  constexpr int CW = D / CPT;                             // threads across a row of it
   // bf16 takes the tensor cores (mma.sync) for the scores and P V of a
   // block of at least MMA_KEYS keys; fewer keys, and fp32, take FMAs
   constexpr bool MMA = sizeof(T) == 2;
@@ -374,53 +377,71 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
       }
       if (!CL && t < nr) ws_ml[part0 + (size_t)t * S + s] = make_float2(m_s[t], l_s[t]);
     } else {
-    // P V: thread t takes column t % D and, with KS key groups, every KS-th
-    // run of 4 keys; 4 running sums a head (key j into sum j % 4)
-    const int col = t % D, kg = t / D, n4 = n & ~3;
-    float acc[NR][4];
+    // P V: thread t takes CPT columns, t % CW + CW c (CW = D / CPT), and,
+    // with KS key groups, every KS-th run of 4 keys; 4 running sums a
+    // (head, column) (key j into sum j % 4)
+    const int kg = t / CW, n4 = n & ~3;
+    float acc[NR][CPT][4];
 #pragma unroll
-    for (int r = 0; r < NR; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[r][c][0] = acc[r][c][1] = acc[r][c][2] = acc[r][c][3] = 0.f;
 #pragma unroll 2
     for (int j = 4 * kg; j < n4; j += 4 * KS) {
-      float vv[4];
+      float vv[CPT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) vv[i] = to_f(vs[(size_t)(j + i) * D + col]);
+      for (int c = 0; c < CPT; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) vv[c][i] = to_f(vs[(size_t)(j + i) * D + t % CW + CW * c]);
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
         const float4 pv = *reinterpret_cast<const float4*>(ps + r * chunk + j);
-        acc[r][0] = fmaf(pv.x, vv[0], acc[r][0]);
-        acc[r][1] = fmaf(pv.y, vv[1], acc[r][1]);
-        acc[r][2] = fmaf(pv.z, vv[2], acc[r][2]);
-        acc[r][3] = fmaf(pv.w, vv[3], acc[r][3]);
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          acc[r][c][0] = fmaf(pv.x, vv[c][0], acc[r][c][0]);
+          acc[r][c][1] = fmaf(pv.y, vv[c][1], acc[r][c][1]);
+          acc[r][c][2] = fmaf(pv.z, vv[c][2], acc[r][c][2]);
+          acc[r][c][3] = fmaf(pv.w, vv[c][3], acc[r][c][3]);
+        }
       }
     }
     if (kg == 0)
       for (int j = n4; j < n; ++j) {
-        const float vv = to_f(vs[(size_t)j * D + col]);
 #pragma unroll
-        for (int r = 0; r < NR; ++r) acc[r][0] = fmaf(ps[r * chunk + j], vv, acc[r][0]);
+        for (int c = 0; c < CPT; ++c) {
+          const float vv = to_f(vs[(size_t)j * D + t % CW + CW * c]);
+#pragma unroll
+          for (int r = 0; r < NR; ++r) acc[r][c][0] = fmaf(ps[r * chunk + j], vv, acc[r][c][0]);
+        }
       }
-    float ov[NR];
+    float ov[NR][CPT];
 #pragma unroll
-    for (int r = 0; r < NR; ++r) ov[r] = (acc[r][0] + acc[r][1]) + (acc[r][2] + acc[r][3]);
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        ov[r][c] = (acc[r][c][0] + acc[r][c][1]) + (acc[r][c][2] + acc[r][c][3]);
     if constexpr (KS > 1) {
       float* red = reinterpret_cast<float*>(ks);   // K is read: [NR][D]
+      const int col = t % CW;
       if (kg == 1)
 #pragma unroll
-        for (int r = 0; r < NR; ++r) red[r * D + col] = ov[r];
+        for (int r = 0; r < NR; ++r) red[r * D + col] = ov[r][0];
       __syncthreads();
       if (kg == 0)
 #pragma unroll
-        for (int r = 0; r < NR; ++r) ov[r] += red[r * D + col];
+        for (int r = 0; r < NR; ++r) ov[r][0] += red[r * D + col];
     }
     if (kg == 0)
 #pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        if constexpr (CL)
-          po[r * D + col] = ov[r];
-        else if (r < nr)
-          ws_o[(part0 + (size_t)r * S + s) * D + col] = ov[r];
-      }
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const int col = t % CW + CW * c;
+          if constexpr (CL)
+            po[r * D + col] = ov[r][c];
+          else if (r < nr)
+            ws_o[(part0 + (size_t)r * S + s) * D + col] = ov[r][c];
+        }
     if (!CL && t < nr) ws_ml[part0 + (size_t)t * S + s] = make_float2(m_s[t], l_s[t]);
     }
   } else if constexpr (CL) {
@@ -438,6 +459,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
   }
 
   constexpr int NP = (NR * D + THREADS - 1) / THREADS;   // (head, column) pairs a thread
+  constexpr int KB = NP < 8 ? NP : 8;                      // pairs a cluster-combine load batch
   if constexpr (CL) {
     // the combine inside the cluster: block 0 reads every block's (m, l) and
     // o from its shared memory (all loads of a thread at once), weights and
@@ -463,25 +485,29 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
         for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
         if (lane == 0) lc_s[r] = l;
       }
-      float x[NP][MAX_CLUSTER];
+      // the pairs in batches of KB, all loads of a batch at once (the
+      // first batch's before the barrier that publishes the weights)
+      float x[KB][MAX_CLUSTER];
+#pragma unroll 1
+      for (int k0 = 0; k0 < NP; k0 += KB) {
 #pragma unroll
-      for (int k = 0; k < NP; ++k) {
-        const int u = t + k * THREADS;
-        const uint32_t a = smem_u32(po + min(u, NR * D - 1));
+        for (int k = 0; k < KB; ++k) {
+          const uint32_t a = smem_u32(po + min(t + (k0 + k) * THREADS, NR * D - 1));
 #pragma unroll
-        for (int j = 0; j < MAX_CLUSTER; ++j) x[k][j] = j < S ? ld_cluster(mapa(a, j)) : 0.f;
-      }
-      __syncthreads();
+          for (int j = 0; j < MAX_CLUSTER; ++j) x[k][j] = j < S ? ld_cluster(mapa(a, j)) : 0.f;
+        }
+        if (k0 == 0) __syncthreads();
 #pragma unroll
-      for (int k = 0; k < NP; ++k) {
-        const int u = t + k * THREADS, r = u / D;
-        if (r >= nr) continue;
-        float acc = 0.f;
+        for (int k = 0; k < KB; ++k) {
+          const int u = t + (k0 + k) * THREADS, r = u / D;
+          if (r >= nr) continue;
+          float acc = 0.f;
 #pragma unroll
-        for (int j = 0; j < MAX_CLUSTER; ++j)
-          if (j < S) acc = fmaf(wts[r * S + j], x[k][j], acc);
-        const float l = lc_s[r];
-        o[((size_t)bg * R + r0 + r) * D + u % D] = from_f<T>(l == 0.f ? 0.f : acc / l);
+          for (int j = 0; j < MAX_CLUSTER; ++j)
+            if (j < S) acc = fmaf(wts[r * S + j], x[k][j], acc);
+          const float l = lc_s[r];
+          o[((size_t)bg * R + r0 + r) * D + u % D] = from_f<T>(l == 0.f ? 0.f : acc / l);
+        }
       }
     }
     cluster_arrive();
@@ -628,7 +654,7 @@ int route(int R, const void* q, const void* k, const void* v, const void* pos, v
 
 }  // namespace
 
-// D: the width the kernel runs at (64 or 128), dk: the cache's head size (1 ..
+// D: the width the kernel runs at (64, 128 or 256), dk: the cache's head size (1 ..
 // D); q and o are [B, G, R, D], the caches [B, G, L, dk].
 // f32: 0 for bf16 operands, 1 for fp32; any R >= 1 (a grid axis over chunks
 // of MAX_R query heads). S blocks a (row, group, chunk of heads), each taking
@@ -651,6 +677,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS R, q, k, v, pos, o, ws_o, ws_ml, tickets, B, G, L, dk, window, scale, S, chunk, \
              cluster, smem, s
+  if (D == 256) return f32 ? route<256, float>(ARGS) : route<256, flash::bf16>(ARGS);
   if (D == 128) return f32 ? route<128, float>(ARGS) : route<128, flash::bf16>(ARGS);
   if (D == 64) return f32 ? route<64, float>(ARGS) : route<64, flash::bf16>(ARGS);
 #undef ARGS

@@ -10,8 +10,8 @@ plan, logits, losses and gradients:
   residual stream passing through;
 - two dispatch modes: ``gather`` (the row-gather kernel moves tokens into
   expert slots and back, ``ops/moe_dispatch.py``) and ``einsum`` (one-hot
-  matmuls). ``a2a``, the expert-parallel path, comes with the multi-GPU
-  slice;
+  matmuls). ``a2a``, the expert-parallel path, comes with slice 5c (the
+  expert and tensor axes);
 - expert matmuls in ``cfg.dtype`` from fp32 weights cast on every call, GELU
   in its tanh form (``nn.gelu``'s default), the combine summed in fp32.
 
@@ -45,7 +45,7 @@ from kubeflow_tpu_torch.models.transformer import (
 from kubeflow_tpu_torch.ops.fused_head_loss import fused_head_nll
 from kubeflow_tpu_torch.ops.moe_dispatch import gather_rows
 
-EXPERT_SLICE = "slice 5 of the PyTorch port (multi-GPU parallelism: the expert mesh)"
+EXPERT_SLICE = "slice 5c of the PyTorch port (multi-GPU parallelism: the expert and tensor axes)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +60,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     max_seq_len: int = 2048
     aux_loss_weight: float = 1e-2
-    dispatch: str = "einsum"            # einsum | gather (a2a: slice 5)
+    dispatch: str = "einsum"            # einsum | gather (a2a: slice 5c)
     attention_impl: str = "block"
     attention_block_size: int = 512
     remat: bool = False                 # torch.utils.checkpoint each block
@@ -107,12 +107,20 @@ def _one_hot(idx, n: int):
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
-def route_top_k(router_logits, k: int, capacity: int) -> RoutingPlan:
+def route_top_k(router_logits, k: int, capacity: int, group=None) -> RoutingPlan:
     """Capacity-constrained top-k gating -> a RoutingPlan.
 
     router_logits: [B, S, E]. The choices come from an argmax-then-zero loop,
     not ``torch.topk``: ``argmax`` returns the first maximum, as
     ``jnp.argmax`` does, so ties break the same way on both sides.
+
+    ``group``: the process group over which the batch is sharded (equal
+    shards). The load-balance loss is then the global (B, S)'s: ``frac``
+    and ``mean_prob`` are averaged over the group before their product. The
+    gradient reaches this rank's router through its own ``mean_prob``, as
+    the product's derivative is ``E * frac``: the train step's average of
+    the ranks' gradients is then the global loss's. Capacity and dispatch
+    stay per batch row.
     """
     B, S, E = router_logits.shape
     if k > E:
@@ -152,6 +160,13 @@ def route_top_k(router_logits, k: int, capacity: int) -> RoutingPlan:
     # load-balance aux: E * sum_e fraction_dispatched(e) * mean_prob(e)
     frac = torch.mean(masks[0], dim=(0, 1))
     mean_prob = torch.mean(probs, dim=(0, 1))
+    if group is not None:
+        import torch.distributed as dist
+
+        both = torch.stack([frac, mean_prob.detach()])
+        dist.all_reduce(both, group=group)
+        both = both / dist.get_world_size(group)
+        frac, mean_prob = both[0], mean_prob + (both[1] - mean_prob).detach()
     aux_loss = E * torch.sum(frac * mean_prob)
     return RoutingPlan(
         experts=torch.stack(idxs), gates=torch.stack(gates), pos=torch.stack(poss),
@@ -242,12 +257,16 @@ class MoEMLP(nn.Module):
         self.router = nn.Parameter(torch.zeros((M, E), **f32))
         self.experts_wi = nn.Parameter(torch.zeros((E, M, H), **f32))
         self.experts_wo = nn.Parameter(torch.zeros((E, H, M), **f32))
+        # the process group of the ranks that shard the batch (set by the
+        # train step under a mesh): the load-balance loss is the global batch's
+        self.group = None
 
     def route(self, x) -> RoutingPlan:
         """The routing plan of x [B, S, M]: fp32 router logits on fp32
         operands, then capacity-constrained top-k."""
         logits = torch.einsum("bsm,me->bse", x.float(), self.router)
-        return route_top_k(logits, self.cfg.experts_per_token, self.cfg.capacity(x.shape[1]))
+        return route_top_k(logits, self.cfg.experts_per_token, self.cfg.capacity(x.shape[1]),
+                           self.group)
 
     def forward(self, x):
         cfg = self.cfg

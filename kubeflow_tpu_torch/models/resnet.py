@@ -134,6 +134,9 @@ class PallasBatchNorm(_BatchNormBase):
     def __init__(self, channels: int, strategy: str = "pallas", **kw):
         super().__init__(channels, **kw)
         self.strategy = strategy
+        # the process group of the ranks that shard the batch (set by the
+        # train step under a mesh): train-mode statistics are the global batch's
+        self.group = None
 
     def forward(self, x, use_running_average: bool | None = None):
         if self._average(use_running_average):
@@ -141,7 +144,8 @@ class PallasBatchNorm(_BatchNormBase):
             b = self.bias - self.mean * a
             return (x.float() * a + b).to(self.dtype)
         y, (mean, var) = batch_norm_train(
-            x.to(self.dtype), self.scale, self.bias, self.epsilon, strategy=self.strategy)
+            x.to(self.dtype), self.scale, self.bias, self.epsilon, strategy=self.strategy,
+            group=self.group)
         self._update_running(mean, var)
         return y.to(self.dtype)
 

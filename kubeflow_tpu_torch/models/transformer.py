@@ -20,8 +20,8 @@ Numerics follow what the flax module computes, not its comments:
 - RMSNorm and rope compute in fp32 and cast back; the norm scales stay fp32.
 
 ``remat`` checkpoints each block (``torch.utils.checkpoint``) under the
-policy ``remat_policy`` names. The ``ring`` impl comes with the port's
-multi-GPU slice.
+policy ``remat_policy`` names. The ``ring`` impl comes with slice 5b (ring
+attention).
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from kubeflow_tpu_torch.ops import attention as att
 from kubeflow_tpu_torch.ops.flash_decode import flash_decode
 from kubeflow_tpu_torch.ops.pallas_attention import flash_attention
 
-RING_SLICE = "slice 5 of the PyTorch port (multi-GPU parallelism, parallel/ring_attention.py)"
+RING_SLICE = "slice 5b of the PyTorch port (multi-GPU parallelism, parallel/ring_attention.py)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +50,7 @@ class TransformerConfig:
     mlp_dim: int = 3072
     max_seq_len: int = 2048
     rope_theta: float = 10_000.0
-    attention_impl: str = "block"        # xla | block | flash (ring: slice 5)
+    attention_impl: str = "block"        # xla | block | flash (ring: slice 5b)
     attention_block_size: int = 512
     attention_window: int | None = None  # sliding-window (local) attention
     decode_block_k: int = 256            # flash-decode cache tiling contract

@@ -329,16 +329,19 @@ def _mxu_ok(m: int, ch: int) -> bool:
     return m >= ch
 
 
-def channel_moments_mxu(x):
-    """(mean [C], var [C]) fp32 via matrix products: sum = ones @ x, sumsq =
+def _moment_sums_mxu(x):
+    """(Σx, Σx²) fp32 [C] via matrix products: sum = ones @ x, sumsq =
     diag(xᵀ x). Operands of x's dtype multiply exactly into the fp32 sum."""
     ch = x.shape[-1]
     m = x.numel() // ch
     xt = x.reshape(m, ch).t()
     ones = torch.ones((1, m), dtype=x.dtype, device=x.device)
-    s1 = matmul_f32(ones, xt)[0]
-    s2 = torch.diagonal(matmul_f32(xt, xt))
-    return _mean_var(s1, s2, m)
+    return matmul_f32(ones, xt)[0], torch.diagonal(matmul_f32(xt, xt))
+
+
+def channel_moments_mxu(x):
+    """(mean [C], var [C]) fp32 from :func:`_moment_sums_mxu`."""
+    return _mean_var(*_moment_sums_mxu(x), x.numel() // x.shape[-1])
 
 
 def _bn_grad_sums_mxu(dy, x, mean, rinv):
@@ -354,14 +357,15 @@ def _bn_grad_sums_mxu(dy, x, mean, rinv):
     return dbeta, (sum_dyx - mean * dbeta) * rinv
 
 
-def _moments(x, strategy: str):
+def _moment_sums(x, strategy: str):
+    """(Σx, Σx²) per channel, fp32 [C] each, by ``strategy``."""
     ch = x.shape[-1]
     if strategy == "mxu" and _mxu_ok(x.numel() // ch, ch):
-        return channel_moments_mxu(x)
+        return _moment_sums_mxu(x)
     if strategy == "mxu":
         # small-m/large-C tail: a plain reduction is already cheap there
-        return channel_moments_plain(x)
-    return channel_moments(x)
+        return moments_sums_plain(x)
+    return moments_sums(x, 1.0, channel_moments)
 
 
 def _grad_sums(dy, x, mean, rinv, strategy: str):
@@ -373,42 +377,73 @@ def _grad_sums(dy, x, mean, rinv, strategy: str):
     return bn_grad_sums(dy, x, mean, rinv)
 
 
+def _all_reduce(group, *ts):
+    """``ts`` summed over ``group``'s ranks, in one collective."""
+    import torch.distributed as dist
+
+    flat = torch.stack(ts)
+    dist.all_reduce(flat, group=group)
+    return flat.unbind(0)
+
+
 class _BatchNormTrain(torch.autograd.Function):
     """``_bn_train_vjp`` of the JAX module: forward ``_bn_train_fwd``
     (``:281-287``), backward ``_bn_train_bwd`` (``:290-303``). The statistics
-    carry no gradient."""
+    carry no gradient.
+
+    With a process ``group`` (the ranks that hold the global batch, each an
+    equal shard of it) the statistics are the global batch's, as they are
+    in the reference's SPMD step: the forward all-reduces Σx and Σx² (the
+    row count is the rank's times the group's size) before the mean and
+    variance, and the backward all-reduces Σdy and Σdy·x̂ before dx. dscale
+    and dbias stay this rank's own sums: each rank's gradients are of its
+    own mean loss, and the train step averages them over the ranks."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, strategy):
-        mean, var = _moments(x, strategy)
+    def forward(ctx, x, scale, bias, eps, strategy, group):
+        s, q = _moment_sums(x, strategy)
+        m = x.numel() // x.shape[-1]
+        if group is not None:
+            import torch.distributed as dist
+
+            # equal shards: the global row count is an int, as it is on one
+            # device, so the mean and dx divide as they do there
+            s, q = _all_reduce(group, s, q)
+            m *= dist.get_world_size(group)
+        mean, var = _mean_var(s, q, m)
         rinv = torch.rsqrt(var + eps)
         a = (scale * rinv).float()
         b = bias - mean * a
         y = (x.float() * a + b).to(x.dtype)
         ctx.save_for_backward(x, mean, rinv, scale)
-        ctx.strategy = strategy
+        ctx.strategy, ctx.group, ctx.m = strategy, group, m
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, rinv, scale = ctx.saved_tensors
-        m = x.numel() // x.shape[-1]
+        m = ctx.m
         dbeta, dgamma = _grad_sums(dy, x, mean, rinv, ctx.strategy)
+        sum_dy, sum_dyx = (dbeta, dgamma) if ctx.group is None else \
+            _all_reduce(ctx.group, dbeta, dgamma)
         g = (scale * rinv).float()
-        # dx = g * (dy - dbeta/m - xhat * dgamma/m), all elementwise
-        xhat_coeff = (rinv * dgamma) / m
-        dx = (g * (dy.float() - dbeta / m) - g * xhat_coeff * (x.float() - mean)).to(x.dtype)
-        return dx, dgamma.to(scale.dtype), dbeta.to(scale.dtype), None, None
+        # dx = g * (dy - Σdy/m - xhat * Σdy·xhat/m), all elementwise
+        xhat_coeff = (rinv * sum_dyx) / m
+        dx = (g * (dy.float() - sum_dy / m) - g * xhat_coeff * (x.float() - mean)).to(x.dtype)
+        return dx, dgamma.to(scale.dtype), dbeta.to(scale.dtype), None, None, None
 
 
-def batch_norm_train(x, scale, bias, eps: float = 1e-5, strategy: str = "pallas"):
+def batch_norm_train(x, scale, bias, eps: float = 1e-5, strategy: str = "pallas", group=None):
     """Train-mode BN over the leading dims of ``x`` [..., C]: returns
     ``(y, (mean, var))``, y in x's dtype; the statistics carry no gradient
     (they exist to update the running averages). ``strategy``: 'pallas' (the
-    single-sweep kernels) or 'mxu' (the reductions as matrix products)."""
+    single-sweep kernels) or 'mxu' (the reductions as matrix products).
+    ``group``: the process group over which the batch is sharded (equal
+    shards); its sums are all-reduced, so the statistics are the global
+    batch's (``_BatchNormTrain``). None is one device."""
     if strategy not in ("pallas", "mxu"):
         # anything else would silently fall through to the kernels
         raise ValueError(f"strategy must be 'pallas' or 'mxu', got {strategy!r}")
-    y, mean, var = _BatchNormTrain.apply(x, scale, bias, eps, strategy)
+    y, mean, var = _BatchNormTrain.apply(x, scale, bias, eps, strategy, group)
     return y, (mean, var)

@@ -36,12 +36,14 @@ What the design does about it (the source's header has the details):
   the result is the same on every run. :func:`_split_reference` is that order in plain PyTorch, a
   witness for the tests and the chip smoke.
 
-bf16 and fp32 operands (one dtype). The kernel is compiled for head widths 64
-and 128; any head size D up to 128 runs at D padded to 64 (D <= 64) or 128:
-the wrapper zero-pads q (one row a head) and cuts o, and the kernel reads the
-cache at its true D and zero-fills the columns past D in shared memory, so
-no step copies the cache. D above 128 is a stated refusal (the combine's
-registers, :func:`_wide_head_refusal`).
+bf16 and fp32 operands (one dtype). The kernel is compiled for head widths 64,
+128 and 256 (at 256 a thread takes two output columns of the value product,
+and the cluster combine loads its 16 (head, column) pairs in two batches);
+any head size D up to 256 runs at D padded to the next width: the wrapper
+zero-pads q (one row a head) and cuts o, and the kernel reads the cache at
+its true D and zero-fills the columns past D in shared memory, so no step
+copies the cache. D above 256 is a stated refusal
+(:func:`_wide_head_refusal`).
 """
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ import torch
 
 from kubeflow_tpu_torch.ops import _build, _workspace
 from kubeflow_tpu_torch.ops.attention import NEG_INF
+from kubeflow_tpu_torch.ops.pallas_attention import _wide_head_refusal as _flash_refusal
 
-_KERNEL_D = (64, 128)  # head widths the kernel is compiled for
+_KERNEL_D = (64, 128, 256)  # head widths the kernel is compiled for
 MAX_R = 8              # query heads a block holds (csrc/flash_decode.cu)
 THREADS = 128          # threads a block (csrc/flash_decode.cu)
 SPLIT_UNIT = 16        # a row's split is a multiple of this many keys
@@ -73,7 +76,8 @@ class DecodePlan:
     ``smem_bytes`` each block's dynamic shared memory: K and V rows of
     ``split`` keys (``kv_bytes``), the chunk's queries (``q_bytes``), the
     scores in fp32 (``score_bytes``) and the combine's weights in fp32
-    (``weight_bytes``), all at ``width``, the head size padded to 64 or 128."""
+    (``weight_bytes``), all at ``width``, the head size padded to 64, 128 or
+    256."""
 
     split: int
     splits: int
@@ -89,19 +93,16 @@ class DecodePlan:
 
 
 def _wide_head_refusal(D: int) -> str:
-    pairs = MAX_R * 256 // THREADS
-    return (f"flash_decode kernel takes head_dim up to {_KERNEL_D[-1]} (zero-padded to 64 or "
-            f"128), got {D}. At D 256 its value product, one output column a thread, would "
-            f"need 256 threads where a block has {THREADS}, and its cluster combine would hold "
-            f"{pairs} (head, column) pairs x {MAX_CLUSTER} blocks = {pairs * MAX_CLUSTER} fp32 "
-            f"registers a thread, where a thread has 255")
+    return (f"flash_decode kernel takes head_dim up to {_KERNEL_D[-1]} (zero-padded to 64, 128 "
+            f"or 256), got {D}: its cache is filled by a prefill through the flash kernels, "
+            f"and they stop there. " + _flash_refusal(D))
 
 
 def _kernel_width(D: int) -> int:
-    """The head width the kernel runs at: D zero-padded to 64 or 128."""
+    """The head width the kernel runs at: D zero-padded to 64, 128 or 256."""
     if not 1 <= D <= _KERNEL_D[-1]:
         raise ValueError(_wide_head_refusal(D))
-    return _KERNEL_D[0] if D <= _KERNEL_D[0] else _KERNEL_D[1]
+    return next(w for w in _KERNEL_D if D <= w)
 
 
 @functools.lru_cache(maxsize=256)
@@ -111,7 +112,9 @@ def _plan(B: int, G: int, R: int, L: int, D: int, dtype, sms: int) -> DecodePlan
 
     Enough blocks a (row, group, chunk) that the grid fills about two waves
     of ``sms`` SMs, each holding at most 64 KB of K and V (staged whole, so
-    three blocks fit an SM). The plan is made at the cache's full length;
+    three blocks fit an SM; at width 256 that is 64 bf16 or 32 fp32 keys a
+    block, so long caches take more blocks than two waves and combine
+    through the workspace). The plan is made at the cache's full length;
     the kernel cuts each row's live range itself (:func:`_row_splits`),
     since the positions live on the card."""
     width = _kernel_width(D)

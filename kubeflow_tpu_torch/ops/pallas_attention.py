@@ -25,18 +25,22 @@ Two routes, chosen by :func:`_plan` from the operands' dtype:
   give every SM a block, else 64. dk/dv holds 64 or 128 keys (by the same
   rule) and streams the Q, dO and O tiles of 64 query rows that can see
   them, over every query head of the GQA group.
-- **fp32: scalar kernels.** fp32 tiles in shared memory and fp32 FMAs,
-  64-row tiles, 256 threads; in fp32 the bf16 rounding points are the
-  identity, as in the plain versions.
+- **fp32, and both types at head width 256: scalar kernels.** Tiles staged
+  as fp32 in shared memory (bf16 converted as it is staged) and fp32 FMAs,
+  256 threads; 64-row tiles where they fit the block's shared memory, else
+  32 (dq and dk/dv at width 256). The TPU kernels' rounding points are kept
+  in the operands' type (the identity in fp32).
 
-Both routes are compiled for head widths 64 and 128. Any head size D up to
-128 runs on them: :func:`_pad_heads` zero-pads the head axis to 64 (D <= 64)
-or 128 and launches with the true ``D ** -0.5`` as the softmax scale, so the
-scores, the softmax and delta = rowsum(dO·O) are the unpadded ones, and cuts
-the padded columns off o, dq, dk and dv (products with zero columns). At D 64
-and 128 nothing is copied. D above 128 is a stated refusal: the message gives
-the shared memory and accumulator registers the kernels would need at D 256
-(:func:`_wgmma_sums`) against the card's limits.
+The kernels are compiled for head widths 64, 128 and 256: the tensor-core
+route for 64 and 128 (at 256 its accumulators would not fit beside a
+producer warpgroup, :func:`_wgmma_sums`), the scalar route for all three.
+Any head size D up to 256 runs on them: :func:`_pad_heads` zero-pads the head
+axis to the next width and launches with the true ``D ** -0.5`` as the
+softmax scale, so the scores, the softmax and delta = rowsum(dO·O) are the
+unpadded ones, and cuts the padded columns off o, dq, dk and dv (products
+with zero columns). At D 64, 128 and 256 nothing is copied. D above 256 is a
+stated refusal: the message gives the shared memory the scalar kernels
+would need at the next width against the card's limit.
 
 What every kernel does:
 
@@ -70,7 +74,8 @@ import torch.nn.functional as F
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 
-_KERNEL_D = (64, 128)        # head widths the kernels are compiled for
+_KERNEL_D = (64, 128, 256)   # head widths the kernels are compiled for
+_WGMMA_D = (64, 128)         # the widths of the bf16 tensor-core route
 
 
 def _group_of(q, k, v):
@@ -111,7 +116,7 @@ _REGS_MAX = 255             # registers a thread may hold
 _TILE_K = 64                # keys a tile on both routes
 _STAGES = 2                 # ring tiles in flight on the tensor-core route
 _QROWS = 64                 # query rows of a dk/dv ring tile
-_SCALAR_LD = 68             # fp32 leading dim of the scalar kernels' transposed tiles
+_SCALAR_TILES = (64, 32)    # the scalar kernels' tile rows (and keys), largest that fits first
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +124,8 @@ class Plan:
     """How one flash kernel launches. ``route`` "wgmma" is the bf16
     tensor-core kernel, "scalar" the fp32-FMA kernel; ``block`` is the query
     rows a block (forward, dq) or the keys a block (dk/dv); ``width`` the
-    head width the kernel runs at (the head size zero-padded to 64 or 128)."""
+    head width the kernel runs at (the head size zero-padded to 64, 128 or
+    256)."""
 
     route: str
     block: int
@@ -154,22 +160,33 @@ def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
     return 1024 + kv + ring + rows + bars, width + 64
 
 
+def _scalar_floats(kernel: str, width: int, tile: int) -> int:
+    """fp32 words of shared memory of the scalar ``kernel`` at head width
+    ``width`` with ``tile``-row tiles (and ``tile`` keys a tile): transposed
+    tiles of leading dimension ``tile + 4``; the launchers check the same
+    sums (``smem_floats`` in each source)."""
+    ld = tile + 4
+    return {"fwd": 2 * width * ld + tile * width + tile * ld,
+            "dq": 4 * width * ld + tile * width + tile * ld,
+            "dkv": 4 * width * ld + 2 * tile * width + tile * ld + 2 * tile}[kernel]
+
+
 def _wide_head_refusal(D: int) -> str:
-    sums = {k: _wgmma_sums(k, 64, 256) for k in ("fwd", "dq", "dkv")}
-    need = "; ".join(f"{name} {sums[k][0]:,} bytes and {sums[k][1]}" for k, name in
+    width = -(-D // 64) * 64
+    tile = _SCALAR_TILES[-1]
+    need = "; ".join(f"{name} {4 * _scalar_floats(k, width, tile):,}" for k, name in
                      (("fwd", "forward"), ("dq", "dq"), ("dkv", "dk/dv")))
-    return (f"flash kernels take head_dim up to {_KERNEL_D[-1]} (zero-padded to 64 or 128), "
-            f"got {D}. At D 256 the bf16 kernels would need, at their smallest tiles, shared "
-            f"memory a block and fp32 accumulator registers a thread of: {need}; the card "
-            f"gives a block {SMEM_LIMIT:,} bytes and a thread {_REGS_BESIDE_PRODUCER} registers "
-            f"beside a producer warpgroup ({_REGS_MAX} without), and a train step needs all three")
+    return (f"flash kernels take head_dim up to {_KERNEL_D[-1]} (zero-padded to 64, 128 or "
+            f"256), got {D}. At width {width} the scalar kernels would need, at their "
+            f"smallest tiles ({tile} rows), shared memory bytes a block of: {need}; the card "
+            f"gives a block {SMEM_LIMIT:,} bytes, and a train step needs all three")
 
 
 def _kernel_width(D: int) -> int:
-    """The head width the kernels run at: D zero-padded to 64 or 128."""
+    """The head width the kernels run at: D zero-padded to 64, 128 or 256."""
     if not 1 <= D <= _KERNEL_D[-1]:
         raise ValueError(_wide_head_refusal(D))
-    return _KERNEL_D[0] if D <= _KERNEL_D[0] else _KERNEL_D[1]
+    return next(w for w in _KERNEL_D if D <= w)
 
 
 def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
@@ -185,26 +202,24 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     serving prefill B4 H8 S128: 64 blocks where 128 rows would give 32).
     dk/dv: a grid of (KV, B, key blocks), 128 keys a block where ``B * KV *
     ceil(Sk / 128)`` blocks fill the SMs, else 64. Shared memory as
-    :func:`_wgmma_sums` counts it. fp32 takes the scalar route: 64-row
-    tiles, 256 threads, fp32 tiles in shared memory.
+    :func:`_wgmma_sums` counts it. fp32, and bf16 at width 256, take the
+    scalar route: 256 threads, the largest tile of ``_SCALAR_TILES`` whose
+    shared memory (:func:`_scalar_floats`) fits a block.
     """
     width = _kernel_width(D)
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash kernels take bf16 or fp32 operands, got {dtype}")
-    if dtype == torch.bfloat16 and kernel in ("fwd", "dq"):
+    if dtype == torch.bfloat16 and width in _WGMMA_D and kernel in ("fwd", "dq"):
         rows = 128 if B * H * -(-Sq // 128) >= sms else 64
         smem, _ = _wgmma_sums(kernel, rows, width)
         return Plan("wgmma", rows, (H, B, -(-Sq // rows)), 128 * (rows // 64 + 1), smem, width)
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and width in _WGMMA_D:
         keys = 128 if B * KV * -(-Sk // 128) >= sms else 64
         smem, _ = _wgmma_sums(kernel, keys, width)
         return Plan("wgmma", keys, (KV, B, -(-Sk // keys)), 128 * (keys // 64), smem, width)
-    ld, t = _SCALAR_LD, _TILE_K
-    floats = {"fwd": 2 * width * ld + t * width + t * ld,
-              "dq": 4 * width * ld + t * width + t * ld,
-              "dkv": 4 * width * ld + 2 * t * width + t * ld + 2 * t}[kernel]
+    t = next(t for t in _SCALAR_TILES if 4 * _scalar_floats(kernel, width, t) <= SMEM_LIMIT)
     grid = (-(-Sk // t), KV, B) if kernel == "dkv" else (-(-Sq // t), H, B)
-    return Plan("scalar", t, grid, 256, 4 * floats, width)
+    return Plan("scalar", t, grid, 256, 4 * _scalar_floats(kernel, width, t), width)
 
 
 def _pad_heads(inner, heads, width: int):

@@ -1,1 +1,1 @@
-"""Training-step builders of the PyTorch port (one device; meshes come with slice 5)."""
+"""Meshes, sharding rules, the distributed bootstrap and the train-step factories of the PyTorch port."""

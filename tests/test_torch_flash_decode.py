@@ -136,5 +136,5 @@ def test_card_operand_checks_take_fp32_and_wide_groups():
     with pytest.raises(TypeError, match="bf16 or fp32 operands of one dtype"):
         flash_decode(meta(2, 1, 4, 64), meta(2, 1, 256, 64, dtype=torch.bfloat16),
                      meta(2, 1, 256, 64), pos, block_k=64)
-    with pytest.raises(ValueError, match="head_dim up to 128 .*got 256.* 255"):
-        flash_decode(meta(2, 1, 4, 256), meta(2, 1, 256, 256), meta(2, 1, 256, 256), pos, block_k=64)
+    with pytest.raises(ValueError, match="head_dim up to 256 .*got 320.*232,448"):
+        flash_decode(meta(2, 1, 4, 320), meta(2, 1, 256, 320), meta(2, 1, 256, 320), pos, block_k=64)

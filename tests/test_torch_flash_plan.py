@@ -97,9 +97,9 @@ def test_query_tiles_cover_exactly_the_visible_tiles(keys, Sq, Sk, causal, windo
 
 
 def test_other_head_sizes_and_dtypes_are_stated_refusals():
-    with pytest.raises(ValueError, match=r"head_dim up to 128 .*got 256\. At D 256 .*dk/dv "
-                                         r"264,232 bytes and 320; .*232,448 bytes .*168 registers"):
-        pa._plan("fwd", 1, 64, 64, 2, 2, 256, torch.bfloat16)
+    with pytest.raises(ValueError, match=r"head_dim up to 256 .*got 320\. At width 320 .*dk/dv "
+                                         r"271,104; .*232,448 bytes"):
+        pa._plan("fwd", 1, 64, 64, 2, 2, 320, torch.bfloat16)
     with pytest.raises(TypeError, match="bf16 or fp32"):
         pa._plan("dq", 1, 64, 64, 2, 2, 128, torch.float16)
 

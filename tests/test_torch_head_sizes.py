@@ -1,5 +1,6 @@
-"""Head sizes other than 64 and 128: the port's kernels run them zero-padded
-to 64 (D <= 64) or 128 with the true D's softmax scale.
+"""Head sizes other than 64, 128 and 256: the port's kernels run them
+zero-padded to the next of those widths with the true D's softmax scale
+(width 256 on the flash kernels' scalar route, in bf16 and fp32 alike).
 
 ``_pad_heads`` takes the function it pads around as an argument: on the
 card the kernel launch, here the plain version, so the padding itself is
@@ -31,7 +32,7 @@ def _inputs(B, Sq, Sk, H, KV, D, seed):
                  ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
 
 
-@pytest.mark.parametrize("D", [16, 32, 48, 96])
+@pytest.mark.parametrize("D", [16, 32, 48, 96, 160, 192, 256])
 @pytest.mark.parametrize("causal,window,kv", [(True, None, 2), (False, None, 4), (True, 12, 1)])
 def test_padded_flash_matches_jax_at_the_true_head_size(D, causal, window, kv):
     B, S, H = 2, 32, 4
@@ -41,13 +42,14 @@ def test_padded_flash_matches_jax_at_the_true_head_size(D, causal, window, kv):
     grads_j = [np.asarray(g) for g in vjp(jnp.asarray(do))]
 
     width = pa._kernel_width(D)
-    assert width == (64 if D <= 64 else 128)
+    assert width == (64 if D <= 64 else 128 if D <= 128 else 256)
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     o, lse = pa._pad_heads(
         lambda q, k, v, scale: pa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                                         scale=scale),
         (tq, tk, tv), width)
-    assert o.shape == tq.shape and o.is_contiguous() and lse.shape == (B, H, S)
+    # cut outputs come back contiguous (at D == width they are inner's own)
+    assert o.shape == tq.shape and (o.is_contiguous() or D == width) and lse.shape == (B, H, S)
     np.testing.assert_allclose(o.numpy(), np.asarray(o_j), **TOL)
     grads = pa._pad_heads(
         lambda q, k, v, o, do, scale: pa.flash_attention_backward_plain(
@@ -59,7 +61,7 @@ def test_padded_flash_matches_jax_at_the_true_head_size(D, causal, window, kv):
 
 
 def test_pad_heads_copies_nothing_at_the_kernel_widths():
-    for D in (64, 128):
+    for D in (64, 128, 256):
         q = torch.zeros(1, 8, 2, D)
         seen = []
 
@@ -72,13 +74,21 @@ def test_pad_heads_copies_nothing_at_the_kernel_widths():
 
 
 @pytest.mark.parametrize("D,width", [(1, 64), (16, 64), (32, 64), (64, 64), (65, 128),
-                                     (96, 128), (100, 128), (128, 128)])
+                                     (96, 128), (100, 128), (128, 128), (129, 256),
+                                     (160, 256), (192, 256), (256, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_plans_are_made_at_the_padded_width(D, width, dtype):
     for kernel in ("fwd", "dq", "dkv"):
         plan = pa._plan(kernel, 4, 2048, 2048, 8, 8, D, dtype)
         assert plan == pa._plan(kernel, 4, 2048, 2048, 8, 8, width, dtype)
         assert plan.width == width and plan.smem_bytes <= pa.SMEM_LIMIT
+        # bf16 takes the tensor cores up to 128; the scalar route beyond,
+        # in 64-row tiles where they fit (the forward), else 32
+        assert plan.route == ("wgmma" if dtype == torch.bfloat16 and width <= 128 else "scalar")
+        if plan.route == "scalar":
+            tile = 64 if width <= 128 or kernel == "fwd" else 32
+            assert plan.block == tile and plan.threads == 256
+            assert plan.smem_bytes == 4 * pa._scalar_floats(kernel, width, tile)
     for B, G, R, L in ((4, 4, 2, 2048), (2, 1, 16, 512)):
         p = fd._plan(B, G, R, L, D, dtype, 132)
         assert p == fd._plan(B, G, R, L, width, dtype, 132) and p.width == width
@@ -87,19 +97,27 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
 
 
 def test_head_sizes_past_128_are_refused_with_their_limits():
-    # the sums the refusal states are the plan's own at D 256
+    """Past 128 the bf16 tensor-core kernels would not fit (their sums at
+    256), so widths up to 256 take the scalar route; past 256 the scalar
+    kernels would not fit either, and that is the stated refusal."""
     assert [pa._wgmma_sums(k, 64, 256) for k in ("fwd", "dq", "dkv")] == [
         (164_904, 160), (197_928, 192), (264_232, 320)]
     assert pa._wgmma_sums("dkv", 64, 256)[0] > pa.SMEM_LIMIT
     assert pa._wgmma_sums("dq", 64, 256)[1] > pa._REGS_BESIDE_PRODUCER
-    for D in (129, 256):
-        with pytest.raises(ValueError, match=f"head_dim up to 128 .*got {D}"):
+    for D in (129, 200, 256):
+        assert pa._kernel_width(D) == fd._kernel_width(D) == 256
+    # the sums the refusal states are the scalar kernels' own at the next width
+    assert [4 * pa._scalar_floats(k, 320, 32) for k in ("fwd", "dq", "dkv")] == [
+        137_728, 229_888, 271_104]
+    assert 4 * pa._scalar_floats("dkv", 320, 32) > pa.SMEM_LIMIT
+    for D in (257, 320):
+        with pytest.raises(ValueError, match=f"head_dim up to 256 .*got {D}.*dk/dv 271,104.*232,448"):
             pa._kernel_width(D)
-        with pytest.raises(ValueError, match=f"head_dim up to 128 .*got {D}.*256 fp32 registers"):
+        with pytest.raises(ValueError, match=f"flash_decode kernel takes head_dim up to 256 .*got {D}"):
             fd._plan(1, 1, 1, 64, D, torch.bfloat16, 132)
 
 
-@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("D", [16, 32, 160, 256])
 @pytest.mark.parametrize("window", [None, 40])
 def test_padded_decode_matches_jax_at_the_true_head_size(D, window):
     """q and the cache zero-padded to the kernel's width with the true D's
