@@ -128,8 +128,36 @@ Phases, each of which fails the run with a non-zero exit:
             group), each against its ``mesh=None`` step on the same weights
             (every step's loss, the parameters and buffers after the last
             step, within ``SHARDED_ATOL``),
-            the launch counts of the unsharded steps, both steps' ms;
-18. bench entries  each of ``kubeflow_tpu_torch/benchmarks/{transformer,
+            the launch counts of the unsharded steps, both steps' ms; then
+            the dense flagship's step with ``attention_impl="ring"`` on that
+            mesh (one seq rank) against its flash step on the same weights:
+            the first step's loss and gradient norm within the train parity
+            bounds, flash launches 24/24/24 a step, a falling loss;
+18. ring    ring attention (``parallel/ring_attention.py``) at the
+            long-context shape (B1 S8192 H8 D128, bf16): the dq and dk/dv
+            kernels on one 2048-row chunk with the global o and lse and
+            fp32 gradients against the plain backward with the same lse;
+            then the ring walked in one process over 4 and 2 virtual
+            ranks, causal and non-causal (the module's own schedule, chunk
+            functions and merge; at step r rank i holds chunk (i - r) mod
+            n), its o, lse, dq, dk and dv held against the one-shot flash
+            kernels on the whole sequence, its launches counted (n(n+1)/2 a
+            kernel causal, n² non-causal), its device ms beside the
+            one-shot kernels';
+19. expert walk  one MoE flagship layer through the ``a2a`` path over two
+            virtual expert ranks (each all-to-all the permutation it
+            performs over the ranks' slabs) against the gather dispatch:
+            output and gradients, gather and scatter launches;
+20. tensor walk  one dense flagship block over two virtual tensor ranks
+            (the tensor rule's parts, flash at 4 heads a rank, partials
+            summed) against the unsplit block: output, every gradient,
+            flash launches;
+21. two ranks  the sharded train steps on tensor=2 and expert=2 (the a2a
+            dispatch's real all-to-alls) in two processes on the card joined
+            by gloo, at the flagship widths cut to 2 layers, fp32, against
+            the one-device step: losses, the global gradient norm, each
+            rank's launches;
+22. bench entries  each of ``kubeflow_tpu_torch/benchmarks/{transformer,
             moe,decode,resnet}_bench.py`` once, in a subprocess, with few
             windows: its line's metric, a positive value, this card's name
             and power limit.
@@ -2885,8 +2913,534 @@ def phase_sharded(torch, np):
                 ("resnet50", lambda m: cells.resnet_train(mesh=m), bn_counters,
                  {"bn_moments": 53, "bn_grad_sums": 53})):
             out[tag] = _sharded_vs_unsharded(torch, np, tag, build, mesh, counters, per_step)
+        out["dense_ring"] = _ring_train_step(torch, np, mesh)
     finally:
         dist.destroy_process_group()
+    return out
+
+
+def _ring_train_step(torch, np, mesh):
+    """The dense flagship's train step with ``attention_impl="ring"`` on
+    ``mesh`` (a world of one: one seq rank, the diagonal chunk a layer, the
+    backward with the global lse and fp32 gradients) against the flash step
+    on the same weights: the first step's loss and global gradient norm
+    within the train parity bounds, each step's flash launches 24/24/24,
+    and both steps' ms."""
+    from kubeflow_tpu_torch.ops import optimizers as opt
+
+    import kubeflow_tpu_torch as kt
+
+    counters = _flash_counters()
+    L = TRAIN["num_layers"]
+    got = {}
+    for impl, m in (("flash", None), ("ring", mesh)):
+        cell = cells.dense_train(mesh=m, attention_impl=impl)
+        norms = []
+        adamw = cells.adamw()
+
+        def update(grads, state, params, adamw=adamw, norms=norms):
+            norms.append(torch.sqrt(sum(g.float().pow(2).sum() for g in grads)).item())
+            return adamw.update(grads, state, params)
+
+        bundle = kt.make_lm_train_step(cell.model, opt.GradientTransformation(adamw.init, update),
+                                       m, chunk=TRAIN_CHUNK)
+        state = bundle.init()
+        for fn in counters.values():
+            fn.launches = 0
+        losses = [bundle.step(state, cell.tokens)[1]["loss"].item()]
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if launches != {k: L for k in counters}:
+            raise AssertionError(f"[ring train] {impl} step launches {launches}, not {L} each")
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(bundle.step(state, cell.tokens)[1]["loss"].item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got[impl] = dict(losses=losses, grad_norm=norms[0], step_ms=ms, launches=launches)
+        del cell, bundle, state
+        torch.cuda.empty_cache()
+    a, b = got["flash"], got["ring"]
+    d_loss = abs(a["losses"][0] - b["losses"][0])
+    d_norm = abs(a["grad_norm"] - b["grad_norm"]) / a["grad_norm"]
+    log(f"[ring train] dense flagship, attention_impl='ring' on MeshPlan() (world of one, nccl) vs "
+        f"'flash' (mesh=None), same weights: first-step loss {b['losses'][0]:.5f} vs "
+        f"{a['losses'][0]:.5f} (|diff| {d_loss:.2e}, atol {TRAIN_LOSS_ATOL}); grad norm "
+        f"{b['grad_norm']:.5f} vs {a['grad_norm']:.5f} (rel diff {d_norm:.2e}, rtol "
+        f"{TRAIN_GNORM_RTOL}); flash launches a step {b['launches']} (flash step {a['launches']}); "
+        f"losses {[round(x, 4) for x in b['losses']]}; step ms {[round(x, 2) for x in b['step_ms']]} "
+        f"vs {[round(x, 2) for x in a['step_ms']]}; {card()}")
+    if (not np.isfinite(b["losses"]).all() or d_loss > TRAIN_LOSS_ATOL
+            or d_norm > TRAIN_GNORM_RTOL or not b["losses"][-1] < b["losses"][0]):
+        raise AssertionError(f"the ring train step disagrees with the flash step: {got}")
+    return dict(got, loss_abs_diff=d_loss, grad_norm_rel_diff=d_norm)
+
+
+# ring attention (parallel/ring_attention.py) walked in one process at the
+# long-context dense configuration's attention (benchmarks/transformer_bench.py
+# :73-81: seq 8192, batch 1; 8 heads of 128), cut into n chunks a virtual rank
+RING_B, RING_S, RING_H, RING_D = 1, 8192, 8, 128
+RING_SPLITS = (4, 2)
+RING_BLOCK = TRAIN["attention_block_size"]
+
+
+def _chunks(x, n, dim=1):
+    return [c.contiguous() for c in x.chunk(n, dim=dim)]
+
+
+def ring_walk_fwd(torch, q, k, v, n, causal, block):
+    """The forward ring of ``parallel/ring_attention.py`` over n virtual
+    ranks in one process, through the module's own ``_schedule``,
+    ``_chunk_fwd`` and ``_merge``: at step r virtual rank i holds chunk
+    (i - r) mod n, and there are no transfers. Returns (o, lse) of the whole
+    sequence ([B, S, H, D] in q's dtype, [B, H, S] fp32)."""
+    from kubeflow_tpu_torch.parallel import ring_attention as ra
+
+    qs, ks, vs = _chunks(q, n), _chunks(k, n), _chunks(v, n)
+    plans = [ra._schedule(i, n, causal) for i in range(n)]
+    state = [None] * n
+    for r in range(n):
+        for i in range(n):
+            src, kind = plans[i][r]
+            if kind is not None:
+                part = ra._chunk_fwd(qs[i], ks[src], vs[src], kind == ra.DIAG, block)
+                state[i] = part if r == 0 else ra._merge(*state[i], *part)
+    return (torch.cat([o.to(q.dtype) for o, _ in state], dim=1),
+            torch.cat([lse for _, lse in state], dim=2))
+
+
+def ring_walk_bwd(torch, q, k, v, o, lse, do, n, causal):
+    """The backward ring over the same virtual ranks: each chunk's dq and
+    dk/dv kernels against the merged o and the global lse, in fp32; chunk
+    src's dk/dv accumulators take virtual rank (src + r)'s partial at step
+    r, the order in which they rotate through the ring. Returns (dq, dk,
+    dv) in the operands' dtypes."""
+    from kubeflow_tpu_torch.parallel import ring_attention as ra
+
+    qs, ks, vs, os, dos = (_chunks(x, n) for x in (q, k, v, o, do))
+    lses = _chunks(ra._backward_lse(lse), n, dim=2)
+    plans = [ra._schedule(i, n, causal) for i in range(n)]
+    acc = [[None] * n for _ in range(3)]
+    for r in range(n):
+        for i in range(n):
+            src, kind = plans[i][r]
+            if kind is not None:
+                parts = ra._chunk_bwd(qs[i], ks[src], vs[src], os[i], lses[i], dos[i],
+                                      kind == ra.DIAG)
+                for a, j, part in zip(acc, (i, src, src), parts):
+                    a[j] = part if r == 0 else a[j] + part
+    return tuple(torch.cat(a, dim=1).to(x.dtype) for a, x in zip(acc, (q, k, v)))
+
+
+def phase_ring(torch):
+    """Ring attention at the long-context shape, walked in one process: the
+    backward kernels on one chunk against the global o and lse (larger than
+    the chunk's own) with fp32 gradients, held against the plain backward
+    with the same lse; then the walk at n = 4 and 2, causal and non-causal,
+    its o, lse, dq, dk and dv held against the one-shot flash kernels on the
+    whole sequence, its launches counted (n(n+1)/2 a kernel causal, n²
+    non-causal) and its device ms timed beside the one-shot kernels'."""
+    from kubeflow_tpu_torch.ops import pallas_attention as pa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, H, D = RING_B, RING_S, RING_H, RING_D
+    q, k, v, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(bf16)
+                   for _ in range(4))
+    counters = _flash_counters()
+    out = {}
+    ref = {}
+    for causal in (True, False):
+        o1, lse1 = pa.flash_attention(q, k, v, causal, S, S, return_lse=True)
+        ref[causal] = (o1, lse1, pa.flash_attention_bwd_dq(q, k, v, o1, lse1, do, causal=causal),
+                       *pa.flash_attention_bwd_dkv(q, k, v, o1, lse1, do, causal=causal))
+    torch.cuda.synchronize()
+
+    # the backward kernels on one chunk of 2048 rows with the global o and lse
+    c = S // RING_SPLITS[0]
+    o1, lse1 = ref[True][:2]
+    for name, qi, ki, causal in (("noncausal_q3_k0", 3, 0, False), ("diagonal_q3_k3", 3, 3, True),
+                                 ("noncausal_q1_k0", 1, 0, False)):
+        rows, keys = slice(qi * c, (qi + 1) * c), slice(ki * c, (ki + 1) * c)
+        qc, oc, doc = (x[:, rows].contiguous() for x in (q, o1, do))
+        kc, vc = k[:, keys].contiguous(), v[:, keys].contiguous()
+        lc = lse1[:, :, rows].contiguous()
+        own = pa.flash_attention(qc, kc, vc, causal, c, c, return_lse=True)[1]
+        kw = dict(causal=causal, grad_dtype=f32)
+        got = (pa.flash_attention_bwd_dq(qc, kc, vc, oc, lc, doc, **kw),
+               *pa.flash_attention_bwd_dkv(qc, kc, vc, oc, lc, doc, **kw))
+        want = pa.flash_attention_backward_plain(qc, kc, vc, oc, lc, doc, **kw)
+        torch.cuda.synchronize()
+        rise = (lc - own).mean().item()
+        for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+            ok, err, ratio, rms = check_out(g, w)
+            ok = ok and g.dtype == f32
+            log(f"[ring] global-lse backward {name} {grad} (chunk {c} rows, causal {causal}, fp32 "
+                f"gradients, global lse above the chunk's own by {rise:.3f} on average): max_abs_err "
+                f"{err:.3e} (rms {rms:.3e}, worst err/tol {ratio:.3f}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash backward with the global lse disagrees with the plain "
+                                     f"backward ({name} {grad})")
+            out[f"global_lse_{name}_{grad}_err"] = err
+        if not rise > 0:
+            raise AssertionError(f"{name}: the global lse is not above the chunk's own")
+
+    smi = card()
+    for causal in (True, False):
+        o1, lse1, dq1, dk1, dv1 = ref[causal]
+        for n in RING_SPLITS:
+            tag = f"n{n}_{'causal' if causal else 'noncausal'}"
+            for fn in counters.values():
+                fn.launches = 0
+            o, lse = ring_walk_fwd(torch, q, k, v, n, causal, RING_BLOCK)
+            grads = ring_walk_bwd(torch, q, k, v, o, lse, do, n, causal)
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            want = n * (n + 1) // 2 if causal else n * n
+            checks = [("o", *check_out(o, o1)[:3])]
+            lse_ok, lse_err = check_lse(lse, lse1)
+            checks.append(("lse", lse_ok, lse_err, lse_err / LSE_ATOL))
+            checks += [(g, *check_out(x, y)[:3]) for g, x, y in zip(("dq", "dk", "dv"), grads,
+                                                                    (dq1, dk1, dv1))]
+            # few calls a timing: the host enqueues a walk's ~100-200 operations
+            # more slowly than the card runs them, and all of them must be queued
+            # behind device_ms's spin kernel for the events to time the card
+            ms = dict(walk_fwd=device_ms(torch, lambda: ring_walk_fwd(
+                          torch, q, k, v, n, causal, RING_BLOCK), cold=False, iters=3, warmup=2),
+                      walk_bwd=device_ms(torch, lambda: ring_walk_bwd(
+                          torch, q, k, v, o, lse, do, n, causal), cold=False, iters=3, warmup=2))
+            log(f"[ring] walk {tag} (B{B} S{S} H{H} D{D} bf16, chunks of {S // n}): launches "
+                f"{launches} (expected {want} each); "
+                + ", ".join(f"{g} err {e:.3e} (err/tol {r:.3f})" for g, _, e, r in checks)
+                + f"; device ms forward {ms['walk_fwd']:.4f}, backward {ms['walk_bwd']:.4f}")
+            if launches != {name: want for name in counters} or not all(ok for _, ok, _, _ in checks):
+                raise AssertionError(f"ring walk {tag} failed: launches {launches}, checks {checks}")
+            out[tag] = dict(launches=launches, errors={g: e for g, _, e, _ in checks}, **ms)
+        one = dict(fwd=device_ms(torch, lambda: pa.flash_attention(q, k, v, causal, S, S),
+                                 cold=False, iters=3, warmup=2),
+                   bwd=device_ms(torch, lambda: (
+                       pa.flash_attention_bwd_dq(q, k, v, o1, lse1, do, causal=causal),
+                       pa.flash_attention_bwd_dkv(q, k, v, o1, lse1, do, causal=causal)),
+                       cold=False, iters=3, warmup=2))
+        log(f"[ring] one-shot flash on the whole sequence ({'causal' if causal else 'non-causal'}): "
+            f"forward {one['fwd']:.4f} ms, dq + dk/dv {one['bwd']:.4f} ms; {smi}")
+        out[f"one_shot_{'causal' if causal else 'noncausal'}"] = one
+    return out
+
+
+# one MoE layer of the MoE flagship (benchmarks/moe_bench.py:74-94: E 1024,
+# expert hidden 2048, 8 experts, top-2, capacity 1.25) on its batch [4, 2048],
+# through the a2a path over EXPERT_WALK_EP virtual expert ranks
+EXPERT_WALK_EP = 2
+
+
+def moe_a2a_walk(torch, mlp, x, ep):
+    """``dispatch="a2a"`` of ``models/moe.py`` over ``ep`` virtual expert
+    ranks in one process, through the module's own routing, gather
+    dispatch, ``_to_experts`` / ``_from_sources`` / ``_to_sources`` /
+    ``_from_experts`` packing, ``_expert_ffn`` and gather combine: rank t
+    takes rows t·B/ep .. of ``x`` and experts t·E/ep ..; each all-to-all is
+    the permutation it performs over the ranks' stacked slabs. Returns y
+    [B, S, M] in ``cfg.dtype``."""
+    from kubeflow_tpu_torch.models import moe as tm
+
+    cfg = mlp.cfg
+    E, S = cfg.num_experts, x.shape[1]
+    C, El = cfg.capacity(S), cfg.num_experts // ep
+    wi, wo = mlp.experts_wi.to(cfg.dtype), mlp.experts_wo.to(cfg.dtype)
+    routes, sent = [], []
+    for xt in x.chunk(ep, dim=0):
+        plan = mlp.route(xt)
+        slot_token, combine_idx = tm.slot_indices(plan, E, C, S)
+        routes.append((plan, combine_idx))
+        sent.append(tm._to_experts(tm._gather_dispatch(xt, slot_token, E, C, cfg.dtype), ep))
+    outs = [tm._to_sources(tm._expert_ffn(tm._from_sources(torch.stack([s[u] for s in sent])),
+                                          wi[u * El:(u + 1) * El], wo[u * El:(u + 1) * El],
+                                          "becm"), ep)
+            for u in range(ep)]
+    return torch.cat([tm._gather_combine(tm._from_experts(torch.stack([o[t] for o in outs])),
+                                         plan, combine_idx).to(cfg.dtype)
+                      for t, (plan, combine_idx) in enumerate(routes)], dim=0)
+
+
+def _grads_of(torch, fn, inputs, g):
+    """(output, gradients of sum(output * g) with respect to ``inputs``)."""
+    y = fn()
+    return y.detach(), torch.autograd.grad((y.float() * g).sum(), inputs)
+
+
+def phase_expert_walk(torch):
+    """One MoE layer at the flagship width through the a2a path over two
+    virtual expert ranks (``moe_a2a_walk``) against the gather dispatch on
+    the same weights and rows: the output and the gradients of the input,
+    the router and both expert tables, and the MoE kernels' launches."""
+    from kubeflow_tpu_torch.models import moe as tm
+    from kubeflow_tpu_torch.ops import moe_dispatch as md
+
+    import kubeflow_tpu_torch as kt
+
+    cfg = kt.MoEConfig(**dict(MOE, num_layers=1), dtype=torch.bfloat16)
+    model = kt.MoETransformerLM(cfg, device="cuda")
+    model.load_state_dict(kt.moe_init_state_dict(cfg, seed=3, device="cuda"))
+    mlp = model.layers[0].moe
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    x = torch.randn((MOE_BATCH, MOE_SEQ, cfg.embed_dim), generator=gen,
+                    device="cuda").to(cfg.dtype).requires_grad_()
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    inputs = (x, mlp.router, mlp.experts_wi, mlp.experts_wo)
+    counters = {"moe_gather": md.gather, "moe_scatter": md.scatter}
+    got = {}
+    for name, fn in (("gather", lambda: mlp(x)[0]),
+                     ("a2a", lambda: moe_a2a_walk(torch, mlp, x, EXPERT_WALK_EP))):
+        for c in counters.values():
+            c.launches = 0
+        got[name] = _grads_of(torch, fn, inputs, g)
+        torch.cuda.synchronize()
+        got[name + "_launches"] = {k: c.launches for k, c in counters.items()}
+    k = cfg.experts_per_token
+    want = {"gather": 1 + k, "a2a": EXPERT_WALK_EP * (1 + k)}
+    checks = {}
+    for what, a, b in zip(("y", "dx", "drouter", "dwi", "dwo"),
+                          (got["a2a"][0], *got["a2a"][1]), (got["gather"][0], *got["gather"][1])):
+        ok, err, ratio, _ = check_out(a, b)
+        checks[what] = (ok, err, ratio)
+    log(f"[expert walk] one MoE layer (E {cfg.embed_dim}, {cfg.num_experts} experts of "
+        f"{cfg.expert_hidden_dim}, top-{k}, batch [{MOE_BATCH}, {MOE_SEQ}]), dispatch a2a over "
+        f"{EXPERT_WALK_EP} virtual expert ranks (the all-to-alls as permutations in one process) "
+        f"vs gather: " + ", ".join(f"{w} err {e:.3e} (err/tol {r:.3f})" for w, (_, e, r) in checks.items())
+        + f"; launches a2a {got['a2a_launches']} (expected {want['a2a']} each), gather "
+        f"{got['gather_launches']} (expected {want['gather']} each)")
+    if (not all(ok for ok, _, _ in checks.values())
+            or got["a2a_launches"] != {c: want["a2a"] for c in counters}
+            or got["gather_launches"] != {c: want["gather"] for c in counters}):
+        raise AssertionError(f"the a2a walk disagrees with the gather dispatch: {checks}")
+    return dict(errors={w: e for w, (_, e, _) in checks.items()},
+                launches=got["a2a_launches"], transport="virtual (one process)")
+
+
+TENSOR_WALK_TP = 2
+
+
+def tensor_walk(torch, model, x, rope_cs, tp):
+    """The first block (``models/transformer.py`` ``Block``) of ``model``
+    over ``tp`` virtual tensor ranks in one process: rank t's attention and
+    MLP run on the parts of their weights the tensor rule gives it
+    (``parallel/mesh.tensor_param_spec`` through ``param_shardings``: q/k/v/
+    gate/up rows, o/down columns; views, so the gradients reach the whole
+    weights), at H/tp heads, and their row-parallel partials are summed, as
+    the all-reduce sums them. Returns the block's output."""
+    from kubeflow_tpu_torch.parallel import mesh as tmesh
+
+    specs = tmesh.param_shardings(tmesh.MeshPlan(tensor=tp), model, tmesh.tensor_param_spec)
+    block = model.layers[0]
+
+    def part(module, prefix, t):
+        weights = {n: p.chunk(tp, dim=specs[f"layers.0.{prefix}.{n}"].index("tensor"))[t]
+                   for n, p in module.named_parameters()}
+        return lambda *args: torch.func.functional_call(module, weights, args)
+
+    parts = [(part(block.attn, "attn", t), part(block.mlp, "mlp", t)) for t in range(tp)]
+    h = block.attn_norm(x)
+    x = x + sum(attn(h, rope_cs) for attn, _ in parts)
+    h = block.mlp_norm(x)
+    return x + sum(mlp(h) for _, mlp in parts)
+
+
+def phase_tensor_walk(torch):
+    """One dense block at the flagship training width over two virtual
+    tensor ranks (``tensor_walk``; flash at 4 heads a rank) against the
+    unsplit block on the same weights and input: the output, the gradients
+    of the input and of every weight (each rank's part against its slice of
+    the whole gradient), and the flash launches."""
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.models.transformer import rope_tables
+
+    cfg = kt.TransformerConfig(**dict(TRAIN, num_layers=1), dtype=torch.bfloat16)
+    model = kt.TransformerLM(cfg, device="cuda")
+    model.load_state_dict(kt.init_state_dict(cfg, seed=4, device="cuda"))
+    block = model.layers[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.embed_dim), generator=gen,
+                    device="cuda").to(cfg.dtype).requires_grad_()
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    rope_cs = rope_tables(torch.arange(TRAIN_SEQ, device="cuda"), cfg.head_dim, cfg.rope_theta)
+    weights = [p for _, p in block.named_parameters()]
+    counters = _flash_counters()
+    got = {}
+    for name, fn in (("whole", lambda: block(x, rope_cs)),
+                     ("split", lambda: tensor_walk(torch, model, x, rope_cs, TENSOR_WALK_TP))):
+        for c in counters.values():
+            c.launches = 0
+        got[name] = _grads_of(torch, fn, (x, *weights), g)
+        torch.cuda.synchronize()
+        got[name + "_launches"] = {k: c.launches for k, c in counters.items()}
+    checks = {}
+    names = ["y", "dx"] + [n for n, _ in block.named_parameters()]
+    for what, a, b in zip(names, (got["split"][0], *got["split"][1]),
+                          (got["whole"][0], *got["whole"][1])):
+        ok, err, ratio, _ = check_out(a, b)
+        checks[what] = (ok, err, ratio)
+    heads = cfg.num_heads // TENSOR_WALK_TP
+    log(f"[tensor walk] one dense block at the training width (E {cfg.embed_dim}, {cfg.num_heads} "
+        f"heads of {cfg.head_dim}, MLP {cfg.mlp_dim}, batch [{TRAIN_BATCH}, {TRAIN_SEQ}]) over "
+        f"{TENSOR_WALK_TP} virtual tensor ranks ({heads} heads a rank, partials summed) vs the "
+        f"unsplit block: " + ", ".join(f"{w} err {e:.3e} (err/tol {r:.3f})"
+                                       for w, (_, e, r) in checks.items())
+        + f"; flash launches split {got['split_launches']} (expected {TENSOR_WALK_TP} each), "
+        f"whole {got['whole_launches']} (expected 1 each)")
+    if (not all(ok for ok, _, _ in checks.values())
+            or got["split_launches"] != {c: TENSOR_WALK_TP for c in counters}
+            or got["whole_launches"] != {c: 1 for c in counters}):
+        raise AssertionError(f"the tensor walk disagrees with the unsplit block: {checks}")
+    return dict(errors={w: e for w, (_, e, _) in checks.items()}, launches=got["split_launches"])
+
+
+# the tensor and expert axes in two real ranks on the one card: two processes
+# joined by gloo, whose collectives carry CUDA tensors through the host (NCCL
+# takes one card a rank; gloo's point-to-point sends do not take CUDA
+# tensors, so seq, whose ring sends K and V point to point, is walked in one
+# process by phase_ring instead); the flagship cells' widths, depth cut to
+# TWO_RANK_LAYERS, in fp32 (the flash kernels' fp32 route, TF32 off), each
+# against the one-device fp32 step on the same weights: the ranks' parts and
+# the one device's whole differ in summation order only, and the limits (the
+# fused MoE step's fp32 ones) leave room for that alone; a missing or doubled
+# reduction moves the loss or the gradient norm by a sizeable fraction
+TWO_RANK_LAYERS = 2
+TWO_RANK_LOSS_ATOL, TWO_RANK_GNORM_RTOL = MOE_FUSED_F32_LOSS_ATOL, MOE_FUSED_F32_GNORM_RTOL
+TWO_RANK_CASES = (("dense_tensor2", "dense", dict(tensor=2)), ("moe_expert2", "moe", dict(expert=2)))
+
+
+def _two_rank_step(torch, kind, plan, mesh):
+    """One SGD step of the dense or MoE cell at TWO_RANK_LAYERS layers in fp32 (on a
+    mesh: the a2a dispatch where the plan splits expert, the tensor or MoE
+    rule): {"loss", the squares of the
+    gradients the optimizer got, summed apart for the parameters split over
+    tensor or expert ("split_sq") and the others ("repl_sq"), "launches"}."""
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.ops import moe_dispatch as md
+    from kubeflow_tpu_torch.ops import optimizers as opt
+    from kubeflow_tpu_torch.parallel import mesh as tmesh
+
+    a2a = mesh is not None and plan.get("expert", 1) > 1
+    if kind == "dense":
+        cfg = kt.TransformerConfig(**dict(TRAIN, num_layers=TWO_RANK_LAYERS), dtype=torch.float32)
+        model = kt.TransformerLM(cfg, device="cuda")
+        model.load_state_dict(kt.init_state_dict(cfg, seed=0, device="cuda"))
+        loss_fn, rule, batch, seq = None, tmesh.tensor_param_spec, TRAIN_BATCH, TRAIN_SEQ
+    else:
+        cfg = kt.MoEConfig(**dict(MOE, num_layers=TWO_RANK_LAYERS,
+                                  dispatch="a2a" if a2a else "gather"),
+                           dtype=torch.float32, mesh=mesh if a2a else None)
+        model = kt.MoETransformerLM(cfg, device="cuda")
+        model.load_state_dict(kt.moe_init_state_dict(cfg, seed=0, device="cuda"))
+        loss_fn, rule, batch, seq = cells.moe_loss_fn("chunked"), tmesh.moe_param_spec, MOE_BATCH, MOE_SEQ
+    got = []
+    sgd = opt.sgd(1e-3)
+
+    def update(grads, state, params):
+        got.extend(grads)
+        return sgd.update(grads, state, params)
+
+    bundle = kt.make_lm_train_step(model, opt.GradientTransformation(sgd.init, update), mesh,
+                                   param_rule=rule, loss_fn=loss_fn, chunk=TRAIN_CHUNK)
+    tokens = cells._tokens(cfg.vocab_size, batch, seq, "cuda")
+    counters = dict(_flash_counters(), moe_gather=md.gather, moe_scatter=md.scatter)
+    state = bundle.init()
+    for fn in counters.values():
+        fn.launches = 0
+    loss = bundle.step(state, tokens)[1]["loss"].item()
+    sizes = tmesh.MeshPlan(**plan).axis_sizes()
+    specs = bundle.state_shardings["params"] if mesh is not None else {}
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    out = dict(loss=loss, split_sq=0.0, repl_sq=0.0,
+               launches={k: fn.launches for k, fn in counters.items()})
+    for n, g in zip(names, got):
+        axes = {a for entry in specs.get(n, ()) if entry is not None
+                for a in (entry if isinstance(entry, tuple) else (entry,))}
+        split = any(a in ("tensor", "expert") and sizes[a] > 1 for a in axes)
+        out["split_sq" if split else "repl_sq"] += g.float().pow(2).sum().item()
+    return out
+
+
+def two_rank_main(rank: int, folder: str) -> None:
+    """Rank ``rank`` of ``phase_two_ranks`` (started as ``python3 -c``): each
+    case's step on its mesh, its report written to ``folder``."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import mesh as tmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{folder}/store", rank=rank, world_size=2)
+    out = {}
+    try:
+        for name, kind, plan in TWO_RANK_CASES:
+            out[name] = _two_rank_step(torch, kind, plan, tmesh.create_mesh(tmesh.MeshPlan(**plan)))
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    Path(folder, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_two_ranks(torch, np):
+    """The sharded train steps on tensor=2 (Megatron, flash at 4 heads a
+    rank) and expert=2 (the a2a dispatch: two real all-to-alls a layer) in
+    two ranks, two processes on the one card joined by gloo, in fp32
+    against the one-device step on the same weights:
+    the loss on both ranks and the global gradient norm within
+    ``TWO_RANK_LOSS_ATOL`` / ``TWO_RANK_GNORM_RTOL``, and each rank's
+    launches."""
+    import tempfile
+
+    L = TWO_RANK_LAYERS
+    ref = {kind: _two_rank_step(torch, kind, {}, None) for kind in ("dense", "moe")}
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as folder:
+        procs = [subprocess.Popen([sys.executable, "-c", "import chip_smoke; "
+                                   f"chip_smoke.two_rank_main({r}, {folder!r})"], cwd=root,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise AssertionError("a rank failed: " + "\n".join(log[-3000:] for log in logs))
+        reps = [json.loads(Path(folder, f"rank{r}.json").read_text()) for r in range(2)]
+    flash = list(_flash_counters())
+    out = {}
+    for name, kind, plan in TWO_RANK_CASES:
+        a, b = (rep[name] for rep in reps)
+        want = ref[kind]
+        norm = (a["split_sq"] + b["split_sq"] + a["repl_sq"]) ** 0.5
+        norm_ref = (want["split_sq"] + want["repl_sq"]) ** 0.5
+        d_loss, d_norm = abs(a["loss"] - want["loss"]), abs(norm - norm_ref) / norm_ref
+        loss_atol, gnorm_rtol = TWO_RANK_LOSS_ATOL, TWO_RANK_GNORM_RTOL
+        expect = [dict({k: L for k in flash}, moe_gather=3 * L if kind == "moe" else 0,
+                       moe_scatter=3 * L if kind == "moe" else 0) for _ in range(2)]
+        log(f"[two ranks] {name} ({kind} flagship width, {L} layers, fp32, two processes on one "
+            f"card, gloo): loss {a['loss']:.5f} / {b['loss']:.5f} vs one device {want['loss']:.5f} "
+            f"(|diff| {d_loss:.2e}, atol {loss_atol}); grad norm {norm:.5f} vs {norm_ref:.5f} "
+            f"(rel diff {d_norm:.2e}, rtol {gnorm_rtol}); launches {a['launches']} / "
+            f"{b['launches']} (expected {expect[0]} / {expect[1]})")
+        if (a["loss"] != b["loss"] or not np.isfinite([a["loss"], norm]).all()
+                or d_loss > loss_atol or d_norm > gnorm_rtol
+                or [a["launches"], b["launches"]] != expect):
+            raise AssertionError(f"the two-rank {name} step disagrees with one device")
+        out[name] = dict(losses=[a["loss"], b["loss"]], loss_ref=want["loss"], grad_norm=norm,
+                         grad_norm_ref=norm_ref, launches=[a["launches"], b["launches"]],
+                         transport="gloo, two processes on one card")
     return out
 
 
@@ -2974,6 +3528,12 @@ def main() -> int:
     report["resnet_train_parity"] = phase_resnet_train_parity(torch, np)
     torch.cuda.empty_cache()
     report["sharded"] = phase_sharded(torch, np)
+    torch.cuda.empty_cache()
+    report["ring"] = phase_ring(torch)
+    report["expert_walk"] = phase_expert_walk(torch)
+    report["tensor_walk"] = phase_tensor_walk(torch)
+    torch.cuda.empty_cache()
+    report["two_ranks"] = phase_two_ranks(torch, np)
     torch.cuda.empty_cache()
     report["bench_entries"] = phase_bench_entries(torch, smi)
     probes = {"launches": {"bn_moments_scaled": scaled_launches,

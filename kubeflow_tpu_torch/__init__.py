@@ -14,8 +14,10 @@ backward, and the fused head's forward, dh and dE; and ResNet-50 training
 (``models/resnet.py`` through ``make_classifier_train_step``) with kernels
 for the BatchNorm moments and gradient sums (``ops/bn_pallas.py``). The two
 kernel probes and the bench entry points are under ``benchmarks/``; meshes,
-sharding rules and the distributed bootstrap under ``parallel/``, where the
-train steps also run sharded over the dcn, data and fsdp axes. Entry points
+sharding rules, the distributed bootstrap and ring attention under
+``parallel/``, where the train steps also run sharded over the dcn, data,
+fsdp, seq (ring attention), expert (the MoE a2a dispatch) and tensor axes.
+Entry points
 run on the card unless the caller passes ``device="cpu"``; on CPU tensors
 each kernel wrapper runs its plain PyTorch version.
 """

@@ -17,8 +17,10 @@ widths, with seeded random weights at flax's init scale and seeded inputs:
   ``bench.py`` runs 16 a chip (256 fills an 80 GB card).
 
 Each cell function takes ``device`` (the card unless the caller says), ``mesh``
-(the train steps' mesh, None for one device) and keyword overrides of the
-configuration, which is how the CPU tests run a cell at a small size.
+(the train steps' mesh, None for one device; also the configuration's
+``mesh``, which ring attention and the ``a2a`` dispatch run over) and
+keyword overrides of the configuration, which is how the CPU tests run a
+cell at a small size.
 """
 from __future__ import annotations
 
@@ -81,7 +83,8 @@ def dense_train(*, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH, head: str = "
     """The dense flagship's train step: ``head`` "chunked" (``lm_loss_chunked``,
     chunk 1024) or "fused" (``fused_head_nll``); ``overrides`` replace
     fields of the configuration (``remat``, ``remat_policy``, widths)."""
-    cfg = kt.TransformerConfig(**dict(TRAIN, max_seq_len=seq, dtype=torch.bfloat16, **overrides))
+    cfg = kt.TransformerConfig(**dict(TRAIN, max_seq_len=seq, dtype=torch.bfloat16, mesh=mesh,
+                                      **overrides))
     model = kt.TransformerLM(cfg, device=device)
     model.load_state_dict(kt.init_state_dict(cfg, seed=0, device=device))
     if head not in ("chunked", "fused"):
@@ -112,7 +115,7 @@ def moe_train(*, head: str = "chunked", batch: int = MOE_BATCH, seq: int = MOE_S
     """The MoE flagship's train step (``overrides``: ``dispatch``,
     ``remat``, widths); n_active counts k of E experts' tables
     (``moe_bench.py:106-114``)."""
-    cfg = kt.MoEConfig(**dict(MOE, max_seq_len=seq, dtype=torch.bfloat16, **overrides))
+    cfg = kt.MoEConfig(**dict(MOE, max_seq_len=seq, dtype=torch.bfloat16, mesh=mesh, **overrides))
     model = kt.MoETransformerLM(cfg, device=device)
     model.load_state_dict(kt.moe_init_state_dict(cfg, seed=0, device=device))
     bundle = kt.make_lm_train_step(model, adamw(), mesh,

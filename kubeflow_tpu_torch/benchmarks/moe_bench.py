@@ -8,7 +8,8 @@ The MoE flagship cell (``_cells.moe_train``: 8 layers, 8 experts top-2,
 expert hidden 2048, flash attention, gather dispatch, AdamW with bf16
 moments) at batch [4, 2048], through the chunked tied head or, with
 ``--fused-head``, the fused one. ``--dispatch a2a`` (expert parallelism)
-raises: it comes with slice 5c. Prints one JSON line with the reference's
+raises on one card, as the reference's does on one chip: the a2a dispatch
+needs a mesh with an expert axis. Prints one JSON line with the reference's
 keys, less ``vs_baseline``, plus the card's name and power limit:
 
     {"metric": "moe_train_tokens_per_sec_per_chip", "value": N, "unit":

@@ -8,10 +8,17 @@ plan, logits, losses and gradients:
 - capacity-based top-k routing in fp32 (the router matmul runs on fp32
   operands: keep TF32 off on the card), tokens over capacity dropped, their
   residual stream passing through;
-- two dispatch modes: ``gather`` (the row-gather kernel moves tokens into
-  expert slots and back, ``ops/moe_dispatch.py``) and ``einsum`` (one-hot
-  matmuls). ``a2a``, the expert-parallel path, comes with slice 5c (the
-  expert and tensor axes);
+- three dispatch modes: ``gather`` (the row-gather kernel moves tokens into
+  expert slots and back, ``ops/moe_dispatch.py``), ``einsum`` (one-hot
+  matmuls) and ``a2a``, the expert-parallel path: the gather dispatch on
+  the rank's rows, an all-to-all over ``cfg.mesh``'s ``expert`` group to the
+  ranks that hold each expert ([B, E, C, M] slots become [B·ep, E/ep, C, M]),
+  the local experts' FFN, and the all-to-all back before the gather
+  combine (``_expert_compute_a2a``);
+- under a tensor split the expert tables hold their rank's columns of the
+  hidden dim (``wi``) and rows of it (``wo``): the FFN's partials are
+  all-reduced over the tensor group the train step hands the module
+  (``tensor_group``), its input's gradient too;
 - expert matmuls in ``cfg.dtype`` from fp32 weights cast on every call, GELU
   in its tanh form (``nn.gelu``'s default), the combine summed in fp32.
 
@@ -27,6 +34,7 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
@@ -44,8 +52,8 @@ from kubeflow_tpu_torch.models.transformer import (
 )
 from kubeflow_tpu_torch.ops.fused_head_loss import fused_head_nll
 from kubeflow_tpu_torch.ops.moe_dispatch import gather_rows
-
-EXPERT_SLICE = "slice 5c of the PyTorch port (multi-GPU parallelism: the expert and tensor axes)"
+from kubeflow_tpu_torch.parallel import mesh as meshlib
+from kubeflow_tpu_torch.parallel.collectives import all_to_all, copy_to_group, reduce_from_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,12 +68,13 @@ class MoEConfig:
     capacity_factor: float = 1.25
     max_seq_len: int = 2048
     aux_loss_weight: float = 1e-2
-    dispatch: str = "einsum"            # einsum | gather (a2a: slice 5c)
+    dispatch: str = "einsum"            # einsum | gather | a2a
     attention_impl: str = "block"
     attention_block_size: int = 512
     remat: bool = False                 # torch.utils.checkpoint each block
     remat_policy: str = "full"          # full | dots | flash (as TransformerConfig)
     dtype: torch.dtype = torch.bfloat16
+    mesh: object = None                 # parallel/mesh.create_mesh's mesh; "a2a" needs it
 
     def attention_cfg(self) -> TransformerConfig:
         return TransformerConfig(
@@ -78,6 +87,7 @@ class MoEConfig:
             attention_impl=self.attention_impl,
             attention_block_size=self.attention_block_size,
             dtype=self.dtype,
+            mesh=self.mesh,
         )
 
     def capacity(self, seq_len: int) -> int:
@@ -239,16 +249,74 @@ def _gather_combine(out, plan: RoutingPlan, combine_idx):
     return y
 
 
+def _expert_ffn(x, wi, wo, layout: str, group=None):
+    """The experts' FFN on slots ``x`` in ``layout`` ("becm" or "ebcm"):
+    GELU (tanh form) of x·wi, then ·wo. Under a tensor split (``group``)
+    wi holds this rank's hidden columns and wo its rows: the partials are
+    summed over the group, and x's gradient is too."""
+    x = copy_to_group(x, group)
+    hidden = layout[:-1] + "h"
+    h = F.gelu(torch.einsum(f"{layout},emh->{hidden}", x, wi), approximate="tanh")
+    return reduce_from_group(torch.einsum(f"{hidden},ehm->{layout}", h, wo), group)
+
+
+def _to_experts(slots, ep: int):
+    """[B, E, C, M] slots -> [ep, B, E/ep, C, M]: chunk u holds the slots of
+    the experts rank u of the expert group holds (the all-to-all's input)."""
+    B, E, C, M = slots.shape
+    return slots.view(B, ep, E // ep, C, M).transpose(0, 1).contiguous()
+
+
+def _from_sources(received):
+    """The all-to-all's output [ep, B, E/ep, C, M] (chunk t from rank t) ->
+    the local experts' slots of the whole group's rows [ep·B, E/ep, C, M]."""
+    return received.flatten(0, 1)
+
+
+def _to_sources(out, ep: int):
+    """The local experts' output [ep·B, E/ep, C, M] -> [ep, B, E/ep, C, M]:
+    chunk t goes back to rank t."""
+    return out.unflatten(0, (ep, -1))
+
+
+def _from_experts(returned):
+    """The return all-to-all's output [ep, B, E/ep, C, M] (chunk u from
+    the rank holding expert group u) -> [B, E, C, M]."""
+    return returned.transpose(0, 1).flatten(1, 2)
+
+
+def _expert_compute_a2a(slots, wi, wo, expert_group, tensor_group=None):
+    """The expert-parallel segment: [B, E, C, M] slots of this rank's rows
+    to the ranks of the expert group that hold their experts, this rank's
+    E/ep experts on the group's rows, and back: [B, E, C, M]. ``wi`` and
+    ``wo`` are the rank's experts (E/ep of them; under a tensor split also
+    its part of the hidden dim)."""
+    ep = dist.get_world_size(expert_group)
+    E = slots.shape[1]
+    if wi.shape[0] * ep != E or wo.shape[0] * ep != E:
+        raise ValueError(f"dispatch='a2a' on {ep} expert ranks holds {E} // {ep} experts a "
+                         f"rank, got tables of {wi.shape[0]} and {wo.shape[0]}: split them over "
+                         "the expert axis (parallel/mesh.moe_param_spec)")
+    received = all_to_all(_to_experts(slots, ep), expert_group)
+    out = _expert_ffn(_from_sources(received), wi, wo, "becm", tensor_group)
+    return _from_experts(all_to_all(_to_sources(out, ep), expert_group))
+
+
 class MoEMLP(nn.Module):
     """Expert FFN: route -> dispatch -> expert matmuls -> combine. Returns
     (y in ``cfg.dtype``, aux_loss)."""
 
     def __init__(self, cfg: MoEConfig, device=None):
         super().__init__()
-        if cfg.dispatch == "a2a":
-            raise NotImplementedError(f"dispatch='a2a' comes with {EXPERT_SLICE}")
-        if cfg.dispatch not in ("einsum", "gather"):
+        if cfg.dispatch not in ("einsum", "gather", "a2a"):
             raise ValueError(f"unknown dispatch {cfg.dispatch!r}")
+        expert_mesh = cfg.mesh is not None and meshlib.axis_sizes(cfg.mesh)["expert"] > 1
+        if cfg.dispatch == "a2a" and not expert_mesh:
+            raise ValueError("dispatch='a2a' requires cfg.mesh with an expert axis > 1; use "
+                             "'gather' on single-device/data-parallel setups")
+        if cfg.dispatch == "gather" and expert_mesh:
+            raise ValueError("dispatch='gather' is the single-device/data-parallel path; use "
+                             "dispatch='a2a' on expert-parallel meshes")
         self.cfg = cfg
         M, E, H = cfg.embed_dim, cfg.num_experts, cfg.expert_hidden_dim
         f32 = dict(dtype=torch.float32, device=device)
@@ -260,6 +328,7 @@ class MoEMLP(nn.Module):
         # the process group of the ranks that shard the batch (set by the
         # train step under a mesh): the load-balance loss is the global batch's
         self.group = None
+        self.tensor_group = None     # set by the train step under a tensor split
 
     def route(self, x) -> RoutingPlan:
         """The routing plan of x [B, S, M]: fp32 router logits on fp32
@@ -283,16 +352,18 @@ class MoEMLP(nn.Module):
             dispatch = (combine > 0).to(cfg.dtype)
             combine = combine.to(cfg.dtype)
             expert_in = torch.einsum("bsec,bsm->ebcm", dispatch, x.to(cfg.dtype))
-            h = F.gelu(torch.einsum("ebcm,emh->ebch", expert_in, wi), approximate="tanh")
-            out = torch.einsum("ebch,ehm->ebcm", h, wo)
+            out = _expert_ffn(expert_in, wi, wo, "ebcm", self.tensor_group)
             y = torch.einsum("bsec,ebcm->bsm", combine, out)
         else:
             slot_token, combine_idx = slot_indices(plan, E, C, S)
             # [B, E, C, M] end to end: the kernel gathers straight into it
             # and the combine gathers straight out of it
             expert_in = _gather_dispatch(x, slot_token, E, C, cfg.dtype)
-            h = F.gelu(torch.einsum("becm,emh->bech", expert_in, wi), approximate="tanh")
-            out = torch.einsum("bech,ehm->becm", h, wo)
+            if cfg.dispatch == "gather":
+                out = _expert_ffn(expert_in, wi, wo, "becm", self.tensor_group)
+            else:
+                out = _expert_compute_a2a(expert_in, wi, wo, cfg.mesh.get_group("expert"),
+                                          self.tensor_group)
             y = _gather_combine(out, plan, combine_idx)
         return y.to(cfg.dtype), aux_loss
 

@@ -20,8 +20,18 @@ Numerics follow what the flax module computes, not its comments:
 - RMSNorm and rope compute in fp32 and cast back; the norm scales stay fp32.
 
 ``remat`` checkpoints each block (``torch.utils.checkpoint``) under the
-policy ``remat_policy`` names. The ``ring`` impl comes with slice 5b (ring
-attention).
+policy ``remat_policy`` names. The ``ring`` impl (``parallel/ring_attention.py``)
+runs over ``cfg.mesh``'s ``seq`` axis: the model then takes its rank's chunk
+of each row, and its rope positions start at the chunk's offset.
+
+Under a tensor split (the train steps' ``tensor`` axis, Megatron-style) an
+``Attention`` or ``MLP`` holds its rank's columns of q/k/v/gate/up and rows
+of o/down, and the step hands it the tensor group (``tensor_group``) while
+it runs: the block's input goes through ``copy_to_group`` (identity forward,
+gradient all-reduced backward) and its output through
+``reduce_from_group`` (the row-parallel partials all-reduced forward). The
+head counts come from the weights it holds, so the flash kernels run at
+H/tp heads.
 """
 from __future__ import annotations
 
@@ -36,8 +46,8 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from kubeflow_tpu_torch.ops import attention as att
 from kubeflow_tpu_torch.ops.flash_decode import flash_decode
 from kubeflow_tpu_torch.ops.pallas_attention import flash_attention
-
-RING_SLICE = "slice 5b of the PyTorch port (multi-GPU parallelism, parallel/ring_attention.py)"
+from kubeflow_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
+from kubeflow_tpu_torch.parallel.ring_attention import ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +60,7 @@ class TransformerConfig:
     mlp_dim: int = 3072
     max_seq_len: int = 2048
     rope_theta: float = 10_000.0
-    attention_impl: str = "block"        # xla | block | flash (ring: slice 5b)
+    attention_impl: str = "block"        # xla | block | flash | ring
     attention_block_size: int = 512
     attention_window: int | None = None  # sliding-window (local) attention
     decode_block_k: int = 256            # flash-decode cache tiling contract
@@ -58,6 +68,7 @@ class TransformerConfig:
     remat_policy: str = "full"           # full | dots | flash (resolve_remat_policy)
     decode: bool = False                 # KV-cache mode (prefill / decode)
     dtype: torch.dtype = torch.bfloat16
+    mesh: object = None                  # parallel/mesh.create_mesh's mesh; "ring" needs it
 
     @property
     def head_dim(self) -> int:
@@ -125,6 +136,14 @@ def apply_rope(x, cos, sin):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def seq_offset(cfg, S: int) -> int:
+    """The position of a row's first token on this rank: under the ring,
+    rank i of the ``seq`` axis holds positions i·S .. (i+1)·S - 1."""
+    if cfg.attention_impl != "ring" or cfg.mesh is None:
+        return 0
+    return cfg.mesh.get_local_rank("seq") * S
 
 
 def rope(x, positions, theta: float):
@@ -196,11 +215,15 @@ class Attention(nn.Module):
         self.k_proj = Dense(E, KV * D, cfg, device)
         self.v_proj = Dense(E, KV * D, cfg, device)
         self.o_proj = Dense(H * D, E, cfg, device)
+        self.tensor_group = None     # set by the train step under a tensor split
 
     def forward(self, x, rope_cs, start: int = 0, cache=None, pos=None):
         cfg = self.cfg
         B, S, E = x.shape
-        H, KV, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        D = cfg.head_dim
+        # this rank's heads: all of them, or H/tp and KV/tp under a tensor split
+        H, KV = self.q_proj.weight.shape[0] // D, self.k_proj.weight.shape[0] // D
+        x = copy_to_group(x, self.tensor_group)
         q = apply_rope(self.q_proj(x).view(B, S, H, D), *rope_cs)
         k = apply_rope(self.k_proj(x).view(B, S, KV, D), *rope_cs)
         v = self.v_proj(x).view(B, S, KV, D)
@@ -227,10 +250,13 @@ class Attention(nn.Module):
                 cfg.attention_block_size, cfg.attention_window,
             )
         elif cfg.attention_impl == "ring":
-            raise NotImplementedError(f"attention_impl='ring' comes with {RING_SLICE}")
+            if cfg.mesh is None:
+                raise ValueError("attention_impl='ring' requires cfg.mesh")
+            o = ring_attention(q, k, v, cfg.mesh, axis_name="seq", causal=True,
+                               block=cfg.attention_block_size)
         else:
             raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
-        return self.o_proj(o.reshape(B, S, H * D))
+        return reduce_from_group(self.o_proj(o.reshape(B, S, H * D)), self.tensor_group)
 
     def _cached_attention(self, q, k, v, start: int, cache, pos):
         """Attend q [B,S,H,D] against the layer's cache; new k/v are written
@@ -291,9 +317,12 @@ class MLP(nn.Module):
         self.gate_proj = Dense(cfg.embed_dim, cfg.mlp_dim, cfg, device)
         self.up_proj = Dense(cfg.embed_dim, cfg.mlp_dim, cfg, device)
         self.down_proj = Dense(cfg.mlp_dim, cfg.embed_dim, cfg, device)
+        self.tensor_group = None     # set by the train step under a tensor split
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        x = copy_to_group(x, self.tensor_group)
+        out = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return reduce_from_group(out, self.tensor_group)
 
 
 class Block(nn.Module):
@@ -354,6 +383,7 @@ class TransformerLM(nn.Module):
         if cfg.decode and cache is None:
             raise ValueError("decode mode needs a cache (TransformerLM.init_cache)")
         x = self.embed(tokens)
+        start = start + seq_offset(cfg, S)
         positions = torch.arange(start, start + S, device=tokens.device)
         rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         pos = torch.full((B,), start, dtype=torch.int32, device=tokens.device) if cfg.decode else None
@@ -409,7 +439,8 @@ class _LogitsF32(torch.autograd.Function):
         return dh, de
 
 
-def lm_loss_chunked(hidden, embedding, tokens, *, chunk: int = 512, compute_dtype=None):
+def lm_loss_chunked(hidden, embedding, tokens, *, chunk: int = 512, compute_dtype=None,
+                    start: int = 0):
     """Next-token cross entropy with the tied head folded in, chunked over
     the sequence so the [B, S, vocab] fp32 logits never exist at once.
 
@@ -420,16 +451,27 @@ def lm_loss_chunked(hidden, embedding, tokens, *, chunk: int = 512, compute_dtyp
     of keeping them (the JAX scan body is ``jax.checkpoint``-ed). Everything
     past the logits (logsumexp, gather, sums) is fp32. Same math as
     ``lm_loss(embed.attend(hidden), tokens)``.
+
+    ``start``: ``hidden`` holds positions ``start .. start+S-1`` of the rows
+    ``tokens`` [B, T] (a ``seq`` rank's span; 0 and T = S for whole rows).
+    The span's last position predicts the next span's first token, only the
+    row's last position has no target, and the sum is divided by the whole
+    rows' B·(T-1) targets: the spans' losses add up to the rows' loss.
     """
     B, S, E = hidden.shape
+    T = tokens.shape[1]
     compute_dtype = compute_dtype or torch.bfloat16
     c = min(chunk, S)
     if S % c:
         raise ValueError(f"chunk {c} must divide seq len {S}")
-    # predict token t+1 from position t; the final position has no target
-    tgt = torch.roll(tokens, -1, dims=1).long()
+    if start < 0 or start + S > T:
+        raise ValueError(f"positions {start} .. {start + S - 1} are outside rows of {T} tokens")
+    # predict token t+1 from position t; the row's final position has no target
+    tgt = torch.roll(tokens, -1, dims=1)[:, start:start + S].long()
     mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
-    mask[:, -1] = 0.0
+    if start + S == T:
+        mask[:, -1] = 0.0
+    count = torch.full((), float(B * (T - 1)), dtype=torch.float32, device=hidden.device)
 
     def body(h_c, emb, t_c, m_c):
         logits = _LogitsF32.apply(
@@ -440,11 +482,10 @@ def lm_loss_chunked(hidden, embedding, tokens, *, chunk: int = 512, compute_dtyp
         return ((logz - gold) * m_c).sum()
 
     nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for start in range(0, S, c):
-        part = (hidden[:, start:start + c], embedding,
-                tgt[:, start:start + c], mask[:, start:start + c])
+    for c0 in range(0, S, c):
+        part = (hidden[:, c0:c0 + c], embedding, tgt[:, c0:c0 + c], mask[:, c0:c0 + c])
         if torch.is_grad_enabled():
             nll_sum = nll_sum + checkpoint(body, *part, use_reentrant=False)
         else:
             nll_sum = nll_sum + body(*part)
-    return nll_sum / mask.sum()
+    return nll_sum / count

@@ -7,14 +7,14 @@ rules as the JAX module:
     stage    pipeline parallelism (slice 5d)
     data     pure data parallelism (batch split, gradients averaged)
     fsdp     data parallelism with ZeRO-3 parameter and optimizer sharding
-    seq      sequence parallelism (ring attention, slice 5b)
-    expert   expert parallelism (slice 5c)
-    tensor   tensor parallelism (slice 5c)
+    seq      sequence parallelism (ring attention, parallel/ring_attention.py)
+    expert   expert parallelism (the MoE a2a dispatch, models/moe.py)
+    tensor   tensor parallelism (Megatron column/row splits)
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
 the default process group, row-major over the plan (``tensor`` innermost),
 with one named dim for each axis. The train steps (``parallel/train.py``)
-run over the dcn, data and fsdp axes.
+run over every axis but ``stage``.
 
 The rules see each parameter as the JAX module does: by its flax path and
 its flax shape, and they return the JAX ``PartitionSpec``'s entries as a

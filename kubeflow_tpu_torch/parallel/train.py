@@ -8,25 +8,43 @@ donated state, so ``donate`` must stay True.
 ``mesh=None`` is one device: the state is ``{"opt_state", "step"}`` over the
 model's own parameters and ``TrainStepBundle.state_shardings`` is None.
 
-Under a mesh (``parallel/mesh.py``'s ``create_mesh``; its dcn, data and fsdp
-axes) every rank calls ``step`` with the same global batch, as the JAX step
-is called with the global array, and takes its shard of the rows over (dcn,
-data, fsdp), equal shards, so that the mean of the ranks' mean losses is the
-global mean. Parameters and optimizer slots are stored as the rule's
-legalised shards (ZeRO-3): ``state["params"]`` maps each parameter's name to
-this rank's shard, a parameter the rule replicates stays whole, and between
-steps the model holds only its replicated parameters (a sharded one is an
-empty tensor). Each step all-gathers the shards into the model for compute
-and reduce-scatters the gradients over fsdp (then sums them over the dcn and
-data replicas), divides by the batch ranks, and runs the optimizer, which is
-elementwise, on the shards. The loss (and accuracy) come back as the global
-batch's on every rank, as the JAX step returns them replicated. The batch
-statistics of train-mode BatchNorm and the MoE load-balance loss are the
-global batch's: while a step runs, the model's ``PallasBatchNorm`` and
-``MoEMLP`` modules hold the batch group and all-reduce their sums; the
-step clears it again, so the model is left as it was given.
-``bundle.gather`` returns whole tensors from a {name: shard} dict, e.g. the
-parameters for serving after training.
+Under a mesh (``parallel/mesh.py``'s ``create_mesh``; every axis but
+``stage``) every rank calls ``step`` with the same global batch, as the JAX
+step is called with the global array, and takes its part of it:
+
+- rows: equal shards over the batch axes (dcn, data, fsdp, expert; the
+  expert axis carries rows outside the MoE experts, as the JAX ``a2a``
+  path's batch rides it), so that the mean of the ranks' mean losses is the
+  global mean;
+- ``seq``: each row cut into equal spans over the seq axis; the model runs
+  ring attention over it (``attention_impl="ring"``, ``cfg.mesh`` the
+  step's mesh) and the chunked loss divides each span's sum by its whole
+  rows' target count, a span's last position predicting the next span's
+  first token;
+- ``tensor``: the same rows on every rank; the tensor-parallel layers
+  (``Attention``, ``MLP``, the MoE experts) hold their rank's columns and
+  rows and get the tensor group while the step runs.
+
+Parameters and optimizer slots are stored as the rule's legalised shards
+(ZeRO-3 over fsdp, Megatron over tensor, experts over expert):
+``state["params"]`` maps each parameter's name to this rank's shard, a
+parameter the rule replicates stays whole, and between steps the model
+holds only its replicated parameters (a split one is an empty tensor). Each
+step all-gathers the fsdp shards into the model for compute (a tensor or
+expert split stays the rank's own part), and reduces each gradient over the
+ranks whose data differ but whose part of the parameter is the same: the
+batch axes and seq, less expert for the expert tables (whose gradients
+already hold their expert group's rows) and never tensor (every tensor rank
+sees the same rows, and ``copy_to_group`` has summed what the split
+layers' inputs owe); fsdp by reduce-scatter. Then it divides by the number
+of row shards and runs the optimizer, which is elementwise, on the shards.
+The loss (and accuracy) come back as the global batch's on every rank, as
+the JAX step returns them replicated. The batch statistics of train-mode
+BatchNorm and the MoE load-balance loss are the global batch's: while a
+step runs, the model's ``PallasBatchNorm`` and ``MoEMLP`` modules hold the
+batch group and all-reduce their sums; the step clears it again, so the
+model is left as it was given. ``bundle.gather`` returns whole tensors from
+a {name: shard} dict, e.g. the parameters for serving after training.
 """
 from __future__ import annotations
 
@@ -39,7 +57,7 @@ import torch.nn.functional as F
 
 from kubeflow_tpu_torch.models.moe import MoEMLP
 from kubeflow_tpu_torch.models.resnet import BatchNorm, PallasBatchNorm
-from kubeflow_tpu_torch.models.transformer import lm_loss_chunked
+from kubeflow_tpu_torch.models.transformer import MLP, Attention, lm_loss_chunked
 from kubeflow_tpu_torch.ops.optimizers import GradientTransformation, apply_updates
 from kubeflow_tpu_torch.parallel import mesh as meshlib
 
@@ -55,11 +73,18 @@ class TrainStepBundle:
 
 
 # the mesh axes the steps do not split yet, and the slice that brings each
-_LATER_AXES = {"stage": "slice 5d (pipeline)", "seq": "slice 5b (ring attention)",
-               "expert": "slice 5c (expert and tensor axes)",
-               "tensor": "slice 5c (expert and tensor axes)"}
+_LATER_AXES = {"stage": "slice 5d (pipeline)"}
 # the modules that reduce over the batch under a mesh (their ``group``)
 _BATCH_REDUCERS = (PallasBatchNorm, MoEMLP)
+# the axes whose ranks hold different rows, and with seq those whose ranks
+# hold different tokens, in the mesh's order
+_ROW_AXES = ("dcn", "data", "fsdp", "expert")
+_TOKEN_AXES = ("dcn", "data", "fsdp", "seq", "expert")
+# the layers a tensor split runs on, and the parameters it splits in each
+_TENSOR_LAYERS = {Attention: ("q_proj.weight", "k_proj.weight", "v_proj.weight",
+                              "o_proj.weight"),
+                  MLP: ("gate_proj.weight", "up_proj.weight", "down_proj.weight"),
+                  MoEMLP: ("experts_wi", "experts_wo")}
 
 
 def _check_donate(donate):
@@ -69,126 +94,250 @@ def _check_donate(donate):
             "the optimizer state in place")
 
 
-class _Sharded:
-    """The rule's shards of a model's parameters over a mesh's batch axes,
-    and the collectives of a step: gather for compute, reduce the gradients
-    back to shards, average the metrics, cut the batch."""
+def _gather_dim(t, d, group, n):
+    """``t`` all-gathered over the ``n`` ranks of ``group`` along dim ``d``."""
+    out = t.new_empty((n * t.shape[0], *t.shape[1:]))
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out if d == 0 else torch.cat(out.view(n, *t.shape).unbind(0), dim=d)
 
-    def __init__(self, mesh, model, rule):
+
+class _Sharded:
+    """The rule's shards of a model's parameters over a mesh, and the
+    collectives of a step: gather for compute, reduce the gradients back to
+    shards, average the metrics, cut the batch.
+
+    ``seq_refusal``: None where the step cuts its rows over ``seq`` (the LM
+    step's own loss), else why it cannot."""
+
+    def __init__(self, mesh, model, rule, seq_refusal=None):
         sizes = meshlib.axis_sizes(mesh)
         for axis, later in _LATER_AXES.items():
             if sizes[axis] > 1:
                 raise NotImplementedError(
-                    f"the port's train steps split the dcn, data and fsdp axes; {axis}="
+                    f"the port's train steps split every mesh axis but stage; {axis}="
                     f"{sizes[axis]} comes with {later} (ROADMAP.md Queue 1)")
+        self.mesh, self.sizes = mesh, sizes
+        modules = dict(model.named_modules())
+        if sizes["seq"] > 1:
+            if any(isinstance(m, MoEMLP) for m in modules.values()):
+                raise NotImplementedError(
+                    f"an MoE model under seq={sizes['seq']}: its routing slots come from a "
+                    "cumsum over the whole row, which would cross the seq ranks (ROADMAP.md "
+                    "Queue 1)")
+            if seq_refusal is not None:
+                raise NotImplementedError(f"seq={sizes['seq']}: {seq_refusal}")
+            cfg = getattr(model, "cfg", None)
+            if getattr(cfg, "attention_impl", None) != "ring" or cfg.mesh is not mesh:
+                raise ValueError(
+                    f"seq={sizes['seq']} cuts each row into spans over the seq axis: the model "
+                    "must run attention_impl='ring' with cfg.mesh the step's mesh")
         self.names = [n for n, p in model.named_parameters() if p.requires_grad]
         self.params = dict(model.named_parameters())
         self.specs = {n: s for n, s in meshlib.param_shardings(mesh, model, rule).items()
                       if n in self.names}
-        self.n_fsdp = sizes["fsdp"]
-        self.n_batch = sizes["dcn"] * sizes["data"] * sizes["fsdp"]
-        # the dim a spec splits: an entry's other axes of size 1 split
+        # the axis that splits each dim: an entry's axes of size 1 split
         # nothing (a rule's tensor or expert entry on a mesh without those
-        # axes), and what is left names fsdp alone (the only batch axis that
-        # shards parameters; kept at size 1, where the step gathers and
-        # reduce-scatters over one rank) or nothing
-        self.dim = {}
+        # axes), and what is left names fsdp (kept at size 1, where the step
+        # gathers and reduce-scatters over one rank), tensor or expert
+        self.split = {}
         for n, spec in self.specs.items():
             split = {}
             for i, entry in enumerate(spec):
                 axes = tuple(a for a in (entry if isinstance(entry, tuple) else (entry,))
                              if a == "fsdp" or (a is not None and sizes[a] > 1))
+                if len(axes) > 1 or (axes and axes[0] not in ("fsdp", "tensor", "expert")):
+                    raise ValueError(f"{n}: spec {spec} splits dim {i} over {axes} on this mesh; "
+                                     "the steps split a dim over one of fsdp, tensor and expert")
                 if axes:
-                    split[i] = axes
-            if any(axes != ("fsdp",) for axes in split.values()) or len(split) > 1:
-                raise ValueError(f"{n}: spec {spec} splits over {tuple(split.values())} on this "
-                                 "mesh; the steps shard parameters over fsdp alone")
-            self.dim[n] = next(iter(split), None)
-        coord = mesh.get_coordinate()
-        c = dict(zip(mesh.mesh_dim_names, coord))
-        self.batch_index = (c["dcn"] * sizes["data"] + c["data"]) * sizes["fsdp"] + c["fsdp"]
-        self.fsdp_rank = c["fsdp"]
+                    split[i] = axes[0]
+            if len(set(split.values())) < len(split):
+                raise ValueError(f"{n}: spec {spec} splits two dims over one axis")
+            self.split[n] = split
+        self.fsdp_dim = {n: next((d for d, a in split.items() if a == "fsdp"), None)
+                         for n, split in self.split.items()}
+        self.tensor_layers = self._tensor_layers(modules)
+        self._check_experts(modules, mesh)
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        self.coord = coord
+        self.n_batch = 1
+        self.batch_index = 0
+        for a in _ROW_AXES:
+            self.n_batch *= sizes[a]
+            self.batch_index = self.batch_index * sizes[a] + coord[a]
+        self.n_seq, self.seq_index = sizes["seq"], coord["seq"]
+        self.fsdp_rank, self.n_fsdp = coord["fsdp"], sizes["fsdp"]
         self.fsdp = mesh.get_group("fsdp")
-        ranks = mesh.mesh.reshape(-1, sizes["fsdp"])        # rows: (dcn, data); columns: fsdp
-        self.batch = dist.new_group(ranks.flatten().tolist())
-        # the replicas of one fsdp shard: one group a column, made on every rank
-        replicas = [dist.new_group(ranks[:, f].tolist()) for f in range(sizes["fsdp"])]
-        self.replica = replicas[self.fsdp_rank]
-        self.reducers = [m for m in model.modules() if isinstance(m, _BATCH_REDUCERS)]
-        if self.n_batch > 1 and any(isinstance(m, BatchNorm) for m in model.modules()):
+        # every group a step reduces over, made on every rank in one order
+        self.groups = {}
+        for axes in sorted({self._reduce_axes(n) for n in self.names}
+                           | {_ROW_AXES, _TOKEN_AXES}):
+            self.groups[axes] = self._new_group(axes)
+        self.batch = self.groups[_ROW_AXES]
+        self.reducers = [m for m in modules.values() if isinstance(m, _BATCH_REDUCERS)]
+        if self.n_batch > 1 and any(isinstance(m, BatchNorm) for m in modules.values()):
             raise NotImplementedError(
                 "bn_impl='xla' normalises with its rank's statistics, where the reference "
                 "normalises with the global batch's; use bn_impl='pallas' or 'mxu' under a "
                 "mesh of more than one batch rank")
 
+    def _tensor_layers(self, modules):
+        """[(module, tensor group)] of the layers the rule splits over tensor;
+        a layer half split (some of its parameters split, some whole) is
+        refused with the shapes."""
+        out = []
+        for name, m in modules.items():
+            held = _TENSOR_LAYERS.get(type(m))
+            if held is None:
+                continue
+            held = [f"{name}.{p}" for p in held]
+            split = ["tensor" in self.split[p].values() for p in held]
+            if all(split):
+                out.append((m, self.mesh.get_group("tensor")))
+            elif any(split):
+                shapes = {p: (tuple(self.params[p].shape), self.specs[p]) for p in held}
+                raise ValueError(
+                    f"{name}: the rule splits {[p for p, x in zip(held, split) if x]} over "
+                    f"tensor={self.sizes['tensor']} and leaves "
+                    f"{[p for p, x in zip(held, split) if not x]} whole (shape, spec: {shapes}); "
+                    "a layer half split over tensor is not computed")
+        return out
+
+    def _check_experts(self, modules, mesh):
+        """Only the expert tables of an ``a2a`` MoE split over expert, both of
+        them, and the ``a2a`` dispatch holds its experts so."""
+        for n, split in self.split.items():
+            if "expert" in split.values() and n.rsplit(".", 1)[-1] not in ("experts_wi",
+                                                                            "experts_wo"):
+                raise ValueError(f"{n}: spec {self.specs[n]} splits it over expert; the steps "
+                                 "split only MoE expert tables over expert")
+        for name, m in modules.items():
+            if not isinstance(m, MoEMLP):
+                continue
+            tables = [f"{name}.experts_wi", f"{name}.experts_wo"]
+            split = ["expert" in self.split[t].values() for t in tables]
+            if any(split) and (not all(split) or m.cfg.dispatch != "a2a" or m.cfg.mesh is not mesh):
+                raise ValueError(
+                    f"{name}: the rule splits {[t for t, x in zip(tables, split) if x]} over "
+                    f"expert={self.sizes['expert']} (specs {[self.specs[t] for t in tables]}); "
+                    "expert-split tables run dispatch='a2a' with cfg.mesh the step's mesh, "
+                    "both tables split")
+            if m.cfg.dispatch == "a2a" and not all(split):
+                raise ValueError(
+                    f"{name}: dispatch='a2a' holds E/ep experts a rank, but the rule leaves "
+                    f"the tables whole over expert (specs {[self.specs[t] for t in tables]}); "
+                    "use parallel/mesh.moe_param_spec with num_experts a multiple of expert")
+
+    def _reduce_axes(self, name) -> tuple:
+        """The axes a gradient is summed over after its reduce-scatter over
+        fsdp (fsdp itself where the parameter has no fsdp dim): the rows'
+        axes and seq, less expert for an expert-split table; never tensor."""
+        split = set(self.split[name].values())
+        return tuple(a for a in _TOKEN_AXES if a not in split)
+
+    def _new_group(self, axes):
+        """The group of the ranks that differ only along ``axes`` and share
+        this rank's coordinates on the others (every rank makes every such
+        group, in the same order)."""
+        names = list(self.mesh.mesh_dim_names)
+        inner = [names.index(a) for a in axes]
+        outer = [i for i in range(len(names)) if i not in inner]
+        size = 1
+        for a in axes:
+            size *= self.sizes[a]
+        rows = self.mesh.mesh.permute(*outer, *inner).reshape(-1, size).tolist()
+        me = dist.get_rank()
+        mine = None
+        for row in rows:
+            group = dist.new_group(row)
+            if me in row:
+                mine = group
+        return mine
+
     def shard(self, name, full):
-        d = self.dim[name]
-        if d is None:
-            return full
-        # an allocation of its own: a view would keep the whole tensor alive
-        return full.chunk(self.n_fsdp, dim=d)[self.fsdp_rank].clone(
-            memory_format=torch.contiguous_format)
+        """This rank's part of the whole tensor ``full``, an allocation of its
+        own (a view would keep the whole tensor alive); ``full`` itself
+        where the rule replicates it."""
+        t = full
+        for d, axis in self.split[name].items():
+            t = t.chunk(self.sizes[axis], dim=d)[self.coord[axis]]
+        return full if t is full else t.clone(memory_format=torch.contiguous_format)
 
     def full(self, name, shard):
-        """The whole tensor of a sharded parameter's ``shard``, gathered."""
-        d = self.dim[name]
-        out = shard.new_empty((self.n_fsdp * shard.shape[0], *shard.shape[1:]))
-        dist.all_gather_into_tensor(out, shard.contiguous(), group=self.fsdp)
-        return out if d == 0 else torch.cat(out.view(self.n_fsdp, *shard.shape).unbind(0), dim=d)
+        """The compute tensor of a stored ``shard``: gathered over fsdp (its
+        tensor or expert split stays the rank's own part)."""
+        d = self.fsdp_dim[name]
+        return shard if d is None else _gather_dim(shard, d, self.fsdp, self.n_fsdp)
 
     def gather(self, shards: dict) -> dict:
         """Whole tensors from {name: shard} (a copy of a replicated one)."""
-        return {n: self.full(n, t) if self.dim[n] is not None else t.detach().clone()
-                for n, t in shards.items()}
+        out = {}
+        for n, t in shards.items():
+            t = self.full(n, t) if self.fsdp_dim[n] is not None else t.detach().clone()
+            for d, axis in self.split[n].items():
+                if axis != "fsdp":
+                    t = _gather_dim(t, d, self.mesh.get_group(axis), self.sizes[axis])
+            out[n] = t
+        return out
 
     def load(self, shards: dict) -> None:
-        """The model's sharded parameters gathered whole for compute, and the
-        batch group handed to the modules that reduce over the batch
-        (train-mode ``PallasBatchNorm`` statistics, the MoE load-balance
-        loss)."""
+        """The model's split parameters as this rank computes with them
+        (fsdp shards gathered), and the batch group and tensor groups handed
+        to the modules that use them (train-mode ``PallasBatchNorm``
+        statistics, the MoE load-balance loss; the tensor-parallel layers)."""
         for n, t in shards.items():
-            if self.dim[n] is not None:
+            if self.split[n]:
                 self.params[n].data = self.full(n, t)
         for m in self.reducers:
             m.group = self.batch
+        for m, group in self.tensor_layers:
+            m.tensor_group = group
 
     def release(self) -> None:
-        """Drop the model's whole copies of the sharded parameters and its
-        modules' batch group."""
+        """Drop the model's copies of the split parameters and its modules'
+        groups."""
         for n in self.names:
-            if self.dim[n] is not None:
+            if self.split[n]:
                 self.params[n].data = self.params[n].data.new_empty(0)
         for m in self.reducers:
             m.group = None
+        for m, _ in self.tensor_layers:
+            m.tensor_group = None
 
     def reduce(self, name, g):
-        """The gradient's mean over the batch ranks, as this rank's shard."""
-        d = self.dim[name]
+        """The gradient's mean over the row shards, as this rank's shard."""
+        d = self.fsdp_dim[name]
         g = g.contiguous()
-        if d is None:
-            dist.all_reduce(g, group=self.batch)
-            return g.div_(self.n_batch)
-        out = g.new_empty(g.chunk(self.n_fsdp, dim=d)[0].shape)
-        dist.reduce_scatter_tensor(out, torch.cat(g.chunk(self.n_fsdp, dim=d)) if d else g,
-                                    group=self.fsdp)
-        dist.all_reduce(out, group=self.replica)
-        return out.div_(self.n_batch)
+        if d is not None:
+            out = g.new_empty(g.chunk(self.n_fsdp, dim=d)[0].shape)
+            dist.reduce_scatter_tensor(out, torch.cat(g.chunk(self.n_fsdp, dim=d)) if d else g,
+                                        group=self.fsdp)
+            g = out
+        dist.all_reduce(g, group=self.groups[self._reduce_axes(name)])
+        return g.div_(self.n_batch)
 
     def mean(self, x):
-        """A metric's mean over the batch ranks (every rank gets it)."""
+        """A metric's mean over the row shards, its seq spans summed (every
+        rank gets it)."""
         x = x.detach().float().clone()
-        dist.all_reduce(x, group=self.batch)
+        dist.all_reduce(x, group=self.groups[_TOKEN_AXES])
         return x.div_(self.n_batch)
 
     def local(self, x):
         """This rank's rows of the global batch ``x``: equal shards over
-        (dcn, data, fsdp), in row-major order of the mesh."""
+        the row axes, in row-major order of the mesh."""
         B = x.shape[0]
         if B % self.n_batch:
+            axes = "dcn x data x fsdp" + (" x expert" if self.sizes["expert"] > 1 else "")
             raise ValueError(f"batch {B} must be divisible by the {self.n_batch} batch ranks "
-                             "(dcn x data x fsdp)")
+                             f"({axes})")
         n = B // self.n_batch
         return x[self.batch_index * n:(self.batch_index + 1) * n]
+
+    def span(self, S: int) -> int:
+        """The first position of this rank's span of a row of ``S`` tokens."""
+        if S % self.n_seq:
+            raise ValueError(f"seq len {S} must be divisible by the {self.n_seq} seq ranks")
+        return self.seq_index * (S // self.n_seq)
 
     def state(self, tx, model):
         """The initial sharded state from the model's whole parameters; the
@@ -223,14 +372,15 @@ def optimizer_state_shardings(opt_state, params, param_specs, repl=()):
     return walk(opt_state)
 
 
-def _bundle(model, tx, mesh, param_rule, step_fn) -> TrainStepBundle:
+def _bundle(model, tx, mesh, param_rule, step_fn, seq_refusal=None) -> TrainStepBundle:
     """The bundle of ``step_fn(state, batch, params, sharded)``: one device
-    for ``mesh=None``, else the rule's shards of the parameters."""
+    for ``mesh=None``, else the rule's shards of the parameters
+    (``seq_refusal``: why the step cannot cut rows over seq, or None)."""
     params = [p for p in model.parameters() if p.requires_grad]
     if mesh is None:
         return TrainStepBundle(init=lambda: {"opt_state": tx.init(params), "step": 0},
                                step=lambda state, batch: step_fn(state, batch, params, None))
-    sharded = _Sharded(mesh, model, param_rule)
+    sharded = _Sharded(mesh, model, param_rule, seq_refusal)
     bundle = TrainStepBundle(init=None, step=None, gather=sharded.gather)
 
     def init():
@@ -307,7 +457,8 @@ def make_classifier_train_step(
             loss, accuracy = sharded.mean(loss), sharded.mean(accuracy)
         return state, {"loss": loss.detach(), "accuracy": accuracy}
 
-    return _bundle(model, tx, mesh, param_rule, train_step)
+    return _bundle(model, tx, mesh, param_rule, train_step,
+                   seq_refusal="an image batch has no sequence axis to cut")
 
 
 def make_lm_train_step(
@@ -331,7 +482,10 @@ def make_lm_train_step(
     loss for ``TransformerLM``-shaped models: ``lm_loss_chunked(hidden,
     model.embed.weight, tokens, chunk=chunk, compute_dtype=loss_dtype)``;
     ``loss_dtype`` None is bf16 operands with fp32 accumulation, fp32 gives
-    parity with the unchunked loss.
+    parity with the unchunked loss. Under ``seq > 1`` the default loss runs
+    the model on the rank's span of each row and the loss on the span
+    (``lm_loss_chunked(..., start=)``); a ``loss_fn`` of the caller's is
+    refused there, as the step cannot know its targets.
 
     ``accum_steps > 1`` runs gradient accumulation: the batch (each rank's
     rows under a mesh) is split into A microbatches along dim 0, the MEAN
@@ -342,23 +496,31 @@ def make_lm_train_step(
     _check_donate(donate)
     module_params = [p for p in model.parameters() if p.requires_grad]
 
+    seq_refusal = None if loss_fn is None else (
+        "a loss_fn of the caller's: the step cannot cut its targets over the seq ranks")
     if loss_fn is None:
-        def loss_fn(model, tokens):
-            hidden = model(tokens, return_hidden=True)
+        def loss_fn(model, tokens, start=0, S=None):
+            """The loss of positions ``start .. start+S-1`` of the rows."""
+            S = tokens.shape[1] if S is None else S
+            hidden = model(tokens[:, start:start + S], return_hidden=True)
             return lm_loss_chunked(
                 hidden, model.embed.weight, tokens, chunk=chunk,
-                compute_dtype=loss_dtype,
+                compute_dtype=loss_dtype, start=start,
             )
-
-    def grads_of(tokens):
-        loss = loss_fn(model, tokens)
-        return loss.detach(), torch.autograd.grad(loss, module_params)
 
     def train_step(state, tokens, params, sharded):
         if accum_steps > 1 and tokens.shape[0] % accum_steps:
             raise ValueError(f"accum_steps {accum_steps} must divide batch {tokens.shape[0]}")
+        span = ()
         if sharded is not None:
             tokens = sharded.local(tokens)
+            if sharded.n_seq > 1:
+                span = (sharded.span(tokens.shape[1]), tokens.shape[1] // sharded.n_seq)
+
+        def grads_of(tokens):
+            loss = loss_fn(model, tokens, *span)
+            return loss.detach(), torch.autograd.grad(loss, module_params)
+
         with torch.enable_grad():
             if accum_steps == 1:
                 loss, grads = grads_of(tokens)
@@ -382,4 +544,4 @@ def make_lm_train_step(
             loss = sharded.mean(loss)
         return state, {"loss": loss}
 
-    return _bundle(model, tx, mesh, param_rule, train_step)
+    return _bundle(model, tx, mesh, param_rule, train_step, seq_refusal)

@@ -254,7 +254,7 @@ def test_init_matches_flax_scale():
 
 
 def test_unported_paths_and_bad_configs_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(ValueError, match="requires cfg.mesh with an expert axis"):
         kt.MoETransformerLM(kt.MoEConfig(**SMALL, dispatch="a2a"), device="cpu")
     with pytest.raises(ValueError, match="unknown dispatch"):
         kt.MoETransformerLM(kt.MoEConfig(**SMALL, dispatch="onehot"), device="cpu")

@@ -101,10 +101,11 @@ def test_seeded_init_matches_flax_scale():
 
 
 def test_training_slice_paths_raise():
-    """Only 'ring' still raises, naming the multi-GPU slice; the 'block' impl
-    and remat run."""
+    """'ring' without a mesh raises the reference's error (it runs over
+    cfg.mesh's seq axis: tests/test_torch_ring_attention.py); the 'block'
+    impl and remat run."""
     _, tcfg = configs(attention_impl="ring")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(ValueError, match="attention_impl='ring' requires cfg.mesh"):
         tt.TransformerLM(tcfg, device="cpu")(torch.zeros((1, 8), dtype=torch.long))
     tokens = torch.zeros((1, 8), dtype=torch.long)
     for kw in (dict(attention_impl="block"), dict(attention_impl="flash", remat=True)):
