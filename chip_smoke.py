@@ -153,11 +153,27 @@ Phases, each of which fails the run with a non-zero exit:
             summed) against the unsplit block: output, every gradient,
             flash launches;
 21. two ranks  the sharded train steps on tensor=2 and expert=2 (the a2a
-            dispatch's real all-to-alls) in two processes on the card joined
-            by gloo, at the flagship widths cut to 2 layers, fp32, against
-            the one-device step: losses, the global gradient norm, each
-            rank's launches;
-22. bench entries  each of ``kubeflow_tpu_torch/benchmarks/{transformer,
+            dispatch's real all-to-alls) and the pipeline on stage=2 (2
+            microbatches, the hand-overs by all_to_all_single) in two
+            processes on the card joined by gloo, at the flagship widths cut
+            to 2 layers, fp32, against the one-device step (the pipeline's:
+            unpipelined, the same full-logits loss): losses, the global
+            gradient norm, each rank's launches;
+22. pipeline  the dense training flagship through
+            ``make_pipeline_train_step`` walked over 4 virtual stages with 4
+            microbatches and over 2 with 2 (every stage in this process, the
+            same tick loop as on ranks), against the unpipelined
+            ``TransformerLM`` + ``lm_loss`` step on the same weights: the
+            first step's loss and gradient norm within the dense card-vs-CPU
+            bounds, flash launches a step 2·24·n_micro forward (the stage
+            steps run again in the backward) and 24·n_micro dq and dk/dv, a
+            falling loss, step ms, device busy ms, tok/s and peak memory of
+            both, and the bubble real ranks would add (arithmetic);
+23. dry run  ``python -m kubeflow_tpu_torch.graft_entry 1``: the reference
+            dry run's sections at one rank on the card (nccl), the ResNet
+            parity with one device included, then ``entry()``'s ResNet-50
+            forward;
+24. bench entries  each of ``kubeflow_tpu_torch/benchmarks/{transformer,
             moe,decode,resnet}_bench.py`` once, in a subprocess, with few
             windows: its line's metric, a positive value, this card's name
             and power limit.
@@ -3311,26 +3327,57 @@ def phase_tensor_walk(torch):
 # reduction moves the loss or the gradient norm by a sizeable fraction
 TWO_RANK_LAYERS = 2
 TWO_RANK_LOSS_ATOL, TWO_RANK_GNORM_RTOL = MOE_FUSED_F32_LOSS_ATOL, MOE_FUSED_F32_GNORM_RTOL
-TWO_RANK_CASES = (("dense_tensor2", "dense", dict(tensor=2)), ("moe_expert2", "moe", dict(expert=2)))
+# (name, kind, plan): "pipeline" is make_pipeline_train_step at 2 microbatches,
+# held to the unpipelined full-logits step ("dense_logits" on one device)
+TWO_RANK_CASES = (("dense_tensor2", "dense", dict(tensor=2)), ("moe_expert2", "moe", dict(expert=2)),
+                  ("dense_stage2", "pipeline", dict(stage=2)))
+TWO_RANK_MICRO = 2
 
 
 def _two_rank_step(torch, kind, plan, mesh):
     """One SGD step of the dense or MoE cell at TWO_RANK_LAYERS layers in fp32 (on a
     mesh: the a2a dispatch where the plan splits expert, the tensor or MoE
-    rule): {"loss", the squares of the
-    gradients the optimizer got, summed apart for the parameters split over
-    tensor or expert ("split_sq") and the others ("repl_sq"), "launches"}."""
+    rule; "pipeline": the pipelined dense step, "dense_logits" its
+    unpipelined reference, both with the full-logits loss): {"loss", the
+    squares of the gradients the optimizer got, summed apart for the
+    parameters split over tensor, expert or stage ("split_sq") and the
+    others ("repl_sq"), "launches"}."""
     import kubeflow_tpu_torch as kt
     from kubeflow_tpu_torch.ops import moe_dispatch as md
     from kubeflow_tpu_torch.ops import optimizers as opt
     from kubeflow_tpu_torch.parallel import mesh as tmesh
 
     a2a = mesh is not None and plan.get("expert", 1) > 1
-    if kind == "dense":
+    counters = dict(_flash_counters(), moe_gather=md.gather, moe_scatter=md.scatter)
+    if kind == "pipeline":
+        cfg = kt.TransformerConfig(**dict(TRAIN, num_layers=TWO_RANK_LAYERS), dtype=torch.float32)
+        got = []
+        sgd = opt.sgd(1e-3)
+
+        def update(grads, state, params):
+            got.extend(grads)
+            return sgd.update(grads, state, params)
+
+        init, step = kt.make_pipeline_train_step(cfg, mesh, opt.GradientTransformation(
+            sgd.init, update), num_microbatches=TWO_RANK_MICRO)
+        params, opt_state = init(0, device="cuda")
+        tokens = cells._tokens(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+        for fn in counters.values():
+            fn.launches = 0
+        loss = step(params, opt_state, tokens)[2].item()
+        out = dict(loss=loss, split_sq=0.0, repl_sq=0.0,
+                   launches={k: fn.launches for k, fn in counters.items()})
+        for (n, _), g in zip(params.named_parameters(), got):
+            out["split_sq" if n.startswith("stages.") else "repl_sq"] += g.float().pow(2).sum().item()
+        return out
+    if kind in ("dense", "dense_logits"):
         cfg = kt.TransformerConfig(**dict(TRAIN, num_layers=TWO_RANK_LAYERS), dtype=torch.float32)
         model = kt.TransformerLM(cfg, device="cuda")
         model.load_state_dict(kt.init_state_dict(cfg, seed=0, device="cuda"))
         loss_fn, rule, batch, seq = None, tmesh.tensor_param_spec, TRAIN_BATCH, TRAIN_SEQ
+        if kind == "dense_logits":
+            def loss_fn(model, tokens):
+                return kt.lm_loss(model(tokens), tokens)
     else:
         cfg = kt.MoEConfig(**dict(MOE, num_layers=TWO_RANK_LAYERS,
                                   dispatch="a2a" if a2a else "gather"),
@@ -3348,7 +3395,6 @@ def _two_rank_step(torch, kind, plan, mesh):
     bundle = kt.make_lm_train_step(model, opt.GradientTransformation(sgd.init, update), mesh,
                                    param_rule=rule, loss_fn=loss_fn, chunk=TRAIN_CHUNK)
     tokens = cells._tokens(cfg.vocab_size, batch, seq, "cuda")
-    counters = dict(_flash_counters(), moe_gather=md.gather, moe_scatter=md.scatter)
     state = bundle.init()
     for fn in counters.values():
         fn.launches = 0
@@ -3389,16 +3435,19 @@ def two_rank_main(rank: int, folder: str) -> None:
 
 def phase_two_ranks(torch, np):
     """The sharded train steps on tensor=2 (Megatron, flash at 4 heads a
-    rank) and expert=2 (the a2a dispatch: two real all-to-alls a layer) in
-    two ranks, two processes on the one card joined by gloo, in fp32
-    against the one-device step on the same weights:
-    the loss on both ranks and the global gradient norm within
-    ``TWO_RANK_LOSS_ATOL`` / ``TWO_RANK_GNORM_RTOL``, and each rank's
-    launches."""
+    rank) and expert=2 (the a2a dispatch: two real all-to-alls a layer), and
+    the pipeline on stage=2 (2 microbatches, the activations and their
+    gradients handed over by all_to_all_single), in two ranks, two
+    processes on the one card joined by gloo, in fp32 against the
+    one-device step on the same weights (the pipeline's: unpipelined, the
+    same full-logits loss): the loss on both ranks and the global gradient
+    norm within ``TWO_RANK_LOSS_ATOL`` / ``TWO_RANK_GNORM_RTOL``, and each
+    rank's launches."""
     import tempfile
 
     L = TWO_RANK_LAYERS
-    ref = {kind: _two_rank_step(torch, kind, {}, None) for kind in ("dense", "moe")}
+    refs = {"dense": "dense", "moe": "moe", "pipeline": "dense_logits"}
+    ref = {kind: _two_rank_step(torch, refs[kind], {}, None) for kind in refs}
     torch.cuda.empty_cache()
     root = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory() as folder:
@@ -3429,6 +3478,10 @@ def phase_two_ranks(torch, np):
         loss_atol, gnorm_rtol = TWO_RANK_LOSS_ATOL, TWO_RANK_GNORM_RTOL
         expect = [dict({k: L for k in flash}, moe_gather=3 * L if kind == "moe" else 0,
                        moe_scatter=3 * L if kind == "moe" else 0) for _ in range(2)]
+        if kind == "pipeline":      # a rank's L/2 blocks, each microbatch, forward twice (remat)
+            per = L // 2 * TWO_RANK_MICRO
+            expect = [dict(flash_attention_fwd=2 * per, flash_attention_bwd_dq=per,
+                           flash_attention_bwd_dkv=per, moe_gather=0, moe_scatter=0)] * 2
         log(f"[two ranks] {name} ({kind} flagship width, {L} layers, fp32, two processes on one "
             f"card, gloo): loss {a['loss']:.5f} / {b['loss']:.5f} vs one device {want['loss']:.5f} "
             f"(|diff| {d_loss:.2e}, atol {loss_atol}); grad norm {norm:.5f} vs {norm_ref:.5f} "
@@ -3442,6 +3495,160 @@ def phase_two_ranks(torch, np):
                          grad_norm_ref=norm_ref, launches=[a["launches"], b["launches"]],
                          transport="gloo, two processes on one card")
     return out
+
+
+# the pipeline (parallel/pipeline.py) walked on the one card: the dense training
+# flagship through make_pipeline_train_step with a MeshPlan of n virtual
+# stages (every stage in this process, the same tick loop as on ranks), at
+# (n_stages, num_microbatches); its first step held to the unpipelined
+# full-logits step's on the same weights within the dense card-vs-CPU bounds
+PIPE_SETTINGS = ((4, 4), (2, 2))
+PIPE_STEPS = 4
+
+
+def _pipe_run(torch, np, tag, build, counters, per_step, tokens):
+    """``build(tx) -> step()`` (one train step returning its loss): a first
+    step with the launch counters set to 0 just before and read just after
+    and the gradient norm it hands the optimizer, then ``PIPE_STEPS`` timed
+    steps (peak memory over them) and one profiled step."""
+    from kubeflow_tpu_torch.ops import optimizers as opt
+
+    adamw, norms = cells.adamw(), []
+
+    def update(grads, state, params):
+        if not norms:
+            norms.append(torch.sqrt(sum(g.float().pow(2).sum() for g in grads)).item())
+        return adamw.update(grads, state, params)
+
+    step = build(opt.GradientTransformation(adamw.init, update))
+    for fn in counters.values():
+        fn.launches = 0
+    losses = [step().item()]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches != per_step:
+        raise AssertionError(f"[pipeline] {tag}: launches {launches} != {per_step}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(PIPE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    busy = _profile(torch, step, reps=1)[0]
+    med = float(np.median(ms))
+    return dict(losses=losses, grad_norm=norms[0], launches=launches, step_ms=ms,
+                step_ms_median=med, tok_s=tokens.numel() / (med / 1e3), device_busy_ms=busy,
+                peak_memory_gb=peak)
+
+
+def phase_pipeline(torch, np):
+    """The dense training flagship (24 layers, E 1024, 8 heads, MLP 4096,
+    flash block 1024, bf16, tokens [4, 2048], ``_cells.adamw()``) through
+    ``make_pipeline_train_step`` walked over ``PIPE_SETTINGS``' virtual
+    stages, against the unpipelined ``TransformerLM`` + ``lm_loss`` step on
+    the same weights (seed 0) timed in the same call: the first step's loss
+    and gradient norm within ``TRAIN_LOSS_ATOL`` / ``TRAIN_GNORM_RTOL``,
+    flash launches a step 2·L·n_micro forward (each stage step runs again in
+    its backward) and L·n_micro dq and dk/dv, a falling loss, step ms,
+    device busy ms of one profiled step, tok/s, peak GB. The bubble real
+    ranks would add, (n_stages − 1) / (n_micro + n_stages − 1) of the
+    ticks, is arithmetic here: one card runs the stages one after another."""
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.parallel import mesh as tmesh
+
+    cfg = kt.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    tokens = cells._tokens(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    counters, L = _flash_counters(), cfg.num_layers
+
+    def unpipelined(tx):
+        model = kt.TransformerLM(cfg, device="cuda")
+        model.load_state_dict(kt.init_state_dict(cfg, seed=0, device="cuda"))
+        bundle = kt.make_lm_train_step(model, tx, loss_fn=lambda m, t: kt.lm_loss(m(t), t))
+        state = bundle.init()
+        return lambda: bundle.step(state, tokens)[1]["loss"]
+
+    def pipelined(n_stages, n_micro):
+        def build(tx):
+            init, step = kt.make_pipeline_train_step(cfg, tmesh.MeshPlan(stage=n_stages), tx,
+                                                     num_microbatches=n_micro)
+            params, opt_state = init(0, device="cuda")
+            return lambda: step(params, opt_state, tokens)[2]
+        return build
+
+    ref = _pipe_run(torch, np, "unpipelined", unpipelined, counters, {k: L for k in counters},
+                    tokens)
+    torch.cuda.empty_cache()
+    log(f"[pipeline] unpipelined TransformerLM + lm_loss (full logits), dense flagship, bf16, "
+        f"[4, 2048]: first loss {ref['losses'][0]:.5f}, grad norm {ref['grad_norm']:.5f}; step "
+        f"{ref['step_ms_median']:.2f} ms median of {[round(x, 2) for x in ref['step_ms']]}, "
+        f"{ref['tok_s']:.1f} tok/s, device busy {ref['device_busy_ms']:.2f} ms, peak "
+        f"{ref['peak_memory_gb']:.2f} GB; {card()}")
+    out = {"unpipelined": ref}
+    for n_stages, n_micro in PIPE_SETTINGS:
+        per = L * n_micro
+        got = _pipe_run(torch, np, f"{n_stages}x{n_micro}", pipelined(n_stages, n_micro),
+                        counters, {"flash_attention_fwd": 2 * per, "flash_attention_bwd_dq": per,
+                                   "flash_attention_bwd_dkv": per}, tokens)
+        torch.cuda.empty_cache()
+        d_loss = abs(got["losses"][0] - ref["losses"][0])
+        d_norm = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        bubble = (n_stages - 1) / (n_micro + n_stages - 1)
+        log(f"[pipeline] {n_stages} stages x {n_micro} microbatches (walked, one card): first "
+            f"loss {got['losses'][0]:.5f} (|diff| {d_loss:.2e}, atol {TRAIN_LOSS_ATOL}); grad "
+            f"norm {got['grad_norm']:.5f} (rel diff {d_norm:.2e}, rtol {TRAIN_GNORM_RTOL}); "
+            f"flash launches a step {got['launches']}; losses "
+            f"{[round(x, 4) for x in got['losses']]}; step {got['step_ms_median']:.2f} ms median "
+            f"of {[round(x, 2) for x in got['step_ms']]} ({got['step_ms_median'] / ref['step_ms_median']:.3f}x "
+            f"unpipelined), {got['tok_s']:.1f} tok/s, device busy {got['device_busy_ms']:.2f} ms "
+            f"({got['device_busy_ms'] / ref['device_busy_ms']:.3f}x), peak "
+            f"{got['peak_memory_gb']:.2f} GB; bubble on real ranks {bubble:.4f} of the ticks "
+            f"(arithmetic)")
+        if (not np.isfinite(got["losses"]).all() or d_loss > TRAIN_LOSS_ATOL
+                or d_norm > TRAIN_GNORM_RTOL or not got["losses"][-1] < got["losses"][0]):
+            raise AssertionError(f"the {n_stages}x{n_micro} pipeline disagrees with the "
+                                 f"unpipelined step: {got}")
+        out[f"{n_stages}x{n_micro}"] = dict(got, loss_abs_diff=d_loss, grad_norm_rel_diff=d_norm,
+                                            bubble=bubble)
+    return out
+
+
+# the dry run's sections at a world of one (__graft_entry__.py's plans for one device)
+DRYRUN_ONE = ("resnet dp=1 fsdp=1: loss=", "parity dp=1 fsdp=1 vs 1-device: loss ",
+              "transformer fsdp=1 tensor=1 seq=1 (block attention): loss=",
+              "moe data=1 expert=1 tensor=1: loss=")
+
+
+def phase_dryrun(torch):
+    """``python -m kubeflow_tpu_torch.graft_entry 1`` (the dry run's
+    sections on one card, nccl, one rank process) in a subprocess: every
+    section's line, parity included; then ``entry()``'s ResNet-50 forward on
+    its example input."""
+    from kubeflow_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "kubeflow_tpu_torch.graft_entry", "1"],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = [x for x in proc.stdout.splitlines() if x.startswith("[dryrun] ")]
+    for x in lines:
+        log(x)
+    if proc.returncode or len(lines) != len(DRYRUN_ONE) or not all(
+            x[len("[dryrun] "):].startswith(w) for x, w in zip(lines, DRYRUN_ONE)):
+        raise AssertionError(f"the dry run at one rank failed ({proc.returncode}): "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    fn, args = graft_entry.entry()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    log(f"[dryrun] one card, {seconds:.1f} s; entry(): ResNet-50 forward on [8, 224, 224, 3] "
+        f"bf16 ones: logits {tuple(logits.shape)} {logits.dtype}, finite "
+        f"{bool(torch.isfinite(logits).all())}")
+    if logits.shape != (8, 1000) or not torch.isfinite(logits).all():
+        raise AssertionError("entry()'s forward gave wrong logits")
+    return dict(lines=lines, seconds=seconds)
 
 
 # each entry point once with few windows: (module, windows, metric)
@@ -3534,6 +3741,10 @@ def main() -> int:
     report["tensor_walk"] = phase_tensor_walk(torch)
     torch.cuda.empty_cache()
     report["two_ranks"] = phase_two_ranks(torch, np)
+    torch.cuda.empty_cache()
+    report["pipeline"] = phase_pipeline(torch, np)
+    torch.cuda.empty_cache()
+    report["dryrun"] = phase_dryrun(torch)
     torch.cuda.empty_cache()
     report["bench_entries"] = phase_bench_entries(torch, smi)
     probes = {"launches": {"bn_moments_scaled": scaled_launches,

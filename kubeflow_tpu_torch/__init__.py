@@ -14,9 +14,10 @@ backward, and the fused head's forward, dh and dE; and ResNet-50 training
 (``models/resnet.py`` through ``make_classifier_train_step``) with kernels
 for the BatchNorm moments and gradient sums (``ops/bn_pallas.py``). The two
 kernel probes and the bench entry points are under ``benchmarks/``; meshes,
-sharding rules, the distributed bootstrap and ring attention under
-``parallel/``, where the train steps also run sharded over the dcn, data,
-fsdp, seq (ring attention), expert (the MoE a2a dispatch) and tensor axes.
+sharding rules, the distributed bootstrap, ring attention and the GPipe
+pipeline over the stage axis under ``parallel/``, where the train steps also
+run sharded over the dcn, data, fsdp, seq (ring attention), expert (the MoE
+a2a or einsum dispatch), tensor and stage axes.
 Entry points
 run on the card unless the caller passes ``device="cpu"``; on CPU tensors
 each kernel wrapper runs its plain PyTorch version.
@@ -26,6 +27,8 @@ from kubeflow_tpu_torch.interop import (
     moe_init_state_dict,
     moe_params_from_flax,
     params_from_flax,
+    pipeline_params_from_flax,
+    pipeline_to_lm_state_dict,
     resnet_init_state_dict,
     resnet_params_from_flax,
 )
@@ -62,6 +65,14 @@ from kubeflow_tpu_torch.models.transformer import (
 from kubeflow_tpu_torch.ops.bn_pallas import batch_norm_train, bn_grad_sums, channel_moments
 from kubeflow_tpu_torch.ops.fused_head_loss import fused_head_nll, fused_lse_gold
 from kubeflow_tpu_torch.ops.optimizers import adamw_lowmem, sgd, with_f32_master
+from kubeflow_tpu_torch.parallel.pipeline import (
+    PipelineLM,
+    PipelineStage,
+    init_pipeline_lm,
+    make_pipeline_train_step,
+    pipeline_forward,
+    pipeline_value_and_grad,
+)
 from kubeflow_tpu_torch.parallel.train import (
     TrainStepBundle,
     cross_entropy_loss,
@@ -73,6 +84,8 @@ __all__ = [
     "MoEConfig",
     "MoETransformerLM",
     "PallasBatchNorm",
+    "PipelineLM",
+    "PipelineStage",
     "ResNet",
     "ResNet18",
     "ResNet50",
@@ -93,17 +106,23 @@ __all__ = [
     "fused_head_nll",
     "fused_lse_gold",
     "generate",
+    "init_pipeline_lm",
     "init_state_dict",
     "lm_loss",
     "lm_loss_chunked",
     "make_classifier_train_step",
     "make_lm_train_step",
+    "make_pipeline_train_step",
     "moe_init_state_dict",
     "moe_lm_loss",
     "moe_lm_loss_chunked",
     "moe_lm_loss_fused",
     "moe_params_from_flax",
     "params_from_flax",
+    "pipeline_forward",
+    "pipeline_params_from_flax",
+    "pipeline_to_lm_state_dict",
+    "pipeline_value_and_grad",
     "prefill",
     "resnet_init_state_dict",
     "resnet_params_from_flax",

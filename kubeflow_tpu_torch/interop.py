@@ -4,7 +4,10 @@
 ``kubeflow_tpu.models.transformer.TransformerLM`` (as numpy arrays; no JAX
 import here) onto this package's ``TransformerLM`` state dict, and
 ``moe_params_from_flax`` that of ``kubeflow_tpu.models.moe.MoETransformerLM``
-onto ``MoETransformerLM``'s, and ``resnet_params_from_flax`` the variables
+onto ``MoETransformerLM``'s, ``pipeline_params_from_flax`` the stage-stacked
+params of ``kubeflow_tpu.parallel.pipeline`` onto ``parallel/pipeline.py``'s
+(and ``pipeline_to_lm_state_dict`` those onto the unpipelined
+``TransformerLM``'s), and ``resnet_params_from_flax`` the variables
 (params and batch statistics) of ``kubeflow_tpu.models.resnet.ResNet`` onto
 ``ResNet``'s. ``init_state_dict``, ``moe_init_state_dict`` and
 ``resnet_init_state_dict`` draw fresh weights at the scale of flax's default
@@ -61,14 +64,59 @@ def params_from_flax(params) -> dict[str, torch.Tensor]:
     }
     n_layers = sum(1 for name in params if name.startswith("layer_"))
     for i in range(n_layers):
-        layer = params[f"layer_{i}"]
-        pre = f"layers.{i}."
-        for norm in ("attn_norm", "mlp_norm"):
-            sd[pre + f"{norm}.weight"] = _t(layer[norm]["scale"])
-        sd.update(_attention_from_flax(layer["attn"], pre + "attn."))
-        for proj in ("gate_proj", "up_proj", "down_proj"):
-            sd[pre + f"mlp.{proj}.weight"] = _t(layer["mlp"][proj]["kernel"]).T.contiguous()
+        sd.update(_block_from_flax(params[f"layer_{i}"], f"layers.{i}."))
     return sd
+
+
+def _block_from_flax(layer, pre: str) -> dict[str, torch.Tensor]:
+    """One flax ``Block``'s params -> the port ``Block``'s, under ``pre``."""
+    sd = {pre + f"{norm}.weight": _t(layer[norm]["scale"]) for norm in ("attn_norm", "mlp_norm")}
+    sd.update(_attention_from_flax(layer["attn"], pre + "attn."))
+    for proj in ("gate_proj", "up_proj", "down_proj"):
+        sd[pre + f"mlp.{proj}.weight"] = _t(layer["mlp"][proj]["kernel"]).T.contiguous()
+    return sd
+
+
+def pipeline_params_from_flax(params) -> dict[str, torch.Tensor]:
+    """The reference pipeline's params ``{"embed", "stages", "final_norm"}``
+    (``kubeflow_tpu.parallel.pipeline.init_pipeline_lm``; ``stages`` holds
+    ``block_{i}`` trees stacked on a leading stage dim) -> the state dict of
+    the whole pipeline under ``parallel/pipeline.PipelineLM``'s names:
+    ``embed.weight``, ``stages.{s}.blocks.{i}.<Block's>``,
+    ``final_norm.weight`` (each process loads its part with
+    ``load_pipeline_state_dict``)."""
+    sd = {
+        "embed.weight": _t(params["embed"]["embedding"]),
+        "final_norm.weight": _t(params["final_norm"]["scale"]),
+    }
+    stages = params["stages"]
+    n_stages = len(np.asarray(stages["block_0"]["attn_norm"]["scale"]))
+    for s in range(n_stages):
+        for i in range(len(stages)):
+            layer = _tree_index(stages[f"block_{i}"], s)
+            sd.update(_block_from_flax(layer, f"stages.{s}.blocks.{i}."))
+    return sd
+
+
+def _tree_index(tree, i: int):
+    """Every leaf of a nested dict of arrays at index ``i`` of its dim 0."""
+    if hasattr(tree, "items"):
+        return {k: _tree_index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def pipeline_to_lm_state_dict(sd: dict) -> dict[str, torch.Tensor]:
+    """A whole pipeline's state dict (``pipeline_params_from_flax``'s names)
+    as the ``TransformerLM`` state dict of the same blocks applied in order,
+    unpipelined: block i of stage s is layer s·nb + i (nb blocks a stage)."""
+    nb = 1 + max(int(k.split(".")[3]) for k in sd if k.startswith("stages."))
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("stages."):
+            _, s, _, i, rest = k.split(".", 4)
+            k = f"layers.{int(s) * nb + int(i)}.{rest}"
+        out[k] = v
+    return out
 
 
 def init_state_dict(cfg: TransformerConfig, seed: int = 0, device=None) -> dict[str, torch.Tensor]:

@@ -19,6 +19,13 @@ plan, logits, losses and gradients:
   hidden dim (``wi``) and rows of it (``wo``): the FFN's partials are
   all-reduced over the tensor group the train step hands the module
   (``tensor_group``), its input's gradient too;
+- ``einsum`` with the tables split over the expert axis (the JAX default
+  dispatch on an expert mesh): the train step hands the module its expert
+  group (``expert_group``); every rank of it routes the same rows and runs
+  the slots of the E/ep experts it holds, x enters that segment through
+  ``copy_to_group`` and y leaves through ``reduce_from_group``, and the
+  gates' gradient is summed over the group (each choice's expert lives on
+  one rank), so the router and x get the whole gradient on every rank;
 - expert matmuls in ``cfg.dtype`` from fp32 weights cast on every call, GELU
   in its tanh form (``nn.gelu``'s default), the combine summed in fp32.
 
@@ -329,6 +336,7 @@ class MoEMLP(nn.Module):
         # train step under a mesh): the load-balance loss is the global batch's
         self.group = None
         self.tensor_group = None     # set by the train step under a tensor split
+        self.expert_group = None     # set by the train step: einsum, tables split over expert
 
     def route(self, x) -> RoutingPlan:
         """The routing plan of x [B, S, M]: fp32 router logits on fp32
@@ -348,12 +356,19 @@ class MoEMLP(nn.Module):
         wo = self.experts_wo.to(cfg.dtype)
 
         if cfg.dispatch == "einsum":
+            group, x_in = self.expert_group, x
+            if group is not None:
+                plan.gates = copy_to_group(plan.gates, group)
             combine = _dense_combine(plan, E, C)
+            if group is not None:
+                first = dist.get_rank(group) * wi.shape[0]
+                combine = combine[:, :, first:first + wi.shape[0]]
+                x_in = copy_to_group(x, group)
             dispatch = (combine > 0).to(cfg.dtype)
             combine = combine.to(cfg.dtype)
-            expert_in = torch.einsum("bsec,bsm->ebcm", dispatch, x.to(cfg.dtype))
+            expert_in = torch.einsum("bsec,bsm->ebcm", dispatch, x_in.to(cfg.dtype))
             out = _expert_ffn(expert_in, wi, wo, "ebcm", self.tensor_group)
-            y = torch.einsum("bsec,ebcm->bsm", combine, out)
+            y = reduce_from_group(torch.einsum("bsec,ebcm->bsm", combine, out), group)
         else:
             slot_token, combine_idx = slot_indices(plan, E, C, S)
             # [B, E, C, M] end to end: the kernel gathers straight into it

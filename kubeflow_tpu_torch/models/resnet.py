@@ -31,11 +31,13 @@ from functools import partial
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.models.transformer import resolve_device
 from kubeflow_tpu_torch.ops.bn_pallas import batch_norm_train
+from kubeflow_tpu_torch.parallel.collectives import sum_over_group
 
 
 def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -110,7 +112,18 @@ class _BatchNormBase(nn.Module):
 
 class BatchNorm(_BatchNormBase):
     """flax ``nn.BatchNorm`` (``bn_impl='xla'``) in plain tensor ops; the
-    gradient flows through the batch statistics by autograd, as in flax."""
+    gradient flows through the batch statistics by autograd, as in flax.
+
+    ``group`` (set by the train step under a mesh, as ``PallasBatchNorm``'s
+    is): the process group over which the batch is sharded in equal shards.
+    Train-mode statistics are then the global batch's, as flax's are under
+    GSPMD: the fp32 Σx and Σx² are summed over the group with their gradient
+    (``sum_over_group``), and the row count is the rank's times the group's
+    size."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.group = None
 
     def forward(self, x, use_running_average: bool | None = None):
         if self._average(use_running_average):
@@ -118,8 +131,15 @@ class BatchNorm(_BatchNormBase):
         else:
             xf = x.float()
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            if self.group is None:
+                mean, sq = xf.mean(dim=axes), (xf * xf).mean(dim=axes)
+            else:
+                # equal shards: the global row count is an int, as on one device
+                n = (x.numel() // x.shape[-1]) * dist.get_world_size(self.group)
+                s, q = sum_over_group(torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]),
+                                      self.group).unbind(0)
+                mean, sq = s / n, q / n
+            var = torch.clamp(sq - mean * mean, min=0.0)
             self._update_running(mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         return ((x - mean) * mul + self.bias).to(self.dtype)

@@ -12,7 +12,11 @@ all-reduces itself, and ``shard_map`` differentiates ``psum`` and
   the partial sums forward, the identity backward;
 - :func:`all_to_all` over equal chunks of dim 0: chunk ``j`` goes to the
   group's rank ``j``, and the chunk from rank ``i`` lands at ``i``. Its
-  transpose is the same exchange.
+  transpose is the same exchange;
+- :func:`sum_over_group` for a statistic that every rank's loss reads (the
+  global batch's BatchNorm sums): an all-reduce forward, and an all-reduce
+  of the gradient backward, since each rank's part reaches every rank's
+  loss.
 """
 from __future__ import annotations
 
@@ -42,6 +46,21 @@ class _ReduceFromGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        return g, None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
         return g, None
 
 
@@ -82,3 +101,9 @@ def all_to_all(x, group):
     if x.shape[0] % n:
         raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} is not a multiple of {n} ranks")
     return _AllToAll.apply(x, group)
+
+
+def sum_over_group(x, group):
+    """x summed over ``group`` forward, and its gradient summed over
+    ``group`` backward (x itself for ``group`` None)."""
+    return x if group is None else _SumOverGroup.apply(x, group)

@@ -4,17 +4,18 @@ The same seven named axes, in the same order, and the same three parameter
 rules as the JAX module:
 
     dcn      data parallelism across hosts (the gradient reduction crosses them)
-    stage    pipeline parallelism (slice 5d)
+    stage    pipeline parallelism (parallel/pipeline.py)
     data     pure data parallelism (batch split, gradients averaged)
     fsdp     data parallelism with ZeRO-3 parameter and optimizer sharding
     seq      sequence parallelism (ring attention, parallel/ring_attention.py)
-    expert   expert parallelism (the MoE a2a dispatch, models/moe.py)
+    expert   expert parallelism (the MoE a2a or einsum dispatch, models/moe.py)
     tensor   tensor parallelism (Megatron column/row splits)
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
 the default process group, row-major over the plan (``tensor`` innermost),
 with one named dim for each axis. The train steps (``parallel/train.py``)
-run over every axis but ``stage``.
+run over every axis, their stage ranks replicas; the pipeline
+(``parallel/pipeline.py``) runs over stage, data and fsdp.
 
 The rules see each parameter as the JAX module does: by its flax path and
 its flax shape, and they return the JAX ``PartitionSpec``'s entries as a
@@ -84,6 +85,26 @@ def create_mesh(plan: MeshPlan, devices: Sequence[int] | None = None, *,
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     shape = tuple(plan.axis_sizes()[a] for a in AXES)
     return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape), mesh_dim_names=AXES)
+
+
+def group_over(mesh, axes: Sequence[str]):
+    """The process group of the ranks that differ from this one only along
+    ``axes`` and share its coordinates on the others. Every rank makes every
+    such group, in one order, as ``torch.distributed.new_group`` requires, so
+    every rank must call this with the same ``axes``."""
+    import torch.distributed as dist
+
+    sizes = axis_sizes(mesh)
+    names = list(mesh.mesh_dim_names)
+    inner = [names.index(a) for a in axes]
+    outer = [i for i in range(len(names)) if i not in inner]
+    rows = mesh.mesh.permute(*outer, *inner).reshape(-1, math.prod(sizes[a] for a in axes))
+    me, mine = dist.get_rank(), None
+    for row in rows.tolist():
+        group = dist.new_group(row)
+        if me in row:
+            mine = group
+    return mine
 
 
 def axis_sizes(mesh) -> dict[str, int]:

@@ -8,14 +8,14 @@ donated state, so ``donate`` must stay True.
 ``mesh=None`` is one device: the state is ``{"opt_state", "step"}`` over the
 model's own parameters and ``TrainStepBundle.state_shardings`` is None.
 
-Under a mesh (``parallel/mesh.py``'s ``create_mesh``; every axis but
-``stage``) every rank calls ``step`` with the same global batch, as the JAX
-step is called with the global array, and takes its part of it:
+Under a mesh (``parallel/mesh.py``'s ``create_mesh``) every rank calls
+``step`` with the same global batch, as the JAX step is called with the
+global array, and takes its part of it:
 
-- rows: equal shards over the batch axes (dcn, data, fsdp, expert; the
-  expert axis carries rows outside the MoE experts, as the JAX ``a2a``
-  path's batch rides it), so that the mean of the ranks' mean losses is the
-  global mean;
+- rows: equal shards over the batch axes (dcn, data, fsdp, and expert for a
+  model with the ``a2a`` dispatch, whose batch rides the expert axis outside
+  the MoE experts as the JAX ``a2a`` path's does), so that the mean of the
+  ranks' mean losses is the global mean;
 - ``seq``: each row cut into equal spans over the seq axis; the model runs
   ring attention over it (``attention_impl="ring"``, ``cfg.mesh`` the
   step's mesh) and the chunked loss divides each span's sum by its whole
@@ -23,7 +23,13 @@ step is called with the global array, and takes its part of it:
   first token;
 - ``tensor``: the same rows on every rank; the tensor-parallel layers
   (``Attention``, ``MLP``, the MoE experts) hold their rank's columns and
-  rows and get the tensor group while the step runs.
+  rows and get the tensor group while the step runs;
+- ``expert`` under the ``einsum`` dispatch: the same rows on every rank;
+  each MoE layer holds E/ep experts and gets the expert group while the
+  step runs (``models/moe.py``);
+- ``stage``: the same rows and the same shards on every rank, nothing
+  summed over it, as the JAX steps replicate over it (no rule names it;
+  the pipeline is ``parallel/pipeline.py``'s own step).
 
 Parameters and optimizer slots are stored as the rule's legalised shards
 (ZeRO-3 over fsdp, Megatron over tensor, experts over expert):
@@ -34,16 +40,16 @@ step all-gathers the fsdp shards into the model for compute (a tensor or
 expert split stays the rank's own part), and reduces each gradient over the
 ranks whose data differ but whose part of the parameter is the same: the
 batch axes and seq, less expert for the expert tables (whose gradients
-already hold their expert group's rows) and never tensor (every tensor rank
-sees the same rows, and ``copy_to_group`` has summed what the split
+already hold their expert group's rows) and never tensor or stage (their
+ranks see the same rows, and ``copy_to_group`` has summed what the split
 layers' inputs owe); fsdp by reduce-scatter. Then it divides by the number
 of row shards and runs the optimizer, which is elementwise, on the shards.
 The loss (and accuracy) come back as the global batch's on every rank, as
 the JAX step returns them replicated. The batch statistics of train-mode
 BatchNorm and the MoE load-balance loss are the global batch's: while a
-step runs, the model's ``PallasBatchNorm`` and ``MoEMLP`` modules hold the
-batch group and all-reduce their sums; the step clears it again, so the
-model is left as it was given. ``bundle.gather`` returns whole tensors from
+step runs, the model's ``BatchNorm``, ``PallasBatchNorm`` and ``MoEMLP``
+modules hold the batch group and all-reduce their sums; the step clears it
+again, so the model is left as it was given. ``bundle.gather`` returns whole tensors from
 a {name: shard} dict, e.g. the parameters for serving after training.
 """
 from __future__ import annotations
@@ -72,14 +78,11 @@ class TrainStepBundle:
     gather: Callable | None = None  # ({name: shard}) -> {name: whole tensor}; None on one device
 
 
-# the mesh axes the steps do not split yet, and the slice that brings each
-_LATER_AXES = {"stage": "slice 5d (pipeline)"}
 # the modules that reduce over the batch under a mesh (their ``group``)
-_BATCH_REDUCERS = (PallasBatchNorm, MoEMLP)
-# the axes whose ranks hold different rows, and with seq those whose ranks
-# hold different tokens, in the mesh's order
-_ROW_AXES = ("dcn", "data", "fsdp", "expert")
-_TOKEN_AXES = ("dcn", "data", "fsdp", "seq", "expert")
+_BATCH_REDUCERS = (BatchNorm, PallasBatchNorm, MoEMLP)
+# the axes whose ranks hold different rows (with expert for the a2a
+# dispatch, whose batch rides it), in the mesh's order
+_ROW_AXES = ("dcn", "data", "fsdp")
 # the layers a tensor split runs on, and the parameters it splits in each
 _TENSOR_LAYERS = {Attention: ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                               "o_proj.weight"),
@@ -111,11 +114,6 @@ class _Sharded:
 
     def __init__(self, mesh, model, rule, seq_refusal=None):
         sizes = meshlib.axis_sizes(mesh)
-        for axis, later in _LATER_AXES.items():
-            if sizes[axis] > 1:
-                raise NotImplementedError(
-                    f"the port's train steps split every mesh axis but stage; {axis}="
-                    f"{sizes[axis]} comes with {later} (ROADMAP.md Queue 1)")
         self.mesh, self.sizes = mesh, sizes
         modules = dict(model.named_modules())
         if sizes["seq"] > 1:
@@ -156,12 +154,16 @@ class _Sharded:
         self.fsdp_dim = {n: next((d for d, a in split.items() if a == "fsdp"), None)
                          for n, split in self.split.items()}
         self.tensor_layers = self._tensor_layers(modules)
-        self._check_experts(modules, mesh)
+        self.expert_layers = self._check_experts(modules, mesh)
+        a2a = any(isinstance(m, MoEMLP) and m.cfg.dispatch == "a2a" for m in modules.values())
+        self.row_axes = _ROW_AXES + (("expert",) if a2a else ())
+        # the axes whose ranks hold different tokens, in the mesh's order
+        self.token_axes = tuple(a for a in meshlib.AXES if a in self.row_axes or a == "seq")
         coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         self.coord = coord
         self.n_batch = 1
         self.batch_index = 0
-        for a in _ROW_AXES:
+        for a in self.row_axes:
             self.n_batch *= sizes[a]
             self.batch_index = self.batch_index * sizes[a] + coord[a]
         self.n_seq, self.seq_index = sizes["seq"], coord["seq"]
@@ -170,15 +172,10 @@ class _Sharded:
         # every group a step reduces over, made on every rank in one order
         self.groups = {}
         for axes in sorted({self._reduce_axes(n) for n in self.names}
-                           | {_ROW_AXES, _TOKEN_AXES}):
-            self.groups[axes] = self._new_group(axes)
-        self.batch = self.groups[_ROW_AXES]
+                           | {self.row_axes, self.token_axes}):
+            self.groups[axes] = meshlib.group_over(mesh, axes)
+        self.batch = self.groups[self.row_axes]
         self.reducers = [m for m in modules.values() if isinstance(m, _BATCH_REDUCERS)]
-        if self.n_batch > 1 and any(isinstance(m, BatchNorm) for m in modules.values()):
-            raise NotImplementedError(
-                "bn_impl='xla' normalises with its rank's statistics, where the reference "
-                "normalises with the global batch's; use bn_impl='pallas' or 'mxu' under a "
-                "mesh of more than one batch rank")
 
     def _tensor_layers(self, modules):
         """[(module, tensor group)] of the layers the rule splits over tensor;
@@ -203,55 +200,45 @@ class _Sharded:
         return out
 
     def _check_experts(self, modules, mesh):
-        """Only the expert tables of an ``a2a`` MoE split over expert, both of
-        them, and the ``a2a`` dispatch holds its experts so."""
+        """Only MoE expert tables split over expert, both of a layer's: the
+        ``a2a`` dispatch (with cfg.mesh the step's mesh) always holds its
+        experts so, the ``einsum`` dispatch may (the layers returned, which
+        get the expert group), ``gather`` never, as in the reference."""
         for n, split in self.split.items():
             if "expert" in split.values() and n.rsplit(".", 1)[-1] not in ("experts_wi",
                                                                             "experts_wo"):
                 raise ValueError(f"{n}: spec {self.specs[n]} splits it over expert; the steps "
                                  "split only MoE expert tables over expert")
+        out = []
         for name, m in modules.items():
             if not isinstance(m, MoEMLP):
                 continue
             tables = [f"{name}.experts_wi", f"{name}.experts_wo"]
             split = ["expert" in self.split[t].values() for t in tables]
-            if any(split) and (not all(split) or m.cfg.dispatch != "a2a" or m.cfg.mesh is not mesh):
+            a2a = m.cfg.dispatch == "a2a"
+            if any(split) and (not all(split) or m.cfg.dispatch == "gather"
+                               or (a2a and m.cfg.mesh is not mesh)):
                 raise ValueError(
                     f"{name}: the rule splits {[t for t, x in zip(tables, split) if x]} over "
                     f"expert={self.sizes['expert']} (specs {[self.specs[t] for t in tables]}); "
-                    "expert-split tables run dispatch='a2a' with cfg.mesh the step's mesh, "
-                    "both tables split")
-            if m.cfg.dispatch == "a2a" and not all(split):
+                    "expert-split tables run dispatch='einsum', or 'a2a' with cfg.mesh the "
+                    "step's mesh, both tables split")
+            if a2a and not all(split):
                 raise ValueError(
                     f"{name}: dispatch='a2a' holds E/ep experts a rank, but the rule leaves "
                     f"the tables whole over expert (specs {[self.specs[t] for t in tables]}); "
                     "use parallel/mesh.moe_param_spec with num_experts a multiple of expert")
+            if all(split) and not a2a:
+                out.append(m)
+        return out
 
     def _reduce_axes(self, name) -> tuple:
         """The axes a gradient is summed over after its reduce-scatter over
         fsdp (fsdp itself where the parameter has no fsdp dim): the rows'
-        axes and seq, less expert for an expert-split table; never tensor."""
+        axes and seq, less expert for an expert-split table; never tensor
+        or stage."""
         split = set(self.split[name].values())
-        return tuple(a for a in _TOKEN_AXES if a not in split)
-
-    def _new_group(self, axes):
-        """The group of the ranks that differ only along ``axes`` and share
-        this rank's coordinates on the others (every rank makes every such
-        group, in the same order)."""
-        names = list(self.mesh.mesh_dim_names)
-        inner = [names.index(a) for a in axes]
-        outer = [i for i in range(len(names)) if i not in inner]
-        size = 1
-        for a in axes:
-            size *= self.sizes[a]
-        rows = self.mesh.mesh.permute(*outer, *inner).reshape(-1, size).tolist()
-        me = dist.get_rank()
-        mine = None
-        for row in rows:
-            group = dist.new_group(row)
-            if me in row:
-                mine = group
-        return mine
+        return tuple(a for a in self.token_axes if a not in split)
 
     def shard(self, name, full):
         """This rank's part of the whole tensor ``full``, an allocation of its
@@ -291,6 +278,8 @@ class _Sharded:
             m.group = self.batch
         for m, group in self.tensor_layers:
             m.tensor_group = group
+        for m in self.expert_layers:
+            m.expert_group = self.mesh.get_group("expert")
 
     def release(self) -> None:
         """Drop the model's copies of the split parameters and its modules'
@@ -302,6 +291,8 @@ class _Sharded:
             m.group = None
         for m, _ in self.tensor_layers:
             m.tensor_group = None
+        for m in self.expert_layers:
+            m.expert_group = None
 
     def reduce(self, name, g):
         """The gradient's mean over the row shards, as this rank's shard."""
@@ -319,7 +310,7 @@ class _Sharded:
         """A metric's mean over the row shards, its seq spans summed (every
         rank gets it)."""
         x = x.detach().float().clone()
-        dist.all_reduce(x, group=self.groups[_TOKEN_AXES])
+        dist.all_reduce(x, group=self.groups[self.token_axes])
         return x.div_(self.n_batch)
 
     def local(self, x):
@@ -327,9 +318,8 @@ class _Sharded:
         the row axes, in row-major order of the mesh."""
         B = x.shape[0]
         if B % self.n_batch:
-            axes = "dcn x data x fsdp" + (" x expert" if self.sizes["expert"] > 1 else "")
             raise ValueError(f"batch {B} must be divisible by the {self.n_batch} batch ranks "
-                             f"({axes})")
+                             f"({' x '.join(self.row_axes)})")
         n = B // self.n_batch
         return x[self.batch_index * n:(self.batch_index + 1) * n]
 

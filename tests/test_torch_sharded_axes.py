@@ -26,7 +26,7 @@ runs ring attention (its Pallas kernels in interpret mode) on the seq plans,
 XLA attention elsewhere, and the ``a2a`` dispatch on the expert plans (the
 gather dispatch on the others).
 Also here: the steps' refusals (``a2a`` without an expert axis, ``gather``
-on an expert mesh, ``stage`` naming slice 5d, an MoE model under seq, a
+on an expert mesh, in the model and in the step, an MoE model under seq, a
 layer half split over tensor, seq without ring attention), on stand-in
 meshes before any process group is touched."""
 from __future__ import annotations
@@ -344,9 +344,10 @@ def test_refusals():
                             device="cpu")
     lm = kt.TransformerLM(kt.TransformerConfig(**LM, attention_impl="flash", dtype=torch.float32),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="stage=2 comes with slice 5d"):
-        kt.make_lm_train_step(lm, kt.sgd(0.1), _stand_in(stage=2))
     moe = kt.MoETransformerLM(moe_cfg(dispatch="gather"), device="cpu")
+    with pytest.raises(ValueError, match="expert-split tables run dispatch='einsum', or 'a2a'"):
+        kt.make_lm_train_step(moe, kt.sgd(0.1), _stand_in(expert=2),
+                              param_rule=tmesh.moe_param_spec, loss_fn=kt.moe_lm_loss_chunked)
     with pytest.raises(NotImplementedError, match="MoE model under seq=2"):
         kt.make_lm_train_step(moe, kt.sgd(0.1), _stand_in(seq=2),
                               loss_fn=kt.moe_lm_loss_chunked)

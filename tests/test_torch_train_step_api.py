@@ -53,20 +53,23 @@ def test_classifier_step_takes_mesh_none_third():
 
 @pytest.mark.parametrize("name", ["make_lm_train_step", "make_classifier_train_step"])
 def test_a_mesh_or_donate_false_is_refused(name):
-    """A mesh that splits stage, the one axis the steps do not split yet, is
-    refused before any process group is touched (a stand-in with the mesh's
-    dim names and shape is enough), naming its slice; donate=False is
-    refused as before. (seq, expert and tensor run since slices 5b and 5c:
-    ``tests/test_torch_sharded_axes.py``.)"""
+    """A mesh the step cannot run is refused before any process group is
+    touched (a stand-in with the mesh's dim names and shape is enough):
+    seq=2 for a model without ring attention over that mesh, and for the
+    classifier, whose batch has no sequence axis; donate=False is refused as
+    before. (stage runs since slice 5d, its ranks replicas:
+    ``tests/test_torch_stage_bn_einsum.py``; seq, expert and tensor since
+    slices 5b and 5c: ``tests/test_torch_sharded_axes.py``.)"""
     import types
 
     from kubeflow_tpu_torch.parallel import mesh as tmesh
 
     build = getattr(kt, name)
     model = _lm()
-    shape = [2 if a == "stage" else 1 for a in tmesh.AXES]
+    shape = [2 if a == "seq" else 1 for a in tmesh.AXES]
     mesh = types.SimpleNamespace(mesh_dim_names=tmesh.AXES, mesh=torch.zeros(shape))
-    with pytest.raises(NotImplementedError, match="stage=2 comes with slice 5d"):
+    with pytest.raises((NotImplementedError, ValueError),
+                       match="seq=2(: an image batch| cuts each row)"):
         build(model, kt.sgd(0.1), mesh)
     with pytest.raises(ValueError, match="donate=False"):
         build(model, kt.sgd(0.1), None, donate=False)
