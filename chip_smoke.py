@@ -173,7 +173,30 @@ Phases, each of which fails the run with a non-zero exit:
             dry run's sections at one rank on the card (nccl), the ResNet
             parity with one device included, then ``entry()``'s ResNet-50
             forward;
-24. bench entries  each of ``kubeflow_tpu_torch/benchmarks/{transformer,
+24. session  the notebook's suspend and resume on the dense flagship of
+            phase 5: six steps fed by ``DevicePrefetcher`` (synthetic tokens,
+            the card, depth 2), each in ``step_annotation(n)``, flash
+            launches 24/24/24 a step; ``CheckpointManager`` (2 kept, every
+            2nd step) saves after steps 1-3, ``snapshot_for_suspend`` at
+            step 4 returns 4; a cell from another seed resumes through
+            ``resume_or_init``, bit-equal to the suspended state, and steps
+            5 and 6 replayed on the same batches give the uninterrupted
+            losses bit for bit; ``TorchDeviceBackend``'s bytes against the
+            allocator's; ``TorchCompileMonitor``'s count of the build phase;
+            in a fresh process (``session_traces_main``: after the earlier
+            phases' many profiler sessions, a trace in this process lost
+            every kernel its main thread launched), ``trace_n_steps`` (3
+            steps: 72 device events of each flash kernel, the step regions)
+            and a ``TorchTraceProfiler`` capture asked for from another
+            thread while the main thread steps: it must run on the stepping
+            thread (route "loop") and hold the flash kernels of its whole
+            steps (24 each a step) and their step regions; a world of one
+            joined with ``"cpu:gloo,cuda:nccl"``,
+            its mesh from ``spmd.build_mesh``, a sharded 2-layer step saved
+            as DTensors and restored onto ``mesh=None`` bit-equal. Prints the
+            bytes of a step on disk, the free disk, each step's and save's
+            ms, the suspend's and the resume's;
+25. bench entries  each of ``kubeflow_tpu_torch/benchmarks/{transformer,
             moe,decode,resnet}_bench.py`` once, in a subprocess, with few
             windows: its line's metric, a positive value, this card's name
             and power limit.
@@ -3651,6 +3674,310 @@ def phase_dryrun(torch):
     return dict(lines=lines, seconds=seconds)
 
 
+# the notebook's suspend and resume at full width (phase_session): the dense
+# flagship fed by the prefetcher, a save called after steps 1-3 on orbax's
+# policy (2 kept, every 2nd step, the first always), suspended at step 4,
+# resumed from another seed's init, steps 5 and 6 replayed
+SESSION_STEPS, SESSION_SUSPEND = 6, 4
+SESSION_WORLD_LAYERS = 2      # the world-of-one DTensor round trip's depth
+FLASH_KERNELS = {"flash_attention_fwd": "flash_fwd_wgmma",
+                 "flash_attention_bwd_dq": "flash_dq_wgmma",
+                 "flash_attention_bwd_dkv": "flash_dkv_wgmma"}
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _trace_kernels(logdir: Path):
+    """(device events of each flash kernel, user regions) in the Chrome
+    traces under ``logdir``."""
+    counts = {k: 0 for k in FLASH_KERNELS}
+    regions = []
+    files = sorted(logdir.rglob("*.pt.trace.json"))
+    for f in files:
+        for e in json.loads(f.read_text())["traceEvents"]:
+            if e.get("cat") == "kernel":
+                for k, sym in FLASH_KERNELS.items():
+                    counts[k] += sym in e.get("name", "")
+            elif e.get("cat") == "user_annotation":
+                regions.append(e.get("name", ""))
+    return counts, regions, files
+
+
+def _adam_slots(state):
+    """{"params"/"mu"/"nu"/"count"/"step"} of a one-device state, by name."""
+    names = list(state["params"])
+    adam = state["opt_state"][0]
+    return dict(params=state["params"], mu=dict(zip(names, adam["mu"])),
+                nu=dict(zip(names, adam["nu"])), count=adam["count"], step=state["step"])
+
+
+def _bit_equal(torch, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+                                        for k in a)
+
+
+def _session_world_of_one(torch, root: Path):
+    """A world of one joined with ``"cpu:gloo,cuda:nccl"``, its mesh built by
+    ``spmd.build_mesh`` from a one-chip derived mesh; the sharded dense step
+    (2 layers of the flagship width) saved through the DTensor path, restored
+    onto ``mesh=None``: the parameters and moments bit-equal."""
+    import types
+
+    import torch.distributed as dist
+
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.parallel import mesh as tmesh
+    from kubeflow_tpu_torch.spmd import mesh as spmd_mesh
+
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        one_chip = types.SimpleNamespace(shape=(1,), num_slices=1, num_hosts=1, chips_per_host=1)
+        mesh = spmd_mesh.build_mesh(one_chip)
+        cell = cells.dense_train(mesh=mesh, num_layers=SESSION_WORLD_LAYERS)
+        state = cell.bundle.init()
+        for _ in range(2):
+            cell.bundle.step(state, cell.tokens)
+        mgr = kt.CheckpointManager(str(root / "world"))
+        committed = kt.snapshot_for_suspend(mgr, 2, state)
+        names = list(state["params"])
+        adam = state["opt_state"][0]
+        saved = dict(params=cell.bundle.gather(state["params"]),
+                     mu=cell.bundle.gather(dict(zip(names, adam["mu"]))),
+                     nu=cell.bundle.gather(dict(zip(names, adam["nu"]))))
+        one = cells.dense_train(num_layers=SESSION_WORLD_LAYERS)
+        one.model.load_state_dict(kt.init_state_dict(one.cfg, seed=1))
+        restored = _adam_slots(mgr.restore(one.bundle.init()))
+        mgr.close()
+        ok = (committed == 2 and restored["step"] == 2 and restored["count"] == 2
+              and all(_bit_equal(torch, saved[k], restored[k]) for k in saved))
+        log(f"[session] world of one (cpu:gloo,cuda:nccl, backend {dist.get_backend()}), mesh "
+            f"{tmesh.axis_sizes(mesh)} from spmd.build_mesh (device type {mesh.device_type}); "
+            f"the sharded {SESSION_WORLD_LAYERS}-layer step saved as DTensors "
+            f"({_dir_bytes(root / 'world' / '2')} bytes), restored onto mesh=None: parameters "
+            f"and moments bit-equal {ok}")
+        if not ok:
+            raise AssertionError("the sharded state did not restore bit-equal onto one device")
+        return dict(bit_equal=ok, mesh=tmesh.axis_sizes(mesh))
+    finally:
+        dist.destroy_process_group()
+
+
+def session_traces_main(folder: str) -> None:
+    """``phase_session``'s traces (started as ``python3 -c``): the dense
+    flagship's ``trace_n_steps(steps=3)``, then a ``TorchTraceProfiler``
+    capture asked for from another thread while this one steps until it
+    ends (four steps at least), which runs on this thread between its step
+    boundaries; the counts written to ``folder/traces.json``."""
+    import threading
+
+    import torch
+
+    from kubeflow_tpu_torch.telemetry.agent import TorchTraceProfiler
+    from kubeflow_tpu_torch.utils.profiling import step_annotation, trace_n_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(folder)
+    cell = cells.dense_train()
+    state = cell.bundle.init()
+    counters = _flash_counters()
+    trace_n_steps(str(root / "trace"), cell.bundle.step, state, cell.tokens, steps=3)
+    counts, regions, files = _trace_kernels(root / "trace")
+    out = dict(trace_counts=counts, trace_steps=sorted(r for r in regions if r.startswith("train#")),
+               trace_files=[str(f.relative_to(root / "trace")) for f in files],
+               trace_launches=[fn.launches for fn in counters.values()])
+    profiler = TorchTraceProfiler(logdir_base=str(root / "capture"), step_hint_s=0.2)
+    text = {}
+    capture = threading.Thread(target=lambda: text.update(lines=profiler.capture(2)))
+    capture.start()
+    n = 0
+    while n < 4 or capture.is_alive():
+        with step_annotation(100 + n):
+            cell.bundle.step(state, cell.tokens)
+        n += 1
+    torch.cuda.synchronize()
+    capture.join()
+    counts, regions, _ = _trace_kernels(root / "capture")
+    out.update(capture_counts=counts, capture=text["lines"], capture_main_steps=n,
+               capture_route=profiler.last_route,
+               capture_steps=sorted(r for r in regions if r.startswith("train#")))
+    (root / "traces.json").write_text(json.dumps(out))
+
+
+def phase_session(torch, np, train: dict, monitor, compile_at_build):
+    """The notebook's suspend and resume on the dense flagship (module
+    docstring, phase 24)."""
+    import shutil
+    import tempfile
+
+    import kubeflow_tpu_torch as kt
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.telemetry.agent import TorchDeviceBackend
+    from kubeflow_tpu_torch.utils.data import DevicePrefetcher, synthetic_token_batches
+    from kubeflow_tpu_torch.utils.profiling import step_annotation
+
+    base = Path(__file__).resolve().parent / "_checkout"
+    base.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="session-", dir=base))
+    try:
+        out = {}
+        free_gb = shutil.disk_usage(root).free / 1e9
+        cell = cells.dense_train()
+        cfg, bundle = cell.cfg, cell.bundle
+        counters = _flash_counters()
+        batches = DevicePrefetcher(synthetic_token_batches(
+            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size, seed=0,
+            steps=SESSION_STEPS), "cuda", depth=2)
+        state = bundle.init()
+        mgr = kt.CheckpointManager(str(root / "ckpt"), max_to_keep=2, save_interval_steps=2)
+        losses, steps, kept, saved = [], [], {}, None
+        for fn in counters.values():
+            fn.launches = 0
+        for n in range(1, SESSION_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens = next(batches)
+            with step_annotation(n):
+                _, metrics = bundle.step(state, tokens)
+            loss = metrics["loss"].item()
+            t1 = time.perf_counter()
+            started = None
+            if n < SESSION_SUSPEND:
+                started = mgr.save(n, state)
+            elif n == SESSION_SUSPEND:
+                committed = kt.snapshot_for_suspend(mgr, n, state)
+                if committed != SESSION_SUSPEND:
+                    raise AssertionError(f"snapshot_for_suspend returned {committed}")
+                saved = {k: ({n_: t.clone() for n_, t in v.items()} if isinstance(v, dict) else v)
+                         for k, v in _adam_slots(state).items()}
+            t2 = time.perf_counter()
+            losses.append(loss)
+            steps.append(dict(step=n, step_ms=(t1 - t0) * 1e3, save_ms=(t2 - t1) * 1e3,
+                              save=("suspend" if n == SESSION_SUSPEND else started)))
+            if n > SESSION_SUSPEND:
+                kept[n] = tokens
+        launches = {k: fn.launches for k, fn in counters.items()}
+        mgr.close()
+        step_bytes = _dir_bytes(root / "ckpt" / str(SESSION_SUSPEND))
+        on_disk = sorted(int(p.name) for p in (root / "ckpt").iterdir())
+        want = {k: cfg.num_layers * SESSION_STEPS for k in counters}
+        log(f"[session] dense flagship, {SESSION_STEPS} steps from DevicePrefetcher(synthetic "
+            f"tokens, 'cuda', depth 2), each in step_annotation(n); launches {launches} "
+            f"(expected {want}); losses {[round(x, 5) for x in losses]}")
+        for s in steps:
+            log(f"[session]   step {s['step']}: step {s['step_ms']:.2f} ms, then "
+                f"{'snapshot_for_suspend' if s['save'] == 'suspend' else 'save'} "
+                f"{s['save_ms']:.2f} ms (started a save: {s['save']})")
+        if launches != want:
+            raise AssertionError(f"flash launches {launches} != {want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite loss: {losses}")
+        median = float(np.median([s["step_ms"] for s in steps]))
+        # a step and its save call: those that started a save against those
+        # that did not; the steps after the suspend run with no write in flight
+        with_save = [s["step_ms"] + s["save_ms"] for s in steps if s["save"] is True]
+        without = [s["step_ms"] + s["save_ms"] for s in steps if s["save"] in (False, None)]
+        quiet = float(np.median([s["step_ms"] for s in steps[SESSION_SUSPEND:]]))
+        log(f"[session] one step on disk {step_bytes} bytes ({step_bytes / 1e9:.3f} GB; "
+            f"steps kept {on_disk}); free disk before the first save {free_gb:.1f} GB; "
+            f"step + save call ms where a save started {[round(x, 2) for x in with_save]}, "
+            f"where none did {[round(x, 2) for x in without]}; snapshot_for_suspend blocked "
+            f"{steps[SESSION_SUSPEND - 1]['save_ms']:.2f} ms; step median with the prefetcher "
+            f"{median:.2f} ms ({quiet:.2f} ms with no write in flight) vs the train phase's "
+            f"{train['step_ms_median']:.2f} ms on fixed tokens")
+        if on_disk != [2, SESSION_SUSPEND]:
+            raise AssertionError(f"max_to_keep=2 left steps {on_disk}")
+        out.update(losses=losses, steps=steps, launches=launches, step_bytes=step_bytes,
+                   free_disk_gb=free_gb, step_ms_median=median, step_ms_no_write=quiet,
+                   steps_on_disk=on_disk)
+        del cell, state, batches
+        torch.cuda.empty_cache()
+
+        # resume: a fresh cell from another seed, the suspend step restored,
+        # steps 5 and 6 replayed on the same batches
+        cell = cells.dense_train()
+        cell.model.load_state_dict(kt.init_state_dict(cell.cfg, seed=1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = kt.resume_or_init(str(root / "ckpt"), cell.bundle.init)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        got = _adam_slots(state)
+        restored = (got["step"] == SESSION_SUSPEND and got["count"] == SESSION_SUSPEND
+                    and all(_bit_equal(torch, saved[k], got[k]) for k in ("params", "mu", "nu")))
+        del saved
+        replay = [cell.bundle.step(state, kept[n])[1]["loss"].item()
+                  for n in range(SESSION_SUSPEND + 1, SESSION_STEPS + 1)]
+        d = max(abs(a - b) for a, b in zip(replay, losses[SESSION_SUSPEND:]))
+        log(f"[session] resume_or_init {resume_s * 1e3:.2f} ms: step {got['step']}, count "
+            f"{got['count']}, parameters and moments bit-equal to the suspend's {restored}; "
+            f"replayed losses {replay} vs uninterrupted {losses[SESSION_SUSPEND:]} (max |diff| "
+            f"{d:.3e}, bit-equal {d == 0.0})")
+        if not restored or d != 0.0:
+            raise AssertionError("the resumed session does not continue the suspended one")
+        out.update(resume_ms=resume_s * 1e3, replay_losses=replay, replay_max_abs_diff=d)
+
+        # the device backend and the compile monitor
+        torch.cuda.synchronize()
+        (sample,) = TorchDeviceBackend().samples()
+        allocated, total = torch.cuda.memory_allocated(), torch.cuda.mem_get_info()[1]
+        log(f"[session] TorchDeviceBackend: hbm_used_bytes {sample.hbm_used_bytes:.0f} "
+            f"(memory_allocated {allocated}), hbm_total_bytes {sample.hbm_total_bytes:.0f} "
+            f"(the card's {total}), duty_cycle {sample.duty_cycle}")
+        if (sample.hbm_used_bytes != allocated or sample.hbm_total_bytes != total
+                or sample.duty_cycle is not None):
+            raise AssertionError("the device backend's bytes differ from the allocator's")
+        totals = monitor.totals()
+        log(f"[session] TorchCompileMonitor (made before the build): (compiles, seconds, cache "
+            f"hits) {compile_at_build} after the build phase, {totals} now")
+        if compile_at_build[0] + compile_at_build[2] != len(_build.SIGNATURES):
+            raise AssertionError(f"the compile monitor counted {compile_at_build} for "
+                                 f"{len(_build.SIGNATURES)} sources")
+        out.update(device_sample=[sample.hbm_used_bytes, sample.hbm_total_bytes],
+                   compile_at_build=compile_at_build, compile_now=totals)
+        del cell, state, kept
+        torch.cuda.empty_cache()
+
+        # the traces, in a process of their own: a process that has run many
+        # profiler sessions (the earlier phases') can lose every kernel its
+        # main thread launches from later traces (module docstring, phase 24)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                               f"chip_smoke.session_traces_main({str(root)!r})"],
+                              cwd=Path(__file__).resolve().parent, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"the session's traces exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+        traces = json.loads((root / "traces.json").read_text())
+        counts, steps_in = traces["trace_counts"], traces["trace_steps"]
+        log(f"[session] in a fresh process ({time.perf_counter() - t0:.1f} s): "
+            f"trace_n_steps(steps=3): {traces['trace_files']}; device events {counts} (launched "
+            f"{traces['trace_launches']} with the warm-up); step regions {steps_in}")
+        if (len(traces["trace_files"]) != 1 or "plugins/profile/" not in traces["trace_files"][0]
+                or counts != {k: 3 * cfg.num_layers for k in counts}
+                or traces["trace_launches"] != [4 * cfg.num_layers] * 3
+                or steps_in != ["train#1", "train#2", "train#3"]):
+            raise AssertionError(f"the trace lacks the steps' flash kernels or regions: {counts}")
+        cap_counts, cap_steps = traces["capture_counts"], traces["capture_steps"]
+        log(f"[session] TorchTraceProfiler(step_hint_s=0.2).capture(2) from a thread beside "
+            f"{traces['capture_main_steps']} steps, route {traces['capture_route']!r}: "
+            f"{traces['capture'].strip()}; device events {cap_counts}; step regions {cap_steps}")
+        if traces["capture_route"] != "loop" or not cap_steps:
+            raise AssertionError("the capture did not run on the stepping loop's thread")
+        if cap_counts != {k: cfg.num_layers * len(cap_steps) for k in cap_counts}:
+            raise AssertionError(f"the capture's {len(cap_steps)} whole steps do not hold "
+                                 f"{cfg.num_layers} of each flash kernel a step: {cap_counts}")
+        out.update(trace_counts=counts, capture_counts=cap_counts, capture=traces["capture"])
+
+        out["world_of_one"] = _session_world_of_one(torch, root)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # each entry point once with few windows: (module, windows, metric)
 BENCH_ENTRIES = (
     ("transformer_bench", (2, 6, 1), "transformer_train_tokens_per_sec_per_chip"),
@@ -3705,9 +4032,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from kubeflow_tpu_torch.telemetry.agent import TorchCompileMonitor
+
     report = {"card": smi}
     t_all = time.perf_counter()
+    monitor = TorchCompileMonitor()      # counts the build phase's nvcc runs
     libs, report["ptxas"] = phase_build()
+    compile_at_build = monitor.totals()
     report["tensor_core_instructions"] = tensor_core_counts(libs)
     kernels = phase_kernels(torch)
     bwd, fwd_train = phase_kernels_bwd(torch)
@@ -3745,6 +4076,8 @@ def main() -> int:
     report["pipeline"] = phase_pipeline(torch, np)
     torch.cuda.empty_cache()
     report["dryrun"] = phase_dryrun(torch)
+    torch.cuda.empty_cache()
+    report["session"] = phase_session(torch, np, train, monitor, compile_at_build)
     torch.cuda.empty_cache()
     report["bench_entries"] = phase_bench_entries(torch, smi)
     probes = {"launches": {"bn_moments_scaled": scaled_launches,

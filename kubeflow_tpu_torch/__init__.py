@@ -17,7 +17,11 @@ kernel probes and the bench entry points are under ``benchmarks/``; meshes,
 sharding rules, the distributed bootstrap, ring attention and the GPipe
 pipeline over the stage axis under ``parallel/``, where the train steps also
 run sharded over the dcn, data, fsdp, seq (ring attention), expert (the MoE
-a2a or einsum dispatch), tensor and stage axes.
+a2a or einsum dispatch), tensor and stage axes. The notebook runtime is
+under ``utils/`` (host-to-device prefetch, checkpoint and resume on
+``torch.distributed.checkpoint``, profiling on ``torch.profiler``), the
+telemetry agent's device, compile and trace backends under ``telemetry/``,
+and a gang's mesh build from its placement under ``spmd/``.
 Entry points
 run on the card unless the caller passes ``device="cpu"``; on CPU tensors
 each kernel wrapper runs its plain PyTorch version.
@@ -74,13 +78,29 @@ from kubeflow_tpu_torch.parallel.pipeline import (
     pipeline_value_and_grad,
 )
 from kubeflow_tpu_torch.parallel.train import (
+    TrainState,
     TrainStepBundle,
     cross_entropy_loss,
     make_classifier_train_step,
     make_lm_train_step,
 )
+from kubeflow_tpu_torch.telemetry.agent import (
+    TorchCompileMonitor,
+    TorchDeviceBackend,
+    TorchTraceProfiler,
+)
+from kubeflow_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
+    resume_or_init,
+    snapshot_for_precopy,
+    snapshot_for_suspend,
+)
+from kubeflow_tpu_torch.utils.data import DevicePrefetcher, map_batches, synthetic_token_batches
+from kubeflow_tpu_torch.utils.profiling import step_annotation, trace_n_steps
 
 __all__ = [
+    "CheckpointManager",
+    "DevicePrefetcher",
     "MoEConfig",
     "MoETransformerLM",
     "PallasBatchNorm",
@@ -92,6 +112,10 @@ __all__ = [
     "ResNet101",
     "ResNet152",
     "SpaceToDepthStem",
+    "TorchCompileMonitor",
+    "TorchDeviceBackend",
+    "TorchTraceProfiler",
+    "TrainState",
     "TrainStepBundle",
     "TransformerConfig",
     "TransformerLM",
@@ -113,6 +137,7 @@ __all__ = [
     "make_classifier_train_step",
     "make_lm_train_step",
     "make_pipeline_train_step",
+    "map_batches",
     "moe_init_state_dict",
     "moe_lm_loss",
     "moe_lm_loss_chunked",
@@ -127,6 +152,12 @@ __all__ = [
     "resnet_init_state_dict",
     "resnet_params_from_flax",
     "resolve_remat_policy",
+    "resume_or_init",
     "sgd",
+    "snapshot_for_precopy",
+    "snapshot_for_suspend",
+    "step_annotation",
+    "synthetic_token_batches",
+    "trace_n_steps",
     "with_f32_master",
 ]

@@ -11,6 +11,10 @@ The build happens at first use (a wrapper's first launch) or, for every
 kernel at once and in parallel, through :func:`build_all`. Neither this
 module nor the wrappers import anything CUDA-specific at import time: the
 CPU tests import every module.
+
+Listeners (:func:`add_listener`; the telemetry agent's compile monitor) hear
+of every build: ``fn(name, seconds)`` when an nvcc run ends, from its start,
+and ``fn(name, None)`` when a library was found already built.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
@@ -106,6 +111,22 @@ SIGNATURES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LISTENERS: list = []
+
+
+def add_listener(fn) -> None:
+    """Call ``fn(name, seconds)`` after each nvcc run (``seconds`` from its
+    start) and ``fn(name, None)`` for each library found built."""
+    _LISTENERS.append(fn)
+
+
+def remove_listener(fn) -> None:
+    _LISTENERS.remove(fn)
+
+
+def _tell(name: str, seconds: float | None) -> None:
+    for fn in list(_LISTENERS):
+        fn(name, seconds)
 
 
 def nvcc() -> str:
@@ -135,37 +156,50 @@ def _target(name: str, compiler: str) -> Path:
 
 
 def _start(name: str, compiler: str):
-    """Start one nvcc; returns (target, process) or (target, None) if built."""
+    """Start one nvcc; returns (target, pending) or (target, None) if built."""
     target = _target(name, compiler)
     if target.is_file():
+        _tell(name, None)
         return target, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
     cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-    )
-    return target, (proc, tmp)
+    # nvcc writes to a file, not a pipe: a full pipe would stall an nvcc
+    # that build_all waits on to exit
+    log = tmp.with_suffix(".log")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+    return target, (proc, tmp, log, time.perf_counter())
 
 
 def _finish(name: str, target: Path, pending) -> None:
     if pending is None:
         return
-    proc, tmp = pending
-    out, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(out)
+    proc, tmp, log, t0 = pending
+    proc.wait()
+    seconds = time.perf_counter() - t0
+    out = log.read_text()
+    os.replace(log, BUILD_DIR / f"{name}.log")
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
     os.replace(tmp, target)
+    _tell(name, seconds)
 
 
 def build_all() -> dict[str, Path]:
-    """Compile every kernel, one nvcc per source, all started together."""
+    """Compile every kernel, one nvcc per source, all started together;
+    each is finished as its nvcc exits, so its seconds end there."""
     compiler = nvcc()
     started = {name: _start(name, compiler) for name in SIGNATURES}
-    for name, (target, pending) in started.items():
-        _finish(name, target, pending)
+    running = {name for name, (_, pending) in started.items() if pending is not None}
+    while running:
+        done = [n for n in running if started[n][1][0].poll() is not None]
+        for name in done:
+            _finish(name, *started[name])
+            running.discard(name)
+        if not done:
+            time.sleep(0.02)
     return {name: target for name, (target, _) in started.items()}
 
 

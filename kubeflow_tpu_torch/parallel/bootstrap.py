@@ -9,8 +9,10 @@ The same env contract that admission injects (``webhooks/tpu_env.py``):
 ``auto_initialize()`` joins the default ``torch.distributed`` process group
 where the reference calls ``jax.distributed.initialize``: the rendezvous is
 ``JAX_COORDINATOR_ADDRESS`` (``host:port``), the rank the process id and the
-world the process count. A single host skips it. The backend is ``nccl``,
-or ``gloo`` when the caller passes ``device="cpu"``; nothing switches
+world the process count. A single host skips it. The backend is
+``"cpu:gloo,cuda:nccl"`` (nccl for CUDA tensors, gloo for CPU ones, which
+the checkpoint manager's ``async_save`` needs, ``utils/checkpoint.py``), or
+``gloo`` alone when the caller passes ``device="cpu"``; nothing switches
 between them on its own.
 
 The reference's ``parallel/compat.py`` (a shim across JAX versions for
@@ -49,8 +51,8 @@ def env_worker_context() -> dict | None:
 
 def auto_initialize(*, device: str = "cuda", force: bool = False) -> dict | None:
     """Join the slice-wide process group if (and only if) this is a
-    multi-host pod: ``nccl`` for ``device="cuda"``, ``gloo`` for
-    ``device="cpu"``.
+    multi-host pod: ``"cpu:gloo,cuda:nccl"`` for ``device="cuda"``,
+    ``gloo`` for ``device="cpu"``.
 
     Idempotent: a process already in the group keeps it unless ``force``
     (the culler restart path re-forms the identical group because admission
@@ -73,7 +75,7 @@ def auto_initialize(*, device: str = "cuda", force: bool = False) -> dict | None
             return ctx
         dist.destroy_process_group()
     dist.init_process_group(
-        backend="nccl" if device == "cuda" else "gloo",
+        backend="cpu:gloo,cuda:nccl" if device == "cuda" else "gloo",
         init_method=f"tcp://{ctx['coordinator']}",
         world_size=ctx["num_processes"],
         rank=ctx["process_id"],

@@ -69,8 +69,8 @@ def create_mesh(plan: MeshPlan, devices: Sequence[int] | None = None, *,
     plan's axes. ``physical_topology`` is accepted for the reference's
     signature and checked for size only: the TPU torus placement solver has
     no counterpart on NVLink, where every card of a host reaches every other
-    directly. ``device_type`` defaults to the process group's: "cuda" under
-    nccl, "cpu" under gloo."""
+    directly. ``device_type`` defaults to the process group's
+    (:func:`default_device_type`)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -82,9 +82,17 @@ def create_mesh(plan: MeshPlan, devices: Sequence[int] | None = None, *,
         raise ValueError(f"physical topology {tuple(physical_topology)} holds "
                          f"{math.prod(physical_topology)} devices, the plan {plan.size}")
     if device_type is None:
-        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        device_type = default_device_type()
     shape = tuple(plan.axis_sizes()[a] for a in AXES)
     return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape), mesh_dim_names=AXES)
+
+
+def default_device_type() -> str:
+    """The device of the default process group's tensors: "cuda" where it
+    has nccl (``"nccl"`` or ``"cpu:gloo,cuda:nccl"``), else "cpu" (gloo)."""
+    import torch.distributed as dist
+
+    return "cuda" if "nccl" in str(dist.get_backend()) else "cpu"
 
 
 def group_over(mesh, axes: Sequence[str]):

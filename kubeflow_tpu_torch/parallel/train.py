@@ -5,8 +5,11 @@ The step factories take the reference's arguments in the reference's order
 the optimizer state are updated in place, the counterpart of the JAX step's
 donated state, so ``donate`` must stay True.
 
-``mesh=None`` is one device: the state is ``{"opt_state", "step"}`` over the
-model's own parameters and ``TrainStepBundle.state_shardings`` is None.
+``mesh=None`` is one device: the state is ``{"params", "opt_state", "step"}``,
+``"params"`` the model's own parameters by name (the same tensors; the step
+updates them through the model), and ``TrainStepBundle.state_shardings`` is
+None. Every state is a :class:`TrainState`, a dict that also says where its
+tensors live, for the checkpoint manager (``utils/checkpoint.py``).
 
 Under a mesh (``parallel/mesh.py``'s ``create_mesh``) every rank calls
 ``step`` with the same global batch, as the JAX step is called with the
@@ -68,11 +71,22 @@ from kubeflow_tpu_torch.ops.optimizers import GradientTransformation, apply_upda
 from kubeflow_tpu_torch.parallel import mesh as meshlib
 
 
+class TrainState(dict):
+    """A train bundle's state, ``{"params": {name: tensor}, "opt_state", "step"}``.
+
+    ``mesh`` and ``shardings`` say where its tensors live: under a mesh the
+    bundle's mesh and ``state_shardings`` (each tensor this rank's shard of
+    the whole), on one device None (each tensor whole)."""
+
+    mesh = None
+    shardings = None
+
+
 @dataclasses.dataclass
 class TrainStepBundle:
     """Everything a notebook (or bench harness) needs to run training."""
 
-    init: Callable  # () -> state {"opt_state", "step"} (+ "params": this rank's shards under a mesh)
+    init: Callable  # () -> TrainState {"params", "opt_state", "step"} (params: shards under a mesh)
     step: Callable  # (state, batch) -> (state, metrics); updates in place
     state_shardings: object = None  # the state's specs over a mesh; None on one device
     gather: Callable | None = None  # ({name: shard}) -> {name: whole tensor}; None on one device
@@ -339,7 +353,7 @@ class _Sharded:
                 raise ValueError(f"{n} is already held as shards: init() runs once a bundle")
             shards[n] = self.shard(n, p.detach())
         self.release()
-        return {"params": shards, "opt_state": tx.init(list(shards.values())), "step": 0}
+        return TrainState(params=shards, opt_state=tx.init(list(shards.values())), step=0)
 
 
 def optimizer_state_shardings(opt_state, params, param_specs, repl=()):
@@ -366,10 +380,12 @@ def _bundle(model, tx, mesh, param_rule, step_fn, seq_refusal=None) -> TrainStep
     """The bundle of ``step_fn(state, batch, params, sharded)``: one device
     for ``mesh=None``, else the rule's shards of the parameters
     (``seq_refusal``: why the step cannot cut rows over seq, or None)."""
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    params = list(named.values())
     if mesh is None:
-        return TrainStepBundle(init=lambda: {"opt_state": tx.init(params), "step": 0},
-                               step=lambda state, batch: step_fn(state, batch, params, None))
+        return TrainStepBundle(
+            init=lambda: TrainState(params=dict(named), opt_state=tx.init(params), step=0),
+            step=lambda state, batch: step_fn(state, batch, params, None))
     sharded = _Sharded(mesh, model, param_rule, seq_refusal)
     bundle = TrainStepBundle(init=None, step=None, gather=sharded.gather)
 
@@ -382,6 +398,7 @@ def _bundle(model, tx, mesh, param_rule, step_fn, seq_refusal=None) -> TrainStep
             "opt_state": optimizer_state_shardings(state["opt_state"], shards, specs),
             "step": (),
         }
+        state.mesh, state.shardings = mesh, bundle.state_shardings
         return state
 
     def step(state, batch):

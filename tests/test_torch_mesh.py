@@ -241,7 +241,8 @@ def test_bootstrap_single_host_skips_the_process_group(monkeypatch):
 def test_bootstrap_passes_the_contract_to_init_process_group(monkeypatch):
     """A multi-host contract reaches ``init_process_group`` as the
     rendezvous (the coordinator), the world (the process count) and the rank
-    (the process id), with gloo for ``device="cpu"`` and nccl otherwise."""
+    (the process id), with gloo for ``device="cpu"`` and otherwise nccl
+    beside a gloo CPU backend (``"cpu:gloo,cuda:nccl"``)."""
     import torch.distributed as dist
 
     seen = {}
@@ -253,7 +254,7 @@ def test_bootstrap_passes_the_contract_to_init_process_group(monkeypatch):
     tboot.auto_initialize(device="cpu")
     assert seen == dict(backend="gloo", init_method="tcp://nb-0:8476", world_size=2, rank=1)
     tboot.auto_initialize()
-    assert seen["backend"] == "nccl"
+    assert seen["backend"] == "cpu:gloo,cuda:nccl"
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
     with pytest.raises(ValueError, match="JAX_COORDINATOR_ADDRESS"):
         tboot.auto_initialize(device="cpu")

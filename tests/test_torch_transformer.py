@@ -124,19 +124,23 @@ def test_entry_points_without_a_device_raise(monkeypatch):
         kt.init_state_dict(tcfg, seed=0)
 
 
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|kubeflow_tpu)(\.|\s|$)", re.M)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|kubeflow_tpu)(\.|\s|$)",
+                        re.M)
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, imports JAX, flax, optax or
-    the JAX package: read from every source, then imported, every module."""
+    """No module of the port, nor chip_smoke.py, imports JAX, flax, optax,
+    orbax or the JAX package: read from every source, then imported, every
+    module."""
     files = sorted((REPO / "kubeflow_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     names = {str(f.relative_to(REPO / "kubeflow_tpu_torch")) for f in files[:-1]}
     assert {"models/resnet.py", "ops/bn_pallas.py", "benchmarks/bn_stats_probe.py",
             "benchmarks/pallas_bwd_probe.py", "benchmarks/_timing.py", "parallel/mesh.py",
             "parallel/bootstrap.py", "benchmarks/_cells.py", "benchmarks/transformer_bench.py",
             "benchmarks/moe_bench.py", "benchmarks/decode_bench.py",
-            "benchmarks/resnet_bench.py"} <= names
+            "benchmarks/resnet_bench.py", "utils/data.py", "utils/checkpoint.py",
+            "utils/profiling.py", "telemetry/agent.py", "spmd/mesh.py",
+            "spmd/bootstrap.py", "benchmarks/capture_threads.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
     modules = sorted(("kubeflow_tpu_torch." + n[:-3].replace("/", ".")).removesuffix(".__init__")
@@ -144,7 +148,7 @@ def test_port_imports_no_jax():
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
             "bad = [m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'flax', 'optax', 'kubeflow_tpu')]; "
+            "if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'kubeflow_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
