@@ -148,11 +148,19 @@ Phases, each of which fails the run with a non-zero exit:
             virtual expert ranks (each all-to-all the permutation it
             performs over the ranks' slabs) against the gather dispatch:
             output and gradients, gather and scatter launches;
+19b. seq moe walk  the same MoE layer on the span route (``seq`` > 1 with
+            ring attention: each rank one span of every row) over 4 and 2
+            virtual seq ranks, each span routed with the scan over the
+            ranks' choice counts and the whole row's capacity: the spans'
+            plans bit-equal to the whole row's ``route_top_k``, output and
+            gradients against the whole-row layer, gather and scatter
+            launches per span, device ms of both;
 20. tensor walk  one dense flagship block over two virtual tensor ranks
             (the tensor rule's parts, flash at 4 heads a rank, partials
             summed) against the unsplit block: output, every gradient,
             flash launches;
-21. two ranks  the sharded train steps on tensor=2 and expert=2 (the a2a
+21. two ranks  the sharded train steps on tensor=2 (also with one KV head,
+            which the rule leaves whole: the layer half split) and expert=2 (the a2a
             dispatch's real all-to-alls) and the pipeline on stage=2 (2
             microbatches, the hand-overs by all_to_all_single) in two
             processes on the card joined by gloo, at the flagship widths cut
@@ -171,7 +179,8 @@ Phases, each of which fails the run with a non-zero exit:
             both, and the bubble real ranks would add (arithmetic);
 23. dry run  ``python -m kubeflow_tpu_torch.graft_entry 1``: the reference
             dry run's sections at one rank on the card (nccl), the ResNet
-            parity with one device included, then ``entry()``'s ResNet-50
+            parities with one device included (the reference's ``train=False``
+            forward, then the train step's), then ``entry()``'s ResNet-50
             forward;
 24. session  the notebook's suspend and resume on the dense flagship of
             phase 5: six steps fed by ``DevicePrefetcher`` (synthetic tokens,
@@ -190,7 +199,11 @@ Phases, each of which fails the run with a non-zero exit:
             and a ``TorchTraceProfiler`` capture asked for from another
             thread while the main thread steps: it must run on the stepping
             thread (route "loop") and hold the flash kernels of its whole
-            steps (24 each a step) and their step regions; a world of one
+            steps (24 each a step) and their step regions; the same through
+            a ``TelemetryAgent``: a loop stepping only through
+            ``agent.step()``, ``agent.capture(2)`` from another thread, route
+            "loop", the trace's ``train#n`` regions a run of the agent's step
+            numbers, the scrape's step total and ended steps the agent's; a world of one
             joined with ``"cpu:gloo,cuda:nccl"``,
             its mesh from ``spmd.build_mesh``, a sharded 2-layer step saved
             as DTensors and restored onto ``mesh=None`` bit-equal. Prints the
@@ -3260,6 +3273,125 @@ def phase_expert_walk(torch):
                 launches=got["a2a_launches"], transport="virtual (one process)")
 
 
+# the MoE layer's span route (models/moe.py under parallel/train.py's seq
+# axis) walked over virtual seq ranks in one process
+SEQ_WALK_RANKS = (4, 2)
+
+
+def seq_moe_walk(torch, mlp, x, n, plans=None, spans_run=None):
+    """``MoEMLP`` on the span route over ``n`` virtual seq ranks in one
+    process: rank r takes positions r·S/n .. of every row of ``x``; the
+    ranks' choice counts, which the seq group's all-gather would bring
+    (``models/moe._seq_counts``), come from each span's own routing, and
+    each span is routed with the scan over them and the whole row's
+    capacity, dispatched, run and combined by the module's own forward.
+    Returns y [B, S, M] in ``cfg.dtype`` (the spans of ``spans_run`` only,
+    all by default); each span's plan is appended to ``plans`` if given."""
+    from kubeflow_tpu_torch.models import moe as tm
+
+    E = mlp.cfg.num_experts
+    spans = x.chunk(n, dim=1)
+    with torch.no_grad():
+        counts = torch.stack([torch.stack([tm._one_hot(e, E).sum(dim=1)
+                                           for e in mlp.route(s).experts]) for s in spans])
+    size, gather = tm._seq_size, tm._seq_counts
+    ys = []
+    try:
+        tm._seq_size = lambda group: n
+        mlp.seq_group = "virtual"
+        for r, s in enumerate(spans):
+            if spans_run is not None and r not in spans_run:
+                continue
+            tm._seq_counts = lambda c, group, r=r: (counts[:r].sum(dim=0), counts.sum(dim=0))
+            if plans is not None:
+                with torch.no_grad():
+                    plans.append(mlp.route(s))
+            ys.append(mlp(s)[0])
+    finally:
+        tm._seq_size, tm._seq_counts, mlp.seq_group = size, gather, None
+    return torch.cat(ys, dim=1)
+
+
+def phase_seq_moe_walk(torch):
+    """One MoE flagship layer on the span route over 4 and 2 virtual seq
+    ranks (``seq_moe_walk``) against the whole-row layer on the same weights
+    and rows: the spans' plans bit-equal to the whole row's
+    ``route_top_k`` (on the same router logits), the output and the
+    gradients of the input, the router and both expert tables within the
+    kernel bounds, the gather and scatter launches per span, and the device
+    ms of the walk's forward and backward beside the whole-row layer's."""
+    from kubeflow_tpu_torch.models import moe as tm
+    from kubeflow_tpu_torch.ops import moe_dispatch as md
+
+    import kubeflow_tpu_torch as kt
+
+    cfg = kt.MoEConfig(**dict(MOE, num_layers=1), dtype=torch.bfloat16)
+    model = kt.MoETransformerLM(cfg, device="cuda")
+    model.load_state_dict(kt.moe_init_state_dict(cfg, seed=3, device="cuda"))
+    mlp = model.layers[0].moe
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    x = torch.randn((MOE_BATCH, MOE_SEQ, cfg.embed_dim), generator=gen,
+                    device="cuda").to(cfg.dtype).requires_grad_()
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    inputs = (x, mlp.router, mlp.experts_wi, mlp.experts_wo)
+    counters = {"moe_gather": md.gather, "moe_scatter": md.scatter}
+    k, C = cfg.experts_per_token, cfg.capacity(MOE_SEQ)
+    with torch.no_grad():
+        logits = torch.einsum("bsm,me->bse", x.float(), mlp.router)
+        whole_plan = tm.route_top_k(logits, k, C)
+    whole = _grads_of(torch, lambda: mlp(x)[0], inputs, g)
+    out = {}
+    for n in SEQ_WALK_RANKS:
+        for c in counters.values():
+            c.launches = 0
+        plans = []
+        y = seq_moe_walk(torch, mlp, x, n, plans)
+        got = (y.detach(), torch.autograd.grad((y.float() * g).sum(), inputs))
+        torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+        # the spans' plans against the whole row's route_top_k on the spans'
+        # own router logits (one GEMM a span, as a rank computes them)
+        with torch.no_grad():
+            span_logits = torch.cat([torch.einsum("bsm,me->bse", s.float(), mlp.router)
+                                     for s in x.chunk(n, dim=1)], dim=1)
+            ref_plan = tm.route_top_k(span_logits, k, C)
+        equal = {f: torch.equal(torch.cat([getattr(p, f) for p in plans], dim=2),
+                                getattr(ref_plan, f)) for f in ("experts", "gates", "pos", "keep")}
+        flips = int((ref_plan.experts != whole_plan.experts).sum())
+        checks = {}
+        for what, a, b in zip(("y", "dx", "drouter", "dwi", "dwo"), (got[0], *got[1]),
+                              (whole[0], *whole[1])):
+            ok, err, ratio, _ = check_out(a, b)
+            checks[what] = (ok, err, ratio)
+
+        def walk(run):
+            y_run = seq_moe_walk(torch, mlp, x, n, spans_run=run)
+            return torch.autograd.grad((y_run.float() * g[:, :y_run.shape[1]]).sum(), inputs)
+
+        walk_ms, span_ms = (device_ms(torch, lambda: walk(run), cold=False, iters=10)
+                            for run in (None, (0,)))
+        whole_ms = device_ms(torch, lambda: _grads_of(torch, lambda: mlp(x)[0], inputs, g),
+                             cold=False, iters=10)
+        want = n * (1 + k)
+        log(f"[seq moe walk] one MoE layer (E {cfg.embed_dim}, {cfg.num_experts} experts of "
+            f"{cfg.expert_hidden_dim}, top-{k}, capacity {C} of the whole row, batch "
+            f"[{MOE_BATCH}, {MOE_SEQ}], bf16) over {n} virtual seq ranks: plan bit-equal {equal} "
+            f"(routing choices that differ from the whole-row GEMM's logits: {flips}); "
+            + ", ".join(f"{w} err {e:.3e} (err/tol {r:.3f})" for w, (_, e, r) in checks.items())
+            + f"; launches {launches} (expected {want} each); forward + backward device ms "
+            f"{walk_ms:.4f} ({walk_ms / whole_ms:.2f}x; one span's {span_ms:.4f}, with the "
+            f"{n} spans' counting routes) vs whole row {whole_ms:.4f}")
+        if (not all(equal.values()) or not all(ok for ok, _, _ in checks.values())
+                or launches != {c: want for c in counters}):
+            raise AssertionError(f"the seq walk at n={n} disagrees with the whole-row layer: "
+                                 f"{equal} {checks} {launches}")
+        out[n] = dict(plan_equal=equal, flips=flips, launches=launches, walk_ms=walk_ms,
+                      span_ms=span_ms, whole_ms=whole_ms,
+                      errors={w: e for w, (_, e, _) in checks.items()})
+    return out
+
+
 TENSOR_WALK_TP = 2
 
 
@@ -3352,8 +3484,11 @@ TWO_RANK_LAYERS = 2
 TWO_RANK_LOSS_ATOL, TWO_RANK_GNORM_RTOL = MOE_FUSED_F32_LOSS_ATOL, MOE_FUSED_F32_GNORM_RTOL
 # (name, kind, plan): "pipeline" is make_pipeline_train_step at 2 microbatches,
 # held to the unpipelined full-logits step ("dense_logits" on one device)
+# "dense_kv1": the dense cell with one KV head, which does not split over
+# tensor=2: q and o split, k and v whole (each rank projects the one KV head)
 TWO_RANK_CASES = (("dense_tensor2", "dense", dict(tensor=2)), ("moe_expert2", "moe", dict(expert=2)),
-                  ("dense_stage2", "pipeline", dict(stage=2)))
+                  ("dense_stage2", "pipeline", dict(stage=2)),
+                  ("dense_kv1_tensor2", "dense_kv1", dict(tensor=2)))
 TWO_RANK_MICRO = 2
 
 
@@ -3393,8 +3528,10 @@ def _two_rank_step(torch, kind, plan, mesh):
         for (n, _), g in zip(params.named_parameters(), got):
             out["split_sq" if n.startswith("stages.") else "repl_sq"] += g.float().pow(2).sum().item()
         return out
-    if kind in ("dense", "dense_logits"):
-        cfg = kt.TransformerConfig(**dict(TRAIN, num_layers=TWO_RANK_LAYERS), dtype=torch.float32)
+    if kind in ("dense", "dense_logits", "dense_kv1"):
+        kv = dict(num_kv_heads=1) if kind == "dense_kv1" else {}
+        cfg = kt.TransformerConfig(**dict(TRAIN, num_layers=TWO_RANK_LAYERS, **kv),
+                                   dtype=torch.float32)
         model = kt.TransformerLM(cfg, device="cuda")
         model.load_state_dict(kt.init_state_dict(cfg, seed=0, device="cuda"))
         loss_fn, rule, batch, seq = None, tmesh.tensor_param_spec, TRAIN_BATCH, TRAIN_SEQ
@@ -3458,7 +3595,8 @@ def two_rank_main(rank: int, folder: str) -> None:
 
 def phase_two_ranks(torch, np):
     """The sharded train steps on tensor=2 (Megatron, flash at 4 heads a
-    rank) and expert=2 (the a2a dispatch: two real all-to-alls a layer), and
+    rank; and with one KV head, held whole, 4 query heads over it a rank)
+    and expert=2 (the a2a dispatch: two real all-to-alls a layer), and
     the pipeline on stage=2 (2 microbatches, the activations and their
     gradients handed over by all_to_all_single), in two ranks, two
     processes on the one card joined by gloo, in fp32 against the
@@ -3469,7 +3607,7 @@ def phase_two_ranks(torch, np):
     import tempfile
 
     L = TWO_RANK_LAYERS
-    refs = {"dense": "dense", "moe": "moe", "pipeline": "dense_logits"}
+    refs = {"dense": "dense", "moe": "moe", "pipeline": "dense_logits", "dense_kv1": "dense_kv1"}
     ref = {kind: _two_rank_step(torch, refs[kind], {}, None) for kind in refs}
     torch.cuda.empty_cache()
     root = Path(__file__).resolve().parent
@@ -3640,6 +3778,8 @@ def phase_pipeline(torch, np):
 
 # the dry run's sections at a world of one (__graft_entry__.py's plans for one device)
 DRYRUN_ONE = ("resnet dp=1 fsdp=1: loss=", "parity dp=1 fsdp=1 vs 1-device: loss ",
+              "step parity dp=1 fsdp=1 vs 1-device (train step, global BatchNorm statistics): "
+              "loss ",
               "transformer fsdp=1 tensor=1 seq=1 (block attention): loss=",
               "moe data=1 expert=1 tensor=1: loss=")
 
@@ -3769,12 +3909,19 @@ def session_traces_main(folder: str) -> None:
     flagship's ``trace_n_steps(steps=3)``, then a ``TorchTraceProfiler``
     capture asked for from another thread while this one steps until it
     ends (four steps at least), which runs on this thread between its step
-    boundaries; the counts written to ``folder/traces.json``."""
+    boundaries; then a loop that steps only through a ``TelemetryAgent``'s
+    ``step()`` while another thread asks the agent for a capture (five
+    steps at least); the counts, the agent's step numbers and its scrape's
+    step total and ended steps written to ``folder/traces.json``."""
     import threading
 
     import torch
 
-    from kubeflow_tpu_torch.telemetry.agent import TorchTraceProfiler
+    from kubeflow_tpu_torch.telemetry.agent import (
+        TelemetryAgent,
+        TorchDeviceBackend,
+        TorchTraceProfiler,
+    )
     from kubeflow_tpu_torch.utils.profiling import step_annotation, trace_n_steps
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3803,6 +3950,32 @@ def session_traces_main(folder: str) -> None:
     out.update(capture_counts=counts, capture=text["lines"], capture_main_steps=n,
                capture_route=profiler.last_route,
                capture_steps=sorted(r for r in regions if r.startswith("train#")))
+    # a loop that steps only through the agent's step hook, and a capture
+    # asked for through the agent from another thread
+    profiler = TorchTraceProfiler(logdir_base=str(root / "agent"), step_hint_s=0.2)
+    agent = TelemetryAgent(TorchDeviceBackend(), profiler=profiler)
+    numbers = []
+    with agent.step() as n:
+        numbers.append(n)
+        cell.bundle.step(state, cell.tokens)
+    capture = threading.Thread(target=lambda: text.update(agent=agent.capture(2)))
+    capture.start()
+    while len(numbers) < 5 or capture.is_alive():
+        with agent.step() as n:
+            numbers.append(n)
+            cell.bundle.step(state, cell.tokens)
+    torch.cuda.synchronize()
+    capture.join()
+    counts, regions, _ = _trace_kernels(root / "agent")
+    scrape = agent.exposition().splitlines()
+    out.update(agent_counts=counts, agent_capture=text["agent"], agent_numbers=numbers,
+               agent_route=profiler.last_route,
+               agent_steps=sorted(int(r[len("train#"):]) for r in regions
+                                  if r.startswith("train#")),
+               agent_total=next(float(x.split()[1]) for x in scrape
+                                if x.startswith("tpu_step_total ")),
+               agent_ended=sorted(int(x.split('"')[1]) for x in scrape
+                                  if x.startswith("tpu_step_end_seconds{")))
     (root / "traces.json").write_text(json.dumps(out))
 
 
@@ -3971,6 +4144,25 @@ def phase_session(torch, np, train: dict, monitor, compile_at_build):
             raise AssertionError(f"the capture's {len(cap_steps)} whole steps do not hold "
                                  f"{cfg.num_layers} of each flash kernel a step: {cap_counts}")
         out.update(trace_counts=counts, capture_counts=cap_counts, capture=traces["capture"])
+        ag_counts, ag_steps, numbers = (traces["agent_counts"], traces["agent_steps"],
+                                        traces["agent_numbers"])
+        log(f"[session] TelemetryAgent.step() loop of {len(numbers)} steps (numbers "
+            f"{numbers}), agent.capture(2) from a thread, route {traces['agent_route']!r}: "
+            f"{traces['agent_capture'].strip()}; device events {ag_counts}; step regions "
+            f"{ag_steps}; the scrape's tpu_step_total {traces['agent_total']:.0f}, ended steps "
+            f"{traces['agent_ended']}")
+        if traces["agent_route"] != "loop" or not ag_steps:
+            raise AssertionError("the agent's capture did not run on the stepping loop's thread")
+        if (ag_steps != list(range(ag_steps[0], ag_steps[0] + len(ag_steps)))
+                or not set(ag_steps) <= set(numbers) or traces["agent_total"] != len(numbers)
+                or traces["agent_ended"] != numbers):
+            raise AssertionError(f"the agent's steps {numbers} (scrape: "
+                                 f"{traces['agent_total']}, {traces['agent_ended']}) do not "
+                                 f"match the trace's regions {ag_steps}")
+        if ag_counts != {k: cfg.num_layers * len(ag_steps) for k in ag_counts}:
+            raise AssertionError(f"the agent's capture's {len(ag_steps)} whole steps do not hold "
+                                 f"{cfg.num_layers} of each flash kernel a step: {ag_counts}")
+        out.update(agent_counts=ag_counts, agent_steps=ag_steps, agent_numbers=numbers)
 
         out["world_of_one"] = _session_world_of_one(torch, root)
         return out
@@ -4069,6 +4261,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["ring"] = phase_ring(torch)
     report["expert_walk"] = phase_expert_walk(torch)
+    report["seq_moe_walk"] = phase_seq_moe_walk(torch)
     report["tensor_walk"] = phase_tensor_walk(torch)
     torch.cuda.empty_cache()
     report["two_ranks"] = phase_two_ranks(torch, np)

@@ -12,10 +12,11 @@ plans for each N, its configurations, seeds, batch shapes and optimizer
 with fp32 moments), each through the port's own train step:
 
 - ResNet (``stage_sizes=[1, 1]``, 16 classes, width 16, bf16, ``bn_impl='xla'``)
-  under data x fsdp and, for even N, dcn x fsdp; each step's loss and global
-  gradient norm held to the one-device step's at rtol 2e-4 (the reference's
-  parity compares a ``train=False`` forward; the port's compares the train
-  step itself, its global-batch BatchNorm statistics included);
+  under data x fsdp and, for even N, dcn x fsdp; the reference's parity (the
+  loss and global gradient norm of a ``train=False`` forward, the batch
+  sharded over the ranks, against one device), then each step's loss and
+  global gradient norm held to the one-device step's, its global-batch
+  BatchNorm statistics included, all at rtol 2e-4;
 - the LM under fsdp x tensor x seq (ring attention where seq > 1, the
   chunked head, the tensor rule);
 - the MoE LM (einsum dispatch) under data x expert x tensor (the MoE rule),
@@ -86,30 +87,65 @@ def _first_step(model, mesh, batch, classifier: bool, **step_kw):
     return metrics["loss"].item(), norm
 
 
+def _eval_parity(model, mesh, batch):
+    """The reference's parity check: (loss, global gradient norm) of the
+    ``train=False`` forward's mean cross entropy, on one device
+    (``mesh=None``) or with the batch in equal shards over every rank of
+    ``mesh`` (a data x fsdp or dcn x fsdp plan, whose ranks all hold
+    different rows, in rank order), each rank differentiating its share of
+    the global mean, as GSPMD differentiates the global loss."""
+    import torch.distributed as dist
+
+    image, label = batch["image"], batch["label"]
+    n = 1
+    if mesh is not None:
+        n, r = dist.get_world_size(), dist.get_rank()
+        rows = image.shape[0] // n
+        image, label = image[r * rows:(r + 1) * rows], label[r * rows:(r + 1) * rows]
+    params = [p for p in model.parameters() if p.requires_grad]
+    loss = kt.cross_entropy_loss(model(image, train=False), label)
+    grads = [g.clone() for g in torch.autograd.grad(loss / n, params)]
+    loss = loss.detach() / n
+    if mesh is not None:
+        for t in (loss, *grads):
+            dist.all_reduce(t)
+    return loss.item(), torch.sqrt(sum(g.double().pow(2).sum() for g in grads)).item()
+
+
 def _sections(n: int, device, say) -> None:
     """The reference's sections, in its order, on this rank."""
     rng = np.random.default_rng(0)
 
     # ---- ResNet under dp x fsdp, and parity with one device
-    resnet = dict(stage_sizes=[1, 1], num_classes=16, width=16)
+    resnet_kw = dict(stage_sizes=[1, 1], num_classes=16, width=16)
+
+    def resnet(device):
+        model = kt.ResNet(**resnet_kw, device=device)
+        model.load_state_dict(kt.resnet_init_state_dict(**resnet_kw, seed=0, device=device))
+        return model
 
     def resnet_step(mesh, batch):
-        model = kt.ResNet(**resnet, device=device)
-        model.load_state_dict(kt.resnet_init_state_dict(**resnet, seed=0, device=device))
-        return _first_step(model, mesh, batch, classifier=True)
+        return _first_step(resnet(device), mesh, batch, classifier=True)
 
     dp = 2 if n % 2 == 0 else 1
     plan = meshlib.MeshPlan(data=dp, fsdp=n // dp)
     batch = {"image": torch.from_numpy(rng.standard_normal((2 * n, 32, 32, 3)).astype(np.float32)),
              "label": torch.from_numpy(rng.integers(0, 16, 2 * n))}
     batch = {k: v.to(device) for k, v in batch.items()}
-    loss, gnorm = resnet_step(meshlib.create_mesh(plan), batch)
+    mesh = meshlib.create_mesh(plan)
+    loss, gnorm = resnet_step(mesh, batch)
     say(f"[dryrun] resnet dp={plan.data} fsdp={plan.fsdp}: loss={loss:.4f}")
+    got = _eval_parity(resnet(device), mesh, batch)
+    want = _eval_parity(resnet(device), None, batch)
+    np.testing.assert_allclose(got, want, rtol=2e-4)
+    say(f"[dryrun] parity dp={plan.data} fsdp={plan.fsdp} vs 1-device: loss {got[0]:.6f}~"
+        f"{want[0]:.6f} |g| {got[1]:.6f}~{want[1]:.6f}")
     ref_loss, ref_gnorm = resnet_step(None, batch)
     np.testing.assert_allclose(loss, ref_loss, rtol=2e-4)
     np.testing.assert_allclose(gnorm, ref_gnorm, rtol=2e-4)
-    say(f"[dryrun] parity dp={plan.data} fsdp={plan.fsdp} vs 1-device: loss {loss:.6f}~"
-        f"{ref_loss:.6f} |g| {gnorm:.6f}~{ref_gnorm:.6f}")
+    say(f"[dryrun] step parity dp={plan.data} fsdp={plan.fsdp} vs 1-device (train step, "
+        f"global BatchNorm statistics): loss {loss:.6f}~{ref_loss:.6f} |g| {gnorm:.6f}~"
+        f"{ref_gnorm:.6f}")
 
     # ---- ResNet under dcn x fsdp (data parallel over DCN)
     if n % 2 == 0:

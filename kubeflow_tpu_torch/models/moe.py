@@ -29,6 +29,15 @@ plan, logits, losses and gradients:
 - expert matmuls in ``cfg.dtype`` from fp32 weights cast on every call, GELU
   in its tanh form (``nn.gelu``'s default), the combine summed in fp32.
 
+- under the train steps' span route (``parallel/train.py``: a ring model,
+  each ``seq`` rank holding one span of every row) the module gets the seq
+  group (``seq_group``) and routes its span as the whole row would: the
+  capacity is the whole row's, and the slots of each choice continue from
+  the lower seq ranks' counts of that choice and the whole row's counts of
+  every earlier choice (``route_top_k``), so the plan is the whole row's,
+  bit for bit, and no token crosses the seq ranks after it (the expert FFN
+  is per slot).
+
 Each block returns its load-balance aux loss with its output (flax ``sow``s
 it), so the losses survive ``torch.utils.checkpoint`` recompute. The
 attention stack, norms, embedding and tied head are the dense model's
@@ -56,6 +65,7 @@ from kubeflow_tpu_torch.models.transformer import (
     resolve_device,
     resolve_remat_policy,
     rope_tables,
+    seq_offset,
 )
 from kubeflow_tpu_torch.ops.fused_head_loss import fused_head_nll
 from kubeflow_tpu_torch.ops.moe_dispatch import gather_rows
@@ -124,20 +134,29 @@ def _one_hot(idx, n: int):
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
-def route_top_k(router_logits, k: int, capacity: int, group=None) -> RoutingPlan:
+def route_top_k(router_logits, k: int, capacity: int, group=None, seq_group=None) -> RoutingPlan:
     """Capacity-constrained top-k gating -> a RoutingPlan.
 
     router_logits: [B, S, E]. The choices come from an argmax-then-zero loop,
     not ``torch.topk``: ``argmax`` returns the first maximum, as
     ``jnp.argmax`` does, so ties break the same way on both sides.
 
-    ``group``: the process group over which the batch is sharded (equal
-    shards). The load-balance loss is then the global (B, S)'s: ``frac``
-    and ``mean_prob`` are averaged over the group before their product. The
+    ``group``: the process group over which the tokens are sharded (equal
+    shards). The load-balance loss is then the global tokens': ``frac`` and
+    ``mean_prob`` are averaged over the group before their product. The
     gradient reaches this rank's router through its own ``mean_prob``, as
-    the product's derivative is ``E * frac``: the train step's average of
-    the ranks' gradients is then the global loss's. Capacity and dispatch
-    stay per batch row.
+    the product's derivative is ``E * frac``: the train step's sum of the
+    ranks' shares of their gradients is then the global loss's. Capacity
+    and dispatch stay per batch row.
+
+    ``seq_group``: the ranks that each hold one span of the rows, in order
+    (``group`` then spans them too). ``capacity`` is then the whole row's,
+    and the slots are the whole row's: choice j of the span starts at the
+    lower ranks' counts of choice j plus the whole row's counts of choices
+    0 .. j-1 (one all-gather of the [k, B, E] counts), so ``pos`` and
+    ``keep`` equal the whole-row plan's at these positions, bit for bit
+    (fp32 sums of integers). The aux loss is this rank's share, the whole
+    rows' divided by the seq ranks, so that the spans' losses add up.
     """
     B, S, E = router_logits.shape
     if k > E:
@@ -165,11 +184,16 @@ def route_top_k(router_logits, k: int, capacity: int, group=None) -> RoutingPlan
 
     # slots: every choice-0 pick before any choice-1 pick (GShard priority),
     # in sequence order within a choice; an fp32 cumsum, as in the JAX module
+    counts = [torch.sum(mask, dim=1) for mask in masks]              # [B, E] each
+    before = [None] * k
+    if seq_group is not None:
+        before, counts = (list(c) for c in _seq_counts(torch.stack(counts), seq_group))
     poss, keeps = [], []
     offset = torch.zeros((B, E), dtype=torch.float32, device=probs.device)
-    for mask in masks:
-        pos_in_expert = torch.cumsum(mask, dim=1) - mask + offset[:, None, :]
-        offset = offset + torch.sum(mask, dim=1)
+    for mask, count, lower in zip(masks, counts, before):
+        start = offset if lower is None else offset + lower
+        pos_in_expert = torch.cumsum(mask, dim=1) - mask + start[:, None, :]
+        offset = offset + count
         pos = torch.sum(pos_in_expert * mask, dim=-1)              # [B, S]
         keeps.append((pos < capacity).float() * torch.sum(mask, dim=-1))
         poss.append(pos.long())
@@ -178,17 +202,32 @@ def route_top_k(router_logits, k: int, capacity: int, group=None) -> RoutingPlan
     frac = torch.mean(masks[0], dim=(0, 1))
     mean_prob = torch.mean(probs, dim=(0, 1))
     if group is not None:
-        import torch.distributed as dist
-
         both = torch.stack([frac, mean_prob.detach()])
         dist.all_reduce(both, group=group)
         both = both / dist.get_world_size(group)
         frac, mean_prob = both[0], mean_prob + (both[1] - mean_prob).detach()
     aux_loss = E * torch.sum(frac * mean_prob)
+    if seq_group is not None:
+        aux_loss = aux_loss / _seq_size(seq_group)
     return RoutingPlan(
         experts=torch.stack(idxs), gates=torch.stack(gates), pos=torch.stack(poss),
         keep=torch.stack(keeps), aux_loss=aux_loss,
     )
+
+
+def _seq_size(seq_group) -> int:
+    """The number of spans a row is cut into: the seq group's ranks."""
+    return dist.get_world_size(seq_group)
+
+
+def _seq_counts(counts, seq_group):
+    """(the lower seq ranks' sums of ``counts`` [k, B, E], all ranks' sums):
+    one all-gather over ``seq_group``, summed in rank order."""
+    n, my = _seq_size(seq_group), dist.get_rank(seq_group)
+    every = counts.new_empty((n * counts.shape[0], *counts.shape[1:]))
+    dist.all_gather_into_tensor(every, counts.contiguous(), group=seq_group)
+    every = every.view(n, *counts.shape)
+    return every[:my].sum(dim=0), every.sum(dim=0)
 
 
 def top_k_routing(router_logits, k: int, capacity: int):
@@ -335,21 +374,28 @@ class MoEMLP(nn.Module):
         # the process group of the ranks that shard the batch (set by the
         # train step under a mesh): the load-balance loss is the global batch's
         self.group = None
+        self.seq_group = None        # set by the train step's span route: x is a span of each row
         self.tensor_group = None     # set by the train step under a tensor split
         self.expert_group = None     # set by the train step: einsum, tables split over expert
+
+    def capacity(self, S: int) -> int:
+        """The per-expert budget of rows of which x holds ``S`` positions:
+        the whole row's under the span route."""
+        n = 1 if self.seq_group is None else _seq_size(self.seq_group)
+        return self.cfg.capacity(S * n)
 
     def route(self, x) -> RoutingPlan:
         """The routing plan of x [B, S, M]: fp32 router logits on fp32
         operands, then capacity-constrained top-k."""
         logits = torch.einsum("bsm,me->bse", x.float(), self.router)
-        return route_top_k(logits, self.cfg.experts_per_token, self.cfg.capacity(x.shape[1]),
-                           self.group)
+        return route_top_k(logits, self.cfg.experts_per_token, self.capacity(x.shape[1]),
+                           self.group, self.seq_group)
 
     def forward(self, x):
         cfg = self.cfg
         B, S, M = x.shape
         E = cfg.num_experts
-        C = cfg.capacity(S)
+        C = self.capacity(S)
         plan = self.route(x)
         aux_loss = plan.aux_loss
         wi = self.experts_wi.to(cfg.dtype)
@@ -401,7 +447,11 @@ class MoEBlock(nn.Module):
 
 class MoETransformerLM(nn.Module):
     """Decoder-only LM with an MoE FFN in every block. ``device`` defaults to
-    CUDA and raises without a card."""
+    CUDA and raises without a card. A ``ring`` model takes its rank's span
+    of each row, its rope positions from the span's offset, as the dense
+    model does (``whole_rows`` as there)."""
+
+    whole_rows = False       # set by the train step's whole-row route
 
     def __init__(self, cfg: MoEConfig, device=None):
         super().__init__()
@@ -434,8 +484,9 @@ class MoETransformerLM(nn.Module):
         cfg = self.cfg
         S = tokens.shape[1]
         x = self.embed(tokens)
-        rope_cs = rope_tables(torch.arange(S, device=tokens.device), self.head_dim,
-                              self.rope_theta)
+        start = seq_offset(cfg, S, self.whole_rows)
+        rope_cs = rope_tables(torch.arange(start, start + S, device=tokens.device),
+                              self.head_dim, self.rope_theta)
         remat = cfg.remat and torch.is_grad_enabled()
         kw = {} if self._remat_context is None else {"context_fn": self._remat_context}
         aux = []
@@ -457,24 +508,29 @@ def moe_lm_loss(model: MoETransformerLM, tokens):
 
 
 def moe_lm_loss_chunked(model: MoETransformerLM, tokens, *, chunk: int = 512,
-                        compute_dtype=None):
+                        compute_dtype=None, start: int = 0, S: int | None = None):
     """``moe_lm_loss`` through the chunked tied head (``lm_loss_chunked``):
     the [B, S, vocab] fp32 logits never exist at once. ``compute_dtype``
-    passes through (default bf16 operands, fp32 logits)."""
-    hidden, aux = model(tokens, return_hidden=True, return_aux=True)
+    passes through (default bf16 operands, fp32 logits). ``start`` and
+    ``S``: the loss of positions ``start .. start+S-1`` of the rows (a seq
+    rank's span; the whole rows by default)."""
+    S = tokens.shape[1] if S is None else S
+    hidden, aux = model(tokens[:, start:start + S], return_hidden=True, return_aux=True)
     nll = lm_loss_chunked(hidden, model.embed.weight, tokens, chunk=chunk,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, start=start)
     return nll + model.cfg.aux_loss_weight * aux.mean()
 
 
-def moe_lm_loss_fused(model: MoETransformerLM, tokens, *, compute_dtype=None):
+def moe_lm_loss_fused(model: MoETransformerLM, tokens, *, compute_dtype=None, start: int = 0,
+                      S: int | None = None):
     """``moe_lm_loss`` through the fused tied head (``ops/fused_head_loss.py``):
     the [B, S, vocab] logits exist only as tiles inside its kernels, and the
     fp32 table's gradient comes back from the dE kernel in fp32.
     ``compute_dtype`` as in ``moe_lm_loss_chunked`` (default bf16 operands;
     fp32 for parity runs, on the CPU or through the head's fp32 kernels on
-    the card)."""
-    hidden, aux = model(tokens, return_hidden=True, return_aux=True)
+    the card); ``start`` and ``S`` as there."""
+    S = tokens.shape[1] if S is None else S
+    hidden, aux = model(tokens[:, start:start + S], return_hidden=True, return_aux=True)
     nll = fused_head_nll(hidden, model.embed.weight, tokens,
-                         compute_dtype=compute_dtype or torch.bfloat16)
+                         compute_dtype=compute_dtype or torch.bfloat16, start=start)
     return nll + model.cfg.aux_loss_weight * aux.mean()

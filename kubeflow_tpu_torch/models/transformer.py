@@ -31,7 +31,9 @@ it runs: the block's input goes through ``copy_to_group`` (identity forward,
 gradient all-reduced backward) and its output through
 ``reduce_from_group`` (the row-parallel partials all-reduced forward). The
 head counts come from the weights it holds, so the flash kernels run at
-H/tp heads.
+H/tp heads. Where KV heads do not split over tp (k/v held whole, q/o
+split), each rank projects k and v for the KV heads its query heads read
+(``Attention._kv_heads``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
@@ -47,7 +50,7 @@ from kubeflow_tpu_torch.ops import attention as att
 from kubeflow_tpu_torch.ops.flash_decode import flash_decode
 from kubeflow_tpu_torch.ops.pallas_attention import flash_attention
 from kubeflow_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
-from kubeflow_tpu_torch.parallel.ring_attention import ring_attention
+from kubeflow_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,10 +141,11 @@ def apply_rope(x, cos, sin):
     return out.to(x.dtype)
 
 
-def seq_offset(cfg, S: int) -> int:
+def seq_offset(cfg, S: int, whole_rows: bool = False) -> int:
     """The position of a row's first token on this rank: under the ring,
-    rank i of the ``seq`` axis holds positions i·S .. (i+1)·S - 1."""
-    if cfg.attention_impl != "ring" or cfg.mesh is None:
+    rank i of the ``seq`` axis holds positions i·S .. (i+1)·S - 1, unless
+    it holds whole rows."""
+    if cfg.attention_impl != "ring" or cfg.mesh is None or whole_rows:
         return 0
     return cfg.mesh.get_local_rank("seq") * S
 
@@ -184,10 +188,12 @@ class Dense(nn.Linear):
         super().__init__(n_in, n_out, bias=False, dtype=_param_dtype(cfg), device=device)
         self.compute_dtype = _cast_dtype(cfg)
 
-    def forward(self, x):
+    def forward(self, x, rows: slice | None = None):
+        """x times the weight's ``rows`` (all of them by default)."""
+        w = self.weight if rows is None else self.weight[rows]
         if self.compute_dtype is None:
-            return F.linear(x, self.weight)
-        return F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
+            return F.linear(x, w)
+        return F.linear(x.to(self.compute_dtype), w.to(self.compute_dtype))
 
 
 class Embed(nn.Embedding):
@@ -207,6 +213,8 @@ class Embed(nn.Embedding):
 
 
 class Attention(nn.Module):
+    whole_rows = False       # set by the train step's whole-row route (module docstring)
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -225,8 +233,14 @@ class Attention(nn.Module):
         H, KV = self.q_proj.weight.shape[0] // D, self.k_proj.weight.shape[0] // D
         x = copy_to_group(x, self.tensor_group)
         q = apply_rope(self.q_proj(x).view(B, S, H, D), *rope_cs)
-        k = apply_rope(self.k_proj(x).view(B, S, KV, D), *rope_cs)
-        v = self.v_proj(x).view(B, S, KV, D)
+        rows, pick = None, None
+        if self.tensor_group is not None and KV == cfg.kv_heads and H < cfg.num_heads:
+            (lo, KV), pick = self._kv_heads(H)
+            rows = slice(lo * D, (lo + KV) * D)
+        k = apply_rope(self.k_proj(x, rows).view(B, S, KV, D), *rope_cs)
+        v = self.v_proj(x, rows).view(B, S, KV, D)
+        if pick is not None:       # the rank's heads read its KV heads unevenly: one each
+            k, v, KV = k.index_select(2, pick), v.index_select(2, pick), H
 
         if not cfg.decode and KV != H and cfg.attention_impl in ("xla", "block"):
             # GQA: expand kv heads to query heads for the paths that need
@@ -252,11 +266,28 @@ class Attention(nn.Module):
         elif cfg.attention_impl == "ring":
             if cfg.mesh is None:
                 raise ValueError("attention_impl='ring' requires cfg.mesh")
-            o = ring_attention(q, k, v, cfg.mesh, axis_name="seq", causal=True,
-                               block=cfg.attention_block_size)
+            ring = ring_attention_rows if self.whole_rows else ring_attention
+            o = ring(q, k, v, cfg.mesh, axis_name="seq", causal=True,
+                     block=cfg.attention_block_size)
         else:
             raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
         return reduce_from_group(self.o_proj(o.reshape(B, S, H * D)), self.tensor_group)
+
+    def _kv_heads(self, H: int):
+        """((first, count) of the KV heads, pick) that this tensor rank's
+        ``H`` query heads read, where the layer holds k and v whole: the
+        rank holds query heads r·H .. (r+1)·H - 1, and head h reads KV head
+        h // (num_heads / kv_heads). ``pick`` is None where the heads read
+        those KV heads in equal groups, as the flash kernels take them, else
+        the KV head of each query head, for an expansion to one each."""
+        cfg = self.cfg
+        group_size = cfg.num_heads // cfg.kv_heads
+        first = dist.get_rank(self.tensor_group) * H
+        reads = [(first + i) // group_size for i in range(H)]
+        lo, count = reads[0], reads[-1] - reads[0] + 1
+        if H % count == 0 and all(kv - lo == i // (H // count) for i, kv in enumerate(reads)):
+            return (lo, count), None
+        return (lo, count), torch.tensor([kv - lo for kv in reads], device=self.q_proj.weight.device)
 
     def _cached_attention(self, q, k, v, start: int, cache, pos):
         """Attend q [B,S,H,D] against the layer's cache; new k/v are written
@@ -341,6 +372,8 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """The LM. ``device`` defaults to CUDA and raises without a card."""
 
+    whole_rows = False       # set by the train step's whole-row route (module docstring)
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         device = resolve_device(device)
@@ -383,7 +416,7 @@ class TransformerLM(nn.Module):
         if cfg.decode and cache is None:
             raise ValueError("decode mode needs a cache (TransformerLM.init_cache)")
         x = self.embed(tokens)
-        start = start + seq_offset(cfg, S)
+        start = start + seq_offset(cfg, S, self.whole_rows)
         positions = torch.arange(start, start + S, device=tokens.device)
         rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         pos = torch.full((B,), start, dtype=torch.int32, device=tokens.device) if cfg.decode else None

@@ -474,20 +474,29 @@ def fused_lse_gold(h, emb, tgt):
     return _FusedLseGold.apply(h, emb, tgt)
 
 
-def fused_head_nll(hidden, embedding, tokens, *, compute_dtype=torch.bfloat16):
+def fused_head_nll(hidden, embedding, tokens, *, compute_dtype=torch.bfloat16, start: int = 0):
     """Mean next-token NLL over [B, S] tokens with the tied head fused.
 
     Drop-in for ``lm_loss_chunked``: hidden [B, S, E] from
     ``return_hidden=True``, the tied ``embedding [V, E]`` (fp32 parameters:
-    pass the table itself, not a cast of it, so its gradient stays fp32)."""
+    pass the table itself, not a cast of it, so its gradient stays fp32).
+    ``start`` as there: ``hidden`` holds positions ``start .. start+S-1`` of
+    the rows ``tokens`` [B, T] (a seq rank's span), whose targets are
+    ``tokens[:, start+1 : start+S+1]``; only the row's last position has
+    none, and the sum is divided by the whole rows' B·(T-1) targets."""
     B, S, E = hidden.shape
+    T = tokens.shape[1]
+    if start < 0 or start + S > T:
+        raise ValueError(f"positions {start} .. {start + S - 1} are outside rows of {T} tokens")
     h = hidden.reshape(B * S, E).to(compute_dtype)
-    tgt = torch.roll(tokens, -1, dims=1).reshape(B * S)
+    tgt = torch.roll(tokens, -1, dims=1)[:, start:start + S].reshape(B * S)
     mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
-    mask[:, -1] = 0.0
+    if start + S == T:
+        mask[:, -1] = 0.0
     mask = mask.reshape(B * S)
+    count = torch.full((), float(B * (T - 1)), dtype=torch.float32, device=hidden.device)
     lse, gold = fused_lse_gold(h, embedding, tgt)
-    return torch.sum((lse - gold) * mask) / torch.sum(mask)
+    return torch.sum((lse - gold) * mask) / count
 
 
 fused_head_fwd.launches = 0

@@ -27,8 +27,11 @@ are in flight while the current chunk computes. A group of one rank sends
 nothing.
 
 The JAX function takes the global arrays and cuts them with ``shard_map``;
-here the caller already holds its rank's chunk, in the port's [B, S, H, D]
-layout throughout.
+here :func:`ring_attention` takes the rank's chunk, in the port's [B, S, H,
+D] layout throughout, and :func:`ring_attention_rows` the whole rows that
+every rank of the axis holds (the train steps' whole-row route): it cuts
+the rank's chunk, runs the ring and all-gathers o, the reshard GSPMD puts
+around the JAX ``shard_map``.
 """
 from __future__ import annotations
 
@@ -194,3 +197,62 @@ def ring_attention(q, k, v, mesh, *, axis_name: str = "seq", causal: bool = True
     _block_plan(S, S, block, block)
     return _RingAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                 mesh.get_group(axis_name), causal, block)
+
+
+class _SpanOf(torch.autograd.Function):
+    """The rank's chunk of whole rows along dim 1. Every rank of the group
+    holds the same rows and gets its own chunk's gradient, so the backward
+    all-gathers the chunks' gradients: each rank's is then the whole rows'
+    gradient, the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n, my = dist.get_world_size(group), dist.get_rank(group)
+        return x.chunk(n, dim=1)[my].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_of(g, ctx.group), None
+
+
+class _RowsOf(torch.autograd.Function):
+    """Whole rows from each rank's chunk along dim 1 (an all-gather). The
+    gradient that comes back is already the whole rows', the same on every
+    rank, so the backward takes the rank's chunk of it: summing it over the
+    group would count it once a rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _rows_of(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, my = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return g.chunk(n, dim=1)[my].contiguous(), None
+
+
+def _rows_of(x, group):
+    """[B, S/n, ...] chunks of the n ranks of ``group`` -> [B, S, ...], rank
+    i's chunk at positions i·S/n .."""
+    n = dist.get_world_size(group)
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out.view(n, *x.shape).transpose(0, 1).flatten(1, 2)
+
+
+def ring_attention_rows(q, k, v, mesh, *, axis_name: str = "seq", causal: bool = True,
+                        block: int = 512):
+    """:func:`ring_attention` on whole rows that every rank of the axis
+    holds: q [B, S, H, D], k, v [B, S, KV, D], the same on every rank. Each
+    rank runs the ring on its chunk of S/n positions, and o [B, S, H, D] is
+    all-gathered back, the same on every rank; so are the gradients of q, k
+    and v. Every rank of the group calls it together."""
+    group = mesh.get_group(axis_name)
+    n = dist.get_world_size(group)
+    if q.shape[1] % n:
+        raise ValueError(f"rows of {q.shape[1]} positions do not cut into {n} equal chunks")
+    q, k, v = (_SpanOf.apply(t, group) for t in (q, k, v))
+    return _RowsOf.apply(ring_attention(q, k, v, mesh, axis_name=axis_name, causal=causal,
+                                        block=block), group)

@@ -17,16 +17,29 @@ global array, and takes its part of it:
 
 - rows: equal shards over the batch axes (dcn, data, fsdp, and expert for a
   model with the ``a2a`` dispatch, whose batch rides the expert axis outside
-  the MoE experts as the JAX ``a2a`` path's does), so that the mean of the
-  ranks' mean losses is the global mean;
-- ``seq``: each row cut into equal spans over the seq axis; the model runs
-  ring attention over it (``attention_impl="ring"``, ``cfg.mesh`` the
-  step's mesh) and the chunked loss divides each span's sum by its whole
-  rows' target count, a span's last position predicting the next span's
-  first token;
+  the MoE experts as the JAX ``a2a`` path's does);
+- ``seq``, two routes. The span route, for an LM step whose loss takes a
+  span (the step's own chunked loss, or a ``loss_fn`` with the keywords
+  ``start`` and ``S``, as ``moe_lm_loss_chunked`` and ``moe_lm_loss_fused``
+  have) on a model with ``attention_impl="ring"`` over the step's mesh: each
+  row is cut into equal spans over the seq axis, the model runs ring
+  attention over it (an MoE model routes its span with the slots and the
+  capacity of the whole row, ``models/moe.py``) and the loss divides each
+  span's sum by its whole rows' target count, a span's last position
+  predicting the next span's first token; the spans' losses add up to the
+  rows'. The whole-row route, for everything else (a ``loss_fn`` without
+  those keywords, the classifier, a model not on the ring), is the JAX
+  layout: every seq rank holds whole rows and computes the same loss, a ring
+  model's attention cutting its span and gathering the output
+  (``ring_attention_rows``); the seq ranks' identical gradients and metrics
+  are averaged;
 - ``tensor``: the same rows on every rank; the tensor-parallel layers
   (``Attention``, ``MLP``, the MoE experts) hold their rank's columns and
-  rows and get the tensor group while the step runs;
+  rows and get the tensor group while the step runs. Where the legalised
+  rule splits an ``Attention``'s q and o but leaves k and v whole (KV heads
+  not a multiple of tensor), the layer computes k and v for the KV heads
+  its query heads read, and the whole k and v weights' gradients, partial
+  on each rank, are summed over tensor;
 - ``expert`` under the ``einsum`` dispatch: the same rows on every rank;
   each MoE layer holds E/ep experts and gets the expert group while the
   step runs (``models/moe.py``);
@@ -40,33 +53,46 @@ Parameters and optimizer slots are stored as the rule's legalised shards
 parameter the rule replicates stays whole, and between steps the model
 holds only its replicated parameters (a split one is an empty tensor). Each
 step all-gathers the fsdp shards into the model for compute (a tensor or
-expert split stays the rank's own part), and reduces each gradient over the
-ranks whose data differ but whose part of the parameter is the same: the
-batch axes and seq, less expert for the expert tables (whose gradients
-already hold their expert group's rows) and never tensor or stage (their
-ranks see the same rows, and ``copy_to_group`` has summed what the split
-layers' inputs owe); fsdp by reduce-scatter. Then it divides by the number
-of row shards and runs the optimizer, which is elementwise, on the shards.
+expert split stays the rank's own part). Each rank differentiates its share
+of the global loss, its loss divided by the number of ranks whose losses
+average to the global one (the row shards, times the seq ranks on the
+whole-row route), as GSPMD differentiates the global mean: the backward
+then carries the one-device step's scale, whose bf16 roundings a later
+division would not reproduce. Each gradient is then summed over the ranks
+whose data differ but whose part of the parameter is the same: the batch
+axes and seq, less expert for the expert tables (whose gradients already
+hold their expert group's rows) and never tensor or stage (their ranks see
+the same rows, and ``copy_to_group`` has summed what the split layers'
+inputs owe), save the whole k/v of a half-split layer; fsdp by
+reduce-scatter. The optimizer, which is elementwise, runs on the shards.
 The loss (and accuracy) come back as the global batch's on every rank, as
 the JAX step returns them replicated. The batch statistics of train-mode
 BatchNorm and the MoE load-balance loss are the global batch's: while a
 step runs, the model's ``BatchNorm``, ``PallasBatchNorm`` and ``MoEMLP``
-modules hold the batch group and all-reduce their sums; the step clears it
-again, so the model is left as it was given. ``bundle.gather`` returns whole tensors from
-a {name: shard} dict, e.g. the parameters for serving after training.
+modules hold the batch group (an MoE layer on the span route the batch and
+seq group, and the seq group for its slots) and all-reduce their sums; the
+step clears it again, so the model is left as it was given.
+``bundle.gather`` returns whole tensors from a {name: shard} dict, e.g. the
+parameters for serving after training.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from kubeflow_tpu_torch.models.moe import MoEMLP
+from kubeflow_tpu_torch.models.moe import MoEMLP, MoETransformerLM
 from kubeflow_tpu_torch.models.resnet import BatchNorm, PallasBatchNorm
-from kubeflow_tpu_torch.models.transformer import MLP, Attention, lm_loss_chunked
+from kubeflow_tpu_torch.models.transformer import (
+    MLP,
+    Attention,
+    TransformerLM,
+    lm_loss_chunked,
+)
 from kubeflow_tpu_torch.ops.optimizers import GradientTransformation, apply_updates
 from kubeflow_tpu_torch.parallel import mesh as meshlib
 
@@ -94,6 +120,8 @@ class TrainStepBundle:
 
 # the modules that reduce over the batch under a mesh (their ``group``)
 _BATCH_REDUCERS = (BatchNorm, PallasBatchNorm, MoEMLP)
+# the modules that read whether they get whole rows under seq > 1 (``whole_rows``)
+_ROW_READERS = (TransformerLM, MoETransformerLM, Attention)
 # the axes whose ranks hold different rows (with expert for the a2a
 # dispatch, whose batch rides it), in the mesh's order
 _ROW_AXES = ("dcn", "data", "fsdp")
@@ -102,6 +130,8 @@ _TENSOR_LAYERS = {Attention: ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                               "o_proj.weight"),
                   MLP: ("gate_proj.weight", "up_proj.weight", "down_proj.weight"),
                   MoEMLP: ("experts_wi", "experts_wo")}
+# an Attention whose KV heads do not split over tensor: q and o split, k and v whole
+_KV_WHOLE = ("k_proj.weight", "v_proj.weight")
 
 
 def _check_donate(donate):
@@ -118,31 +148,38 @@ def _gather_dim(t, d, group, n):
     return out if d == 0 else torch.cat(out.view(n, *t.shape).unbind(0), dim=d)
 
 
+def takes_span(loss_fn) -> bool:
+    """Whether ``loss_fn(model, tokens, ...)`` takes the keywords ``start``
+    and ``S`` (the loss of positions ``start .. start+S-1`` of the rows),
+    which the span route needs."""
+    try:
+        params = inspect.signature(loss_fn).parameters
+    except (TypeError, ValueError):
+        return False
+    kinds = (inspect.Parameter.POSITIONAL_OR_KEYWORD, inspect.Parameter.KEYWORD_ONLY)
+    return all(n in params and params[n].kind in kinds for n in ("start", "S"))
+
+
 class _Sharded:
     """The rule's shards of a model's parameters over a mesh, and the
     collectives of a step: gather for compute, reduce the gradients back to
     shards, average the metrics, cut the batch.
 
-    ``seq_refusal``: None where the step cuts its rows over ``seq`` (the LM
-    step's own loss), else why it cannot."""
+    ``spans``: whether the step's loss takes a span of each row; under
+    ``seq > 1`` a ring model over the step's mesh then takes the span route
+    (module docstring), anything else the whole-row route."""
 
-    def __init__(self, mesh, model, rule, seq_refusal=None):
+    def __init__(self, mesh, model, rule, spans=False):
         sizes = meshlib.axis_sizes(mesh)
         self.mesh, self.sizes = mesh, sizes
         modules = dict(model.named_modules())
-        if sizes["seq"] > 1:
-            if any(isinstance(m, MoEMLP) for m in modules.values()):
-                raise NotImplementedError(
-                    f"an MoE model under seq={sizes['seq']}: its routing slots come from a "
-                    "cumsum over the whole row, which would cross the seq ranks (ROADMAP.md "
-                    "Queue 1)")
-            if seq_refusal is not None:
-                raise NotImplementedError(f"seq={sizes['seq']}: {seq_refusal}")
-            cfg = getattr(model, "cfg", None)
-            if getattr(cfg, "attention_impl", None) != "ring" or cfg.mesh is not mesh:
-                raise ValueError(
-                    f"seq={sizes['seq']} cuts each row into spans over the seq axis: the model "
-                    "must run attention_impl='ring' with cfg.mesh the step's mesh")
+        cfg = getattr(model, "cfg", None)
+        ring = getattr(cfg, "attention_impl", None) == "ring"
+        if sizes["seq"] > 1 and ring and cfg.mesh is not mesh:
+            raise ValueError(
+                f"seq={sizes['seq']}: a model on attention_impl='ring' runs its ring over "
+                "cfg.mesh's seq axis, which must be the step's mesh")
+        self.spans = sizes["seq"] > 1 and spans and ring
         self.names = [n for n, p in model.named_parameters() if p.requires_grad]
         self.params = dict(model.named_parameters())
         self.specs = {n: s for n, s in meshlib.param_shardings(mesh, model, rule).items()
@@ -167,6 +204,7 @@ class _Sharded:
             self.split[n] = split
         self.fsdp_dim = {n: next((d for d, a in split.items() if a == "fsdp"), None)
                          for n, split in self.split.items()}
+        self.tensor_partial = set()       # whole parameters whose gradients are partial over tensor
         self.tensor_layers = self._tensor_layers(modules)
         self.expert_layers = self._check_experts(modules, mesh)
         a2a = any(isinstance(m, MoEMLP) and m.cfg.dispatch == "a2a" for m in modules.values())
@@ -181,6 +219,10 @@ class _Sharded:
             self.n_batch *= sizes[a]
             self.batch_index = self.batch_index * sizes[a] + coord[a]
         self.n_seq, self.seq_index = sizes["seq"], coord["seq"]
+        # the ranks whose losses average to the global batch's: the row
+        # shards, times the seq ranks where each holds whole rows (their
+        # losses are the same; a span route's spans add up instead)
+        self.n_mean = self.n_batch * (1 if self.spans else self.n_seq)
         self.fsdp_rank, self.n_fsdp = coord["fsdp"], sizes["fsdp"]
         self.fsdp = mesh.get_group("fsdp")
         # every group a step reduces over, made on every rank in one order
@@ -190,28 +232,35 @@ class _Sharded:
             self.groups[axes] = meshlib.group_over(mesh, axes)
         self.batch = self.groups[self.row_axes]
         self.reducers = [m for m in modules.values() if isinstance(m, _BATCH_REDUCERS)]
+        self.row_readers = ([m for m in modules.values() if isinstance(m, _ROW_READERS)]
+                            if self.n_seq > 1 and not self.spans else [])
 
     def _tensor_layers(self, modules):
-        """[(module, tensor group)] of the layers the rule splits over tensor;
-        a layer half split (some of its parameters split, some whole) is
-        refused with the shapes."""
+        """[(module, tensor group)] of the layers the rule splits over tensor.
+        An ``Attention`` whose q and o are split and whose k and v are whole
+        (its KV heads not a multiple of tensor) computes its k/v heads
+        itself, and its k/v weights join ``tensor_partial``; any other half
+        split is refused with the shapes."""
         out = []
         for name, m in modules.items():
             held = _TENSOR_LAYERS.get(type(m))
             if held is None:
                 continue
-            held = [f"{name}.{p}" for p in held]
-            split = ["tensor" in self.split[p].values() for p in held]
-            if all(split):
-                out.append((m, self.mesh.get_group("tensor")))
-            elif any(split):
-                shapes = {p: (tuple(self.params[p].shape), self.specs[p]) for p in held}
+            split = {p: "tensor" in self.split[f"{name}.{p}"].values() for p in held}
+            if all(split.values()):
+                out.append(m)
+            elif isinstance(m, Attention) and [p for p in held if not split[p]] == list(_KV_WHOLE):
+                out.append(m)
+                self.tensor_partial |= {f"{name}.{p}" for p in _KV_WHOLE}
+            elif any(split.values()):
+                shapes = {f"{name}.{p}": (tuple(self.params[f"{name}.{p}"].shape),
+                                          self.specs[f"{name}.{p}"]) for p in held}
                 raise ValueError(
-                    f"{name}: the rule splits {[p for p, x in zip(held, split) if x]} over "
+                    f"{name}: the rule splits {[f'{name}.{p}' for p in held if split[p]]} over "
                     f"tensor={self.sizes['tensor']} and leaves "
-                    f"{[p for p, x in zip(held, split) if not x]} whole (shape, spec: {shapes}); "
-                    "a layer half split over tensor is not computed")
-        return out
+                    f"{[f'{name}.{p}' for p in held if not split[p]]} whole (shape, spec: "
+                    f"{shapes}); this half split is not computed")
+        return [(m, self.mesh.get_group("tensor")) for m in out]
 
     def _check_experts(self, modules, mesh):
         """Only MoE expert tables split over expert, both of a layer's: the
@@ -249,10 +298,12 @@ class _Sharded:
     def _reduce_axes(self, name) -> tuple:
         """The axes a gradient is summed over after its reduce-scatter over
         fsdp (fsdp itself where the parameter has no fsdp dim): the rows'
-        axes and seq, less expert for an expert-split table; never tensor
-        or stage."""
-        split = set(self.split[name].values())
-        return tuple(a for a in self.token_axes if a not in split)
+        axes and seq, less expert for an expert-split table; tensor only
+        for the whole k/v of a half-split layer; never stage."""
+        axes = set(self.token_axes) - set(self.split[name].values())
+        if name in self.tensor_partial:
+            axes.add("tensor")
+        return tuple(a for a in meshlib.AXES if a in axes)
 
     def shard(self, name, full):
         """This rank's part of the whole tensor ``full``, an allocation of its
@@ -282,18 +333,25 @@ class _Sharded:
 
     def load(self, shards: dict) -> None:
         """The model's split parameters as this rank computes with them
-        (fsdp shards gathered), and the batch group and tensor groups handed
-        to the modules that use them (train-mode ``PallasBatchNorm``
-        statistics, the MoE load-balance loss; the tensor-parallel layers)."""
+        (fsdp shards gathered), and the groups handed to the modules that
+        use them (train-mode ``PallasBatchNorm`` statistics, the MoE
+        load-balance loss and, on the span route, its slots; the
+        tensor-parallel layers); on the whole-row route the models and
+        their attention layers are told they get whole rows."""
         for n, t in shards.items():
             if self.split[n]:
                 self.params[n].data = self.full(n, t)
         for m in self.reducers:
-            m.group = self.batch
+            if isinstance(m, MoEMLP) and self.spans:
+                m.group, m.seq_group = self.groups[self.token_axes], self.mesh.get_group("seq")
+            else:
+                m.group = self.batch
         for m, group in self.tensor_layers:
             m.tensor_group = group
         for m in self.expert_layers:
             m.expert_group = self.mesh.get_group("expert")
+        for m in self.row_readers:
+            m.whole_rows = True
 
     def release(self) -> None:
         """Drop the model's copies of the split parameters and its modules'
@@ -303,13 +361,22 @@ class _Sharded:
                 self.params[n].data = self.params[n].data.new_empty(0)
         for m in self.reducers:
             m.group = None
+            if isinstance(m, MoEMLP):
+                m.seq_group = None
         for m, _ in self.tensor_layers:
             m.tensor_group = None
         for m in self.expert_layers:
             m.expert_group = None
+        for m in self.row_readers:
+            m.whole_rows = False
+
+    def share(self, loss):
+        """This rank's share of the global loss, the one it differentiates."""
+        return loss / self.n_mean
 
     def reduce(self, name, g):
-        """The gradient's mean over the row shards, as this rank's shard."""
+        """The gradient of the global loss, summed from the ranks' shares, as
+        this rank's shard."""
         d = self.fsdp_dim[name]
         g = g.contiguous()
         if d is not None:
@@ -318,14 +385,15 @@ class _Sharded:
                                         group=self.fsdp)
             g = out
         dist.all_reduce(g, group=self.groups[self._reduce_axes(name)])
-        return g.div_(self.n_batch)
+        return g
 
     def mean(self, x):
-        """A metric's mean over the row shards, its seq spans summed (every
-        rank gets it)."""
+        """A rank's metric as the global batch's (every rank gets it): the
+        span route's spans summed, the row shards and whole-row copies
+        averaged."""
         x = x.detach().float().clone()
         dist.all_reduce(x, group=self.groups[self.token_axes])
-        return x.div_(self.n_batch)
+        return x.div_(self.n_mean)
 
     def local(self, x):
         """This rank's rows of the global batch ``x``: equal shards over
@@ -337,11 +405,12 @@ class _Sharded:
         n = B // self.n_batch
         return x[self.batch_index * n:(self.batch_index + 1) * n]
 
-    def span(self, S: int) -> int:
-        """The first position of this rank's span of a row of ``S`` tokens."""
+    def span(self, S: int) -> dict:
+        """This rank's span of rows of ``S`` tokens, as the loss's keywords
+        ``start`` and ``S``."""
         if S % self.n_seq:
             raise ValueError(f"seq len {S} must be divisible by the {self.n_seq} seq ranks")
-        return self.seq_index * (S // self.n_seq)
+        return dict(start=self.seq_index * (S // self.n_seq), S=S // self.n_seq)
 
     def state(self, tx, model):
         """The initial sharded state from the model's whole parameters; the
@@ -376,17 +445,17 @@ def optimizer_state_shardings(opt_state, params, param_specs, repl=()):
     return walk(opt_state)
 
 
-def _bundle(model, tx, mesh, param_rule, step_fn, seq_refusal=None) -> TrainStepBundle:
+def _bundle(model, tx, mesh, param_rule, step_fn, spans=False) -> TrainStepBundle:
     """The bundle of ``step_fn(state, batch, params, sharded)``: one device
-    for ``mesh=None``, else the rule's shards of the parameters
-    (``seq_refusal``: why the step cannot cut rows over seq, or None)."""
+    for ``mesh=None``, else the rule's shards of the parameters (``spans``:
+    whether the step's loss takes a span of each row, ``_Sharded``)."""
     named = {n: p for n, p in model.named_parameters() if p.requires_grad}
     params = list(named.values())
     if mesh is None:
         return TrainStepBundle(
             init=lambda: TrainState(params=dict(named), opt_state=tx.init(params), step=0),
             step=lambda state, batch: step_fn(state, batch, params, None))
-    sharded = _Sharded(mesh, model, param_rule, seq_refusal)
+    sharded = _Sharded(mesh, model, param_rule, spans)
     bundle = TrainStepBundle(init=None, step=None, gather=sharded.gather)
 
     def init():
@@ -439,7 +508,8 @@ def make_classifier_train_step(
     """Build a train step for a classifier with BatchNorm state (``ResNet``).
 
     ``mesh`` None is one device; a mesh shards the batch and the parameters
-    by ``param_rule`` (module docstring). ``donate`` must be True.
+    by ``param_rule`` (module docstring; under ``seq > 1`` every seq rank
+    holds whole images). ``donate`` must be True.
 
     The returned ``step`` consumes batches of ``{"image": [B, H, W, C],
     "label": [B]}`` and returns ``(state, {"loss", "accuracy"})``. The
@@ -457,15 +527,15 @@ def make_classifier_train_step(
         with torch.enable_grad():
             logits = model(image, train=True)
             loss = loss_fn(logits, label)
-            grads = torch.autograd.grad(loss, module_params)
+            grads = torch.autograd.grad(loss if sharded is None else sharded.share(loss),
+                                        module_params)
         _update(tx, state, grads, params, sharded)
         accuracy = (logits.argmax(dim=-1) == label).float().mean()
         if sharded is not None:
             loss, accuracy = sharded.mean(loss), sharded.mean(accuracy)
         return state, {"loss": loss.detach(), "accuracy": accuracy}
 
-    return _bundle(model, tx, mesh, param_rule, train_step,
-                   seq_refusal="an image batch has no sequence axis to cut")
+    return _bundle(model, tx, mesh, param_rule, train_step)
 
 
 def make_lm_train_step(
@@ -489,10 +559,11 @@ def make_lm_train_step(
     loss for ``TransformerLM``-shaped models: ``lm_loss_chunked(hidden,
     model.embed.weight, tokens, chunk=chunk, compute_dtype=loss_dtype)``;
     ``loss_dtype`` None is bf16 operands with fp32 accumulation, fp32 gives
-    parity with the unchunked loss. Under ``seq > 1`` the default loss runs
-    the model on the rank's span of each row and the loss on the span
-    (``lm_loss_chunked(..., start=)``); a ``loss_fn`` of the caller's is
-    refused there, as the step cannot know its targets.
+    parity with the unchunked loss. Under ``seq > 1`` a loss that takes the
+    keywords ``start`` and ``S`` (the default one, ``moe_lm_loss_chunked``,
+    ``moe_lm_loss_fused``) on a ring model runs on the rank's span of each
+    row (the span route); any other loss gets whole rows on every seq rank
+    (the whole-row route, module docstring).
 
     ``accum_steps > 1`` runs gradient accumulation: the batch (each rank's
     rows under a mesh) is split into A microbatches along dim 0, the MEAN
@@ -503,8 +574,6 @@ def make_lm_train_step(
     _check_donate(donate)
     module_params = [p for p in model.parameters() if p.requires_grad]
 
-    seq_refusal = None if loss_fn is None else (
-        "a loss_fn of the caller's: the step cannot cut its targets over the seq ranks")
     if loss_fn is None:
         def loss_fn(model, tokens, start=0, S=None):
             """The loss of positions ``start .. start+S-1`` of the rows."""
@@ -518,15 +587,16 @@ def make_lm_train_step(
     def train_step(state, tokens, params, sharded):
         if accum_steps > 1 and tokens.shape[0] % accum_steps:
             raise ValueError(f"accum_steps {accum_steps} must divide batch {tokens.shape[0]}")
-        span = ()
+        span = {}
         if sharded is not None:
             tokens = sharded.local(tokens)
-            if sharded.n_seq > 1:
-                span = (sharded.span(tokens.shape[1]), tokens.shape[1] // sharded.n_seq)
+            if sharded.spans:
+                span = sharded.span(tokens.shape[1])
 
         def grads_of(tokens):
-            loss = loss_fn(model, tokens, *span)
-            return loss.detach(), torch.autograd.grad(loss, module_params)
+            loss = loss_fn(model, tokens, **span)
+            return loss.detach(), torch.autograd.grad(
+                loss if sharded is None else sharded.share(loss), module_params)
 
         with torch.enable_grad():
             if accum_steps == 1:
@@ -551,4 +621,4 @@ def make_lm_train_step(
             loss = sharded.mean(loss)
         return state, {"loss": loss}
 
-    return _bundle(model, tx, mesh, param_rule, train_step, seq_refusal)
+    return _bundle(model, tx, mesh, param_rule, train_step, spans=takes_span(loss_fn))

@@ -29,9 +29,7 @@ from typing import Iterator
 
 import torch
 
-CAPTURE_PATH = "/capture"           # kubeflow_tpu/telemetry/__init__.py:75-77
-CAPTURE_DEFAULT_STEPS = 5
-CAPTURE_MAX_STEPS = 64
+from kubeflow_tpu_torch.telemetry import CAPTURE_DEFAULT_STEPS, CAPTURE_MAX_STEPS, CAPTURE_PATH
 
 
 class ProfilerServerError(RuntimeError):

@@ -9,7 +9,10 @@ global batch and reports its loss, its stored shard shapes and (rank 0) the
 gathered parameters and gradients. The cases: the dense LM (GQA, 4 query
 heads over 2 kv heads) under ``tensor_param_spec`` on seq=2 and data=2 x
 seq=2 (ring attention, each row cut into two spans), tensor=2 and data=2 x
-tensor=2 (Megatron: 2 query heads and 1 kv head a rank); the MoE LM with the
+tensor=2 (Megatron: 2 query heads and 1 kv head a rank), and the layers half
+split over tensor, whose KV heads do not divide over it (k and v held whole,
+each rank projecting the KV head its query heads read): tensor=4 (1 query
+head a rank over the 2 kv heads) and, with 1 kv head, tensor=2; the MoE LM with the
 ``a2a`` dispatch under ``moe_param_spec`` on expert=2, data=2 x expert=2 and
 expert=2 x tensor=2 (the JAX ``ep2xtp2`` case, ``tests/test_moe.py``), and
 with the gather dispatch on tensor=2 (its experts' hidden dim split); and
@@ -26,9 +29,11 @@ runs ring attention (its Pallas kernels in interpret mode) on the seq plans,
 XLA attention elsewhere, and the ``a2a`` dispatch on the expert plans (the
 gather dispatch on the others).
 Also here: the steps' refusals (``a2a`` without an expert axis, ``gather``
-on an expert mesh, in the model and in the step, an MoE model under seq, a
-layer half split over tensor, seq without ring attention), on stand-in
-meshes before any process group is touched."""
+on an expert mesh, in the model and in the step, a ring over another mesh
+than the step's, a half split other than whole k/v), on stand-in meshes
+before any process group is touched. (The seq cases the step once refused,
+an MoE model, a caller's loss, the classifier and a model off the ring, are
+``tests/test_torch_seq_routes.py``'s.)"""
 from __future__ import annotations
 
 import functools
@@ -58,6 +63,8 @@ CASES = [
     ("lm_data2_seq2", 4, "lm", dict(data=2, seq=2), None),
     ("lm_tensor2", 2, "lm", dict(tensor=2), None),
     ("lm_data2_tensor2", 4, "lm", dict(data=2, tensor=2), None),
+    ("lm_tensor4", 4, "lm", dict(tensor=4), None),
+    ("lm_kv1_tensor2", 2, "lm_kv1", dict(tensor=2), None),
     ("moe_expert2", 2, "moe", dict(expert=2), None),
     ("moe_data2_expert2", 4, "moe", dict(data=2, expert=2), None),
     ("moe_expert2_tensor2", 4, "moe", dict(expert=2, tensor=2), None),
@@ -66,7 +73,9 @@ CASES = [
     ("lm_tensor2_no_tensor_all_reduce", 2, "lm", dict(tensor=2), "no_tensor_all_reduce"),
 ]
 GOOD = [c[0] for c in CASES if c[4] is None]
-RULES = {"lm": tmesh.tensor_param_spec, "moe": tmesh.moe_param_spec}
+RULES = {"lm": tmesh.tensor_param_spec, "lm_kv1": tmesh.tensor_param_spec,
+         "moe": tmesh.moe_param_spec}
+LM_KV1 = dict(LM, num_kv_heads=1)
 
 
 @functools.cache
@@ -86,17 +95,22 @@ def _inputs():
               .init(jax.random.PRNGKey(0), jnp.asarray(tokens))["params"])
     moe = tree(jm.MoETransformerLM(jm.MoEConfig(**MOE, attention_impl="xla", dtype=jnp.float32))
                .init(jax.random.PRNGKey(1), jnp.asarray(moe_tokens))["params"])
-    return dict(lm=(lm, tokens), moe=(moe, moe_tokens))
+    # one kv head: the first of the LM's, its k and v kernels [E, KV, D] cut to it
+    kv1 = jax.tree_util.tree_map_with_path(
+        lambda path, w: w[:, :1] if any(getattr(k, "key", None) in ("k_proj", "v_proj")
+                                        for k in path) else w, lm)
+    return dict(lm=(lm, tokens), lm_kv1=(kv1, tokens), moe=(moe, moe_tokens))
 
 
 def _port_model(kind, weights, mesh=None, plan=None):
     """The port's model: on a mesh, ring attention where the plan splits seq
     and the a2a dispatch where it splits expert, both over that mesh."""
     plan = plan or {}
-    if kind == "lm":
+    if kind in ("lm", "lm_kv1"):
         ring = plan.get("seq", 1) > 1
         model = kt.TransformerLM(kt.TransformerConfig(
-            **LM, attention_impl="ring" if ring else "flash", dtype=torch.float32,
+            **(LM if kind == "lm" else LM_KV1), attention_impl="ring" if ring else "flash",
+            dtype=torch.float32,
             mesh=mesh if ring else None), device="cpu")
         model.load_state_dict(kt.params_from_flax(weights))
     else:
@@ -119,7 +133,7 @@ def _step_port(kind, weights, batch, mesh=None, plan=None):
         return sgd.update(grads, state, params)
 
     tx = topt.GradientTransformation(sgd.init, update)
-    if kind == "lm":
+    if kind != "moe":
         bundle = kt.make_lm_train_step(model, tx, mesh, param_rule=RULES[kind], chunk=CHUNK,
                                        loss_dtype=torch.float32)
     else:
@@ -225,12 +239,13 @@ def _jax(kind, plan_items):
     plan = jmesh.MeshPlan(**dict(plan_items))
     mesh = jmesh.create_mesh(plan, devices=jax.devices()[:plan.size])
     weights, batch = _inputs()[kind]
-    rule = {"lm": jmesh.tensor_param_spec, "moe": jmesh.moe_param_spec}[kind]
+    rule = jmesh.moe_param_spec if kind == "moe" else jmesh.tensor_param_spec
     params = jax.device_put(weights, jmesh.param_shardings(mesh, weights, rule))
-    if kind == "lm":
+    if kind != "moe":
         ring = plan.seq > 1
         model = jt.TransformerLM(jt.TransformerConfig(
-            **LM, attention_impl="ring" if ring else "xla", dtype=jnp.float32,
+            **(LM if kind == "lm" else LM_KV1), attention_impl="ring" if ring else "xla",
+            dtype=jnp.float32,
             mesh=mesh if ring else None))
         tokens = jax.device_put(jnp.asarray(batch), jmesh.batch_sharding(mesh))
 
@@ -342,32 +357,82 @@ def test_refusals():
     with pytest.raises(ValueError, match="expert-parallel"):
         kt.MoETransformerLM(moe_cfg(dispatch="gather", mesh=tmesh.MeshPlan(expert=2)),
                             device="cpu")
-    lm = kt.TransformerLM(kt.TransformerConfig(**LM, attention_impl="flash", dtype=torch.float32),
-                          device="cpu")
     moe = kt.MoETransformerLM(moe_cfg(dispatch="gather"), device="cpu")
     with pytest.raises(ValueError, match="expert-split tables run dispatch='einsum', or 'a2a'"):
         kt.make_lm_train_step(moe, kt.sgd(0.1), _stand_in(expert=2),
                               param_rule=tmesh.moe_param_spec, loss_fn=kt.moe_lm_loss_chunked)
-    with pytest.raises(NotImplementedError, match="MoE model under seq=2"):
-        kt.make_lm_train_step(moe, kt.sgd(0.1), _stand_in(seq=2),
-                              loss_fn=kt.moe_lm_loss_chunked)
-    with pytest.raises(ValueError, match="attention_impl='ring'"):
-        kt.make_lm_train_step(lm, kt.sgd(0.1), _stand_in(seq=2))
-    with pytest.raises(NotImplementedError, match="loss_fn of the caller's"):
-        kt.make_lm_train_step(lm, kt.sgd(0.1), _stand_in(seq=2), loss_fn=kt.moe_lm_loss)
-    resnet = kt.ResNet(stage_sizes=[1, 1, 1, 1], num_classes=10, width=8, dtype=torch.float32,
-                       bn_impl="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="no sequence axis"):
-        kt.make_classifier_train_step(resnet, kt.sgd(0.1), _stand_in(seq=2))
+    # a ring over another mesh's seq axis than the step's
+    ring = kt.TransformerLM(kt.TransformerConfig(**LM, attention_impl="ring", dtype=torch.float32,
+                                                 mesh=tmesh.MeshPlan(seq=2)), device="cpu")
+    with pytest.raises(ValueError, match="must be the step's mesh"):
+        kt.make_lm_train_step(ring, kt.sgd(0.1), _stand_in(seq=2))
 
 
-def test_a_layer_half_split_over_tensor_is_refused_with_its_shapes():
-    """One kv head cannot be split over two tensor ranks: the legalised rule
-    splits q_proj and o_proj but leaves k_proj and v_proj whole, and the
-    step refuses the layer, naming the shapes, rather than compute it."""
-    lm = kt.TransformerLM(kt.TransformerConfig(**dict(LM, num_kv_heads=1), attention_impl="flash",
-                                               dtype=torch.float32), device="cpu")
-    with pytest.raises(ValueError, match=r"layers\.0\.attn: the rule splits .*q_proj.* over "
-                                         r"tensor=2 and leaves .*k_proj.*\(16, 64\).*half split"):
-        kt.make_lm_train_step(lm, kt.sgd(0.1), _stand_in(tensor=2),
-                              param_rule=tmesh.tensor_param_spec)
+def test_a_layer_half_split_over_tensor_is_refused_with_its_shapes(ranks):
+    """One kv head cannot be split over two tensor ranks, nor two over
+    four: the legalised rule splits q_proj and o_proj but leaves k_proj and
+    v_proj whole. The step computes that layer (each rank projects the kv
+    head its query heads read, the whole k/v gradients summed over tensor),
+    as the JAX step does: it matches the one-device step. A half split of
+    another shape (here a rule that splits an MLP's gate but not its up
+    projection) is still refused, with the shapes."""
+    specs = tmesh.param_shardings(tmesh.MeshPlan(tensor=2), _port_model(
+        "lm_kv1", _inputs()["lm_kv1"][0]), tmesh.tensor_param_spec)
+    assert specs["layers.0.attn.q_proj.weight"] == ("tensor", "fsdp")
+    assert specs["layers.0.attn.k_proj.weight"] == (None, "fsdp")
+    _check_against_single("lm_kv1", ranks["lm_kv1_tensor2"])
+    _check_against_single("lm", ranks["lm_tensor4"])
+
+    def gate_only(path, value):
+        spec = tmesh.tensor_param_spec(path, value)
+        return tuple(None if a == "tensor" else a for a in spec) if "up_proj" in path else spec
+
+    lm = kt.TransformerLM(kt.TransformerConfig(**LM, attention_impl="flash", dtype=torch.float32),
+                          device="cpu")
+    with pytest.raises(ValueError, match=r"layers\.0\.mlp: the rule splits .*gate_proj.* over "
+                                         r"tensor=2 and leaves .*up_proj.*\(128, 64\).*half split"):
+        kt.make_lm_train_step(lm, kt.sgd(0.1), _stand_in(tensor=2), param_rule=gate_only)
+
+
+@pytest.mark.parametrize("heads,kv,tp", [(4, 1, 2), (4, 2, 4), (6, 3, 2), (6, 2, 3)])
+def test_a_half_split_attention_over_virtual_tensor_ranks_is_the_whole_layer(
+        monkeypatch, heads, kv, tp):
+    """An ``Attention`` whose k/v stay whole under a tensor split, walked over
+    ``tp`` virtual ranks in one process (each rank's q rows and o columns,
+    the whole k/v, the rank from a stand-in group; the partials summed as the
+    all-reduce sums them) gives the unsplit layer's output and gradients.
+    The rank's query heads read their KV heads in equal groups (4/1 over 2,
+    4/2 over 4, 6/2 over 3: rank 1's heads 2-3 read KV 0 and 1, one each) or
+    unevenly (6/3 over 2: heads 0-2 read KV 0, 0, 1), expanded to one a head."""
+    from kubeflow_tpu_torch.models import transformer as tt
+
+    cfg = kt.TransformerConfig(vocab_size=32, num_layers=1, num_heads=heads, num_kv_heads=kv,
+                               embed_dim=16 * heads, mlp_dim=32, attention_impl="flash",
+                               dtype=torch.float32)
+    torch.manual_seed(heads * 10 + kv)
+    attn = tt.Attention(cfg, device="cpu")
+    for w in attn.parameters():
+        torch.nn.init.normal_(w, std=0.2)
+    x = torch.randn(2, 8, cfg.embed_dim, requires_grad=True)
+    rope = tt.rope_tables(torch.arange(8), cfg.head_dim, cfg.rope_theta)
+    g = torch.randn(2, 8, cfg.embed_dim)
+    weights = dict(attn.named_parameters())
+    want = attn(x, rope)
+    want_grads = torch.autograd.grad((want * g).sum(), (x, *weights.values()))
+
+    monkeypatch.setattr(tt, "copy_to_group", lambda t, group: t)
+    monkeypatch.setattr(tt, "reduce_from_group", lambda t, group: t)
+    rows = heads // tp * cfg.head_dim
+    got = 0
+    for r in range(tp):
+        monkeypatch.setattr(tt.dist, "get_rank", lambda group, r=r: r)
+        part = {n: w for n, w in weights.items()}
+        part["q_proj.weight"] = weights["q_proj.weight"][r * rows:(r + 1) * rows]
+        part["o_proj.weight"] = weights["o_proj.weight"][:, r * rows:(r + 1) * rows]
+        attn.tensor_group = "virtual"
+        got = got + torch.func.functional_call(attn, part, (x, rope))
+    attn.tensor_group = None
+    got_grads = torch.autograd.grad((got * g).sum(), (x, *weights.values()))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    for name, a, b in zip(["x", *weights], got_grads, want_grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5, msg=name)
