@@ -212,7 +212,24 @@ Phases, each of which fails the run with a non-zero exit:
 25. bench entries  each of ``kubeflow_tpu_torch/benchmarks/{transformer,
             moe,decode,resnet}_bench.py`` once, in a subprocess, with few
             windows: its line's metric, a positive value, this card's name
-            and power limit.
+            and power limit; then, each in a subprocess with the fewest
+            windows, the A/B modes ``transformer_bench --ab-head``,
+            ``moe_bench --ab`` and ``moe_bench --ab-dispatch`` (the
+            reference's keys, positive rates and MFU, and each side's launches
+            a step from the line before: flash 24/24/24 or 8/8/8, 24 gathers
+            and 24 scatters a MoE step on the kernel sides, the fused head's
+            1/1/1 on the fused sides, 24 + 24 library calls and no row
+            kernel on the library side); ``resnet_bench --mfu --accelerator
+            v5e --topology 1x1`` (the ``MFU_BENCH`` line on the card, a world
+            of one); and the attention shootout, ``attention_bench``, at S
+            2048 to 32768 (started as ``python3 -c`` through
+            ``shootout_main``): flash, block and SDPA give a time at every
+            length, naive at 2048 and 8192 (a time or the OOM note beyond),
+            flash's launches equal its windows' iterations, and flash's
+            output, lse and three gradients are held against their plain
+            versions at every length (two (b, h) slices) under
+            ``OUT_RTOL`` / ``OUT_ATOL_RMS``, with flash's and the plain
+            versions' distance from block's printed beside them.
 
 The last lines are the card's name and power limit, one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -3912,10 +3929,16 @@ def session_traces_main(folder: str) -> None:
     boundaries; then a loop that steps only through a ``TelemetryAgent``'s
     ``step()`` while another thread asks the agent for a capture (five
     steps at least); the counts, the agent's step numbers and its scrape's
-    step total and ended steps written to ``folder/traces.json``."""
+    step total and ended steps written to ``folder/traces.json``.
+
+    Each capture is asked for just after the loop ended a step: a request
+    finds a stepping loop only if a step ended within its pickup time, and
+    the trace's export and reading after ``trace_n_steps`` can outlast it."""
     import threading
 
     import torch
+
+    from kubeflow_tpu_torch.utils import profiling
 
     from kubeflow_tpu_torch.telemetry.agent import (
         TelemetryAgent,
@@ -3937,9 +3960,16 @@ def session_traces_main(folder: str) -> None:
                trace_launches=[fn.launches for fn in counters.values()])
     profiler = TorchTraceProfiler(logdir_base=str(root / "capture"), step_hint_s=0.2)
     text = {}
-    capture = threading.Thread(target=lambda: text.update(lines=profiler.capture(2)))
+
+    def ask(key, capture):
+        text[f"{key}_gap_s"] = time.perf_counter() - profiling._last_step_end
+        text[key] = capture(2)
+
+    with step_annotation(100):
+        cell.bundle.step(state, cell.tokens)
+    n = 1
+    capture = threading.Thread(target=ask, args=("lines", profiler.capture))
     capture.start()
-    n = 0
     while n < 4 or capture.is_alive():
         with step_annotation(100 + n):
             cell.bundle.step(state, cell.tokens)
@@ -3948,7 +3978,7 @@ def session_traces_main(folder: str) -> None:
     capture.join()
     counts, regions, _ = _trace_kernels(root / "capture")
     out.update(capture_counts=counts, capture=text["lines"], capture_main_steps=n,
-               capture_route=profiler.last_route,
+               capture_route=profiler.last_route, capture_gap_s=text["lines_gap_s"],
                capture_steps=sorted(r for r in regions if r.startswith("train#")))
     # a loop that steps only through the agent's step hook, and a capture
     # asked for through the agent from another thread
@@ -3958,7 +3988,7 @@ def session_traces_main(folder: str) -> None:
     with agent.step() as n:
         numbers.append(n)
         cell.bundle.step(state, cell.tokens)
-    capture = threading.Thread(target=lambda: text.update(agent=agent.capture(2)))
+    capture = threading.Thread(target=ask, args=("agent", agent.capture))
     capture.start()
     while len(numbers) < 5 or capture.is_alive():
         with agent.step() as n:
@@ -3969,7 +3999,7 @@ def session_traces_main(folder: str) -> None:
     counts, regions, _ = _trace_kernels(root / "agent")
     scrape = agent.exposition().splitlines()
     out.update(agent_counts=counts, agent_capture=text["agent"], agent_numbers=numbers,
-               agent_route=profiler.last_route,
+               agent_route=profiler.last_route, agent_gap_s=text["agent_gap_s"],
                agent_steps=sorted(int(r[len("train#"):]) for r in regions
                                   if r.startswith("train#")),
                agent_total=next(float(x.split()[1]) for x in scrape
@@ -4136,10 +4166,12 @@ def phase_session(torch, np, train: dict, monitor, compile_at_build):
             raise AssertionError(f"the trace lacks the steps' flash kernels or regions: {counts}")
         cap_counts, cap_steps = traces["capture_counts"], traces["capture_steps"]
         log(f"[session] TorchTraceProfiler(step_hint_s=0.2).capture(2) from a thread beside "
-            f"{traces['capture_main_steps']} steps, route {traces['capture_route']!r}: "
+            f"{traces['capture_main_steps']} steps (asked {traces['capture_gap_s']:.3f} s after "
+            f"a step ended), route {traces['capture_route']!r}: "
             f"{traces['capture'].strip()}; device events {cap_counts}; step regions {cap_steps}")
         if traces["capture_route"] != "loop" or not cap_steps:
-            raise AssertionError("the capture did not run on the stepping loop's thread")
+            raise AssertionError(f"the capture did not run on the stepping loop's thread: route "
+                                 f"{traces['capture_route']!r}, step regions {cap_steps}")
         if cap_counts != {k: cfg.num_layers * len(cap_steps) for k in cap_counts}:
             raise AssertionError(f"the capture's {len(cap_steps)} whole steps do not hold "
                                  f"{cfg.num_layers} of each flash kernel a step: {cap_counts}")
@@ -4147,12 +4179,14 @@ def phase_session(torch, np, train: dict, monitor, compile_at_build):
         ag_counts, ag_steps, numbers = (traces["agent_counts"], traces["agent_steps"],
                                         traces["agent_numbers"])
         log(f"[session] TelemetryAgent.step() loop of {len(numbers)} steps (numbers "
-            f"{numbers}), agent.capture(2) from a thread, route {traces['agent_route']!r}: "
+            f"{numbers}), agent.capture(2) from a thread (asked {traces['agent_gap_s']:.3f} s "
+            f"after a step ended), route {traces['agent_route']!r}: "
             f"{traces['agent_capture'].strip()}; device events {ag_counts}; step regions "
             f"{ag_steps}; the scrape's tpu_step_total {traces['agent_total']:.0f}, ended steps "
             f"{traces['agent_ended']}")
         if traces["agent_route"] != "loop" or not ag_steps:
-            raise AssertionError("the agent's capture did not run on the stepping loop's thread")
+            raise AssertionError(f"the agent's capture did not run on the stepping loop's thread: "
+                                 f"route {traces['agent_route']!r}, step regions {ag_steps}")
         if (ag_steps != list(range(ag_steps[0], ag_steps[0] + len(ag_steps)))
                 or not set(ag_steps) <= set(numbers) or traces["agent_total"] != len(numbers)
                 or traces["agent_ended"] != numbers):
@@ -4179,29 +4213,204 @@ BENCH_ENTRIES = (
 )
 
 
+
+
+def _per_step(flash: int, head: int = 0, rows: int = 0, library: int = 0) -> dict:
+    """Launches (and MoE library calls) a train step, by counter
+    (``_cells.launch_counters``)."""
+    return {"flash_attention_fwd": flash, "flash_attention_bwd_dq": flash,
+            "flash_attention_bwd_dkv": flash, "fused_head_fwd": head,
+            "fused_head_bwd_dh": head, "fused_head_bwd_de": head, "moe_gather": rows,
+            "moe_scatter": rows, "library_gather": library, "library_scatter": library}
+
+
+# the A/B modes: (module, flag, metric, key after per_chip_batch, {side: a step's launches})
+_L, _ML = TRAIN["num_layers"], MOE["num_layers"]
+BENCH_AB = (
+    ("transformer_bench", "--ab-head", "transformer_head_ab", None,
+     {"fused": _per_step(_L, head=1), "chunked": _per_step(_L)}),
+    ("moe_bench", "--ab", "moe_head_ab", "dispatch",
+     {"fused": _per_step(_ML, head=1, rows=3 * _ML), "chunked": _per_step(_ML, rows=3 * _ML)}),
+    ("moe_bench", "--ab-dispatch", "moe_dispatch_ab", "head",
+     {"kernel": _per_step(_ML, rows=3 * _ML), "library": _per_step(_ML, library=3 * _ML)}),
+)
+AB_WINDOWS = (1, 2, 1)
+MFU_ARGV = ["--mfu", "--accelerator", "v5e", "--topology", "1x1", "--n-long", "2", "--repeats", "1"]
+SHOOTOUT_WINDOWS = (1, 2, 1)
+# the (b, h) slices of the shootout's [2, S, 8, 128] operands held against the
+# plain versions at every length: the first, and the last (the largest offsets)
+SHOOTOUT_SLICES = ((0, 0), (1, 7))
+
+
+def _bench_run(name: str, code: list, seconds_limit: int = 600):
+    """Run one bench command from the repo root; (stdout lines, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *code], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=seconds_limit)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"{name} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout.strip().splitlines(), seconds
+
+
+def _check_card_fields(torch, name, line, limit):
+    if (line.get("card") != torch.cuda.get_device_name(0) or line.get("power_limit_w") != limit
+            or "vs_baseline" in line):
+        raise AssertionError(f"{name} printed an unexpected line: {line}")
+
+
+def shootout_main() -> None:
+    """``phase_bench_entries``' attention shootout (started as ``python3
+    -c``): ``attention_bench.main`` with the flash counters set to 0 just
+    before and read just after. Then, at each length, on the bench's own
+    inputs and loss (cotangent ones): flash's output, lse and gradients in q,
+    k and v held against their plain versions (``flash_attention_plain``,
+    ``flash_attention_backward_plain``, the kernels' rounding points) under
+    the kernel bounds (``check_out``, ``check_lse``) on the (b, h) slices of
+    ``SHOOTOUT_SLICES`` (the plain versions' [S, S] fp32 scores fit the card
+    one slice at a time); and flash's and the plain versions' distance from
+    block's (fp32 throughout, rounded once), in err/tol of the same bounds
+    (flash's over the whole tensors and on the slices), printed beside them: rounding p and ds to bf16 before their products, as
+    the TPU kernels do, puts both past those bounds (``PERF.md`` §6).
+    Prints ``{"shootout": {"launches", "iterations", "held", "apart"}}``
+    after the bench's lines."""
+    import torch
+
+    from kubeflow_tpu_torch.benchmarks import attention_bench as ab
+    from kubeflow_tpu_torch.ops import pallas_attention as pa
+
+    counters = _flash_counters()
+    for c in counters.values():
+        c.launches = 0
+    ab.main([], windows=SHOOTOUT_WINDOWS)
+    launches = {name: c.launches for name, c in counters.items()}
+    n_short, n_long, repeats = SHOOTOUT_WINDOWS
+    names = ("o", "dq", "dk", "dv")
+    held, apart = {}, {}
+    for seq in ab.SEQS:
+        q, k, v = ab.inputs(seq, "cuda")
+        block = ab.block_for(seq)
+        fns = ab.impls(block)
+        o, grads = ab.fwd_bwd(fns["flash"], q, k, v)
+        with torch.no_grad():
+            _, lse = pa.flash_attention(q, k, v, True, block, block, return_lse=True)
+        b_o, b_grads = ab.fwd_bwd(fns["block"], q, k, v)
+        flash, blockwise = (o, *grads), (b_o, *b_grads)
+        held[seq] = {n: dict(ok=True, max_abs_err=0.0, err_over_tol=0.0) for n in (*names, "lse")}
+        apart[seq] = {"flash": {n: check_out(f, w)[2] for n, f, w in zip(names, flash, blockwise)},
+                      "flash_on_slices": dict.fromkeys(names, 0.0),
+                      "plain": dict.fromkeys(names, 0.0)}
+        do = torch.ones_like(q)
+        for b, h in SHOOTOUT_SLICES:
+            def part(t):
+                return t[b:b + 1, :, h:h + 1].contiguous()
+
+            o_ref, lse_ref = pa.flash_attention_plain(part(q), part(k), part(v), causal=True)
+            plain = (o_ref, *pa.flash_attention_backward_plain(
+                part(q), part(k), part(v), part(o), lse[b:b + 1, h:h + 1].contiguous(),
+                part(do), causal=True))
+            ok, err = check_lse(lse[b:b + 1, h:h + 1], lse_ref)
+            rows = [("lse", ok, err, 0.0)]
+            for n, got, want, fp32 in zip(names, flash, plain, blockwise):
+                ok, err, ratio, _ = check_out(part(got), want)
+                rows.append((n, ok, err, ratio))
+                for side, t in (("flash_on_slices", part(got)), ("plain", want)):
+                    apart[seq][side][n] = max(apart[seq][side][n], check_out(t, part(fp32))[2])
+            for n, ok, err, ratio in rows:
+                worst = held[seq][n]
+                worst.update(ok=worst["ok"] and ok, max_abs_err=max(worst["max_abs_err"], err),
+                             err_over_tol=max(worst["err_over_tol"], ratio))
+            del o_ref, lse_ref, plain
+            torch.cuda.empty_cache()
+        del q, k, v, o, grads, lse, b_o, b_grads, flash, blockwise, do
+        torch.cuda.empty_cache()
+    print(json.dumps({"shootout": {
+        "launches": launches, "iterations": len(ab.SEQS) * (n_short + repeats * (n_short + n_long)),
+        "held": held, "apart": apart}}), flush=True)
+
+
 def phase_bench_entries(torch, smi: str):
     """Each bench entry point (``python3 -m kubeflow_tpu_torch.benchmarks.<name>``'s
     ``main``) once, in a subprocess of its own, with few windows: its last
     line is its reference's metric, a positive value, and this card's name
-    and power limit."""
+    and power limit. Then the A/B modes, ``resnet_bench --mfu`` and the
+    attention shootout (module docstring, phase 25)."""
     limit = float(smi.rsplit(",", 1)[-1].split()[0])
     out = {}
     for name, windows, metric in BENCH_ENTRIES:
-        code = (f"from kubeflow_tpu_torch.benchmarks import {name}; "
-                f"{name}.main([], windows={windows!r})")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
-                              capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        if proc.returncode:
-            raise AssertionError(f"{name} exited {proc.returncode}: {proc.stderr[-3000:]}")
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        lines, seconds = _bench_run(name, ["-c", f"from kubeflow_tpu_torch.benchmarks import "
+                                                 f"{name}; {name}.main([], windows={windows!r})"])
+        line = json.loads(lines[-1])
         log(f"[bench entries] {name} (windows {windows}, {seconds:.1f} s): {json.dumps(line)}")
-        if (line.get("metric") != metric or not line.get("value", 0) > 0
-                or line.get("card") != torch.cuda.get_device_name(0)
-                or line.get("power_limit_w") != limit or "vs_baseline" in line):
+        if line.get("metric") != metric or not line.get("value", 0) > 0:
             raise AssertionError(f"{name} printed an unexpected line: {line}")
+        _check_card_fields(torch, name, line, limit)
         out[name] = line
+    for name, flag, metric, extra, per_step in BENCH_AB:
+        lines, seconds = _bench_run(f"{name} {flag}", [
+            "-c", f"from kubeflow_tpu_torch.benchmarks import {name}; "
+                  f"{name}.main([{flag!r}], windows={AB_WINDOWS!r})"])
+        line, tallies = json.loads(lines[-1]), json.loads(lines[-2])["launches"]
+        log(f"[bench entries] {name} {flag} (windows {AB_WINDOWS}, {seconds:.1f} s): "
+            f"{json.dumps(line)}; launches {json.dumps(tallies)}")
+        a, b = per_step
+        keys = (["metric", "unit", "seq_len", "per_chip_batch"] + ([extra] if extra else [])
+                + [a, f"{a}_mfu", b, f"{b}_mfu", f"{a}_over_{b}", "card", "power_limit_w"])
+        if (line.get("metric") != metric or list(line) != keys
+                or not all(line[k] > 0 for k in (a, f"{a}_mfu", b, f"{b}_mfu"))):
+            raise AssertionError(f"{name} {flag} printed an unexpected line: {line}")
+        _check_card_fields(torch, f"{name} {flag}", line, limit)
+        for side, want in per_step.items():
+            got = tallies[side]
+            if {k: got[k] for k in want} != {k: n * got["steps"] for k, n in want.items()}:
+                raise AssertionError(f"{name} {flag}: side {side} launched {got} over "
+                                     f"{got['steps']} steps, expected {want} a step")
+        out[f"{name} {flag}"] = dict(line, launches=tallies)
+    lines, seconds = _bench_run("resnet_bench --mfu",
+                                ["-m", "kubeflow_tpu_torch.benchmarks.resnet_bench", *MFU_ARGV])
+    mfu = json.loads(next(x for x in lines if x.startswith("MFU_BENCH ")).split(" ", 1)[1])
+    log(f"[bench entries] resnet_bench {' '.join(MFU_ARGV)} ({seconds:.1f} s): MFU_BENCH "
+        f"{json.dumps(mfu)}")
+    if (mfu["backend"] != "cuda" or mfu["n_devices"] != 1
+            or mfu["axes"] != {"dcn": 1, "data": 1, "model": 1}
+            or mfu["global_batch"] != mfu["per_host_batch"] or not mfu["imgs_per_sec_per_chip"] > 0
+            or mfu["mfu"] is None or not (mfu["train_flops_per_image"] or 0) > 0):
+        raise AssertionError(f"resnet_bench --mfu printed an unexpected line: {mfu}")
+    _check_card_fields(torch, "resnet_bench --mfu", mfu, limit)
+    out["resnet_bench --mfu"] = mfu
+    lines, seconds = _bench_run("attention_bench", ["-c", "import chip_smoke; "
+                                                          "chip_smoke.shootout_main()"])
+    line, check = json.loads(lines[-2]), json.loads(lines[-1])["shootout"]
+    log(f"[bench entries] attention_bench (windows {SHOOTOUT_WINDOWS}, {seconds:.1f} s): "
+        f"{json.dumps(line)}")
+    for seq, held in check["held"].items():
+        log(f"[bench entries] shootout S {seq}: flash vs plain on slices {SHOOTOUT_SLICES} "
+            + ", ".join(f"{k} err/tol {v['err_over_tol']:.3f} (max abs {v['max_abs_err']:.3e})"
+                        for k, v in held.items())
+            + "; apart from block (err/tol, not held): " + "; ".join(
+                f"{side} " + ", ".join(f"{k} {r:.3f}" for k, r in ratios.items())
+                for side, ratios in check["apart"][seq].items()))
+    log(f"[bench entries] shootout flash launches {check['launches']} over "
+        f"{check['iterations']} iterations")
+    _check_card_fields(torch, "attention_bench", line, limit)
+    from kubeflow_tpu_torch.benchmarks import attention_bench as ab
+    ms = {(r["impl"], r["seq"]): r for r in line["results"]}
+    if line["metric"] != "attention_fwd_bwd_ms" or set(ms) != {
+            (i, s) for s in ab.SEQS for i in ("naive", "block", "flash", "library")}:
+        raise AssertionError(f"attention_bench printed an unexpected line: {line}")
+    for (impl, seq), r in ms.items():
+        # the fewest windows: one iteration's difference, a number but not a rate to keep
+        oom = impl == "naive" and seq > 8192 and r.get("note") == "OutOfMemoryError"
+        if r["ms"] is None and not oom:
+            raise AssertionError(f"attention_bench: {impl} at S {seq} gave no time: {r}")
+    if check["launches"] != {k: check["iterations"] for k in check["launches"]}:
+        raise AssertionError(f"flash launched {check['launches']} in the shootout's "
+                             f"{check['iterations']} iterations")
+    bad = [(seq, k) for seq, held in check["held"].items() for k, v in held.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"the shootout's flash is off its plain version at {bad}: "
+                             f"{check['held']}")
+    out["attention_bench"] = dict(line, check=check)
     return out
 
 

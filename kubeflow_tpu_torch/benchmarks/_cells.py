@@ -31,6 +31,9 @@ import numpy as np
 import torch
 
 import kubeflow_tpu_torch as kt
+from kubeflow_tpu_torch.ops import fused_head_loss as fh
+from kubeflow_tpu_torch.ops import moe_dispatch as md
+from kubeflow_tpu_torch.ops import pallas_attention as pa
 
 BATCH, PROMPT, NEW = 4, 128, 128          # decode: batch, prompt, new tokens
 TEMPERATURE, TOP_K = 0.8, 40
@@ -52,6 +55,25 @@ MOE = dict(           # the MoE training flagship (benchmarks/moe_bench.py:74-94
 MOE_BATCH, MOE_SEQ, MOE_CHUNK = 4, 2048, 1024
 RESNET = dict(stage_sizes=[3, 4, 6, 3], num_classes=1000, width=64)
 RESNET_IMAGE, RESNET_BATCH = 224, 256
+
+
+def launch_counters() -> dict:
+    """Readers of the counters an LM step moves, by kernel name: the flash
+    kernels, the fused head's three, the MoE row gather and scatter, and the
+    MoE library route's gathers and scatters (``moe_dispatch.library_route``),
+    which launch no kernel. The A/B modes tally them a side."""
+    return {
+        "flash_attention_fwd": lambda: pa.flash_attention.launches,
+        "flash_attention_bwd_dq": lambda: pa.flash_attention_bwd_dq.launches,
+        "flash_attention_bwd_dkv": lambda: pa.flash_attention_bwd_dkv.launches,
+        "fused_head_fwd": lambda: fh.fused_head_fwd.launches,
+        "fused_head_bwd_dh": lambda: fh.fused_head_bwd_dh.launches,
+        "fused_head_bwd_de": lambda: fh.fused_head_bwd_de.launches,
+        "moe_gather": lambda: md.gather.launches,
+        "moe_scatter": lambda: md.scatter.launches,
+        "library_gather": lambda: md.gather_rows.library_gathers,
+        "library_scatter": lambda: md.gather_rows.library_scatters,
+    }
 
 
 def adamw():

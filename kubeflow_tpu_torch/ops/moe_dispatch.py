@@ -54,9 +54,19 @@ JAX kernel runs.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. Each wrapper counts its launches in ``.launches``.
+
+The library route (:func:`library_route`) is the other side of
+``moe_bench --ab-dispatch`` and nothing else: inside it ``gather_rows`` runs
+PyTorch's own gather (``torch.take_along_dim`` with a zero row for indices
+outside [0, R), the JAX module's ``_gather_ref``, ``:234-240``) and
+autograd's backward of it (a ``scatter_add`` in x's dtype), where the
+reference's A/B forces XLA's ``take_along_axis`` fallback. It is counted
+apart (``gather_rows.library_gathers`` and ``.library_scatters``), so the
+kernels' ``.launches`` show which side ran.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -335,9 +345,49 @@ def gather_rows(x, idx, *, unique_indices: bool = False):
     with ``unique_indices=True`` (the caller promises no index repeats per
     batch row; where one does, that row's gradient is unspecified). Every
     shape takes the kernel on the card; CPU tensors take the plain versions.
+    Inside :func:`library_route` it is PyTorch's gather, on any device.
     """
+    if _library:
+        return _library_gather(x, idx)
     return _GatherRows.apply(x, idx, unique_indices)
+
+
+_library = False
+
+
+@contextlib.contextmanager
+def library_route():
+    """Run every ``gather_rows`` of the block on the library route (module
+    docstring): ``moe_bench --ab-dispatch``'s library side enters it around
+    each of its windows. Eager PyTorch reads the route at every call, so a
+    step taken outside the block runs the kernels."""
+    global _library
+    saved, _library = _library, True
+    try:
+        yield
+    finally:
+        _library = saved
+
+
+def _count_library_scatter(grad):
+    gather_rows.library_scatters += 1
+
+
+def _library_gather(x, idx):
+    """``_gather_ref`` in PyTorch: rows of x at idx clamped into [0, R), then
+    zero where the index lies outside; autograd's backward of
+    ``take_along_dim`` is the scatter (counted as it starts)."""
+    _check_shapes(x, idx)
+    R = x.shape[1]
+    valid = (idx >= 0) & (idx < R)
+    rows = torch.take_along_dim(x, idx.long().clamp(0, R - 1)[..., None], dim=1)
+    if rows.requires_grad:
+        rows.register_hook(_count_library_scatter)
+    gather_rows.library_gathers += 1
+    return torch.where(valid[..., None], rows, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 gather.launches = 0
 scatter.launches = 0
+gather_rows.library_gathers = 0
+gather_rows.library_scatters = 0

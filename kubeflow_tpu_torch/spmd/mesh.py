@@ -1,12 +1,14 @@
-"""A placement's derived mesh as the port's mesh; counterpart of the mesh
-build in ``kubeflow_tpu/spmd/mesh.py`` (``DerivedMesh.to_plan`` and
-``to_data_plan``, ``build_mesh``, ``per_host_batch``).
+"""A placement's derived mesh as the port's mesh; counterpart of
+``kubeflow_tpu/spmd/mesh.py`` (``DerivedMesh``, ``from_topology``,
+``derive``, ``build_mesh``, ``per_host_batch``).
 
-The derivation itself (accelerator, topology and slice count to hosts and
-chips a host, from the TPU topology tables) imports no JAX and stays the
-reference's: these functions take any object with a ``DerivedMesh``'s
-fields (``shape``, ``num_slices``, ``num_hosts``, ``chips_per_host``) and
-turn it into the port's ``MeshPlan`` and ``DeviceMesh``:
+:func:`derive` turns an (accelerator, topology, slice count) triple into a
+:class:`DerivedMesh` from the port's copy of the TPU topology tables
+(``spmd/topology.py``), field for field the reference's; ``bench_mfu``
+derives its mesh so. The mesh functions take any object with a
+``DerivedMesh``'s fields (``shape``, ``num_slices``, ``num_hosts``,
+``chips_per_host``; the reference's own too) and turn it into the port's
+``MeshPlan`` and ``DeviceMesh``:
 
     dcn    = num_slices      (data parallelism across slices)
     data   = num_hosts       (batch parallelism across a slice's hosts)
@@ -15,7 +17,64 @@ turn it into the port's ``MeshPlan`` and ``DeviceMesh``:
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+
 from kubeflow_tpu_torch.parallel import mesh as meshlib
+from kubeflow_tpu_torch.spmd.topology import SliceTopology, parse_topology
+
+
+@dataclasses.dataclass(frozen=True)
+class DerivedMesh:
+    """The mesh every host of a gang derives from its placement, fully
+    determined by (accelerator, topology, num_slices)."""
+
+    accelerator: str
+    topology: str
+    shape: tuple[int, ...]
+    host_grid: tuple[int, ...]    # hosts along each dim (shape / host_block)
+    num_slices: int
+    num_hosts: int                # a slice's
+    chips_per_host: int
+
+    @property
+    def num_chips(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def num_processes(self) -> int:
+        """The gang's process count: hosts x slices."""
+        return self.num_hosts * self.num_slices
+
+    @property
+    def num_devices(self) -> int:
+        """The chips the mesh spans."""
+        return self.num_chips * self.num_slices
+
+    def axes(self) -> dict[str, int]:
+        """The derived axes in the derivation's vocabulary (dcn, data, model)."""
+        return {"dcn": self.num_slices, "data": self.num_hosts, "model": self.chips_per_host}
+
+
+def from_topology(topo: SliceTopology, num_slices: int = 1) -> DerivedMesh:
+    """Derive from a validated slice topology."""
+    if num_slices < 1:
+        raise ValueError(f"numSlices must be >= 1; got {num_slices}")
+    block = topo.accelerator.host_block
+    # single-host sub-blocks (v5e 1x1, 2x2) do not tile the block: their host
+    # grid is the identity
+    host_grid = tuple(max(1, d // b) for d, b in zip(topo.shape, block))
+    if math.prod(host_grid) != topo.num_hosts:
+        host_grid = (1,) * len(topo.shape)
+    return DerivedMesh(accelerator=topo.accelerator.name, topology=topo.topology_str,
+                       shape=topo.shape, host_grid=host_grid, num_slices=num_slices,
+                       num_hosts=topo.num_hosts, chips_per_host=topo.chips_per_host)
+
+
+def derive(accelerator: str, topology: str, num_slices: int = 1) -> DerivedMesh:
+    """Derive from the raw strings; a ``ValueError`` with the reference's
+    message on bad input."""
+    return from_topology(parse_topology(accelerator, topology), num_slices)
 
 
 def to_plan(dm) -> meshlib.MeshPlan:
