@@ -25,16 +25,26 @@ Phases, each of which fails the run with a non-zero exit:
             the tensor-core instructions (HGMMA) of the flash libraries, the
             fused head's forward, dh and dE libraries and the fused BN +
             ReLU + 1x1-conv backward, which the bf16 flash forward, dq and
-            dk/dv, the head's three kernels and that backward must have;
+            dk/dv, the head's three kernels and that backward must have (the
+            width-256 forward and dq in their own entry functions), and
+            prints those two's registers and spills; the fp32 routes are
+            timed beside the library on fp32 operands (TF32 off) and their
+            bound at the fp32 peak;
 2b. wide heads  the flash forward, dq and dk/dv at head sizes 160, 192 and
-            256 (run at width 256 on the scalar route, bf16 and fp32: causal,
-            windowed, non-causal, GQA, ragged, rows that see no key) and
-            flash-decode at 160, 192 and 256 (positions 191 and 2047, a
-            window, R 16), each against its plain version under the bounds
-            above; each timed at D 256 with its bound, plain version and
-            scaled_dot_product_attention; a ``generate`` request (launches
-            counted) and one train step of a 2-layer model of heads of 256
-            against the CPU;
+            256 (run at width 256: the bf16 forward and dq on the
+            tensor-core route, dk/dv and fp32 on the scalar route, any other
+            route failing the run; causal, windowed, non-causal, GQA, MQA
+            8/1, ragged, rows that see no key, the shapes of phase 5b's
+            train step and prefill) and flash-decode at 160, 192 and 256
+            (positions 191 and 2047, a window, R 16), each against its plain
+            version under the bounds above; each timed at D 256 with its
+            bound, TFLOP/s, plain version and scaled_dot_product_attention,
+            the timed inputs' outputs held against the plain versions too,
+            the profile naming the width-256 kernels; a ``generate`` request
+            of a 2-layer model of heads of 256 (launches counted), and one
+            train step of that model at each of 8 seeds against the CPU
+            (loss, and the relative error of the whole gradient and of each
+            parameter's);
 3. generate run ``generate`` at the full flagship decode config (24 layers,
             GQA 8/4 heads, 410.3M parameters, seeded weights): batch 4, prompt 128, 128 new
             tokens, temperature 0.8, top_k 40, with every kernel launch
@@ -51,6 +61,13 @@ Phases, each of which fails the run with a non-zero exit:
             ``adamw_lowmem`` and the chunked loss: one warm-up step, then 5
             steps on one batch [4, 2048] with the launch counters set to 0
             just before and read just after;
+5b. wide flagships  the training flagship at 4 heads of 256 (the same 24
+            layers and 435.5M parameters) through one warm-up and 3 timed
+            steps (flash 24/24/24 a step) and the decode flagship at GQA 4/2
+            heads of 256 through one request (24 + 3,048 launches), each
+            printed beside the flagship at 8 heads of 128 of phases 3 and 5:
+            step ms, device busy, the flash kernels' share, peak memory,
+            prefill and decode ms;
 6. train parity  one step's loss and global gradient norm on the card (bf16,
             then fp32 through the flash kernels' fp32 route) against the CPU
             (fp32) at 2 layers of the flagship width;
@@ -211,7 +228,8 @@ Phases, each of which fails the run with a non-zero exit:
             ms, the suspend's and the resume's;
 25. bench entries  each of ``kubeflow_tpu_torch/benchmarks/{transformer,
             moe,decode,resnet}_bench.py`` once, in a subprocess, with few
-            windows: its line's metric, a positive value, this card's name
+            windows (decode with its own three repeats, the host-bound
+            request's spread): its line's metric, a positive value, this card's name
             and power limit; then, each in a subprocess with the fewest
             windows, the A/B modes ``transformer_bench --ab-head``,
             ``moe_bench --ab`` and ``moe_bench --ab-dispatch`` (the
@@ -298,6 +316,20 @@ SMALL_HEADS_PROMPT, SMALL_HEADS_NEW = 64, 32
 # the kernels being deterministic; the limits are about 2.5x and 3x those.
 TRAIN_LOSS_ATOL = 0.002
 TRAIN_GNORM_RTOL = 2e-4
+# the same step at heads of 256 (phase 2b's 2-layer E 512 model, 2 heads of
+# 256) at seeds 8-15: there the bf16 gradient norm's distance from fp32 is
+# the noise of one bf16 step (0.3-5.1e-4 over these seeds on an H100, with
+# the scalar flash kernels as with the tensor-core ones), so the bf16 step
+# is held by the relative L2 error of the whole gradient and of each
+# parameter's, which measured 1.66-1.72e-2 and at most 2.48e-2 (the second
+# layer's query and key projections) with either route; the fp32 route
+# measured 5.2-7.4e-5 and at most 8.35e-5, and is held to TRAIN_GNORM_RTOL
+# too. The limits are about 1.2x those: an error of 2% of a projection's
+# gradient, added to its bf16 noise, passes the per-parameter limit.
+WIDE_TRAIN_SEEDS = range(8, 16)
+WIDE_GRAD_RTOL = 2e-2
+WIDE_PARAM_GRAD_RTOL = 3e-2
+WIDE_FP32_GRAD_RTOL = 1e-4
 # MoE kernel checks: the gathers and the direct-store scatter copy rows, so
 # they are bit-equal to their plain versions (the direct-store scatter on
 # every row that one index hits; a row several hit is unspecified). The
@@ -454,7 +486,22 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}:   {line.strip()}")
                 registers.setdefault(name, {}).setdefault(entry, []).append(line.strip())
+    for name, kernel in WIDE_WGMMA.items():
+        lines = [ln for entry, got in registers.get(name, {}).items() if kernel[1] in entry
+                 for ln in got]
+        regs = re.search(r"Used (\d+) registers", " ".join(lines))
+        spill = re.search(r"(\d+) bytes spill stores", " ".join(lines))
+        if regs is None or spill is None:
+            raise AssertionError(f"{name}: no ptxas report of {kernel[0]}")
+        registers[kernel[0]] = dict(registers=int(regs[1]), spill_store_bytes=int(spill[1]))
+        log(f"[build] {kernel[0]}: {regs[1]} registers, {spill[1]} bytes spill stores")
     return libs, registers
+
+
+# the width-256 instantiations of the bf16 forward and dq: (name, the
+# fragment of its mangled name)
+WIDE_WGMMA = {"flash_attention_fwd": ("flash_fwd_wgmma<256, 1>", "flash_fwd_wgmmaILi256ELi1E"),
+              "flash_attention_bwd_dq": ("flash_dq_wgmma<256, 1>", "flash_dq_wgmmaILi256ELi1E")}
 
 
 WGMMA_LIBS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -468,7 +515,9 @@ def tensor_core_counts(libs):
     shows, or, without it, ``wgmma.mma_async`` and ``mma.sync`` in ``nvcc
     -ptx`` output. The bf16 route of the flash forward, dq and dk/dv, of
     the fused head's forward, dh and dE and the fused BN + ReLU + 1x1-conv
-    backward must issue wgmma; the scalar kernels none."""
+    backward must issue wgmma; the scalar kernels none.
+    The width-256 forward and dq (``WIDE_WGMMA``) must hold it in their
+    own entry functions."""
     from kubeflow_tpu_torch.ops import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -486,7 +535,15 @@ def tensor_core_counts(libs):
             counts[name] = {"wgmma": text.count("wgmma.mma_async"), "mma": text.count("mma.sync")}
         log(f"[build] {name}: tensor-core instructions {counts[name]} "
             f"({'cuobjdump -sass' if tool.is_file() else 'nvcc -ptx'})")
-    for name in WGMMA_LIBS:
+        if name in WIDE_WGMMA:
+            # one section a function: SASS "Function : <name>", PTX ".entry <name>("
+            kernel, mangled = WIDE_WGMMA[name]
+            body = "".join(part for part in re.split(r"Function : |\.entry ", text)[1:]
+                           if mangled in part.split(None, 1)[0])
+            counts[kernel] = {"HGMMA" if tool.is_file() else "wgmma":
+                              body.count("HGMMA" if tool.is_file() else "wgmma.mma_async")}
+            log(f"[build] {kernel}: tensor-core instructions in its entry function {counts[kernel]}")
+    for name in (*WGMMA_LIBS, *(k for k, _ in WIDE_WGMMA.values())):
         if not counts[name].get("HGMMA", counts[name].get("wgmma")):
             raise AssertionError(f"{name} has no wgmma instruction: its bf16 route must use wgmma")
     return counts
@@ -854,23 +911,36 @@ def phase_kernels_bwd(torch):
         bwd_lib=device_ms(torch, lambda: torch.autograd.grad(
             o_lib, (qt, kt, vt), do_lib, retain_graph=True), cold=False),
     )
-    # the fp32 route at the same shape (scalar kernels; TF32 plays no part)
+    # the fp32 route at the same shape (scalar kernels), beside the library
+    # on the same fp32 operands (TF32 off for matmuls and cuDNN alike)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     of, lsef = pa.flash_attention(qf, kf, vf, True, S, S, return_lse=True)
+    qft, kft, vft = (x.transpose(1, 2).contiguous().requires_grad_() for x in (qf, kf, vf))
+    o_lib32 = F.scaled_dot_product_attention(qft, kft, vft, is_causal=True)
+    do_lib32 = dof.transpose(1, 2).contiguous()
     times.update(
         fwd_f32=device_ms(torch, lambda: pa.flash_attention(qf, kf, vf, True, S, S), cold=False, iters=5),
         dq_f32=device_ms(torch, lambda: pa.flash_attention_bwd_dq(qf, kf, vf, of, lsef, dof),
                          cold=False, iters=5),
         dkv_f32=device_ms(torch, lambda: pa.flash_attention_bwd_dkv(qf, kf, vf, of, lsef, dof),
                           cold=False, iters=5),
+        fwd_f32_lib=device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qft.detach(), kft.detach(), vft.detach(), is_causal=True), cold=False, iters=5),
+        bwd_f32_lib=device_ms(torch, lambda: torch.autograd.grad(
+            o_lib32, (qft, kft, vft), do_lib32, retain_graph=True), cold=False, iters=5),
     )
-    del qf, kf, vf, dof, of, lsef
+    del qf, kf, vf, dof, of, lsef, qft, kft, vft, o_lib32, do_lib32
     pairs = causal_pairs(B, H, S, S)
     operand = 2 * B * S * H * D                      # one bf16 [B, S, H, D] tensor
     lse_bytes = 4 * B * H * S
     fwd_b, fwd_f = bound_ms(3 * operand + operand + lse_bytes, 2 * 2 * D * pairs)
     dq_b, dq_f = bound_ms(5 * operand + lse_bytes + operand, 3 * 2 * D * pairs)
     dkv_b, dkv_f = bound_ms(5 * operand + lse_bytes + 2 * operand, 4 * 2 * D * pairs)
+    # the fp32 route's bounds: twice the bytes, the FLOPs at the fp32 peak
+    bounds_f32 = {"fwd": bound_ms(2 * (4 * operand) + lse_bytes, 2 * 2 * D * pairs, FP32_FLOPS_PER_S),
+                  "dq": bound_ms(2 * (6 * operand) + lse_bytes, 3 * 2 * D * pairs, FP32_FLOPS_PER_S),
+                  "dkv": bound_ms(2 * (7 * operand) + lse_bytes, 4 * 2 * D * pairs,
+                                  FP32_FLOPS_PER_S)}
     log(f"[kernels] training shape B{B} S{S} H{H} KV{H} D{D} causal, L2 warm "
         f"({pairs} causal (q, k) pairs per matmul):")
     tflops = {name: n * 2 * D * pairs / times[name] / 1e9 for name, n in (("fwd", 2), ("dq", 3), ("dkv", 4))}
@@ -882,7 +952,11 @@ def phase_kernels_bwd(torch):
     log(f"[kernels]   flash_attention_bwd_dkv kernel_ms {times['dkv']:.4f} ({tflops['dkv']:.1f} TFLOP/s; "
         f"the first scalar kernel {SCALAR_FLASH_MS['dkv_train']}) bound_ms {dkv_b:.5f} ({dkv_f})")
     log(f"[kernels]   fp32 route (fp32 operands, scalar kernels): forward {times['fwd_f32']:.4f} ms, "
-        f"dq {times['dq_f32']:.4f} ms, dk/dv {times['dkv_f32']:.4f} ms")
+        f"dq {times['dq_f32']:.4f} ms, dk/dv {times['dkv_f32']:.4f} ms; bounds at "
+        f"{FP32_FLOPS_PER_S / 1e12:.0f} TF/s "
+        + ", ".join(f"{k} {b:.5f} ({by})" for k, (b, by) in bounds_f32.items())
+        + f"; library on fp32 operands (scaled_dot_product_attention, TF32 off): forward "
+        f"{times['fwd_f32_lib']:.4f} ms, backward (dq, dk, dv together) {times['bwd_f32_lib']:.4f} ms")
     log(f"[kernels]   plain backward (dq, dk, dv together) {times['bwd_plain']:.4f} ms; "
         f"library: scaled_dot_product_attention backward (dq, dk, dv together) "
         f"{times['bwd_lib']:.4f} ms")
@@ -896,12 +970,16 @@ def phase_kernels_bwd(torch):
     }
     fwd_train = dict(ms=times["fwd"], plain_ms=times["fwd_plain"], library_ms=times["fwd_lib"],
                      bound_ms=fwd_b, bound_by=fwd_f, tflops=tflops,
-                     fp32_route_ms={k: times[f"{k}_f32"] for k in ("fwd", "dq", "dkv")})
+                     fp32_route_ms={k: times[f"{k}_f32"] for k in ("fwd", "dq", "dkv")},
+                     fp32_route_bound_ms={k: b for k, (b, _) in bounds_f32.items()},
+                     fp32_route_library_ms={"fwd": times["fwd_f32_lib"],
+                                            "bwd": times["bwd_f32_lib"]})
     return results, fwd_train
 
 
-# heads of 256 at a small width (Gemma-class heads): generate and one train
-# step against the CPU, through the width-256 route of every flash kernel
+# heads of 256 at a small width (Gemma-class heads): a generate request and
+# an fp32 decode step against the CPU, through the width-256 forward and
+# flash-decode
 WIDE_HEADS = dict(vocab_size=4096, num_layers=2, num_heads=2, embed_dim=512, mlp_dim=1024,
                   max_seq_len=256, attention_impl="flash")
 WIDE_HEADS_PROMPT, WIDE_HEADS_NEW = 64, 16
@@ -909,11 +987,14 @@ WIDE_HEADS_PROMPT, WIDE_HEADS_NEW = 64, 16
 
 def phase_wide_heads(torch, np):
     """The flash forward, dq and dk/dv at head sizes 160, 192 and 256 (run at
-    width 256 on the scalar route, bf16 and fp32) and flash-decode at 160,
+    width 256: the bf16 forward and dq on the tensor-core route, dk/dv and
+    fp32 on the scalar route, each route required) and flash-decode at 160,
     192 and 256, each against its plain version under the bounds of the
     kernels phases; each kernel timed at D 256 beside its bound, its plain
-    version and scaled_dot_product_attention on the same inputs; then a
-    generate request and a dense train step of heads of 256 against the CPU."""
+    version and scaled_dot_product_attention on the same inputs, whose
+    outputs are held against the plain versions too, the profile's kernel
+    names showing the route; then a generate request, and the train steps
+    of :func:`wide_train_steps`, of heads of 256 against the CPU."""
     import torch.nn.functional as F
 
     import kubeflow_tpu_torch as kt
@@ -933,14 +1014,28 @@ def phase_wide_heads(torch, np):
     def randn(*shape, dtype=bf16):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
+    def wide_routes(dt):
+        """bf16: the forward and dq on the tensor cores, dk/dv scalar; fp32 scalar."""
+        tc = "wgmma" if dt == bf16 else "scalar"
+        return {"fwd": tc, "dq": tc, "dkv": "scalar"}
+
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "decode": 0.0}
     cases = [
         # name, B, Sq, Sk, H, KV, D, causal, window, grad_dtype, dtype
         ("d256_causal_gqa_8_2", 2, 256, 256, 8, 2, 256, True, None, None, bf16),
+        # Gemma 2B's layout: 8 query heads of 256 over one KV head
+        ("d256_mqa_8_1", 2, 256, 256, 8, 1, 256, True, None, None, bf16),
         ("d256_window_48", 2, 256, 256, 4, 4, 256, True, 48, None, bf16),
         ("d256_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 256, False, None, None, bf16),
         ("d256_causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 256, True, 2, None, bf16),
         ("d256_fp32_grads_s200", 3, 200, 200, 4, 2, 256, True, None, f32, bf16),
+        # the shapes phase 5b's flagships give the kernels: the training
+        # step's (4 heads of 256) and the request's prefill (GQA 4/2 of 256)
+        ("d256_wide_flagship_train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
+         WIDE_FLAGSHIP_TRAIN["num_heads"], WIDE_FLAGSHIP_TRAIN["num_heads"], 256, True, None,
+         None, bf16),
+        ("d256_wide_flagship_prefill", BATCH, PROMPT, PROMPT, WIDE_FLAGSHIP_SERVE["num_heads"],
+         WIDE_FLAGSHIP_SERVE["num_kv_heads"], 256, True, None, None, bf16),
         ("d160_gqa_4_2_window_100", 2, 256, 256, 4, 2, 160, True, 100, None, bf16),
         ("d192_noncausal", 2, 128, 128, 4, 4, 192, False, None, None, bf16),
         ("fp32_d256_gqa_8_2", 2, 256, 256, 8, 2, 256, True, None, None, f32),
@@ -964,6 +1059,10 @@ def phase_wide_heads(torch, np):
         lse_ok, lse_err = check_lse(lse, lse_ref)
         ok = ok and lse_ok and check_dead_rows(o, lse_ref) and o.dtype == dt
         plans = {kn: pa._plan(kn, B, Sq, Sk, H, KV, D, dt, sms) for kn in ("fwd", "dq", "dkv")}
+        routes = {kn: p.route for kn, p in plans.items()}
+        if routes != wide_routes(dt):
+            raise AssertionError(f"D {D} ({name}, {dt}) took the routes {routes}, not "
+                                 f"{wide_routes(dt)}")
         line = [f"fwd err/tol {ratio:.3f} lse_err {lse_err:.2e}"]
         if dt == bf16:
             worst["fwd"] = max(worst["fwd"], err)
@@ -1042,19 +1141,60 @@ def phase_wide_heads(torch, np):
         bwd_lib=device_ms(torch, lambda: torch.autograd.grad(
             o_lib, (qt, kt_, vt), do_lib, retain_graph=True), cold=False),
     )
+    # the timed inputs' o, lse, dq, dk and dv against the plain versions
+    grads = (pa.flash_attention_bwd_dq(q, k, v, o, lse, do),
+             *pa.flash_attention_bwd_dkv(q, k, v, o, lse, do))
+    torch.cuda.synchronize()
+    o_ref, lse_ref = pa.flash_attention_plain(q, k, v)
+    ok, err, ratio, _ = check_out(o, o_ref)
+    lse_ok, lse_err = check_lse(lse, lse_ref)
+    ok = ok and lse_ok
+    worst["fwd"] = max(worst["fwd"], err)
+    line = [f"fwd err/tol {ratio:.3f} lse_err {lse_err:.2e}"]
+    del o_ref, lse_ref
+    for grad, g, w in zip(("dq", "dk", "dv"), grads,
+                          pa.flash_attention_backward_plain(q, k, v, o, lse, do)):
+        g_ok, g_err, g_ratio, _ = check_out(g, w)
+        ok = ok and g_ok
+        worst["dq" if grad == "dq" else "dkv"] = max(worst["dq" if grad == "dq" else "dkv"], g_err)
+        line.append(f"{grad} err/tol {g_ratio:.3f}")
+    log(f"[wide heads] flash d256_timed_inputs (B{B} S{S} H{H} KV{H} causal, the inputs timed "
+        f"above): {'; '.join(line)} (rtol {OUT_RTOL}, atol {OUT_ATOL_RMS}*rms) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a flash kernel disagrees with its plain version on the timed D 256 inputs")
+    del grads
+    torch.cuda.empty_cache()
     pairs = causal_pairs(B, H, S, S)
     operand = 2 * B * S * H * D
     lse_bytes = 4 * B * H * S
     bounds = {"fwd": bound_ms(4 * operand + lse_bytes, 2 * 2 * D * pairs),
               "dq": bound_ms(6 * operand + lse_bytes, 3 * 2 * D * pairs),
               "dkv": bound_ms(7 * operand + lse_bytes, 4 * 2 * D * pairs)}
-    res = {"worst_bf16_err": worst, "times_d256_train_shape": times, "bounds": bounds}
-    log(f"[wide heads] D 256 at the training shape B{B} S{S} H{H} causal, L2 warm: forward "
-        f"{times['fwd']:.4f} ms (bound {bounds['fwd'][0]:.5f}, {bounds['fwd'][1]}; plain "
-        f"{times['fwd_plain']:.4f}; library {times['fwd_lib']:.4f}), dq {times['dq']:.4f} ms "
-        f"(bound {bounds['dq'][0]:.5f}), dk/dv {times['dkv']:.4f} ms (bound "
-        f"{bounds['dkv'][0]:.5f}); plain backward {times['bwd_plain']:.4f}, library backward "
-        f"(scaled_dot_product_attention, dq dk dv together) {times['bwd_lib']:.4f}")
+    plans = {kn: pa._plan(kn, B, S, S, H, H, D, bf16, sms) for kn in ("fwd", "dq", "dkv")}
+    tflops = {kn: n * 2 * D * pairs / times[kn] / 1e9 for kn, n in (("fwd", 2), ("dq", 3), ("dkv", 4))}
+    # the kernels the forward and dq launched, by the profiler's names
+    seen = _device_kernels(torch, lambda: (pa.flash_attention(q, k, v, True, S, S),
+                                           pa.flash_attention_bwd_dq(q, k, v, o, lse, do)), reps=2)
+    names = {n for run in seen for n in run}
+    launched = {kn: [n.split(">(")[0] + ">" for n in names if kernel in n]
+                for kn, kernel in (("fwd", "flash_fwd_wgmma<256, 1>"), ("dq", "flash_dq_wgmma<256, 1>"))}
+    res = {"worst_bf16_err": worst, "times_d256_train_shape": times, "bounds": bounds,
+           "tflops": tflops, "routes": {kn: p.route for kn, p in plans.items()},
+           "kernels_seen": sorted(names)}
+    for kn, label, plain, lib in (("fwd", "forward", "fwd_plain", "fwd_lib"),
+                                  ("dq", "dq", "bwd_plain", "bwd_lib"),
+                                  ("dkv", "dk/dv", "bwd_plain", "bwd_lib")):
+        log(f"[wide heads] D 256 {label} at the training shape B{B} S{S} H{H} KV{H} causal, L2 "
+            f"warm ({plans[kn].route}, {plans[kn].block}-row tiles, {plans[kn].threads} threads, "
+            f"{plans[kn].smem_bytes} B): kernel_ms {times[kn]:.4f} ({tflops[kn]:.1f} TFLOP/s of "
+            f"the bound's work) bound_ms {bounds[kn][0]:.5f} ({bounds[kn][1]}) plain_ms "
+            f"{times[plain]:.4f} library_ms {times[lib]:.4f} ({times[kn] / times[lib]:.2f}x; "
+            f"scaled_dot_product_attention{' backward, dq dk dv together' if kn != 'fwd' else ''})")
+    log(f"[wide heads] D 256 kernels in the profile of a forward and a dq: {launched}")
+    if res["routes"] != wide_routes(bf16) or not all(launched.values()):
+        raise AssertionError(f"D 256 forward and dq did not take the tensor-core route: "
+                             f"{res['routes']}, {sorted(names)}")
     del q, k, v, do, o, lse, qt, kt_, vt, o_lib, do_lib
     B, G, R, D, L = BATCH, 4, 2, 256, FLAGSHIP["max_seq_len"]
     kc, vc, qd = randn(B, G, L, D), randn(B, G, L, D), randn(B, G, R, D)
@@ -1108,28 +1248,61 @@ def phase_wide_heads(torch, np):
         f"(atol {GEN_FP32_LOGITS_ATOL})")
     if not torch.isfinite(steps["cuda"]).all() or err > GEN_FP32_LOGITS_ATOL:
         raise AssertionError(f"D 256 fp32 decode step disagrees with the CPU: {err}")
-    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 256)))
-    sd = kt.init_state_dict(cfg, seed=8, device="cpu")
-    make = lambda dtype, where: kt.TransformerLM(dataclasses.replace(cfg, dtype=dtype), device=where)  # noqa: E731
-    before = [c.launches for c in _flash_counters().values()]
-    got = _one_step_vs_cpu(torch, kt, make, sd, tokens, chunk=TRAIN_CHUNK)
-    launched = [c.launches - b for c, b in zip(_flash_counters().values(), before)]
-    got32 = _one_step_vs_cpu(torch, kt, make, sd, tokens, card_dtype=f32, chunk=TRAIN_CHUNK)
-    (loss_c, norm_c), (loss_h, norm_h) = got["cuda"], got["cpu"]
-    (loss_f, norm_f) = got32["cuda"]
-    diffs = dict(bf16=(abs(loss_c - loss_h), abs(norm_c - norm_h) / norm_h),
-                 fp32=(abs(loss_f - loss_h), abs(norm_f - norm_h) / norm_h))
-    log(f"[wide heads] one train step, {cfg.num_layers} layers of {cfg.num_heads} heads of D "
-        f"{cfg.head_dim}, B2 S256, card vs cpu(fp32): loss {loss_h:.5f}; |diff| bf16 "
-        f"{diffs['bf16'][0]:.2e}, fp32 {diffs['fp32'][0]:.2e} (atol {TRAIN_LOSS_ATOL}); grad norm "
-        f"rel diff bf16 {diffs['bf16'][1]:.2e}, fp32 {diffs['fp32'][1]:.2e} (rtol "
-        f"{TRAIN_GNORM_RTOL}); flash launches in the bf16 step {launched} (expected "
-        f"{[cfg.num_layers] * 3})")
-    if (launched != [cfg.num_layers] * 3 or not np.isfinite([loss_c, norm_c, loss_f, norm_f]).all()
-            or any(d_l > TRAIN_LOSS_ATOL or d_n > TRAIN_GNORM_RTOL for d_l, d_n in diffs.values())):
-        raise AssertionError(f"D 256 train step disagrees with the CPU: {got}, {got32}")
+    diffs = wide_train_steps(torch, np, kt, cfg)
     res.update(generate_launches=launches, decode_step_err=err, train_step_diffs=diffs)
     return res
+
+
+def wide_train_steps(torch, np, kt, cfg):
+    """One SGD step of ``cfg``'s model at each of ``WIDE_TRAIN_SEEDS``, on
+    the card (bf16, then fp32) against the CPU (fp32): the loss within
+    ``TRAIN_LOSS_ATOL``, the whole gradient's and each parameter's relative
+    L2 error within their limits, the fp32 route's gradient norm within
+    ``TRAIN_GNORM_RTOL``, and one launch of each flash kernel a layer in the
+    bf16 step; {"seed<n>_<dtype>": distances}."""
+    f32 = torch.float32
+    make = lambda dtype, where: kt.TransformerLM(dataclasses.replace(cfg, dtype=dtype), device=where)  # noqa: E731
+    diffs, worst_step = {}, {"bf16": (0.0, 0.0), "fp32": (0.0, 0.0)}
+    ok = True
+    for seed in WIDE_TRAIN_SEEDS:
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 256)))
+        sd = kt.init_state_dict(cfg, seed=seed, device="cpu")
+        grads = {}
+        before = [c.launches for c in _flash_counters().values()]
+        got = _one_step_vs_cpu(torch, kt, make, sd, tokens, chunk=TRAIN_CHUNK, grads_out=grads)
+        launched = [c.launches - b for c, b in zip(_flash_counters().values(), before)]
+        got32 = _one_step_vs_cpu(torch, kt, make, sd, tokens, card_dtype=f32, chunk=TRAIN_CHUNK,
+                                 grads_out=grads, cpu_from=got)
+        loss_h, norm_h = got["cpu"]
+        row = []
+        for tag, (loss_c, norm_c), card_grads, (g_tol, p_tol) in (
+                ("bf16", got["cuda"], grads["cuda"], (WIDE_GRAD_RTOL, WIDE_PARAM_GRAD_RTOL)),
+                ("fp32", got32["cuda"], grads["cuda_fp32"],
+                 (WIDE_FP32_GRAD_RTOL, WIDE_FP32_GRAD_RTOL))):
+            whole, per = _grad_errors(torch, card_grads, grads["cpu"])
+            name, worst_p = max(per.items(), key=lambda kv: kv[1])
+            d_loss, d_norm = abs(loss_c - loss_h), abs(norm_c - norm_h) / norm_h
+            diffs[(seed, tag)] = dict(loss=d_loss, grad_norm=d_norm, grad=whole, param=worst_p)
+            worst_step[tag] = (max(worst_step[tag][0], whole), max(worst_step[tag][1], worst_p))
+            # the fp32 route's norm is still held to the train-parity limit
+            ok = (ok and bool(np.isfinite([loss_c, norm_c]).all()) and d_loss <= TRAIN_LOSS_ATOL
+                  and whole <= g_tol and worst_p <= p_tol
+                  and (tag == "bf16" or d_norm <= TRAIN_GNORM_RTOL))
+            row.append(f"{tag}: loss |diff| {d_loss:.2e}, grad norm rel diff {d_norm:.2e}, "
+                       f"gradient rel L2 err {whole:.3e} (rtol {g_tol}), worst parameter "
+                       f"{worst_p:.3e} ({name}; rtol {p_tol})")
+        ok = ok and launched == [cfg.num_layers] * 3
+        log(f"[wide heads] one train step, seed {seed}, {cfg.num_layers} layers of {cfg.num_heads} "
+            f"heads of D {cfg.head_dim} (E {cfg.embed_dim}), B2 S256, card vs cpu(fp32), loss "
+            f"{loss_h:.5f}; " + "; ".join(row) + f"; flash launches in the bf16 step {launched}")
+    log(f"[wide heads] train steps over seeds {WIDE_TRAIN_SEEDS[0]}-{WIDE_TRAIN_SEEDS[-1]}: worst "
+        f"gradient rel L2 err bf16 {worst_step['bf16'][0]:.3e}, fp32 {worst_step['fp32'][0]:.3e}; "
+        f"worst parameter bf16 {worst_step['bf16'][1]:.3e}, fp32 {worst_step['fp32'][1]:.3e} "
+        f"(loss atol {TRAIN_LOSS_ATOL}; fp32 grad norm rtol {TRAIN_GNORM_RTOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"D 256 train step disagrees with the CPU: {diffs}")
+    return {f"seed{seed}_{tag}": d for (seed, tag), d in diffs.items()}
 
 
 def _profile(torch, fn, reps: int, top: int = 8):
@@ -1191,7 +1364,16 @@ def _device_kernels(torch, fn, reps: int, tries: int = 10):
     return seen
 
 
-def phase_generate(torch, np):
+def _serve_cell(torch, np, tag, cfg, model, prompt):
+    """One ``generate`` request of ``model`` on ``prompt`` (batch 4, 128 new
+    tokens, temperature 0.8, top_k 40) with the launch counters set to 0
+    just before and read just after: ``num_layers`` forward launches,
+    ``num_layers * 127`` flash-decode launches and no backward; then
+    prefill ms (median of 5), decode ms a step over 64 steps, one profile
+    each of a decode step and a prefill (device busy, idle share, the flash
+    kernels' device ms) and the request's peak memory. Returns (the
+    measurements, the request's tokens, the request as a function of its
+    seed)."""
     import kubeflow_tpu_torch as kt
     from kubeflow_tpu_torch.ops.flash_decode import flash_decode
     from kubeflow_tpu_torch.ops.pallas_attention import (
@@ -1200,12 +1382,7 @@ def phase_generate(torch, np):
         flash_attention_bwd_dq,
     )
 
-    t0 = time.perf_counter()
-    cfg, model, prompt = cells.decode_model()
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[generate] flagship: {cfg.num_layers} layers, {n_params / 1e6:.1f}M parameters "
-        f"(bf16), seeded init in {time.perf_counter() - t0:.2f} s")
+    B, P = prompt.shape
 
     def gen(seed, n=NEW):
         g = torch.Generator(device="cuda")
@@ -1221,27 +1398,27 @@ def phase_generate(torch, np):
                 "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
     for fn in counters.values():
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = gen(0)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: fn.launches for name, fn in counters.items()}
     # serving runs under inference_mode: the forward kernel alone, never
     # the autograd Function, so no backward kernel launches
     want = {"flash_attention_fwd": cfg.num_layers,
             "flash_decode": cfg.num_layers * (NEW - 1),
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
-    log(f"[generate] launches in one request: {launches} (expected {want})")
+    log(f"[{tag}] launches in one request: {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"kernel launch counts {launches} != {want}")
-    if tuple(out.shape) != (BATCH, PROMPT + NEW):
+    if tuple(out.shape) != (B, P + NEW):
         raise AssertionError(f"generate returned {tuple(out.shape)}")
-    if not torch.equal(out[:, :PROMPT], prompt):
+    if not torch.equal(out[:, :P], prompt):
         raise AssertionError("generate changed the prompt")
     if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError("generate emitted an id outside the vocabulary")
-    if not torch.equal(gen(0), out):
-        raise AssertionError("generate is not reproducible under one generator seed")
 
     prefill_ms = []
     for _ in range(5):
@@ -1261,44 +1438,63 @@ def phase_generate(torch, np):
     g.manual_seed(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    kt.decode_steps(model, cache, tok0, PROMPT, n=n_steps, temperature=TEMPERATURE,
+    kt.decode_steps(model, cache, tok0, P, n=n_steps, temperature=TEMPERATURE,
                     top_k=TOP_K, generator=g)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
 
     # device idle share: profiled device time vs the unprofiled wall time
     # of the same work
-    busy_dec, ev_dec, top_dec = _profile(torch, lambda: kt.decode_steps(
-        model, cache, tok0, PROMPT, n=1, temperature=TEMPERATURE, top_k=TOP_K,
+    busy_dec, ev_dec, ranked_dec = _profile(torch, lambda: kt.decode_steps(
+        model, cache, tok0, P, n=1, temperature=TEMPERATURE, top_k=TOP_K,
         generator=g), reps=16)
-    busy_pf, ev_pf, top_pf = _profile(torch, lambda: kt.prefill(model, prompt), reps=3)
-    top_dec, top_pf = top_dec[:8], top_pf[:8]
+    busy_pf, ev_pf, ranked_pf = _profile(torch, lambda: kt.prefill(model, prompt), reps=3)
+    flash_dec = sum(ms for name, ms in ranked_dec if "flash_" in name)
+    flash_pf = sum(ms for name, ms in ranked_pf if "flash_" in name)
+    top_dec, top_pf = ranked_dec[:8], ranked_pf[:8]
 
     def idle(busy, wall):
         return 1.0 - busy / wall if busy > 0 else None
 
     res = dict(
-        params_m=n_params / 1e6, generate_s=gen_s, prefill_ms=prefill_ms,
-        decode_ms_per_step=step_ms, tok_s=BATCH * NEW / gen_s,
-        tok_s_per_row=NEW / gen_s,
+        generate_s=gen_s, prefill_ms=prefill_ms,
+        decode_ms_per_step=step_ms, tok_s=B * NEW / gen_s,
+        tok_s_per_row=NEW / gen_s, peak_memory_gb=peak_gb,
         decode_device_busy_ms=busy_dec, decode_device_events=ev_dec,
         decode_idle_share=idle(busy_dec, step_ms), decode_top_kernels=top_dec,
+        decode_flash_ms=flash_dec,
         prefill_device_busy_ms=busy_pf, prefill_device_events=ev_pf,
         prefill_idle_share=idle(busy_pf, prefill_ms), prefill_top_kernels=top_pf,
+        prefill_flash_ms=flash_pf,
         launches=launches,
     )
-    log(f"[generate] request B{BATCH} P{PROMPT} +{NEW} (T={TEMPERATURE}, top_k={TOP_K}): "
+    log(f"[{tag}] request B{B} P{P} +{NEW} (T={TEMPERATURE}, top_k={TOP_K}): "
         f"{gen_s * 1e3:.1f} ms, {res['tok_s']:.1f} tok/s ({res['tok_s_per_row']:.1f} "
-        f"tok/s/row); prefill {prefill_ms:.2f} ms; decode {step_ms:.3f} ms/step")
-    for what, busy, ev, wall, top in (("decode step", busy_dec, ev_dec, step_ms, top_dec),
-                                      ("prefill", busy_pf, ev_pf, prefill_ms, top_pf)):
+        f"tok/s/row); prefill {prefill_ms:.2f} ms; decode {step_ms:.3f} ms/step; peak memory "
+        f"{peak_gb:.2f} GB")
+    for what, busy, ev, wall, top, flash in (
+            ("decode step", busy_dec, ev_dec, step_ms, top_dec, flash_dec),
+            ("prefill", busy_pf, ev_pf, prefill_ms, top_pf, flash_pf)):
         share = idle(busy, wall)
-        log(f"[generate] {what}: device busy {busy:.3f} ms of {wall:.3f} ms, "
-            f"{ev:.0f} device events, idle share "
+        log(f"[{tag}] {what}: device busy {busy:.3f} ms of {wall:.3f} ms, "
+            f"{ev:.0f} device events, flash kernels {flash:.4f} ms, idle share "
             + (f"{share:.3f}" if share is not None else "not measured (no device time in the trace)"))
         for name, ms in top:
-            log(f"[generate]   {ms:8.4f} ms  {name}")
-    return res
+            log(f"[{tag}]   {ms:8.4f} ms  {name}")
+    return res, out, gen
+
+
+def phase_generate(torch, np):
+    t0 = time.perf_counter()
+    cfg, model, prompt = cells.decode_model()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[generate] flagship: {cfg.num_layers} layers, {n_params / 1e6:.1f}M parameters "
+        f"(bf16), seeded init in {time.perf_counter() - t0:.2f} s")
+    res, out, gen = _serve_cell(torch, np, "generate", cfg, model, prompt)
+    if not torch.equal(gen(0), out):
+        raise AssertionError("generate is not reproducible under one generator seed")
+    return dict(params_m=n_params / 1e6, **res)
 
 
 def phase_parity(torch, np):
@@ -1475,6 +1671,12 @@ def _train_cell(torch, np, tag, bundle, tokens, counters, per_step, flops_tok, s
                "head kernels" if "fused_head" in name else
                "GEMM" if any(t in name for t in ("gemm", "nvjet", "xmma")) else "other")
         classes[cls] = classes.get(cls, 0.0) + ms
+    # each flash kernel's device ms, by its name without the argument list
+    flash = {}
+    for name, ms in ranked:
+        if "flash_" in name:
+            key = name.split(">(")[0] + ">" if ">(" in name else name[:80]
+            flash[key] = flash.get(key, 0.0) + ms
     med = float(np.median(step_ms))
     tok_s = tokens.numel() / (med / 1e3)
     mfu = tok_s * flops_tok / BF16_FLOPS_PER_S
@@ -1490,7 +1692,7 @@ def _train_cell(torch, np, tag, bundle, tokens, counters, per_step, flops_tok, s
     return dict(losses=losses, step_ms=step_ms, step_ms_median=med, tok_s=tok_s, mfu=mfu,
                 flops_per_token=flops_tok, peak_memory_gb=peak_gb, device_busy_ms=busy,
                 device_events=events, idle_share=idle, top_kernels=top,
-                device_ms_by_class=classes, launches=launches)
+                device_ms_by_class=classes, flash_ms_by_kernel=flash, launches=launches)
 
 
 def _flash_counters():
@@ -1517,20 +1719,97 @@ def phase_train(torch, np):
     return dict(params_m=n_params / 1e6, **res)
 
 
-def _one_step_vs_cpu(torch, kt, make_model, sd, tokens, card_dtype=None, **step_kw):
+# the flagships with heads of 256 (Gemma's head width): the same widths and
+# depths with half the heads, so the same parameters and attention FLOPs
+WIDE_FLAGSHIP_TRAIN = dict(num_heads=4)
+WIDE_FLAGSHIP_SERVE = dict(num_heads=4, num_kv_heads=2)
+WIDE_FLAGSHIP_STEPS = 3
+
+
+def phase_wide_flagships(torch, np, gen, train):
+    """The flagships at heads of 256, through the width-256 kernels: the
+    dense training flagship at 4 heads of 256 (``_cells.dense_train(
+    num_heads=4)``: 24 layers, E 1024, 435.5M fp32 parameters, B4 S2048),
+    one warm-up and three timed steps with flash launches 24/24/24 a step;
+    the decode flagship at GQA 4/2 heads of 256 (``_cells.decode_model(
+    num_heads=4, num_kv_heads=2)``, 410.3M parameters), one request with 24
+    forward and 3,048 flash-decode launches. Each is printed beside the same
+    numbers of the flagship at 8 heads of 128 from this run's train and
+    generate phases: step ms, device busy, the flash kernels' share and each
+    flash kernel's ms, peak memory; prefill and decode ms."""
+    t0 = time.perf_counter()
+    cell = cells.dense_train(**WIDE_FLAGSHIP_TRAIN)
+    cfg = cell.cfg
+    torch.cuda.synchronize()
+    log(f"[wide flagship] train: {cfg.num_layers} layers, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, {cell.n_params / 1e6:.1f}M fp32 parameters, seeded init in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if cfg.head_dim != 256:
+        raise AssertionError(f"the wide flagship has heads of {cfg.head_dim}")
+    counters = _flash_counters()
+    wide_train = _train_cell(torch, np, "wide flagship train", cell.bundle, cell.tokens,
+                             counters, {name: cfg.num_layers for name in counters},
+                             cell.flops_per_token, WIDE_FLAGSHIP_STEPS, cfg.vocab_size)
+    wide_train["params_m"] = cell.n_params / 1e6
+    del cell
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    scfg, model, prompt = cells.decode_model(**WIDE_FLAGSHIP_SERVE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[wide flagship] serve: {scfg.num_layers} layers, GQA {scfg.num_heads}/"
+        f"{scfg.num_kv_heads} heads of {scfg.head_dim}, {n_params / 1e6:.1f}M parameters "
+        f"(bf16), seeded init in {time.perf_counter() - t0:.2f} s")
+    wide_gen, _, _ = _serve_cell(torch, np, "wide flagship generate", scfg, model, prompt)
+    wide_gen["params_m"] = n_params / 1e6
+    del model
+    torch.cuda.empty_cache()
+
+    for name, r, steps in (("8 heads of 128", train, TRAIN_STEPS),
+                           ("4 heads of 256", wide_train, WIDE_FLAGSHIP_STEPS)):
+        flash = r["device_ms_by_class"].get("flash kernels", 0.0)
+        log(f"[wide flagship] train step, {name}: {r['step_ms_median']:.2f} ms median, "
+            f"{r['tok_s']:.1f} tok/s, device busy {r['device_busy_ms']:.2f} ms, flash kernels "
+            f"{flash:.2f} ms ({flash / r['device_busy_ms']:.3f} of busy), peak memory "
+            f"{r['peak_memory_gb']:.2f} GB, flash launches a step "
+            f"{[n // steps for n in r['launches'].values()]}")
+        for kernel, ms in r["flash_ms_by_kernel"].items():
+            log(f"[wide flagship]   {ms:9.3f} ms  {kernel}")
+    for name, r in (("GQA 8/4 of 128", gen), ("GQA 4/2 of 256", wide_gen)):
+        log(f"[wide flagship] request, {name}: {r['generate_s'] * 1e3:.1f} ms, prefill "
+            f"{r['prefill_ms']:.2f} ms (busy {r['prefill_device_busy_ms']:.3f}, flash "
+            f"{r['prefill_flash_ms']:.4f}), decode {r['decode_ms_per_step']:.3f} ms/step (busy "
+            f"{r['decode_device_busy_ms']:.3f}, flash {r['decode_flash_ms']:.4f}), peak memory "
+            f"{r['peak_memory_gb']:.2f} GB, launches {r['launches']}")
+    return dict(train=wide_train, generate=wide_gen)
+
+
+def _one_step_vs_cpu(torch, kt, make_model, sd, tokens, card_dtype=None, grads_out=None,
+                     cpu_from=None, **step_kw):
     """One SGD step of the model on the card (bf16, or ``card_dtype``) and on
-    the CPU (fp32) from one state dict: {where: (loss, global gradient norm)}."""
+    the CPU (fp32) from one state dict: {where: (loss, global gradient norm)}.
+    ``grads_out`` gets each side's gradients by parameter name (fp32, on the
+    CPU) under "cuda" (bf16), "cuda_fp32" and "cpu"; ``cpu_from``, an earlier
+    result of the same state and tokens, stands in for the CPU's step."""
     from kubeflow_tpu_torch.ops import optimizers as opt
 
-    got = {}
+    got = {"cpu": cpu_from["cpu"]} if cpu_from else {}
+    card = "cuda" if card_dtype in (None, torch.bfloat16) else "cuda_fp32"
     for where, dtype in (("cuda", card_dtype or torch.bfloat16), ("cpu", torch.float32)):
+        if where in got:
+            continue
         model = make_model(dtype, where)
         model.load_state_dict(sd)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
         norms = []
         sgd = opt.sgd(1e-3)
 
-        def update(grads, state, params):
+        def update(grads, state, params, where=where, names=names):
             norms.append(torch.sqrt(sum(g.float().pow(2).sum() for g in grads)).item())
+            if grads_out is not None:
+                grads_out[card if where == "cuda" else "cpu"] = {
+                    n: g.detach().float().cpu() for n, g in zip(names, grads)}
             return sgd.update(grads, state, params)
 
         bundle = kt.make_lm_train_step(model, opt.GradientTransformation(sgd.init, update),
@@ -1538,6 +1817,16 @@ def _one_step_vs_cpu(torch, kt, make_model, sd, tokens, card_dtype=None, **step_
         _, metrics = bundle.step(bundle.init(), tokens.to(where))
         got[where] = (metrics["loss"].item(), norms[0])
     return got
+
+
+def _grad_errors(torch, got: dict, want: dict):
+    """(relative L2 error of the whole gradient, {parameter: its relative L2
+    error}) of ``got`` against ``want``, both by parameter name; parameters
+    whose wanted gradient is zero are left out of the second."""
+    diff = sum((got[n] - w).pow(2).sum().item() for n, w in want.items())
+    whole = (diff / sum(w.pow(2).sum().item() for w in want.values())) ** 0.5
+    per = {n: ((got[n] - w).norm() / w.norm()).item() for n, w in want.items() if w.norm() > 0}
+    return whole, per
 
 
 def phase_train_parity(torch, np):
@@ -2111,8 +2400,18 @@ def phase_head_kernels(torch, np):
         de_lib=device_ms(torch, lambda: torch.mm(lib_dl().t(), h, out_dtype=torch.float32),
                          cold=False, iters=5),
     )
-    # the fp32 route at the same shape (scalar kernels), for its time alone
+    # the fp32 route at the same shape (scalar kernels), beside the library
+    # on fp32 operands: torch.mm on materialised fp32 logits, TF32 off
     h32, emb32 = h.float(), emb.float()
+
+    def lib_fwd32():
+        logits = torch.mm(h32, emb32.t())
+        return torch.logsumexp(logits, -1), logits.gather(1, tg)
+
+    def lib_dl32():
+        p = torch.exp(torch.mm(h32, emb32.t()) - lse[:, None])
+        return p.mul_(dlse[:, None]).scatter_add_(1, tg, dgold[:, None])
+
     times.update(
         fwd_f32=device_ms(torch, lambda: fh.fused_head_fwd(h32, emb32, tgt_flag), cold=False,
                           iters=2, warmup=1),
@@ -2120,6 +2419,11 @@ def phase_head_kernels(torch, np):
                                                              dgold), cold=False, iters=2, warmup=1),
         de_f32=device_ms(torch, lambda: fh.fused_head_bwd_de(h32, emb32, tgt_flag, lse, dlse,
                                                              dgold), cold=False, iters=2, warmup=1),
+        fwd_f32_lib=device_ms(torch, lib_fwd32, cold=False, iters=2, warmup=1),
+        dh_f32_lib=device_ms(torch, lambda: torch.mm(lib_dl32(), emb32), cold=False, iters=2,
+                             warmup=1),
+        de_f32_lib=device_ms(torch, lambda: torch.mm(lib_dl32().t(), h32), cold=False, iters=2,
+                             warmup=1),
     )
     del h32, emb32
     rows = 16 * T                                    # tgt, lse, dlse, dgold
@@ -2128,6 +2432,10 @@ def phase_head_kernels(torch, np):
     bounds = {"fwd": bound_ms(operand + 4 * T + 8 * T, 2 * tve),
               "dh": bound_ms(operand + rows + 4 * T * E, 4 * tve),
               "de": bound_ms(operand + rows + 4 * V * E, 4 * tve)}
+    # the fp32 route's: fp32 operands, the FLOPs at the fp32 peak
+    bounds_f32 = {"fwd": bound_ms(2 * operand + 4 * T + 8 * T, 2 * tve, FP32_FLOPS_PER_S),
+                  "dh": bound_ms(2 * operand + rows + 4 * T * E, 4 * tve, FP32_FLOPS_PER_S),
+                  "de": bound_ms(2 * operand + rows + 4 * V * E, 4 * tve, FP32_FLOPS_PER_S)}
     names = {"fwd": "fused_head_fwd", "dh": "fused_head_bwd_dh", "de": "fused_head_bwd_de"}
     errs = {"fwd": worst["lse"], "dh": worst["dh"], "de": worst["de"]}
     results = {}
@@ -2138,6 +2446,8 @@ def phase_head_kernels(torch, np):
     detail["fwd_registers"] = [ln.strip() for ln in _build.build_log("fused_head_fwd").splitlines()
                                if "registers" in ln or "spill" in ln or "C75" in ln]
     detail["fp32_route_ms"] = {k: times[k + "_f32"] for k in ("fwd", "dh", "de")}
+    detail["fp32_route_library_ms"] = {k: times[k + "_f32_lib"] for k in ("fwd", "dh", "de")}
+    detail["fp32_route_bound_ms"] = {k: b for k, (b, _) in bounds_f32.items()}
     log(f"[head kernels] forward plan: {fwd_plan}")
     for ln in detail["fwd_registers"]:
         log(f"[head kernels] forward ptxas: {ln[:160]}")
@@ -2151,7 +2461,9 @@ def phase_head_kernels(torch, np):
         log(f"[head kernels]   {name} kernel_ms {times[key]:.4f} plain_ms "
             f"{times[key + '_plain']:.4f} library_ms {times[key + '_lib']:.4f} bound_ms "
             f"{bms:.5f} ({by}; {2 * tve * (1 if key == 'fwd' else 2) / times[key] / 1e9:.1f} "
-            f"TFLOP/s of the bound's work); fp32 route {times[key + '_f32']:.4f} ms")
+            f"TFLOP/s of the bound's work); fp32 route {times[key + '_f32']:.4f} ms (bound "
+            f"{bounds_f32[key][0]:.5f} at {FP32_FLOPS_PER_S / 1e12:.0f} TF/s, {bounds_f32[key][1]}; "
+            f"library on fp32 operands, TF32 off, {times[key + '_f32_lib']:.4f} ms)")
 
     # the whole head, forward + backward, fused against the chunked head
     # (chunk 1024): the choice moe_bench.py --ab measured on the TPU
@@ -4204,11 +4516,15 @@ def phase_session(torch, np, train: dict, monitor, compile_at_build):
         shutil.rmtree(root, ignore_errors=True)
 
 
-# each entry point once with few windows: (module, windows, metric)
+# each entry point once with few windows: (module, windows, metric). The
+# trainers are device-bound and one repeat gives a steady difference; a
+# request is host-bound and its time spreads from request to request, so
+# decode takes the bench's own three repeats: with one, a stall of the one
+# short window turns long minus short negative
 BENCH_ENTRIES = (
     ("transformer_bench", (2, 6, 1), "transformer_train_tokens_per_sec_per_chip"),
     ("moe_bench", (2, 6, 1), "moe_train_tokens_per_sec_per_chip"),
-    ("decode_bench", (1, 3, 1), "decode_tokens_per_sec_per_row"),
+    ("decode_bench", (1, 3, 3), "decode_tokens_per_sec_per_row"),
     ("resnet_bench", (2, 6, 1), "resnet50_train_imgs_per_sec_per_chip"),
 )
 
@@ -4450,6 +4766,7 @@ def main() -> int:
     report["generate_fp32"] = phase_generate_fp32(torch, np)
     report["generate_small_heads"] = phase_generate_small_heads(torch, np)
     train = phase_train(torch, np)
+    report["wide_flagships"] = phase_wide_flagships(torch, np, gen, train)
     report["train_parity"] = phase_train_parity(torch, np)
     moe_kernels, report["moe_kernel_launches"] = phase_moe_kernels(torch)
     kernels.update(moe_kernels)

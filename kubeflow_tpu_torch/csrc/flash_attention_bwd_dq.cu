@@ -13,7 +13,8 @@
 //
 // Bound at the training shape (B4 H8 S2048 D128, causal): FLOPs, three
 // causal matmuls (q k^T, do v^T, ds k) = 5.2e10 FLOP, 0.052 ms at the card's
-// 989 TFLOP/s bf16 peak, against ~84 MB of bf16 operands.
+// 989 TFLOP/s bf16 peak, against ~84 MB of bf16 operands (at D 256 1.0e11
+// FLOP, 0.104 ms).
 //
 // bf16 operands: the tensor-core kernel flash_dq_wgmma, built as the forward
 // (flash_attention_fwd.cu): one block per (head, batch row, query tile of
@@ -22,27 +23,31 @@
 // through a 2-stage mbarrier ring; each consumer warpgroup owns 64 query
 // rows and per key tile computes S = Q K^T and dP = dO V^T with wgmma from
 // shared memory (K and V stored [keys, D] are K-major for both), p and ds in
-// fp32 registers (masks only on edge tiles), and dQ += dS K with dS's bf16 A
-// fragments taken from the accumulator registers and K read MN-major from
-// the same tile. dQ stays in fp32 registers across the key loop.
+// fp32 registers (masks only on edge tiles; ds written over s), and dQ += dS
+// K with dS's bf16 A fragments taken from the accumulator registers and K
+// read MN-major from the same tile, one wgmma of N = D a 16-key step. dQ
+// stays in fp32 registers across the key loop.
 //
-// fp32 operands, and both types at head width 256: the scalar kernel
-// flash_bwd_dq_scalar (the first port's design): 256 threads as a 16 x 16
-// grid over a query tile of 64 rows (32 at D 256, where 64 would need
-// 361,472 bytes of shared memory; 32 take 184,832), tiles staged as fp32,
-// fp32 FMAs; ds is rounded to the operands' type before ds k (the identity
-// in fp32).
+// Head width 256 (bf16): <256, 1>, one consumer warpgroup beside the
+// producer in 256 threads, no setmaxnreg: dQ (128 fp32), S and dP (32 each)
+// take 192 of the 255 registers a thread may hold there (168 beside two
+// consumers). Shared memory 197,928 bytes: Q and dO resident (64 KiB), two
+// stages of K and V (128 KiB), delta.
+//
+// fp32 operands: the scalar kernel flash_bwd_dq_scalar (the first port's
+// design): 256 threads as a 16 x 16 grid over a query tile of 64 rows (32 at
+// D 256, where 64 would need 361,472 bytes of shared memory; 32 take
+// 184,832), tiles staged as fp32, fp32 FMAs, dq in fp32 (the TPU kernel's
+// rounding of ds to the operands' type before ds k is the identity in fp32).
 
 #include "flash_common.cuh"
 
 namespace {
 
 using flash::bf16;
-using flash::from_f;
-using flash::round_to;
 using flash::to_f;
 
-// ---- the scalar route (fp32 operands; bf16 at width 256)
+// ---- the scalar route (fp32 operands)
 
 namespace scalar {
 
@@ -55,13 +60,13 @@ __host__ __device__ constexpr size_t smem_floats(int d, int tile) {
   return (size_t)4 * d * (tile + 4) + (size_t)tile * d + (size_t)tile * (tile + 4);
 }
 
-template <int D, int TILE, typename T>
+template <int D, int TILE>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const float* __restrict__ lse, const T* __restrict__ dout,
-                    void* __restrict__ dq, int Sq, int Sk, int H, int KV,
-                    int causal, int window, float scale, int out_f32) {
+flash_bwd_dq_scalar(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ lse, const float* __restrict__ dout,
+                    float* __restrict__ dq, int Sq, int Sk, int H, int KV,
+                    int causal, int window, float scale) {
   constexpr int BQ = TILE, BK = TILE, LD = TILE + 4;
   constexpr int R = TILE / 16;  // rows (and keys) of the score tile a thread owns
   extern __shared__ float4 smem4[];
@@ -81,15 +86,15 @@ flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_stride = (size_t)H * D;    // between consecutive positions
   const size_t kv_stride = (size_t)KV * D;
   const size_t q_base = ((size_t)b * Sq * H + h) * D;
-  const T* kb = k + ((size_t)b * Sk * KV + kvh) * D;
-  const T* vb = v + ((size_t)b * Sk * KV + kvh) * D;
+  const float* kb = k + ((size_t)b * Sk * KV + kvh) * D;
+  const float* vb = v + ((size_t)b * Sk * KV + kvh) * D;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const int qp = q0 + r;
     const bool in = qp < Sq;
-    qt[d * LD + r] = in ? to_f(q[q_base + qp * q_stride + d]) : 0.f;
-    dot[d * LD + r] = in ? to_f(dout[q_base + qp * q_stride + d]) : 0.f;
+    qt[d * LD + r] = in ? q[q_base + qp * q_stride + d] : 0.f;
+    dot[d * LD + r] = in ? dout[q_base + qp * q_stride + d] : 0.f;
   }
 
   // delta and lse of this thread's rows; the 16 threads of a row share them
@@ -100,8 +105,7 @@ flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
     float acc = 0.f;
     if (qp < Sq) {
       for (int d = tx; d < D; d += 16)
-        acc += to_f(dout[q_base + qp * q_stride + d]) *
-               to_f(o[q_base + qp * q_stride + d]);
+        acc += dout[q_base + qp * q_stride + d] * o[q_base + qp * q_stride + d];
     }
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
@@ -129,8 +133,8 @@ flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
       const int kp = k0 + c;
       float kk = 0.f, vv = 0.f;
       if (kp < Sk) {
-        kk = to_f(kb[kp * kv_stride + d]);
-        vv = to_f(vb[kp * kv_stride + d]);
+        kk = kb[kp * kv_stride + d];
+        vv = vb[kp * kv_stride + d];
       }
       kt[d * LD + c] = kk;
       vt[d * LD + c] = vv;
@@ -170,7 +174,7 @@ flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
         // masked scores and rows with lse = +inf give p = 0 explicitly
         const float p = keep ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
         const float ds = p * (dp[i][j] - delta[i]) * scale;
-        dst[(tx * R + j) * LD + ty * R + i] = round_to<T>(ds);
+        dst[(tx * R + j) * LD + ty * R + i] = ds;
       }
     }
     __syncthreads();
@@ -200,13 +204,7 @@ flash_bwd_dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c * 64 + tx * 4 + e;
-        if (out_f32)
-          static_cast<float*>(dq)[row + col] = acc[i][c * 4 + e];
-        else
-          static_cast<T*>(dq)[row + col] = from_f<T>(acc[i][c * 4 + e]);
-      }
+      for (int e = 0; e < 4; ++e) dq[row + c * 64 + tx * 4 + e] = acc[i][c * 4 + e];
   }
 }
 
@@ -363,12 +361,7 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        if constexpr (D == 128)
-          wgmma_rs_n128(acc, da[kk], desc_mn(k_tile, kk), 1);
-        else
-          wgmma_rs_n64(acc, da[kk], desc_mn(k_tile, kk), 1);
-      }
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_tile<D>(acc, da[kk], k_tile, kk);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -414,29 +407,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   return (int)cudaGetLastError();
 }
 
-template <int D, int TILE, typename T>
+template <int D, int TILE>
 int launch_scalar(const void* q, const void* k, const void* v, const void* o, const void* lse,
                   const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int causal,
                   int window, float scale, int out_f32, int smem, cudaStream_t stream) {
   if (smem != (int)(scalar::smem_floats(D, TILE) * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      scalar::flash_bwd_dq_scalar<D, TILE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      scalar::flash_bwd_dq_scalar<D, TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + TILE - 1) / TILE, H, B);
-  scalar::flash_bwd_dq_scalar<D, TILE, T><<<grid, scalar::THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const float*>(lse),
-      static_cast<const T*>(dout), dq, Sq, Sk, H, KV, causal, window, scale, out_f32);
+  scalar::flash_bwd_dq_scalar<D, TILE><<<grid, scalar::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<const float*>(dout), static_cast<float*>(dq), Sq, Sk, H, KV, causal, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// f32: 0 for bf16 operands, 1 for fp32. D 64 and 128: bf16 takes the
-// tensor-core kernel (block_q 64 or 128), fp32 the scalar kernel (block_q 64,
-// dq in fp32); D 256: the scalar kernel in both types (block_q 32; fp32
-// operands give dq in fp32). smem: the plan's shared-memory bytes, checked
-// against the kernel's own layout.
+// f32: 0 for bf16 operands, 1 for fp32. bf16 takes the tensor-core kernel:
+// block_q 64 or 128 at D 64 and 128, 64 at D 256; fp32 the scalar kernel
+// (block_q 64, 32 at D 256; dq in fp32). smem: the plan's shared-memory
+// bytes, checked against the kernel's own layout.
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int D,
@@ -446,12 +439,12 @@ extern "C" int flash_attention_bwd_dq_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, dout, dq, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
-  if (D == 256 && block_q == 32)
-    return f32 ? launch_scalar<256, 32, float>(ARGS) : launch_scalar<256, 32, bf16>(ARGS);
   if (f32) {
-    if (D == 128 && block_q == 64) return launch_scalar<128, 64, float>(ARGS);
-    if (D == 64 && block_q == 64) return launch_scalar<64, 64, float>(ARGS);
+    if (D == 256 && block_q == 32) return launch_scalar<256, 32>(ARGS);
+    if (D == 128 && block_q == 64) return launch_scalar<128, 64>(ARGS);
+    if (D == 64 && block_q == 64) return launch_scalar<64, 64>(ARGS);
   } else {
+    if (D == 256 && block_q == 64) return launch_wgmma<256, 1>(ARGS);
     if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);
     if (D == 128 && block_q == 64) return launch_wgmma<128, 1>(ARGS);
     if (D == 64 && block_q == 128) return launch_wgmma<64, 2>(ARGS);

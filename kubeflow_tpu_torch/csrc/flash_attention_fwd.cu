@@ -7,42 +7,45 @@
 // are never expanded. A row that sees no key gives o = 0 and lse = +inf.
 //
 // Bound: FLOPs at the training shape (B4 S2048 H8 D128 causal: two causal
-// matmuls, 3.4e10 FLOP, 0.035 ms at 989 TFLOP/s bf16); HBM bytes at the
-// serving prefill (B4 S128 H8 KV4), where launch latency dominates.
+// matmuls, 3.4e10 FLOP, 0.035 ms at 989 TFLOP/s bf16; at D 256 6.9e10 FLOP,
+// 0.070 ms); HBM bytes at the serving prefill (B4 S128 H8 KV4), where launch
+// latency dominates.
 //
 // bf16 operands: the tensor-core kernel flash_fwd_wgmma. One block per
 // (head, batch row, query tile of 64 * NWG rows), heaviest causal tiles
 // first. Warpgroup 0 is the producer: one thread loads the block's Q tile,
 // then keeps K and V tiles of 64 keys in flight by TMA through a 2-stage
-// ring of shared memory (full/empty mbarriers); it gives up registers
-// (setmaxnreg) to the NWG consumer warpgroups, each of which owns 64 query
-// rows. Per key tile a consumer computes S = Q K^T with wgmma from shared
-// memory (K stored [keys, D] is K-major), the online softmax in fp32 with
-// exp2 (scale * log2 e folded in), masks only on tiles that cross the
-// diagonal, the window's edge or the ragged end, and O += P V with P's bf16
-// A fragments taken straight from S's accumulator registers and V read
-// MN-major (transposed) from the same swizzled tile. P is rounded to bf16
+// ring of shared memory (full/empty mbarriers); beside two consumer
+// warpgroups it gives up registers (setmaxnreg) to them. Each of the NWG
+// consumer warpgroups owns 64 query rows. Per key tile a consumer computes
+// S = Q K^T with wgmma from shared memory (K stored [keys, D] is K-major),
+// the online softmax in fp32 with exp2 (scale * log2 e folded in), masks
+// only on tiles that cross the diagonal, the window's edge or the ragged
+// end, and O += P V with P's bf16 A fragments taken straight from S's
+// accumulator registers and V read MN-major (transposed) from the same
+// swizzled tile, one wgmma of N = D a 16-key step. P is rounded to bf16
 // before P V and the row sum l is taken from the unrounded p, the TPU
 // kernel's rounding points.
 //
-// fp32 operands, and both types at head width 256: the scalar kernel
-// flash_fwd_scalar (the first port's design): one block per (64-row query
-// tile, head, batch row), 256 threads as a 16 x 16 grid, tiles staged as
-// fp32 in shared memory (222,208 bytes at D 256), fp32 FMAs; p is rounded
-// to the operands' type before P V (the identity in fp32). At D 256 the
-// tensor-core kernel's accumulators would not fit beside its producer
-// warpgroup (ops/pallas_attention.py _wgmma_sums).
+// Head width 256 (bf16): <256, 1>, one consumer warpgroup beside the
+// producer, 256 threads under __launch_bounds__(256, 1) and no setmaxnreg,
+// so a thread may hold 255 registers: O (128 fp32) and S (32) fit, where
+// two consumers beside a producer cap a thread at 168. Shared memory
+// 164,904 bytes (Q 32 KiB, two stages of K and V 128 KiB).
+//
+// fp32 operands: the scalar kernel flash_fwd_scalar (the first port's
+// design): one block per (64-row query tile, head, batch row), 256 threads
+// as a 16 x 16 grid, tiles staged as fp32 in shared memory (222,208 bytes
+// at D 256), fp32 FMAs (the TPU kernel's rounding of p to the operands'
+// type before P V is the identity in fp32).
 
 #include "flash_common.cuh"
 
 namespace {
 
 using flash::bf16;
-using flash::from_f;
-using flash::round_to;
-using flash::to_f;
 
-// ---- the scalar route (fp32 operands; bf16 at width 256)
+// ---- the scalar route (fp32 operands)
 
 namespace scalar {
 
@@ -55,10 +58,10 @@ __host__ __device__ constexpr size_t smem_floats(int d, int tile) {
   return (size_t)2 * d * (tile + 4) + (size_t)tile * d + (size_t)tile * (tile + 4);
 }
 
-template <int D, int TILE, typename T>
+template <int D, int TILE>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse,
+flash_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int H, int KV, int causal, int window,
                  float scale) {
   constexpr int BQ = TILE, BK = TILE, LD = TILE + 4;
@@ -77,14 +80,14 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int kvh = h / (H / KV);
   const size_t q_stride = (size_t)H * D;    // between consecutive positions
   const size_t kv_stride = (size_t)KV * D;
-  const T* qb = q + ((size_t)b * Sq * H + h) * D;
-  const T* kb = k + ((size_t)b * Sk * KV + kvh) * D;
-  const T* vb = v + ((size_t)b * Sk * KV + kvh) * D;
+  const float* qb = q + ((size_t)b * Sq * H + h) * D;
+  const float* kb = k + ((size_t)b * Sk * KV + kvh) * D;
+  const float* vb = v + ((size_t)b * Sk * KV + kvh) * D;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const int qp = q0 + r;
-    qt[d * LD + r] = qp < Sq ? to_f(qb[qp * q_stride + d]) : 0.f;
+    qt[d * LD + r] = qp < Sq ? qb[qp * q_stride + d] : 0.f;
   }
 
   // keys any row of this tile can see: causal skips tiles above the
@@ -110,8 +113,8 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int kp = k0 + c;
       float kk = 0.f, vv = 0.f;
       if (kp < Sk) {
-        kk = to_f(kb[kp * kv_stride + d]);
-        vv = to_f(vb[kp * kv_stride + d]);
+        kk = kb[kp * kv_stride + d];
+        vv = vb[kp * kv_stride + d];
       }
       kt[d * LD + c] = kk;
       vs[c * D + d] = vv;
@@ -158,7 +161,7 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < R; ++j) {
         const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
         rs += p;
-        pt[(tx * R + j) * LD + ty * R + i] = round_to<T>(p);
+        pt[(tx * R + j) * LD + ty * R + i] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -193,12 +196,12 @@ flash_fwd_scalar(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (qp >= Sq) continue;
     // a row that saw no key gives 0 (and lse +inf), the TPU kernel's l_safe
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + ((size_t)b * Sq * H + h) * D + qp * q_stride;
+    float* orow = o + ((size_t)b * Sq * H + h) * D + qp * q_stride;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        orow[c * 64 + tx * 4 + e] = from_f<T>(acc[i][c * 4 + e] / l_safe);
+        orow[c * 64 + tx * 4 + e] = acc[i][c * 4 + e] / l_safe;
     if (lse != nullptr && tx == 0)
       lse[((size_t)b * H + h) * Sq + qp] =
           l[i] == 0.f ? INFINITY : m[i] + logf(l_safe);
@@ -351,12 +354,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        if constexpr (D == 128)
-          wgmma_rs_n128(acc, pa[kk], desc_mn(v_tile, kk), 1);
-        else
-          wgmma_rs_n64(acc, pa[kk], desc_mn(v_tile, kk), 1);
-      }
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_tile<D>(acc, pa[kk], v_tile, kk);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -402,27 +400,27 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse
   return (int)cudaGetLastError();
 }
 
-template <int D, int TILE, typename T>
+template <int D, int TILE>
 int launch_scalar(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                   int Sq, int Sk, int H, int KV, int causal, int window, float scale, int smem,
                   cudaStream_t stream) {
   if (smem != (int)(scalar::smem_floats(D, TILE) * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      scalar::flash_fwd_scalar<D, TILE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      scalar::flash_fwd_scalar<D, TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + TILE - 1) / TILE, H, B);
-  scalar::flash_fwd_scalar<D, TILE, T><<<grid, scalar::THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), Sq, Sk, H, KV, causal, window, scale);
+  scalar::flash_fwd_scalar<D, TILE><<<grid, scalar::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), Sq, Sk, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// f32: 0 for bf16 operands, 1 for fp32. D 64 and 128: bf16 takes the
-// tensor-core kernel (block_q 64 or 128), fp32 the scalar kernel (block_q 64);
-// D 256: the scalar kernel in both types (block_q 64). smem: the plan's
-// shared-memory bytes, checked against the kernel's own layout.
+// f32: 0 for bf16 operands, 1 for fp32. bf16 takes the tensor-core kernel:
+// block_q 64 or 128 at D 64 and 128, 64 at D 256; fp32 the scalar kernel
+// (block_q 64). smem: the plan's shared-memory bytes, checked against the
+// kernel's own layout.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int Sq, int Sk, int H, int KV, int D, int causal, int window, float scale,
@@ -431,12 +429,12 @@ extern "C" int flash_attention_fwd_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, smem, s
-  if (D == 256 && block_q == 64)
-    return f32 ? launch_scalar<256, 64, float>(ARGS) : launch_scalar<256, 64, bf16>(ARGS);
   if (f32) {
-    if (D == 128 && block_q == 64) return launch_scalar<128, 64, float>(ARGS);
-    if (D == 64 && block_q == 64) return launch_scalar<64, 64, float>(ARGS);
+    if (D == 256 && block_q == 64) return launch_scalar<256, 64>(ARGS);
+    if (D == 128 && block_q == 64) return launch_scalar<128, 64>(ARGS);
+    if (D == 64 && block_q == 64) return launch_scalar<64, 64>(ARGS);
   } else {
+    if (D == 256 && block_q == 64) return launch_wgmma<256, 1>(ARGS);
     if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);
     if (D == 128 && block_q == 64) return launch_wgmma<128, 1>(ARGS);
     if (D == 64 && block_q == 128) return launch_wgmma<64, 2>(ARGS);

@@ -8,13 +8,15 @@
 // dk/dv) issues the copies, and consumer warpgroups multiply with wgmma
 // (Hopper's warpgroup MMA, bf16 operands, fp32 accumulators). The forward
 // and dq stream K/V tiles past a resident query tile; dk/dv streams Q/dO/O
-// tiles past resident K/V. fp32 operands take the scalar kernels, which
-// stage tiles as fp32 in shared memory and multiply with fp32 FMAs.
+// tiles past resident K/V. fp32 operands, and dk/dv at head width 256, take
+// the scalar kernels, which stage tiles as fp32 in shared memory and
+// multiply with fp32 FMAs.
 //
 // The generic Hopper pieces (mbarriers, TMA, descriptors, wgmma wrappers,
 // the tensor-map encoder) live in hopper_common.cuh; here are the
 // attention-specific ones. A tile row is 64 head-dim columns (or 64 keys)
-// of bf16, 128 bytes, in 128-byte-swizzled slabs; a D-128 tile is two slabs.
+// of bf16, 128 bytes, in 128-byte-swizzled slabs; a D-128 tile is two slabs,
+// a D-256 tile four.
 
 #pragma once
 
@@ -52,6 +54,22 @@ constexpr float LOG2E = 1.4426950408889634f;
 // dim) for k-step kk: 16 key rows a step.
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return desc(tile + kk * 16 * 128, SLAB_K, 1024);
+}
+
+// acc [64, D] += A [64 x 16] * rows 16kk .. 16kk + 15 of a [BK, D] tile read
+// MN-major: O += P V (forward) and dQ += dS K (dq), A the bf16 fragments of
+// P or dS from registers. One wgmma spans all D columns: the descriptor's
+// leading offset steps over the tile's D / 64 slabs.
+template <int D>
+__device__ __forceinline__ void wgmma_rs_tile(float (&acc)[D / 2], const uint32_t (&a)[4],
+                                              uint32_t tile, int kk) {
+  static_assert(D == 64 || D == 128 || D == 256, "head widths 64, 128 and 256");
+  if constexpr (D == 256)
+    wgmma_rs_n256(acc, a, desc_mn(tile, kk), 1);
+  else if constexpr (D == 128)
+    wgmma_rs_n128(acc, a, desc_mn(tile, kk), 1);
+  else
+    wgmma_rs_n64(acc, a, desc_mn(tile, kk), 1);
 }
 
 // ---- what the tensor-core kernels share: the tile ranges, the masks, the

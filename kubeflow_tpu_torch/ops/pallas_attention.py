@@ -13,7 +13,7 @@ and launch latency bound it; at the training shape (B4 H8 S2048 D128, causal)
 all three are bound by FLOPs (forward 2, dq 3, dk/dv 4 causal matmuls of
 1.7e10 FLOP each, against ~84 MB of bf16 operands).
 
-Two routes, chosen by :func:`_plan` from the operands' dtype:
+Two routes, chosen by :func:`_plan` from the operands' dtype and width:
 
 - **bf16: tensor cores.** A producer (a warpgroup for the forward and dq,
   thread 0 for dk/dv) keeps tiles in flight by TMA into a 2-stage
@@ -22,18 +22,22 @@ Two routes, chosen by :func:`_plan` from the operands' dtype:
   keep P (forward), dS (dq) or P^T and dS^T (dk/dv) in registers as the next
   product's operand. The forward and dq hold a query tile and stream K/V
   tiles of 64 keys; ``_plan`` takes 128-row query tiles where they still
-  give every SM a block, else 64. dk/dv holds 64 or 128 keys (by the same
-  rule) and streams the Q, dO and O tiles of 64 query rows that can see
-  them, over every query head of the GQA group.
-- **fp32, and both types at head width 256: scalar kernels.** Tiles staged
-  as fp32 in shared memory (bf16 converted as it is staged) and fp32 FMAs,
-  256 threads; 64-row tiles where they fit the block's shared memory, else
-  32 (dq and dk/dv at width 256). The TPU kernels' rounding points are kept
-  in the operands' type (the identity in fp32).
+  give every SM a block, else 64 (at width 256 always 64). dk/dv holds 64
+  or 128 keys (by the same rule) and streams the Q, dO and O tiles of 64
+  query rows that can see them, over every query head of the GQA group.
+- **fp32, and dk/dv at head width 256: scalar kernels.** Tiles staged as
+  fp32 in shared memory (bf16 converted as it is staged) and fp32 FMAs, 256
+  threads; 64-row tiles where they fit the block's shared memory, else 32
+  (dq and dk/dv at width 256). The TPU kernels' rounding points are kept in
+  the operands' type (the identity in fp32).
 
-The kernels are compiled for head widths 64, 128 and 256: the tensor-core
-route for 64 and 128 (at 256 its accumulators would not fit beside a
-producer warpgroup, :func:`_wgmma_sums`), the scalar route for all three.
+The kernels are compiled for head widths 64, 128 and 256. bf16 at 64 and
+128 takes the tensor cores in all three kernels. At 256 the forward and dq
+take them in 64-row tiles only (``_WGMMA_64_ROWS_D``: one consumer
+warpgroup beside the producer, where a thread may hold 255 registers);
+dk/dv's dK and dV alone would fill those registers and its tiles would pass
+the block's shared memory (:func:`_wgmma_sums`), so it stays scalar. fp32
+is scalar at every width.
 Any head size D up to 256 runs on them: :func:`_pad_heads` zero-pads the head
 axis to the next width and launches with the true ``D ** -0.5`` as the
 softmax scale, so the scores, the softmax and delta = rowsum(dO·O) are the
@@ -76,6 +80,12 @@ from kubeflow_tpu_torch.ops.attention import NEG_INF
 
 _KERNEL_D = (64, 128, 256)   # head widths the kernels are compiled for
 _WGMMA_D = (64, 128)         # the widths of the bf16 tensor-core route
+# widths where the bf16 forward and dq take the tensor cores in 64-row tiles
+# only: two consumer warpgroups beside the producer leave a thread
+# ``_REGS_BESIDE_PRODUCER`` registers, fewer than their accumulators (forward
+# 160, dq 192) and the addresses, counters and softmax state beside them
+# (ptxas gives the one-consumer kernels 196 and 228); dk/dv stays scalar
+_WGMMA_64_ROWS_D = (256,)
 
 
 def _group_of(q, k, v):
@@ -194,23 +204,25 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     """The launch of ``kernel`` ("fwd", "dq" or "dkv") for these shapes, at
     head size ``D`` (planned at its padded ``width``, :func:`_kernel_width`).
 
-    bf16 takes the tensor-core route: ``block // 64`` consumer warpgroups,
-    with a producer warpgroup beside them for the forward and dq (for dk/dv
-    thread 0 produces). The forward and dq: a grid of (H, B, query tiles),
-    128-row tiles where ``B * H * ceil(Sq / 128)`` blocks still fill
-    ``sms`` SMs (the training shape: 512 blocks), else 64-row tiles (the
-    serving prefill B4 H8 S128: 64 blocks where 128 rows would give 32).
-    dk/dv: a grid of (KV, B, key blocks), 128 keys a block where ``B * KV *
-    ceil(Sk / 128)`` blocks fill the SMs, else 64. Shared memory as
-    :func:`_wgmma_sums` counts it. fp32, and bf16 at width 256, take the
-    scalar route: 256 threads, the largest tile of ``_SCALAR_TILES`` whose
-    shared memory (:func:`_scalar_floats`) fits a block.
+    bf16 at widths ``_WGMMA_D`` takes the tensor-core route: ``block // 64``
+    consumer warpgroups, with a producer warpgroup beside them for the
+    forward and dq (for dk/dv thread 0 produces). The forward and dq: a grid
+    of (H, B, query tiles), 128-row tiles where ``B * H * ceil(Sq / 128)``
+    blocks still fill ``sms`` SMs (the training shape: 512 blocks), else
+    64-row tiles (the serving prefill B4 H8 S128: 64 blocks where 128 rows
+    would give 32); at widths ``_WGMMA_64_ROWS_D`` 64-row tiles at every
+    shape. dk/dv: a grid of (KV, B, key blocks), 128 keys a block where
+    ``B * KV * ceil(Sk / 128)`` blocks fill the SMs, else 64. Shared memory as
+    :func:`_wgmma_sums` counts it. fp32, and bf16 dk/dv at width 256, take
+    the scalar route: 256 threads, the largest tile of ``_SCALAR_TILES``
+    whose shared memory (:func:`_scalar_floats`) fits a block.
     """
     width = _kernel_width(D)
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash kernels take bf16 or fp32 operands, got {dtype}")
-    if dtype == torch.bfloat16 and width in _WGMMA_D and kernel in ("fwd", "dq"):
-        rows = 128 if B * H * -(-Sq // 128) >= sms else 64
+    wide = width in _WGMMA_64_ROWS_D
+    if dtype == torch.bfloat16 and kernel in ("fwd", "dq") and (width in _WGMMA_D or wide):
+        rows = 128 if not wide and B * H * -(-Sq // 128) >= sms else 64
         smem, _ = _wgmma_sums(kernel, rows, width)
         return Plan("wgmma", rows, (H, B, -(-Sq // rows)), 128 * (rows // 64 + 1), smem, width)
     if dtype == torch.bfloat16 and width in _WGMMA_D:

@@ -19,13 +19,18 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 
 @pytest.mark.parametrize("shape", [SERVING, TRAINING], ids=["serving", "training"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     B, Sq, Sk, H, KV = shape
     plan = pa._plan(kernel, B, Sq, Sk, H, KV, D, dtype)
-    assert 0 < plan.smem_bytes <= pa.SMEM_LIMIT
-    if dtype == torch.bfloat16:
+    assert 0 < plan.smem_bytes <= pa.SMEM_LIMIT and plan.width == D
+    if dtype == torch.bfloat16 and D == 256 and kernel != "dkv":
+        # width 256: one consumer warpgroup of 64 rows beside the producer
+        # at every shape (two would not fit beside it)
+        assert (plan.route, plan.block, plan.threads) == ("wgmma", 64, 256)
+        assert plan.grid == (H, B, -(-Sq // 64))
+    elif dtype == torch.bfloat16 and D <= 128:
         # 128-row tiles (128 keys for dk/dv) at the training shape (512
         # blocks for 132 SMs); the serving prefill would get 32 (16 for
         # dk/dv), so it takes 64 (64 and 32 blocks)
@@ -36,8 +41,11 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
         assert (plan.route, plan.block, plan.threads) == ("wgmma", rows, threads)
         assert plan.grid == ((KV, B, Sk // rows) if kernel == "dkv" else (H, B, Sq // rows))
     else:
-        assert (plan.route, plan.block, plan.threads) == ("scalar", 64, 256)
-        assert plan.grid == ((Sk // 64, KV, B) if kernel == "dkv" else (Sq // 64, H, B))
+        # fp32, and dk/dv at width 256: the scalar kernels, 32-row tiles
+        # where 64 would pass the block's shared memory (dq and dk/dv at 256)
+        tile = 32 if D == 256 and kernel != "fwd" else 64
+        assert (plan.route, plan.block, plan.threads) == ("scalar", tile, 256)
+        assert plan.grid == ((Sk // tile, KV, B) if kernel == "dkv" else (Sq // tile, H, B))
 
 
 @pytest.mark.parametrize("kernel,dtype,shape,want", [
@@ -58,6 +66,19 @@ def test_plan_shared_memory_bytes_at_d128(kernel, dtype, shape, want):
     assert pa._plan(kernel, *shape, 128, dtype).smem_bytes == want
 
 
+@pytest.mark.parametrize("kernel,shape,want", [
+    # Q 32 KiB + 2 x (K, V) 64 KiB at four slabs + slack, barriers
+    ("fwd", TRAINING, 164_904),
+    ("fwd", SERVING, 164_904),
+    ("dq", TRAINING, 197_928),    # + dO 32 KiB + delta
+    ("dq", SERVING, 197_928),
+])
+def test_plan_shared_memory_bytes_at_d256(kernel, shape, want):
+    plan = pa._plan(kernel, *shape, 256, torch.bfloat16)
+    assert plan.smem_bytes == want == pa._wgmma_sums(kernel, 64, 256)[0]
+    assert want <= pa.SMEM_LIMIT
+
+
 def test_plan_ragged_and_small_grids():
     # a ragged last tile still gets a block; 128 rows only where the blocks fill the SMs
     assert pa._plan("fwd", 2, 200, 200, 8, 4, 128, torch.bfloat16).grid == (8, 2, 4)
@@ -70,6 +91,9 @@ def test_plan_ragged_and_small_grids():
     assert pa._plan("dkv", 9, 200, 200, 8, 4, 128, torch.bfloat16).grid == (4, 9, 4)
     assert pa._plan("fwd", 1, 2048, 2048, 8, 8, 128, torch.bfloat16, sms=64).block == 128
     assert pa._plan("fwd", 1, 2048, 2048, 8, 8, 128, torch.bfloat16, sms=132).block == 64
+    # width 256 keeps 64-row tiles where 128 would fill the SMs, ragged tiles included
+    assert pa._plan("fwd", 1, 2048, 2048, 8, 8, 256, torch.bfloat16, sms=64).block == 64
+    assert pa._plan("dq", 3, 200, 200, 4, 2, 256, torch.bfloat16).grid == (4, 3, 4)
 
 
 @pytest.mark.parametrize("Sq,Sk,causal,window", [

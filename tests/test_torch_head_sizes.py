@@ -1,6 +1,7 @@
 """Head sizes other than 64, 128 and 256: the port's kernels run them
 zero-padded to the next of those widths with the true D's softmax scale
-(width 256 on the flash kernels' scalar route, in bf16 and fp32 alike).
+(width 256: the bf16 forward and dq on the tensor-core route with 64-row
+tiles, dk/dv and fp32 on the scalar route).
 
 ``_pad_heads`` takes the function it pads around as an argument: on the
 card the kernel launch, here the plain version, so the padding itself is
@@ -82,13 +83,18 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
         plan = pa._plan(kernel, 4, 2048, 2048, 8, 8, D, dtype)
         assert plan == pa._plan(kernel, 4, 2048, 2048, 8, 8, width, dtype)
         assert plan.width == width and plan.smem_bytes <= pa.SMEM_LIMIT
-        # bf16 takes the tensor cores up to 128; the scalar route beyond,
-        # in 64-row tiles where they fit (the forward), else 32
-        assert plan.route == ("wgmma" if dtype == torch.bfloat16 and width <= 128 else "scalar")
+        # bf16 takes the tensor cores up to 128, and for the forward and dq
+        # at 256 too, in 64-row tiles; the scalar route otherwise, in 64-row
+        # tiles where they fit (the forward), else 32
+        wgmma = dtype == torch.bfloat16 and (width <= 128 or kernel != "dkv")
+        assert plan.route == ("wgmma" if wgmma else "scalar")
         if plan.route == "scalar":
             tile = 64 if width <= 128 or kernel == "fwd" else 32
             assert plan.block == tile and plan.threads == 256
             assert plan.smem_bytes == 4 * pa._scalar_floats(kernel, width, tile)
+        elif width == 256:
+            assert (plan.block, plan.threads, plan.grid) == (64, 256, (8, 4, 32))
+            assert plan.smem_bytes == pa._wgmma_sums(kernel, 64, 256)[0]
     for B, G, R, L in ((4, 4, 2, 2048), (2, 1, 16, 512)):
         p = fd._plan(B, G, R, L, D, dtype, 132)
         assert p == fd._plan(B, G, R, L, width, dtype, 132) and p.width == width
@@ -97,13 +103,30 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
 
 
 def test_head_sizes_past_128_are_refused_with_their_limits():
-    """Past 128 the bf16 tensor-core kernels would not fit (their sums at
-    256), so widths up to 256 take the scalar route; past 256 the scalar
-    kernels would not fit either, and that is the stated refusal."""
+    """At width 256 the bf16 forward and dq fit the tensor-core route with
+    one consumer warpgroup of 64 rows beside the producer (a thread may hold
+    255 registers there) but not with two (168); dk/dv fits neither way, so
+    it takes the scalar route; past 256 the scalar kernels would not fit
+    either, and that is the stated refusal."""
     assert [pa._wgmma_sums(k, 64, 256) for k in ("fwd", "dq", "dkv")] == [
         (164_904, 160), (197_928, 192), (264_232, 320)]
-    assert pa._wgmma_sums("dkv", 64, 256)[0] > pa.SMEM_LIMIT
-    assert pa._wgmma_sums("dq", 64, 256)[1] > pa._REGS_BESIDE_PRODUCER
+    for kernel in ("fwd", "dq"):
+        smem, regs = pa._wgmma_sums(kernel, 64, 256)
+        assert smem <= pa.SMEM_LIMIT and regs <= pa._REGS_MAX
+        # 64-row tiles even where 128 would give every SM a block
+        plan = pa._plan(kernel, 4, 2048, 2048, 8, 8, 256, torch.bfloat16, sms=1)
+        assert (plan.route, plan.block, plan.threads) == ("wgmma", 64, 256)
+        assert pa._plan(kernel, 4, 2048, 2048, 8, 8, 128, torch.bfloat16, sms=1).block == 128
+    # two consumers beside a producer (128 rows) leave a thread 168
+    # registers: dq's accumulators alone pass that, and the forward's leave
+    # 8 for its addresses, counters and the softmax's m and l
+    assert pa._wgmma_sums("dq", 128, 256)[1] > pa._REGS_BESIDE_PRODUCER
+    assert pa._REGS_BESIDE_PRODUCER - pa._wgmma_sums("fwd", 128, 256)[1] < 16
+    # dk/dv passes both the shared memory and the registers at either tile
+    for keys in (64, 128):
+        smem, regs = pa._wgmma_sums("dkv", keys, 256)
+        assert smem > pa.SMEM_LIMIT and regs > pa._REGS_MAX
+    assert pa._plan("dkv", 4, 2048, 2048, 8, 8, 256, torch.bfloat16).route == "scalar"
     for D in (129, 200, 256):
         assert pa._kernel_width(D) == fd._kernel_width(D) == 256
     # the sums the refusal states are the scalar kernels' own at the next width
