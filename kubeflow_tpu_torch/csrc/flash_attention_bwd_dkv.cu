@@ -24,10 +24,11 @@
 // Bound at the flagship training shape (B4 H8 S2048 D128, causal): FLOPs,
 // four causal matmuls (k q^T, v do^T, p^T do, ds^T q) = 6.9e10 FLOP, 0.070 ms
 // at the card's 989 TFLOP/s bf16 peak, against ~84 MB of bf16 operands
-// (0.025 ms at 3.35 TB/s).
+// (0.025 ms at 3.35 TB/s); at D 256 1.4e11 FLOP, 0.139 ms.
 //
-// bf16 operands: the tensor-core kernel flash_dkv_wgmma, FA3's backward
-// shape without dQ (flash_attention_bwd_dq.cu computes dq). One block per
+// bf16 operands at head widths 64 and 128: the tensor-core kernel
+// flash_dkv_wgmma, FA3's backward shape without dQ
+// (flash_attention_bwd_dq.cu computes dq). One block per
 // (kv head, batch row, 64 * NWG keys), the lowest keys (the most query tiles
 // under a causal mask) first. Thread 0 loads the block's K and V tiles once
 // by TMA (they stay resident) and walks the (query head, 64-row query tile)
@@ -52,25 +53,43 @@
 // its wgmmas (C7512) and took 0.94 ms at the training shape on an H100 80GB
 // HBM3. Without it, two warps a register file may take 255.
 //
-// fp32 operands, and both types at head width 256: the scalar kernel
-// flash_bwd_dkv_kernel (the first port's design): one block per (key tile,
-// kv head, batch row), 256 threads as a 16 x 16 grid, tiles staged as fp32
-// in shared memory, fp32 FMAs; thread (ty, tx) owns keys ty*R .. ty*R+R-1
-// and columns c*64 + tx*4 .. +3 of dk and dv. Tiles of 64 keys and 64 query
-// rows (R 4; 222,720 bytes at D 128); at D 256, 32 and 32 (R 2; 217,856
-// bytes, where 64 would need 427,520). P and dS are rounded to the
-// operands' type as the operands of their products (the identity in fp32).
+// bf16 at head width 256: the kernel above would hold dK, dV, S^T and dP^T
+// (320 fp32 registers a thread, past 255) and needs 264,232 bytes of shared
+// memory (past 232,448). flash_dkv_wgmma_pair splits the accumulators across
+// its two consumer warpgroups instead: one block per (kv head, batch row, 64
+// keys), 256 threads, thread 0 producing as above; K and V resident (64 KiB),
+// the Q, dO and O tiles in 48-row tiles through the 2-stage ring (144 KiB;
+// 226,744 bytes in all). Warpgroup 0 owns dV: per tile S^T = K Q^T (m64n48k16
+// from shared memory), P^T = exp(S^T * scale - lse) in fp32 registers, P^T
+// written to the exchange slot in shared memory in its own fragment order,
+// then dV += P^T dO with P^T's bf16 fragments from registers. Warpgroup 1 owns
+// dK: dP^T = V dO^T, delta of the tile's 48 rows from the dO and O tiles while
+// it runs, then, once the slot is full, dS^T = P^T (dP^T - delta) * scale from
+// the fp32 P^T it reads back thread for thread (the same fragment layout: no
+// bank conflicts), and dK += dS^T Q. Each warpgroup runs two of the tile's
+// four products and holds 128 + 24 accumulators a thread (212 registers in
+// all, no spills); the slot is guarded by two mbarriers (full: warpgroup 0's
+// 128 arrivals, empty: warpgroup 1's). What bounds it on an H100 (a clock64
+// breakdown of an instrumented copy): the issue of the narrow score products,
+// which take the tensor cores several times their FLOPs' share, and each
+// tile's chain of products, exponentials, delta and exchange; neither the
+// tiles' traffic, the launch order nor the ring's depth moved it.
+//
+// fp32 operands: the scalar kernel flash_bwd_dkv_kernel (the first port's
+// design): one block per (key tile, kv head, batch row), 256 threads as a
+// 16 x 16 grid, tiles staged in shared memory, fp32 FMAs; thread (ty, tx)
+// owns keys ty*R .. ty*R+R-1 and columns c*64 + tx*4 .. +3 of dk and dv.
+// Tiles of 64 keys and 64 query rows (R 4; 222,720 bytes at D 128); at D
+// 256, 32 and 32 (R 2; 217,856 bytes, where 64 would need 427,520). The TPU
+// kernel's roundings of P and dS to the operands' type are the identity.
 
 #include "flash_common.cuh"
 
 namespace {
 
 using flash::bf16;
-using flash::from_f;
-using flash::round_to;
-using flash::to_f;
 
-// ---- the scalar route (fp32 operands; bf16 at width 256)
+// ---- the scalar route (fp32 operands)
 
 namespace scalar {
 
@@ -107,14 +126,14 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ pt,
   }
 }
 
-template <int D, int TILE, typename T>
+template <int D, int TILE>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ o,
-                     const float* __restrict__ lse, const T* __restrict__ dout,
-                     void* __restrict__ dk, void* __restrict__ dv,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ o,
+                     const float* __restrict__ lse, const float* __restrict__ dout,
+                     float* __restrict__ dk, float* __restrict__ dv,
                      int Sq, int Sk, int H, int KV, int causal, int window,
-                     float scale, int out_f32) {
+                     float scale) {
   constexpr int BQ = TILE, BK = TILE, LD = TILE + 4;
   constexpr int R = TILE / 16;  // keys (and query rows) of the score tile a thread owns
   constexpr int PARTS = THREADS / BQ;   // threads that sum one row's delta
@@ -143,8 +162,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int c = i / D, d = i % D;
     const int kp = k0 + c;
     const bool in = kp < Sk;
-    kt[d * LD + c] = in ? to_f(k[kv_base + kp * kv_stride + d]) : 0.f;
-    vt[d * LD + c] = in ? to_f(v[kv_base + kp * kv_stride + d]) : 0.f;
+    kt[d * LD + c] = in ? k[kv_base + kp * kv_stride + d] : 0.f;
+    vt[d * LD + c] = in ? v[kv_base + kp * kv_stride + d] : 0.f;
   }
 
   // query rows that can see any key of this tile: causal starts at the
@@ -169,8 +188,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qp = q0 + r;
         float qq = 0.f, gg = 0.f;
         if (qp < Sq) {
-          qq = to_f(q[q_base + qp * q_stride + d]);
-          gg = to_f(dout[q_base + qp * q_stride + d]);
+          qq = q[q_base + qp * q_stride + d];
+          gg = dout[q_base + qp * q_stride + d];
         }
         qt[d * LD + r] = qq;
         dot[d * LD + r] = gg;
@@ -184,8 +203,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float acc = 0.f;
         if (qp < Sq) {
           for (int d = part; d < D; d += PARTS)
-            acc += to_f(dout[q_base + qp * q_stride + d]) *
-                   to_f(o[q_base + qp * q_stride + d]);
+            acc += dout[q_base + qp * q_stride + d] * o[q_base + qp * q_stride + d];
         }
 #pragma unroll
         for (int off = 1; off < PARTS; off <<= 1)
@@ -231,8 +249,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (causal) keep = keep && kp <= qp && (window <= 0 || kp > qp - window);
           // masked scores and rows with lse = +inf give p = 0 explicitly
           const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-          ds[i][j] = round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);
-          pt[r * LD + ty * R + i] = round_to<T>(p);
+          ds[i][j] = p * (dp[i][j] - delta_s[r]) * scale;
+          pt[r * LD + ty * R + i] = p;
         }
       }
       __syncthreads();
@@ -256,14 +274,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DC; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = c * 64 + tx * 4 + e;
-        if (out_f32) {
-          static_cast<float*>(dk)[row + col] = acc_dk[i][c * 4 + e];
-          static_cast<float*>(dv)[row + col] = acc_dv[i][c * 4 + e];
-        } else {
-          static_cast<T*>(dk)[row + col] = from_f<T>(acc_dk[i][c * 4 + e]);
-          static_cast<T*>(dv)[row + col] = from_f<T>(acc_dv[i][c * 4 + e]);
-        }
+        dk[row + c * 64 + tx * 4 + e] = acc_dk[i][c * 4 + e];
+        dv[row + c * 64 + tx * 4 + e] = acc_dv[i][c * 4 + e];
       }
   }
 }
@@ -551,7 +563,293 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   return (int)cudaGetLastError();
 }
 
-template <int D, int TILE, typename T>
+// ---- the tensor-core route at head width 256 (bf16): two warpgroups, one
+// owning dV and one dK
+
+// Shared memory of flash_dkv_wgmma_pair, in bytes from a 1024-aligned base:
+// K and V (four slabs of 64 keys each, resident), STAGES Q, dO and O tiles
+// of QR rows (four slabs each), the exchange slot of fp32 P^T [64 keys, QR
+// queries] in the accumulators' fragment order, two delta rows of QR, then
+// the mbarriers: K/V, full[STAGES], empty[STAGES], slot full, slot empty.
+// ops/pallas_attention.py (_wgmma_sums) computes the same bytes; the
+// launcher checks them. QR 48 is the most rows whose two stages fit beside
+// K and V; on an H100, 32-row tiles (with two slots) ran slower: the score
+// products' N = QR sets their rate more than their FLOPs do.
+struct DkvPairLayout {
+  static constexpr int D = 256;
+  static constexpr int NS = D / 64;
+  static constexpr int QR = 48;                 // query rows a ring tile
+  static constexpr int SLAB_KB = 64 * 128;
+  static constexpr int SLAB_Q = QR * 128;
+  static constexpr int K = 0;
+  static constexpr int V = K + NS * SLAB_KB;
+  static constexpr int Q = V + NS * SLAB_KB;
+  static constexpr int DO = Q + flash::STAGES * NS * SLAB_Q;
+  static constexpr int O = DO + flash::STAGES * NS * SLAB_Q;
+  static constexpr int X = O + flash::STAGES * NS * SLAB_Q;
+  static constexpr int ROWS = X + 64 * QR * 4;
+  static constexpr int BAR = ROWS + 2 * QR * 4;
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES + 2);
+};
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tout,
+                     const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                     void* __restrict__ dk, void* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                     int causal, int window, float scale, int out_f32) {
+  static_assert(D == DkvPairLayout::D, "the pair kernel runs at head width 256");
+  using namespace flash;
+  using L = DkvPairLayout;
+  constexpr int NS = L::NS, QR = L::QR;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar_kv = s_base + L::BAR;
+  const uint32_t slot_full = bar_kv + 8 * (1 + 2 * STAGES), slot_empty = slot_full + 8;
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * 64;      // the lowest keys, the heaviest causal blocks, first
+  const int group = H / KV;
+  // every tile of the walk holds a query that sees one of the block's keys
+  // (tests/test_torch_flash_plan.py), so none is skipped
+  const QueryTiles qt = query_tiles<QR>(k0, 64, Sq, Sk, causal, window);
+  const int n = group * qt.count;      // (query head, query tile) pairs, head by head
+  if (threadIdx.x == 0) {
+    mbar_init(slot_full, 128);
+    mbar_init(slot_empty, 128);
+  }
+  init_barriers(bar_kv, 256);
+
+  // ---- thread 0 also produces, as flash_dkv_wgmma's does
+  int issued = 0;
+  auto refill = [&](int must) {
+    while (issued < n && issued < must + STAGES) {
+      const int j = issued, sj = j % STAGES;
+      const uint32_t empty = bar_empty(bar_kv, sj), full = bar_full(bar_kv, sj);
+      const int parity = ((j / STAGES) & 1) ^ 1;
+      if (j > must && !mbar_try_wait(empty, parity)) break;
+      mbar_wait(empty, parity);
+      const int h = kvh * group + j / qt.count;
+      const int q0 = (qt.first + j % qt.count) * QR;
+      mbar_expect_tx(full, 3 * NS * L::SLAB_Q);
+      for (int s = 0; s < NS; ++s) {
+        const uint32_t off = (sj * NS + s) * L::SLAB_Q;
+        tma_load(s_base + L::Q + off, &tq, 64 * s, h, q0, b, full);
+        tma_load(s_base + L::DO + off, &tdo, 64 * s, h, q0, b, full);
+        tma_load(s_base + L::O + off, &tout, 64 * s, h, q0, b, full);
+      }
+      ++issued;
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_kv, 2 * NS * L::SLAB_KB);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(s_base + L::K + s * L::SLAB_KB, &tk, 64 * s, kvh, k0, b, bar_kv);
+      tma_load(s_base + L::V + s * L::SLAB_KB, &tv, 64 * s, kvh, k0, b, bar_kv);
+    }
+    refill(0);
+  }
+  __syncwarp();
+
+  // ---- warpgroup 0: S^T = K Q^T, P^T, dV += P^T dO; warpgroup 1: dP^T =
+  // V dO^T, delta, dS^T, dK += dS^T Q. Every wgmma is the same instruction
+  // in both, on other tiles; the role comes from a shuffled index, which
+  // ptxas knows is warp-uniform (a branch on threadIdx.x serialises wgmma).
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+  const float sl2 = scale * LOG2E;
+  const uint32_t a_tile = s_base + (wg ? L::V : L::K);
+  float4* xs = reinterpret_cast<float4*>(smem + L::X) + tid;     // [QR / 8][128] float4
+  float* delta_rows = reinterpret_cast<float*>(smem + L::ROWS);  // [2][QR]
+
+  float acc[D / 2];    // dV (warpgroup 0) or dK (1) [64, D]: D / 8 column blocks of 4
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % STAGES, lap = it & 1;
+    const int h = kvh * group + it / qt.count;
+    const int q0 = (qt.first + it % qt.count) * QR;
+    if (threadIdx.x == 0) refill(it);
+    __syncwarp();
+    mbar_wait(bar_full(bar_kv, st), (it / STAGES) & 1);
+    const uint32_t q_tile = s_base + L::Q + st * NS * L::SLAB_Q;
+    const uint32_t do_tile = s_base + L::DO + st * NS * L::SLAB_Q;
+    const uint32_t o_tile = s_base + L::O + st * NS * L::SLAB_Q;
+    const uint32_t b_tile = wg ? do_tile : q_tile;
+    float s[QR / 2];   // S^T or dP^T [64 keys, QR queries]
+#pragma unroll
+    for (int i = 0; i < QR / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n48(s, desc_k(a_tile, L::SLAB_KB, kk), desc_k(b_tile, L::SLAB_Q, kk), kk > 0);
+    wgmma_commit();
+
+    // while it runs: lse * log2(e) (warpgroup 0) or delta (1) of this
+    // thread's columns (queries q0 + 8j + 2t + e) into col[2j + e]
+    float col[QR / 4];
+    if (wg == 0) {
+      const float* lse_h = lse + ((size_t)b * H + h) * Sq;
+#pragma unroll
+      for (int j = 0; j < QR / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qp = q0 + 8 * j + 2 * t + e;
+          col[2 * j + e] = qp < Sq ? __ldg(lse_h + qp) * LOG2E : INFINITY;
+        }
+    } else {
+      // delta = rowsum(dO * O) of the tile's QR rows from the swizzled
+      // tiles, four threads a row, each one 64-column slab, 32 rows a pass
+      const int part = tid % 4;
+      float* rows = delta_rows + lap * QR;
+#pragma unroll
+      for (int r0 = 0; r0 < QR; r0 += 32) {
+        const int r = r0 + tid / 4;
+        float sum = 0.f;
+        if (r < QR) {
+          const uint8_t* do_row = smem + (do_tile - s_base) + part * L::SLAB_Q + r * 128;
+          const uint8_t* o_row = smem + (o_tile - s_base) + part * L::SLAB_Q + r * 128;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int off = (u ^ (r % 8)) << 4;
+            const uint4 d4 = *reinterpret_cast<const uint4*>(do_row + off);
+            const uint4 o4 = *reinterpret_cast<const uint4*>(o_row + off);
+            const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d4);
+            const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 x = __bfloat1622float2(d2[e]), y = __bfloat1622float2(o2[e]);
+              sum = fmaf(x.x, y.x, sum);
+              sum = fmaf(x.y, y.y, sum);
+            }
+          }
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (r < QR && part == 0) rows[r] = sum;
+      }
+      named_sync(1, 128);
+#pragma unroll
+      for (int j = 0; j < QR / 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
+        col[2 * j] = d.x;
+        col[2 * j + 1] = d.y;
+      }
+    }
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // element x = 4j + 2i + e is (key[i], query q0 + 8j + 2t + e)
+    if (wg == 0) {
+      // P^T = exp(S^T * scale - lse) in place; only edge tiles test each
+      // pair (masked pairs, queries past Sq, rows with lse = +inf give 0)
+      if (qtile_edge<QR>(k0, q0, Sq, Sk, causal, window)) {
+#pragma unroll
+        for (int j = 0; j < QR / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * j + 2 * i + e, qp = q0 + 8 * j + 2 * t + e;
+              const bool keep = qp < Sq && visible(key[i], qp, Sk, causal, window);
+              s[x] = keep ? exp2f(fmaf(s[x], sl2, -col[2 * j + e])) : 0.f;
+            }
+      } else {
+#pragma unroll
+        for (int x = 0; x < QR / 2; ++x)
+          s[x] = exp2f(fmaf(s[x], sl2, -col[2 * (x / 4) + x % 2]));
+      }
+      // the fp32 P^T to warpgroup 1, once it has read the last one
+      mbar_wait(slot_empty, lap ^ 1);
+#pragma unroll
+      for (int j = 0; j < QR / 8; ++j)
+        xs[j * 128] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      mbar_arrive(slot_full);
+    } else {
+      // dS^T = P^T (dP^T - delta) * scale, from the fp32 P^T
+      mbar_wait(slot_full, lap);
+#pragma unroll
+      for (int j = 0; j < QR / 8; ++j) {
+        const float4 p4 = xs[j * 128];
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          s[4 * j + m] = p[m] * (s[4 * j + m] - col[2 * j + m % 2]) * scale;
+      }
+      mbar_arrive(slot_empty);
+    }
+    uint32_t a[QR / 16][4];   // P^T or dS^T in bf16: the A operand
+#pragma unroll
+    for (int kk = 0; kk < QR / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+    // dV += P^T dO or dK += dS^T Q, dO and Q read MN-major: one wgmma of
+    // N = D a 16-query step
+    const uint32_t c_tile = wg ? q_tile : do_tile;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QR / 16; ++kk)
+      wgmma_rs_n256(acc, a[kk], desc(c_tile + kk * 16 * 128, L::SLAB_Q, 1024), 1);
+    wgmma_commit();
+    if (threadIdx.x == 0) refill(it);   // while it runs
+    __syncwarp();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(bar_empty(bar_kv, st));
+  }
+
+  // keys past Sk are never stored; a block no query sees stores zeros
+  void* out = wg ? dk : dv;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= Sk) continue;
+    const size_t off = (((size_t)b * Sk + key[i]) * KV + kvh) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int x = 4 * j + 2 * i;
+      if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + off + 8 * j) =
+            make_float2(acc[x], acc[x + 1]);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off + 8 * j) =
+            __floats2bfloat162_rn(acc[x], acc[x + 1]);
+    }
+  }
+}
+
+int launch_wgmma_pair(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                      const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+                      int causal, int window, float scale, int out_f32, int smem,
+                      cudaStream_t stream) {
+  using L = DkvPairLayout;
+  if (smem != L::bytes) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tout, tdo;
+  int err = flash::make_map(&tq, q, L::D, H, Sq, B, L::QR);
+  if (!err) err = flash::make_map(&tdo, dout, L::D, H, Sq, B, L::QR);
+  if (!err) err = flash::make_map(&tout, o, L::D, H, Sq, B, L::QR);
+  if (!err) err = flash::make_map(&tk, k, L::D, KV, Sk, B, 64);
+  if (!err) err = flash::make_map(&tv, v, L::D, KV, Sk, B, 64);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_dkv_wgmma_pair<L::D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(KV, B, (Sk + 63) / 64);
+  flash_dkv_wgmma_pair<L::D><<<grid, 256, smem, stream>>>(
+      tq, tk, tv, tout, tdo, static_cast<const float*>(lse), dk, dv, Sq, Sk, H, KV, causal,
+      window, scale, out_f32);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int TILE>
 int launch_scalar(const void* q, const void* k, const void* v, const void* o, const void* lse,
                   const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
                   int causal, int window, float scale, int out_f32, int smem,
@@ -559,22 +857,23 @@ int launch_scalar(const void* q, const void* k, const void* v, const void* o, co
   using scalar::flash_bwd_dkv_kernel;
   if (smem != (int)(scalar::smem_floats(D, TILE) * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, TILE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dkv_kernel<D, TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sk + TILE - 1) / TILE, KV, B);
-  flash_bwd_dkv_kernel<D, TILE, T><<<grid, scalar::THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const float*>(lse),
-      static_cast<const T*>(dout), dk, dv, Sq, Sk, H, KV, causal, window, scale, out_f32);
+  flash_bwd_dkv_kernel<D, TILE><<<grid, scalar::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<const float*>(dout), static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk,
+      H, KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// f32: 0 for bf16 operands, 1 for fp32. D 64 and 128: bf16 takes the
-// tensor-core kernel (block_k 64 or 128 keys a block), fp32 the scalar
-// kernel (block_k 64, dk and dv in fp32); D 256: the scalar kernel in both
-// types (block_k 32; fp32 operands give dk and dv in fp32). smem: the plan's
+// f32: 0 for bf16 operands, 1 for fp32 (which gives dk and dv in fp32).
+// bf16 takes the tensor-core kernels: at D 64 and 128 flash_dkv_wgmma
+// (block_k 64 or 128 keys a block), at D 256 flash_dkv_wgmma_pair (block_k
+// 64); fp32 the scalar kernel (block_k 64, at D 256 32). smem: the plan's
 // shared-memory bytes, checked against the kernel's own layout.
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
@@ -585,12 +884,12 @@ extern "C" int flash_attention_bwd_dkv_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, dout, dk, dv, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
-  if (D == 256 && block_k == 32)
-    return f32 ? launch_scalar<256, 32, float>(ARGS) : launch_scalar<256, 32, bf16>(ARGS);
   if (f32) {
-    if (D == 128 && block_k == 64) return launch_scalar<128, 64, float>(ARGS);
-    if (D == 64 && block_k == 64) return launch_scalar<64, 64, float>(ARGS);
+    if (D == 256 && block_k == 32) return launch_scalar<256, 32>(ARGS);
+    if (D == 128 && block_k == 64) return launch_scalar<128, 64>(ARGS);
+    if (D == 64 && block_k == 64) return launch_scalar<64, 64>(ARGS);
   } else {
+    if (D == 256 && block_k == 64) return launch_wgmma_pair(ARGS);
     if (D == 128 && block_k == 128) return launch_wgmma<128, 2>(ARGS);
     if (D == 128 && block_k == 64) return launch_wgmma<128, 1>(ARGS);
     if (D == 64 && block_k == 128) return launch_wgmma<64, 2>(ARGS);

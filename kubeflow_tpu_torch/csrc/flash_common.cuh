@@ -8,9 +8,10 @@
 // dk/dv) issues the copies, and consumer warpgroups multiply with wgmma
 // (Hopper's warpgroup MMA, bf16 operands, fp32 accumulators). The forward
 // and dq stream K/V tiles past a resident query tile; dk/dv streams Q/dO/O
-// tiles past resident K/V. fp32 operands, and dk/dv at head width 256, take
-// the scalar kernels, which stage tiles as fp32 in shared memory and
-// multiply with fp32 FMAs.
+// tiles past resident K/V (at head width 256 in tiles of 48 query rows, its
+// two consumer warpgroups owning dV and dK). fp32 operands take the scalar
+// kernels, which stage tiles as fp32 in shared memory and multiply with
+// fp32 FMAs.
 //
 // The generic Hopper pieces (mbarriers, TMA, descriptors, wgmma wrappers,
 // the tensor-map encoder) live in hopper_common.cuh; here are the
@@ -107,35 +108,39 @@ __device__ __forceinline__ bool tile_edge(int k0, int r0, int r1, int Sk, int ca
   return k0 + BK > Sk || (causal && (k0 + BK - 1 > r0 || (window > 0 && k0 <= r1 - window)));
 }
 
-// The query tiles (QROWS rows) that can see keys k0 .. k0 + keys - 1 (the
-// dk/dv kernel's counterpart of key_tiles): causal starts at the diagonal,
-// the window ends window - 1 rows after the last key (Sk cuts it).
+// The query tiles (ROWS rows: QROWS, or 48 for dk/dv at width 256) that can
+// see keys k0 .. k0 + keys - 1 (the dk/dv kernels' counterpart of
+// key_tiles): causal starts at the diagonal, the window ends window - 1 rows
+// after the last key (Sk cuts it).
 struct QueryTiles {
   int first, count;
 };
 
+template <int ROWS = QROWS>
 __device__ __forceinline__ QueryTiles query_tiles(int k0, int keys, int Sq, int Sk, int causal,
                                                   int window) {
   const int k_last = min(k0 + keys - 1, Sk - 1);
   const int q_lo = causal ? k0 : 0;
   const int q_hi = (causal && window > 0) ? min(Sq - 1, k_last + window - 1) : Sq - 1;
-  return {q_lo / QROWS, q_hi >= q_lo ? q_hi / QROWS - q_lo / QROWS + 1 : 0};
+  return {q_lo / ROWS, q_hi >= q_lo ? q_hi / ROWS - q_lo / ROWS + 1 : 0};
 }
 
-// The transposed tile of dk/dv: no query row q0 .. q0 + 63 (q0 < Sq) sees a
-// key kc0 .. kc0 + 63: the warpgroup skips it.
+// The transposed tile of dk/dv: no query row q0 .. q0 + ROWS - 1 (q0 < Sq)
+// sees a key kc0 .. kc0 + 63: the warpgroup skips it.
+template <int ROWS = QROWS>
 __device__ __forceinline__ bool qtile_hidden(int kc0, int q0, int Sq, int Sk, int causal,
                                              int window) {
-  const int q1 = min(q0 + QROWS - 1, Sq - 1);
+  const int q1 = min(q0 + ROWS - 1, Sq - 1);
   return kc0 >= Sk || (causal && (kc0 > q1 || (window > 0 && kc0 + 63 <= q0 - window)));
 }
 
 // Some (key, query) pair of the transposed tile is not visible (the
 // diagonal, the window's edge, Sq or Sk crosses it): only such tiles mask.
+template <int ROWS = QROWS>
 __device__ __forceinline__ bool qtile_edge(int kc0, int q0, int Sq, int Sk, int causal,
                                            int window) {
-  return q0 + QROWS > Sq || kc0 + 64 > Sk ||
-         (causal && (kc0 + 63 > q0 || (window > 0 && kc0 <= q0 + QROWS - 1 - window)));
+  return q0 + ROWS > Sq || kc0 + 64 > Sk ||
+         (causal && (kc0 + 63 > q0 || (window > 0 && kc0 <= q0 + ROWS - 1 - window)));
 }
 
 // The block's mbarriers, from bar_q on: the resident tiles' (Q and dO of

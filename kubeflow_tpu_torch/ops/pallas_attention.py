@@ -23,21 +23,23 @@ Two routes, chosen by :func:`_plan` from the operands' dtype and width:
   product's operand. The forward and dq hold a query tile and stream K/V
   tiles of 64 keys; ``_plan`` takes 128-row query tiles where they still
   give every SM a block, else 64 (at width 256 always 64). dk/dv holds 64
-  or 128 keys (by the same rule) and streams the Q, dO and O tiles of 64
-  query rows that can see them, over every query head of the GQA group.
-- **fp32, and dk/dv at head width 256: scalar kernels.** Tiles staged as
-  fp32 in shared memory (bf16 converted as it is staged) and fp32 FMAs, 256
+  or 128 keys (by the same rule; at width 256 always 64) and streams the Q,
+  dO and O tiles of 64 query rows (48 at width 256) that can see them, over
+  every query head of the GQA group.
+- **fp32: scalar kernels.** Tiles staged in shared memory and fp32 FMAs, 256
   threads; 64-row tiles where they fit the block's shared memory, else 32
-  (dq and dk/dv at width 256). The TPU kernels' rounding points are kept in
-  the operands' type (the identity in fp32).
+  (dq and dk/dv at width 256). The TPU kernels' rounding points are the
+  identity in fp32.
 
-The kernels are compiled for head widths 64, 128 and 256. bf16 at 64 and
-128 takes the tensor cores in all three kernels. At 256 the forward and dq
-take them in 64-row tiles only (``_WGMMA_64_ROWS_D``: one consumer
-warpgroup beside the producer, where a thread may hold 255 registers);
-dk/dv's dK and dV alone would fill those registers and its tiles would pass
-the block's shared memory (:func:`_wgmma_sums`), so it stays scalar. fp32
-is scalar at every width.
+The kernels are compiled for head widths 64, 128 and 256. bf16 takes the
+tensor cores in all three kernels at every width. At 256
+(``_WGMMA_64_ROWS_D``) the forward and dq take them in 64-row tiles only
+(one consumer warpgroup beside the producer, where a thread may hold 255
+registers), and dk/dv in blocks of 64 keys whose two consumer warpgroups
+each own one of dK and dV (one warpgroup holding both, with S^T and dP^T,
+would need 320 registers a thread, and 64-row ring tiles would pass the
+block's shared memory: :func:`_wgmma_sums`); warpgroup 0 hands its fp32
+P^T to warpgroup 1 through shared memory. fp32 is scalar at every width.
 Any head size D up to 256 runs on them: :func:`_pad_heads` zero-pads the head
 axis to the next width and launches with the true ``D ** -0.5`` as the
 softmax scale, so the scores, the softmax and delta = rowsum(dO·O) are the
@@ -79,12 +81,13 @@ from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 
 _KERNEL_D = (64, 128, 256)   # head widths the kernels are compiled for
-_WGMMA_D = (64, 128)         # the widths of the bf16 tensor-core route
 # widths where the bf16 forward and dq take the tensor cores in 64-row tiles
 # only: two consumer warpgroups beside the producer leave a thread
 # ``_REGS_BESIDE_PRODUCER`` registers, fewer than their accumulators (forward
 # 160, dq 192) and the addresses, counters and softmax state beside them
-# (ptxas gives the one-consumer kernels 196 and 228); dk/dv stays scalar
+# (ptxas gives the one-consumer kernels 196 and 228); dk/dv takes blocks of
+# 64 keys with two warpgroups, one owning dV and one dK (152 accumulators
+# each), Q, dO and O in ``_PAIR_QROWS``-row tiles
 _WGMMA_64_ROWS_D = (256,)
 
 
@@ -126,6 +129,7 @@ _REGS_MAX = 255             # registers a thread may hold
 _TILE_K = 64                # keys a tile on both routes
 _STAGES = 2                 # ring tiles in flight on the tensor-core route
 _QROWS = 64                 # query rows of a dk/dv ring tile
+_PAIR_QROWS = 48            # ... at the widths of ``_WGMMA_64_ROWS_D``
 _SCALAR_TILES = (64, 32)    # the scalar kernels' tile rows (and keys), largest that fits first
 
 
@@ -153,10 +157,13 @@ def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
     Shared memory: 1024 bytes of alignment slack and the mbarriers; the
     forward and dq hold the Q (and dO) tile, ``_STAGES`` K and V tiles of 64
     keys and dq's delta row; dk/dv holds its K and V, ``_STAGES`` Q, dO and O
-    tiles of 64 rows and each consumer warpgroup's two delta/lse rows. The
-    launchers check the same sums. Registers: a consumer warpgroup's 64 rows
-    of fp32 accumulators over its 128 threads: O and S (forward), dQ, S and
-    dP (dq), dK, dV, S^T and dP^T (dk/dv)."""
+    tiles of 64 rows and each consumer warpgroup's two delta/lse rows, and at
+    the widths of ``_WGMMA_64_ROWS_D`` tiles of ``_PAIR_QROWS`` rows, the
+    fp32 P^T exchange slot, two delta rows and the slot's two mbarriers.
+    The launchers check the same sums. Registers: a consumer warpgroup's 64
+    rows of fp32 accumulators over its 128 threads: O and S (forward), dQ, S
+    and dP (dq), dK, dV, S^T and dP^T (dk/dv), or at the wide widths the
+    busier of the pair's two: dV and S^T, or dK and dP^T."""
     bars = 8 * (1 + 2 * _STAGES)
     slabs = width // 64                     # 64-column bf16 slabs of a row
     if kernel in ("fwd", "dq"):
@@ -165,6 +172,11 @@ def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
         delta = 4 * block if kernel == "dq" else 0
         return 1024 + tiles + kv + delta + bars, width // 2 + (32 if kernel == "fwd" else 64)
     kv = 2 * slabs * block * 128                   # resident K and V
+    if width in _WGMMA_64_ROWS_D:
+        ring = 3 * _STAGES * slabs * _PAIR_QROWS * 128
+        slot = block * _PAIR_QROWS * 4             # fp32 P^T [block, rows]
+        rows = 2 * _PAIR_QROWS * 4                 # [2] delta
+        return 1024 + kv + ring + slot + rows + bars + 8 * 2, width // 2 + _PAIR_QROWS // 2
     ring = 3 * _STAGES * slabs * _QROWS * 128      # Q, dO, O tiles
     rows = (block // 64) * 2 * 2 * _QROWS * 4      # [2][delta | lse] a consumer
     return 1024 + kv + ring + rows + bars, width + 64
@@ -204,31 +216,33 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     """The launch of ``kernel`` ("fwd", "dq" or "dkv") for these shapes, at
     head size ``D`` (planned at its padded ``width``, :func:`_kernel_width`).
 
-    bf16 at widths ``_WGMMA_D`` takes the tensor-core route: ``block // 64``
-    consumer warpgroups, with a producer warpgroup beside them for the
-    forward and dq (for dk/dv thread 0 produces). The forward and dq: a grid
+    bf16 takes the tensor-core route: ``block // 64`` consumer warpgroups,
+    with a producer warpgroup beside them for the forward and dq (for dk/dv
+    thread 0 produces). The forward and dq: a grid
     of (H, B, query tiles), 128-row tiles where ``B * H * ceil(Sq / 128)``
     blocks still fill ``sms`` SMs (the training shape: 512 blocks), else
     64-row tiles (the serving prefill B4 H8 S128: 64 blocks where 128 rows
     would give 32); at widths ``_WGMMA_64_ROWS_D`` 64-row tiles at every
     shape. dk/dv: a grid of (KV, B, key blocks), 128 keys a block where
-    ``B * KV * ceil(Sk / 128)`` blocks fill the SMs, else 64. Shared memory as
-    :func:`_wgmma_sums` counts it. fp32, and bf16 dk/dv at width 256, take
-    the scalar route: 256 threads, the largest tile of ``_SCALAR_TILES``
-    whose shared memory (:func:`_scalar_floats`) fits a block.
+    ``B * KV * ceil(Sk / 128)`` blocks fill the SMs, else 64; at widths
+    ``_WGMMA_64_ROWS_D`` 64 keys in 256 threads, two warpgroups owning dV and
+    dK. Shared memory as :func:`_wgmma_sums` counts it. fp32 takes the
+    scalar route: 256 threads, the largest tile of ``_SCALAR_TILES`` whose
+    shared memory (:func:`_scalar_floats`) fits a block.
     """
     width = _kernel_width(D)
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash kernels take bf16 or fp32 operands, got {dtype}")
     wide = width in _WGMMA_64_ROWS_D
-    if dtype == torch.bfloat16 and kernel in ("fwd", "dq") and (width in _WGMMA_D or wide):
+    if dtype == torch.bfloat16 and kernel in ("fwd", "dq"):
         rows = 128 if not wide and B * H * -(-Sq // 128) >= sms else 64
         smem, _ = _wgmma_sums(kernel, rows, width)
         return Plan("wgmma", rows, (H, B, -(-Sq // rows)), 128 * (rows // 64 + 1), smem, width)
-    if dtype == torch.bfloat16 and width in _WGMMA_D:
-        keys = 128 if B * KV * -(-Sk // 128) >= sms else 64
+    if dtype == torch.bfloat16:
+        keys = 128 if not wide and B * KV * -(-Sk // 128) >= sms else 64
         smem, _ = _wgmma_sums(kernel, keys, width)
-        return Plan("wgmma", keys, (KV, B, -(-Sk // keys)), 128 * (keys // 64), smem, width)
+        threads = 256 if wide else 128 * (keys // 64)
+        return Plan("wgmma", keys, (KV, B, -(-Sk // keys)), threads, smem, width)
     t = next(t for t in _SCALAR_TILES if 4 * _scalar_floats(kernel, width, t) <= SMEM_LIMIT)
     grid = (-(-Sk // t), KV, B) if kernel == "dkv" else (-(-Sq // t), H, B)
     return Plan("scalar", t, grid, 256, 4 * _scalar_floats(kernel, width, t), width)
@@ -253,17 +267,17 @@ def _pad_heads(inner, heads, width: int):
 
 
 def _query_tiles(k0: int, keys: int, Sq: int, Sk: int, causal: bool,
-                 window: int | None) -> tuple[int, int]:
-    """(first, count) of the ``_QROWS``-row query tiles that can see keys
-    ``k0 .. k0 + keys - 1``: the dk/dv kernel's walk (``query_tiles`` in
-    ``csrc/flash_common.cuh``, mirrored here for the CPU tests). Causal
-    starts at the diagonal; the window ends ``window - 1`` rows after the
-    last key."""
+                 window: int | None, rows: int = _QROWS) -> tuple[int, int]:
+    """(first, count) of the ``rows``-row query tiles (``_QROWS``, or
+    ``_PAIR_QROWS`` at width 256) that can see keys ``k0 .. k0 + keys - 1``:
+    the dk/dv kernels' walk (``query_tiles`` in ``csrc/flash_common.cuh``,
+    mirrored here for the CPU tests). Causal starts at the diagonal; the
+    window ends ``window - 1`` rows after the last key."""
     k_last = min(k0 + keys - 1, Sk - 1)
     q_lo = k0 if causal else 0
     q_hi = min(Sq - 1, k_last + window - 1) if causal and window else Sq - 1
-    first = q_lo // _QROWS
-    return first, (q_hi // _QROWS - first + 1 if q_hi >= q_lo else 0)
+    first = q_lo // rows
+    return first, (q_hi // rows - first + 1 if q_hi >= q_lo else 0)
 
 
 @functools.cache

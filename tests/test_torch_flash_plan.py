@@ -25,11 +25,12 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     B, Sq, Sk, H, KV = shape
     plan = pa._plan(kernel, B, Sq, Sk, H, KV, D, dtype)
     assert 0 < plan.smem_bytes <= pa.SMEM_LIMIT and plan.width == D
-    if dtype == torch.bfloat16 and D == 256 and kernel != "dkv":
+    if dtype == torch.bfloat16 and D == 256:
         # width 256: one consumer warpgroup of 64 rows beside the producer
-        # at every shape (two would not fit beside it)
+        # at every shape (two would not fit beside it); dk/dv: 64 keys a
+        # block, two warpgroups owning dV and dK
         assert (plan.route, plan.block, plan.threads) == ("wgmma", 64, 256)
-        assert plan.grid == (H, B, -(-Sq // 64))
+        assert plan.grid == ((KV, B, -(-Sk // 64)) if kernel == "dkv" else (H, B, -(-Sq // 64)))
     elif dtype == torch.bfloat16 and D <= 128:
         # 128-row tiles (128 keys for dk/dv) at the training shape (512
         # blocks for 132 SMs); the serving prefill would get 32 (16 for
@@ -41,8 +42,8 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
         assert (plan.route, plan.block, plan.threads) == ("wgmma", rows, threads)
         assert plan.grid == ((KV, B, Sk // rows) if kernel == "dkv" else (H, B, Sq // rows))
     else:
-        # fp32, and dk/dv at width 256: the scalar kernels, 32-row tiles
-        # where 64 would pass the block's shared memory (dq and dk/dv at 256)
+        # fp32: the scalar kernels, 32-row tiles where 64 would pass the
+        # block's shared memory (dq and dk/dv at 256)
         tile = 32 if D == 256 and kernel != "fwd" else 64
         assert (plan.route, plan.block, plan.threads) == ("scalar", tile, 256)
         assert plan.grid == ((Sk // tile, KV, B) if kernel == "dkv" else (Sq // tile, H, B))
@@ -72,6 +73,10 @@ def test_plan_shared_memory_bytes_at_d128(kernel, dtype, shape, want):
     ("fwd", SERVING, 164_904),
     ("dq", TRAINING, 197_928),    # + dO 32 KiB + delta
     ("dq", SERVING, 197_928),
+    # K + V 64 KiB resident + 2 x (Q, dO, O) of 48 rows 144 KiB + the fp32
+    # P^T slot 12 KiB + two delta rows + slack, seven barriers
+    ("dkv", TRAINING, 226_744),
+    ("dkv", SERVING, 226_744),
 ])
 def test_plan_shared_memory_bytes_at_d256(kernel, shape, want):
     plan = pa._plan(kernel, *shape, 256, torch.bfloat16)
@@ -118,6 +123,30 @@ def test_query_tiles_cover_exactly_the_visible_tiles(keys, Sq, Sk, causal, windo
         visible = seen.reshape(n_tiles, rows, -1).any(dim=(1, 2)).tolist()
         walked = [first <= i < first + count for i in range(n_tiles)]
         assert all(w for v, w in zip(visible, walked) if v)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (2048, 2048, True, None),
+    (256, 256, True, 2), (256, 256, True, 48), (256, 256, True, 100), (256, 256, True, 1000),
+    (200, 200, True, None), (200, 200, True, 48),        # ragged query and key tiles
+    (96, 96, False, None), (64, 192, False, None),       # non-causal, Sq != Sk
+    (16, 8, True, 2), (300, 130, True, 100), (130, 300, True, None),
+])
+def test_query_tiles_of_the_width_256_walk(Sq, Sk, causal, window):
+    """The width-256 dk/dv kernel's walk, 64 keys a block over query tiles
+    of ``_PAIR_QROWS`` rows: every tile with a visible pair is walked, and
+    none of them is hidden from the block's keys (``qtile_hidden``: the
+    kernel only skips such a tile)."""
+    keep = pa._keep_mask(Sq, Sk, causal, window, "cpu")
+    rows = pa._PAIR_QROWS
+    n_tiles = -(-Sq // rows)
+    for k0 in range(0, Sk, 64):
+        first, count = pa._query_tiles(k0, 64, Sq, Sk, causal, window, rows)
+        assert count == 0 or 0 <= first and first + count <= n_tiles
+        seen = torch.nn.functional.pad(keep[:, k0:k0 + 64], (0, 0, 0, n_tiles * rows - Sq))
+        visible = seen.reshape(n_tiles, rows, -1).any(dim=(1, 2)).tolist()
+        walked = [first <= i < first + count for i in range(n_tiles)]
+        assert walked == visible
 
 
 def test_other_head_sizes_and_dtypes_are_stated_refusals():

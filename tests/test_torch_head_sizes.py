@@ -61,6 +61,23 @@ def test_padded_flash_matches_jax_at_the_true_head_size(D, causal, window, kv):
         np.testing.assert_allclose(g.numpy(), want, **TOL, err_msg=name)
 
 
+def test_width_256_dkv_layout_fits_the_block():
+    """The two-warpgroup dk/dv kernel's shared memory, part by part as its
+    layout (``DkvPairLayout`` in ``csrc/flash_attention_bwd_dkv.cu``) lays it
+    out, fits a block, and the busier warpgroup's accumulators (dV and S^T,
+    or dK and dP^T) fit a thread's registers with room for its addresses."""
+    slab_kb, slab_q, rows = 64 * 128, pa._PAIR_QROWS * 128, pa._PAIR_QROWS
+    parts = dict(kv=2 * 4 * slab_kb, ring=3 * pa._STAGES * 4 * slab_q,
+                 slot=64 * rows * 4, delta=2 * rows * 4,
+                 barriers=8 * (1 + 2 * pa._STAGES + 2))
+    assert parts == dict(kv=65_536, ring=147_456, slot=12_288, delta=384, barriers=56)
+    smem, regs = pa._wgmma_sums("dkv", 64, 256)
+    assert smem == 1024 + sum(parts.values()) <= pa.SMEM_LIMIT
+    assert regs == 128 + rows // 2 and regs + 64 <= pa._REGS_MAX
+    # 64-row tiles would pass the block's shared memory
+    assert 1024 + parts["kv"] + 3 * pa._STAGES * 4 * 64 * 128 > pa.SMEM_LIMIT
+
+
 def test_pad_heads_copies_nothing_at_the_kernel_widths():
     for D in (64, 128, 256):
         q = torch.zeros(1, 8, 2, D)
@@ -83,11 +100,10 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
         plan = pa._plan(kernel, 4, 2048, 2048, 8, 8, D, dtype)
         assert plan == pa._plan(kernel, 4, 2048, 2048, 8, 8, width, dtype)
         assert plan.width == width and plan.smem_bytes <= pa.SMEM_LIMIT
-        # bf16 takes the tensor cores up to 128, and for the forward and dq
-        # at 256 too, in 64-row tiles; the scalar route otherwise, in 64-row
+        # bf16 takes the tensor cores at every width, at 256 in 64-row
+        # tiles (64-key blocks for dk/dv); fp32 the scalar route, in 64-row
         # tiles where they fit (the forward), else 32
-        wgmma = dtype == torch.bfloat16 and (width <= 128 or kernel != "dkv")
-        assert plan.route == ("wgmma" if wgmma else "scalar")
+        assert plan.route == ("wgmma" if dtype == torch.bfloat16 else "scalar")
         if plan.route == "scalar":
             tile = 64 if width <= 128 or kernel == "fwd" else 32
             assert plan.block == tile and plan.threads == 256
@@ -105,11 +121,12 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
 def test_head_sizes_past_128_are_refused_with_their_limits():
     """At width 256 the bf16 forward and dq fit the tensor-core route with
     one consumer warpgroup of 64 rows beside the producer (a thread may hold
-    255 registers there) but not with two (168); dk/dv fits neither way, so
-    it takes the scalar route; past 256 the scalar kernels would not fit
-    either, and that is the stated refusal."""
+    255 registers there) but not with two (168); dk/dv fits with 64 keys in
+    two warpgroups, one owning dV and one dK, and 48-row tiles (not with 128
+    keys); past 256 the scalar kernels would not fit either, and that is the
+    stated refusal."""
     assert [pa._wgmma_sums(k, 64, 256) for k in ("fwd", "dq", "dkv")] == [
-        (164_904, 160), (197_928, 192), (264_232, 320)]
+        (164_904, 160), (197_928, 192), (226_744, 152)]
     for kernel in ("fwd", "dq"):
         smem, regs = pa._wgmma_sums(kernel, 64, 256)
         assert smem <= pa.SMEM_LIMIT and regs <= pa._REGS_MAX
@@ -122,11 +139,11 @@ def test_head_sizes_past_128_are_refused_with_their_limits():
     # 8 for its addresses, counters and the softmax's m and l
     assert pa._wgmma_sums("dq", 128, 256)[1] > pa._REGS_BESIDE_PRODUCER
     assert pa._REGS_BESIDE_PRODUCER - pa._wgmma_sums("fwd", 128, 256)[1] < 16
-    # dk/dv passes both the shared memory and the registers at either tile
-    for keys in (64, 128):
-        smem, regs = pa._wgmma_sums("dkv", keys, 256)
-        assert smem > pa.SMEM_LIMIT and regs > pa._REGS_MAX
-    assert pa._plan("dkv", 4, 2048, 2048, 8, 8, 256, torch.bfloat16).route == "scalar"
+    # dk/dv: 64 keys a block fit, 128 would pass the shared memory
+    assert pa._wgmma_sums("dkv", 128, 256)[0] > pa.SMEM_LIMIT
+    plan = pa._plan("dkv", 4, 2048, 2048, 8, 8, 256, torch.bfloat16, sms=1)
+    assert (plan.route, plan.block, plan.threads) == ("wgmma", 64, 256)
+    assert pa._plan("dkv", 4, 2048, 2048, 8, 8, 256, torch.float32).route == "scalar"
     for D in (129, 200, 256):
         assert pa._kernel_width(D) == fd._kernel_width(D) == 256
     # the sums the refusal states are the scalar kernels' own at the next width

@@ -58,19 +58,21 @@ def _close(got, want, what=""):
 
 
 @pytest.mark.parametrize("dtype,routes", [
-    (torch.bfloat16, {"fwd": "wgmma", "dq": "wgmma", "dkv": "scalar"}),
+    (torch.bfloat16, {"fwd": "wgmma", "dq": "wgmma", "dkv": "wgmma"}),
     (torch.float32, {"fwd": "scalar", "dq": "scalar", "dkv": "scalar"}),
 ])
 def test_heads_of_256_take_their_routes(dtype, routes):
-    """The model's attention shapes at width 256: bf16 forward and dq on the
-    tensor-core route (64-row tiles, one consumer beside the producer)."""
+    """The model's attention shapes at width 256: bf16 on the tensor-core
+    route (the forward and dq in 64-row tiles, one consumer beside the
+    producer; dk/dv in 64-key blocks, two warpgroups owning dV and dK)."""
     model = _port_model()
     assert model.cfg.head_dim == 256 and model.cfg.kv_heads == 1
     for kernel, route in routes.items():
         plan = pa._plan(kernel, B, S, S, WIDE["num_heads"], 1, 256, dtype)
         assert (plan.route, plan.width) == (route, 256), kernel
         if route == "wgmma":
-            assert (plan.block, plan.threads, plan.grid) == (64, 256, (2, B, 1))
+            heads = 1 if kernel == "dkv" else WIDE["num_heads"]
+            assert (plan.block, plan.threads, plan.grid) == (64, 256, (heads, B, 1))
 
 
 def test_logits_match_jax():
