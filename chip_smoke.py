@@ -102,12 +102,16 @@ Phases, each of which fails the run with a non-zero exit:
             the last vocabulary tile, logits near +-80 (dh and dE there
             held to the exact sums of the route's own dlogits), each
             cotangent alone, E 768 and 2048 on clusters of 3 and 8 blocks,
-            E 4096 in two passes), and on their fp32 route (the flagship E,
-            V 97, E 100); check that two forward, two dh and two dE launches
-            agree bit for bit, dh and dE also when launched while another
-            stream's kernel holds every SM; print the forward's plan and
-            ptxas lines; time kernel, plain version, library, bound and the
-            fp32 route, and the whole head forward + backward fused against
+            E 4096 in two passes), and on their fp32 route (E 1024, V 97, E
+            100 and 99, E 768 on a cluster of 6, E 2048, 4096 and 8200 in
+            2, 4 and 9 passes, T 300 with V 97 and targets outside [0, V),
+            and the flagship shape); check that two forward, two dh and two
+            dE launches agree bit for bit in bf16 and fp32, dh and dE also
+            when launched while another stream's kernel (the fp32 dE at E
+            128, one block on every SM) holds the card; print the forward's
+            plan and ptxas lines and the fp32 dh and dE's; time kernel, plain
+            version, library, bound and the fp32 route (with its plain
+            versions), and the whole head forward + backward fused against
             chunked;
 11. moe train fused  the MoE flagship of phase 8 through
             ``moe_lm_loss_fused`` (``moe_bench.py --fused-head``), with the
@@ -392,7 +396,7 @@ HEAD_DL_STEP = 2.0 ** -8
 MOE_FUSED_LOSS_ATOL = 0.004
 MOE_FUSED_GNORM_RTOL = 2.5e-4
 # the same step with fp32 activations and fp32 head operands on the card
-# (the head's scalar kernels) against the CPU's fp32 step: on an H100 the
+# (the head's fp32 route) against the CPU's fp32 step: on an H100 the
 # loss and the global gradient norm came out equal at fp32 resolution (the
 # dense fp32 step differs by 1.9e-6 and 6.2e-8 of itself); the limits leave
 # room for summation order and stay far under the bf16 step's differences
@@ -2245,12 +2249,25 @@ def _head_witness(torch, fh, h, emb, tgt, lse_p, dlse, dgold, dh, de):
     return out
 
 
+def _entry_ptxas(log_text, fragment):
+    """ptxas's register and spill lines for the entry functions of a build
+    log whose mangled names hold ``fragment``, each led by its entry."""
+    entry, lines = None, []
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split(chr(39))[1]
+        elif entry and fragment in entry and ("registers" in ln or "spill" in ln):
+            lines.append(f"{entry[:64]}: {ln.strip()}")
+    return lines
+
+
 def _check_head_case(torch, fh, name, h, emb, tgt, dlse, dgold, witness=False):
     """The three head kernels on one case against their plain versions; the
     backward kernels take the plain forward's lse. Returns the worst
     absolute errors (lse and gold, dh, dE) and the ratios of error to bound.
-    bf16 operands take the tensor-core route, fp32 the scalar kernels
-    (unrounded dlogits: the one-step term is fp32's unit roundoff).
+    bf16 operands take the tensor-core route, fp32 the fp32 route (the
+    scalar forward, the FMA dh and dE; unrounded dlogits: the one-step term
+    is fp32's unit roundoff).
 
     ``witness``: a case whose logits are so large that the route's and the
     plain version's fp32 logits differ in enough bits to round many dlogits
@@ -2313,27 +2330,35 @@ def _check_head_case(torch, fh, name, h, emb, tgt, dlse, dgold, witness=False):
     return errs, ratios
 
 
-def _check_head_contention(torch, fh, h, emb, tgt, lse, dlse, dgold, solo):
-    """dh and dE at the MoE flagship (more row tiles than clusters fit at
-    once, so clusters wait on each other's flags), launched while another
-    stream's kernel (the fp32 dh of 2048 tokens, every SM busy) holds the
-    SMs: each must launch, finish and equal its solo launch bit for bit."""
+def _check_head_contention(torch, fh, side_ops, solo):
+    """dh and dE at the MoE flagship, bf16 and fp32 (more row tiles than
+    clusters fit at once, so clusters wait on each other's flags), each
+    launched while another stream's kernel holds every SM: the fp32 dE at E
+    128 over the flagship's tokens and vocabulary (``side_ops``; 250 row
+    tiles of 128 on clusters of one block, one block an SM, so the launch
+    takes as many as the card holds). Each must launch, finish and equal its
+    solo launch (``solo``: key -> (wrapper, operands, output)) bit for bit."""
     side = torch.cuda.Stream()
-    h32, emb32 = h[:2048].float(), emb.float()
-    rows = [x[:2048].contiguous() for x in (tgt, lse, dlse, dgold)]
+    T, V = side_ops[0].shape[0], side_ops[1].shape[0]
+    plan = fh._plan(T, V, side_ops[0].shape[1], torch.float32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clusters = min(-(-V // plan.rows), sms // plan.cluster)
+    log(f"[head kernels] contender: fp32 dE at T{T} V{V} E{side_ops[0].shape[1]}, "
+        f"{plan.cluster}-block clusters, {-(-V // plan.rows)} row tiles on at most {clusters} "
+        f"clusters ({clusters * plan.cluster} of {sms} SMs, one block an SM)")
     ev = {k: torch.cuda.Event(enable_timing=True) for k in ("side0", "side1", "main0", "main1")}
     out = {}
-    for key, fn in (("dh", fh.fused_head_bwd_dh), ("dE", fh.fused_head_bwd_de)):
+    for key, (fn, args, want) in solo.items():
         torch.cuda.synchronize()
         with torch.cuda.stream(side):
             ev["side0"].record()
-            fh.fused_head_bwd_dh(h32, emb32, *rows)
+            fh.fused_head_bwd_de(*side_ops)
             ev["side1"].record()
         ev["main0"].record()
-        got = fn(h, emb, tgt, lse, dlse, dgold)
+        got = fn(*args)
         ev["main1"].record()
         torch.cuda.synchronize()
-        out[key] = dict(bitwise_equal_solo=bool(torch.equal(got, solo[key])),
+        out[key] = dict(bitwise_equal_solo=bool(torch.equal(got, want)),
                         side_ms=ev["side0"].elapsed_time(ev["side1"]),
                         launched_at_ms=ev["side0"].elapsed_time(ev["main0"]),
                         finished_at_ms=ev["side0"].elapsed_time(ev["main1"]))
@@ -2433,30 +2458,51 @@ def phase_head_kernels(torch, np):
     run("e768_cluster3", *operands(512, 3000, 768), randn_rows(512), randn_rows(512))
     run("e2048_cluster8", *operands(384, 2000, 2048), randn_rows(384), randn_rows(384))
     run("e4096_passes2", *operands(256, 1500, 4096), randn_rows(256), randn_rows(256))
-    # the fp32 route (scalar kernels, no TF32): the flagship E, V with no
-    # 128-multiple divisor, E not a multiple of 8
+    # the fp32 route (the scalar forward, the FMA dh and dE; no TF32): the
+    # flagship E, V with no 128-multiple divisor, E not a multiple of 8 and
+    # not of 4 (padded to 100), a cluster of 6 (GPT-2's 768), passes over E
+    # 2048, 4096 and past the bf16 route's 8192 (nine passes), ragged T with
+    # V 97 and targets outside [0, V), and the flagship shape itself
     f32 = torch.float32
     run("f32_e1024", *operands(1024, 4096, E, dtype=f32), randn_rows(1024), randn_rows(1024))
     run("f32_v97", *operands(512, 97, E, dtype=f32), randn_rows(512), randn_rows(512))
     run("f32_e100", *operands(200, 300, 100, dtype=f32), randn_rows(200), randn_rows(200))
+    run("f32_e99", *operands(200, 300, 99, dtype=f32), randn_rows(200), randn_rows(200))
+    run("f32_e768_cluster6", *operands(512, 3000, 768, dtype=f32), randn_rows(512),
+        randn_rows(512))
+    run("f32_e2048_passes2", *operands(384, 2000, 2048, dtype=f32), randn_rows(384),
+        randn_rows(384))
+    run("f32_e4096_passes4", *operands(256, 1500, 4096, dtype=f32), randn_rows(256),
+        randn_rows(256))
+    run("f32_e8200_passes9", *operands(256, 500, 8200, dtype=f32), randn_rows(256),
+        randn_rows(256))
+    h4, e4, t4 = operands(300, 97, E, dtype=f32)
+    t4[1::7], t4[2::11] = 97, -1
+    run("f32_t300_v97_outside", h4, e4, t4, randn_rows(300), randn_rows(300))
+    h32, emb32, _ = operands(T, V, E, tgt_flag, dtype=f32)
+    run("f32_flagship_nll", h32, emb32, tgt_flag, dlse, dgold)
 
     # no atomics on the sums: two launches of each kernel agree bit for bit
-    # (the forward's ranges combine in range order whichever block is last)
-    lse_d, _ = fh.lse_gold_plain(h, emb, tgt_flag)
+    # (the forward's ranges combine in range order whichever block is last),
+    # bf16 and fp32
     same, solo = {}, {}
-    first, again = fh.fused_head_fwd(h, emb, tgt_flag), fh.fused_head_fwd(h, emb, tgt_flag)
-    same["fwd"] = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
-    del first, again
-    for key, fn in (("dh", fh.fused_head_bwd_dh), ("dE", fh.fused_head_bwd_de)):
-        solo[key] = fn(h, emb, tgt_flag, lse_d, dlse, dgold)
-        same[key] = bool(torch.equal(solo[key], fn(h, emb, tgt_flag, lse_d, dlse, dgold)))
+    for tag, hh, ee in (("", h, emb), ("_f32", h32, emb32)):
+        lse_d, _ = fh.lse_gold_plain(hh, ee, tgt_flag)
+        first, again = fh.fused_head_fwd(hh, ee, tgt_flag), fh.fused_head_fwd(hh, ee, tgt_flag)
+        same["fwd" + tag] = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
+        del first, again
+        for key, fn in (("dh", fh.fused_head_bwd_dh), ("dE", fh.fused_head_bwd_de)):
+            args = (hh, ee, tgt_flag, lse_d, dlse, dgold)
+            solo[key + tag] = (fn, args, fn(*args))
+            same[key + tag] = bool(torch.equal(solo[key + tag][2], fn(*args)))
     detail["bitwise_equal_relaunch"] = same
     log(f"[head kernels] determinism at the flagship, two launches bitwise equal: {same}")
     if not all(same.values()):
         raise AssertionError(f"fused head kernels differ between two launches: {same}")
-    detail["contention"] = _check_head_contention(torch, fh, h, emb, tgt_flag, lse_d, dlse,
-                                                  dgold, solo)
-    del solo
+    side_ops = (h32[:, :128].contiguous(), emb32[:, :128].contiguous(), tgt_flag,
+                *solo["dh_f32"][1][3:])
+    detail["contention"] = _check_head_contention(torch, fh, side_ops, solo)
+    del solo, side_ops, h32, emb32
 
     # timed at the flagship head shape, L2 warm (h and the table come
     # straight from the final norm and the optimizer; neither fits in L2)
@@ -2489,8 +2535,9 @@ def phase_head_kernels(torch, np):
         de_lib=device_ms(torch, lambda: torch.mm(lib_dl().t(), h, out_dtype=torch.float32),
                          cold=False, iters=5),
     )
-    # the fp32 route at the same shape (scalar kernels), beside the library
-    # on fp32 operands: torch.mm on materialised fp32 logits, TF32 off
+    # the fp32 route at the same shape (the scalar forward, the FMA dh and
+    # dE), beside its plain versions and the library on fp32 operands:
+    # torch.mm on materialised fp32 logits, TF32 off
     h32, emb32 = h.float(), emb.float()
 
     def lib_fwd32():
@@ -2508,6 +2555,12 @@ def phase_head_kernels(torch, np):
                                                              dgold), cold=False, iters=2, warmup=1),
         de_f32=device_ms(torch, lambda: fh.fused_head_bwd_de(h32, emb32, tgt_flag, lse, dlse,
                                                              dgold), cold=False, iters=2, warmup=1),
+        dh_f32_plain=device_ms(torch, lambda: fh.head_grads_plain(h32, emb32, tgt_flag, lse, dlse,
+                                                                  dgold, de=False),
+                               cold=False, iters=2, warmup=1),
+        de_f32_plain=device_ms(torch, lambda: fh.head_grads_plain(h32, emb32, tgt_flag, lse, dlse,
+                                                                  dgold, dh=False),
+                               cold=False, iters=2, warmup=1),
         fwd_f32_lib=device_ms(torch, lib_fwd32, cold=False, iters=2, warmup=1),
         dh_f32_lib=device_ms(torch, lambda: torch.mm(lib_dl32(), emb32), cold=False, iters=2,
                              warmup=1),
@@ -2534,12 +2587,18 @@ def phase_head_kernels(torch, np):
     detail["fwd_plan"] = dataclasses.asdict(fwd_plan)
     detail["fwd_registers"] = [ln.strip() for ln in _build.build_log("fused_head_fwd").splitlines()
                                if "registers" in ln or "spill" in ln or "C75" in ln]
+    detail["bwd_fp32_registers"] = {name: _entry_ptxas(_build.build_log(name), "head_bwd_fma")
+                                    for name in ("fused_head_bwd_dh", "fused_head_bwd_de")}
     detail["fp32_route_ms"] = {k: times[k + "_f32"] for k in ("fwd", "dh", "de")}
+    detail["fp32_route_plain_ms"] = {k: times[k + "_f32_plain"] for k in ("dh", "de")}
     detail["fp32_route_library_ms"] = {k: times[k + "_f32_lib"] for k in ("fwd", "dh", "de")}
     detail["fp32_route_bound_ms"] = {k: b for k, (b, _) in bounds_f32.items()}
     log(f"[head kernels] forward plan: {fwd_plan}")
     for ln in detail["fwd_registers"]:
         log(f"[head kernels] forward ptxas: {ln[:160]}")
+    for name, lines in detail["bwd_fp32_registers"].items():
+        for ln in lines:
+            log(f"[head kernels] {name} fp32 route ptxas: {ln[:160]}")
     log(f"[head kernels] timed at T{T} V{V} E{E} bf16, L2 warm; library = torch.mm(out_dtype="
         f"fp32) + logsumexp + gather (forward), + exp, bf16 dlogits, torch.mm (dh, dE); "
         f"backward plan: {plan}:")
@@ -2552,7 +2611,8 @@ def phase_head_kernels(torch, np):
             f"{bms:.5f} ({by}; {2 * tve * (1 if key == 'fwd' else 2) / times[key] / 1e9:.1f} "
             f"TFLOP/s of the bound's work); fp32 route {times[key + '_f32']:.4f} ms (bound "
             f"{bounds_f32[key][0]:.5f} at {FP32_FLOPS_PER_S / 1e12:.0f} TF/s, {bounds_f32[key][1]}; "
-            f"library on fp32 operands, TF32 off, {times[key + '_f32_lib']:.4f} ms)")
+            + (f"plain {times[key + '_f32_plain']:.4f} ms; " if key != "fwd" else "")
+            + f"library on fp32 operands, TF32 off, {times[key + '_f32_lib']:.4f} ms)")
 
     # the whole head, forward + backward, fused against the chunked head
     # (chunk 1024): the choice moe_bench.py --ab measured on the TPU
@@ -2709,8 +2769,9 @@ def phase_moe_train_parity(torch, np, fused: bool = False):
 
 def _moe_fused_fp32_step(torch, np, kt, make_model, sd, tokens, loss_h, norm_h):
     """The fused MoE step of phase 12 with fp32 activations and fp32 head
-    operands on the card (the head's scalar kernels, the flash kernels' fp32
-    route, TF32 off) against the CPU's fp32 step through the same loss."""
+    operands on the card (the head's fp32 route: the scalar forward, the FMA
+    dh and dE; the flash kernels' fp32 route, TF32 off) against the CPU's
+    fp32 step through the same loss."""
     import functools
 
     loss_fn = functools.partial(kt.moe_lm_loss_fused, compute_dtype=torch.float32)

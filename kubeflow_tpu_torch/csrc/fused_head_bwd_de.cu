@@ -1,6 +1,7 @@
 // Fused tied-head backward, dE, for Hopper (sm_90a):
-//   dE[v, :] = sum_t bf16(dlse[t] * exp(logit[t, v] - lse[t]) + dgold[t] * [v == tgt[t]]) * h[t, :]
-// in fp32, the logits recomputed tile by tile and never stored.
+//   dE[v, :] = sum_t rnd(dlse[t] * exp(logit[t, v] - lse[t]) + dgold[t] * [v == tgt[t]]) * h[t, :]
+// in fp32, rnd the rounding to the operands' dtype (bf16; the identity on fp32),
+// the logits recomputed tile by tile and never stored.
 //
 // Replaces the Pallas kernel _de_kernel (kubeflow_tpu/ops/fused_head_loss.py:183).
 // Layout: h [T, E] and emb [V, E], both bf16 or both fp32; tgt [T] int32;
@@ -20,9 +21,14 @@
 // this design does 4 T V E up to E 2048 and (2 P + 2) T V E with P =
 // ceil(E / 2048) passes above.
 //
-// fp32: head_bwd_scalar<true> (fused_head_scalar.cuh).
+// fp32 (E a multiple of 4; the wrapper zero-pads other E): head_bwd_fma<true>
+// (fused_head_fma.cuh), dh's mirror on register-tiled fp32 FMAs (no TF32) fed
+// by TMA: the emb rows of 128 vocabulary entries resident, h tiles streamed,
+// E split across a cluster of C = ceil(E / 128) <= 8 blocks, so the logits
+// are computed once up to E 1024 (4 T V E FLOP against the fp32 FMA peak of
+// 67 TF/s), passes that recompute them above.
 
-#include "fused_head_scalar.cuh"
+#include "fused_head_fma.cuh"
 
 using namespace fused_head;
 
@@ -34,7 +40,9 @@ extern "C" int fused_head_bwd_de_launch(const void* h, const void* emb, const vo
                                         void* ws, void* flags, void* stream) {
   if (T < 1 || V < 1 || E < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) return scalar::launch_bwd<true>(h, emb, tgt, lse, dlse, dgold, de, T, V, E, smem, s);
+  if (f32)
+    return fp32::launch_bwd<true>(h, emb, tgt, lse, dlse, dgold, de, T, V, E, cluster, passes,
+                                  rows, smem, cap, ws, flags, s);
   return launch_bwd_route<true>(h, emb, tgt, lse, dlse, dgold, de, T, V, E, cluster, slabs,
                                 passes, rows, smem, cap, ws, flags, s);
 }

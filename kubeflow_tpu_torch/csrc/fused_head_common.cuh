@@ -8,7 +8,9 @@
 // The backward (dh and dE, one kernel template mirrored): wgmma fed by TMA,
 // with E split across the blocks of a thread-block cluster so that the
 // logits are computed once. See head_bwd_wgmma below. fp32 operands take
-// the scalar kernels of fused_head_scalar.cuh.
+// head_bwd_fma (fused_head_fma.cuh): the same skeleton, bound by its 4 T V E
+// FLOP at the fp32 FMA peak (67 TF/s), with register-tiled fp32 FMA products
+// in place of wgmma and the logits likewise computed once across a cluster.
 
 #pragma once
 
@@ -58,8 +60,9 @@ __device__ __forceinline__ void fold_tile(const float* ls, int r, int q, int v0,
 
 // dlogits of one logit in fp32: dlse * exp(logit - lse) + dgold * [col ==
 // tgt]. No fused multiply-add: the product and the sum round apart, as in
-// the plain version. The caller rounds it to the operand type (round_to<T>),
-// as the TPU kernels round it before both products.
+// the plain version. The caller rounds it to the operand type (bf16 by
+// pack_bf16; fp32 keeps it), as the TPU kernels round it before both
+// products.
 __device__ __forceinline__ float dlogit(float logit, float lse, float dlse, float dgold,
                                        int col, int tgt) {
   return __fadd_rn(__fmul_rn(dlse, expf(logit - lse)), col == tgt ? dgold : 0.f);

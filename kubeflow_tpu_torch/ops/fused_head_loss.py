@@ -41,9 +41,15 @@ FLOP forward, 4 T V E each backward kernel). Routes, by h's dtype
   multiple of 8 (TMA needs 16-byte rows) is zero-padded: the wrapper copies
   h and emb to E rounded up to 8, which adds 0 to every logit, and drops
   the padded output columns.
-- fp32: scalar kernels for all three (``csrc/fused_head_scalar.cuh``),
-  fp32 FMAs, no TF32, dlogits unrounded, as the JAX kernels' ``astype`` on
-  fp32 operands.
+- fp32: fp32 FMAs, no TF32, dlogits unrounded, as the JAX kernels'
+  ``astype`` on fp32 operands. dh and dE are the bf16 route's skeleton with
+  register-tiled FMA products (``csrc/fused_head_fma.cuh``,
+  :func:`_fma_plan`): 128 resident rows, 64-row tiles streamed through a
+  TMA ring, E (padded to a multiple of 4) split across a cluster of
+  ⌈E/128⌉ ≤ 8 blocks whose partial logits are summed through distributed
+  shared memory, so the logits are computed once up to E 1024; above it
+  ⌈E/1024⌉ passes recompute them, with no limit on E. The forward is a
+  scalar kernel (``csrc/fused_head_scalar.cuh``).
 
 Contract, the same as the JAX module's where its kernels run:
 
@@ -62,9 +68,9 @@ when T % 256 ≠ 0 or V has no 128-multiple divisor under each kernel's block
 limit (``:306-314``), and there autodiff of the einsum neither rounds the
 dlogits to the operand dtype nor keeps dE in fp32 (it rounds dE and dh to the
 operand dtype). The port has no shape fallback: the kernels take any T, V
-and E (E up to 8192 on the bf16 backward), with the kernels' rounding at
-every shape, so the two agree exactly only at the shapes where the JAX
-kernels run.
+and E (E up to 8192 on the bf16 backward, any E on fp32), with the kernels'
+rounding at every shape, so the two agree exactly only at the shapes where
+the JAX kernels run.
 
 CPU tensors take the plain versions (fp32 sums of the operands' products, T
 walked in chunks); CUDA tensors launch the kernels, which take bf16 or fp32
@@ -86,21 +92,19 @@ _MAX_CLUSTER = 8      # blocks a portable thread-block cluster may hold
 _MAX_PASSES = 4       # passes over E the bf16 backward takes (E <= 8192)
 _XROWS = 64           # rows of a streamed tile
 _LDS = 72             # fp32 leading dim of the receive buffer
-# the fp32 route's backward: [32][68] transposed chunks x 2, the [64][68]
-# dlogits tile, a [64][132] staged slice, four row vectors of 64
-_SCALAR_COLS = 128
-_SCALAR_SMEM = 4 * (2 * 32 * 68 + 64 * 68 + 64 * 132 + 4 * 64)
+_FMA_COLS = 128       # E columns a block accumulates in one pass (fp32)
 
 
 @dataclasses.dataclass(frozen=True)
 class HeadPlan:
     """How the backward kernels launch. ``route`` "wgmma" is the bf16
-    tensor-core kernel, "scalar" the fp32-FMA kernel. ``cluster`` blocks
-    share one tile's rows along E, each owning ``slice`` columns (in
-    ``passes`` passes of ``slice // passes``; ``slabs`` 64-column slabs a
-    pass); ``rows`` resident rows a block; ``stages`` streamed tiles in
-    flight (3 where they fit); ``e_pad`` the E the kernels see
-    (bf16: E rounded up to 8, the operands zero-padded to it); ``grid_dh``
+    tensor-core kernel, "fma" the fp32 kernel of register-tiled FMAs.
+    ``cluster`` blocks share one tile's rows along E, each owning ``slice``
+    columns (in ``passes`` passes of ``slice // passes``; ``slabs`` slabs of
+    128-byte rows a pass: 64 bf16 or 32 fp32 columns); ``rows`` rows of a
+    row tile (resident with one pass); ``stages`` ring stages (3 where they
+    fit); ``e_pad`` the E the kernels see (E rounded up to 8 for bf16, to 4
+    for fp32, the operands zero-padded to it); ``grid_dh``
     and ``grid_de`` the blocks of each launch (clusters of ``cluster``
     consecutive blocks; one pass launches at most as many as fit on the card
     at once, see ``_scratch``); ``smem_bytes`` each block's dynamic shared
@@ -133,12 +137,9 @@ def _plan(T: int, V: int, E: int, dtype) -> HeadPlan:
     the bf16 dP tile, the fp32 receive buffer of the cluster's partial
     logits (``rows + 8`` rows), four row vectors of 128, the mbarriers;
     ``csrc/fused_head_common.cuh`` (BwdLayout) sums the same bytes and the
-    launcher checks them. fp32: the scalar kernels, 64 rows by
-    128 columns of E a block."""
+    launcher checks them. fp32: :func:`_fma_plan`."""
     if dtype == torch.float32:
-        cols = -(-E // _SCALAR_COLS)
-        return HeadPlan("scalar", 1, _SCALAR_COLS, 1, _SCALAR_COLS // 64, 64, 1, E,
-                        (-(-T // 64), cols), (-(-V // 64), cols), 256, _SCALAR_SMEM)
+        return _fma_plan(T, V, E)
     if dtype != torch.bfloat16:
         raise TypeError(f"fused head kernels take bf16 or fp32 operands, got {dtype}")
     e_pad = -(-E // 8) * 8
@@ -160,6 +161,40 @@ def _plan(T: int, V: int, E: int, dtype) -> HeadPlan:
     assert smem <= SMEM_LIMIT, smem
     return HeadPlan("wgmma", cluster, passes * slabs * 64, passes, slabs, rows, stages, e_pad,
                     (cluster * -(-T // rows),), (cluster * -(-V // rows),), 2 * rows, smem)
+
+
+def _fma_smem(rows: int, cluster: int, stages: int) -> int:
+    """``Layout(rows, cluster).bytes`` of ``csrc/fused_head_fma.cuh`` at
+    ``stages`` ring stages, part by part: 1024 bytes of alignment slack; with
+    one pass (128 rows) the resident [rows][128] fp32 slice, else none; the
+    stages (a streamed [64][128] tile, with passes also the row tile's
+    [rows][128]); the fp32 dP tile [rows][64]; the receive buffer, C slots of
+    ⌈rows / C⌉ rows of 64 partial logits; the mbarriers (resident,
+    full and empty a stage, the exchange's two)."""
+    one = rows == 128
+    resident = rows * _FMA_COLS * 4 if one else 0
+    stage = (0 if one else rows * _FMA_COLS * 4) + _XROWS * _FMA_COLS * 4
+    receive = cluster * -(-rows // cluster) * _XROWS * 4
+    return 1024 + resident + stages * stage + rows * _XROWS * 4 + receive + 8 * (3 + 2 * stages)
+
+
+def _fma_plan(T: int, V: int, E: int) -> HeadPlan:
+    """The fp32 backward's launch (``head_bwd_fma``): E padded to a
+    multiple of 4 and split across a cluster of C = ⌈e_pad / 128⌉ ≤ 8
+    blocks of 128 columns, so the logits are computed once up to e_pad 1024;
+    128 rows a row tile, resident. Above it P = ⌈e_pad / 1024⌉ passes, each
+    block owning 128 P columns, C = ⌈e_pad / (128 P)⌉, 64-row tiles of both
+    operands streamed; no E is refused. 256 threads; 3 ring stages where
+    they fit."""
+    e_pad = -(-E // 4) * 4
+    passes = -(-e_pad // (_MAX_CLUSTER * _FMA_COLS))
+    cluster = -(-e_pad // (_FMA_COLS * passes))
+    rows = 128 if passes == 1 else 64
+    stages = 3 if _fma_smem(rows, cluster, 3) <= SMEM_LIMIT else 2
+    smem = _fma_smem(rows, cluster, stages)
+    assert smem <= SMEM_LIMIT, smem
+    return HeadPlan("fma", cluster, passes * _FMA_COLS, passes, _FMA_COLS // 32, rows, stages,
+                    e_pad, (cluster * -(-T // rows),), (cluster * -(-V // rows),), 256, smem)
 
 
 _FWD_ROWS = 128         # token rows a forward block (two consumer warpgroups)
@@ -272,6 +307,29 @@ def _fwd_split_reference(h, emb, tgt, plan: FwdPlan):
             s = s + s_r * torch.exp(m_r - m)
             gold = gold + g_r
     return m + torch.log(s), gold
+
+
+def _bwd_split_reference(h, emb, tgt, lse, dlse, dgold, plan: HeadPlan):
+    """The backward kernels' partition of E in plain PyTorch (a witness,
+    never on the main path): (dh [T, E], dE [V, E]) fp32. The operands are
+    zero-padded to the plan's ``e_pad`` and cut into its ``cluster`` slices
+    of ``slice`` columns; each slice gives the partial logits over its own
+    columns only, the partials are summed in block order, the dlogits formed
+    once from the sum (rounded to h's dtype: unrounded on fp32), and each
+    slice's columns of dh and dE are the products with that slice alone.
+    Sums differ from the kernels' in order only."""
+    E, V = h.shape[1], emb.shape[0]
+    hp, ep = _pad_e(h, plan.e_pad), _pad_e(emb, plan.e_pad)
+    cuts = [slice(c * plan.slice, min((c + 1) * plan.slice, plan.e_pad))
+            for c in range(plan.cluster)]
+    logits = matmul_f32(hp[:, cuts[0]], ep[:, cuts[0]])
+    for cut in cuts[1:]:
+        logits = logits + matmul_f32(hp[:, cut], ep[:, cut])
+    y = (torch.arange(V, device=h.device)[None, :] == tgt[:, None]).float()
+    dl = (dlse[:, None] * torch.exp(logits - lse[:, None]) + dgold[:, None] * y).to(h.dtype)
+    dh = torch.cat([matmul_f32(dl, ep[:, cut].t()) for cut in cuts], dim=1)
+    de = torch.cat([matmul_f32(dl.t(), hp[:, cut].t()) for cut in cuts], dim=1)
+    return dh[:, :E], de[:, :E]
 
 
 def _pad_e(x, e_pad: int):
@@ -387,17 +445,19 @@ def fused_head_fwd(h, emb, tgt):
 
 
 def _scratch(plan, rows_out, device):
-    """(cap, ws, flags) of a tensor-core launch with one pass: room for the
-    sums of row tiles split between clusters. The launcher takes as many
-    clusters as fit on the card at once, at most the row tiles' count and
-    ``cap``, here the row tiles' count or one cluster an SM, whichever is
-    fewer (``launch_bwd_wgmma`` in ``csrc/fused_head_common.cuh``)."""
+    """(cap, ws, flags) of a launch with one pass, either route: room for
+    the sums of row tiles split between clusters, a block's [rows, slice]
+    accumulators a (cluster, block). The launcher takes as many clusters as
+    fit on the card at once, at most the row tiles' count and ``cap``, here
+    the row tiles' count or one cluster an SM, whichever is fewer
+    (``launch_bwd_wgmma`` in ``csrc/fused_head_common.cuh``, ``launch_fma``
+    in ``csrc/fused_head_fma.cuh``)."""
     nrt = -(-rows_out // plan.rows)
-    if plan.route == "scalar" or plan.passes > 1 or nrt == 1:
+    if plan.passes > 1 or nrt == 1:
         return 0, None, None
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     cap = min(nrt, max(1, sms // plan.cluster))
-    ws = torch.empty(cap * plan.cluster * plan.rows * plan.slabs * 64, dtype=torch.float32,
+    ws = torch.empty(cap * plan.cluster * plan.rows * plan.slice, dtype=torch.float32,
                      device=device)
     return cap, ws, torch.zeros(cap * plan.cluster, dtype=torch.int32, device=device)
 
@@ -412,7 +472,7 @@ def _backward(name, h, emb, tgt, lse, dlse, dgold, rows_out):
     cap, ws, flags = _scratch(plan, rows_out, h.device)
     _build.launch(name, h_k.data_ptr(), emb_k.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
                   dlse.data_ptr(), dgold.data_ptr(), out.data_ptr(), T, V, plan.e_pad,
-                  int(plan.route == "scalar"), plan.cluster, plan.slabs, plan.passes,
+                  int(plan.route == "fma"), plan.cluster, plan.slabs, plan.passes,
                   plan.rows, plan.smem_bytes, cap, ws.data_ptr() if ws is not None else None,
                   flags.data_ptr() if flags is not None else None, _stream(h))
     return out if plan.e_pad == E else out[:, :E].contiguous()

@@ -3,7 +3,7 @@ backward, ``_fwd_plan`` for the forward), the zero-padding of E and the
 forward's partition of the vocabulary (``_fwd_split_reference``), on the CPU.
 
 The plan decides what the card runs: the route by dtype, the cluster that
-splits E, the passes above E 2048, the padded E, the grid and each block's
+splits E, the passes above E 2048 (bf16), the padded E, the grid and each block's
 shared memory, which the CUDA launcher checks against its own layout
 (``BwdLayout`` in ``csrc/fused_head_common.cuh``, recomputed here from its
 parts). The padding adds zero columns where E is not a multiple of 8: the
@@ -16,7 +16,16 @@ vocabulary tiles through a TMA ring, the shared memory part by part as
 ``fwd_smem_bytes`` in ``csrc/fused_head_fwd.cu`` sums it, ranges that cover
 the vocabulary once, about one wave at the MoE flagship. Its partition in
 plain PyTorch is held against the plain version and against the Pallas
-``_fwd_kernel`` in interpret mode."""
+``_fwd_kernel`` in interpret mode.
+
+The fp32 route's plan (``_fma_plan``): E padded to a multiple of 4, cut
+into 128-column slices a block, one pass up to E 1024 and passes above
+with no limit on E, each block's shared memory part by part as ``Layout``
+in ``csrc/fused_head_fma.cuh`` sums it. The backward's partition in plain
+PyTorch (``_bwd_split_reference``: partial logits per slice summed in block
+order, unrounded fp32 dlogits, per-slice products) is held against the
+plain version at ragged shapes and against the Pallas ``_dh_kernel`` and
+``_de_kernel`` in interpret mode."""
 import functools
 from types import SimpleNamespace
 
@@ -86,12 +95,65 @@ def test_bf16_plan_at_the_flagship_fits_one_block_an_sm():
     assert p.smem_bytes == 222_536 and 2 * p.smem_bytes > 228 * 1024
 
 
-def test_fp32_plan_takes_the_scalar_kernels():
-    p = fh._plan(1024, 4096, 1024, torch.float32)
-    assert (p.route, p.cluster, p.passes, p.e_pad, p.rows, p.stages) == ("scalar", 1, 1, 1024, 64, 1)
-    assert p.grid_dh == (16, 8) and p.grid_de == (64, 8) and p.threads == 256
-    # [32][68] chunks x 2, [64][68] dlogits, [64][132] slice, 4 x 64 vectors
-    assert p.smem_bytes == 4 * (2 * 32 * 68 + 64 * 68 + 64 * 132 + 256) == 69_632
+# E -> (cluster, columns a block owns, passes, rows a row tile, ring stages,
+# padded E) of the fp32 route
+FP32_PLANS = {
+    40: (1, 128, 1, 128, 3, 40),        # no cluster, no exchange
+    99: (1, 128, 1, 128, 3, 100),       # padded to 100
+    100: (1, 128, 1, 128, 3, 100),
+    128: (1, 128, 1, 128, 3, 128),
+    768: (6, 128, 1, 128, 3, 768),      # GPT-2 small: a cluster of 6
+    1024: (8, 128, 1, 128, 3, 1024),    # the MoE flagship: the widest single pass
+    2048: (8, 256, 2, 64, 3, 2048),     # two passes
+    4096: (8, 512, 4, 64, 3, 4096),
+    8192: (8, 1024, 8, 64, 3, 8192),
+    8200: (8, 1152, 9, 64, 3, 8200),    # past the bf16 route's limit: nine passes
+}
+
+
+def _fma_layout_bytes(rows, cluster, stages):
+    """Layout(rows, cluster).bytes of csrc/fused_head_fma.cuh, part by part."""
+    one = rows == 128
+    resident = rows * 128 * 4 if one else 0           # fp32 [rows][128], one pass only
+    stage = (0 if one else rows * 128 * 4) + 64 * 128 * 4   # passes: the row tile too
+    dp = rows * 64 * 4                                # the fp32 dP tile
+    receive = cluster * -(-rows // cluster) * 64 * 4  # C slots of ceil(rows / C) rows
+    barriers = 8 * (3 + 2 * stages)
+    return 1024 + resident + stages * stage + dp + receive + barriers
+
+
+@pytest.mark.parametrize("E", list(FP32_PLANS))
+def test_fp32_plan(E):
+    """The fp32 route: E padded to a multiple of 4 and split across a
+    cluster of 128-column blocks, every slice computed by one block only;
+    one pass (the logits once: 4 T V E FLOP) up to E 1024, passes that
+    recompute them above, no E refused."""
+    cluster, cols, passes, rows, stages, e_pad = FP32_PLANS[E]
+    p = fh._plan(T, V, E, torch.float32)
+    assert p.route == "fma"
+    assert (p.cluster, p.slice, p.passes, p.rows, p.stages, p.e_pad) == (
+        cluster, cols, passes, rows, stages, e_pad)
+    assert p.slice == p.passes * 128 and p.slabs == 4 and p.threads == 256
+    # the cluster covers E once: its last block owns some of it, none
+    # recomputes another's slice
+    assert (p.cluster - 1) * p.slice < p.e_pad <= p.cluster * p.slice
+    assert p.cluster <= 8 and p.e_pad % 4 == 0 and p.e_pad - 4 < E <= p.e_pad
+    assert p.grid_dh == (p.cluster * -(-T // rows),)
+    assert p.grid_de == (p.cluster * -(-V // rows),)
+    assert p.smem_bytes == _fma_layout_bytes(rows, cluster, stages) <= fh.SMEM_LIMIT
+    assert stages == 3 or _fma_layout_bytes(rows, cluster, 3) > fh.SMEM_LIMIT
+    # FLOPs a kernel does, in units of T V E: the partial logits once a pass
+    # and the product once
+    assert 2 * p.passes + 2 == (4 if E <= 1024 else 2 * -(-e_pad // 1024) + 2)
+
+
+def test_fp32_plan_at_the_flagship_computes_the_logits_once():
+    """T 8192, V 32000, E 1024: one pass over clusters of 8 blocks of 128
+    columns, 128 resident rows, three stages in 230,472 bytes."""
+    p = fh._plan(T, V, 1024, torch.float32)
+    assert (p.route, p.cluster, p.passes, p.slice) == ("fma", 8, 1, 128)
+    assert p.grid_dh == (8 * 64,) and p.grid_de == (8 * 250,)
+    assert p.smem_bytes == 230_472 and 2 * p.smem_bytes > 228 * 1024
     assert fh._plan(300, 97, 100, torch.float32).e_pad == 100   # no padding
 
 
@@ -102,12 +164,17 @@ def test_fp32_plan_takes_the_scalar_kernels():
     (4096, 128, torch.bfloat16, 32),      # no cluster: a block a row tile
     (128, 1024, torch.bfloat16, 0),       # one row tile: nothing to split
     (8192, 4096, torch.bfloat16, 0),      # passes: one cluster a row tile
-    (8192, 1024, torch.float32, 0),       # the scalar kernels
+    (8192, 1024, torch.float32, 16),      # fp32 dh at the flagship: clusters of 8
+    (32000, 1024, torch.float32, 16),     # fp32 dE at the flagship
+    (32000, 100, torch.float32, 132),     # fp32, no cluster: a block an SM
+    (8192, 2048, torch.float32, 0),       # fp32 passes
 ])
 def test_scratch_holds_every_cluster_the_launcher_may_take(monkeypatch, rows_out, E, dtype, cap):
     """On a card of 132 SMs: cap = min(row tiles, SMs // cluster), ws one
-    slot of [slabs * 32 accumulators][2 * rows threads] fp32 a (cluster,
-    block), flags one zero int32 each; none where no row tile is split."""
+    slot of [accumulators a thread][threads] fp32 a (cluster, block), a
+    block's [rows, slice] accumulators (bf16: slabs * 32 a thread, 2 * rows
+    threads; fp32: 64 a thread at 128 rows, 256 threads), flags one zero
+    int32 each; none where no row tile is split."""
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: SimpleNamespace(multi_processor_count=132))
     plan = fh._plan(T, V, E, dtype)
@@ -117,7 +184,9 @@ def test_scratch_holds_every_cluster_the_launcher_may_take(monkeypatch, rows_out
         assert ws is None and flags is None
         return
     assert ws.dtype == torch.float32
-    assert ws.numel() == cap * plan.cluster * (plan.slabs * 32) * (2 * plan.rows)
+    per_thread = plan.slabs * 32 if dtype == torch.bfloat16 else plan.rows * plan.slice // 256
+    assert plan.threads * per_thread == plan.rows * plan.slice
+    assert ws.numel() == cap * plan.cluster * per_thread * plan.threads
     assert flags.dtype == torch.int32 and flags.numel() == cap * plan.cluster
     assert not bool(flags.any())
 
@@ -130,24 +199,28 @@ def test_plan_refuses_other_dtypes_and_e_past_the_passes():
         fh._plan(T, V, 8200, torch.bfloat16)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_zero_padding_leaves_the_plain_versions_unchanged(dtype):
-    """E 100 padded to 104, as the wrapper pads the kernels' operands: lse,
-    gold, dh and dE of the plain versions agree on the unpadded columns to
-    summation order (1e-6 of the largest value), and the padded columns of
-    dh and dE are exactly 0."""
+@pytest.mark.parametrize("dtype,En,plan_dtype,e_pad", [
+    pytest.param(torch.float32, 100, torch.bfloat16, 104, id="dtype0"),
+    pytest.param(torch.bfloat16, 100, torch.bfloat16, 104, id="dtype1"),
+    pytest.param(torch.float32, 99, torch.float32, 100, id="fp32-e99"),
+])
+def test_zero_padding_leaves_the_plain_versions_unchanged(dtype, En, plan_dtype, e_pad):
+    """E 100 padded to 104 (the bf16 route's multiple of 8) and E 99 to 100
+    (the fp32 route's multiple of 4), as the wrapper pads the kernels'
+    operands: lse, gold, dh and dE of the plain versions agree on the
+    unpadded columns to summation order (1e-6 of the largest value), and the
+    padded columns of dh and dE are exactly 0."""
     rng = np.random.default_rng(11)
-    Tn, Vn, En = 96, 70, 100
+    Tn, Vn = 96, 70
     h = torch.from_numpy(rng.standard_normal((Tn, En)).astype(np.float32)).to(dtype)
     emb = torch.from_numpy((rng.standard_normal((Vn, En)) * 0.1).astype(np.float32)).to(dtype)
     tgt = torch.from_numpy(rng.integers(0, Vn, (Tn,)))
     tgt[::9] = Vn
     dlse = torch.from_numpy(rng.standard_normal(Tn).astype(np.float32))
     dgold = torch.from_numpy(rng.standard_normal(Tn).astype(np.float32))
-    e_pad = fh._plan(Tn, Vn, En, torch.bfloat16).e_pad
-    assert e_pad == 104
+    assert fh._plan(Tn, Vn, En, plan_dtype).e_pad == e_pad
     hp, ep = fh._pad_e(h, e_pad), fh._pad_e(emb, e_pad)
-    assert hp.shape == (Tn, 104) and bool((hp[:, En:] == 0).all())
+    assert hp.shape == (Tn, e_pad) and bool((hp[:, En:] == 0).all())
     assert fh._pad_e(h, En) is h
 
     lse, gold = fh.lse_gold_plain(h, emb, tgt)
@@ -367,3 +440,66 @@ def test_fwd_split_reference_matches_the_pallas_kernel(T, V, E, bv, ranges, dtyp
     lse, gold = fh._fwd_split_reference(h, emb, tgt, plan)
     np.testing.assert_allclose(lse.numpy(), lse_j, rtol=0, atol=2e-6)
     np.testing.assert_allclose(gold.numpy(), gold_j, rtol=0, atol=2e-6)
+
+
+# ---- the backward's partition of E (``_bwd_split_reference``)
+
+
+def _bwd_case(T, V, E, seed):
+    """fp32 h, emb and targets as ``_fwd_case`` draws them (targets in the
+    last vocabulary tile and outside [0, V)), the plain forward's lse and
+    random cotangents."""
+    h, emb, tgt = _fwd_case(T, V, E, seed, torch.float32)
+    rng = np.random.default_rng(seed + 1)
+    dlse = torch.from_numpy(rng.standard_normal(T).astype(np.float32))
+    dgold = torch.from_numpy(rng.standard_normal(T).astype(np.float32))
+    lse, _ = fh.lse_gold_plain(h, emb, tgt)
+    return h, emb, tgt, lse, dlse, dgold
+
+
+@pytest.mark.parametrize("E", [100, 99, 300, 1100])
+def test_bwd_split_reference_matches_the_plain_version(E):
+    """fp32 at T 300, V 97 (ragged, targets outside [0, V)): one slice
+    (E 100, and E 99 padded to 100), a cluster of 3 (E 300) and two passes
+    over a cluster of 5 (E 1100). The partition's logits differ from the
+    plain version's in summation order only, so dh and dE agree to 2e-6 of
+    their largest value; a target outside [0, V) adds no one-hot term."""
+    h, emb, tgt, lse, dlse, dgold = _bwd_case(300, 97, E, 12)
+    plan = fh._plan(300, 97, E, torch.float32)
+    assert plan.cluster == {100: 1, 99: 1, 300: 3, 1100: 5}[E]
+    dh, de = fh._bwd_split_reference(h, emb, tgt, lse, dlse, dgold, plan)
+    dh_p, de_p = fh.head_grads_plain(h, emb, tgt, lse, dlse, dgold)
+    assert dh.shape == (300, E) and de.shape == (97, E)
+    torch.testing.assert_close(dh, dh_p, rtol=0, atol=2e-6 * dh_p.abs().max().item())
+    torch.testing.assert_close(de, de_p, rtol=0, atol=2e-6 * de_p.abs().max().item())
+
+
+@functools.cache
+def _jax_bwd(T, V, E, bt, bv):
+    """dh and dE of the Pallas ``_dh_kernel`` and ``_de_kernel`` in
+    interpret mode on fp32 operands."""
+    h, emb, tgt, lse, dlse, dgold = _bwd_case(T, V, E, 13)
+    lanes = [jfh._lanes(jnp.asarray(x.numpy())) for x in (tgt, lse, dlse, dgold)]
+    dh, de = jfh._bwd_call(jnp.asarray(h.numpy()), jnp.asarray(emb.numpy()),
+                           lanes[0].astype(jnp.int32), *lanes[1:], bt=bt, bv_dh=bv, bv_de=bv,
+                           interpret=True)
+    return np.asarray(dh), np.asarray(de)
+
+
+@pytest.mark.parametrize("T,V,E,bt,bv", [
+    (256, 384, 100, 128, 128),    # one slice
+    (256, 384, 300, 128, 128),    # a cluster of 3
+    (128, 256, 1100, 128, 256),   # two passes over a cluster of 5
+])
+def test_bwd_split_reference_matches_the_pallas_kernels(T, V, E, bt, bv):
+    """The fp32 backward's partition against the TPU kernels it replaces,
+    run as the JAX package's tests run them: both multiply fp32 operands in
+    fp32 and leave the dlogits unrounded, so dh and dE differ in summation
+    order only (5e-6 of their largest value). Targets outside [0, V) add no
+    one-hot term to either."""
+    dh_j, de_j = _jax_bwd(T, V, E, bt, bv)
+    h, emb, tgt, lse, dlse, dgold = _bwd_case(T, V, E, 13)
+    plan = fh._plan(T, V, E, torch.float32)
+    dh, de = fh._bwd_split_reference(h, emb, tgt, lse, dlse, dgold, plan)
+    np.testing.assert_allclose(dh.numpy(), dh_j, rtol=0, atol=5e-6 * np.abs(dh_j).max())
+    np.testing.assert_allclose(de.numpy(), de_j, rtol=0, atol=5e-6 * np.abs(de_j).max())
