@@ -28,12 +28,16 @@ Phases, each of which fails the run with a non-zero exit:
             dk/dv, the head's three kernels and that backward must have (the
             width-256 forward, dq and dk/dv in their own entry functions),
             and prints those three's registers and spills (none allowed) and
-            any wgmma serialisation note; the fp32 routes are
-            timed beside the library on fp32 operands (TF32 off) and their
-            bound at the fp32 peak;
+            any wgmma serialisation note, and the fp32 forwards'
+            (``flash_fwd_fma`` at every width, ``head_fwd_fma``; no spills
+            allowed); the fp32 routes are timed beside the library on fp32
+            operands (TF32 off, its kernels named) and their bound at the
+            fp32 peak, the flash forward beside its plain version and the
+            first scalar kernel's time, two of its launches bitwise equal;
 2b. wide heads  the flash forward, dq and dk/dv at head sizes 160, 192 and
             256 (run at width 256: bf16 on the tensor-core route, dk/dv on
-            its two-warpgroup kernel, fp32 on the scalar route, any other
+            its two-warpgroup kernel, fp32 on the FMA forward and the
+            scalar dq and dk/dv, any other
             route failing the run; causal, windowed, non-causal, GQA, MQA
             8/1, ragged, rows that see no key, the shapes of phase 5b's
             train step and prefill) and flash-decode at 160, 192 and 256
@@ -111,8 +115,8 @@ Phases, each of which fails the run with a non-zero exit:
             128, one block on every SM) holds the card; print the forward's
             plan and ptxas lines and the fp32 dh and dE's; time kernel, plain
             version, library, bound and the fp32 route (with its plain
-            versions), and the whole head forward + backward fused against
-            chunked;
+            versions, the forward beside the first scalar kernel's time),
+            and the whole head forward + backward fused against chunked;
 11. moe train fused  the MoE flagship of phase 8 through
             ``moe_lm_loss_fused`` (``moe_bench.py --fused-head``), with the
             head's three launch counters added;
@@ -305,6 +309,11 @@ LSE_ATOL = 1e-3               # fp32 throughout; differs only in summation order
 # H100 80GB HBM3, 700 W), printed beside this run's times
 SCALAR_FLASH_MS = {"fwd_serving": 0.0428, "fwd_train": 3.1914, "dq_train": 3.5763,
                    "dkv_train": 3.2523}
+# the fp32 routes' first scalar forwards on this card (PERF.md's kernel table,
+# rows 1 and 5: H100 80GB HBM3, 700 W), printed beside the FMA kernels' times:
+# the flash forward at the training shape, the fused head's at the MoE
+# flagship's head shape
+SCALAR_FP32_FWD_MS = {"flash_attention_fwd": 3.2493, "fused_head_fwd": 51.99}
 # card (bf16 weights and activations) vs CPU (fp32) on the last prefill
 # logits of a 2-layer model, logits std ~1: the card measured 0.0699 on an
 # H100 in every run recorded in PERF.md; the limit is twice that.
@@ -537,7 +546,23 @@ def phase_build():
                 log(f"[build] {name}: {ln.strip()}")
         if int(spill[1]):
             raise AssertionError(f"{kernel[0]} spills {spill[1]} bytes")
+    for name, fragment in FMA_FORWARDS.items():
+        lines = _entry_ptxas(_build.build_log(name), fragment)
+        spills = [int(m[1]) for ln in lines for m in [re.search(r"(\d+) bytes spill stores", ln)]
+                  if m]
+        if not lines or not spills:
+            raise AssertionError(f"{name}: no ptxas report of {fragment}")
+        for ln in lines:
+            log(f"[build] {fragment}: {ln[:160]}")
+        registers[fragment] = lines
+        if any(spills):
+            raise AssertionError(f"{fragment} spills: {lines}")
     return libs, registers
+
+
+# the fp32 forwards of register-tiled FMAs (every width's instantiation):
+# library -> the fragment of their mangled names
+FMA_FORWARDS = {"flash_attention_fwd": "flash_fwd_fma", "fused_head_fwd": "head_fwd_fma"}
 
 
 # the width-256 instantiations of the bf16 forward, dq and dk/dv: (name,
@@ -560,7 +585,7 @@ def tensor_core_counts(libs):
     shows, or, without it, ``wgmma.mma_async`` and ``mma.sync`` in ``nvcc
     -ptx`` output. The bf16 route of the flash forward, dq and dk/dv, of
     the fused head's forward, dh and dE and the fused BN + ReLU + 1x1-conv
-    backward must issue wgmma; the scalar kernels none.
+    backward must issue wgmma; the fp32 routes (FMA and scalar kernels) none.
     The width-256 forward and dq (``WIDE_WGMMA``) must hold it in their
     own entry functions."""
     from kubeflow_tpu_torch.ops import _build
@@ -594,66 +619,13 @@ def tensor_core_counts(libs):
     return counts
 
 
-def phase_kernels(torch):
-    import torch.nn.functional as F
+def check_forward(torch, cases, randn, sms):
+    """Each flash forward case (name, B, Sq, Sk, H, KV, D, causal, window,
+    dtype) against the plain version: output, lse, and o = 0 where a row sees
+    no key. Returns the worst bf16 max abs error."""
+    from kubeflow_tpu_torch.ops.pallas_attention import _plan, flash_attention, flash_attention_plain
 
-    from kubeflow_tpu_torch.ops.flash_decode import (
-        _launch as _decode_launch,
-        _plan as _decode_plan,
-        _split_reference,
-        flash_decode,
-        flash_decode_plain,
-    )
-    from kubeflow_tpu_torch.ops.pallas_attention import (
-        _plan,
-        flash_attention,
-        flash_attention_plain,
-    )
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    bf16 = torch.bfloat16
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(bf16)
-
-    results = {}
-
-    # ---- flash_attention_fwd: prefill
     worst = 0.0
-    f32 = torch.float32
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cases = [
-        # name, B, Sq, Sk, H, KV, D, causal, window, dtype
-        ("prefill_flagship", BATCH, PROMPT, PROMPT, 8, 4, 128, True, None, bf16),
-        # the training path's shape: 32 key tiles of online-softmax rescale
-        ("train_flagship", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 8, 8, 128, True, None, bf16),
-        ("windowed", BATCH, PROMPT, PROMPT, 8, 4, 128, True, 48, bf16),
-        ("gqa_group_1", BATCH, PROMPT, PROMPT, 8, 8, 128, True, None, bf16),
-        ("ragged_s96_d64", 2, 96, 96, 4, 2, 64, True, None, bf16),
-        ("noncausal_s96", 2, 96, 96, 4, 2, 128, False, None, bf16),
-        # rows 9-15 see no key: o = 0 and lse = +inf
-        ("causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, bf16),
-        ("noncausal_sq64_sk192", 2, 64, 192, 4, 2, 128, False, None, bf16),
-        # 9 x 8 x 2 = 144 blocks take 128-row tiles; the second is 72 rows
-        ("s200_ragged_128_row_tile", 9, 200, 200, 8, 4, 128, True, None, bf16),
-        ("mqa_8_1", 2, 256, 256, 8, 1, 128, True, None, bf16),
-        ("b1_h16_kv8_window100", 1, 2048, 2048, 16, 8, 128, True, 100, bf16),
-        ("window_1000_over_s256", 2, 256, 256, 8, 4, 128, True, 1000, bf16),
-        # the fp32 route (scalar kernel)
-        ("fp32_prefill", BATCH, PROMPT, PROMPT, 8, 4, 128, True, None, f32),
-        ("fp32_ragged_s96_d64_window", 2, 96, 96, 4, 2, 64, True, 48, f32),
-        ("fp32_causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, f32),
-        ("fp32_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 128, False, None, f32),
-        # head sizes the kernels run zero-padded to 64 or 128
-        ("d16_gqa_4_2", 2, 256, 256, 4, 2, 16, True, None, bf16),
-        ("d32_window_48", 2, 256, 256, 4, 4, 32, True, 48, bf16),
-        ("d96_train_tiles", 4, 1024, 1024, 8, 8, 96, True, None, bf16),
-        ("d96_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 96, False, None, bf16),
-        ("fp32_d16", 2, 128, 128, 4, 2, 16, True, None, f32),
-        ("fp32_d32_window_48", 2, 256, 256, 4, 4, 32, True, 48, f32),
-        ("fp32_d96", 2, 128, 128, 4, 2, 96, True, None, f32),
-    ]
     for name, B, Sq, Sk, H, KV, D, causal, window, dt in cases:
         q, k, v = (randn(*shape).to(dt) for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
         o, lse = flash_attention(q, k, v, causal, Sq, Sk, window, return_lse=True)
@@ -673,8 +645,78 @@ def phase_kernels(torch):
             f"{int((~lse_ref.isfinite()).sum())}, o = 0 there: {dead_ok}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention_fwd disagrees with its plain version ({name})")
-        if dt == bf16:
+        if dt == torch.bfloat16:
             worst = max(worst, err)
+    return worst
+
+
+def phase_kernels(torch):
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops.flash_decode import (
+        _launch as _decode_launch,
+        _plan as _decode_plan,
+        _split_reference,
+        flash_decode,
+        flash_decode_plain,
+    )
+    from kubeflow_tpu_torch.ops.pallas_attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(bf16)
+
+    results = {}
+
+    # ---- flash_attention_fwd: prefill
+    f32 = torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [
+        # name, B, Sq, Sk, H, KV, D, causal, window, dtype
+        ("prefill_flagship", BATCH, PROMPT, PROMPT, 8, 4, 128, True, None, bf16),
+        # the training path's shape: 32 key tiles of online-softmax rescale
+        ("train_flagship", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 8, 8, 128, True, None, bf16),
+        ("windowed", BATCH, PROMPT, PROMPT, 8, 4, 128, True, 48, bf16),
+        ("gqa_group_1", BATCH, PROMPT, PROMPT, 8, 8, 128, True, None, bf16),
+        ("ragged_s96_d64", 2, 96, 96, 4, 2, 64, True, None, bf16),
+        ("noncausal_s96", 2, 96, 96, 4, 2, 128, False, None, bf16),
+        # rows 9-15 see no key: o = 0 and lse = +inf
+        ("causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, bf16),
+        ("noncausal_sq64_sk192", 2, 64, 192, 4, 2, 128, False, None, bf16),
+        # 9 x 8 x 2 = 144 blocks take 128-row tiles; the second is 72 rows
+        ("s200_ragged_128_row_tile", 9, 200, 200, 8, 4, 128, True, None, bf16),
+        ("mqa_8_1", 2, 256, 256, 8, 1, 128, True, None, bf16),
+        ("b1_h16_kv8_window100", 1, 2048, 2048, 16, 8, 128, True, 100, bf16),
+        ("window_1000_over_s256", 2, 256, 256, 8, 4, 128, True, 1000, bf16),
+        # the fp32 route (flash_fwd_fma: 128-row tiles, 64-key tiles); more
+        # fp32 cases after this phase's timings (``late``)
+        ("fp32_prefill", BATCH, PROMPT, PROMPT, 8, 4, 128, True, None, f32),
+        ("fp32_ragged_s96_d64_window", 2, 96, 96, 4, 2, 64, True, 48, f32),
+        # rows 9-15 see no key: o = 0 and lse = +inf
+        ("fp32_causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, f32),
+        ("fp32_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 128, False, None, f32),
+        # head sizes the kernels run zero-padded to 64 or 128
+        ("d16_gqa_4_2", 2, 256, 256, 4, 2, 16, True, None, bf16),
+        ("d32_window_48", 2, 256, 256, 4, 4, 32, True, 48, bf16),
+        ("d96_train_tiles", 4, 1024, 1024, 8, 8, 96, True, None, bf16),
+        ("d96_noncausal_sq64_sk192", 2, 64, 192, 4, 2, 96, False, None, bf16),
+        ("fp32_d16", 2, 128, 128, 4, 2, 16, True, None, f32),
+        ("fp32_d32_window_48", 2, 256, 256, 4, 4, 32, True, 48, f32),
+        ("fp32_d96", 2, 128, 128, 4, 2, 96, True, None, f32),
+    ]
+    # fp32 cases at larger shapes, held after the prefill and decode timings:
+    # made before them, their allocations moved those latency-bound timings
+    # (same kernels) by 2-4% on an H100
+    late = [
+        ("fp32_train_flagship", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 8, 8, 128, True, None, f32),
+        ("fp32_s200_ragged_128_row_tile", 9, 200, 200, 8, 4, 128, True, None, f32),
+        ("fp32_mqa_8_1", 2, 256, 256, 8, 1, 128, True, None, f32),
+        ("fp32_b1_h16_kv8_window100", 1, 2048, 2048, 16, 8, 128, True, 100, f32),
+    ]
+    worst = check_forward(torch, cases, randn, sms)
 
     # a head size past 256 is a stated refusal on the card, never the plain version
     q320 = randn(1, 64, 2, 320)
@@ -842,6 +884,7 @@ def phase_kernels(torch):
     log(f"[kernels] flash_decode fp32 operands pos {p_mean}: kernel_ms {f32_ms:.4f} (split "
         f"{_decode_plan(B, G, R, L, D, f32, sms).split}); worst err/tol against "
         f"_split_reference over every case {worst_witness:.3f}")
+    check_forward(torch, late, randn, sms)
     return results
 
 
@@ -956,10 +999,19 @@ def phase_kernels_bwd(torch):
         bwd_lib=device_ms(torch, lambda: torch.autograd.grad(
             o_lib, (qt, kt, vt), do_lib, retain_graph=True), cold=False),
     )
-    # the fp32 route at the same shape (scalar kernels), beside the library
-    # on the same fp32 operands (TF32 off for matmuls and cuDNN alike)
+    # the fp32 route at the same shape (the FMA forward, the scalar dq and
+    # dk/dv), beside the plain forward and the library on the same fp32
+    # operands (TF32 off for matmuls and cuDNN alike); two forward launches
+    # agree bit for bit (no atomics, fixed-order sums)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     of, lsef = pa.flash_attention(qf, kf, vf, True, S, S, return_lse=True)
+    again = pa.flash_attention(qf, kf, vf, True, S, S, return_lse=True)
+    fwd_f32_same = bool(torch.equal(of, again[0]) and torch.equal(lsef, again[1]))
+    del again
+    log(f"[kernels] flash_fwd_fma at the training shape, two launches bitwise equal: "
+        f"{fwd_f32_same}")
+    if not fwd_f32_same:
+        raise AssertionError("the fp32 flash forward differs between two launches")
     qft, kft, vft = (x.transpose(1, 2).contiguous().requires_grad_() for x in (qf, kf, vf))
     o_lib32 = F.scaled_dot_product_attention(qft, kft, vft, is_causal=True)
     do_lib32 = dof.transpose(1, 2).contiguous()
@@ -969,11 +1021,18 @@ def phase_kernels_bwd(torch):
                          cold=False, iters=5),
         dkv_f32=device_ms(torch, lambda: pa.flash_attention_bwd_dkv(qf, kf, vf, of, lsef, dof),
                           cold=False, iters=5),
+        fwd_f32_plain=device_ms(torch, lambda: pa.flash_attention_plain(qf, kf, vf), cold=False,
+                                iters=5),
         fwd_f32_lib=device_ms(torch, lambda: F.scaled_dot_product_attention(
             qft.detach(), kft.detach(), vft.detach(), is_causal=True), cold=False, iters=5),
         bwd_f32_lib=device_ms(torch, lambda: torch.autograd.grad(
             o_lib32, (qft, kft, vft), do_lib32, retain_graph=True), cold=False, iters=5),
     )
+    # the yardstick by name: the device kernels of SDPA's forward on fp32 operands
+    lib_f32_kernels = sorted({n.split("(")[0][:120] for run in _device_kernels(
+        torch, lambda: F.scaled_dot_product_attention(qft.detach(), kft.detach(), vft.detach(),
+                                                      is_causal=True), reps=2) for n in run})
+    log(f"[kernels]   library on fp32 operands, forward: device kernels {lib_f32_kernels}")
     del qf, kf, vf, dof, of, lsef, qft, kft, vft, o_lib32, do_lib32
     pairs = causal_pairs(B, H, S, S)
     operand = 2 * B * S * H * D                      # one bf16 [B, S, H, D] tensor
@@ -996,7 +1055,10 @@ def phase_kernels_bwd(torch):
         f"the first scalar kernel {SCALAR_FLASH_MS['dq_train']}) bound_ms {dq_b:.5f} ({dq_f})")
     log(f"[kernels]   flash_attention_bwd_dkv kernel_ms {times['dkv']:.4f} ({tflops['dkv']:.1f} TFLOP/s; "
         f"the first scalar kernel {SCALAR_FLASH_MS['dkv_train']}) bound_ms {dkv_b:.5f} ({dkv_f})")
-    log(f"[kernels]   fp32 route (fp32 operands, scalar kernels): forward {times['fwd_f32']:.4f} ms, "
+    log(f"[kernels]   fp32 route (fp32 operands; flash_fwd_fma, scalar dq and dk/dv): forward "
+        f"{times['fwd_f32']:.4f} ms ({2 * 2 * D * pairs / times['fwd_f32'] / 1e9:.1f} TFLOP/s of the "
+        f"bound's work; the first scalar kernel {SCALAR_FP32_FWD_MS['flash_attention_fwd']}; plain "
+        f"{times['fwd_f32_plain']:.4f}), "
         f"dq {times['dq_f32']:.4f} ms, dk/dv {times['dkv_f32']:.4f} ms; bounds at "
         f"{FP32_FLOPS_PER_S / 1e12:.0f} TF/s "
         + ", ".join(f"{k} {b:.5f} ({by})" for k, (b, by) in bounds_f32.items())
@@ -1016,6 +1078,9 @@ def phase_kernels_bwd(torch):
     fwd_train = dict(ms=times["fwd"], plain_ms=times["fwd_plain"], library_ms=times["fwd_lib"],
                      bound_ms=fwd_b, bound_by=fwd_f, tflops=tflops,
                      fp32_route_ms={k: times[f"{k}_f32"] for k in ("fwd", "dq", "dkv")},
+                     fp32_route_plain_ms={"fwd": times["fwd_f32_plain"]},
+                     fp32_fwd_bitwise_equal_relaunch=fwd_f32_same,
+                     fp32_route_library_kernels=lib_f32_kernels,
                      fp32_route_bound_ms={k: b for k, (b, _) in bounds_f32.items()},
                      fp32_route_library_ms={"fwd": times["fwd_f32_lib"],
                                             "bwd": times["bwd_f32_lib"]})
@@ -1033,7 +1098,8 @@ WIDE_HEADS_PROMPT, WIDE_HEADS_NEW = 64, 16
 def phase_wide_heads(torch, np):
     """The flash forward, dq and dk/dv at head sizes 160, 192 and 256 (run at
     width 256: bf16 on the tensor-core route, dk/dv on the two-warpgroup
-    kernel, fp32 on the scalar route, each route required) and flash-decode
+    kernel, fp32 on the FMA forward and the scalar dq and dk/dv, each route
+    required) and flash-decode
     at 160, 192 and 256, each against its plain version under the bounds of
     the kernels phases; each kernel timed at D 256 beside its bound, its
     plain version and scaled_dot_product_attention on the same inputs, whose
@@ -1061,8 +1127,10 @@ def phase_wide_heads(torch, np):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
     def wide_routes(dt):
-        """bf16 on the tensor cores, fp32 scalar."""
-        return dict.fromkeys(("fwd", "dq", "dkv"), "wgmma" if dt == bf16 else "scalar")
+        """bf16 on the tensor cores; fp32 the FMA forward, scalar dq and dk/dv."""
+        if dt == bf16:
+            return dict.fromkeys(("fwd", "dq", "dkv"), "wgmma")
+        return {"fwd": "fma", "dq": "scalar", "dkv": "scalar"}
 
     def dkv_kernels(*args, **kw):
         """The flash kernels' names in a profile of two dk/dv calls (beside
@@ -1612,7 +1680,7 @@ def phase_generate_fp32(torch, np):
 def phase_generate_small_heads(torch, np):
     """``generate`` on a 2-layer flash model of 4 heads of D 32 (bf16): the
     prefill and every decode step run the kernels at D 32, padded to 64
-    (launches counted); then the same model in fp32 (the scalar forward and
+    (launches counted); then the same model in fp32 (the FMA forward and
     flash-decode's fp32 route at D 32), one decode step's logits against
     the CPU."""
     import kubeflow_tpu_torch as kt
@@ -2266,7 +2334,7 @@ def _check_head_case(torch, fh, name, h, emb, tgt, dlse, dgold, witness=False):
     backward kernels take the plain forward's lse. Returns the worst
     absolute errors (lse and gold, dh, dE) and the ratios of error to bound.
     bf16 operands take the tensor-core route, fp32 the fp32 route (the
-    scalar forward, the FMA dh and dE; unrounded dlogits: the one-step term
+    FMA forward, dh and dE; unrounded dlogits: the one-step term
     is fp32's unit roundoff).
 
     ``witness``: a case whose logits are so large that the route's and the
@@ -2458,7 +2526,7 @@ def phase_head_kernels(torch, np):
     run("e768_cluster3", *operands(512, 3000, 768), randn_rows(512), randn_rows(512))
     run("e2048_cluster8", *operands(384, 2000, 2048), randn_rows(384), randn_rows(384))
     run("e4096_passes2", *operands(256, 1500, 4096), randn_rows(256), randn_rows(256))
-    # the fp32 route (the scalar forward, the FMA dh and dE; no TF32): the
+    # the fp32 route (the FMA forward, dh and dE; no TF32): the
     # flagship E, V with no 128-multiple divisor, E not a multiple of 8 and
     # not of 4 (padded to 100), a cluster of 6 (GPT-2's 768), passes over E
     # 2048, 4096 and past the bf16 route's 8192 (nine passes), ragged T with
@@ -2535,8 +2603,8 @@ def phase_head_kernels(torch, np):
         de_lib=device_ms(torch, lambda: torch.mm(lib_dl().t(), h, out_dtype=torch.float32),
                          cold=False, iters=5),
     )
-    # the fp32 route at the same shape (the scalar forward, the FMA dh and
-    # dE), beside its plain versions and the library on fp32 operands:
+    # the fp32 route at the same shape (the FMA forward, dh and dE), beside
+    # its plain versions and the library on fp32 operands:
     # torch.mm on materialised fp32 logits, TF32 off
     h32, emb32 = h.float(), emb.float()
 
@@ -2555,6 +2623,8 @@ def phase_head_kernels(torch, np):
                                                              dgold), cold=False, iters=2, warmup=1),
         de_f32=device_ms(torch, lambda: fh.fused_head_bwd_de(h32, emb32, tgt_flag, lse, dlse,
                                                              dgold), cold=False, iters=2, warmup=1),
+        fwd_f32_plain=device_ms(torch, lambda: fh.lse_gold_plain(h32, emb32, tgt_flag),
+                                cold=False, iters=2, warmup=1),
         dh_f32_plain=device_ms(torch, lambda: fh.head_grads_plain(h32, emb32, tgt_flag, lse, dlse,
                                                                   dgold, de=False),
                                cold=False, iters=2, warmup=1),
@@ -2590,7 +2660,7 @@ def phase_head_kernels(torch, np):
     detail["bwd_fp32_registers"] = {name: _entry_ptxas(_build.build_log(name), "head_bwd_fma")
                                     for name in ("fused_head_bwd_dh", "fused_head_bwd_de")}
     detail["fp32_route_ms"] = {k: times[k + "_f32"] for k in ("fwd", "dh", "de")}
-    detail["fp32_route_plain_ms"] = {k: times[k + "_f32_plain"] for k in ("dh", "de")}
+    detail["fp32_route_plain_ms"] = {k: times[k + "_f32_plain"] for k in ("fwd", "dh", "de")}
     detail["fp32_route_library_ms"] = {k: times[k + "_f32_lib"] for k in ("fwd", "dh", "de")}
     detail["fp32_route_bound_ms"] = {k: b for k, (b, _) in bounds_f32.items()}
     log(f"[head kernels] forward plan: {fwd_plan}")
@@ -2609,9 +2679,11 @@ def phase_head_kernels(torch, np):
         log(f"[head kernels]   {name} kernel_ms {times[key]:.4f} plain_ms "
             f"{times[key + '_plain']:.4f} library_ms {times[key + '_lib']:.4f} bound_ms "
             f"{bms:.5f} ({by}; {2 * tve * (1 if key == 'fwd' else 2) / times[key] / 1e9:.1f} "
-            f"TFLOP/s of the bound's work); fp32 route {times[key + '_f32']:.4f} ms (bound "
+            f"TFLOP/s of the bound's work); fp32 route {times[key + '_f32']:.4f} ms ("
+            f"{2 * tve * (1 if key == 'fwd' else 2) / times[key + '_f32'] / 1e9:.1f} TFLOP/s; bound "
             f"{bounds_f32[key][0]:.5f} at {FP32_FLOPS_PER_S / 1e12:.0f} TF/s, {bounds_f32[key][1]}; "
-            + (f"plain {times[key + '_f32_plain']:.4f} ms; " if key != "fwd" else "")
+            + f"plain {times[key + '_f32_plain']:.4f} ms; "
+            + (f"the first scalar kernel {SCALAR_FP32_FWD_MS[name]} ms; " if key == "fwd" else "")
             + f"library on fp32 operands, TF32 off, {times[key + '_f32_lib']:.4f} ms)")
 
     # the whole head, forward + backward, fused against the chunked head
@@ -2769,8 +2841,8 @@ def phase_moe_train_parity(torch, np, fused: bool = False):
 
 def _moe_fused_fp32_step(torch, np, kt, make_model, sd, tokens, loss_h, norm_h):
     """The fused MoE step of phase 12 with fp32 activations and fp32 head
-    operands on the card (the head's fp32 route: the scalar forward, the FMA
-    dh and dE; the flash kernels' fp32 route, TF32 off) against the CPU's
+    operands on the card (the head's fp32 route: the FMA forward, dh and
+    dE; the flash kernels' fp32 route, TF32 off) against the CPU's
     fp32 step through the same loss."""
     import functools
 

@@ -33,183 +33,23 @@
 // two consumers beside a producer cap a thread at 168. Shared memory
 // 164,904 bytes (Q 32 KiB, two stages of K and V 128 KiB).
 //
-// fp32 operands: the scalar kernel flash_fwd_scalar (the first port's
-// design): one block per (64-row query tile, head, batch row), 256 threads
-// as a 16 x 16 grid, tiles staged as fp32 in shared memory (222,208 bytes
-// at D 256), fp32 FMAs (the TPU kernel's rounding of p to the operands'
-// type before P V is the identity in fp32).
+// fp32 operands: flash_fwd_fma, the same walk with register-tiled fp32 FMA
+// products (no TF32: the route exists to match the plain version's full-fp32
+// products; bound 2 causal matmuls at the 67 TF/s fp32 peak, 0.513 ms at
+// the training shape). The grid, the heaviest-first order and the masking of
+// only the edge tiles are the bf16 route's; Q stays resident, K and V tiles
+// stream through a 2-stage TMA ring of fp32 boxes of 32 columns (128-byte
+// swizzle), thread 0 issuing the copies between its own products. Q, two
+// stages and the fp32 P tile fill the block: D 64 and 128 take 128 query
+// rows and 64-key tiles (230,440 bytes at D 128), D 256 64 rows and 32-key
+// tiles (205,864 bytes). P is not rounded (the TPU kernel's astype of p to
+// the operands' type is the identity in fp32) and l sums the same p.
 
 #include "flash_common.cuh"
 
 namespace {
 
 using flash::bf16;
-
-// ---- the scalar route (fp32 operands)
-
-namespace scalar {
-
-constexpr int THREADS = 256;    // a 16 x 16 grid over the TILE x TILE score tile
-
-// shared floats of a block at head width d and TILE-row tiles: q^T [d][LD],
-// k^T [d][LD], v [TILE][d], p^T [TILE][LD], LD = TILE + 4 (keeps the runs
-// of a thread aligned); ops/pallas_attention.py (_plan) computes the same sum
-__host__ __device__ constexpr size_t smem_floats(int d, int tile) {
-  return (size_t)2 * d * (tile + 4) + (size_t)tile * d + (size_t)tile * (tile + 4);
-}
-
-template <int D, int TILE>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_scalar(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int Sq, int Sk, int H, int KV, int causal, int window,
-                 float scale) {
-  constexpr int BQ = TILE, BK = TILE, LD = TILE + 4;
-  constexpr int R = TILE / 16;  // rows (and keys) of the score tile a thread owns
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);
-  float* kt = qt + D * LD;
-  float* vs = kt + D * LD;
-  float* pt = vs + BK * D;
-
-  constexpr int DC = D / 64;    // float4 column chunks per thread
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const size_t q_stride = (size_t)H * D;    // between consecutive positions
-  const size_t kv_stride = (size_t)KV * D;
-  const float* qb = q + ((size_t)b * Sq * H + h) * D;
-  const float* kb = k + ((size_t)b * Sk * KV + kvh) * D;
-  const float* vb = v + ((size_t)b * Sk * KV + kvh) * D;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int qp = q0 + r;
-    qt[d * LD + r] = qp < Sq ? qb[qp * q_stride + d] : 0.f;
-  }
-
-  // keys any row of this tile can see: causal skips tiles above the
-  // diagonal, the window skips tiles left of the first row's window
-  const int q_last = min(q0 + BQ - 1, Sq - 1);
-  const int k_hi = causal ? min(Sk - 1, q_last) : Sk - 1;
-  const int k_lo = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
-
-  float acc[R][DC * 4];
-  float m[R], l[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC * 4; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = (k_lo / BK) * BK; k0 <= k_hi; k0 += BK) {
-    __syncthreads();  // the q tile is in; the previous tile's reads are done
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D, d = i % D;
-      const int kp = k0 + c;
-      float kk = 0.f, vv = 0.f;
-      if (kp < Sk) {
-        kk = kb[kp * kv_stride + d];
-        vv = vb[kp * kv_stride + d];
-      }
-      kt[d * LD + c] = kk;
-      vs[c * D + d] = vv;
-    }
-    __syncthreads();
-
-    float s[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float av[R], cv[R];
-      flash::ld_run<R>(&qt[d * LD + ty * R], av);
-      flash::ld_run<R>(&kt[d * LD + tx * R], cv);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qp = q0 + ty * R + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kp = k0 + tx * R + j;
-        bool keep = kp < Sk;
-        if (causal) keep = keep && kp <= qp && (window <= 0 || kp > qp - window);
-        s[i][j] = keep ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      // a row that has seen no key yet keeps m = -inf: its p is 0, its
-      // correction 1 (acc and l are still 0)
-      const float corr = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-        rs += p;
-        pt[(tx * R + j) * LD + ty * R + i] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC * 4; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[R];
-      flash::ld_run<R>(&pt[kk * LD + ty * R], pv);
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float4 v4 = *reinterpret_cast<const float4*>(&vs[kk * D + c * 64 + tx * 4]);
-        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][c * 4 + e] = fmaf(pv[i], vv[e], acc[i][c * 4 + e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qp = q0 + ty * R + i;
-    if (qp >= Sq) continue;
-    // a row that saw no key gives 0 (and lse +inf), the TPU kernel's l_safe
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    float* orow = o + ((size_t)b * Sq * H + h) * D + qp * q_stride;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        orow[c * 64 + tx * 4 + e] = acc[i][c * 4 + e] / l_safe;
-    if (lse != nullptr && tx == 0)
-      lse[((size_t)b * H + h) * Sq + qp] =
-          l[i] == 0.f ? INFINITY : m[i] + logf(l_safe);
-  }
-}
-
-
-}  // namespace scalar
 
 // ---- the tensor-core route (bf16)
 
@@ -400,27 +240,277 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse
   return (int)cudaGetLastError();
 }
 
-template <int D, int TILE>
-int launch_scalar(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                  int Sq, int Sk, int H, int KV, int causal, int window, float scale, int smem,
-                  cudaStream_t stream) {
-  if (smem != (int)(scalar::smem_floats(D, TILE) * sizeof(float))) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      scalar::flash_fwd_scalar<D, TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + TILE - 1) / TILE, H, B);
-  scalar::flash_fwd_scalar<D, TILE><<<grid, scalar::THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), Sq, Sk, H, KV, causal, window, scale);
+// ---- the fp32 route: register-tiled fp32 FMAs fed by TMA
+
+namespace fwd32 {
+
+constexpr int THR = 256;
+
+// Shared memory of flash_fwd_fma<D, BQ, BK>, in bytes from a 1024-aligned
+// base: the Q tile (D / 32 slabs of BQ rows of 32 fp32 columns, 128-byte
+// rows), STAGES ring stages (the K tile's D / 32 slabs of BK rows, then the
+// V tile's), the fp32 P tile [BQ][BK], then the mbarriers: Q, full[STAGES],
+// empty[STAGES]. `bytes` adds the slack for aligning the dynamic base;
+// ops/pallas_attention.py (_fma_fwd_bytes) sums the same and the launcher
+// checks it.
+template <int D, int BQ, int BK>
+struct Layout {
+  static constexpr int NS = D / 32;
+  static constexpr int SLAB_Q = BQ * 128;
+  static constexpr int SLAB_K = BK * 128;
+  static constexpr int STAGE = 2 * NS * SLAB_K;
+  static constexpr int Q = 0;
+  static constexpr int KV = Q + NS * SLAB_Q;
+  static constexpr int P = KV + flash::STAGES * STAGE;
+  static constexpr int BAR = P + BQ * BK * 4;
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
+  static_assert(bytes <= 232448, "the layout must fit a block's shared memory");
+};
+
+// One block per (head, batch row, query tile of BQ rows), heaviest causal
+// tiles first; 256 threads as 16 row groups g by 16 column lanes x, the 16
+// lanes of a group one half of a warp. Thread (g, x) holds scores of rows
+// g + 16 i and keys x + 16 j (R x J), and O of the same rows and columns
+// 4 x + 64 h .. + 3 (R x 4 DH): the rows' online softmax (max by four
+// shuffles over the group, exp2 with scale * log2 e folded in) rescales its
+// own accumulators, and the P rows it multiplies by V are the ones its group
+// wrote, so P passes through a warp's own rows of the P tile behind a
+// __syncwarp and no block barrier. Only thread 0 (issuing the copies) and
+// the ring's mbarriers join the warps.
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(THR, 1)
+flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+              float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal, int window,
+              float scale) {
+  using namespace flash;
+  using L = Layout<D, BQ, BK>;
+  constexpr int NS = L::NS;
+  constexpr int R = BQ / 16;      // rows a thread
+  constexpr int J = BK / 16;      // keys a thread of each score tile
+  constexpr int DH = D / 64;      // 4-column groups of O a thread
+  static_assert(J == 4 || J == 2, "tiles of 64 or 32 keys");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const float* fs = reinterpret_cast<const float*>(smem);
+  float* ps = reinterpret_cast<float*>(smem + L::P);
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar_q = s_base + L::BAR;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // heaviest causal tiles first
+  const int q1 = min(q0 + BQ - 1, Sq - 1);
+  const int kvh = h / (H / KV);
+  const KeyTiles kt = key_tiles<BK>(q0, BQ, Sq, Sk, causal, window);
+  init_barriers(bar_q, THR / 32);                      // empty: one arrival a warp
+
+  // thread 0 issues item `must` (waiting for its stage) and the next one if
+  // its stage is already free
+  int issued = 0;
+  auto refill = [&](int must) {
+    while (issued < kt.count && issued < must + STAGES) {
+      const int j = issued, sj = j % STAGES;
+      const int parity = ((j / STAGES) & 1) ^ 1;
+      if (j > must && !mbar_try_wait(bar_empty(bar_q, sj), parity)) break;
+      mbar_wait(bar_empty(bar_q, sj), parity);
+      const int k0 = (kt.first + j) * BK;
+      const uint32_t dst = s_base + L::KV + sj * L::STAGE;
+      mbar_expect_tx(bar_full(bar_q, sj), L::STAGE);
+      for (int s = 0; s < NS; ++s) {
+        tma_load(dst + s * L::SLAB_K, &tk, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
+        tma_load(dst + (NS + s) * L::SLAB_K, &tv, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
+      }
+      ++issued;
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, NS * L::SLAB_Q);
+    for (int s = 0; s < NS; ++s)
+      tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 32 * s, h, q0, b, bar_q);
+    refill(0);
+  }
+  __syncwarp();
+
+  const int g = threadIdx.x >> 4, x = threadIdx.x & 15, lane = threadIdx.x & 31;
+  // row r of a slab (and of the P tile) holds its 16-byte chunk c at c ^ (r
+  // % 8): a thread's rows share g % 8, its keys x % 8
+  const int kg = g & 7, kx = x & 7;
+  const float sl2 = scale * LOG2E;
+  float acc[R][4 * DH];
+  float m[R], l[R];               // l: this thread's part of the row sums
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * DH; ++c) acc[i][c] = 0.f;
+  }
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < kt.count; ++it) {
+    const int st = it % STAGES;
+    const int k0 = (kt.first + it) * BK;
+    if (threadIdx.x == 0) refill(it);
+    __syncwarp();
+    mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
+    const float* Kt = fs + (L::KV + st * L::STAGE) / 4;
+    const float* Vt = Kt + NS * L::SLAB_K / 4;
+
+    // S = Q K^T: rows g + 16 i, keys x + 16 j, d in order
+    float s[R][J];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+    for (int sl = 0; sl < NS; ++sl) {
+      const float* Qs = fs + (L::Q + sl * L::SLAB_Q) / 4 + g * 32;
+      const float* Ks = Kt + sl * L::SLAB_K / 4 + x * 32;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float4 kv[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(Ks + j * 16 * 32 + 4 * (c ^ kx));
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(Qs + i * 16 * 32 + 4 * (c ^ kg));
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+          }
+        }
+      }
+    }
+    if (threadIdx.x == 0) refill(it);   // the next tile, if its stage is free by now
+    __syncwarp();
+
+    if (tile_edge<BK>(k0, q0, q1, Sk, causal, window)) {
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          if (!visible(k0 + x + 16 * j, q0 + g + 16 * i, Sk, causal, window))
+            s[i][j] = -INFINITY;
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < J; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int off = 1; off < 16; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      // a row that has seen no key yet keeps m = -inf: its p is 0 and its
+      // correction 0 (acc and l are still 0)
+      const float m_use = mx == -INFINITY ? 0.f : mx;
+      const float corr = exp2f((m[i] - m_use) * sl2);
+      const float off = m_use * sl2;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        s[i][j] = exp2f(fmaf(s[i][j], sl2, -off));
+        rs += s[i][j];
+      }
+      l[i] = l[i] * corr + rs;
+      m[i] = mx;
+#pragma unroll
+      for (int c = 0; c < 4 * DH; ++c) acc[i][c] *= corr;
+      // P row g + 16 i, positions J x .. J x + J - 1: key x + 16 j at J x + j
+      float* pr = ps + (g + 16 * i) * BK;
+      if constexpr (J == 4)
+        *reinterpret_cast<float4*>(pr + 4 * (x ^ kg)) = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      else
+        *reinterpret_cast<float2*>(pr + 4 * ((x >> 1) ^ kg) + 2 * (x & 1)) = make_float2(s[i][0], s[i][1]);
+    }
+    __syncwarp();
+
+    // O += P V: position 4 q + e of a P row is key q + 16 e (J 4), or
+    // 2 q + e / 2 + 16 (e % 2) (J 2); a V row's columns 4 x + 64 h .. + 3
+    // are chunk x % 8 of slab x / 8 + 2 h
+#pragma unroll 2
+    for (int q = 0; q < BK / 4; ++q) {
+      float4 pv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(ps + (g + 16 * i) * BK + 4 * (q ^ kg));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = J == 4 ? q + 16 * e : 2 * q + (e >> 1) + 16 * (e & 1);
+        float4 vv[DH];
+#pragma unroll
+        for (int hh = 0; hh < DH; ++hh)
+          vv[hh] = *reinterpret_cast<const float4*>(
+              Vt + ((x >> 3) + 2 * hh) * (L::SLAB_K / 4) + key * 32 + 4 * (kx ^ (key & 7)));
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float p = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int hh = 0; hh < DH; ++hh) {
+            acc[i][4 * hh] = fmaf(p, vv[hh].x, acc[i][4 * hh]);
+            acc[i][4 * hh + 1] = fmaf(p, vv[hh].y, acc[i][4 * hh + 1]);
+            acc[i][4 * hh + 2] = fmaf(p, vv[hh].z, acc[i][4 * hh + 2]);
+            acc[i][4 * hh + 3] = fmaf(p, vv[hh].w, acc[i][4 * hh + 3]);
+          }
+        }
+      }
+    }
+    __syncwarp();                  // this warp's P reads and stage reads are done
+    if (lane == 0) mbar_arrive(bar_empty(bar_q, st));
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off *= 2) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + g + 16 * i;
+    if (row >= Sq) continue;
+    // a row that saw no key gives 0 (and lse +inf), the TPU kernel's l_safe
+    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    float* orow = o + (((size_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int hh = 0; hh < DH; ++hh)
+      *reinterpret_cast<float4*>(orow + 4 * x + 64 * hh) =
+          make_float4(acc[i][4 * hh] * inv, acc[i][4 * hh + 1] * inv, acc[i][4 * hh + 2] * inv,
+                      acc[i][4 * hh + 3] * inv);
+    if (x == 0)
+      lse[((size_t)b * H + h) * Sq + row] = l[i] == 0.f ? INFINITY : m[i] * scale + logf(l[i]);
+  }
+}
+
+}  // namespace fwd32
+
+template <int D, int BQ, int BK>
+int launch_fma(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Sq,
+               int Sk, int H, int KV, int causal, int window, float scale, int smem,
+               cudaStream_t stream) {
+  using L = fwd32::Layout<D, BQ, BK>;
+  if (smem != L::bytes) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int err = flash::make_map(&tq, q, D, H, Sq, B, BQ, true);
+  if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, BK, true);
+  if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, BK, true);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(fwd32::flash_fwd_fma<D, BQ, BK>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+  fwd32::flash_fwd_fma<D, BQ, BK><<<grid, fwd32::THR, smem, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), static_cast<float*>(lse), Sq, Sk, H, KV, causal, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // f32: 0 for bf16 operands, 1 for fp32. bf16 takes the tensor-core kernel:
-// block_q 64 or 128 at D 64 and 128, 64 at D 256; fp32 the scalar kernel
-// (block_q 64). smem: the plan's shared-memory bytes, checked against the
-// kernel's own layout.
+// block_q 64 or 128 at D 64 and 128, 64 at D 256; fp32 the FMA kernel:
+// block_q 128 at D 64 and 128 (64-key tiles), 64 at D 256 (32-key tiles).
+// smem: the plan's shared-memory bytes, checked against the kernel's own
+// layout.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int Sq, int Sk, int H, int KV, int D, int causal, int window, float scale,
@@ -430,9 +520,9 @@ extern "C" int flash_attention_fwd_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, smem, s
   if (f32) {
-    if (D == 256 && block_q == 64) return launch_scalar<256, 64>(ARGS);
-    if (D == 128 && block_q == 64) return launch_scalar<128, 64>(ARGS);
-    if (D == 64 && block_q == 64) return launch_scalar<64, 64>(ARGS);
+    if (D == 256 && block_q == 64) return launch_fma<256, 64, 32>(ARGS);
+    if (D == 128 && block_q == 128) return launch_fma<128, 128, 64>(ARGS);
+    if (D == 64 && block_q == 128) return launch_fma<64, 128, 64>(ARGS);
   } else {
     if (D == 256 && block_q == 64) return launch_wgmma<256, 1>(ARGS);
     if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);

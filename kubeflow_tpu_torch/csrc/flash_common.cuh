@@ -9,9 +9,10 @@
 // (Hopper's warpgroup MMA, bf16 operands, fp32 accumulators). The forward
 // and dq stream K/V tiles past a resident query tile; dk/dv streams Q/dO/O
 // tiles past resident K/V (at head width 256 in tiles of 48 query rows, its
-// two consumer warpgroups owning dV and dK). fp32 operands take the scalar
-// kernels, which stage tiles as fp32 in shared memory and multiply with
-// fp32 FMAs.
+// two consumer warpgroups owning dV and dK). fp32 operands take the fp32
+// forward (register-tiled fp32 FMAs fed by the same kind of TMA ring, key
+// tiles of BK or 32 keys) and the scalar dq and dk/dv, which stage tiles as
+// fp32 in shared memory and multiply with fp32 FMAs.
 //
 // The generic Hopper pieces (mbarriers, TMA, descriptors, wgmma wrappers,
 // the tensor-map encoder) live in hopper_common.cuh; here are the
@@ -27,8 +28,8 @@ namespace flash {
 
 using namespace hopper;
 
-// ---- the scalar route: 256 threads as a 16 x 16 grid over a TILE x TILE
-// score tile, each thread R = TILE / 16 rows and R columns of it
+// ---- the scalar route (dq, dk/dv): 256 threads as a 16 x 16 grid over a
+// TILE x TILE score tile, each thread R = TILE / 16 rows and R columns of it
 
 // R (4 or 2) consecutive fp32 values of shared memory (4R-byte aligned)
 template <int R>
@@ -76,18 +77,20 @@ __device__ __forceinline__ void wgmma_rs_tile(float (&acc)[D / 2], const uint32_
 // ---- what the tensor-core kernels share: the tile ranges, the masks, the
 // barriers and the forward's and dq's producer
 
-// The key tiles query rows q0 .. q0 + rows - 1 can see: causal skips tiles
-// above the diagonal, the window those left of the first row's window.
-// count is 0 when no row sees a key.
+// The key tiles (of TK keys: BK, or 32 for the fp32 forward at width 256)
+// query rows q0 .. q0 + rows - 1 can see: causal skips tiles above the
+// diagonal, the window those left of the first row's window. count is 0 when
+// no row sees a key.
 struct KeyTiles {
   int first, count;
 };
 
+template <int TK = BK>
 __device__ __forceinline__ KeyTiles key_tiles(int q0, int rows, int Sq, int Sk, int causal,
                                               int window) {
   const int k_hi = causal ? min(Sk - 1, min(q0 + rows - 1, Sq - 1)) : Sk - 1;
   const int k_lo = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
-  return {k_lo / BK, k_hi >= k_lo ? k_hi / BK - k_lo / BK + 1 : 0};
+  return {k_lo / TK, k_hi >= k_lo ? k_hi / TK - k_lo / TK + 1 : 0};
 }
 
 // Query row `row` sees key kp.
@@ -101,11 +104,12 @@ __device__ __forceinline__ bool tile_hidden(int k0, int r0, int r1, int Sq, int 
   return r0 >= Sq || (causal && (k0 > r1 || (window > 0 && k0 + BK - 1 <= r0 - window)));
 }
 
-// Some row r0 .. r1 misses some key of the tile at k0 (the diagonal, the
-// window's edge or Sk crosses it): only such tiles are masked.
+// Some row r0 .. r1 misses some key of the TK-key tile at k0 (the diagonal,
+// the window's edge or Sk crosses it): only such tiles are masked.
+template <int TK = BK>
 __device__ __forceinline__ bool tile_edge(int k0, int r0, int r1, int Sk, int causal,
                                           int window) {
-  return k0 + BK > Sk || (causal && (k0 + BK - 1 > r0 || (window > 0 && k0 <= r1 - window)));
+  return k0 + TK > Sk || (causal && (k0 + TK - 1 > r0 || (window > 0 && k0 <= r1 - window)));
 }
 
 // The query tiles (ROWS rows: QROWS, or 48 for dk/dv at width 256) that can

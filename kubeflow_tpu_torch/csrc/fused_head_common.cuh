@@ -1,9 +1,9 @@
 // Shared pieces of the three fused tied-head kernels (fused_head_fwd.cu,
 // fused_head_bwd_dh.cu, fused_head_bwd_de.cu).
 //
-// The forward's bf16 route (wgmma fed by TMA, the softmax fold in registers)
-// lives in fused_head_fwd.cu; its fp32 route (fused_head_scalar.cuh) folds
-// fp32 logits tiles with fold_tile below.
+// The forward (fused_head_fwd.cu): wgmma fed by TMA on bf16 operands,
+// register-tiled fp32 FMAs fed by TMA on fp32 ones, the softmax fold in
+// registers on both routes.
 //
 // The backward (dh and dE, one kernel template mirrored): wgmma fed by TMA,
 // with E split across the blocks of a thread-block cluster so that the
@@ -19,44 +19,6 @@
 namespace fused_head {
 
 using namespace hopper;
-
-constexpr int BV = 64;          // vocabulary rows per tile of the fp32 forward
-constexpr int LDL = BV + 4;     // fp32 leading dim of its logits tile
-constexpr int THREADS = 256;    // 8 warps
-
-// The fp32 forward's fold of one [64, 64] logits tile (ls, after a barrier) into
-// row r's running max m, sum s and gold logit, kept by the four threads q
-// of the row: m starts at -inf, s rescales by exp(m_old - m_new).
-__device__ __forceinline__ void fold_tile(const float* ls, int r, int q, int v0, int V,
-                                          int target, float& m, float& s, float& gsum) {
-  const float* row = ls + r * LDL;
-  float mx = -INFINITY, gl = 0.f;
-#pragma unroll
-  for (int i = 0; i < BV / 4; ++i) {
-    const int c = i * 4 + q, col = v0 + c;
-    if (col < V) {
-      mx = fmaxf(mx, row[c]);
-      if (col == target) gl += row[c];
-    }
-  }
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-  // column v0 < V is in every tile, so m_new is finite
-  const float m_new = fmaxf(m, mx);
-  float se = 0.f;
-#pragma unroll
-  for (int i = 0; i < BV / 4; ++i) {
-    const int c = i * 4 + q;
-    if (v0 + c < V) se += expf(row[c] - m_new);
-  }
-  se += __shfl_xor_sync(0xffffffffu, se, 1);
-  se += __shfl_xor_sync(0xffffffffu, se, 2);
-  gl += __shfl_xor_sync(0xffffffffu, gl, 1);
-  gl += __shfl_xor_sync(0xffffffffu, gl, 2);
-  s = s * expf(m - m_new) + se;
-  m = m_new;
-  gsum += gl;
-}
 
 // dlogits of one logit in fp32: dlse * exp(logit - lse) + dgold * [col ==
 // tgt]. No fused multiply-add: the product and the sum round apart, as in

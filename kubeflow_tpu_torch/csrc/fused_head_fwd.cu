@@ -2,14 +2,15 @@
 // logit of logits = h @ emb^T, without materialising the [T, V] logits.
 //
 // Replaces the Pallas kernel _fwd_kernel (kubeflow_tpu/ops/fused_head_loss.py:76).
-// Layout: h [T, E] bf16, emb [V, E] bf16 (E a multiple of 8: the wrapper
-// zero-pads other E, a zero column adds 0 to every logit), tgt [T] int32,
-// lse and gold [T] fp32, all contiguous. gold is the logit at column tgt, 0
-// for a target outside [0, V).
+// Layout: h [T, E] and emb [V, E], both bf16 or both fp32 (E a multiple of 8
+// for bf16, of 4 for fp32: the wrapper zero-pads other E, a zero column adds
+// 0 to every logit), tgt [T] int32, lse and gold [T] fp32, all contiguous.
+// gold is the logit at column tgt, 0 for a target outside [0, V).
 //
 // Bound: operations (2 T V E FLOP; at T 8192, V 32000, E 1024 that is 537
-// GFLOP against 82 MB of operands). So the kernel is a bf16 GEMM S = H E^T
-// (M = T, N = V, K = E) whose epilogue is the online softmax fold:
+// GFLOP against 82 MB of bf16 operands). So each route is a GEMM S = H E^T
+// (M = T, N = V, K = E) whose epilogue is the online softmax fold. The bf16
+// route, head_fwd_wgmma:
 //
 // - A block owns 128 token rows and walks a range of 128-column vocabulary
 //   tiles. For each tile, E streams in 128-column chunks (two 64-column
@@ -43,13 +44,44 @@
 //   on every launch. Blocks are numbered range-major, so the blocks running
 //   together read the same part of the table.
 //
-// ops/fused_head_loss.py (_fwd_plan) picks the ranges; the launcher checks
-// the plan's stages and shared-memory bytes against its own.
+// The fp32 route, head_fwd_fma, multiplies in fp32 FMAs: no TF32 (3xTF32
+// included), since the route exists to match the plain version's full-fp32
+// products, whose peak is 67 TF/s (8.0 ms at the shape above). It is an
+// SGEMM with the same epilogue, and needs no cluster: unlike dh and dE
+// (fused_head_fma.cuh) it has no second product that wants a resident E
+// slice, so E streams as the K loop.
 //
-// fp32 h and emb take the scalar kernel head_fwd_scalar (fused_head_scalar.cuh):
-// the same fold over logits tiles of fp32 FMAs, one block per 64 tokens.
+// - The same blocks, ranges and combine: 128 token rows walking a range of
+//   128-column vocabulary tiles, a (token tile, range) block a workspace
+//   slot, the last block of a token tile combining them.
+// - For each tile, E streams in 64-column chunks of h and emb (two fp32
+//   boxes of 32 columns, 128-byte rows and swizzle, each; rows past T or V
+//   and columns past E arrive as zeros) through a 3-stage TMA ring. Each
+//   stage boundary costs the block time (a wait, a release, the loads that
+//   no earlier products hide): one slab a stage over 4 stages measured
+//   14.60 ms at the shape above, two over 3 stages 13.38 on an H100; a
+//   deeper ring, or a refill probing with mbarrier.test_wait, which never
+//   suspends the thread, changed nothing.
+//   Thread 0 issues the copies between its own products, each stage once
+//   every warp has released it: with no producer warp a thread may hold 255
+//   registers.
+// - 256 threads each hold an 8 x 8 logits tile: rows g + 16 i, columns
+//   x + 16 j (g = thread / 16, x = thread % 16). A thread's rows share r % 8,
+//   and so do its columns, so the swizzle is one XOR an operand; it reads
+//   float4 along E, a warp's h loads broadcast (two rows) and its emb loads
+//   hit 8 distinct 16-byte bank groups. 16 FMAs a 16-byte load.
+// - The fold stays in the thread: each keeps its own running (m, s) for its
+//   8 rows over its own columns across every tile of its range, and picks
+//   gold out of its accumulators when it holds the target column. The 16
+//   threads of a row combine once, at the end of the range, by shuffles in
+//   a fixed order. A tile costs 72 exponentials a thread beside 64 E FMAs.
+//
+// ops/fused_head_loss.py (_fwd_plan) picks the ranges; each launcher checks
+// the plan's stages and shared-memory bytes against its own.
 
-#include "fused_head_scalar.cuh"
+#include <climits>
+
+#include "fused_head_common.cuh"
 
 using namespace fused_head;
 
@@ -72,6 +104,37 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int fwd_smem_bytes(int stages) { return 1024 + stages * (H_STAGE + E_STAGE) + 16 * stages; }
 constexpr int ST = 3;
 static_assert(fwd_smem_bytes(ST) <= 232448 && fwd_smem_bytes(ST + 1) > 232448, "ring depth");
+
+// The last of token tile tt's S blocks to finish (an atomic ticket, reset by
+// that block) combines the partial (m, s, gold) of its FBM rows that each
+// block left in ws ([tt * S + r][3][FBM]), in range order, a range with m =
+// -inf adding nothing: the same bits whichever block is last. Every thread
+// of the block calls it once its own partials are stored.
+__device__ __forceinline__ void combine_ranges(const float* ws, int* tickets, float* lse,
+                                               float* gold, int tt, int S, int T) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + tt, 1) == S - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int row = threadIdx.x, t = tt * FBM + row;
+  if (row < FBM && t < T) {
+    const float* p = ws + (size_t)tt * S * 3 * FBM;
+    float mm = -INFINITY;
+    for (int q = 0; q < S; ++q) mm = fmaxf(mm, __ldcg(p + q * 3 * FBM + row));
+    float ss = 0.f, gg = 0.f;
+    for (int q = 0; q < S; ++q) {
+      const float mq = __ldcg(p + q * 3 * FBM + row);
+      if (mq != -INFINITY) ss += __ldcg(p + q * 3 * FBM + FBM + row) * exp2f((mq - mm) * LOG2E);
+      gg += __ldcg(p + q * 3 * FBM + 2 * FBM + row);
+    }
+    lse[t] = mm + logf(ss);
+    gold[t] = gg;
+  }
+  if (threadIdx.x == 0) tickets[tt] = 0;
+}
 
 // The ring of one block: the producer warp fills it, every consumer warp
 // releases its stages.
@@ -241,7 +304,6 @@ head_fwd_wgmma(const __grid_constant__ CUtensorMap th, const __grid_constant__ C
                float* __restrict__ ws, int* __restrict__ tickets, int T, int V, int E,
                int S) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ int last;
   __shared__ float gold_s[FBM];
   const int ntt = (T + FBM - 1) / FBM;
   const int tt = blockIdx.x % ntt, r = blockIdx.x / ntt;
@@ -335,32 +397,7 @@ head_fwd_wgmma(const __grid_constant__ CUtensorMap th, const __grid_constant__ C
         }
       }
     }
-    if (S > 1) {
-      // the last of the token tile's S blocks combines the partials
-      __threadfence();
-      __syncthreads();
-      if (threadIdx.x == 0) last = atomicAdd(tickets + tt, 1) == S - 1;
-      __syncthreads();
-      if (last) {
-        __threadfence();
-        const int row = threadIdx.x, t = t0 + row;
-        if (row < FBM && t < T) {
-          const float* p = ws + (size_t)tt * S * 3 * FBM;
-          float mm = -INFINITY;
-          for (int q = 0; q < S; ++q) mm = fmaxf(mm, __ldcg(p + q * 3 * FBM + row));
-          float ss = 0.f, gg = 0.f;
-          for (int q = 0; q < S; ++q) {
-            const float mq = __ldcg(p + q * 3 * FBM + row);
-            if (mq != -INFINITY)
-              ss += __ldcg(p + q * 3 * FBM + FBM + row) * exp2f((mq - mm) * LOG2E);
-            gg += __ldcg(p + q * 3 * FBM + 2 * FBM + row);
-          }
-          lse[t] = mm + logf(ss);
-          gold[t] = gg;
-        }
-        if (threadIdx.x == 0) tickets[tt] = 0;
-      }
-    }
+    if (S > 1) combine_ranges(ws, tickets, lse, gold, tt, S, T);
   }
 }
 
@@ -385,25 +422,231 @@ int launch_fwd_wgmma(const void* h, const void* emb, const void* tgt, void* lse,
   return (int)cudaGetLastError();
 }
 
+// ---- the fp32 route: register-tiled fp32 FMAs fed by TMA
+
+namespace fwd32 {
+
+constexpr int SLABS = 2;                 // 32-column fp32 slabs (128-byte rows) of a chunk
+constexpr int CHUNK = 32 * SLABS;        // E columns a ring stage
+constexpr int SLAB = FBM * 32 * 4;       // bytes of a slab of h (or emb) rows
+constexpr int STAGE = 2 * SLABS * SLAB;  // bytes of a stage: the h chunk, then the emb chunk
+constexpr int STAGES = 3;
+constexpr int THR = 256;
+constexpr int RI = FBM / 16;             // logits rows a thread
+constexpr int CJ = FBN / 16;             // logits columns a thread
+
+// Shared memory of head_fwd_fma in bytes: 1024 of alignment slack, the ring
+// (each stage an h chunk then an emb chunk), then the full and empty
+// mbarriers of every stage. ops/fused_head_loss.py (_fwd_smem) sums the
+// same bytes.
+constexpr int smem_bytes() { return 1024 + STAGES * STAGE + 16 * STAGES; }
+static_assert(FBM == FBN && smem_bytes() <= 232448, "the ring must fit a block");
+
+__global__ void __launch_bounds__(THR, 1)
+head_fwd_fma(const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap te,
+             const int* __restrict__ tgt, float* __restrict__ lse, float* __restrict__ gold,
+             float* __restrict__ ws, int* __restrict__ tickets, int T, int V, int E, int S) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const float* fs = reinterpret_cast<const float*>(smem);
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar0 = s_base + STAGES * STAGE;
+  auto full = [&](int st) { return bar0 + 8 * st; };
+  auto empty = [&](int st) { return bar0 + 8 * (STAGES + st); };
+
+  const int ntt = (T + FBM - 1) / FBM;
+  const int tt = blockIdx.x % ntt, r = blockIdx.x / ntt;
+  const int nv = (V + FBN - 1) / FBN;
+  const int t0 = tt * FBM;
+  const int vt0 = (int)((long long)nv * r / S), vt1 = (int)((long long)nv * (r + 1) / S);
+  const int nk = (E + CHUNK - 1) / CHUNK;
+  const int n = (vt1 - vt0) * nk;                   // ring items: (tile, chunk)
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), THR / 32);                 // each warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // thread 0 issues item `must` (waiting for its stage) and every later
+  // item whose stage is already free, up to STAGES ahead
+  int issued = 0;
+  auto refill = [&](int must) {
+    while (issued < n && issued < must + STAGES) {
+      const int j = issued, sj = j % STAGES;
+      const int parity = ((j / STAGES) & 1) ^ 1;
+      if (j > must && !mbar_try_wait(empty(sj), parity)) break;
+      mbar_wait(empty(sj), parity);
+      const int v0 = (vt0 + j / nk) * FBN, k0 = (j % nk) * CHUNK;
+      const uint32_t dst = s_base + sj * STAGE;
+      mbar_expect_tx(full(sj), STAGE);
+      for (int sl = 0; sl < SLABS; ++sl) {
+        tma_load(dst + sl * SLAB, &th, k0 + 32 * sl, 0, t0, 0, full(sj));
+        tma_load(dst + (SLABS + sl) * SLAB, &te, k0 + 32 * sl, 0, v0, 0, full(sj));
+      }
+      ++issued;
+    }
+  };
+
+  // rows g + 16 i, columns x + 16 j of each tile; the 16 threads of a row
+  // are one half of a warp
+  const int g = threadIdx.x >> 4, x = threadIdx.x & 15, lane = threadIdx.x & 31;
+  float m[RI], s[RI], gl[RI];
+  int yx[RI];                                       // target - x, or never a column
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int t = t0 + g + 16 * i;
+    const int y = t < T ? __ldg(tgt + t) : -1;
+    yx[i] = y >= 0 && y < V ? y - x : INT_MIN / 2;
+    m[i] = -INFINITY;
+    s[i] = gl[i] = 0.f;
+  }
+  float acc[RI][CJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
+
+  // row r of a slab holds its 16-byte chunk c at c ^ (r % 8): a thread's rows
+  // share g % 8 and its columns x % 8
+  const float* hb = fs + g * 32;
+  const float* eb = fs + SLABS * SLAB / 4 + x * 32;
+  const int kh = g & 7, ke = x & 7;
+  int it = 0;
+  for (int tile = vt0; tile < vt1; ++tile) {
+    for (int k = 0; k < nk; ++k, ++it) {
+      const int st = it % STAGES;
+      if (threadIdx.x == 0) refill(it);
+      __syncwarp();
+      mbar_wait(full(st), (it / STAGES) & 1);
+      for (int sl = 0; sl < SLABS; ++sl) {          // E in order: slab, 16-byte chunk, element
+        const float* hs = hb + (st * STAGE + sl * SLAB) / 4;
+        const float* es = eb + (st * STAGE + sl * SLAB) / 4;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float4 ev[CJ];
+#pragma unroll
+          for (int j = 0; j < CJ; ++j)
+            ev[j] = *reinterpret_cast<const float4*>(es + j * 16 * 32 + 4 * (c ^ ke));
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+            const float4 hv = *reinterpret_cast<const float4*>(hs + i * 16 * 32 + 4 * (c ^ kh));
+#pragma unroll
+            for (int j = 0; j < CJ; ++j) {
+              acc[i][j] = fmaf(hv.x, ev[j].x, acc[i][j]);
+              acc[i][j] = fmaf(hv.y, ev[j].y, acc[i][j]);
+              acc[i][j] = fmaf(hv.z, ev[j].z, acc[i][j]);
+              acc[i][j] = fmaf(hv.w, ev[j].w, acc[i][j]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+    // the fold of the finished tile into this thread's (m, s, gold); columns
+    // past V count as -inf (only the tile that holds V's end has them)
+    const int v0 = tile * FBN;
+    const bool edge = v0 + FBN > V;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        if (edge && v0 + x + 16 * j >= V) acc[i][j] = -INFINITY;
+        mx = fmaxf(mx, acc[i][j]);
+      }
+      const float mn = fmaxf(m[i], mx);
+      if (mn != -INFINITY) {                        // some column of this thread's is < V
+        const float ms = mn * LOG2E;
+        float se = 0.f;
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) se += exp2f(fmaf(acc[i][j], LOG2E, -ms));
+        s[i] = s[i] * exp2f((m[i] - mn) * LOG2E) + se;
+        m[i] = mn;
+      }
+      const int rel = yx[i] - v0;                   // the target is column x + rel of the tile
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        if (rel == 16 * j) gl[i] = acc[i][j];
+        acc[i][j] = 0.f;
+      }
+    }
+  }
+  // the row's 16 threads combine in a fixed order (a butterfly: every one
+  // ends with the same sums, each a commutative pair)
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+#pragma unroll
+    for (int o = 1; o < 16; o *= 2) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], o);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s[i], o);
+      gl[i] += __shfl_xor_sync(0xffffffffu, gl[i], o);
+      const float mn = fmaxf(m[i], m2);
+      s[i] = mn == -INFINITY ? 0.f
+                             : s[i] * exp2f((m[i] - mn) * LOG2E) + s2 * exp2f((m2 - mn) * LOG2E);
+      m[i] = mn;
+    }
+  }
+  if (x == 0) {
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int row = g + 16 * i, t = t0 + row;
+      if (S == 1) {
+        if (t < T) {
+          lse[t] = m[i] + logf(s[i]);
+          gold[t] = gl[i];
+        }
+      } else {
+        float* p = ws + (size_t)(tt * S + r) * 3 * FBM;
+        p[row] = m[i];
+        p[FBM + row] = s[i];
+        p[2 * FBM + row] = gl[i];
+      }
+    }
+  }
+  if (S > 1) combine_ranges(ws, tickets, lse, gold, tt, S, T);
+}
+
+}  // namespace fwd32
+
+int launch_fwd_fma(const void* h, const void* emb, const void* tgt, void* lse, void* gold,
+                   void* ws, void* tickets, int T, int V, int E, int ranges, int stages, int smem,
+                   cudaStream_t stream) {
+  const int nv = (V + FBN - 1) / FBN, ntt = (T + FBM - 1) / FBM;
+  if (E % 4 != 0 || ranges < 1 || ranges > nv || (ranges > 1 && (!ws || !tickets)) ||
+      stages != fwd32::STAGES || smem != fwd32::smem_bytes())
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(fwd32::head_fwd_fma,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap th, te;
+  int err = make_map(&th, h, E, 1, T, 1, FBM, true);
+  if (!err) err = make_map(&te, emb, E, 1, V, 1, FBN, true);
+  if (err) return err;
+  fwd32::head_fwd_fma<<<ntt * ranges, fwd32::THR, smem, stream>>>(
+      th, te, static_cast<const int*>(tgt), static_cast<float*>(lse), static_cast<float*>(gold),
+      static_cast<float*>(ws), static_cast<int*>(tickets), T, V, E, ranges);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// f32: 0 for bf16 h and emb (the tensor-core kernel), 1 for fp32 (scalar).
-// The tensor-core kernel takes the plan's ranges, ring stages and
-// shared-memory bytes (checked against fwd_smem_bytes); ws holds
-// ceil(T / 128) * ranges * 3 * 128 floats and tickets ceil(T / 128) zeroed
-// int32 where ranges > 1 (the kernel leaves every ticket at 0).
+// f32: 0 for bf16 h and emb (head_fwd_wgmma), 1 for fp32 (head_fwd_fma).
+// Each kernel takes the plan's ranges, ring stages and shared-memory bytes
+// (checked against its own); ws holds ceil(T / 128) * ranges * 3 * 128
+// floats and tickets ceil(T / 128) zeroed int32 where ranges > 1 (the kernel
+// leaves every ticket at 0).
 extern "C" int fused_head_fwd_launch(const void* h, const void* emb, const void* tgt,
                                      void* lse, void* gold, void* ws, void* tickets, int T,
                                      int V, int E, int f32, int ranges, int stages, int smem,
                                      void* stream) {
   if (T < 1 || V < 1 || E < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) {
-    scalar::head_fwd_scalar<<<(unsigned)((T + 63) / 64), THREADS, 0, s>>>(
-        static_cast<const float*>(h), static_cast<const float*>(emb),
-        static_cast<const int*>(tgt), static_cast<float*>(lse), static_cast<float*>(gold),
-        T, V, E);
-    return (int)cudaGetLastError();
-  }
+  if (f32)
+    return launch_fwd_fma(h, emb, tgt, lse, gold, ws, tickets, T, V, E, ranges, stages, smem, s);
   return launch_fwd_wgmma(h, emb, tgt, lse, gold, ws, tickets, T, V, E, ranges, stages, smem, s);
 }

@@ -48,8 +48,13 @@ FLOP forward, 4 T V E each backward kernel). Routes, by h's dtype
   TMA ring, E (padded to a multiple of 4) split across a cluster of
   ⌈E/128⌉ ≤ 8 blocks whose partial logits are summed through distributed
   shared memory, so the logits are computed once up to E 1024; above it
-  ⌈E/1024⌉ passes recompute them, with no limit on E. The forward is a
-  scalar kernel (``csrc/fused_head_scalar.cuh``).
+  ⌈E/1024⌉ passes recompute them, with no limit on E. The forward is the
+  bf16 forward's GEMM with register-tiled FMA products (``head_fwd_fma`` in
+  ``csrc/fused_head_fwd.cu``): the same blocks, ranges and fold, E (padded
+  to a multiple of 4) streamed through a TMA ring of 64-column chunks,
+  256 threads each holding an 8 x 8 logits tile and folding it into its
+  own running (max, sum) and gold, the 16 threads of a row combined once
+  at the end of their range.
 
 Contract, the same as the JAX module's where its kernels run:
 
@@ -197,25 +202,30 @@ def _fma_plan(T: int, V: int, E: int) -> HeadPlan:
                     e_pad, (cluster * -(-T // rows),), (cluster * -(-V // rows),), 256, smem)
 
 
-_FWD_ROWS = 128         # token rows a forward block (two consumer warpgroups)
+_FWD_ROWS = 128         # token rows a forward block
 _FWD_COLS = 128         # vocabulary columns a forward tile
-_FWD_CHUNK = 128        # E columns a forward ring stage (SLABS 64-column slabs)
-_FWD_STAGES = 3         # ring stages of the forward (ST in csrc/fused_head_fwd.cu)
+# (route, E columns a ring stage, bytes an element, ring stages, threads) of
+# each forward route (csrc/fused_head_fwd.cu): bf16, two 64-column slabs a
+# stage, ST stages, two consumer warpgroups and a producer warp; fp32, two
+# 32-column slabs a stage, fwd32::STAGES stages, 256 threads
+_FWD_ROUTES = {torch.bfloat16: ("wgmma", 128, 2, 3, 288), torch.float32: ("fma", 64, 4, 3, 256)}
 _FWD_MAX_RANGES = 32    # vocabulary ranges a token tile is cut into at most
 
 
 @dataclasses.dataclass(frozen=True)
 class FwdPlan:
     """How the forward kernel launches. ``route`` "wgmma" is the bf16
-    tensor-core kernel, "scalar" the fp32-FMA kernel. A block owns ``rows``
-    tokens and walks a range of ``cols``-column vocabulary tiles; E (padded to
-    ``e_pad``, a multiple of 8) streams through ``stages`` ring stages of
-    ``chunk`` columns. The ``vocab_tiles`` tiles are cut into ``ranges``
-    ranges of whole tiles (range r: tiles ``nv r // S`` to ``nv (r + 1) //
-    S``). ``grid`` is the launch's blocks, range-major, of ``threads``
-    (two consumer warpgroups and a producer warp); ``smem_bytes`` each
-    block's dynamic shared memory: ``align`` slack, the ring's h and emb
-    chunks, ``barrier_bytes`` of mbarriers."""
+    tensor-core kernel, "fma" the fp32 kernel of register-tiled FMAs. A
+    block owns ``rows`` tokens and walks a range of ``cols``-column
+    vocabulary tiles; E (padded to ``e_pad``, a multiple of 8 for bf16, of 4
+    for fp32) streams through ``stages`` ring stages of ``chunk`` columns.
+    The ``vocab_tiles`` tiles are cut into ``ranges`` ranges of whole tiles
+    (range r: tiles ``nv r // S`` to ``nv (r + 1) // S``). ``grid`` is the
+    launch's blocks, range-major, of ``threads`` (bf16: two consumer
+    warpgroups and a producer warp; fp32: 256); ``smem_bytes`` each block's
+    dynamic shared memory: ``align`` slack, the ring's h and emb chunks
+    (``h_stage_bytes`` and ``emb_stage_bytes`` a stage), ``barrier_bytes``
+    of mbarriers."""
 
     route: str
     rows: int
@@ -239,40 +249,41 @@ class FwdPlan:
         return self.vocab_tiles * r // self.ranges, self.vocab_tiles * (r + 1) // self.ranges
 
 
-def _fwd_smem(stages: int) -> int:
-    """``fwd_smem_bytes`` of ``csrc/fused_head_fwd.cu``."""
-    return 1024 + stages * 2 * _FWD_CHUNK * (_FWD_ROWS + _FWD_COLS) + 16 * stages
+def _fwd_smem(stages: int, chunk: int, elem: int) -> int:
+    """``fwd_smem_bytes`` (bf16) and ``fwd32::smem_bytes`` (fp32) of
+    ``csrc/fused_head_fwd.cu``: alignment slack, a stage's h and emb chunks
+    of ``chunk`` columns of ``elem``-byte elements, a full and an empty
+    mbarrier a stage."""
+    return 1024 + stages * chunk * elem * (_FWD_ROWS + _FWD_COLS) + 16 * stages
 
 
 def _fwd_plan(T: int, V: int, E: int, dtype, sms: int = 132) -> FwdPlan:
     """The launch of the forward kernel for these shapes on a card of ``sms``
     SMs.
 
-    bf16: 128-token blocks, 128-column vocabulary tiles, three ring stages
-    of 128 E columns (as many as fit). The vocabulary is cut into S
-    ranges, S the one that minimises waves(S) * (tiles a range + 1) (a wave
-    is ``sms`` blocks, one an SM; the + 1 a block's start and its partials),
-    the fewest on a tie, at most 32 and at most the tiles: at the MoE
-    flagship (64 token tiles, 250 vocabulary tiles) 2 ranges, 128 blocks in
-    one wave. fp32: the scalar kernel, one block per 64 tokens, the whole
-    vocabulary, no dynamic shared memory."""
-    if dtype == torch.float32:
-        return FwdPlan("scalar", 64, 64, 64, 1, E, -(-T // 64), -(-V // 64), 1,
-                       (-(-T // 64),), 256, 0, 0, 0, 0, 0)
-    if dtype != torch.bfloat16:
+    Both routes: 128-token blocks, 128-column vocabulary tiles. bf16: three
+    ring stages of 128 E columns (as many as fit), E padded to a multiple
+    of 8; fp32: three stages of 64 columns, E padded to a multiple of 4. The
+    vocabulary is cut into S ranges, S the one that minimises waves(S) *
+    (tiles a range + 1) (a wave is ``sms`` blocks, one an SM; the + 1 a
+    block's start and its partials), the fewest on a tie, at most 32 and at
+    most the tiles: at the MoE flagship (64 token tiles, 250 vocabulary
+    tiles) 2 ranges, 128 blocks in one wave."""
+    if dtype not in _FWD_ROUTES:
         raise TypeError(f"fused head kernels take bf16 or fp32 operands, got {dtype}")
-    e_pad = -(-E // 8) * 8
+    route, chunk, elem, stages, threads = _FWD_ROUTES[dtype]
+    e_pad = -(-E // (16 // elem)) * (16 // elem)
     ntt, nv = -(-T // _FWD_ROWS), -(-V // _FWD_COLS)
-    stages = _FWD_STAGES
-    assert _fwd_smem(stages) <= SMEM_LIMIT < _fwd_smem(stages + 1)
+    smem = _fwd_smem(stages, chunk, elem)
+    assert smem <= SMEM_LIMIT, smem
 
     def cost(S):
         return -(-ntt * S // sms) * (-(-nv // S) + 1), S
 
     ranges = min(range(1, min(nv, _FWD_MAX_RANGES) + 1), key=cost)
-    return FwdPlan("wgmma", _FWD_ROWS, _FWD_COLS, _FWD_CHUNK, stages, e_pad, ntt, nv, ranges,
-                   (ntt * ranges,), 288, 1024, 2 * _FWD_CHUNK * _FWD_ROWS,
-                   2 * _FWD_CHUNK * _FWD_COLS, 16 * stages, _fwd_smem(stages))
+    return FwdPlan(route, _FWD_ROWS, _FWD_COLS, chunk, stages, e_pad, ntt, nv, ranges,
+                   (ntt * ranges,), threads, 1024, chunk * elem * _FWD_ROWS,
+                   chunk * elem * _FWD_COLS, 16 * stages, smem)
 
 
 def _fwd_split_reference(h, emb, tgt, plan: FwdPlan):
@@ -439,7 +450,7 @@ def fused_head_fwd(h, emb, tgt):
     _build.launch("fused_head_fwd", h_k.data_ptr(), emb_k.data_ptr(), tgt.data_ptr(),
                   lse.data_ptr(), gold.data_ptr(), ws.data_ptr() if ws is not None else None,
                   tickets.data_ptr() if tickets is not None else None, T, V, plan.e_pad,
-                  int(plan.route == "scalar"), plan.ranges, plan.stages, plan.smem_bytes, stream)
+                  int(plan.route == "fma"), plan.ranges, plan.stages, plan.smem_bytes, stream)
     fused_head_fwd.launches += 1
     return lse, gold
 

@@ -26,10 +26,14 @@ Two routes, chosen by :func:`_plan` from the operands' dtype and width:
   or 128 keys (by the same rule; at width 256 always 64) and streams the Q,
   dO and O tiles of 64 query rows (48 at width 256) that can see them, over
   every query head of the GQA group.
-- **fp32: scalar kernels.** Tiles staged in shared memory and fp32 FMAs, 256
-  threads; 64-row tiles where they fit the block's shared memory, else 32
-  (dq and dk/dv at width 256). The TPU kernels' rounding points are the
-  identity in fp32.
+- **fp32: fp32 FMAs, no TF32.** The forward is the tensor-core route's walk
+  with register-tiled FMA products: Q resident, K and V tiles streamed by
+  TMA through a 2-stage ring, 256 threads each holding 8 x 4 scores and
+  8 x 8 of O at width 128 (128-row query tiles, 64-key tiles; at width 256
+  64 rows and 32 keys), P through one fp32 shared tile (:func:`_fma_fwd_bytes`).
+  dq and dk/dv are scalar kernels: tiles staged in shared memory, 256
+  threads, 64-row tiles where they fit the block's shared memory, else 32
+  (at width 256). The TPU kernels' rounding points are the identity in fp32.
 
 The kernels are compiled for head widths 64, 128 and 256. bf16 takes the
 tensor cores in all three kernels at every width. At 256
@@ -39,14 +43,15 @@ registers), and dk/dv in blocks of 64 keys whose two consumer warpgroups
 each own one of dK and dV (one warpgroup holding both, with S^T and dP^T,
 would need 320 registers a thread, and 64-row ring tiles would pass the
 block's shared memory: :func:`_wgmma_sums`); warpgroup 0 hands its fp32
-P^T to warpgroup 1 through shared memory. fp32 is scalar at every width.
-Any head size D up to 256 runs on them: :func:`_pad_heads` zero-pads the head
-axis to the next width and launches with the true ``D ** -0.5`` as the
+P^T to warpgroup 1 through shared memory. fp32 takes the FMA forward and
+the scalar dq and dk/dv at every width. Any head size D up to 256 runs on
+them: :func:`_pad_heads` zero-pads the head axis to the next width and
+launches with the true ``D ** -0.5`` as the
 softmax scale, so the scores, the softmax and delta = rowsum(dO·O) are the
 unpadded ones, and cuts the padded columns off o, dq, dk and dv (products
 with zero columns). At D 64, 128 and 256 nothing is copied. D above 256 is a
-stated refusal: the message gives the shared memory the scalar kernels
-would need at the next width against the card's limit.
+stated refusal: the message gives the shared memory the fp32 kernels would
+need at the next width against the card's limit.
 
 What every kernel does:
 
@@ -131,12 +136,14 @@ _STAGES = 2                 # ring tiles in flight on the tensor-core route
 _QROWS = 64                 # query rows of a dk/dv ring tile
 _PAIR_QROWS = 48            # ... at the widths of ``_WGMMA_64_ROWS_D``
 _SCALAR_TILES = (64, 32)    # the scalar kernels' tile rows (and keys), largest that fits first
+_FMA_THREADS = 256          # threads of the fp32 forward
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How one flash kernel launches. ``route`` "wgmma" is the bf16
-    tensor-core kernel, "scalar" the fp32-FMA kernel; ``block`` is the query
+    tensor-core kernel, "fma" the fp32 forward of register-tiled FMAs,
+    "scalar" the fp32 dq and dk/dv; ``block`` is the query
     rows a block (forward, dq) or the keys a block (dk/dv); ``width`` the
     head width the kernel runs at (the head size zero-padded to 64, 128 or
     256)."""
@@ -183,24 +190,44 @@ def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
 
 
 def _scalar_floats(kernel: str, width: int, tile: int) -> int:
-    """fp32 words of shared memory of the scalar ``kernel`` at head width
-    ``width`` with ``tile``-row tiles (and ``tile`` keys a tile): transposed
-    tiles of leading dimension ``tile + 4``; the launchers check the same
-    sums (``smem_floats`` in each source)."""
+    """fp32 words of shared memory of the scalar ``kernel`` ("dq" or "dkv")
+    at head width ``width`` with ``tile``-row tiles (and ``tile`` keys a
+    tile): transposed tiles of leading dimension ``tile + 4``; the launchers
+    check the same sums (``smem_floats`` in each source)."""
     ld = tile + 4
-    return {"fwd": 2 * width * ld + tile * width + tile * ld,
-            "dq": 4 * width * ld + tile * width + tile * ld,
+    return {"dq": 4 * width * ld + tile * width + tile * ld,
             "dkv": 4 * width * ld + 2 * tile * width + tile * ld + 2 * tile}[kernel]
+
+
+def _fma_fwd_tiles(width: int) -> tuple[int, int]:
+    """(query rows, keys) of the fp32 forward's tiles at head width
+    ``width``: 128 rows and 64 keys up to 128, then 64 rows and 32 keys."""
+    return (128, 64) if width <= 128 else (64, 32)
+
+
+def _fma_fwd_bytes(width: int) -> int:
+    """Shared memory of the fp32 forward (``flash_fwd_fma``) at head width
+    ``width``, part by part as ``fwd32::Layout`` in
+    ``csrc/flash_attention_fwd.cu`` sums it (the launcher checks it): 1024
+    bytes of alignment slack, the fp32 Q tile, ``_STAGES`` fp32 K and V
+    tiles, the fp32 P tile [rows, keys], the mbarriers (Q, full and empty a
+    stage)."""
+    rows, keys = _fma_fwd_tiles(width)
+    return (1024 + 4 * rows * width + _STAGES * 2 * 4 * keys * width + 4 * rows * keys
+            + 8 * (1 + 2 * _STAGES))
 
 
 def _wide_head_refusal(D: int) -> str:
     width = -(-D // 64) * 64
     tile = _SCALAR_TILES[-1]
-    need = "; ".join(f"{name} {4 * _scalar_floats(k, width, tile):,}" for k, name in
-                     (("fwd", "forward"), ("dq", "dq"), ("dkv", "dk/dv")))
+    rows, keys = _fma_fwd_tiles(width)
+    need = "; ".join([f"forward {_fma_fwd_bytes(width):,}"] + [
+        f"{name} {4 * _scalar_floats(k, width, tile):,}" for k, name in (("dq", "dq"),
+                                                                      ("dkv", "dk/dv"))])
     return (f"flash kernels take head_dim up to {_KERNEL_D[-1]} (zero-padded to 64, 128 or "
-            f"256), got {D}. At width {width} the scalar kernels would need, at their "
-            f"smallest tiles ({tile} rows), shared memory bytes a block of: {need}; the card "
+            f"256), got {D}. At width {width} the fp32 kernels would need, at their "
+            f"smallest tiles (the forward's {rows} query rows and {keys} keys, dq's and dk/dv's "
+            f"{tile} rows), shared memory bytes a block of: {need}; the card "
             f"gives a block {SMEM_LIMIT:,} bytes, and a train step needs all three")
 
 
@@ -226,9 +253,12 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     shape. dk/dv: a grid of (KV, B, key blocks), 128 keys a block where
     ``B * KV * ceil(Sk / 128)`` blocks fill the SMs, else 64; at widths
     ``_WGMMA_64_ROWS_D`` 64 keys in 256 threads, two warpgroups owning dV and
-    dK. Shared memory as :func:`_wgmma_sums` counts it. fp32 takes the
-    scalar route: 256 threads, the largest tile of ``_SCALAR_TILES`` whose
-    shared memory (:func:`_scalar_floats`) fits a block.
+    dK. Shared memory as :func:`_wgmma_sums` counts it. fp32: the forward
+    takes the FMA route, a grid of (H, B, query tiles) of 256 threads, the
+    tiles of :func:`_fma_fwd_tiles` and the bytes of :func:`_fma_fwd_bytes`;
+    dq and dk/dv the scalar route, 256 threads, the largest tile of
+    ``_SCALAR_TILES`` whose shared memory (:func:`_scalar_floats`) fits a
+    block.
     """
     width = _kernel_width(D)
     if dtype not in (torch.bfloat16, torch.float32):
@@ -243,6 +273,10 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
         smem, _ = _wgmma_sums(kernel, keys, width)
         threads = 256 if wide else 128 * (keys // 64)
         return Plan("wgmma", keys, (KV, B, -(-Sk // keys)), threads, smem, width)
+    if kernel == "fwd":
+        rows, _ = _fma_fwd_tiles(width)
+        return Plan("fma", rows, (H, B, -(-Sq // rows)), _FMA_THREADS, _fma_fwd_bytes(width),
+                    width)
     t = next(t for t in _SCALAR_TILES if 4 * _scalar_floats(kernel, width, t) <= SMEM_LIMIT)
     grid = (-(-Sk // t), KV, B) if kernel == "dkv" else (-(-Sq // t), H, B)
     return Plan("scalar", t, grid, 256, 4 * _scalar_floats(kernel, width, t), width)

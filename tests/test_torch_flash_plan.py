@@ -41,10 +41,17 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
         threads = consumers if kernel == "dkv" else consumers + 128
         assert (plan.route, plan.block, plan.threads) == ("wgmma", rows, threads)
         assert plan.grid == ((KV, B, Sk // rows) if kernel == "dkv" else (H, B, Sq // rows))
+    elif kernel == "fwd":
+        # fp32 forward: register-tiled FMAs, 128 query rows (64 at width
+        # 256, with 32-key tiles) at every shape, 256 threads
+        rows = 64 if D == 256 else 128
+        assert (plan.route, plan.block, plan.threads) == ("fma", rows, 256)
+        assert plan.grid == (H, B, -(-Sq // rows))
+        assert plan.smem_bytes == pa._fma_fwd_bytes(D)
     else:
-        # fp32: the scalar kernels, 32-row tiles where 64 would pass the
-        # block's shared memory (dq and dk/dv at 256)
-        tile = 32 if D == 256 and kernel != "fwd" else 64
+        # fp32 dq and dk/dv: the scalar kernels, 32-row tiles where 64 would
+        # pass the block's shared memory (at 256)
+        tile = 32 if D == 256 else 64
         assert (plan.route, plan.block, plan.threads) == ("scalar", tile, 256)
         assert plan.grid == ((Sk // tile, KV, B) if kernel == "dkv" else (Sq // tile, H, B))
 
@@ -55,7 +62,9 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     ("fwd", torch.bfloat16, SERVING, 82_984),
     ("dq", torch.bfloat16, TRAINING, 132_648),    # + dO 32 KiB + delta
     ("dq", torch.bfloat16, SERVING, 99_624),
-    ("fwd", torch.float32, TRAINING, 119_808),    # the scalar kernels' fp32 tiles
+    # the fp32 forward: Q 64 KiB + 2 x (K, V) 64 KiB + P 32 KiB + slack, barriers
+    ("fwd", torch.float32, TRAINING, 230_440),
+    ("fwd", torch.float32, SERVING, 230_440),
     ("dq", torch.float32, SERVING, 189_440),
     # K + V 64 KiB resident + 2 x (Q, dO, O) 96 KiB + two delta/lse rows a
     # consumer 2 KiB + slack, barriers

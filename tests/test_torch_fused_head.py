@@ -219,7 +219,7 @@ def test_cpu_wrappers_count_no_launch_and_card_operands_are_checked():
     bf16 or fp32 (or of two dtypes), other dtypes of the row vectors, and a
     device other than CUDA raise (the checks run on meta tensors here, as no
     card is present). fp32 h and emb pass the dtype check: they take the
-    fp32 route on the card (the scalar forward, the FMA dh and dE)."""
+    fp32 route on the card (the FMA forward, dh and dE)."""
     counters = (fh.fused_head_fwd, fh.fused_head_bwd_dh, fh.fused_head_bwd_de)
     before = [c.launches for c in counters]
     h, emb, tgt, _ = _inputs(64, 128)

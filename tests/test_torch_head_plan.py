@@ -359,12 +359,35 @@ def test_two_chunk_shapes_walk_ranges_of_three_tiles():
         assert max(hi - lo for lo, hi in map(p.range_tiles, range(p.ranges))) == 3
 
 
-def test_fwd_plan_fp32_takes_the_scalar_kernel_and_refuses_float16():
-    p = fh._fwd_plan(300, 97, 100, torch.float32)
-    assert (p.route, p.rows, p.ranges, p.e_pad, p.grid, p.smem_bytes) == (
-        "scalar", 64, 1, 100, (5,), 0)
+@pytest.mark.parametrize("T,V,E,e_pad,ranges", [
+    (300, 97, 100, 100, 1),         # one vocabulary tile: one range
+    (200, 300, 99, 100, 3),         # E padded to a multiple of 4; a tile a range
+    (8192, 32000, 1024, 1024, 2),   # the MoE flagship: 64 token tiles x 2 ranges, one wave
+    (512, 4096, 2048, 2048, 32),
+    (256, 1000, 8200, 8200, 8),     # past the bf16 backward's E 8192
+])
+def test_fwd_plan_fp32_takes_the_fma_kernel_and_refuses_float16(T, V, E, e_pad, ranges):
+    """fp32 takes ``head_fwd_fma``: 128-token blocks over 128-column tiles,
+    the bf16 route's range cut, three ring stages of 64 fp32 columns, E padded
+    to a multiple of 4 (TMA's 16-byte rows), 256 threads; its shared memory
+    part by part as ``fwd32::smem_bytes`` sums it, within the card's limit."""
+    p = fh._fwd_plan(T, V, E, torch.float32, sms=132)
+    ntt = -(-T // 128)
+    assert (p.route, p.rows, p.cols, p.chunk, p.stages, p.e_pad, p.ranges, p.threads) == (
+        "fma", 128, 128, 64, 3, e_pad, ranges, 256)
+    assert p.grid == (ntt * ranges,) and p.token_tiles == ntt and p.vocab_tiles == -(-V // 128)
+    assert (p.h_stage_bytes, p.emb_stage_bytes, p.barrier_bytes) == (128 * 64 * 4, 128 * 64 * 4,
+                                                                      16 * 3)
+    assert p.smem_bytes == (p.align + p.stages * (p.h_stage_bytes + p.emb_stage_bytes)
+                            + p.barrier_bytes) == 197_680 <= fh.SMEM_LIMIT
+    # the ranges cover the vocabulary tiles once, none empty
+    tiles = [t for r in range(p.ranges) for t in range(*p.range_tiles(r))]
+    assert tiles == list(range(p.vocab_tiles)) and all(
+        hi > lo for lo, hi in map(p.range_tiles, range(p.ranges)))
+    # the same cut as the bf16 route's at the same shape
+    assert p.ranges == fh._fwd_plan(T, V, E, torch.bfloat16, sms=132).ranges
     with pytest.raises(TypeError, match="bf16 or fp32"):
-        fh._fwd_plan(300, 97, 100, torch.float16)
+        fh._fwd_plan(T, V, E, torch.float16)
 
 
 def _fwd_case(T, V, E, seed, dtype):
@@ -385,17 +408,19 @@ def _fwd_case(T, V, E, seed, dtype):
     (128, 1000, 64, 3),         # ranges of 2 and 3 tiles, the last tile partial
     (128, 300, 32, 4),          # more ranges than tiles: the fourth holds none
     (128, 300, 32, 7),
+    (200, 300, 99, None),       # ragged T and E: the fp32 plan's 3 ranges, E padded to 100
+    (300, 97, 100, None),       # one tile: one range
 ])
 def test_fwd_split_reference_matches_the_plain_version(T, V, E, ranges, dtype):
     """The forward's partition (per-range max, sum and gold, combined in
-    range order, empty ranges adding nothing) against ``lse_gold_plain``:
-    fp32 logits from the same operands, so the two differ in summation order
-    only (lse 2e-6 absolute at |lse| ~ 7), gold exactly where the target
-    lies inside [0, V) and 0 outside."""
+    range order, empty ranges adding nothing) at each dtype's own plan
+    against ``lse_gold_plain``: fp32 logits from the same operands, so the
+    two differ in summation order only (lse 2e-6 absolute at |lse| ~ 7),
+    gold exactly where the target lies inside [0, V) and 0 outside."""
     import dataclasses
 
     h, emb, tgt = _fwd_case(T, V, E, 9, dtype)
-    plan = fh._fwd_plan(T, V, E, torch.bfloat16)
+    plan = fh._fwd_plan(T, V, E, dtype)
     if ranges is not None:
         plan = dataclasses.replace(plan, ranges=ranges)
     lse, gold = fh._fwd_split_reference(h, emb, tgt, plan)
@@ -425,18 +450,21 @@ def _jax_fwd(T, V, E, dtype_name, bv):
     (256, 768, 128, 256, 2),    # the JAX kernel's 256-column blocks, the port's 128-column tiles
     (128, 640, 64, 128, 3),
     (128, 384, 64, 384, 4),     # the fourth range past V
+    (256, 768, 100, 256, None),  # the plan's own 6 ranges, E not a multiple of 8
 ])
 def test_fwd_split_reference_matches_the_pallas_kernel(T, V, E, bv, ranges, dtype):
-    """The forward's partition against the TPU kernel it replaces, run as
-    the JAX package's tests run it: both fold fp32 logits of the same
-    operands (bf16 products are exact in fp32), so lse and gold differ in
-    summation order only (2e-6 absolute). Targets outside [0, V) give the JAX
-    kernel no gold either."""
+    """The forward's partition at each dtype's plan against the TPU kernel
+    it replaces, run as the JAX package's tests run it: both fold fp32
+    logits of the same operands (bf16 products are exact in fp32), so lse
+    and gold differ in summation order only (2e-6 absolute). Targets outside
+    [0, V) give the JAX kernel no gold either."""
     import dataclasses
 
     lse_j, gold_j = _jax_fwd(T, V, E, str(dtype)[6:], bv)
     h, emb, tgt = _fwd_case(T, V, E, 10, dtype)
-    plan = dataclasses.replace(fh._fwd_plan(T, V, E, torch.bfloat16), ranges=ranges)
+    plan = fh._fwd_plan(T, V, E, dtype)
+    if ranges is not None:
+        plan = dataclasses.replace(plan, ranges=ranges)
     lse, gold = fh._fwd_split_reference(h, emb, tgt, plan)
     np.testing.assert_allclose(lse.numpy(), lse_j, rtol=0, atol=2e-6)
     np.testing.assert_allclose(gold.numpy(), gold_j, rtol=0, atol=2e-6)

@@ -1,7 +1,8 @@
 """Head sizes other than 64, 128 and 256: the port's kernels run them
 zero-padded to the next of those widths with the true D's softmax scale
-(width 256: the bf16 forward and dq on the tensor-core route with 64-row
-tiles, dk/dv and fp32 on the scalar route).
+(width 256: bf16 on the tensor-core route, the forward and dq with 64-row
+tiles; fp32 on the FMA forward with 64-row tiles and 32-key tiles, dq and
+dk/dv on the scalar route).
 
 ``_pad_heads`` takes the function it pads around as an argument: on the
 card the kernel launch, here the plain version, so the padding itself is
@@ -101,11 +102,18 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
         assert plan == pa._plan(kernel, 4, 2048, 2048, 8, 8, width, dtype)
         assert plan.width == width and plan.smem_bytes <= pa.SMEM_LIMIT
         # bf16 takes the tensor cores at every width, at 256 in 64-row
-        # tiles (64-key blocks for dk/dv); fp32 the scalar route, in 64-row
-        # tiles where they fit (the forward), else 32
-        assert plan.route == ("wgmma" if dtype == torch.bfloat16 else "scalar")
-        if plan.route == "scalar":
-            tile = 64 if width <= 128 or kernel == "fwd" else 32
+        # tiles (64-key blocks for dk/dv); fp32 the FMA forward (128 query
+        # rows and 64-key tiles up to 128, 64 and 32 at 256) and the scalar
+        # dq and dk/dv, in 64-row tiles where they fit, else 32
+        assert plan.route == ("wgmma" if dtype == torch.bfloat16 else
+                              "fma" if kernel == "fwd" else "scalar")
+        if plan.route == "fma":
+            assert (plan.block, plan.threads, plan.grid) == (
+                pa._fma_fwd_tiles(width)[0], 256, (8, 4, 2048 // pa._fma_fwd_tiles(width)[0]))
+            assert plan.smem_bytes == pa._fma_fwd_bytes(width) == {
+                64: 132_136, 128: 230_440, 256: 205_864}[width]
+        elif plan.route == "scalar":
+            tile = 64 if width <= 128 else 32
             assert plan.block == tile and plan.threads == 256
             assert plan.smem_bytes == 4 * pa._scalar_floats(kernel, width, tile)
         elif width == 256:
@@ -146,12 +154,15 @@ def test_head_sizes_past_128_are_refused_with_their_limits():
     assert pa._plan("dkv", 4, 2048, 2048, 8, 8, 256, torch.float32).route == "scalar"
     for D in (129, 200, 256):
         assert pa._kernel_width(D) == fd._kernel_width(D) == 256
-    # the sums the refusal states are the scalar kernels' own at the next width
-    assert [4 * pa._scalar_floats(k, 320, 32) for k in ("fwd", "dq", "dkv")] == [
-        137_728, 229_888, 271_104]
-    assert 4 * pa._scalar_floats("dkv", 320, 32) > pa.SMEM_LIMIT
+    # the sums the refusal states are the fp32 kernels' own at the next
+    # width: the FMA forward's layout (64 rows, 32-key tiles) and the scalar
+    # dq and dk/dv at 32-row tiles
+    assert pa._fma_fwd_tiles(320) == (64, 32)
+    assert [pa._fma_fwd_bytes(320)] + [4 * pa._scalar_floats(k, 320, 32) for k in ("dq", "dkv")] == [
+        255_016, 229_888, 271_104]
+    assert pa._fma_fwd_bytes(320) > pa.SMEM_LIMIT and 4 * pa._scalar_floats("dkv", 320, 32) > pa.SMEM_LIMIT
     for D in (257, 320):
-        with pytest.raises(ValueError, match=f"head_dim up to 256 .*got {D}.*dk/dv 271,104.*232,448"):
+        with pytest.raises(ValueError, match=f"head_dim up to 256 .*got {D}.*forward 255,016.*dk/dv 271,104.*232,448"):
             pa._kernel_width(D)
         with pytest.raises(ValueError, match=f"flash_decode kernel takes head_dim up to 256 .*got {D}"):
             fd._plan(1, 1, 1, 64, D, torch.bfloat16, 132)
