@@ -28,16 +28,19 @@ Phases, each of which fails the run with a non-zero exit:
             dk/dv, the head's three kernels and that backward must have (the
             width-256 forward, dq and dk/dv in their own entry functions),
             and prints those three's registers and spills (none allowed) and
-            any wgmma serialisation note, and the fp32 forwards'
-            (``flash_fwd_fma`` at every width, ``head_fwd_fma``; no spills
-            allowed); the fp32 routes are timed beside the library on fp32
-            operands (TF32 off, its kernels named) and their bound at the
-            fp32 peak, the flash forward beside its plain version and the
-            first scalar kernel's time, two of its launches bitwise equal;
+            any wgmma serialisation note, and the fp32 FMA kernels'
+            (``flash_fwd_fma``, ``flash_dq_fma`` and ``flash_dkv_fma`` at
+            every width, ``head_fwd_fma``; no spills allowed); the fp32
+            routes are timed beside the library on fp32 operands (TF32 off,
+            its kernels named) and their bound at the fp32 peak, the flash
+            forward beside its plain version, each of the three beside the
+            first scalar kernel's time, two launches of each bitwise equal;
+            more fp32 cases of the forward and of dq and dk/dv (the training
+            shape among them) after the timings;
 2b. wide heads  the flash forward, dq and dk/dv at head sizes 160, 192 and
             256 (run at width 256: bf16 on the tensor-core route, dk/dv on
-            its two-warpgroup kernel, fp32 on the FMA forward and the
-            scalar dq and dk/dv, any other
+            its two-warpgroup kernel, fp32 on the FMA forward, dq and
+            dk/dv, any other
             route failing the run; causal, windowed, non-causal, GQA, MQA
             8/1, ragged, rows that see no key, the shapes of phase 5b's
             train step and prefill) and flash-decode at 160, 192 and 256
@@ -314,6 +317,10 @@ SCALAR_FLASH_MS = {"fwd_serving": 0.0428, "fwd_train": 3.1914, "dq_train": 3.576
 # the flash forward at the training shape, the fused head's at the MoE
 # flagship's head shape
 SCALAR_FP32_FWD_MS = {"flash_attention_fwd": 3.2493, "fused_head_fwd": 51.99}
+# the fp32 route's first scalar dq and dk/dv at the training shape (PERF.md's
+# kernel table, rows 2 and 3: H100 80GB HBM3, 700 W), printed beside the FMA
+# kernels' times
+SCALAR_FP32_BWD_MS = {"dq": 3.6041, "dkv": 3.2928}
 # card (bf16 weights and activations) vs CPU (fp32) on the last prefill
 # logits of a 2-layer model, logits std ~1: the card measured 0.0699 on an
 # H100 in every run recorded in PERF.md; the limit is twice that.
@@ -546,7 +553,7 @@ def phase_build():
                 log(f"[build] {name}: {ln.strip()}")
         if int(spill[1]):
             raise AssertionError(f"{kernel[0]} spills {spill[1]} bytes")
-    for name, fragment in FMA_FORWARDS.items():
+    for name, fragment in FMA_KERNELS.items():
         lines = _entry_ptxas(_build.build_log(name), fragment)
         spills = [int(m[1]) for ln in lines for m in [re.search(r"(\d+) bytes spill stores", ln)]
                   if m]
@@ -560,9 +567,10 @@ def phase_build():
     return libs, registers
 
 
-# the fp32 forwards of register-tiled FMAs (every width's instantiation):
+# the fp32 kernels of register-tiled FMAs (every width's instantiation):
 # library -> the fragment of their mangled names
-FMA_FORWARDS = {"flash_attention_fwd": "flash_fwd_fma", "fused_head_fwd": "head_fwd_fma"}
+FMA_KERNELS = {"flash_attention_fwd": "flash_fwd_fma", "flash_attention_bwd_dq": "flash_dq_fma",
+               "flash_attention_bwd_dkv": "flash_dkv_fma", "fused_head_fwd": "head_fwd_fma"}
 
 
 # the width-256 instantiations of the bf16 forward, dq and dk/dv: (name,
@@ -585,7 +593,7 @@ def tensor_core_counts(libs):
     shows, or, without it, ``wgmma.mma_async`` and ``mma.sync`` in ``nvcc
     -ptx`` output. The bf16 route of the flash forward, dq and dk/dv, of
     the fused head's forward, dh and dE and the fused BN + ReLU + 1x1-conv
-    backward must issue wgmma; the fp32 routes (FMA and scalar kernels) none.
+    backward must issue wgmma; the fp32 routes (the FMA kernels) none.
     The width-256 forward and dq (``WIDE_WGMMA``) must hold it in their
     own entry functions."""
     from kubeflow_tpu_torch.ops import _build
@@ -873,17 +881,26 @@ def phase_kernels(torch):
             f"{plan.split} x {plan.splits}, grid {plan.grid}, {plan.smem_bytes} B shared memory a "
             f"block): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
             f"(scaled_dot_product_attention) bound_ms {bms:.5f} ({by}: {n_bytes} B, {flops} FLOP)")
-    # the fp32 route at the mean position (an fp32 decode_config model's step)
+    # the fp32 route at the mean position (an fp32 decode_config model's step),
+    # beside the library on the same fp32 operands and its bound (fp32 bytes)
     kf, vf, qf = kc.float(), vc.float(), qd.float()
     pos = torch.full((B,), p_mean, dtype=torch.int32, device="cuda")
     f32_ms = device_ms(torch, lambda: flash_decode(qf, kf, vf, pos), cold=True)
+    kf_live, vf_live = kf[:, :, :p_mean + 1], vf[:, :, :p_mean + 1]
+    f32_lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qf.view(B, G * R, 1, D), kf_live, vf_live, enable_gqa=True), cold=True)
+    f32_bound = bound_ms(4 * (2 * B * G * R * D) + 4 * (2 * B * G * (p_mean + 1) * D) + 4 * B,
+                         4 * B * G * R * (p_mean + 1) * D, FP32_FLOPS_PER_S)
     results["flash_decode"] = dict(
-        max_abs_err=worst, **timed[p_mean], fp32_ms=f32_ms, pos2047=timed[L - 1],
+        max_abs_err=worst, **timed[p_mean], fp32_ms=f32_ms, fp32_library_ms=f32_lib_ms,
+        fp32_bound_ms=f32_bound[0], fp32_bound_by=f32_bound[1], pos2047=timed[L - 1],
         split_witness_worst=worst_witness,
     )
     log(f"[kernels] flash_decode fp32 operands pos {p_mean}: kernel_ms {f32_ms:.4f} (split "
-        f"{_decode_plan(B, G, R, L, D, f32, sms).split}); worst err/tol against "
-        f"_split_reference over every case {worst_witness:.3f}")
+        f"{_decode_plan(B, G, R, L, D, f32, sms).split}) library_ms {f32_lib_ms:.4f} "
+        f"(scaled_dot_product_attention on the fp32 operands) bound_ms {f32_bound[0]:.5f} "
+        f"({f32_bound[1]}); worst err/tol against _split_reference over every case "
+        f"{worst_witness:.3f}")
     check_forward(torch, late, randn, sms)
     return results
 
@@ -938,7 +955,8 @@ def phase_kernels_bwd(torch):
         ("window_1000_over_s256", 2, 256, 256, 8, 4, 128, True, 1000, None, bf16),
         # dk/dv's 2-warpgroup variant at D 64 walking a group of 4 query heads
         ("gqa_8_2_s2048_d64", 8, 2048, 2048, 8, 2, 64, True, None, None, bf16),
-        # the fp32 route (scalar kernels, dq, dk and dv in fp32)
+        # the fp32 route (the FMA kernels, dq, dk and dv in fp32); more fp32
+        # cases after this phase's timings (``late``)
         ("fp32_gqa_8_4_window100", BATCH, 256, 256, 8, 4, 128, True, 100, None, f32),
         ("fp32_ragged_s96_d64", 2, 96, 96, 4, 2, 64, True, None, None, f32),
         ("fp32_causal_sq16_sk8_window2", 2, 16, 8, 4, 2, 128, True, 2, None, f32),
@@ -952,32 +970,54 @@ def phase_kernels_bwd(torch):
         ("fp32_d32_window_48", 2, 256, 256, 4, 4, 32, True, 48, None, f32),
         ("fp32_d96", 2, 128, 128, 4, 2, 96, True, None, None, f32),
     ]
-    for name, B, Sq, Sk, H, KV, D, causal, window, gd, dt in cases:
-        q, k, v, do = (randn(*shape).to(dt) for shape in (
-            (B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
-        o, lse = pa.flash_attention(q, k, v, causal, Sq, Sk, window, return_lse=True)
-        kw = dict(causal=causal, window=window, grad_dtype=gd)
-        got = (pa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw),
-               *pa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw))
-        torch.cuda.synchronize()
-        want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-        route = pa._plan("dq", B, Sq, Sk, H, KV, D, dt, sms)
-        route_kv = pa._plan("dkv", B, Sq, Sk, H, KV, D, dt, sms)
-        for grad, g, w in zip(("dq", "dk", "dv"), got, want):
-            ok, err, ratio, rms = check_out(g, w)
-            ok = ok and g.dtype == w.dtype
-            where = (f"dq: {route.route}, {route.block}-row tiles; " if grad == "dq" else
-                     f"dk/dv: {route_kv.route}, {route_kv.block} keys a block; ") + (
-                f"D {D} at width {route.width}; ")
-            log(f"[kernels] flash_attention_bwd {name} {grad} ({where}operands {dt}, {g.dtype}): "
-                f"max_abs_err {err:.3e} (rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, "
-                f"atol {OUT_ATOL_RMS}*rms) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"flash_attention_bwd {grad} disagrees with the plain backward ({name})")
-            key = "dq" if grad == "dq" else "dkv"
-            if dt == bf16:
-                worst[key] = max(worst[key], err)
+    # fp32 cases at larger shapes, held after the timings (as the forward's
+    # ``late`` cases of phase 2)
+    late = [
+        ("fp32_train_flagship", TRAIN_BATCH, S_T, S_T, H_T, H_T, D_T, True, None, None, f32),
+        ("fp32_mqa_8_1", 2, 256, 256, 8, 1, 128, True, None, None, f32),
+        ("fp32_s200_ragged", 9, 200, 200, 8, 4, 128, True, None, None, f32),
+        ("fp32_b1_h16_kv8_window100_d64", 1, 2048, 2048, 16, 8, 64, True, 100, None, f32),
+    ]
+
+    def check(cases):
+        """Each case's dq, dk and dv against the plain backward; on the fp32
+        route also a second launch of each kernel, bit for bit."""
+        for name, B, Sq, Sk, H, KV, D, causal, window, gd, dt in cases:
+            q, k, v, do = (randn(*shape).to(dt) for shape in (
+                (B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
+            o, lse = pa.flash_attention(q, k, v, causal, Sq, Sk, window, return_lse=True)
+            kw = dict(causal=causal, window=window, grad_dtype=gd)
+            got = (pa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw),
+                   *pa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw))
+            again = True
+            if dt == f32:
+                again = bool(torch.equal(got[0], pa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw))
+                             and all(torch.equal(a, b) for a, b in zip(
+                                 got[1:], pa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw))))
+            torch.cuda.synchronize()
+            want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            route = pa._plan("dq", B, Sq, Sk, H, KV, D, dt, sms)
+            route_kv = pa._plan("dkv", B, Sq, Sk, H, KV, D, dt, sms)
+            for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+                ok, err, ratio, rms = check_out(g, w)
+                ok = ok and g.dtype == w.dtype and again
+                where = (f"dq: {route.route}, {route.block}-row tiles; " if grad == "dq" else
+                         f"dk/dv: {route_kv.route}, {route_kv.block} keys a block; ") + (
+                    f"D {D} at width {route.width}; ")
+                log(f"[kernels] flash_attention_bwd {name} {grad} ({where}operands {dt}, {g.dtype}): "
+                    f"max_abs_err {err:.3e} (rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol "
+                    f"{OUT_RTOL}, atol {OUT_ATOL_RMS}*rms)"
+                    + (f"; a second launch bitwise equal: {again}" if dt == f32 else "")
+                    + f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"flash_attention_bwd {grad} disagrees with the plain "
+                                         f"backward or with its second launch ({name})")
+                key = "dq" if grad == "dq" else "dkv"
+                if dt == bf16:
+                    worst[key] = max(worst[key], err)
+
+    check(cases)
 
     # timed at the training shape, L2 warm (q, k, v, o and do come straight
     # from the layer's forward and the backward of its output projection)
@@ -999,10 +1039,11 @@ def phase_kernels_bwd(torch):
         bwd_lib=device_ms(torch, lambda: torch.autograd.grad(
             o_lib, (qt, kt, vt), do_lib, retain_graph=True), cold=False),
     )
-    # the fp32 route at the same shape (the FMA forward, the scalar dq and
-    # dk/dv), beside the plain forward and the library on the same fp32
-    # operands (TF32 off for matmuls and cuDNN alike); two forward launches
-    # agree bit for bit (no atomics, fixed-order sums)
+    # the fp32 route at the same shape (the FMA forward, dq and dk/dv),
+    # beside the plain versions and the library on the same fp32 operands
+    # (TF32 off for matmuls and cuDNN alike); two forward launches agree bit
+    # for bit (no atomics, fixed-order sums), as two dq and two dk/dv
+    # launches do in ``late``
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     of, lsef = pa.flash_attention(qf, kf, vf, True, S, S, return_lse=True)
     again = pa.flash_attention(qf, kf, vf, True, S, S, return_lse=True)
@@ -1023,6 +1064,8 @@ def phase_kernels_bwd(torch):
                           cold=False, iters=5),
         fwd_f32_plain=device_ms(torch, lambda: pa.flash_attention_plain(qf, kf, vf), cold=False,
                                 iters=5),
+        bwd_f32_plain=device_ms(torch, lambda: pa.flash_attention_backward_plain(
+            qf, kf, vf, of, lsef, dof), cold=False, iters=3),
         fwd_f32_lib=device_ms(torch, lambda: F.scaled_dot_product_attention(
             qft.detach(), kft.detach(), vft.detach(), is_causal=True), cold=False, iters=5),
         bwd_f32_lib=device_ms(torch, lambda: torch.autograd.grad(
@@ -1055,15 +1098,22 @@ def phase_kernels_bwd(torch):
         f"the first scalar kernel {SCALAR_FLASH_MS['dq_train']}) bound_ms {dq_b:.5f} ({dq_f})")
     log(f"[kernels]   flash_attention_bwd_dkv kernel_ms {times['dkv']:.4f} ({tflops['dkv']:.1f} TFLOP/s; "
         f"the first scalar kernel {SCALAR_FLASH_MS['dkv_train']}) bound_ms {dkv_b:.5f} ({dkv_f})")
-    log(f"[kernels]   fp32 route (fp32 operands; flash_fwd_fma, scalar dq and dk/dv): forward "
-        f"{times['fwd_f32']:.4f} ms ({2 * 2 * D * pairs / times['fwd_f32'] / 1e9:.1f} TFLOP/s of the "
-        f"bound's work; the first scalar kernel {SCALAR_FP32_FWD_MS['flash_attention_fwd']}; plain "
-        f"{times['fwd_f32_plain']:.4f}), "
-        f"dq {times['dq_f32']:.4f} ms, dk/dv {times['dkv_f32']:.4f} ms; bounds at "
-        f"{FP32_FLOPS_PER_S / 1e12:.0f} TF/s "
+    tflops_f32 = {name: n * 2 * D * pairs / times[f"{name}_f32"] / 1e9
+                  for name, n in (("fwd", 2), ("dq", 3), ("dkv", 4))}
+    bwd_f32 = times["dq_f32"] + times["dkv_f32"]
+    log(f"[kernels]   fp32 route (fp32 operands; flash_fwd_fma, flash_dq_fma, flash_dkv_fma): "
+        f"forward {times['fwd_f32']:.4f} ms ({tflops_f32['fwd']:.1f} TFLOP/s of the bound's work; "
+        f"the first scalar kernel {SCALAR_FP32_FWD_MS['flash_attention_fwd']}; plain "
+        f"{times['fwd_f32_plain']:.4f}), dq {times['dq_f32']:.4f} ms ({tflops_f32['dq']:.1f} "
+        f"TFLOP/s; the first scalar kernel {SCALAR_FP32_BWD_MS['dq']}), dk/dv "
+        f"{times['dkv_f32']:.4f} ms ({tflops_f32['dkv']:.1f} TFLOP/s; the first scalar kernel "
+        f"{SCALAR_FP32_BWD_MS['dkv']}), dq + dk/dv {bwd_f32:.4f} ms (the first scalar kernels "
+        f"{sum(SCALAR_FP32_BWD_MS.values()):.4f}; plain backward {times['bwd_f32_plain']:.4f}); "
+        f"bounds at {FP32_FLOPS_PER_S / 1e12:.0f} TF/s "
         + ", ".join(f"{k} {b:.5f} ({by})" for k, (b, by) in bounds_f32.items())
         + f"; library on fp32 operands (scaled_dot_product_attention, TF32 off): forward "
-        f"{times['fwd_f32_lib']:.4f} ms, backward (dq, dk, dv together) {times['bwd_f32_lib']:.4f} ms")
+        f"{times['fwd_f32_lib']:.4f} ms, backward (dq, dk, dv together) {times['bwd_f32_lib']:.4f} "
+        f"ms (dq + dk/dv {bwd_f32 / times['bwd_f32_lib']:.3f}x of it)")
     log(f"[kernels]   plain backward (dq, dk, dv together) {times['bwd_plain']:.4f} ms; "
         f"library: scaled_dot_product_attention backward (dq, dk, dv together) "
         f"{times['bwd_lib']:.4f} ms")
@@ -1078,12 +1128,15 @@ def phase_kernels_bwd(torch):
     fwd_train = dict(ms=times["fwd"], plain_ms=times["fwd_plain"], library_ms=times["fwd_lib"],
                      bound_ms=fwd_b, bound_by=fwd_f, tflops=tflops,
                      fp32_route_ms={k: times[f"{k}_f32"] for k in ("fwd", "dq", "dkv")},
-                     fp32_route_plain_ms={"fwd": times["fwd_f32_plain"]},
+                     fp32_route_plain_ms={"fwd": times["fwd_f32_plain"],
+                                          "bwd": times["bwd_f32_plain"]},
+                     fp32_route_tflops=tflops_f32,
                      fp32_fwd_bitwise_equal_relaunch=fwd_f32_same,
                      fp32_route_library_kernels=lib_f32_kernels,
                      fp32_route_bound_ms={k: b for k, (b, _) in bounds_f32.items()},
                      fp32_route_library_ms={"fwd": times["fwd_f32_lib"],
                                             "bwd": times["bwd_f32_lib"]})
+    check(late)
     return results, fwd_train
 
 
@@ -1098,8 +1151,8 @@ WIDE_HEADS_PROMPT, WIDE_HEADS_NEW = 64, 16
 def phase_wide_heads(torch, np):
     """The flash forward, dq and dk/dv at head sizes 160, 192 and 256 (run at
     width 256: bf16 on the tensor-core route, dk/dv on the two-warpgroup
-    kernel, fp32 on the FMA forward and the scalar dq and dk/dv, each route
-    required) and flash-decode
+    kernel, fp32 on the FMA forward, dq and dk/dv, each route required)
+    and flash-decode
     at 160, 192 and 256, each against its plain version under the bounds of
     the kernels phases; each kernel timed at D 256 beside its bound, its
     plain version and scaled_dot_product_attention on the same inputs, whose
@@ -1127,10 +1180,8 @@ def phase_wide_heads(torch, np):
         return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
     def wide_routes(dt):
-        """bf16 on the tensor cores; fp32 the FMA forward, scalar dq and dk/dv."""
-        if dt == bf16:
-            return dict.fromkeys(("fwd", "dq", "dkv"), "wgmma")
-        return {"fwd": "fma", "dq": "scalar", "dkv": "scalar"}
+        """bf16 on the tensor cores; fp32 on the FMA kernels."""
+        return dict.fromkeys(("fwd", "dq", "dkv"), "wgmma" if dt == bf16 else "fma")
 
     def dkv_kernels(*args, **kw):
         """The flash kernels' names in a profile of two dk/dv calls (beside
@@ -1163,47 +1214,64 @@ def phase_wide_heads(torch, np):
         ("fp32_d160", 2, 128, 128, 4, 2, 160, True, None, None, f32),
         ("fp32_d192_window_48", 2, 128, 128, 4, 4, 192, True, 48, None, f32),
     ]
-    for name, B, Sq, Sk, H, KV, D, causal, window, gd, dt in cases:
-        q, k, v, do = (randn(*shape, dtype=dt) for shape in (
-            (B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
-        o, lse = pa.flash_attention(q, k, v, causal, Sq, Sk, window, return_lse=True)
-        kw = dict(causal=causal, window=window, grad_dtype=gd)
-        grads = (pa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw),
-                 *pa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw))
-        torch.cuda.synchronize()
-        o_ref, lse_ref = pa.flash_attention_plain(q, k, v, causal=causal, window=window)
-        want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-        ok, err, ratio, rms = check_out(o, o_ref)
-        lse_ok, lse_err = check_lse(lse, lse_ref)
-        ok = ok and lse_ok and check_dead_rows(o, lse_ref) and o.dtype == dt
-        plans = {kn: pa._plan(kn, B, Sq, Sk, H, KV, D, dt, sms) for kn in ("fwd", "dq", "dkv")}
-        routes = {kn: p.route for kn, p in plans.items()}
-        if routes != wide_routes(dt):
-            raise AssertionError(f"D {D} ({name}, {dt}) took the routes {routes}, not "
-                                 f"{wide_routes(dt)}")
-        line = [f"fwd err/tol {ratio:.3f} lse_err {lse_err:.2e}"]
-        if dt == bf16:
-            worst["fwd"] = max(worst["fwd"], err)
-        for grad, g, w in zip(("dq", "dk", "dv"), grads, want):
-            g_ok, g_err, g_ratio, _ = check_out(g, w)
-            ok = ok and g_ok and g.dtype == w.dtype
-            line.append(f"{grad} err/tol {g_ratio:.3f}")
-            key = "dq" if grad == "dq" else "dkv"
+    # fp32 dq and dk/dv at 160 and 192 on more shapes, held after the timings
+    late = [
+        ("fp32_d160_gqa_8_2_s200_ragged", 3, 200, 200, 8, 2, 160, True, None, None, f32),
+        ("fp32_d192_mqa_8_1_window_100", 2, 256, 256, 8, 1, 192, True, 100, None, f32),
+    ]
+
+    def check(cases):
+        """Each case's forward, dq, dk and dv against the plain versions and
+        its routes against ``wide_routes``; on the fp32 route a second dq
+        and dk/dv launch bit for bit too."""
+        for name, B, Sq, Sk, H, KV, D, causal, window, gd, dt in cases:
+            q, k, v, do = (randn(*shape, dtype=dt) for shape in (
+                (B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, Sq, H, D)))
+            o, lse = pa.flash_attention(q, k, v, causal, Sq, Sk, window, return_lse=True)
+            kw = dict(causal=causal, window=window, grad_dtype=gd)
+            grads = (pa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw),
+                     *pa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw))
+            again = dt == bf16 or bool(
+                torch.equal(grads[0], pa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw))
+                and all(torch.equal(a, b) for a, b in zip(
+                    grads[1:], pa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw))))
+            torch.cuda.synchronize()
+            o_ref, lse_ref = pa.flash_attention_plain(q, k, v, causal=causal, window=window)
+            want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            ok, err, ratio, rms = check_out(o, o_ref)
+            lse_ok, lse_err = check_lse(lse, lse_ref)
+            ok = ok and lse_ok and check_dead_rows(o, lse_ref) and o.dtype == dt and again
+            plans = {kn: pa._plan(kn, B, Sq, Sk, H, KV, D, dt, sms) for kn in ("fwd", "dq", "dkv")}
+            routes = {kn: p.route for kn, p in plans.items()}
+            if routes != wide_routes(dt):
+                raise AssertionError(f"D {D} ({name}, {dt}) took the routes {routes}, not "
+                                     f"{wide_routes(dt)}")
+            line = [f"fwd err/tol {ratio:.3f} lse_err {lse_err:.2e}"] + (
+                [f"a second dq and dk/dv launch bitwise equal: {again}"] if dt == f32 else [])
             if dt == bf16:
-                worst[key] = max(worst[key], g_err)
-        if dt == bf16 and D in (160, 192):
-            # the padded widths launch the width-256 kernel too
-            names = dkv_kernels(q, k, v, o, lse, do, **kw)
-            ok = ok and len(names) == 1 and DKV_PAIR in names[0]
-            line.append(f"dk/dv kernel {names}")
-        log(f"[wide heads] flash {name} ({dt}; D {D} at width {plans['fwd'].width}; "
-            + ", ".join(f"{kn} {p.route} {p.block}-row tiles {p.smem_bytes} B"
-                        for kn, p in plans.items())
-            + f"): {'; '.join(line)} (rtol {OUT_RTOL}, atol {OUT_ATOL_RMS}*rms) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"a flash kernel disagrees with its plain version at D {D} ({name})")
+                worst["fwd"] = max(worst["fwd"], err)
+            for grad, g, w in zip(("dq", "dk", "dv"), grads, want):
+                g_ok, g_err, g_ratio, _ = check_out(g, w)
+                ok = ok and g_ok and g.dtype == w.dtype
+                line.append(f"{grad} err/tol {g_ratio:.3f}")
+                key = "dq" if grad == "dq" else "dkv"
+                if dt == bf16:
+                    worst[key] = max(worst[key], g_err)
+            if dt == bf16 and D in (160, 192):
+                # the padded widths launch the width-256 kernel too
+                names = dkv_kernels(q, k, v, o, lse, do, **kw)
+                ok = ok and len(names) == 1 and DKV_PAIR in names[0]
+                line.append(f"dk/dv kernel {names}")
+            log(f"[wide heads] flash {name} ({dt}; D {D} at width {plans['fwd'].width}; "
+                + ", ".join(f"{kn} {p.route} {p.block}-row tiles {p.smem_bytes} B"
+                            for kn, p in plans.items())
+                + f"): {'; '.join(line)} (rtol {OUT_RTOL}, atol {OUT_ATOL_RMS}*rms) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"a flash kernel disagrees with its plain version at D {D} ({name})")
+
+    check(cases)
 
     dec_cases = [
         # name, (B, G, R, D, L), positions, window, dtype
@@ -1337,6 +1405,8 @@ def phase_wide_heads(torch, np):
                                           bound_ms=bms, bound_by=by)
         log(f"[wide heads] flash_decode D 256 B{B} G{G} R{R} L{L} pos {p}, L2 flushed: kernel_ms "
             f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {bms:.5f} ({by})")
+
+    check(late)
 
     # a generate request of heads of 256 (launches counted), an fp32 copy's
     # decode step against the CPU, and one train step against the CPU

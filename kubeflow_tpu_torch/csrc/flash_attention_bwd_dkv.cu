@@ -75,13 +75,34 @@
 // tile's chain of products, exponentials, delta and exchange; neither the
 // tiles' traffic, the launch order nor the ring's depth moved it.
 //
-// fp32 operands: the scalar kernel flash_bwd_dkv_kernel (the first port's
-// design): one block per (key tile, kv head, batch row), 256 threads as a
-// 16 x 16 grid, tiles staged in shared memory, fp32 FMAs; thread (ty, tx)
-// owns keys ty*R .. ty*R+R-1 and columns c*64 + tx*4 .. +3 of dk and dv.
-// Tiles of 64 keys and 64 query rows (R 4; 222,720 bytes at D 128); at D
-// 256, 32 and 32 (R 2; 217,856 bytes, where 64 would need 427,520). The TPU
-// kernel's roundings of P and dS to the operands' type are the identity.
+// fp32 operands: flash_dkv_fma, the bf16 route's walk with register-tiled
+// fp32 FMA products (no TF32; bound four causal matmuls at the 67 TF/s fp32
+// peak, 1.026 ms at the training shape). One block per (kv head, batch row,
+// BK keys), the lowest keys first. K and V stay resident; the Q and dO
+// tiles of every query head of the group and every tile that can see the
+// keys stream through a 2-stage TMA ring of fp32 boxes of 32 columns,
+// thread 128 issuing the copies between its own products. The two
+// warpgroups split the products as flash_dkv_wgmma_pair does: warpgroup 0
+// S^T = K Q^T, P^T and dV += P^T dO, warpgroup 1 dP^T = V dO^T, dS^T and dK
+// += dS^T Q, each thread 8 keys (g + 8 i) by 4 query rows (x + 16 j) of its
+// score tile and the same 8 keys of its accumulator, columns 4 x + 64 h ..
+// + 3 (the fma32 pieces of flash_common.cuh), in fp32 registers across the
+// whole walk. A thread doing both products of 4 x 4 scores (the first
+// design) fed 8 FMAs a shared-memory load in the score products and 10.7 in
+// the accumulations; the split feeds the forward's 10.7 and 16, and ran
+// faster on an H100. P^T passes from a warpgroup 0 thread
+// to its twin in warpgroup 1 through an fp32 tile behind two mbarriers; each
+// warpgroup's dS^T or P^T goes through its warps' own rows to its
+// accumulation. O would not fit a stage, so delta = rowsum(dO * O) of a
+// tile's rows is taken half by each warpgroup from the stage's dO and O
+// rows read from device memory (loaded before the score product, used after
+// it), and shared through the stage's delta row under
+// the P^T barrier. Only edge tiles mask. D 64 and 128 take 64 keys and
+// 64-row tiles (230,968 bytes at D 128), D 256 32 and 32 (206,136 bytes). The
+// TPU kernel's roundings of P and dS to the operands' type are the identity
+// in fp32. What bounds it on an H100 (a clock64-stamped scratch copy, not
+// committed): the two FMA loops take most of a warp's cycles, below the
+// fp32 issue rate, and each tile's P^T step most of the rest.
 
 #include "flash_common.cuh"
 
@@ -89,198 +110,229 @@ namespace {
 
 using flash::bf16;
 
-// ---- the scalar route (fp32 operands)
+// ---- the fp32 route: register-tiled fp32 FMAs fed by TMA, one warpgroup
+// owning dV and one dK
 
-namespace scalar {
+namespace dkv32 {
 
-constexpr int THREADS = 256;    // a 16 x 16 grid over the TILE x TILE score tile
+constexpr int THR = 256;
+constexpr int GS = 8;             // row groups of a warpgroup (16 lanes each)
 
-// shared floats of a block at head width d, TILE keys a block and TILE
-// query rows a tile: k^T, v^T, q^T, do^T [d][LD]; q, do [TILE][d]; p^T / ds^T
-// [TILE][LD]; delta, lse [TILE], LD = TILE + 4; ops/pallas_attention.py
-// (_plan) computes the same sum
-__host__ __device__ constexpr size_t smem_floats(int d, int tile) {
-  return (size_t)4 * d * (tile + 4) + (size_t)2 * tile * d + (size_t)tile * (tile + 4) + 2 * tile;
-}
+// Shared memory of flash_dkv_fma<D, BK, BQ>, in bytes from a 1024-aligned
+// base: the K and V tiles (D / 32 slabs of BK rows of 32 fp32 columns each,
+// resident), STAGES ring stages (the Q tile's D / 32 slabs of BQ rows, then
+// the dO tile's), the fp32 P^T and dS^T tiles [BK][BQ], each stage's delta
+// row [STAGES][BQ], then the mbarriers: K/V, full[STAGES], empty[STAGES],
+// P full, P empty. `bytes` adds the slack for aligning the dynamic base;
+// ops/pallas_attention.py (_fma_bwd_bytes) sums the same and the launcher
+// checks it.
+template <int D, int BK, int BQ>
+struct Layout {
+  static constexpr int NS = D / 32;
+  static constexpr int SLAB_K = BK * 128;
+  static constexpr int SLAB_Q = BQ * 128;
+  static constexpr int STAGE = 2 * NS * SLAB_Q;
+  static constexpr int K = 0;
+  static constexpr int V = K + NS * SLAB_K;
+  static constexpr int RING = V + NS * SLAB_K;
+  static constexpr int P = RING + flash::STAGES * STAGE;
+  static constexpr int DS = P + BK * BQ * 4;
+  static constexpr int ROWS = DS + BK * BQ * 4;
+  static constexpr int BAR = ROWS + flash::STAGES * BQ * 4;
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES + 2);
+  static_assert(bytes <= 232448, "the layout must fit a block's shared memory");
+};
 
-template <int DC, int TILE>
-__device__ __forceinline__ void accumulate(const float* __restrict__ pt,
-                                           const float* __restrict__ rows,
-                                           float (&acc)[TILE / 16][DC * 4], int tx, int ty) {
-  // acc[key][col] += sum_q pt[q][key] * rows[q][col]
-  constexpr int D = DC * 64, LD = TILE + 4, R = TILE / 16;
-#pragma unroll 4
-  for (int qq = 0; qq < TILE; ++qq) {
-    float pv[R];
-    flash::ld_run<R>(&pt[qq * LD + ty * R], pv);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const float4 r4 = *reinterpret_cast<const float4*>(&rows[qq * D + c * 64 + tx * 4]);
-      const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[i][c * 4 + e] = fmaf(pv[i], rv[e], acc[i][c * 4 + e]);
-    }
-  }
-}
+// One block per (kv head, batch row, BK keys), the lowest keys first. Thread
+// (g, x) of warpgroup wg holds keys g + 8 i (R of them) and query rows x + 16
+// j (J): warpgroup 0 S^T = K Q^T, P^T and dV += P^T dO; warpgroup 1 dP^T =
+// V dO^T, dS^T = P^T (dP^T - delta) * scale from the P^T its twin thread of
+// warpgroup 0 wrote, and dK += dS^T Q. Each runs one score product and one
+// accumulation a tile, of the forward's shapes (8 x 4 scores, 8 x 8 of the
+// accumulator at D 128), in its own registers; the roles differ only in
+// their tiles' addresses and the P^T step.
+template <int D, int BK, int BQ>
+__global__ void __launch_bounds__(THR, 1)
+flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+              const float* __restrict__ o, const float* __restrict__ lse, float* __restrict__ dk,
+              float* __restrict__ dv, int Sq, int Sk, int H, int KV, int causal, int window,
+              float scale) {
+  using namespace flash;
+  using L = Layout<D, BK, BQ>;
+  constexpr int NS = L::NS;
+  constexpr int R = BK / GS;      // keys a thread
+  constexpr int J = BQ / 16;      // query rows a thread of each score tile
+  constexpr int DH = D / 64;      // 4-column groups of dK or dV a thread
+  constexpr int U = BQ / 2 / GS;  // delta rows a thread (each warpgroup half the tile's)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const float* fs = reinterpret_cast<const float*>(smem);
+  float* pts = reinterpret_cast<float*>(smem + L::P);
+  float* dts = reinterpret_cast<float*>(smem + L::DS);
+  float* rows_s = reinterpret_cast<float*>(smem + L::ROWS);
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar_kv = s_base + L::BAR;
+  const uint32_t p_full = bar_kv + 8 * (1 + 2 * STAGES), p_empty = p_full + 8;
 
-template <int D, int TILE>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ o,
-                     const float* __restrict__ lse, const float* __restrict__ dout,
-                     float* __restrict__ dk, float* __restrict__ dv,
-                     int Sq, int Sk, int H, int KV, int causal, int window,
-                     float scale) {
-  constexpr int BQ = TILE, BK = TILE, LD = TILE + 4;
-  constexpr int R = TILE / 16;  // keys (and query rows) of the score tile a thread owns
-  constexpr int PARTS = THREADS / BQ;   // threads that sum one row's delta
-  extern __shared__ float4 smem4[];
-  float* kt = reinterpret_cast<float*>(smem4);
-  float* vt = kt + D * LD;
-  float* qt = vt + D * LD;
-  float* dot = qt + D * LD;
-  float* qs = dot + D * LD;
-  float* dos = qs + BQ * D;
-  float* pt = dos + BQ * D;
-  float* delta_s = pt + BQ * LD;
-  float* lse_s = delta_s + BQ;
-
-  constexpr int DC = D / 64;    // float4 column chunks per thread
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * BK;
-  const int g = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BK;      // the lowest keys, the heaviest causal blocks, first
   const int group = H / KV;
-  const size_t q_stride = (size_t)H * D;    // between consecutive positions
-  const size_t kv_stride = (size_t)KV * D;
-  const size_t kv_base = ((size_t)b * Sk * KV + g) * D;
-
-  for (int i = tid; i < BK * D; i += THREADS) {
-    const int c = i / D, d = i % D;
-    const int kp = k0 + c;
-    const bool in = kp < Sk;
-    kt[d * LD + c] = in ? k[kv_base + kp * kv_stride + d] : 0.f;
-    vt[d * LD + c] = in ? v[kv_base + kp * kv_stride + d] : 0.f;
+  // every tile of the walk holds a query that sees one of the block's keys
+  // (tests/test_torch_flash_plan.py), so none is skipped
+  const QueryTiles qt = query_tiles<BQ>(k0, BK, Sq, Sk, causal, window);
+  const int n = group * qt.count;      // (query head, query tile) pairs, head by head
+  if (threadIdx.x == 0) {
+    mbar_init(p_full, THR / 32);       // every warp, once its delta rows (and P^T) are in
+    mbar_init(p_empty, THR / 64);      // warpgroup 1's warps, once they read P^T
   }
+  init_barriers(bar_kv, THR / 32);     // empty: one arrival a warp
 
-  // query rows that can see any key of this tile: causal starts at the
-  // diagonal, the window ends window - 1 rows after the tile's last key
-  const int k_last = min(k0 + BK - 1, Sk - 1);
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = (causal && window > 0) ? min(Sq - 1, k_last + window - 1) : Sq - 1;
+  int issued = 0;
+  auto issue = [&](int j, int sj) {
+    const int h = kvh * group + j / qt.count;
+    const int q0 = (qt.first + j % qt.count) * BQ;
+    const uint32_t dst = s_base + L::RING + sj * L::STAGE;
+    mbar_expect_tx(bar_full(bar_kv, sj), L::STAGE);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(dst + s * L::SLAB_Q, &tq, 32 * s, h, q0, b, bar_full(bar_kv, sj));
+      tma_load(dst + (NS + s) * L::SLAB_Q, &tdo, 32 * s, h, q0, b, bar_full(bar_kv, sj));
+    }
+  };
+  // thread 128 (warpgroup 1's first) issues the copies: warpgroup 0's P^T
+  // gates warpgroup 1 every tile, so its warps carry no producer's work
+  constexpr int PT = 128;
+  if (threadIdx.x == PT) {
+    mbar_expect_tx(bar_kv, 2 * NS * L::SLAB_K);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(s_base + L::K + s * L::SLAB_K, &tk, 32 * s, kvh, k0, b, bar_kv);
+      tma_load(s_base + L::V + s * L::SLAB_K, &tv, 32 * s, kvh, k0, b, bar_kv);
+    }
+    fma32::refill(issued, n, 0, bar_kv, issue);
+  }
+  __syncwarp();
 
-  float acc_dk[R][DC * 4], acc_dv[R][DC * 4];
+  // the role comes from a shuffled index, which the compiler knows is warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int g = (threadIdx.x & 127) >> 4, x = threadIdx.x & 15, lane = threadIdx.x & 31;
+  const int kg = g & 7;
+  const float sl2 = scale * LOG2E;
+  const float* A = fs + (wg ? L::V : L::K) / 4;      // K (S^T) or V (dP^T), resident
+  float* X = wg ? dts : pts;                          // this warpgroup's P^T or dS^T tile
+  float acc[R][4 * DH];                               // dV (warpgroup 0) or dK (1)
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int c = 0; c < DC * 4; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
+    for (int c = 0; c < 4 * DH; ++c) acc[i][c] = 0.f;
 
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = g * group + hh;
-    const size_t q_base = ((size_t)b * Sq * H + h) * D;
-    for (int q0 = (q_lo / BQ) * BQ; q0 <= q_hi; q0 += BQ) {
-      __syncthreads();  // the k/v tiles are in; the previous tile's reads are done
-      for (int i = tid; i < BQ * D; i += THREADS) {
-        const int r = i / D, d = i % D;
-        const int qp = q0 + r;
-        float qq = 0.f, gg = 0.f;
-        if (qp < Sq) {
-          qq = q[q_base + qp * q_stride + d];
-          gg = dout[q_base + qp * q_stride + d];
-        }
-        qt[d * LD + r] = qq;
-        dot[d * LD + r] = gg;
-        qs[r * D + d] = qq;
-        dos[r * D + d] = gg;
-      }
-      {
-        // delta of row r from PARTS neighbouring lanes of a warp
-        const int r = tid / PARTS, part = tid % PARTS;
-        const int qp = q0 + r;
-        float acc = 0.f;
-        if (qp < Sq) {
-          for (int d = part; d < D; d += PARTS)
-            acc += dout[q_base + qp * q_stride + d] * o[q_base + qp * q_stride + d];
-        }
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % STAGES;
+    const int h = kvh * group + it / qt.count;
+    const int q0 = (qt.first + it % qt.count) * BQ;
+    if (threadIdx.x == PT) fma32::refill(issued, n, it, bar_kv, issue);
+    __syncwarp();
+    // loaded now, used after the score product: lse * log2(e) of rows
+    // x + 16 j (warpgroup 0), this thread's columns of the O rows of its
+    // warpgroup's half of delta, rows BQ / 2 wg + g + 8 u
+    float lse2[J];
+    if (wg == 0) {
 #pragma unroll
-        for (int off = 1; off < PARTS; off <<= 1)
-          acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        if (part == 0) {
-          delta_s[r] = acc;
-          lse_s[r] = qp < Sq ? lse[((size_t)b * H + h) * Sq + qp] : INFINITY;
-        }
+      for (int j = 0; j < J; ++j) {
+        const int qp = q0 + x + 16 * j;
+        // a row past Sq, or one that sees no key (lse +inf), gives p = 0
+        lse2[j] = qp < Sq ? __ldg(lse + ((size_t)b * H + h) * Sq + qp) * LOG2E : INFINITY;
       }
-      __syncthreads();
+    }
+    float4 ov[U][DH];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int qp = q0 + BQ / 2 * wg + g + GS * u;
+      fma32::load_row<DH>(ov[u], qp < Sq ? o + (((size_t)b * Sq + qp) * H + h) * D : nullptr, x);
+    }
+    mbar_wait(bar_full(bar_kv, st), (it / STAGES) & 1);
+    const float* Qt = fs + (L::RING + st * L::STAGE) / 4;
+    const float* dOt = Qt + NS * L::SLAB_Q / 4;
 
-      float s[R][R], dp[R][R];
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1): keys g + 8 i, rows x + 16 j
+    float sp[1][R][J];
+    auto& s = sp[0];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) s[i][j] = 0.f;
+    fma32::dot_rows<NS, R, J, GS>(sp, {A}, L::SLAB_K / 4, {wg ? dOt : Qt}, L::SLAB_Q / 4, g, x);
+    if (threadIdx.x == PT) fma32::refill(issued, n, it, bar_kv, issue);   // if free by now
+    __syncwarp();
+
+    // this warpgroup's half of the tile's delta = rowsum(dO * O) into the
+    // stage's row
+    float* rows = rows_s + st * BQ;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = BQ / 2 * wg + g + GS * u;
+      const float d = fma32::row_delta<DH>(dOt + r * 32, L::SLAB_Q / 4, ov[u], x, kg);
+      if (x == 0) rows[r] = d;
+    }
+    if (wg == 0) {
+      // P^T = exp(S^T * scale - lse), masks only on edge tiles, into the P^T
+      // tile once warpgroup 1 read the last one
+      const bool edge = qtile_edge<BQ, BK>(k0, q0, Sq, Sk, causal, window);
 #pragma unroll
       for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[R], vv[R], av[R], gv[R];
-        flash::ld_run<R>(&kt[d * LD + ty * R], kv);
-        flash::ld_run<R>(&vt[d * LD + ty * R], vv);
-        flash::ld_run<R>(&qt[d * LD + tx * R], av);
-        flash::ld_run<R>(&dot[d * LD + tx * R], gv);
+        for (int j = 0; j < J; ++j) {
+          const int qp = q0 + x + 16 * j;
+          const bool keep = !edge || (qp < Sq && visible(k0 + g + GS * i, qp, Sk, causal, window));
+          s[i][j] = keep ? exp2f(fmaf(s[i][j], sl2, -lse2[j])) : 0.f;
+        }
+      mbar_wait(p_empty, (it & 1) ^ 1);
 #pragma unroll
-        for (int i = 0; i < R; ++i)
+      for (int i = 0; i < R; ++i) fma32::put_row<J>(pts + (g + GS * i) * BQ, s[i], x, kg);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(p_full);
+    } else {
+      // dS^T = P^T (dP^T - delta) * scale, P^T from warpgroup 0's twin thread
+      __syncwarp();
+      if (lane == 0) mbar_arrive(p_full);
+      mbar_wait(p_full, it & 1);
+      float delta[J];
 #pragma unroll
-          for (int j = 0; j < R; ++j) {
-            s[i][j] = fmaf(kv[i], av[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
-          }
-      }
-
-      // p^T into shared memory now, ds^T after dv has read p^T
-      float ds[R][R];
+      for (int j = 0; j < J; ++j) delta[j] = rows[x + 16 * j];
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        const int kp = k0 + ty * R + i;
+        float pv[J];
+        fma32::get_row<J>(pts + (g + GS * i) * BQ, pv, x, kg);
 #pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int r = tx * R + j;
-          const int qp = q0 + r;
-          bool keep = kp < Sk && qp < Sq;
-          if (causal) keep = keep && kp <= qp && (window <= 0 || kp > qp - window);
-          // masked scores and rows with lse = +inf give p = 0 explicitly
-          const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-          ds[i][j] = p * (dp[i][j] - delta_s[r]) * scale;
-          pt[r * LD + ty * R + i] = p;
-        }
+        for (int j = 0; j < J; ++j) s[i][j] = pv[j] * (s[i][j] - delta[j]) * scale;
       }
-      __syncthreads();
-      accumulate<DC, TILE>(pt, dos, acc_dv, tx, ty);
-      __syncthreads();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(p_empty);
 #pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) pt[(tx * R + j) * LD + ty * R + i] = ds[i][j];
-      __syncthreads();
-      accumulate<DC, TILE>(pt, qs, acc_dk, tx, ty);
+      for (int i = 0; i < R; ++i) fma32::put_row<J>(dts + (g + GS * i) * BQ, s[i], x, kg);
+      __syncwarp();
     }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1), from the warp's own rows
+    fma32::acc_rows<R, J, DH, GS>(acc, X, wg ? Qt : dOt, L::SLAB_Q / 4, g, x);
+    __syncwarp();                  // this warp's tile reads and stage reads are done
+    if (lane == 0) mbar_arrive(bar_empty(bar_kv, st));
   }
 
+  // keys past Sk are never stored; a block no query sees stores zeros
+  float* out = wg ? dk : dv;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    const int kp = k0 + ty * R + i;
+    const int kp = k0 + g + GS * i;
     if (kp >= Sk) continue;
-    const size_t row = kv_base + kp * kv_stride;
+    float* orow = out + (((size_t)b * Sk + kp) * KV + kvh) * D + 4 * x;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dk[row + c * 64 + tx * 4 + e] = acc_dk[i][c * 4 + e];
-        dv[row + c * 64 + tx * 4 + e] = acc_dv[i][c * 4 + e];
-      }
+    for (int hh = 0; hh < DH; ++hh)
+      *reinterpret_cast<float4*>(orow + 64 * hh) =
+          make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2], acc[i][4 * hh + 3]);
   }
 }
 
-}  // namespace scalar
+}  // namespace dkv32
 
 // ---- the tensor-core route (bf16)
 
@@ -849,22 +901,25 @@ int launch_wgmma_pair(const void* q, const void* k, const void* v, const void* o
   return (int)cudaGetLastError();
 }
 
-template <int D, int TILE>
-int launch_scalar(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                  const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
-                  int causal, int window, float scale, int out_f32, int smem,
-                  cudaStream_t stream) {
-  using scalar::flash_bwd_dkv_kernel;
-  if (smem != (int)(scalar::smem_floats(D, TILE) * sizeof(float))) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D, TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sk + TILE - 1) / TILE, KV, B);
-  flash_bwd_dkv_kernel<D, TILE><<<grid, scalar::THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(lse),
-      static_cast<const float*>(dout), static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk,
-      H, KV, causal, window, scale);
+template <int D, int BK, int BQ>
+int launch_fma(const void* q, const void* k, const void* v, const void* o, const void* lse,
+               const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+               int causal, int window, float scale, int out_f32, int smem, cudaStream_t stream) {
+  using L = dkv32::Layout<D, BK, BQ>;
+  if (smem != L::bytes || !out_f32) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = flash::make_map(&tq, q, D, H, Sq, B, BQ, true);
+  if (!err) err = flash::make_map(&tdo, dout, D, H, Sq, B, BQ, true);
+  if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, BK, true);
+  if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, BK, true);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(dkv32::flash_dkv_fma<D, BK, BQ>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(KV, B, (Sk + BK - 1) / BK);
+  dkv32::flash_dkv_fma<D, BK, BQ><<<grid, dkv32::THR, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -873,8 +928,9 @@ int launch_scalar(const void* q, const void* k, const void* v, const void* o, co
 // f32: 0 for bf16 operands, 1 for fp32 (which gives dk and dv in fp32).
 // bf16 takes the tensor-core kernels: at D 64 and 128 flash_dkv_wgmma
 // (block_k 64 or 128 keys a block), at D 256 flash_dkv_wgmma_pair (block_k
-// 64); fp32 the scalar kernel (block_k 64, at D 256 32). smem: the plan's
-// shared-memory bytes, checked against the kernel's own layout.
+// 64); fp32 the FMA kernel (block_k 64 keys at D 64 and 128 with 64-row
+// tiles, 32 and 32 at D 256). smem: the plan's shared-memory bytes, checked
+// against the kernel's own layout.
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
@@ -885,9 +941,9 @@ extern "C" int flash_attention_bwd_dkv_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, dout, dk, dv, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
   if (f32) {
-    if (D == 256 && block_k == 32) return launch_scalar<256, 32>(ARGS);
-    if (D == 128 && block_k == 64) return launch_scalar<128, 64>(ARGS);
-    if (D == 64 && block_k == 64) return launch_scalar<64, 64>(ARGS);
+    if (D == 256 && block_k == 32) return launch_fma<256, 32, 32>(ARGS);
+    if (D == 128 && block_k == 64) return launch_fma<128, 64, 64>(ARGS);
+    if (D == 64 && block_k == 64) return launch_fma<64, 64, 64>(ARGS);
   } else {
     if (D == 256 && block_k == 64) return launch_wgmma_pair(ARGS);
     if (D == 128 && block_k == 128) return launch_wgmma<128, 2>(ARGS);

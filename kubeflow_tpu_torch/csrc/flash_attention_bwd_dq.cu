@@ -34,11 +34,29 @@
 // consumers). Shared memory 197,928 bytes: Q and dO resident (64 KiB), two
 // stages of K and V (128 KiB), delta.
 //
-// fp32 operands: the scalar kernel flash_bwd_dq_scalar (the first port's
-// design): 256 threads as a 16 x 16 grid over a query tile of 64 rows (32 at
-// D 256, where 64 would need 361,472 bytes of shared memory; 32 take
-// 184,832), tiles staged as fp32, fp32 FMAs, dq in fp32 (the TPU kernel's
-// rounding of ds to the operands' type before ds k is the identity in fp32).
+// fp32 operands: flash_dq_fma, the bf16 route's walk with register-tiled fp32
+// FMA products (no TF32: the route exists to match the plain version's
+// full-fp32 products; bound three causal matmuls at the 67 TF/s fp32 peak,
+// 0.770 ms at the training shape). The grid and the heaviest-first order
+// are the bf16 route's; 256 threads as 16 row groups g by 16 lanes x hold
+// the scores S = Q K^T and dP = dO V^T of rows g + 16 i and keys x + 16 j
+// (one loop for both products) and dQ of the same rows, columns 4 x + 64 h
+// .. + 3 (the fma32 pieces of flash_common.cuh). Q and dO stay resident; K
+// and V tiles stream through a 2-stage TMA ring of fp32 boxes of 32 columns,
+// thread 0 issuing the copies between its own products. delta =
+// rowsum(dO * O) and lse of the thread's rows are taken once, before the
+// walk, from the resident dO and one read of the O rows. dS = P (dP -
+// delta) * scale stays in registers and passes through the warp's own rows
+// of one fp32 tile (behind a __syncwarp: no block barrier in a key tile) to
+// dQ += dS K, K read from the ring again. Only edge tiles mask. Q, dO, two
+// stages and the dS tile fill the block: D 64 and 128 take 64 query rows and
+// 64-key tiles (214,056 bytes at D 128), D 256 32 rows and 32-key tiles
+// (201,768 bytes). The TPU kernel's rounding of ds to the operands' type is
+// the identity in fp32. What bounds it on an H100 (a clock64-stamped scratch
+// copy, not committed): the two FMA loops take nearly all of a warp's
+// cycles, below the fp32 issue rate; 128 rows and 32-key tiles, a warpgroup
+// each for S and dP (8 x 4 scores a thread, dS handed between them) and that
+// split with one half of dQ a tile late all ran slower.
 
 #include "flash_common.cuh"
 
@@ -47,169 +65,162 @@ namespace {
 using flash::bf16;
 using flash::to_f;
 
-// ---- the scalar route (fp32 operands)
+// ---- the fp32 route: register-tiled fp32 FMAs fed by TMA
 
-namespace scalar {
+namespace dq32 {
 
-constexpr int THREADS = 256;    // a 16 x 16 grid over the TILE x TILE score tile
+constexpr int THR = 256;
 
-// shared floats of a block at head width d and TILE-row tiles: q^T, do^T,
-// k^T, v^T [d][LD]; k [TILE][d]; ds^T [TILE][LD], LD = TILE + 4;
-// ops/pallas_attention.py (_plan) computes the same sum
-__host__ __device__ constexpr size_t smem_floats(int d, int tile) {
-  return (size_t)4 * d * (tile + 4) + (size_t)tile * d + (size_t)tile * (tile + 4);
-}
+// Shared memory of flash_dq_fma<D, BQ, BK>, in bytes from a 1024-aligned
+// base: the Q and dO tiles (D / 32 slabs of BQ rows of 32 fp32 columns each,
+// resident), STAGES ring stages (the K tile's D / 32 slabs of BK rows, then
+// the V tile's), the fp32 dS tile [BQ][BK], then the mbarriers: Q/dO,
+// full[STAGES], empty[STAGES]. `bytes` adds the slack for aligning the
+// dynamic base; ops/pallas_attention.py (_fma_bwd_bytes) sums the same and
+// the launcher checks it.
+template <int D, int BQ, int BK>
+struct Layout {
+  static constexpr int NS = D / 32;
+  static constexpr int SLAB_Q = BQ * 128;
+  static constexpr int SLAB_K = BK * 128;
+  static constexpr int STAGE = 2 * NS * SLAB_K;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + NS * SLAB_Q;
+  static constexpr int KV = DO + NS * SLAB_Q;
+  static constexpr int DS = KV + flash::STAGES * STAGE;
+  static constexpr int BAR = DS + BQ * BK * 4;
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
+  static_assert(bytes <= 232448, "the layout must fit a block's shared memory");
+};
 
-template <int D, int TILE>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_scalar(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ lse, const float* __restrict__ dout,
-                    float* __restrict__ dq, int Sq, int Sk, int H, int KV,
-                    int causal, int window, float scale) {
-  constexpr int BQ = TILE, BK = TILE, LD = TILE + 4;
-  constexpr int R = TILE / 16;  // rows (and keys) of the score tile a thread owns
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);
-  float* dot = qt + D * LD;
-  float* kt = dot + D * LD;
-  float* vt = kt + D * LD;
-  float* ks = vt + D * LD;
-  float* dst = ks + BK * D;
+// One block per (head, batch row, query tile of BQ rows), heaviest causal
+// tiles first; thread (g, x) holds S and dP of rows g + 16 i and keys
+// x + 16 j (R x J) and dQ of the same rows (R x 4 DH).
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(THR, 1)
+flash_dq_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+             const float* __restrict__ o, const float* __restrict__ lse, float* __restrict__ dq,
+             int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
+  using namespace flash;
+  using L = Layout<D, BQ, BK>;
+  constexpr int NS = L::NS;
+  constexpr int R = BQ / 16;      // rows a thread
+  constexpr int J = BK / 16;      // keys a thread of each score tile
+  constexpr int DH = D / 64;      // 4-column groups of dQ a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const float* fs = reinterpret_cast<const float*>(smem);
+  float* dss = reinterpret_cast<float*>(smem + L::DS);
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar_q = s_base + L::BAR;
 
-  constexpr int DC = D / 64;    // float4 column chunks per thread
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // heaviest causal tiles first
+  const int q1 = min(q0 + BQ - 1, Sq - 1);
   const int kvh = h / (H / KV);
-  const size_t q_stride = (size_t)H * D;    // between consecutive positions
-  const size_t kv_stride = (size_t)KV * D;
-  const size_t q_base = ((size_t)b * Sq * H + h) * D;
-  const float* kb = k + ((size_t)b * Sk * KV + kvh) * D;
-  const float* vb = v + ((size_t)b * Sk * KV + kvh) * D;
+  const KeyTiles kt = key_tiles<BK>(q0, BQ, Sq, Sk, causal, window);
+  init_barriers(bar_q, THR / 32);                      // empty: one arrival a warp
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int qp = q0 + r;
-    const bool in = qp < Sq;
-    qt[d * LD + r] = in ? q[q_base + qp * q_stride + d] : 0.f;
-    dot[d * LD + r] = in ? dout[q_base + qp * q_stride + d] : 0.f;
+  int issued = 0;
+  auto issue = [&](int j, int sj) {
+    const int k0 = (kt.first + j) * BK;
+    const uint32_t dst = s_base + L::KV + sj * L::STAGE;
+    mbar_expect_tx(bar_full(bar_q, sj), L::STAGE);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(dst + s * L::SLAB_K, &tk, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
+      tma_load(dst + (NS + s) * L::SLAB_K, &tv, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, 2 * NS * L::SLAB_Q);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 32 * s, h, q0, b, bar_q);
+      tma_load(s_base + L::DO + s * L::SLAB_Q, &tdo, 32 * s, h, q0, b, bar_q);
+    }
+    fma32::refill(issued, kt.count, 0, bar_q, issue);
   }
+  __syncwarp();
 
-  // delta and lse of this thread's rows; the 16 threads of a row share them
-  float delta[R], row_lse[R];
+  const int g = threadIdx.x >> 4, x = threadIdx.x & 15, lane = threadIdx.x & 31;
+  const int kg = g & 7;
+  const float sl2 = scale * LOG2E;
+
+  // delta = rowsum(dO * O) and lse * log2(e) of rows g + 16 i, once
+  mbar_wait(bar_q, 0);
+  float delta[R], lse2[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    const int qp = q0 + ty * R + i;
-    float acc = 0.f;
-    if (qp < Sq) {
-      for (int d = tx; d < D; d += 16)
-        acc += dout[q_base + qp * q_stride + d] * o[q_base + qp * q_stride + d];
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    delta[i] = acc;
-    row_lse[i] = qp < Sq ? lse[((size_t)b * H + h) * Sq + qp] : INFINITY;
+    const int row = q0 + g + 16 * i;
+    float4 ov[DH];
+    fma32::load_row<DH>(ov, row < Sq ? o + (((size_t)b * Sq + row) * H + h) * D : nullptr, x);
+    delta[i] = fma32::row_delta<DH>(fs + L::DO / 4 + (g + 16 * i) * 32, L::SLAB_Q / 4, ov, x, kg);
+    // a row past Sq, or one that sees no key (lse +inf), gives p = 0
+    lse2[i] = row < Sq ? lse[((size_t)b * H + h) * Sq + row] * LOG2E : INFINITY;
   }
 
-  // keys any row of this tile can see: causal skips tiles above the
-  // diagonal, the window skips tiles left of the first row's window
-  const int q_last = min(q0 + BQ - 1, Sq - 1);
-  const int k_hi = causal ? min(Sk - 1, q_last) : Sk - 1;
-  const int k_lo = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
-
-  float acc[R][DC * 4];
+  float acc[R][4 * DH];           // dQ
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int c = 0; c < DC * 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * DH; ++c) acc[i][c] = 0.f;
 
-  for (int k0 = (k_lo / BK) * BK; k0 <= k_hi; k0 += BK) {
-    __syncthreads();  // the q tile is in; the previous tile's reads are done
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D, d = i % D;
-      const int kp = k0 + c;
-      float kk = 0.f, vv = 0.f;
-      if (kp < Sk) {
-        kk = kb[kp * kv_stride + d];
-        vv = vb[kp * kv_stride + d];
-      }
-      kt[d * LD + c] = kk;
-      vt[d * LD + c] = vv;
-      ks[c * D + d] = kk;
-    }
-    __syncthreads();
+  for (int it = 0; it < kt.count; ++it) {
+    const int st = it % STAGES;
+    const int k0 = (kt.first + it) * BK;
+    if (threadIdx.x == 0) fma32::refill(issued, kt.count, it, bar_q, issue);
+    __syncwarp();
+    mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
+    const float* Kt = fs + (L::KV + st * L::STAGE) / 4;
+    const float* Vt = Kt + NS * L::SLAB_K / 4;
 
-    float s[R][R], dp[R][R];
+    // S = Q K^T and dP = dO V^T in one loop: rows g + 16 i, keys x + 16 j
+    float sd[2][R][J];
+    auto& s = sd[0];
+    auto& dp = sd[1];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float av[R], gv[R], kv[R], vv[R];
-      flash::ld_run<R>(&qt[d * LD + ty * R], av);
-      flash::ld_run<R>(&dot[d * LD + ty * R], gv);
-      flash::ld_run<R>(&kt[d * LD + tx * R], kv);
-      flash::ld_run<R>(&vt[d * LD + tx * R], vv);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(av[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
-    }
+      for (int j = 0; j < J; ++j) s[i][j] = dp[i][j] = 0.f;
+    fma32::dot_rows<NS, R, J, 16, 2>(sd, {fs + L::Q / 4, fs + L::DO / 4}, L::SLAB_Q / 4, {Kt, Vt},
+                                     L::SLAB_K / 4, g, x);
+    if (threadIdx.x == 0) fma32::refill(issued, kt.count, it, bar_q, issue);   // if free by now
+    __syncwarp();
 
+    // dS = P (dP - delta) * scale, P = exp(S * scale - lse); masks only on
+    // edge tiles (masked scores and rows with lse = +inf give p = 0)
+    const bool edge = tile_edge<BK>(k0, q0, q1, Sk, causal, window);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      const int qp = q0 + ty * R + i;
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kp = k0 + tx * R + j;
-        bool keep = qp < Sq && kp < Sk;
-        if (causal) keep = keep && kp <= qp && (window <= 0 || kp > qp - window);
-        // masked scores and rows with lse = +inf give p = 0 explicitly
-        const float p = keep ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
-        const float ds = p * (dp[i][j] - delta[i]) * scale;
-        dst[(tx * R + j) * LD + ty * R + i] = ds;
+      for (int j = 0; j < J; ++j) {
+        const bool keep = !edge || visible(k0 + x + 16 * j, q0 + g + 16 * i, Sk, causal, window);
+        const float p = keep ? exp2f(fmaf(s[i][j], sl2, -lse2[i])) : 0.f;
+        s[i][j] = p * (dp[i][j] - delta[i]) * scale;
       }
+      fma32::put_row<J>(dss + (g + 16 * i) * BK, s[i], x, kg);
     }
-    __syncthreads();
+    __syncwarp();
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[R];
-      flash::ld_run<R>(&dst[kk * LD + ty * R], dsv);
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float4 k4 = *reinterpret_cast<const float4*>(&ks[kk * D + c * 64 + tx * 4]);
-        const float kv[4] = {k4.x, k4.y, k4.z, k4.w};
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][c * 4 + e] = fmaf(dsv[i], kv[e], acc[i][c * 4 + e]);
-      }
-    }
+    // dQ += dS K, K read again from the stage
+    fma32::acc_rows<R, J, DH>(acc, dss, Kt, L::SLAB_K / 4, g, x);
+    __syncwarp();                  // this warp's dS reads and stage reads are done
+    if (lane == 0) mbar_arrive(bar_empty(bar_q, st));
   }
 
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    const int qp = q0 + ty * R + i;
-    if (qp >= Sq) continue;
-    const size_t row = q_base + qp * q_stride;
+    const int row = q0 + g + 16 * i;
+    if (row >= Sq) continue;
+    float* drow = dq + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[row + c * 64 + tx * 4 + e] = acc[i][c * 4 + e];
+    for (int hh = 0; hh < DH; ++hh)
+      *reinterpret_cast<float4*>(drow + 4 * x + 64 * hh) =
+          make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2], acc[i][4 * hh + 3]);
   }
 }
 
-
-}  // namespace scalar
+}  // namespace dq32
 
 // ---- the tensor-core route (bf16)
 
@@ -407,29 +418,35 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   return (int)cudaGetLastError();
 }
 
-template <int D, int TILE>
-int launch_scalar(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                  const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int causal,
-                  int window, float scale, int out_f32, int smem, cudaStream_t stream) {
-  if (smem != (int)(scalar::smem_floats(D, TILE) * sizeof(float))) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      scalar::flash_bwd_dq_scalar<D, TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + TILE - 1) / TILE, H, B);
-  scalar::flash_bwd_dq_scalar<D, TILE><<<grid, scalar::THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(lse),
-      static_cast<const float*>(dout), static_cast<float*>(dq), Sq, Sk, H, KV, causal, window,
-      scale);
+template <int D, int BQ, int BK>
+int launch_fma(const void* q, const void* k, const void* v, const void* o, const void* lse,
+               const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int causal,
+               int window, float scale, int out_f32, int smem, cudaStream_t stream) {
+  using L = dq32::Layout<D, BQ, BK>;
+  if (smem != L::bytes || !out_f32) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = flash::make_map(&tq, q, D, H, Sq, B, BQ, true);
+  if (!err) err = flash::make_map(&tdo, dout, D, H, Sq, B, BQ, true);
+  if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, BK, true);
+  if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, BK, true);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(dq32::flash_dq_fma<D, BQ, BK>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+  dq32::flash_dq_fma<D, BQ, BK><<<grid, dq32::THR, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(o), static_cast<const float*>(lse),
+      static_cast<float*>(dq), Sq, Sk, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // f32: 0 for bf16 operands, 1 for fp32. bf16 takes the tensor-core kernel:
-// block_q 64 or 128 at D 64 and 128, 64 at D 256; fp32 the scalar kernel
-// (block_q 64, 32 at D 256; dq in fp32). smem: the plan's shared-memory
-// bytes, checked against the kernel's own layout.
+// block_q 64 or 128 at D 64 and 128, 64 at D 256; fp32 the FMA kernel:
+// block_q 64 at D 64 and 128 (64-key tiles), 32 at D 256 (32-key tiles), dq
+// in fp32. smem: the plan's shared-memory bytes, checked against the
+// kernel's own layout.
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int D,
@@ -440,9 +457,9 @@ extern "C" int flash_attention_bwd_dq_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, dout, dq, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
   if (f32) {
-    if (D == 256 && block_q == 32) return launch_scalar<256, 32>(ARGS);
-    if (D == 128 && block_q == 64) return launch_scalar<128, 64>(ARGS);
-    if (D == 64 && block_q == 64) return launch_scalar<64, 64>(ARGS);
+    if (D == 256 && block_q == 32) return launch_fma<256, 32, 32>(ARGS);
+    if (D == 128 && block_q == 64) return launch_fma<128, 64, 64>(ARGS);
+    if (D == 64 && block_q == 64) return launch_fma<64, 64, 64>(ARGS);
   } else {
     if (D == 256 && block_q == 64) return launch_wgmma<256, 1>(ARGS);
     if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);

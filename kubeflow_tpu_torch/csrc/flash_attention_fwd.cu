@@ -304,37 +304,26 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const KeyTiles kt = key_tiles<BK>(q0, BQ, Sq, Sk, causal, window);
   init_barriers(bar_q, THR / 32);                      // empty: one arrival a warp
 
-  // thread 0 issues item `must` (waiting for its stage) and the next one if
-  // its stage is already free
   int issued = 0;
-  auto refill = [&](int must) {
-    while (issued < kt.count && issued < must + STAGES) {
-      const int j = issued, sj = j % STAGES;
-      const int parity = ((j / STAGES) & 1) ^ 1;
-      if (j > must && !mbar_try_wait(bar_empty(bar_q, sj), parity)) break;
-      mbar_wait(bar_empty(bar_q, sj), parity);
-      const int k0 = (kt.first + j) * BK;
-      const uint32_t dst = s_base + L::KV + sj * L::STAGE;
-      mbar_expect_tx(bar_full(bar_q, sj), L::STAGE);
-      for (int s = 0; s < NS; ++s) {
-        tma_load(dst + s * L::SLAB_K, &tk, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
-        tma_load(dst + (NS + s) * L::SLAB_K, &tv, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
-      }
-      ++issued;
+  auto issue = [&](int j, int sj) {
+    const int k0 = (kt.first + j) * BK;
+    const uint32_t dst = s_base + L::KV + sj * L::STAGE;
+    mbar_expect_tx(bar_full(bar_q, sj), L::STAGE);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(dst + s * L::SLAB_K, &tk, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
+      tma_load(dst + (NS + s) * L::SLAB_K, &tv, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
     }
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar_q, NS * L::SLAB_Q);
     for (int s = 0; s < NS; ++s)
       tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 32 * s, h, q0, b, bar_q);
-    refill(0);
+    fma32::refill(issued, kt.count, 0, bar_q, issue);
   }
   __syncwarp();
 
   const int g = threadIdx.x >> 4, x = threadIdx.x & 15, lane = threadIdx.x & 31;
-  // row r of a slab (and of the P tile) holds its 16-byte chunk c at c ^ (r
-  // % 8): a thread's rows share g % 8, its keys x % 8
-  const int kg = g & 7, kx = x & 7;
+  const int kg = g & 7;
   const float sl2 = scale * LOG2E;
   float acc[R][4 * DH];
   float m[R], l[R];               // l: this thread's part of the row sums
@@ -350,42 +339,22 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   for (int it = 0; it < kt.count; ++it) {
     const int st = it % STAGES;
     const int k0 = (kt.first + it) * BK;
-    if (threadIdx.x == 0) refill(it);
+    if (threadIdx.x == 0) fma32::refill(issued, kt.count, it, bar_q, issue);
     __syncwarp();
     mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
     const float* Kt = fs + (L::KV + st * L::STAGE) / 4;
     const float* Vt = Kt + NS * L::SLAB_K / 4;
 
     // S = Q K^T: rows g + 16 i, keys x + 16 j, d in order
-    float s[R][J];
+    float sp[1][R][J];
+    auto& s = sp[0];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < J; ++j) s[i][j] = 0.f;
-#pragma unroll 1
-    for (int sl = 0; sl < NS; ++sl) {
-      const float* Qs = fs + (L::Q + sl * L::SLAB_Q) / 4 + g * 32;
-      const float* Ks = Kt + sl * L::SLAB_K / 4 + x * 32;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        float4 kv[J];
-#pragma unroll
-        for (int j = 0; j < J; ++j)
-          kv[j] = *reinterpret_cast<const float4*>(Ks + j * 16 * 32 + 4 * (c ^ kx));
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const float4 qv = *reinterpret_cast<const float4*>(Qs + i * 16 * 32 + 4 * (c ^ kg));
-#pragma unroll
-          for (int j = 0; j < J; ++j) {
-            s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
-            s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
-            s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
-            s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
-          }
-        }
-      }
-    }
-    if (threadIdx.x == 0) refill(it);   // the next tile, if its stage is free by now
+    fma32::dot_rows<NS, R, J>(sp, {fs + L::Q / 4}, L::SLAB_Q / 4, {Kt}, L::SLAB_K / 4, g, x);
+    // the next tile, if its stage is free by now
+    if (threadIdx.x == 0) fma32::refill(issued, kt.count, it, bar_q, issue);
     __syncwarp();
 
     if (tile_edge<BK>(k0, q0, q1, Sk, causal, window)) {
@@ -419,45 +388,12 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       m[i] = mx;
 #pragma unroll
       for (int c = 0; c < 4 * DH; ++c) acc[i][c] *= corr;
-      // P row g + 16 i, positions J x .. J x + J - 1: key x + 16 j at J x + j
-      float* pr = ps + (g + 16 * i) * BK;
-      if constexpr (J == 4)
-        *reinterpret_cast<float4*>(pr + 4 * (x ^ kg)) = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-      else
-        *reinterpret_cast<float2*>(pr + 4 * ((x >> 1) ^ kg) + 2 * (x & 1)) = make_float2(s[i][0], s[i][1]);
+      fma32::put_row<J>(ps + (g + 16 * i) * BK, s[i], x, kg);
     }
     __syncwarp();
 
-    // O += P V: position 4 q + e of a P row is key q + 16 e (J 4), or
-    // 2 q + e / 2 + 16 (e % 2) (J 2); a V row's columns 4 x + 64 h .. + 3
-    // are chunk x % 8 of slab x / 8 + 2 h
-#pragma unroll 2
-    for (int q = 0; q < BK / 4; ++q) {
-      float4 pv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (g + 16 * i) * BK + 4 * (q ^ kg));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = J == 4 ? q + 16 * e : 2 * q + (e >> 1) + 16 * (e & 1);
-        float4 vv[DH];
-#pragma unroll
-        for (int hh = 0; hh < DH; ++hh)
-          vv[hh] = *reinterpret_cast<const float4*>(
-              Vt + ((x >> 3) + 2 * hh) * (L::SLAB_K / 4) + key * 32 + 4 * (kx ^ (key & 7)));
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const float p = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-          for (int hh = 0; hh < DH; ++hh) {
-            acc[i][4 * hh] = fmaf(p, vv[hh].x, acc[i][4 * hh]);
-            acc[i][4 * hh + 1] = fmaf(p, vv[hh].y, acc[i][4 * hh + 1]);
-            acc[i][4 * hh + 2] = fmaf(p, vv[hh].z, acc[i][4 * hh + 2]);
-            acc[i][4 * hh + 3] = fmaf(p, vv[hh].w, acc[i][4 * hh + 3]);
-          }
-        }
-      }
-    }
+    // O += P V, V read in the row order of P's positions
+    fma32::acc_rows<R, J, DH>(acc, ps, Vt, L::SLAB_K / 4, g, x);
     __syncwarp();                  // this warp's P reads and stage reads are done
     if (lane == 0) mbar_arrive(bar_empty(bar_q, st));
   }

@@ -9,16 +9,16 @@
 // (Hopper's warpgroup MMA, bf16 operands, fp32 accumulators). The forward
 // and dq stream K/V tiles past a resident query tile; dk/dv streams Q/dO/O
 // tiles past resident K/V (at head width 256 in tiles of 48 query rows, its
-// two consumer warpgroups owning dV and dK). fp32 operands take the fp32
-// forward (register-tiled fp32 FMAs fed by the same kind of TMA ring, key
-// tiles of BK or 32 keys) and the scalar dq and dk/dv, which stage tiles as
-// fp32 in shared memory and multiply with fp32 FMAs.
+// two consumer warpgroups owning dV and dK). fp32 operands take the FMA
+// kernels (flash_fwd_fma, flash_dq_fma, flash_dkv_fma): the same walks with
+// register-tiled fp32 FMA products (the fma32 pieces below) fed by the same
+// kind of TMA ring, thread 0 issuing the copies between its own products.
 //
 // The generic Hopper pieces (mbarriers, TMA, descriptors, wgmma wrappers,
 // the tensor-map encoder) live in hopper_common.cuh; here are the
-// attention-specific ones. A tile row is 64 head-dim columns (or 64 keys)
-// of bf16, 128 bytes, in 128-byte-swizzled slabs; a D-128 tile is two slabs,
-// a D-256 tile four.
+// attention-specific ones. A bf16 tile row is 64 head-dim columns (or 64
+// keys), 128 bytes, in 128-byte-swizzled slabs; a D-128 tile is two slabs, a
+// D-256 tile four. An fp32 tile row is 32 columns a slab.
 
 #pragma once
 
@@ -27,22 +27,6 @@
 namespace flash {
 
 using namespace hopper;
-
-// ---- the scalar route (dq, dk/dv): 256 threads as a 16 x 16 grid over a
-// TILE x TILE score tile, each thread R = TILE / 16 rows and R columns of it
-
-// R (4 or 2) consecutive fp32 values of shared memory (4R-byte aligned)
-template <int R>
-__device__ __forceinline__ void ld_run(const float* p, float (&v)[R]) {
-  static_assert(R == 4 || R == 2, "runs of 4 or 2 floats");
-  if constexpr (R == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    v[0] = x.x, v[1] = x.y;
-  }
-}
 
 // ---- the tensor-core route
 
@@ -138,13 +122,14 @@ __device__ __forceinline__ bool qtile_hidden(int kc0, int q0, int Sq, int Sk, in
   return kc0 >= Sk || (causal && (kc0 > q1 || (window > 0 && kc0 + 63 <= q0 - window)));
 }
 
-// Some (key, query) pair of the transposed tile is not visible (the
-// diagonal, the window's edge, Sq or Sk crosses it): only such tiles mask.
-template <int ROWS = QROWS>
+// Some (key, query) pair of the transposed tile of KEYS keys from kc0 and
+// ROWS rows from q0 is not visible (the diagonal, the window's edge, Sq or
+// Sk crosses it): only such tiles mask.
+template <int ROWS = QROWS, int KEYS = 64>
 __device__ __forceinline__ bool qtile_edge(int kc0, int q0, int Sq, int Sk, int causal,
                                            int window) {
-  return q0 + ROWS > Sq || kc0 + 64 > Sk ||
-         (causal && (kc0 + 63 > q0 || (window > 0 && kc0 <= q0 + ROWS - 1 - window)));
+  return q0 + ROWS > Sq || kc0 + KEYS > Sk ||
+         (causal && (kc0 + KEYS - 1 > q0 || (window > 0 && kc0 <= q0 + ROWS - 1 - window)));
 }
 
 // The block's mbarriers, from bar_q on: the resident tiles' (Q and dO of
@@ -186,6 +171,175 @@ __device__ __forceinline__ void produce_kv(const CUtensorMap* tk, const CUtensor
     }
   }
 }
+
+// ---- the fp32 FMA route: threads as GS row groups g (16 of a block's 256
+// threads, or 8 of a warpgroup's 128) by 16 lanes x, the 16 lanes of a group
+// one half of a warp. fp32 tiles arrive by TMA in slabs of 32 columns
+// (128-byte rows, 128-byte swizzle): row r of a slab holds its 16-byte chunk
+// c at c ^ (r % 8). A thread's rows are g + GS i (all of one r % 8 = g % 8),
+// its columns of a product x + 16 j, and its columns of an accumulator
+// 4 x + 64 h .. + 3 (chunk x % 8 of slab x / 8 + 2 h).
+
+namespace fma32 {
+
+// acc[p][i][j] += A[p][g + GS i] . B[p][x + 16 j] for each of NP products,
+// over the NS slabs of their tiles (A[p] and B[p] the first slabs; the A
+// tiles' slabs a_slab floats apart, the B tiles' b_slab): per 16-byte chunk,
+// J loads of B and R of A feed 4 R J FMAs a product, A's a broadcast within
+// the half warp. dq runs its two products (S and dP) in one loop, two
+// independent FMA streams, which ran faster on an H100 than a loop each.
+template <int NS, int R, int J, int GS = 16, int NP = 1>
+__device__ __forceinline__ void dot_rows(float (&acc)[NP][R][J], const float* const (&A)[NP],
+                                         int a_slab, const float* const (&B)[NP], int b_slab,
+                                         int g, int x) {
+  const int kg = g & 7, kx = x & 7;
+#pragma unroll 1
+  for (int sl = 0; sl < NS; ++sl) {
+    const int ao = sl * a_slab + g * 32, bo = sl * b_slab + x * 32;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float4 bv[NP][J];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          bv[p][j] = *reinterpret_cast<const float4*>(B[p] + bo + j * 16 * 32 + 4 * (c ^ kx));
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float4 av[NP];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          av[p] = *reinterpret_cast<const float4*>(A[p] + ao + i * GS * 32 + 4 * (c ^ kg));
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p) acc[p][i][j] = fmaf(av[p].x, bv[p][j].x, acc[p][i][j]);
+#pragma unroll
+          for (int p = 0; p < NP; ++p) acc[p][i][j] = fmaf(av[p].y, bv[p][j].y, acc[p][i][j]);
+#pragma unroll
+          for (int p = 0; p < NP; ++p) acc[p][i][j] = fmaf(av[p].z, bv[p][j].z, acc[p][i][j]);
+#pragma unroll
+          for (int p = 0; p < NP; ++p) acc[p][i][j] = fmaf(av[p].w, bv[p][j].w, acc[p][i][j]);
+        }
+      }
+    }
+  }
+}
+
+// This thread's J values of one row of an fp32 [rows][16 J] tile (a row of
+// P, dS, P^T or dS^T): column x + 16 j at position J x + j, the row's
+// 16-byte chunks swizzled by kg = row % 8.
+template <int J>
+__device__ __forceinline__ void put_row(float* row, const float (&v)[J], int x, int kg) {
+  static_assert(J == 4 || J == 2, "rows of 64 or 32 columns");
+  if constexpr (J == 4)
+    *reinterpret_cast<float4*>(row + 4 * (x ^ kg)) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(row + 4 * ((x >> 1) ^ kg) + 2 * (x & 1)) = make_float2(v[0], v[1]);
+}
+
+// The values put_row<J> wrote at this thread's positions of a row.
+template <int J>
+__device__ __forceinline__ void get_row(const float* row, float (&v)[J], int x, int kg) {
+  if constexpr (J == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(row + 4 * (x ^ kg));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(row + 4 * ((x >> 1) ^ kg) + 2 * (x & 1));
+    v[0] = t.x, v[1] = t.y;
+  }
+}
+
+// acc[i][4 h + e] += sum over c of P[g + GS i][c] V[c][4 x + 64 h + e]: P
+// the [.., 16 J] tile of put_row (the rows this thread's half warp wrote), V
+// a tile of 16 J rows in slabs v_slab floats apart. Position 4 q + e of a P
+// row is column q + 16 e (J 4), or 2 q + e / 2 + 16 (e % 2) (J 2); per 4
+// positions, R loads of P and 4 DH of V feed 16 R DH FMAs. The loop is
+// unrolled whole, which ran faster on an H100 than unrolling it by 2.
+template <int R, int J, int DH, int GS = 16>
+__device__ __forceinline__ void acc_rows(float (&acc)[R][4 * DH], const float* P,
+                                         const float* V, int v_slab, int g, int x) {
+  constexpr int N = 16 * J;
+  const int kg = g & 7, kx = x & 7;
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    float4 pv[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(P + (g + GS * i) * N + 4 * (q ^ kg));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = J == 4 ? q + 16 * e : 2 * q + (e >> 1) + 16 * (e & 1);
+      float4 vv[DH];
+#pragma unroll
+      for (int h = 0; h < DH; ++h)
+        vv[h] = *reinterpret_cast<const float4*>(V + ((x >> 3) + 2 * h) * v_slab + c * 32 +
+                                                 4 * (kx ^ (c & 7)));
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float p = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+        for (int h = 0; h < DH; ++h) {
+          acc[i][4 * h] = fmaf(p, vv[h].x, acc[i][4 * h]);
+          acc[i][4 * h + 1] = fmaf(p, vv[h].y, acc[i][4 * h + 1]);
+          acc[i][4 * h + 2] = fmaf(p, vv[h].z, acc[i][4 * h + 2]);
+          acc[i][4 * h + 3] = fmaf(p, vv[h].w, acc[i][4 * h + 3]);
+        }
+      }
+    }
+  }
+}
+
+// This thread's columns 4 x + 64 h .. + 3 of one O row (DH float4s from
+// device memory, the row's D floats at o; nullptr past Sq gives zeros).
+template <int DH>
+__device__ __forceinline__ void load_row(float4 (&v)[DH], const float* o, int x) {
+#pragma unroll
+  for (int h = 0; h < DH; ++h)
+    v[h] = o ? __ldg(reinterpret_cast<const float4*>(o + 4 * x + 64 * h))
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// delta = rowsum(dO . O) of a row, over the 16 lanes of its group: dO the
+// row of a resident tile (row r at r * 32 floats of each slab, slabs `slab`
+// floats apart, r % 8 = kg), ov this thread's columns of the O row. The
+// shuffles take the whole warp: both half warps call it together.
+template <int DH>
+__device__ __forceinline__ float row_delta(const float* dO, int slab, const float4 (&ov)[DH],
+                                           int x, int kg) {
+  float sum = 0.f;
+#pragma unroll
+  for (int h = 0; h < DH; ++h) {
+    const float4 d = *reinterpret_cast<const float4*>(dO + ((x >> 3) + 2 * h) * slab +
+                                                      4 * ((x & 7) ^ kg));
+    sum = fmaf(d.x, ov[h].x, sum);
+    sum = fmaf(d.y, ov[h].y, sum);
+    sum = fmaf(d.z, ov[h].z, sum);
+    sum = fmaf(d.w, ov[h].w, sum);
+  }
+#pragma unroll
+  for (int off = 1; off < 16; off *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  return sum;
+}
+
+// Thread 0's side of a TMA ring of `count` items: issue item `must` (waiting
+// until its stage is released) and the next ones whose stages are already
+// free, at most STAGES - 1 ahead; issue(j, stage) arms the stage's full
+// barrier and starts item j's copies.
+template <class Issue>
+__device__ __forceinline__ void refill(int& issued, int count, int must, uint32_t bar,
+                                       Issue&& issue) {
+  while (issued < count && issued < must + STAGES) {
+    const int j = issued, sj = j % STAGES;
+    const int parity = ((j / STAGES) & 1) ^ 1;
+    if (j > must && !mbar_try_wait(bar_empty(bar, sj), parity)) break;
+    mbar_wait(bar_empty(bar, sj), parity);
+    issue(j, sj);
+    ++issued;
+  }
+}
+
+}  // namespace fma32
 
 }  // namespace flash
 

@@ -26,14 +26,22 @@ Two routes, chosen by :func:`_plan` from the operands' dtype and width:
   or 128 keys (by the same rule; at width 256 always 64) and streams the Q,
   dO and O tiles of 64 query rows (48 at width 256) that can see them, over
   every query head of the GQA group.
-- **fp32: fp32 FMAs, no TF32.** The forward is the tensor-core route's walk
-  with register-tiled FMA products: Q resident, K and V tiles streamed by
-  TMA through a 2-stage ring, 256 threads each holding 8 x 4 scores and
-  8 x 8 of O at width 128 (128-row query tiles, 64-key tiles; at width 256
-  64 rows and 32 keys), P through one fp32 shared tile (:func:`_fma_fwd_bytes`).
-  dq and dk/dv are scalar kernels: tiles staged in shared memory, 256
-  threads, 64-row tiles where they fit the block's shared memory, else 32
-  (at width 256). The TPU kernels' rounding points are the identity in fp32.
+- **fp32: fp32 FMAs, no TF32.** All three kernels are the tensor-core
+  route's walks with register-tiled FMA products, 256 threads, the resident
+  side's tiles loaded once and the streamed side's through a 2-stage TMA
+  ring; P (forward), dS (dq), P^T and dS^T (dk/dv) pass to the next
+  product through fp32 shared tiles. The forward holds 128 query rows and
+  streams 64-key tiles (64 rows and 32 keys at width 256), a thread 8 x 4
+  scores and 8 x 8 of O at width 128 (:func:`_fma_fwd_bytes`). dq holds 64
+  query rows (Q and dO) and streams 64-key tiles, a thread 4 x 4 of S and
+  of dP (one loop) and 4 x 8 of dQ at width 128. dk/dv holds 64 keys (K and
+  V) and streams the Q and dO tiles of 64 rows, its two warpgroups split as
+  the bf16 width-256 kernel's (one S^T, P^T and dV, the other dP^T, dS^T
+  and dK, P^T handed over through shared memory), a thread 8 x 4 scores and
+  8 x 8 of its accumulator at width 128; both take 32 and 32 at width 256
+  (:func:`_fma_bwd_tiles`, :func:`_fma_bwd_bytes`). dk/dv reads O from
+  device memory for delta, which its warpgroups share through shared
+  memory. The TPU kernels' rounding points are the identity in fp32.
 
 The kernels are compiled for head widths 64, 128 and 256. bf16 takes the
 tensor cores in all three kernels at every width. At 256
@@ -43,8 +51,8 @@ registers), and dk/dv in blocks of 64 keys whose two consumer warpgroups
 each own one of dK and dV (one warpgroup holding both, with S^T and dP^T,
 would need 320 registers a thread, and 64-row ring tiles would pass the
 block's shared memory: :func:`_wgmma_sums`); warpgroup 0 hands its fp32
-P^T to warpgroup 1 through shared memory. fp32 takes the FMA forward and
-the scalar dq and dk/dv at every width. Any head size D up to 256 runs on
+P^T to warpgroup 1 through shared memory. fp32 takes the FMA kernels at
+every width. Any head size D up to 256 runs on
 them: :func:`_pad_heads` zero-pads the head axis to the next width and
 launches with the true ``D ** -0.5`` as the
 softmax scale, so the scores, the softmax and delta = rowsum(dO·O) are the
@@ -135,15 +143,14 @@ _TILE_K = 64                # keys a tile on both routes
 _STAGES = 2                 # ring tiles in flight on the tensor-core route
 _QROWS = 64                 # query rows of a dk/dv ring tile
 _PAIR_QROWS = 48            # ... at the widths of ``_WGMMA_64_ROWS_D``
-_SCALAR_TILES = (64, 32)    # the scalar kernels' tile rows (and keys), largest that fits first
-_FMA_THREADS = 256          # threads of the fp32 forward
+_FMA_THREADS = 256          # threads of the fp32 FMA kernels
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """How one flash kernel launches. ``route`` "wgmma" is the bf16
-    tensor-core kernel, "fma" the fp32 forward of register-tiled FMAs,
-    "scalar" the fp32 dq and dk/dv; ``block`` is the query
+    tensor-core kernel, "fma" the fp32 kernel of register-tiled FMAs;
+    ``block`` is the query
     rows a block (forward, dq) or the keys a block (dk/dv); ``width`` the
     head width the kernel runs at (the head size zero-padded to 64, 128 or
     256)."""
@@ -189,16 +196,6 @@ def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
     return 1024 + kv + ring + rows + bars, width + 64
 
 
-def _scalar_floats(kernel: str, width: int, tile: int) -> int:
-    """fp32 words of shared memory of the scalar ``kernel`` ("dq" or "dkv")
-    at head width ``width`` with ``tile``-row tiles (and ``tile`` keys a
-    tile): transposed tiles of leading dimension ``tile + 4``; the launchers
-    check the same sums (``smem_floats`` in each source)."""
-    ld = tile + 4
-    return {"dq": 4 * width * ld + tile * width + tile * ld,
-            "dkv": 4 * width * ld + 2 * tile * width + tile * ld + 2 * tile}[kernel]
-
-
 def _fma_fwd_tiles(width: int) -> tuple[int, int]:
     """(query rows, keys) of the fp32 forward's tiles at head width
     ``width``: 128 rows and 64 keys up to 128, then 64 rows and 32 keys."""
@@ -217,18 +214,46 @@ def _fma_fwd_bytes(width: int) -> int:
             + 8 * (1 + 2 * _STAGES))
 
 
+def _fma_bwd_tiles(kernel: str, width: int) -> tuple[int, int]:
+    """The fp32 backward ``kernel``'s tiles at head width ``width``: dq's
+    (query rows a block, keys a streamed tile), dk/dv's (keys a block, query
+    rows a streamed tile); 64 and 64 up to 128, then 32 and 32."""
+    return (64, 64) if width <= 128 else (32, 32)
+
+
+def _fma_bwd_bytes(kernel: str, width: int) -> int:
+    """Shared memory of the fp32 ``kernel`` ("dq": ``flash_dq_fma``, "dkv":
+    ``flash_dkv_fma``) at head width ``width``, part by part as its
+    ``Layout`` in ``csrc/flash_attention_bwd_{dq,dkv}.cu`` sums it (the
+    launcher checks it): 1024 bytes of alignment slack, the resident fp32
+    tiles (Q and dO, or K and V), ``_STAGES`` streamed tiles (K and V, or Q
+    and dO), the fp32 tiles rows pass through [block, tile] (dq's dS, dk/dv's
+    P^T and dS^T) and dk/dv's delta row of each stage, and the mbarriers
+    (the resident tiles', full and empty a stage, dk/dv's P^T full and
+    empty)."""
+    block, tile = _fma_bwd_tiles(kernel, width)
+    resident = 2 * 4 * block * width
+    ring = _STAGES * 2 * 4 * tile * width
+    if kernel == "dq":
+        return 1024 + resident + ring + 4 * block * tile + 8 * (1 + 2 * _STAGES)
+    exchange = 2 * 4 * block * tile
+    rows = _STAGES * 4 * tile
+    return 1024 + resident + ring + exchange + rows + 8 * (1 + 2 * _STAGES + 2)
+
+
 def _wide_head_refusal(D: int) -> str:
     width = -(-D // 64) * 64
-    tile = _SCALAR_TILES[-1]
     rows, keys = _fma_fwd_tiles(width)
-    need = "; ".join([f"forward {_fma_fwd_bytes(width):,}"] + [
-        f"{name} {4 * _scalar_floats(k, width, tile):,}" for k, name in (("dq", "dq"),
-                                                                      ("dkv", "dk/dv"))])
+    dq_rows, dq_keys = _fma_bwd_tiles("dq", width)
+    dkv_keys, dkv_rows = _fma_bwd_tiles("dkv", width)
+    need = (f"forward {_fma_fwd_bytes(width):,}; dq {_fma_bwd_bytes('dq', width):,}; "
+            f"dk/dv {_fma_bwd_bytes('dkv', width):,}")
     return (f"flash kernels take head_dim up to {_KERNEL_D[-1]} (zero-padded to 64, 128 or "
             f"256), got {D}. At width {width} the fp32 kernels would need, at their "
-            f"smallest tiles (the forward's {rows} query rows and {keys} keys, dq's and dk/dv's "
-            f"{tile} rows), shared memory bytes a block of: {need}; the card "
-            f"gives a block {SMEM_LIMIT:,} bytes, and a train step needs all three")
+            f"smallest tiles (the forward's {rows} query rows and {keys} keys, dq's {dq_rows} "
+            f"rows and {dq_keys} keys, dk/dv's {dkv_keys} keys and {dkv_rows} rows), shared "
+            f"memory bytes a block of: {need}; the card gives a block {SMEM_LIMIT:,} bytes, "
+            f"and a train step needs all three")
 
 
 def _kernel_width(D: int) -> int:
@@ -253,12 +278,11 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     shape. dk/dv: a grid of (KV, B, key blocks), 128 keys a block where
     ``B * KV * ceil(Sk / 128)`` blocks fill the SMs, else 64; at widths
     ``_WGMMA_64_ROWS_D`` 64 keys in 256 threads, two warpgroups owning dV and
-    dK. Shared memory as :func:`_wgmma_sums` counts it. fp32: the forward
-    takes the FMA route, a grid of (H, B, query tiles) of 256 threads, the
-    tiles of :func:`_fma_fwd_tiles` and the bytes of :func:`_fma_fwd_bytes`;
-    dq and dk/dv the scalar route, 256 threads, the largest tile of
-    ``_SCALAR_TILES`` whose shared memory (:func:`_scalar_floats`) fits a
-    block.
+    dK. Shared memory as :func:`_wgmma_sums` counts it. fp32: every kernel
+    takes the FMA route, 256 threads; the forward a grid of (H, B, query
+    tiles), the tiles of :func:`_fma_fwd_tiles` and the bytes of
+    :func:`_fma_fwd_bytes`; dq and dk/dv the bf16 route's grids, the tiles
+    of :func:`_fma_bwd_tiles` and the bytes of :func:`_fma_bwd_bytes`.
     """
     width = _kernel_width(D)
     if dtype not in (torch.bfloat16, torch.float32):
@@ -277,9 +301,9 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
         rows, _ = _fma_fwd_tiles(width)
         return Plan("fma", rows, (H, B, -(-Sq // rows)), _FMA_THREADS, _fma_fwd_bytes(width),
                     width)
-    t = next(t for t in _SCALAR_TILES if 4 * _scalar_floats(kernel, width, t) <= SMEM_LIMIT)
-    grid = (-(-Sk // t), KV, B) if kernel == "dkv" else (-(-Sq // t), H, B)
-    return Plan("scalar", t, grid, 256, 4 * _scalar_floats(kernel, width, t), width)
+    block, _ = _fma_bwd_tiles(kernel, width)
+    grid = (KV, B, -(-Sk // block)) if kernel == "dkv" else (H, B, -(-Sq // block))
+    return Plan("fma", block, grid, _FMA_THREADS, _fma_bwd_bytes(kernel, width), width)
 
 
 def _pad_heads(inner, heads, width: int):
@@ -302,9 +326,10 @@ def _pad_heads(inner, heads, width: int):
 
 def _query_tiles(k0: int, keys: int, Sq: int, Sk: int, causal: bool,
                  window: int | None, rows: int = _QROWS) -> tuple[int, int]:
-    """(first, count) of the ``rows``-row query tiles (``_QROWS``, or
-    ``_PAIR_QROWS`` at width 256) that can see keys ``k0 .. k0 + keys - 1``:
-    the dk/dv kernels' walk (``query_tiles`` in ``csrc/flash_common.cuh``,
+    """(first, count) of the ``rows``-row query tiles (``_QROWS``,
+    ``_PAIR_QROWS`` at width 256, or the fp32 kernel's rows of
+    :func:`_fma_bwd_tiles`) that can see keys ``k0 .. k0 + keys - 1``: the
+    dk/dv kernels' walk (``query_tiles`` in ``csrc/flash_common.cuh``,
     mirrored here for the CPU tests). Causal starts at the diagonal; the
     window ends ``window - 1`` rows after the last key."""
     k_last = min(k0 + keys - 1, Sk - 1)

@@ -62,6 +62,26 @@ def test_plain_backward_matches_jax_grad(causal, window, kv, bq, bk):
         np.testing.assert_allclose(g, w, err_msg=name, **TOL)
 
 
+@pytest.mark.parametrize("S,causal,window,kv,block", [
+    (96, True, None, 2, 32),    # ragged against the fp32 kernels' 64-row tiles
+    (96, False, None, 4, 32),
+    (200, True, 48, 1, 40),     # ragged against 64- and 32-row tiles, MQA
+    (200, True, None, 2, 40),
+])
+def test_plain_backward_matches_jax_grad_at_lengths_ragged_to_the_fp32_tiles(
+        S, causal, window, kv, block):
+    """fp32 at lengths that leave a ragged last tile of the fp32 dq and dk/dv
+    kernels (64 rows and keys up to width 128, 32 at 256): the plain
+    backward, which the card's kernels are held to, against the JAX kernels
+    (interpret mode, blocks that divide S)."""
+    q, k, v, do = _inputs(B=1, Sq=S, KV=kv, seed=S)
+    want = _jax_grads(q, k, v, do, causal, block, block, window)
+    got = _port_grads(q, k, v, do, causal, window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == np.float32
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+
+
 def test_dead_rows_get_zero_dq_and_match_jax_elsewhere():
     """Sq 16 > Sk 8 with window 2: rows 9-15 see no key. The port's forward
     gives them lse +inf, so p = 0 and dq = 0 there. The JAX forward gives

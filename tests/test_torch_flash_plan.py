@@ -49,11 +49,13 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
         assert plan.grid == (H, B, -(-Sq // rows))
         assert plan.smem_bytes == pa._fma_fwd_bytes(D)
     else:
-        # fp32 dq and dk/dv: the scalar kernels, 32-row tiles where 64 would
-        # pass the block's shared memory (at 256)
-        tile = 32 if D == 256 else 64
-        assert (plan.route, plan.block, plan.threads) == ("scalar", tile, 256)
-        assert plan.grid == ((Sk // tile, KV, B) if kernel == "dkv" else (Sq // tile, H, B))
+        # fp32 dq and dk/dv: register-tiled FMAs, 256 threads, the bf16
+        # route's grids; dq 64 query rows (64-key tiles), dk/dv 64 keys
+        # (64-row tiles) up to width 128, 32 and 32 at 256, at every shape
+        block = 32 if D == 256 else 64
+        assert (plan.route, plan.block, plan.threads) == ("fma", block, 256)
+        assert plan.grid == ((KV, B, Sk // block) if kernel == "dkv" else (H, B, Sq // block))
+        assert plan.smem_bytes == pa._fma_bwd_bytes(kernel, D)
 
 
 @pytest.mark.parametrize("kernel,dtype,shape,want", [
@@ -65,12 +67,17 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     # the fp32 forward: Q 64 KiB + 2 x (K, V) 64 KiB + P 32 KiB + slack, barriers
     ("fwd", torch.float32, TRAINING, 230_440),
     ("fwd", torch.float32, SERVING, 230_440),
-    ("dq", torch.float32, SERVING, 189_440),
+    # fp32 dq: Q and dO 64 KiB + 2 x (K, V) 128 KiB + dS 16 KiB + slack, barriers
+    ("dq", torch.float32, TRAINING, 214_056),
+    ("dq", torch.float32, SERVING, 214_056),
     # K + V 64 KiB resident + 2 x (Q, dO, O) 96 KiB + two delta/lse rows a
     # consumer 2 KiB + slack, barriers
     ("dkv", torch.bfloat16, TRAINING, 166_952),
     ("dkv", torch.bfloat16, SERVING, 133_160),    # 64 keys: K + V 32 KiB, one consumer
-    ("dkv", torch.float32, TRAINING, 222_720),    # the scalar kernel's fp32 tiles
+    # fp32 dk/dv: K and V 64 KiB + 2 x (Q, dO) 128 KiB + P^T and dS^T 32 KiB
+    # + a delta row a stage + slack, seven barriers
+    ("dkv", torch.float32, TRAINING, 230_968),
+    ("dkv", torch.float32, SERVING, 230_968),
 ])
 def test_plan_shared_memory_bytes_at_d128(kernel, dtype, shape, want):
     assert pa._plan(kernel, *shape, 128, dtype).smem_bytes == want
@@ -98,7 +105,9 @@ def test_plan_ragged_and_small_grids():
     assert pa._plan("fwd", 2, 200, 200, 8, 4, 128, torch.bfloat16).grid == (8, 2, 4)
     assert pa._plan("fwd", 9, 200, 200, 8, 4, 128, torch.bfloat16).grid == (8, 9, 2)
     assert pa._plan("dq", 1, 16, 8, 4, 2, 64, torch.bfloat16).grid == (4, 1, 1)
-    assert pa._plan("dkv", 2, 64, 192, 4, 2, 128, torch.float32).grid == (3, 2, 2)
+    assert pa._plan("dkv", 2, 64, 192, 4, 2, 128, torch.float32).grid == (2, 2, 3)
+    assert pa._plan("dq", 9, 200, 200, 8, 4, 128, torch.float32).grid == (8, 9, 4)
+    assert pa._plan("dkv", 2, 200, 200, 4, 4, 256, torch.float32).grid == (4, 2, 7)
     # dk/dv: 128 keys where B * KV * ceil(Sk / 128) fills the SMs (the GQA 8/2 case at S 2048)
     assert pa._plan("dkv", 8, 2048, 2048, 8, 2, 64, torch.bfloat16).grid == (2, 8, 16)
     assert pa._plan("dkv", 4, 2048, 2048, 8, 2, 64, torch.bfloat16).grid == (2, 4, 32)
@@ -158,9 +167,60 @@ def test_query_tiles_of_the_width_256_walk(Sq, Sk, causal, window):
         assert walked == visible
 
 
+@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_fma_backward_layout_fits_the_block(kernel, width):
+    """The fp32 dq and dk/dv kernels' shared memory, part by part as their
+    ``Layout`` in ``csrc/flash_attention_bwd_{dq,dkv}.cu`` lays it out: the
+    resident tiles, two ring stages, the exchange tiles (dq's dS; dk/dv's
+    P^T and dS^T, which its two warpgroups hand over), dk/dv's delta row a
+    stage, the barriers and the alignment slack. It fits the block at every
+    width; the block is a multiple of 16 rows (dq's thread holds rows
+    g + 16 i, dk/dv's keys g + 8 i of its warpgroup's 8 row groups) and the
+    streamed tile 64 or 32 rows (a row of an exchange tile is 4 or 2
+    positions a lane)."""
+    block, tile = pa._fma_bwd_tiles(kernel, width)
+    assert block % 16 == 0 and tile in (64, 32)
+    slab = 128                                  # bytes of a 32-column fp32 row
+    resident = 2 * (width // 32) * block * slab
+    stage = 2 * (width // 32) * tile * slab
+    exchange = (2 if kernel == "dkv" else 1) * 4 * block * tile
+    rows = 2 * 4 * tile if kernel == "dkv" else 0
+    bars = 8 * (1 + 2 * 2 + (2 if kernel == "dkv" else 0))
+    want = 1024 + resident + 2 * stage + exchange + rows + bars
+    assert pa._fma_bwd_bytes(kernel, width) == want <= pa.SMEM_LIMIT
+    plan = pa._plan(kernel, 4, 2048, 2048, 8, 8, width, torch.float32)
+    assert (plan.route, plan.block, plan.smem_bytes) == ("fma", block, want)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (2048, 2048, True, None),
+    (256, 256, True, 2), (256, 256, True, 48), (256, 256, True, 100), (256, 256, True, 1000),
+    (200, 200, True, None), (200, 200, True, 48),        # ragged query and key tiles
+    (96, 96, False, None), (64, 192, False, None),       # non-causal, Sq != Sk
+    (16, 8, True, 2), (300, 130, True, 100), (130, 300, True, None),
+])
+@pytest.mark.parametrize("width", [128, 256])
+def test_query_tiles_of_the_fp32_walk(width, Sq, Sk, causal, window):
+    """The fp32 dk/dv kernel's walk, ``_fma_bwd_tiles("dkv", width)`` keys
+    a block over query tiles of its rows: it visits exactly the tiles that
+    hold a visible (query, key) pair, found by brute force, so the kernel
+    skips none."""
+    keys, rows = pa._fma_bwd_tiles("dkv", width)
+    keep = pa._keep_mask(Sq, Sk, causal, window, "cpu")
+    n_tiles = -(-Sq // rows)
+    for k0 in range(0, Sk, keys):
+        first, count = pa._query_tiles(k0, keys, Sq, Sk, causal, window, rows)
+        assert count == 0 or 0 <= first and first + count <= n_tiles
+        visible = [bool(keep[i * rows:(i + 1) * rows, k0:k0 + keys].any())
+                   for i in range(n_tiles)]
+        walked = [first <= i < first + count for i in range(n_tiles)]
+        assert walked == visible
+
+
 def test_other_head_sizes_and_dtypes_are_stated_refusals():
     with pytest.raises(ValueError, match=r"head_dim up to 256 .*got 320\. At width 320 .*dk/dv "
-                                         r"271,104; .*232,448 bytes"):
+                                         r"255,288; .*232,448 bytes"):
         pa._plan("fwd", 1, 64, 64, 2, 2, 320, torch.bfloat16)
     with pytest.raises(TypeError, match="bf16 or fp32"):
         pa._plan("dq", 1, 64, 64, 2, 2, 128, torch.float16)

@@ -1,8 +1,8 @@
 """Head sizes other than 64, 128 and 256: the port's kernels run them
 zero-padded to the next of those widths with the true D's softmax scale
 (width 256: bf16 on the tensor-core route, the forward and dq with 64-row
-tiles; fp32 on the FMA forward with 64-row tiles and 32-key tiles, dq and
-dk/dv on the scalar route).
+tiles; fp32 on the FMA kernels, the forward with 64-row tiles and 32-key
+tiles, dq and dk/dv with 32-row tiles and 32 keys).
 
 ``_pad_heads`` takes the function it pads around as an argument: on the
 card the kernel launch, here the plain version, so the padding itself is
@@ -102,20 +102,23 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
         assert plan == pa._plan(kernel, 4, 2048, 2048, 8, 8, width, dtype)
         assert plan.width == width and plan.smem_bytes <= pa.SMEM_LIMIT
         # bf16 takes the tensor cores at every width, at 256 in 64-row
-        # tiles (64-key blocks for dk/dv); fp32 the FMA forward (128 query
-        # rows and 64-key tiles up to 128, 64 and 32 at 256) and the scalar
-        # dq and dk/dv, in 64-row tiles where they fit, else 32
-        assert plan.route == ("wgmma" if dtype == torch.bfloat16 else
-                              "fma" if kernel == "fwd" else "scalar")
-        if plan.route == "fma":
+        # tiles (64-key blocks for dk/dv); fp32 the FMA kernels: the forward
+        # 128 query rows and 64-key tiles up to 128, 64 and 32 at 256; dq 64
+        # query rows and 64-key tiles, dk/dv 64 keys and 64-row tiles, up to
+        # 128, both 32 and 32 at 256
+        assert plan.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
+        if plan.route == "fma" and kernel == "fwd":
             assert (plan.block, plan.threads, plan.grid) == (
                 pa._fma_fwd_tiles(width)[0], 256, (8, 4, 2048 // pa._fma_fwd_tiles(width)[0]))
             assert plan.smem_bytes == pa._fma_fwd_bytes(width) == {
                 64: 132_136, 128: 230_440, 256: 205_864}[width]
-        elif plan.route == "scalar":
-            tile = 64 if width <= 128 else 32
-            assert plan.block == tile and plan.threads == 256
-            assert plan.smem_bytes == 4 * pa._scalar_floats(kernel, width, tile)
+        elif plan.route == "fma":
+            block = 64 if width <= 128 else 32
+            assert pa._fma_bwd_tiles(kernel, width) == (block, block)
+            assert (plan.block, plan.threads, plan.grid) == (block, 256, (8, 4, 2048 // block))
+            assert plan.smem_bytes == pa._fma_bwd_bytes(kernel, width) == {
+                ("dq", 64): 115_752, ("dq", 128): 214_056, ("dq", 256): 201_768,
+                ("dkv", 64): 132_664, ("dkv", 128): 230_968, ("dkv", 256): 206_136}[kernel, width]
         elif width == 256:
             assert (plan.block, plan.threads, plan.grid) == (64, 256, (8, 4, 32))
             assert plan.smem_bytes == pa._wgmma_sums(kernel, 64, 256)[0]
@@ -131,8 +134,8 @@ def test_head_sizes_past_128_are_refused_with_their_limits():
     one consumer warpgroup of 64 rows beside the producer (a thread may hold
     255 registers there) but not with two (168); dk/dv fits with 64 keys in
     two warpgroups, one owning dV and one dK, and 48-row tiles (not with 128
-    keys); past 256 the scalar kernels would not fit either, and that is the
-    stated refusal."""
+    keys); past 256 the fp32 FMA kernels would not fit either, and that is
+    the stated refusal."""
     assert [pa._wgmma_sums(k, 64, 256) for k in ("fwd", "dq", "dkv")] == [
         (164_904, 160), (197_928, 192), (226_744, 152)]
     for kernel in ("fwd", "dq"):
@@ -151,18 +154,20 @@ def test_head_sizes_past_128_are_refused_with_their_limits():
     assert pa._wgmma_sums("dkv", 128, 256)[0] > pa.SMEM_LIMIT
     plan = pa._plan("dkv", 4, 2048, 2048, 8, 8, 256, torch.bfloat16, sms=1)
     assert (plan.route, plan.block, plan.threads) == ("wgmma", 64, 256)
-    assert pa._plan("dkv", 4, 2048, 2048, 8, 8, 256, torch.float32).route == "scalar"
+    assert pa._plan("dkv", 4, 2048, 2048, 8, 8, 256, torch.float32).route == "fma"
     for D in (129, 200, 256):
         assert pa._kernel_width(D) == fd._kernel_width(D) == 256
     # the sums the refusal states are the fp32 kernels' own at the next
-    # width: the FMA forward's layout (64 rows, 32-key tiles) and the scalar
-    # dq and dk/dv at 32-row tiles
+    # width: the FMA forward's layout (64 rows, 32-key tiles), dq's (32 rows,
+    # 32-key tiles) and dk/dv's (32 keys, 32-row tiles); none fits
     assert pa._fma_fwd_tiles(320) == (64, 32)
-    assert [pa._fma_fwd_bytes(320)] + [4 * pa._scalar_floats(k, 320, 32) for k in ("dq", "dkv")] == [
-        255_016, 229_888, 271_104]
-    assert pa._fma_fwd_bytes(320) > pa.SMEM_LIMIT and 4 * pa._scalar_floats("dkv", 320, 32) > pa.SMEM_LIMIT
+    assert pa._fma_bwd_tiles("dq", 320) == pa._fma_bwd_tiles("dkv", 320) == (32, 32)
+    sums = [pa._fma_fwd_bytes(320)] + [pa._fma_bwd_bytes(k, 320) for k in ("dq", "dkv")]
+    assert sums == [255_016, 250_920, 255_288]
+    assert min(sums) > pa.SMEM_LIMIT
     for D in (257, 320):
-        with pytest.raises(ValueError, match=f"head_dim up to 256 .*got {D}.*forward 255,016.*dk/dv 271,104.*232,448"):
+        with pytest.raises(ValueError, match=f"head_dim up to 256 .*got {D}.*forward 255,016; "
+                                             f"dq 250,920; dk/dv 255,288.*232,448"):
             pa._kernel_width(D)
         with pytest.raises(ValueError, match=f"flash_decode kernel takes head_dim up to 256 .*got {D}"):
             fd._plan(1, 1, 1, 64, D, torch.bfloat16, 132)

@@ -3,7 +3,7 @@ KV head, at a narrow width) against the JAX model on the CPU.
 
 The JAX model runs its Pallas flash kernels in interpret mode, the port its
 plain versions, which on the card are the width-256 kernels: bf16 on the
-tensor-core route, fp32 on the FMA forward and the scalar dq and dk/dv. One
+tensor-core route, fp32 on the FMA forward, dq and dk/dv. One
 flax init for the file, carried by ``interop.params_from_flax``. fp32 on
 both sides, so the two differ in summation order only: logits, loss,
 gradient norm and every updated parameter within 1e-4 relative (the dense
@@ -59,14 +59,14 @@ def _close(got, want, what=""):
 
 @pytest.mark.parametrize("dtype,routes", [
     (torch.bfloat16, {"fwd": "wgmma", "dq": "wgmma", "dkv": "wgmma"}),
-    (torch.float32, {"fwd": "fma", "dq": "scalar", "dkv": "scalar"}),
+    (torch.float32, {"fwd": "fma", "dq": "fma", "dkv": "fma"}),
 ])
 def test_heads_of_256_take_their_routes(dtype, routes):
     """The model's attention shapes at width 256: bf16 on the tensor-core
     route (the forward and dq in 64-row tiles, one consumer beside the
     producer; dk/dv in 64-key blocks, two warpgroups owning dV and dK);
-    fp32 on the FMA forward (64 query rows, 32-key tiles) and the scalar dq
-    and dk/dv."""
+    fp32 on the FMA kernels (the forward 64 query rows and 32-key tiles, dq
+    32 query rows and 32-key tiles, dk/dv 32 keys and 32-row tiles)."""
     model = _port_model()
     assert model.cfg.head_dim == 256 and model.cfg.kv_heads == 1
     for kernel, route in routes.items():
@@ -75,9 +75,14 @@ def test_heads_of_256_take_their_routes(dtype, routes):
         if route == "wgmma":
             heads = 1 if kernel == "dkv" else WIDE["num_heads"]
             assert (plan.block, plan.threads, plan.grid) == (64, 256, (heads, B, 1))
-        if route == "fma":
+        if route == "fma" and kernel == "fwd":
             assert (plan.block, plan.threads, plan.grid) == (64, 256, (WIDE["num_heads"], B,
                                                                        -(-S // 64)))
+            assert plan.smem_bytes == pa._fma_fwd_bytes(256)
+        elif route == "fma":
+            heads = 1 if kernel == "dkv" else WIDE["num_heads"]
+            assert (plan.block, plan.threads, plan.grid) == (32, 256, (heads, B, -(-S // 32)))
+            assert plan.smem_bytes == pa._fma_bwd_bytes(kernel, 256)
 
 
 def test_logits_match_jax():
