@@ -20,8 +20,8 @@ Phases, each of which fails the run with a non-zero exit:
             launches bitwise equal, timed at the request's mean position
             (191) and at the full 2,048-token cache; the forward, dq and
             dk/dv also at head sizes 16, 32 and 96 and flash-decode at 16,
-            32, 96 and 100 (bf16 and fp32, run padded to 64 or 128), and a
-            head size of 320 refused with its limits; the build phase counts
+            32, 96 and 100 (bf16 and fp32, run padded to 64 or 128), and
+            head sizes of 513 and 640 refused with their limits; the build phase counts
             the tensor-core instructions (HGMMA) of the flash libraries, the
             fused head's forward, dh and dE libraries and the fused BN +
             ReLU + 1x1-conv backward, which the bf16 flash forward, dq and
@@ -54,6 +54,21 @@ Phases, each of which fails the run with a non-zero exit:
             train step of that model at each of 8 seeds against the CPU
             (loss, and the relative error of the whole gradient and of each
             parameter's);
+2c. heads 512  the flash forward, dq and dk/dv and flash-decode at head
+            width 512, in bf16 (the tensor-core kernels, two warpgroups each
+            owning half of an accumulator's columns) and fp32 (the FMA
+            kernels), each route required: the heads-of-512 training shape
+            (B4 S2048 H2), the request's prefill (GQA 2/1), MQA 8/1, a
+            window, ragged S with fp32 gradients, rows that see no key, D
+            300 padded; decode at positions 191 and 2047, a window, R 16, a
+            row with no live key, D 300. Each against its plain version
+            under the bounds above, a second launch bitwise equal, decode
+            against ``_split_reference`` too, the profile naming the
+            width-512 kernels; each timed with its bound, plain version and
+            scaled_dot_product_attention, whose backend is named (its flash
+            backend stops at 256); the build phase prints each width-512
+            instantiation's registers and spills and counts its tensor-core
+            instructions (HGMMA in the bf16 kernels, HMMA in flash-decode's);
 3. generate run ``generate`` at the full flagship decode config (24 layers,
             GQA 8/4 heads, 410.3M parameters, seeded weights): batch 4, prompt 128, 128 new
             tokens, temperature 0.8, top_k 40, with every kernel launch
@@ -77,6 +92,14 @@ Phases, each of which fails the run with a non-zero exit:
             printed beside the flagship at 8 heads of 128 of phases 3 and 5:
             step ms, device busy, the flash kernels' share, peak memory,
             prefill and decode ms;
+5c. heads-of-512 flagships  the training flagship at 2 heads of 512 (the
+            same 24 layers and 435.5M parameters) through one warm-up and 3
+            timed steps (flash 24/24/24 a step) and the decode flagship at
+            GQA 2/1 heads of 512 through one request (24 + 3,048 launches),
+            printed beside the flagships at heads of 128 and 256; then one
+            train step of a 2-layer model of 2 heads of 512 over one KV head
+            at E 1024 at seeds 8-15, card against CPU, under phase 2b's
+            heads-of-256 bounds;
 6. train parity  one step's loss and global gradient norm on the card (bf16,
             then fp32 through the flash kernels' fp32 route) against the CPU
             (fp32) at 2 layers of the flagship width; then the bf16 step at
@@ -525,10 +548,19 @@ def phase_build():
     from kubeflow_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    seconds = {}
+    listener = seconds.__setitem__
+    _build.add_listener(listener)
+    try:
+        libs = _build.build_all()
+    finally:
+        _build.remove_listener(listener)
     log(f"[build] {len(libs)} libraries built in {time.perf_counter() - t0:.2f} s "
         f"with {_build.nvcc()} (13 kernels: bn_moments.cu serves the BatchNorm moments and "
-        f"the stats probe's scaled moments)")
+        f"the stats probe's scaled moments, flash_decode_512.cu flash-decode at width 512); "
+        f"nvcc seconds a source, all started together: "
+        + ", ".join(f"{name} {sec:.1f}" for name, sec in sorted(
+            seconds.items(), key=lambda kv: -(kv[1] or 0)) if sec is not None))
     registers = {}
     for name in libs:
         entry = None
@@ -539,7 +571,7 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}:   {line.strip()}")
                 registers.setdefault(name, {}).setdefault(entry, []).append(line.strip())
-    for name, kernel in WIDE_WGMMA.items():
+    for name, kernel in (*WIDE_WGMMA.items(), *HALVES_WGMMA.items()):
         lines = [ln for entry, got in registers.get(name, {}).items() if kernel[1] in entry
                  for ln in got]
         regs = re.search(r"Used (\d+) registers", " ".join(lines))
@@ -564,6 +596,18 @@ def phase_build():
         registers[fragment] = lines
         if any(spills):
             raise AssertionError(f"{fragment} spills: {lines}")
+    # every width-512 instantiation's registers and spill bytes (flash-decode's
+    # fp32 FMA route holds 128 accumulators a thread there: its spills, if
+    # any, are stated here, not refused)
+    for name in WIDTH_512_ENTRIES:
+        lines = _entry_ptxas(_build.build_log(name), "ILi512E")
+        if not lines:
+            raise AssertionError(f"{name}: no ptxas report of a width-512 instantiation")
+        spill = sum(int(m[1]) for ln in lines for m in [re.search(r"(\d+) bytes spill stores", ln)]
+                    if m)
+        registers[f"{name} (width 512)"] = lines
+        log(f"[build] {name} at width 512: {len(lines) // 2} instantiations, spill store bytes "
+            f"{spill} in all")
     return libs, registers
 
 
@@ -580,6 +624,19 @@ WIDE_WGMMA = {"flash_attention_fwd": ("flash_fwd_wgmma<256, 1>", "flash_fwd_wgmm
               "flash_attention_bwd_dkv": ("flash_dkv_wgmma_pair<256>",
                                           "flash_dkv_wgmma_pairILi256E")}
 DKV_PAIR = WIDE_WGMMA["flash_attention_bwd_dkv"][0]
+# the width-512 bf16 kernels: two warpgroups each owning half of an
+# accumulator's columns (name, the fragment of its mangled name)
+HALVES_WGMMA = {
+    "flash_attention_fwd": ("flash_fwd_wgmma_halves<512>", "flash_fwd_wgmma_halvesILi512E"),
+    "flash_attention_bwd_dq": ("flash_dq_wgmma_halves<512>", "flash_dq_wgmma_halvesILi512E"),
+    "flash_attention_bwd_dkv": ("flash_dkv_wgmma_halves<512>", "flash_dkv_wgmma_halvesILi512E")}
+# the libraries of the width-512 instantiations (their mangled names hold
+# "ILi512E"): library -> the fragment of the entries whose tensor-core
+# instructions are counted apart (the bf16 flash kernels' are HALVES_WGMMA's)
+WIDTH_512_ENTRIES = {"flash_attention_fwd": "flash_fwd_fmaILi512E",
+                     "flash_attention_bwd_dq": "flash_dq_fmaILi512E",
+                     "flash_attention_bwd_dkv": "flash_dkv_fmaILi512E",
+                     "flash_decode_512": "flash_decode_splitILi512E"}
 
 
 WGMMA_LIBS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -594,16 +651,22 @@ def tensor_core_counts(libs):
     -ptx`` output. The bf16 route of the flash forward, dq and dk/dv, of
     the fused head's forward, dh and dE and the fused BN + ReLU + 1x1-conv
     backward must issue wgmma; the fp32 routes (the FMA kernels) none.
-    The width-256 forward and dq (``WIDE_WGMMA``) must hold it in their
-    own entry functions."""
+    The width-256 and width-512 forward, dq and dk/dv (``WIDE_WGMMA``,
+    ``HALVES_WGMMA``) must hold it in their own entry functions; with
+    ``cuobjdump``, the fp32 kernels' width-512 entries must hold none and
+    flash-decode's width-512 entries HMMA (its bf16 ``mma.sync`` route)."""
     from kubeflow_tpu_torch.ops import _build
 
     tool = Path(_build.nvcc()).with_name("cuobjdump")
-    counts = {}
+
+    def sass(name):
+        return subprocess.run([str(tool), "-sass", str(libs[name])], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+
+    counts, texts = {}, {}
     for name in WGMMA_LIBS:
         if tool.is_file():
-            text = subprocess.run([str(tool), "-sass", str(libs[name])], capture_output=True,
-                                  text=True, check=True, timeout=300).stdout
+            text = texts[name] = sass(name)
             counts[name] = {"HGMMA": text.count("HGMMA"), "HMMA": text.count("HMMA")}
         else:
             text = subprocess.run(
@@ -613,15 +676,33 @@ def tensor_core_counts(libs):
             counts[name] = {"wgmma": text.count("wgmma.mma_async"), "mma": text.count("mma.sync")}
         log(f"[build] {name}: tensor-core instructions {counts[name]} "
             f"({'cuobjdump -sass' if tool.is_file() else 'nvcc -ptx'})")
-        if name in WIDE_WGMMA:
+        for table in (WIDE_WGMMA, HALVES_WGMMA):
+            if name not in table:
+                continue
             # one section a function: SASS "Function : <name>", PTX ".entry <name>("
-            kernel, mangled = WIDE_WGMMA[name]
+            kernel, mangled = table[name]
             body = "".join(part for part in re.split(r"Function : |\.entry ", text)[1:]
                            if mangled in part.split(None, 1)[0])
             counts[kernel] = {"HGMMA" if tool.is_file() else "wgmma":
                               body.count("HGMMA" if tool.is_file() else "wgmma.mma_async")}
             log(f"[build] {kernel}: tensor-core instructions in its entry function {counts[kernel]}")
-    for name in (*WGMMA_LIBS, *(k for k, _ in WIDE_WGMMA.values())):
+    if tool.is_file():
+        # the width-512 variants' own entry functions: the bf16 kernels above
+        # (HGMMA), the fp32 FMA kernels (none) and flash-decode's (HMMA on its
+        # bf16 mma.sync route)
+        for name, fragment in WIDTH_512_ENTRIES.items():
+            text = texts.get(name) or sass(name)
+            parts = [part for part in re.split(r"Function : ", text)[1:]
+                     if fragment in part.split(None, 1)[0]]
+            got = {"entries": len(parts), "HGMMA": sum(p.count("HGMMA") for p in parts),
+                   "HMMA": sum(p.count("HMMA") for p in parts)}
+            counts[f"{fragment} (width 512)"] = got
+            log(f"[build] {fragment}: tensor-core instructions in its width-512 entries {got}")
+            if not parts or (name == "flash_decode_512" and not got["HMMA"]) or (
+                    name != "flash_decode_512" and got["HGMMA"]):
+                raise AssertionError(f"{fragment}: width-512 entries {got}")
+    for name in (*WGMMA_LIBS, *(k for k, _ in WIDE_WGMMA.values()),
+                 *(k for k, _ in HALVES_WGMMA.values())):
         if not counts[name].get("HGMMA", counts[name].get("wgmma")):
             raise AssertionError(f"{name} has no wgmma instruction: its bf16 route must use wgmma")
     return counts
@@ -726,16 +807,28 @@ def phase_kernels(torch):
     ]
     worst = check_forward(torch, cases, randn, sms)
 
-    # a head size past 256 is a stated refusal on the card, never the plain version
-    q320 = randn(1, 64, 2, 320)
-    try:
-        flash_attention(q320, q320, q320, True, 64, 64)
-    except ValueError as e:
-        if "head_dim up to 256" not in str(e) or "232,448" not in str(e):
-            raise
-        log(f"[kernels] flash_attention_fwd D 320 (bf16): refused: {e}")
-    else:
-        raise AssertionError("flash_attention ran at head_dim 320")
+    # a head size past 512 is a stated refusal on the card, never the plain
+    # version: the forward at 513, dq and dk/dv at 640
+    from kubeflow_tpu_torch.ops.pallas_attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    for D, what, call in (
+            (513, "flash_attention_fwd", lambda t, lse: flash_attention(t, t, t, True, 64, 64)),
+            (640, "flash_attention_bwd_dq", lambda t, lse: flash_attention_bwd_dq(
+                t, t, t, t, lse, t)),
+            (640, "flash_attention_bwd_dkv", lambda t, lse: flash_attention_bwd_dkv(
+                t, t, t, t, lse, t))):
+        t = randn(1, 64, 2, D)
+        try:
+            call(t, torch.zeros(1, 2, 64, device="cuda"))
+        except ValueError as e:
+            if "head_dim up to 512" not in str(e) or "232,448" not in str(e):
+                raise
+            log(f"[kernels] {what} D {D} (bf16): refused: {e}")
+        else:
+            raise AssertionError(f"{what} ran at head_dim {D}")
 
     B, S, H, KV, D = BATCH, PROMPT, 8, 4, 128
     q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
@@ -817,16 +910,16 @@ def phase_kernels(torch):
         if dt == bf16:
             worst = max(worst, err)
 
-    q320 = randn(1, 1, 2, 320)
-    k320 = randn(1, 1, 64, 320)
+    q640 = randn(1, 1, 2, 640)
+    k640 = randn(1, 1, 64, 640)
     try:
-        flash_decode(q320, k320, k320, torch.zeros(1, dtype=torch.int32, device="cuda"), block_k=64)
+        flash_decode(q640, k640, k640, torch.zeros(1, dtype=torch.int32, device="cuda"), block_k=64)
     except ValueError as e:
-        if "head_dim up to 256" not in str(e):
+        if "head_dim up to 512" not in str(e):
             raise
-        log(f"[kernels] flash_decode D 320 (bf16): refused: {e}")
+        log(f"[kernels] flash_decode D 640 (bf16): refused: {e}")
     else:
-        raise AssertionError("flash_decode ran at head_dim 320")
+        raise AssertionError("flash_decode ran at head_dim 640")
 
     # two launches on the same inputs give the same bits (the combine's order is fixed)
     B, G, R, D, L = flagship
@@ -1449,7 +1542,7 @@ def phase_wide_heads(torch, np):
     return res
 
 
-def wide_train_steps(torch, np, kt, cfg):
+def wide_train_steps(torch, np, kt, cfg, tag="wide heads"):
     """One SGD step of ``cfg``'s model at each of ``PARITY_SEEDS``, on the
     card (bf16, then fp32) against the CPU (fp32): the bf16 step through
     :func:`_seeded_grad_check` (``WIDE_GRAD_RTOL``, ``WIDE_PARAM_GRAD_RTOL``),
@@ -1482,8 +1575,269 @@ def wide_train_steps(torch, np, kt, cfg):
                 f"{launched}")
         return got, grads["cuda"], grads["cpu"], note, ok
 
-    return _seeded_grad_check(torch, np, "wide heads", one_seed, TRAIN_LOSS_ATOL, WIDE_GRAD_RTOL,
+    return _seeded_grad_check(torch, np, tag, one_seed, TRAIN_LOSS_ATOL, WIDE_GRAD_RTOL,
                               WIDE_PARAM_GRAD_RTOL)
+
+
+# heads of 512: a 2-layer model of two heads of 512 over one KV head at the
+# flagships' width E 1024 (phase 5c's train step held against the CPU), and
+# the flagships at heads of 512 (the training cell at 2 heads, the decode
+# cell at GQA 2/1: the same widths, parameters and attention FLOPs as the
+# 8-heads-of-128 ones)
+HEADS_512 = dict(vocab_size=4096, num_layers=2, num_heads=2, num_kv_heads=1, embed_dim=1024,
+                 mlp_dim=2048, max_seq_len=256, attention_impl="flash")
+HEADS_512_TRAIN = dict(num_heads=2)
+HEADS_512_SERVE = dict(num_heads=2, num_kv_heads=1)
+HEADS_512_STEPS = 3
+
+
+def _sdpa_backends(torch, F, q, k, v, **kw):
+    """(the SDPA backends that take these operands, the device kernels one
+    default call launched): SDPA's flash backend stops at head width 256, so
+    at 512 the library yardstick is another backend, named here."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    took = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            took.append(backend.name)
+        except RuntimeError:
+            pass
+    runs = _device_kernels(torch, lambda: F.scaled_dot_product_attention(q, k, v, **kw), reps=1)
+    names = sorted({n[:60] for run in runs for n in run})
+    return took, names
+
+
+def phase_heads_512(torch, np):
+    """The flash forward, dq and dk/dv and flash-decode at head width 512,
+    in bf16 (the tensor-core kernels, two warpgroups each owning half of an
+    accumulator's columns) and fp32 (the FMA kernels), each route required:
+    the heads-of-512 training shape (B4 S2048 H2), the request's prefill
+    (GQA 2/1), MQA 8/1, a window, ragged S (with fp32 gradients of bf16
+    operands), rows that see no key, D 300 padded; decode at positions 191
+    and 2047 of a 2,048-slot cache, a window, R 16, a row with no live key
+    and D 300 padded. Each against its plain version under the kernels
+    phases' bounds, a second launch bitwise equal, decode against
+    ``_split_reference`` too; the training shape's profile names the
+    width-512 kernels. Each kernel is timed at the training shape (decode at
+    positions 191 and 2047, L2 flushed) with its bound, plain version and
+    scaled_dot_product_attention, whose backend is named."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import pallas_attention as pa
+    from kubeflow_tpu_torch.ops.flash_decode import _plan as decode_plan
+    from kubeflow_tpu_torch.ops.flash_decode import (
+        _split_reference,
+        flash_decode,
+        flash_decode_plain,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    bf16, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+    B, S, H = TRAIN_BATCH, TRAIN_SEQ, HEADS_512_TRAIN["num_heads"]
+    shapes = [
+        # name, B, Sq, Sk, H, KV, D, causal, window, fp32 gradients of bf16 operands
+        ("train_b4_s2048_h2", B, S, S, H, H, 512, True, None, False),
+        ("prefill_b4_s128_gqa_2_1", BATCH, PROMPT, PROMPT, HEADS_512_SERVE["num_heads"],
+         HEADS_512_SERVE["num_kv_heads"], 512, True, None, False),
+        ("mqa_8_1", 2, 256, 256, 8, 1, 512, True, None, False),
+        ("window_48", 2, 256, 256, 2, 2, 512, True, 48, False),
+        ("ragged_s200_fp32_grads", 3, 200, 200, 2, 1, 512, True, None, True),
+        ("dead_rows_sq16_sk8_window2", 2, 16, 8, 2, 1, 512, True, 2, False),
+        ("d300_noncausal_sq64_sk192", 2, 64, 192, 2, 1, 300, False, None, False),
+    ]
+    res = {"cases": {}, "decode_cases": {}}
+    for dt in (bf16, f32):
+        route = "wgmma" if dt == bf16 else "fma"
+        for name, b_, sq, sk, h_, kv, D, causal, window, f32_grads in shapes:
+            q, k, v, do = (randn(*shape, dtype=dt) for shape in (
+                (b_, sq, h_, D), (b_, sk, kv, D), (b_, sk, kv, D), (b_, sq, h_, D)))
+            kw = dict(causal=causal, window=window, grad_dtype=f32 if f32_grads else None)
+
+            def run():
+                o, lse = pa.flash_attention(q, k, v, causal, sq, sk, window, return_lse=True)
+                return (o, lse, pa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw),
+                        *pa.flash_attention_bwd_dkv(q, k, v, o, lse, do, **kw))
+
+            got, again = run(), run()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            o, lse, *grads = got
+            torch.cuda.synchronize()
+            o_ref, lse_ref = pa.flash_attention_plain(q, k, v, causal=causal, window=window)
+            want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            ok, err, ratio, _ = check_out(o, o_ref)
+            lse_ok, lse_err = check_lse(lse, lse_ref)
+            ok = ok and lse_ok and check_dead_rows(o, lse_ref) and o.dtype == dt and same
+            plans = {kn: pa._plan(kn, b_, sq, sk, h_, kv, D, dt, sms) for kn in ("fwd", "dq", "dkv")}
+            if {p.route for p in plans.values()} != {route} or any(
+                    p.width != 512 for p in plans.values()):
+                raise AssertionError(f"D {D} ({name}, {dt}) took {plans}, not {route} at width 512")
+            line = [f"fwd err/tol {ratio:.3f} lse_err {lse_err:.2e}"]
+            errs = {"fwd": err}
+            for grad, g, w in zip(("dq", "dk", "dv"), grads, want):
+                g_ok, g_err, g_ratio, _ = check_out(g, w)
+                ok = ok and g_ok and g.dtype == w.dtype
+                line.append(f"{grad} err/tol {g_ratio:.3f}")
+                errs[grad] = g_err
+            res["cases"][f"{'bf16' if dt == bf16 else 'fp32'}_{name}"] = errs
+            log(f"[heads 512] flash {name} ({dt}; D {D} at width 512; "
+                + ", ".join(f"{kn} {p.route} {p.block} {p.threads} threads grid {p.grid} "
+                            f"{p.smem_bytes} B" for kn, p in plans.items())
+                + f"): {'; '.join(line)}; a second launch of all three bitwise equal: {same} "
+                f"(rtol {OUT_RTOL}, atol {OUT_ATOL_RMS}*rms) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"a width-512 flash kernel disagrees with its plain version "
+                                     f"({name}, {dt})")
+            del q, k, v, do, got, again, o, lse, grads, o_ref, lse_ref, want
+        torch.cuda.empty_cache()
+
+    dec_cases = [
+        # name, (B, G, R, D, L), positions, window
+        ("pos191", (BATCH, 1, 2, 512, 2048), [191] * BATCH, None),
+        ("pos2047", (BATCH, 1, 2, 512, 2048), [2047] * BATCH, None),
+        ("per_row_pos_window_100", (BATCH, 1, 2, 512, 2048), [0, 255, 1024, 2047], 100),
+        ("r16_cluster", (2, 1, 16, 512, 256), [100, 255], None),
+        ("no_live_key_row", (2, 2, 4, 512, 256), [-1, 130], None),
+        ("d300_pos191", (2, 1, 2, 300, 512), [191, 511], None),
+    ]
+    for dt in (bf16, f32):
+        for name, (b_, G, R, D, L), pos_list, window in dec_cases:
+            kc, vc, qd = (randn(*shape, dtype=dt) for shape in ((b_, G, L, D), (b_, G, L, D),
+                                                                 (b_, G, R, D)))
+            pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+            kpos = torch.arange(L, device="cuda")
+            live = kpos[None, :] <= pos[:, None].long()
+            if window is not None:
+                live = live & (kpos[None, :] > pos[:, None].long() - window)
+            live = live[:, None, :, None]
+            kg, vg = torch.where(live, kc, torch.nan), torch.where(live, vc, torch.nan)
+            o = flash_decode(qd, kg, vg, pos, window=window)
+            same = torch.equal(o, flash_decode(qd, kg, vg, pos, window=window))
+            torch.cuda.synchronize()
+            o_ref = flash_decode_plain(qd, kg, vg, pos, window=window)
+            plan = decode_plan(b_, G, R, L, D, dt, sms)
+            w_ratio = _decode_witness(torch, o, _split_reference(qd, kg, vg, pos, window, plan))
+            ok, err, ratio, _ = check_out(o, o_ref)
+            ok = ok and o.dtype == dt and w_ratio <= 1.0 and same and plan.width == 512
+            res["decode_cases"][f"{'bf16' if dt == bf16 else 'fp32'}_{name}"] = err
+            log(f"[heads 512] flash_decode {name} ({dt}, B{b_} G{G} R{R}, D {D} at width "
+                f"{plan.width}, split {plan.split} x {plan.splits}, "
+                f"{'cluster' if plan.cluster else 'workspace'} combine) window={window}: "
+                f"max_abs_err {err:.3e} (worst err/tol {ratio:.3f}); vs _split_reference worst "
+                f"err/tol {w_ratio:.3f}; a second launch bitwise equal: {same} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_decode disagrees with its plain version at width "
+                                     f"512 ({name}, {dt})")
+
+    # timed at the heads-of-512 training shape (B4 S2048 H2, causal), each
+    # route on its own operands, and flash-decode at the heads-of-512 decode
+    # flagship's cache (B4 G1 R2 L2048) at positions 191 and 2047, L2 flushed
+    res["timed"] = {}
+    D = 512
+    for dt in (bf16, f32):
+        tag = "bf16" if dt == bf16 else "fp32"
+        rate = BF16_FLOPS_PER_S if dt == bf16 else FP32_FLOPS_PER_S
+        q, k, v, do = (randn(B, S, H, D, dtype=dt) for _ in range(4))
+        o, lse = pa.flash_attention(q, k, v, True, S, S, return_lse=True)
+        qt, kt_, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt_, vt, is_causal=True)
+        do_lib = do.transpose(1, 2).contiguous()
+        took, lib_kernels = _sdpa_backends(torch, F, qt.detach(), kt_.detach(), vt.detach(),
+                                           is_causal=True)
+        slow = dt == f32
+        times = dict(
+            fwd=device_ms(torch, lambda: pa.flash_attention(q, k, v, True, S, S), cold=False,
+                          iters=3 if slow else 5),
+            fwd_plain=device_ms(torch, lambda: pa.flash_attention_plain(q, k, v), cold=False,
+                                iters=3),
+            fwd_lib=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt.detach(), kt_.detach(), vt.detach(), is_causal=True), cold=False,
+                iters=3 if slow else 10),
+            dq=device_ms(torch, lambda: pa.flash_attention_bwd_dq(q, k, v, o, lse, do),
+                         cold=False, iters=3 if slow else 5),
+            dkv=device_ms(torch, lambda: pa.flash_attention_bwd_dkv(q, k, v, o, lse, do),
+                          cold=False, iters=3 if slow else 5),
+            bwd_plain=device_ms(torch, lambda: pa.flash_attention_backward_plain(
+                q, k, v, o, lse, do), cold=False, iters=3),
+            bwd_lib=device_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qt, kt_, vt), do_lib, retain_graph=True), cold=False,
+                iters=3 if slow else 10),
+        )
+        pairs = causal_pairs(B, H, S, S)
+        elem = 2 if dt == bf16 else 4
+        operand = elem * B * S * H * D
+        lse_bytes = 4 * B * H * S
+        bounds = {"fwd": bound_ms(4 * operand + lse_bytes, 2 * 2 * D * pairs, rate),
+                  "dq": bound_ms(6 * operand + lse_bytes, 3 * 2 * D * pairs, rate),
+                  "dkv": bound_ms(7 * operand + lse_bytes, 4 * 2 * D * pairs, rate)}
+        tflops = {kn: n * 2 * D * pairs / times[kn] / 1e9
+                  for kn, n in (("fwd", 2), ("dq", 3), ("dkv", 4))}
+        plans = {kn: pa._plan(kn, B, S, S, H, H, D, dt, sms) for kn in ("fwd", "dq", "dkv")}
+        seen = _device_kernels(torch, lambda: (pa.flash_attention(q, k, v, True, S, S),
+                                               pa.flash_attention_bwd_dq(q, k, v, o, lse, do),
+                                               pa.flash_attention_bwd_dkv(q, k, v, o, lse, do)),
+                               reps=2)
+        names = sorted({n.split(">(")[0] + ">" for run in seen for n in run if "flash_" in n})
+        want_names = ([k for k, _ in HALVES_WGMMA.values()] if dt == bf16 else
+                      ["flash_fwd_fma<512, 32, 16>", "flash_dq_fma<512, 16, 16>",
+                       "flash_dkv_fma<512, 16, 16>"])
+        launched = {w: any(w in n for n in names) for w in want_names}
+        for kn, label, plain, lib in (("fwd", "forward", "fwd_plain", "fwd_lib"),
+                                      ("dq", "dq", "bwd_plain", "bwd_lib"),
+                                      ("dkv", "dk/dv", "bwd_plain", "bwd_lib")):
+            log(f"[heads 512] D 512 {label} ({tag}) at the training shape B{B} S{S} H{H} KV{H} "
+                f"causal, L2 warm ({plans[kn].route}, {plans[kn].block}, {plans[kn].threads} "
+                f"threads, {plans[kn].smem_bytes} B): kernel_ms {times[kn]:.4f} "
+                f"({tflops[kn]:.1f} TFLOP/s of the bound's work) bound_ms {bounds[kn][0]:.5f} "
+                f"({bounds[kn][1]}) plain_ms {times[plain]:.4f} library_ms {times[lib]:.4f} "
+                f"({times[kn] / times[lib]:.2f}x; scaled_dot_product_attention"
+                f"{' backward, dq dk dv together' if kn != 'fwd' else ''})")
+        log(f"[heads 512] D 512 ({tag}) scaled_dot_product_attention: backends that take it "
+            f"{took}; a default call's kernels {lib_kernels}")
+        log(f"[heads 512] D 512 ({tag}) kernels in the profile of a forward, a dq and a dk/dv: "
+            f"{names}")
+        if not all(launched.values()):
+            raise AssertionError(f"D 512 ({tag}) did not launch {want_names}: {names}")
+        res["timed"][tag] = dict(times=times, bounds=bounds, tflops=tflops, sdpa_backends=took,
+                                 sdpa_kernels=lib_kernels, kernels_seen=names)
+        del q, k, v, do, o, lse, qt, kt_, vt, o_lib, do_lib
+        torch.cuda.empty_cache()
+
+        G, R, L = HEADS_512_SERVE["num_kv_heads"], 2, FLAGSHIP["max_seq_len"]
+        kc, vc, qd = randn(B, G, L, D, dtype=dt), randn(B, G, L, D, dtype=dt), randn(B, G, R, D,
+                                                                                     dtype=dt)
+        for p in (PROMPT + (NEW - 2) // 2, L - 1):
+            pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+            ms = device_ms(torch, lambda: flash_decode(qd, kc, vc, pos), cold=True)
+            plain_ms = device_ms(torch, lambda: flash_decode_plain(qd, kc, vc, pos), cold=True)
+            k_live, v_live = kc[:, :, :p + 1], vc[:, :, :p + 1]
+            q_lib = qd.view(B, G * R, 1, D)
+            lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q_lib, k_live, v_live, enable_gqa=True), cold=True)
+            took, lib_kernels = _sdpa_backends(torch, F, q_lib, k_live, v_live, enable_gqa=True)
+            n_bytes = 2 * (elem * B * G * R * D) + 2 * (elem * B * G * (p + 1) * D) + 4 * B
+            bms, by = bound_ms(n_bytes, 4 * B * G * R * (p + 1) * D, rate)
+            res["timed"][f"decode_{tag}_pos{p}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                       bound_ms=bms, bound_by=by,
+                                                       sdpa_backends=took)
+            log(f"[heads 512] flash_decode D 512 ({tag}) B{B} G{G} R{R} L{L} pos {p}, L2 flushed: "
+                f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
+                f"{bms:.5f} ({by}); scaled_dot_product_attention backends that take it {took}, a "
+                f"default call's kernels {lib_kernels}")
+        del kc, vc, qd
+    return res
 
 
 def _profile(torch, fn, reps: int, top: int = 8):
@@ -1964,6 +2318,74 @@ def phase_wide_flagships(torch, np, gen, train):
             f"{r['decode_device_busy_ms']:.3f}, flash {r['decode_flash_ms']:.4f}), peak memory "
             f"{r['peak_memory_gb']:.2f} GB, launches {r['launches']}")
     return dict(train=wide_train, generate=wide_gen)
+
+
+def phase_heads_512_flagships(torch, np, gen, train, wide):
+    """The flagships at heads of 512, through the width-512 kernels: the
+    dense training flagship at 2 heads of 512 (``_cells.dense_train(
+    num_heads=2)``: 24 layers, E 1024, 435.5M fp32 parameters, B4 S2048),
+    one warm-up and three timed steps with flash launches 24/24/24 a step
+    and a finite, falling loss; the decode flagship at GQA 2/1 heads of 512
+    (``_cells.decode_model(num_heads=2, num_kv_heads=1)``, 410.3M
+    parameters), one request with 24 forward and 3,048 flash-decode
+    launches. Each is printed beside the flagships at heads of 128 (phases
+    3 and 5) and of 256 (phase 5b). Then one train step of ``HEADS_512``'s
+    2-layer model (2 heads of 512 over one KV head at E 1024) at each of
+    ``PARITY_SEEDS``, card against CPU, under phase 2b's heads-of-256
+    bounds (:func:`wide_train_steps`)."""
+    import kubeflow_tpu_torch as kt
+
+    t0 = time.perf_counter()
+    cell = cells.dense_train(**HEADS_512_TRAIN)
+    cfg = cell.cfg
+    torch.cuda.synchronize()
+    log(f"[heads 512 flagship] train: {cfg.num_layers} layers, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, {cell.n_params / 1e6:.1f}M fp32 parameters, seeded init in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if cfg.head_dim != 512:
+        raise AssertionError(f"the heads-of-512 flagship has heads of {cfg.head_dim}")
+    counters = _flash_counters()
+    train512 = _train_cell(torch, np, "heads 512 flagship train", cell.bundle, cell.tokens,
+                           counters, {name: cfg.num_layers for name in counters},
+                           cell.flops_per_token, HEADS_512_STEPS, cfg.vocab_size)
+    train512["params_m"] = cell.n_params / 1e6
+    del cell
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    scfg, model, prompt = cells.decode_model(**HEADS_512_SERVE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[heads 512 flagship] serve: {scfg.num_layers} layers, GQA {scfg.num_heads}/"
+        f"{scfg.num_kv_heads} heads of {scfg.head_dim}, {n_params / 1e6:.1f}M parameters "
+        f"(bf16), seeded init in {time.perf_counter() - t0:.2f} s")
+    gen512, _, _ = _serve_cell(torch, np, "heads 512 flagship generate", scfg, model, prompt)
+    gen512["params_m"] = n_params / 1e6
+    del model
+    torch.cuda.empty_cache()
+
+    for name, r, steps in (("8 heads of 128", train, TRAIN_STEPS),
+                           ("4 heads of 256", wide["train"], WIDE_FLAGSHIP_STEPS),
+                           ("2 heads of 512", train512, HEADS_512_STEPS)):
+        flash = r["device_ms_by_class"].get("flash kernels", 0.0)
+        log(f"[heads 512 flagship] train step, {name}: {r['step_ms_median']:.2f} ms median, "
+            f"{r['tok_s']:.1f} tok/s, device busy {r['device_busy_ms']:.2f} ms, flash kernels "
+            f"{flash:.2f} ms ({flash / r['device_busy_ms']:.3f} of busy), peak memory "
+            f"{r['peak_memory_gb']:.2f} GB, flash launches a step "
+            f"{[n // steps for n in r['launches'].values()]}")
+        for kernel, ms in r["flash_ms_by_kernel"].items():
+            log(f"[heads 512 flagship]   {ms:9.3f} ms  {kernel}")
+    for name, r in (("GQA 8/4 of 128", gen), ("GQA 4/2 of 256", wide["generate"]),
+                    ("GQA 2/1 of 512", gen512)):
+        log(f"[heads 512 flagship] request, {name}: {r['generate_s'] * 1e3:.1f} ms, prefill "
+            f"{r['prefill_ms']:.2f} ms (busy {r['prefill_device_busy_ms']:.3f}, flash "
+            f"{r['prefill_flash_ms']:.4f}), decode {r['decode_ms_per_step']:.3f} ms/step (busy "
+            f"{r['decode_device_busy_ms']:.3f}, flash {r['decode_flash_ms']:.4f}), peak memory "
+            f"{r['peak_memory_gb']:.2f} GB, launches {r['launches']}")
+    diffs = wide_train_steps(torch, np, kt, kt.TransformerConfig(**HEADS_512,
+                                                                 dtype=torch.bfloat16),
+                             tag="heads 512 parity")
+    return dict(train=train512, generate=gen512, train_step_diffs=diffs)
 
 
 def _one_step_vs_cpu(torch, kt, make_model, sd, tokens, card_dtype=None, grads_out=None,
@@ -5097,12 +5519,15 @@ def main() -> int:
     bwd, fwd_train = phase_kernels_bwd(torch)
     kernels.update(bwd)
     report["wide_heads"] = phase_wide_heads(torch, np)
+    report["heads_512"] = phase_heads_512(torch, np)
     gen = phase_generate(torch, np)
     report["parity"] = phase_parity(torch, np)
     report["generate_fp32"] = phase_generate_fp32(torch, np)
     report["generate_small_heads"] = phase_generate_small_heads(torch, np)
     train = phase_train(torch, np)
     report["wide_flagships"] = phase_wide_flagships(torch, np, gen, train)
+    report["heads_512_flagships"] = phase_heads_512_flagships(torch, np, gen, train,
+                                                              report["wide_flagships"])
     report["train_parity"] = phase_train_parity(torch, np)
     moe_kernels, report["moe_kernel_launches"] = phase_moe_kernels(torch)
     kernels.update(moe_kernels)

@@ -34,6 +34,14 @@
 // consumers). Shared memory 197,928 bytes: Q and dO resident (64 KiB), two
 // stages of K and V (128 KiB), delta.
 //
+// Head width 512 (bf16): flash_dq_wgmma_halves. dQ of 64 rows would take
+// 256 fp32 registers a thread, so two warpgroups on the same 64 rows own 256
+// columns of dQ each, thread 0 producing (no producer warpgroup), and both
+// compute S and dP over all 512 columns: 5/3 of the kernel's FLOPs (bound
+// at the heads-of-512 training shape, B4 S2048 H2: 5.2e10 FLOP, 0.052 ms;
+// with the recomputed products 0.087 ms). Q and dO resident take 128 KiB,
+// so K and V stream in 16-key tiles (two stages, 64 KiB): 197,928 bytes.
+//
 // fp32 operands: flash_dq_fma, the bf16 route's walk with register-tiled fp32
 // FMA products (no TF32: the route exists to match the plain version's
 // full-fp32 products; bound three causal matmuls at the 67 TF/s fp32 peak,
@@ -51,8 +59,8 @@
 // dQ += dS K, K read from the ring again. Only edge tiles mask. Q, dO, two
 // stages and the dS tile fill the block: D 64 and 128 take 64 query rows and
 // 64-key tiles (214,056 bytes at D 128), D 256 32 rows and 32-key tiles
-// (201,768 bytes). The TPU kernel's rounding of ds to the operands' type is
-// the identity in fp32. What bounds it on an H100 (a clock64-stamped scratch
+// (201,768 bytes), D 512 16 rows and 16-key tiles (198,696 bytes). The TPU
+// kernel's rounding of ds to the operands' type is the identity in fp32. What bounds it on an H100 (a clock64-stamped scratch
 // copy, not committed): the two FMA loops take nearly all of a warp's
 // cycles, below the fp32 issue rate; 128 rows and 32-key tiles, a warpgroup
 // each for S and dP (8 x 4 scores a thread, dS handed between them) and that
@@ -138,7 +146,7 @@ flash_dq_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
       tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 32 * s, h, q0, b, bar_q);
       tma_load(s_base + L::DO + s * L::SLAB_Q, &tdo, 32 * s, h, q0, b, bar_q);
     }
-    fma32::refill(issued, kt.count, 0, bar_q, issue);
+    refill(issued, kt.count, 0, bar_q, issue);
   }
   __syncwarp();
 
@@ -168,7 +176,7 @@ flash_dq_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   for (int it = 0; it < kt.count; ++it) {
     const int st = it % STAGES;
     const int k0 = (kt.first + it) * BK;
-    if (threadIdx.x == 0) fma32::refill(issued, kt.count, it, bar_q, issue);
+    if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);
     __syncwarp();
     mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
     const float* Kt = fs + (L::KV + st * L::STAGE) / 4;
@@ -184,7 +192,7 @@ flash_dq_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
       for (int j = 0; j < J; ++j) s[i][j] = dp[i][j] = 0.f;
     fma32::dot_rows<NS, R, J, 16, 2>(sd, {fs + L::Q / 4, fs + L::DO / 4}, L::SLAB_Q / 4, {Kt, Vt},
                                      L::SLAB_K / 4, g, x);
-    if (threadIdx.x == 0) fma32::refill(issued, kt.count, it, bar_q, issue);   // if free by now
+    if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);   // if free by now
     __syncwarp();
 
     // dS = P (dP - delta) * scale, P = exp(S * scale - lse); masks only on
@@ -418,6 +426,219 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   return (int)cudaGetLastError();
 }
 
+// ---- the tensor-core route at head width 512 (bf16): two warpgroups on
+// the same 64 rows, each owning half of dQ's columns
+
+// Shared memory of flash_dq_wgmma_halves, in bytes from a 1024-aligned base:
+// the Q and dO tiles (D / 64 slabs of 64 rows each, 128 KiB at D 512),
+// STAGES K and STAGES V tiles of HK keys, delta [64] fp32, then the
+// mbarriers: Q/dO, full[STAGES], empty[STAGES]. ops/pallas_attention.py
+// (_wgmma_sums) computes the same bytes; the launcher checks them. Beside
+// the resident tiles two stages of 32-key tiles (128 KiB) would pass a
+// block's 227 KiB: the ring takes 16 keys a tile.
+template <int D>
+struct DqHalvesLayout {
+  static constexpr int HK = 16;                 // keys a K or V tile
+  static constexpr int NS = D / 64;
+  static constexpr int SLAB_Q = 64 * 128;
+  static constexpr int SLAB_K = HK * 128;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + NS * SLAB_Q;
+  static constexpr int K = DO + NS * SLAB_Q;
+  static constexpr int V = K + flash::STAGES * NS * SLAB_K;
+  static constexpr int DELTA = V + flash::STAGES * NS * SLAB_K;
+  static constexpr int BAR = DELTA + 4 * 64;
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
+};
+
+// One block per (head, batch row, 64 query rows), heaviest causal tiles
+// first, 256 threads and thread 0 producing, as flash_fwd_wgmma_halves:
+// both warpgroups compute S = Q K^T and dP = dO V^T over all D columns and
+// the same dS (the same bits in both), and warpgroup c multiplies dQ[:, c D
+// / 2 ..] += dS K[:, c D / 2 ..], one m64n256k16 a tile. Recomputing S and
+// dP costs two thirds of the kernel's FLOPs again.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_dq_wgmma_halves(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const bf16* __restrict__ o,
+                      const bf16* __restrict__ dout, const float* __restrict__ lse,
+                      void* __restrict__ dq, int Sq, int Sk, int H, int KV, int causal,
+                      int window, float scale, int out_f32) {
+  using namespace flash;
+  using L = DqHalvesLayout<D>;
+  constexpr int NS = L::NS, HK = L::HK, DH = D / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t s_base = smem_u32(smem);
+  float* delta_s = reinterpret_cast<float*>(smem + L::DELTA);
+  const uint32_t bar_q = s_base + L::BAR;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64;   // heaviest causal tiles first
+  const int kvh = h / (H / KV);
+  // every tile of the walk holds a key that one of the block's rows sees
+  const KeyTiles kt = key_tiles<HK>(q0, 64, Sq, Sk, causal, window);
+  init_barriers(bar_q, 256);
+
+  int issued = 0;
+  auto issue = [&](int j, int sj) {
+    const int k0 = (kt.first + j) * HK;
+    mbar_expect_tx(bar_full(bar_q, sj), 2 * NS * L::SLAB_K);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(s_base + L::K + (sj * NS + s) * L::SLAB_K, &tk, 64 * s, kvh, k0, b,
+               bar_full(bar_q, sj));
+      tma_load(s_base + L::V + (sj * NS + s) * L::SLAB_K, &tv, 64 * s, kvh, k0, b,
+               bar_full(bar_q, sj));
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, 2 * NS * L::SLAB_Q);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 64 * s, h, q0, b, bar_q);
+      tma_load(s_base + L::DO + s * L::SLAB_Q, &tdo, 64 * s, h, q0, b, bar_q);
+    }
+    refill(issued, kt.count, 0, bar_q, issue);
+  }
+  __syncwarp();
+
+  // delta of the block's 64 rows: four threads a row, D / 4 columns each
+  {
+    const int rr = threadIdx.x / 4, part = threadIdx.x % 4;
+    const int qp = q0 + rr;
+    float sum = 0.f;
+    if (qp < Sq) {
+      const size_t off = (((size_t)b * Sq + qp) * H + h) * D + part * (D / 4);
+#pragma unroll 4
+      for (int x = 0; x < D / 4; x += 8) {
+        const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + x);
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + off + x);
+        const bf16* dp = reinterpret_cast<const bf16*>(&dv);
+        const bf16* op = reinterpret_cast<const bf16*>(&ov);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum += to_f(dp[e]) * to_f(op[e]);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (part == 0) delta_s[rr] = sum;
+    __syncthreads();
+  }
+
+  // warpgroup c owns dQ's columns c DH .. c DH + DH - 1
+  const int c = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r1 = min(q0 + 63, Sq - 1);
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const float sl2 = scale * LOG2E;
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    delta[i] = delta_s[16 * warp + g + 8 * i];
+    lse2[i] = row[i] < Sq ? lse[((size_t)b * H + h) * Sq + row[i]] * LOG2E : INFINITY;
+  }
+
+  float acc[DH / 2];              // dQ [64, DH]: DH / 8 column blocks of 4
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < kt.count; ++it) {
+    const int st = it % STAGES;
+    const int k0 = (kt.first + it) * HK;
+    if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);
+    __syncwarp();
+    mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
+    const uint32_t k_tile = s_base + L::K + st * NS * L::SLAB_K;
+    const uint32_t v_tile = s_base + L::V + st * NS * L::SLAB_K;
+    float s[HK / 2], dp[HK / 2];
+#pragma unroll
+    for (int i = 0; i < HK / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n16(s, desc_k(s_base + L::Q, L::SLAB_Q, kk), desc_k(k_tile, L::SLAB_K, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n16(dp, desc_k(s_base + L::DO, L::SLAB_Q, kk), desc_k(v_tile, L::SLAB_K, kk),
+                   kk > 0);
+    wgmma_commit();
+    if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);   // while they run
+    __syncwarp();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool edge = tile_edge<HK>(k0, q0, r1, Sk, causal, window);
+#pragma unroll
+    for (int j = 0; j < HK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * i + e;
+          const bool keep = !edge || visible(k0 + 8 * j + 2 * t + e, row[i], Sk, causal, window);
+          // masked scores and rows with lse = +inf give p = 0
+          const float p = keep ? exp2f(fmaf(s[x], sl2, -lse2[i])) : 0.f;
+          s[x] = p * (dp[x] - delta[i]) * scale;
+        }
+    uint32_t da[4];               // dS in bf16: the A operand of dS K
+#pragma unroll
+    for (int r = 0; r < 4; ++r) da[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
+
+    // dQ[:, c DH ..] += dS K[:, c DH ..], K read MN-major from its slabs c NS / 2 ..
+    fence_regs(acc);
+    wgmma_fence();
+    wgmma_rs_n256(acc, da, desc(k_tile + c * (NS / 2) * L::SLAB_K, L::SLAB_K, 1024), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(bar_empty(bar_q, st));
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= Sq) continue;
+    const size_t off = (((size_t)b * Sq + row[i]) * H + h) * D + c * DH + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const float x0 = acc[4 * j + 2 * i], x1 = acc[4 * j + 2 * i + 1];
+      if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(dq) + off + 8 * j) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dq) + off + 8 * j) =
+            __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma_halves(const void* q, const void* k, const void* v, const void* o,
+                        const void* lse, const void* dout, void* dq, int B, int Sq, int Sk, int H,
+                        int KV, int causal, int window, float scale, int out_f32, int smem,
+                        cudaStream_t stream) {
+  using L = DqHalvesLayout<D>;
+  if (smem != L::bytes) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = flash::make_map(&tq, q, D, H, Sq, B, 64);
+  if (!err) err = flash::make_map(&tdo, dout, D, H, Sq, B, 64);
+  if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, L::HK);
+  if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, L::HK);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_wgmma_halves<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (Sq + 63) / 64);
+  flash_dq_wgmma_halves<D><<<grid, 256, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), dq, Sq, Sk, H, KV, causal, window, scale, out_f32);
+  return (int)cudaGetLastError();
+}
+
 template <int D, int BQ, int BK>
 int launch_fma(const void* q, const void* k, const void* v, const void* o, const void* lse,
                const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int causal,
@@ -443,9 +664,10 @@ int launch_fma(const void* q, const void* k, const void* v, const void* o, const
 }  // namespace
 
 // f32: 0 for bf16 operands, 1 for fp32. bf16 takes the tensor-core kernel:
-// block_q 64 or 128 at D 64 and 128, 64 at D 256; fp32 the FMA kernel:
-// block_q 64 at D 64 and 128 (64-key tiles), 32 at D 256 (32-key tiles), dq
-// in fp32. smem: the plan's shared-memory bytes, checked against the
+// block_q 64 or 128 at D 64 and 128, 64 at D 256 and 512 (at 512 the two
+// warpgroups' halves of dQ); fp32 the FMA kernel: block_q 64 at D 64 and 128
+// (64-key tiles), 32 at D 256 (32-key tiles), 16 at D 512 (16-key tiles),
+// dq in fp32. smem: the plan's shared-memory bytes, checked against the
 // kernel's own layout.
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
@@ -457,10 +679,12 @@ extern "C" int flash_attention_bwd_dq_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, dout, dq, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
   if (f32) {
+    if (D == 512 && block_q == 16) return launch_fma<512, 16, 16>(ARGS);
     if (D == 256 && block_q == 32) return launch_fma<256, 32, 32>(ARGS);
     if (D == 128 && block_q == 64) return launch_fma<128, 64, 64>(ARGS);
     if (D == 64 && block_q == 64) return launch_fma<64, 64, 64>(ARGS);
   } else {
+    if (D == 512 && block_q == 64) return launch_wgmma_halves<512>(ARGS);
     if (D == 256 && block_q == 64) return launch_wgmma<256, 1>(ARGS);
     if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);
     if (D == 128 && block_q == 64) return launch_wgmma<128, 1>(ARGS);

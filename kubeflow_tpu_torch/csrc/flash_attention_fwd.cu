@@ -33,6 +33,15 @@
 // two consumers beside a producer cap a thread at 168. Shared memory
 // 164,904 bytes (Q 32 KiB, two stages of K and V 128 KiB).
 //
+// Head width 512 (bf16): flash_fwd_wgmma_halves. O of 64 rows would take
+// 256 fp32 registers a thread (past 255), so two warpgroups on the same 64
+// rows own 256 columns of O each, thread 0 producing between its own
+// products (no producer warpgroup: beside it ptxas caps a thread at 168
+// registers). Both compute S over all 512 columns: 1.5x the forward's FLOPs
+// (bound at the heads-of-512 training shape, B4 S2048 H2: the same 3.4e10
+// FLOP as D 128 H8, 0.035 ms; with the recomputed S 0.052 ms). K and V in
+// 32-key tiles: Q (64 KiB) and two stages (128 KiB), 197,672 bytes.
+//
 // fp32 operands: flash_fwd_fma, the same walk with register-tiled fp32 FMA
 // products (no TF32: the route exists to match the plain version's full-fp32
 // products; bound 2 causal matmuls at the 67 TF/s fp32 peak, 0.513 ms at
@@ -42,8 +51,9 @@
 // swizzle), thread 0 issuing the copies between its own products. Q, two
 // stages and the fp32 P tile fill the block: D 64 and 128 take 128 query
 // rows and 64-key tiles (230,440 bytes at D 128), D 256 64 rows and 32-key
-// tiles (205,864 bytes). P is not rounded (the TPU kernel's astype of p to
-// the operands' type is the identity in fp32) and l sums the same p.
+// tiles (205,864 bytes), D 512 32 rows and 16-key tiles (199,720 bytes). P
+// is not rounded (the TPU kernel's astype of p to the operands' type is the
+// identity in fp32) and l sums the same p.
 
 #include "flash_common.cuh"
 
@@ -240,6 +250,219 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse
   return (int)cudaGetLastError();
 }
 
+// ---- the tensor-core route at head width 512 (bf16): two warpgroups on
+// the same 64 rows, each owning half of O's columns
+
+// Shared memory of flash_fwd_wgmma_halves, in bytes from a 1024-aligned
+// base: the Q tile (D / 64 slabs of 64 rows), STAGES K tiles and STAGES V
+// tiles of HK keys (D / 64 slabs of HK rows each), then the mbarriers: Q,
+// full[STAGES], empty[STAGES]. ops/pallas_attention.py (_wgmma_sums)
+// computes the same bytes; the launcher checks them. 64-key tiles would
+// take 256 KiB for two stages beside Q's 64 KiB, past a block's 227 KiB.
+template <int D>
+struct FwdHalvesLayout {
+  static constexpr int HK = 32;                 // keys a K or V tile
+  static constexpr int NS = D / 64;
+  static constexpr int SLAB_Q = 64 * 128;
+  static constexpr int SLAB_K = HK * 128;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + NS * SLAB_Q;
+  static constexpr int V = K + flash::STAGES * NS * SLAB_K;
+  static constexpr int BAR = V + flash::STAGES * NS * SLAB_K;
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
+};
+
+// One block per (head, batch row, 64 query rows), heaviest causal tiles
+// first, 256 threads: no producer warpgroup (beside two consumers ptxas caps
+// a thread at 168 registers, fewer than the 128 of O's half and the scores
+// beside it); thread 0 loads Q and keeps K/V tiles in flight between its
+// own products, blocking only for the tile its warpgroup needs next, as
+// flash_dkv_wgmma_pair does. Both warpgroups compute S = Q K^T over all D
+// columns and the same online softmax (the same instructions on the same
+// tiles: the same bits in both), and warpgroup c multiplies O[:, c D / 2 ..]
+// += P V[:, c D / 2 ..], one m64n256k16 a 16-key step. Recomputing S costs
+// half the kernel's FLOPs again, and keeps the warpgroups apart: no
+// exchange and no barrier between them inside a tile.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_wgmma_halves(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
+                       int window, float scale) {
+  using namespace flash;
+  using L = FwdHalvesLayout<D>;
+  constexpr int NS = L::NS, HK = L::HK, DH = D / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar_q = s_base + L::BAR;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64;   // heaviest causal tiles first
+  const int kvh = h / (H / KV);
+  // every tile of the walk holds a key that one of the block's rows sees
+  const KeyTiles kt = key_tiles<HK>(q0, 64, Sq, Sk, causal, window);
+  init_barriers(bar_q, 256);
+
+  int issued = 0;
+  auto issue = [&](int j, int sj) {
+    const int k0 = (kt.first + j) * HK;
+    mbar_expect_tx(bar_full(bar_q, sj), 2 * NS * L::SLAB_K);
+    for (int s = 0; s < NS; ++s) {
+      tma_load(s_base + L::K + (sj * NS + s) * L::SLAB_K, &tk, 64 * s, kvh, k0, b,
+               bar_full(bar_q, sj));
+      tma_load(s_base + L::V + (sj * NS + s) * L::SLAB_K, &tv, 64 * s, kvh, k0, b,
+               bar_full(bar_q, sj));
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, NS * L::SLAB_Q);
+    for (int s = 0; s < NS; ++s)
+      tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 64 * s, h, q0, b, bar_q);
+    refill(issued, kt.count, 0, bar_q, issue);
+  }
+  __syncwarp();
+
+  // warpgroup c owns O's columns c DH .. c DH + DH - 1 of rows q0 .. q0 + 63
+  const int c = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r1 = min(q0 + 63, Sq - 1);
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const float sl2 = scale * LOG2E;
+
+  float acc[DH / 2];              // O [64, DH]: DH / 8 column blocks of 4
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};        // this thread's part of the row sums
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < kt.count; ++it) {
+    const int st = it % STAGES;
+    const int k0 = (kt.first + it) * HK;
+    if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);
+    __syncwarp();
+    mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
+    const uint32_t k_tile = s_base + L::K + st * NS * L::SLAB_K;
+    const uint32_t v_tile = s_base + L::V + st * NS * L::SLAB_K;
+    float s[HK / 2];
+#pragma unroll
+    for (int i = 0; i < HK / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n32(s, desc_k(s_base + L::Q, L::SLAB_Q, kk), desc_k(k_tile, L::SLAB_K, kk), kk > 0);
+    wgmma_commit();
+    if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);   // while it runs
+    __syncwarp();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    if (tile_edge<HK>(k0, q0, r1, Sk, causal, window)) {
+#pragma unroll
+      for (int j = 0; j < HK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (!visible(k0 + 8 * j + 2 * t + e, row[i], Sk, causal, window))
+              s[4 * j + 2 * i + e] = -INFINITY;
+    }
+
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < HK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // a row that has seen no key yet keeps m = -inf: its p is 0 and its
+      // correction 0 (acc and l are still 0)
+      const float m_use = mx == -INFINITY ? 0.f : mx;
+      corr[i] = exp2f((m[i] - m_use) * sl2);
+      const float off = m_use * sl2;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < HK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(fmaf(s[4 * j + 2 * i + e], sl2, -off));
+          s[4 * j + 2 * i + e] = p;
+          rs += p;
+        }
+      l[i] = l[i] * corr[i] + rs;
+      m[i] = mx;
+    }
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      acc[4 * j] *= corr[0];
+      acc[4 * j + 1] *= corr[0];
+      acc[4 * j + 2] *= corr[1];
+      acc[4 * j + 3] *= corr[1];
+    }
+    uint32_t pa[HK / 16][4];      // P in bf16: the A operand of P V
+#pragma unroll
+    for (int kk = 0; kk < HK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+    // O[:, c DH ..] += P V[:, c DH ..], V read MN-major from its slabs c NS / 2 ..
+    const uint32_t v_half = v_tile + c * (NS / 2) * L::SLAB_K;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HK / 16; ++kk)
+      wgmma_rs_n256(acc, pa[kk], desc(v_half + kk * 16 * 128, L::SLAB_K, 1024), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(bar_empty(bar_q, st));
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (row[i] >= Sq) continue;
+    // a row that saw no key gives 0 (and lse +inf), the TPU kernel's l_safe
+    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    bf16* orow = o + (((size_t)b * Sq + row[i]) * H + h) * D + c * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+    if (t == 0 && c == 0)
+      lse[((size_t)b * H + h) * Sq + row[i]] = l[i] == 0.f ? INFINITY : m[i] * scale + logf(l[i]);
+  }
+}
+
+template <int D>
+int launch_wgmma_halves(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                        int Sq, int Sk, int H, int KV, int causal, int window, float scale,
+                        int smem, cudaStream_t stream) {
+  using L = FwdHalvesLayout<D>;
+  if (smem != L::bytes) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int err = flash::make_map(&tq, q, D, H, Sq, B, 64);
+  if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, L::HK);
+  if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, L::HK);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_halves<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (Sq + 63) / 64);
+  flash_fwd_wgmma_halves<D><<<grid, 256, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Sk, H, KV, causal, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 // ---- the fp32 route: register-tiled fp32 FMAs fed by TMA
 
 namespace fwd32 {
@@ -289,7 +512,7 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   constexpr int R = BQ / 16;      // rows a thread
   constexpr int J = BK / 16;      // keys a thread of each score tile
   constexpr int DH = D / 64;      // 4-column groups of O a thread
-  static_assert(J == 4 || J == 2, "tiles of 64 or 32 keys");
+  static_assert(J == 4 || J == 2 || J == 1, "tiles of 64, 32 or 16 keys");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const float* fs = reinterpret_cast<const float*>(smem);
@@ -318,7 +541,7 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     mbar_expect_tx(bar_q, NS * L::SLAB_Q);
     for (int s = 0; s < NS; ++s)
       tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 32 * s, h, q0, b, bar_q);
-    fma32::refill(issued, kt.count, 0, bar_q, issue);
+    refill(issued, kt.count, 0, bar_q, issue);
   }
   __syncwarp();
 
@@ -339,7 +562,7 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   for (int it = 0; it < kt.count; ++it) {
     const int st = it % STAGES;
     const int k0 = (kt.first + it) * BK;
-    if (threadIdx.x == 0) fma32::refill(issued, kt.count, it, bar_q, issue);
+    if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);
     __syncwarp();
     mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
     const float* Kt = fs + (L::KV + st * L::STAGE) / 4;
@@ -354,7 +577,7 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       for (int j = 0; j < J; ++j) s[i][j] = 0.f;
     fma32::dot_rows<NS, R, J>(sp, {fs + L::Q / 4}, L::SLAB_Q / 4, {Kt}, L::SLAB_K / 4, g, x);
     // the next tile, if its stage is free by now
-    if (threadIdx.x == 0) fma32::refill(issued, kt.count, it, bar_q, issue);
+    if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);
     __syncwarp();
 
     if (tile_edge<BK>(k0, q0, q1, Sk, causal, window)) {
@@ -443,8 +666,9 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, void* lse, 
 }  // namespace
 
 // f32: 0 for bf16 operands, 1 for fp32. bf16 takes the tensor-core kernel:
-// block_q 64 or 128 at D 64 and 128, 64 at D 256; fp32 the FMA kernel:
-// block_q 128 at D 64 and 128 (64-key tiles), 64 at D 256 (32-key tiles).
+// block_q 64 or 128 at D 64 and 128, 64 at D 256 and 512 (at 512 the two
+// warpgroups' halves of O); fp32 the FMA kernel: block_q 128 at D 64 and 128
+// (64-key tiles), 64 at D 256 (32-key tiles), 32 at D 512 (16-key tiles).
 // smem: the plan's shared-memory bytes, checked against the kernel's own
 // layout.
 extern "C" int flash_attention_fwd_launch(
@@ -456,10 +680,12 @@ extern "C" int flash_attention_fwd_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, smem, s
   if (f32) {
+    if (D == 512 && block_q == 32) return launch_fma<512, 32, 16>(ARGS);
     if (D == 256 && block_q == 64) return launch_fma<256, 64, 32>(ARGS);
     if (D == 128 && block_q == 128) return launch_fma<128, 128, 64>(ARGS);
     if (D == 64 && block_q == 128) return launch_fma<64, 128, 64>(ARGS);
   } else {
+    if (D == 512 && block_q == 64) return launch_wgmma_halves<512>(ARGS);
     if (D == 256 && block_q == 64) return launch_wgmma<256, 1>(ARGS);
     if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);
     if (D == 128 && block_q == 64) return launch_wgmma<128, 1>(ARGS);

@@ -1,15 +1,19 @@
 // Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu) and of
-// flash_decode.cu (the fp32 / bf16 conversions, from hopper_common.cuh).
+// flash_decode.cuh (the fp32 / bf16 conversions, from hopper_common.cuh).
 //
 // Two routes. bf16 operands take the tensor-core kernels: tiles arrive by
 // TMA (cp.async.bulk.tensor) into a ring of shared memory stages guarded by
 // mbarriers, a producer (a warpgroup for the forward and dq, thread 0 for
-// dk/dv) issues the copies, and consumer warpgroups multiply with wgmma
-// (Hopper's warpgroup MMA, bf16 operands, fp32 accumulators). The forward
-// and dq stream K/V tiles past a resident query tile; dk/dv streams Q/dO/O
-// tiles past resident K/V (at head width 256 in tiles of 48 query rows, its
-// two consumer warpgroups owning dV and dK). fp32 operands take the FMA
+// dk/dv and for every kernel at head width 512) issues the copies, and
+// consumer warpgroups multiply with wgmma (Hopper's warpgroup MMA, bf16
+// operands, fp32 accumulators). The forward and dq stream K/V tiles past a
+// resident query tile; dk/dv streams Q/dO/O tiles past resident K/V (at head
+// width 256 in tiles of 48 query rows, its two consumer warpgroups owning dV
+// and dK). At head width 512 an accumulator of 64 rows would take a thread's
+// every register, so two warpgroups each own 256 of its columns (the
+// forward's O, dq's dQ; dk/dv's dV and dK, halved over the grid) and both
+// compute the scores over all 512. fp32 operands take the FMA
 // kernels (flash_fwd_fma, flash_dq_fma, flash_dkv_fma): the same walks with
 // register-tiled fp32 FMA products (the fma32 pieces below) fed by the same
 // kind of TMA ring, thread 0 issuing the copies between its own products.
@@ -18,7 +22,7 @@
 // the tensor-map encoder) live in hopper_common.cuh; here are the
 // attention-specific ones. A bf16 tile row is 64 head-dim columns (or 64
 // keys), 128 bytes, in 128-byte-swizzled slabs; a D-128 tile is two slabs, a
-// D-256 tile four. An fp32 tile row is 32 columns a slab.
+// D-256 tile four, a D-512 tile eight. An fp32 tile row is 32 columns a slab.
 
 #pragma once
 
@@ -172,6 +176,23 @@ __device__ __forceinline__ void produce_kv(const CUtensorMap* tk, const CUtensor
   }
 }
 
+// Thread 0's side of a TMA ring of `count` items: issue item `must` (waiting
+// until its stage is released) and the next ones whose stages are already
+// free, at most STAGES - 1 ahead; issue(j, stage) arms the stage's full
+// barrier and starts item j's copies.
+template <class Issue>
+__device__ __forceinline__ void refill(int& issued, int count, int must, uint32_t bar,
+                                       Issue&& issue) {
+  while (issued < count && issued < must + STAGES) {
+    const int j = issued, sj = j % STAGES;
+    const int parity = ((j / STAGES) & 1) ^ 1;
+    if (j > must && !mbar_try_wait(bar_empty(bar, sj), parity)) break;
+    mbar_wait(bar_empty(bar, sj), parity);
+    issue(j, sj);
+    ++issued;
+  }
+}
+
 // ---- the fp32 FMA route: threads as GS row groups g (16 of a block's 256
 // threads, or 8 of a warpgroup's 128) by 16 lanes x, the 16 lanes of a group
 // one half of a warp. fp32 tiles arrive by TMA in slabs of 32 columns
@@ -228,14 +249,17 @@ __device__ __forceinline__ void dot_rows(float (&acc)[NP][R][J], const float* co
 
 // This thread's J values of one row of an fp32 [rows][16 J] tile (a row of
 // P, dS, P^T or dS^T): column x + 16 j at position J x + j, the row's
-// 16-byte chunks swizzled by kg = row % 8.
+// 16-byte chunks swizzled by kg = row % 8 (by kg % 4 in a row of 16
+// columns, which has four chunks).
 template <int J>
 __device__ __forceinline__ void put_row(float* row, const float (&v)[J], int x, int kg) {
-  static_assert(J == 4 || J == 2, "rows of 64 or 32 columns");
+  static_assert(J == 4 || J == 2 || J == 1, "rows of 64, 32 or 16 columns");
   if constexpr (J == 4)
     *reinterpret_cast<float4*>(row + 4 * (x ^ kg)) = make_float4(v[0], v[1], v[2], v[3]);
-  else
+  else if constexpr (J == 2)
     *reinterpret_cast<float2*>(row + 4 * ((x >> 1) ^ kg) + 2 * (x & 1)) = make_float2(v[0], v[1]);
+  else
+    row[4 * ((x >> 2) ^ (kg & 3)) + (x & 3)] = v[0];
 }
 
 // The values put_row<J> wrote at this thread's positions of a row.
@@ -244,32 +268,35 @@ __device__ __forceinline__ void get_row(const float* row, float (&v)[J], int x, 
   if constexpr (J == 4) {
     const float4 t = *reinterpret_cast<const float4*>(row + 4 * (x ^ kg));
     v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
+  } else if constexpr (J == 2) {
     const float2 t = *reinterpret_cast<const float2*>(row + 4 * ((x >> 1) ^ kg) + 2 * (x & 1));
     v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = row[4 * ((x >> 2) ^ (kg & 3)) + (x & 3)];
   }
 }
 
 // acc[i][4 h + e] += sum over c of P[g + GS i][c] V[c][4 x + 64 h + e]: P
 // the [.., 16 J] tile of put_row (the rows this thread's half warp wrote), V
 // a tile of 16 J rows in slabs v_slab floats apart. Position 4 q + e of a P
-// row is column q + 16 e (J 4), or 2 q + e / 2 + 16 (e % 2) (J 2); per 4
-// positions, R loads of P and 4 DH of V feed 16 R DH FMAs. The loop is
-// unrolled whole, which ran faster on an H100 than unrolling it by 2.
+// row is column q + 16 e (J 4), 2 q + e / 2 + 16 (e % 2) (J 2), or 4 q + e
+// (J 1); per 4 positions, R loads of P and 4 DH of V feed 16 R DH FMAs. The
+// loop is unrolled whole, which ran faster on an H100 than unrolling it by 2.
 template <int R, int J, int DH, int GS = 16>
 __device__ __forceinline__ void acc_rows(float (&acc)[R][4 * DH], const float* P,
                                          const float* V, int v_slab, int g, int x) {
   constexpr int N = 16 * J;
   const int kg = g & 7, kx = x & 7;
+  const int pk = kg & (N / 4 - 1);     // put_row's chunk swizzle of these rows
 #pragma unroll
   for (int q = 0; q < N / 4; ++q) {
     float4 pv[R];
 #pragma unroll
     for (int i = 0; i < R; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(P + (g + GS * i) * N + 4 * (q ^ kg));
+      pv[i] = *reinterpret_cast<const float4*>(P + (g + GS * i) * N + 4 * (q ^ pk));
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int c = J == 4 ? q + 16 * e : 2 * q + (e >> 1) + 16 * (e & 1);
+      const int c = J == 4 ? q + 16 * e : J == 2 ? 2 * q + (e >> 1) + 16 * (e & 1) : 4 * q + e;
       float4 vv[DH];
 #pragma unroll
       for (int h = 0; h < DH; ++h)
@@ -320,23 +347,6 @@ __device__ __forceinline__ float row_delta(const float* dO, int slab, const floa
 #pragma unroll
   for (int off = 1; off < 16; off *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   return sum;
-}
-
-// Thread 0's side of a TMA ring of `count` items: issue item `must` (waiting
-// until its stage is released) and the next ones whose stages are already
-// free, at most STAGES - 1 ahead; issue(j, stage) arms the stage's full
-// barrier and starts item j's copies.
-template <class Issue>
-__device__ __forceinline__ void refill(int& issued, int count, int must, uint32_t bar,
-                                       Issue&& issue) {
-  while (issued < count && issued < must + STAGES) {
-    const int j = issued, sj = j % STAGES;
-    const int parity = ((j / STAGES) & 1) ^ 1;
-    if (j > must && !mbar_try_wait(bar_empty(bar, sj), parity)) break;
-    mbar_wait(bar_empty(bar, sj), parity);
-    issue(j, sj);
-    ++issued;
-  }
 }
 
 }  // namespace fma32

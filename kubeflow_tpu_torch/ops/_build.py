@@ -51,6 +51,11 @@ SIGNATURES = {
         # dk, window, scale, f32, splits, split, cluster, smem, stream
         [_P] * 8 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
     ),
+    "flash_decode_512": (
+        # flash_decode's arguments; width 512 only (csrc/flash_decode_512.cu)
+        "flash_decode_512_launch",
+        [_P] * 8 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
+    ),
     "flash_attention_bwd_dq": (
         "flash_attention_bwd_dq_launch",
         # q, k, v, o, lse, do, dq, B, Sq, Sk, H, KV, D, causal, window, scale,

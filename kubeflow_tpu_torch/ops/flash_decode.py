@@ -1,7 +1,9 @@
 """Single-query (flash-decode) attention over the grouped KV cache.
 
 Counterpart of ``kubeflow_tpu/ops/flash_decode.py``. The CUDA kernel
-(``csrc/flash_decode.cu``) replaces the Pallas ``_decode_kernel``
+(``csrc/flash_decode.cuh``, launched from ``csrc/flash_decode.cu`` at head
+widths 64, 128 and 256 and from ``csrc/flash_decode_512.cu`` at 512)
+replaces the Pallas ``_decode_kernel``
 (``kubeflow_tpu/ops/flash_decode.py:53``).
 
 What bounds it on an H100: bytes. One decode step per layer reads the live
@@ -37,12 +39,14 @@ What the design does about it (the source's header has the details):
   witness for the tests and the chip smoke.
 
 bf16 and fp32 operands (one dtype). The kernel is compiled for head widths 64,
-128 and 256 (at 256 a thread takes two output columns of the value product,
-and the cluster combine loads its 16 (head, column) pairs in two batches);
-any head size D up to 256 runs at D padded to the next width: the wrapper
+128, 256 and 512 (at 256 a thread takes two output columns of the value
+product and the cluster combine loads its 16 (head, column) pairs in two
+batches, at 512 four columns and 32 pairs in four batches; a block's 64 KB
+of K and V hold 32 bf16 or 16 fp32 keys there); any head size D up to 512
+runs at D padded to the next width: the wrapper
 zero-pads q (one row a head) and cuts o, and the kernel reads the cache at
 its true D and zero-fills the columns past D in shared memory, so no step
-copies the cache. D above 256 is a stated refusal
+copies the cache. D above 512 is a stated refusal
 (:func:`_wide_head_refusal`).
 """
 from __future__ import annotations
@@ -56,9 +60,9 @@ from kubeflow_tpu_torch.ops import _build, _workspace
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 from kubeflow_tpu_torch.ops.pallas_attention import _wide_head_refusal as _flash_refusal
 
-_KERNEL_D = (64, 128, 256)  # head widths the kernel is compiled for
-MAX_R = 8              # query heads a block holds (csrc/flash_decode.cu)
-THREADS = 128          # threads a block (csrc/flash_decode.cu)
+_KERNEL_D = (64, 128, 256, 512)  # head widths the kernel is compiled for
+MAX_R = 8              # query heads a block holds (csrc/flash_decode.cuh)
+THREADS = 128          # threads a block (csrc/flash_decode.cuh)
 SPLIT_UNIT = 16        # a row's split is a multiple of this many keys
 _WAVES = 2             # the grid should fill about this many waves of SMs
 _KV_BYTES_MAX = 65536  # K and V of one block, staged whole: 3 blocks fit an SM
@@ -76,8 +80,8 @@ class DecodePlan:
     ``smem_bytes`` each block's dynamic shared memory: K and V rows of
     ``split`` keys (``kv_bytes``), the chunk's queries (``q_bytes``), the
     scores in fp32 (``score_bytes``) and the combine's weights in fp32
-    (``weight_bytes``), all at ``width``, the head size padded to 64, 128 or
-    256."""
+    (``weight_bytes``), all at ``width``, the head size padded to 64, 128,
+    256 or 512."""
 
     split: int
     splits: int
@@ -93,13 +97,13 @@ class DecodePlan:
 
 
 def _wide_head_refusal(D: int) -> str:
-    return (f"flash_decode kernel takes head_dim up to {_KERNEL_D[-1]} (zero-padded to 64, 128 "
-            f"or 256), got {D}: its cache is filled by a prefill through the flash kernels, "
+    return (f"flash_decode kernel takes head_dim up to {_KERNEL_D[-1]} (zero-padded to 64, 128, "
+            f"256 or 512), got {D}: its cache is filled by a prefill through the flash kernels, "
             f"and they stop there. " + _flash_refusal(D))
 
 
 def _kernel_width(D: int) -> int:
-    """The head width the kernel runs at: D zero-padded to 64, 128 or 256."""
+    """The head width the kernel runs at: D zero-padded to 64, 128, 256 or 512."""
     if not 1 <= D <= _KERNEL_D[-1]:
         raise ValueError(_wide_head_refusal(D))
     return next(w for w in _KERNEL_D if D <= w)
@@ -113,8 +117,8 @@ def _plan(B: int, G: int, R: int, L: int, D: int, dtype, sms: int) -> DecodePlan
     Enough blocks a (row, group, chunk) that the grid fills about two waves
     of ``sms`` SMs, each holding at most 64 KB of K and V (staged whole, so
     three blocks fit an SM; at width 256 that is 64 bf16 or 32 fp32 keys a
-    block, so long caches take more blocks than two waves and combine
-    through the workspace). The plan is made at the cache's full length;
+    block, at 512 32 or 16, so long caches take more blocks than two waves
+    and combine through the workspace). The plan is made at the cache's full length;
     the kernel cuts each row's live range itself (:func:`_row_splits`),
     since the positions live on the card."""
     width = _kernel_width(D)
@@ -280,7 +284,7 @@ def _launch(q, k_cache, v_cache, pos, window, plan):
     qp = q if W == D else torch.nn.functional.pad(q, (0, W - D))
     out = torch.empty_like(qp)
     _build.launch(
-        "flash_decode",
+        "flash_decode_512" if W == 512 else "flash_decode",   # two sources, built in parallel
         qp.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_part * W, tickets.data_ptr(),
         B, G, R, L, W, D, window or 0, D ** -0.5, int(q.dtype == torch.float32), plan.splits,

@@ -43,23 +43,34 @@ Two routes, chosen by :func:`_plan` from the operands' dtype and width:
   device memory for delta, which its warpgroups share through shared
   memory. The TPU kernels' rounding points are the identity in fp32.
 
-The kernels are compiled for head widths 64, 128 and 256. bf16 takes the
-tensor cores in all three kernels at every width. At 256
+The kernels are compiled for head widths 64, 128, 256 and 512. bf16 takes
+the tensor cores in all three kernels at every width. At 256
 (``_WGMMA_64_ROWS_D``) the forward and dq take them in 64-row tiles only
 (one consumer warpgroup beside the producer, where a thread may hold 255
 registers), and dk/dv in blocks of 64 keys whose two consumer warpgroups
 each own one of dK and dV (one warpgroup holding both, with S^T and dP^T,
 would need 320 registers a thread, and 64-row ring tiles would pass the
 block's shared memory: :func:`_wgmma_sums`); warpgroup 0 hands its fp32
-P^T to warpgroup 1 through shared memory. fp32 takes the FMA kernels at
-every width. Any head size D up to 256 runs on
+P^T to warpgroup 1 through shared memory. At 512 (``_HALVES_D``) an
+accumulator of 64 rows would take a thread's every register, so two
+warpgroups on the same rows each own 256 of its columns and both compute the
+scores over all 512: the forward (O's halves) and dq (dQ's halves) in
+64-row tiles, K/V streamed in 32- and 16-key tiles; dk/dv in blocks of 64
+keys and one half of dK's and dV's columns (a grid axis of two halves), the
+width-256 pair's roles over 16-row Q and dO tiles, O's rows for delta read
+from device memory. No producer warpgroup at 512: thread 0 issues the
+copies between its own products. fp32 takes the FMA kernels at every width
+(at 512 the forward 32 rows and 16-key tiles, dq and dk/dv 16 and 16). Any
+head size D up to 512 runs on
 them: :func:`_pad_heads` zero-pads the head axis to the next width and
 launches with the true ``D ** -0.5`` as the
 softmax scale, so the scores, the softmax and delta = rowsum(dO·O) are the
 unpadded ones, and cuts the padded columns off o, dq, dk and dv (products
-with zero columns). At D 64, 128 and 256 nothing is copied. D above 256 is a
-stated refusal: the message gives the shared memory the fp32 kernels would
-need at the next width against the card's limit.
+with zero columns). At D 64, 128, 256 and 512 nothing is copied. D above
+512 is a stated refusal: the message gives the shared memory the width-512
+designs would need at D padded to 64 columns against the card's limit, and
+the columns each of their two warpgroups would own against wgmma's widest
+product.
 
 What every kernel does:
 
@@ -93,7 +104,7 @@ import torch.nn.functional as F
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.attention import NEG_INF
 
-_KERNEL_D = (64, 128, 256)   # head widths the kernels are compiled for
+_KERNEL_D = (64, 128, 256, 512)   # head widths the kernels are compiled for
 # widths where the bf16 forward and dq take the tensor cores in 64-row tiles
 # only: two consumer warpgroups beside the producer leave a thread
 # ``_REGS_BESIDE_PRODUCER`` registers, fewer than their accumulators (forward
@@ -102,6 +113,11 @@ _KERNEL_D = (64, 128, 256)   # head widths the kernels are compiled for
 # 64 keys with two warpgroups, one owning dV and one dK (152 accumulators
 # each), Q, dO and O in ``_PAIR_QROWS``-row tiles
 _WGMMA_64_ROWS_D = (256,)
+# widths where one warpgroup's accumulator of 64 rows would take every
+# register a thread has (256 fp32 at 512): two warpgroups each own half of
+# the columns of O (forward), dQ (dq), or of dK and dV (dk/dv, whose blocks
+# take one half each)
+_HALVES_D = (512,)
 
 
 def _group_of(q, k, v):
@@ -143,6 +159,9 @@ _TILE_K = 64                # keys a tile on both routes
 _STAGES = 2                 # ring tiles in flight on the tensor-core route
 _QROWS = 64                 # query rows of a dk/dv ring tile
 _PAIR_QROWS = 48            # ... at the widths of ``_WGMMA_64_ROWS_D``
+_HALF_KEYS = {"fwd": 32, "dq": 16}   # keys a K/V ring tile at the widths of ``_HALVES_D``
+_HALF_QROWS = 16            # query rows of a dk/dv ring tile there
+_WGMMA_N_MAX = 256          # the widest wgmma product, in columns
 _FMA_THREADS = 256          # threads of the fp32 FMA kernels
 
 
@@ -174,12 +193,32 @@ def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
     tiles of 64 rows and each consumer warpgroup's two delta/lse rows, and at
     the widths of ``_WGMMA_64_ROWS_D`` tiles of ``_PAIR_QROWS`` rows, the
     fp32 P^T exchange slot, two delta rows and the slot's two mbarriers.
-    The launchers check the same sums. Registers: a consumer warpgroup's 64
-    rows of fp32 accumulators over its 128 threads: O and S (forward), dQ, S
-    and dP (dq), dK, dV, S^T and dP^T (dk/dv), or at the wide widths the
-    busier of the pair's two: dV and S^T, or dK and dP^T."""
+    From width 512 on (``_HALVES_D``; the refusal sums wider ones) the
+    64-row forward holds Q and K/V tiles of ``_HALF_KEYS["fwd"]`` keys, dq
+    Q, dO, tiles of ``_HALF_KEYS["dq"]`` keys and delta, dk/dv K and V, Q and
+    dO tiles of ``_HALF_QROWS`` rows (no O), the slot, two delta rows and
+    the slot's mbarriers. The launchers check the same sums. Registers: a
+    consumer warpgroup's 64 rows of fp32 accumulators over its 128 threads:
+    O and S (forward), dQ, S and dP (dq), dK, dV, S^T and dP^T (dk/dv), or
+    at the wide widths the busier of the pair's two: dV and S^T, or dK and
+    dP^T; from 512 on half of O or dQ beside S (and dP), or half of dV or dK
+    beside S^T or dP^T."""
     bars = 8 * (1 + 2 * _STAGES)
     slabs = width // 64                     # 64-column bf16 slabs of a row
+    if width >= _HALVES_D[0]:
+        if kernel == "fwd":
+            keys = _HALF_KEYS["fwd"]
+            return (1024 + slabs * 64 * 128 + 2 * _STAGES * slabs * keys * 128 + bars,
+                    width // 4 + keys // 2)
+        if kernel == "dq":
+            keys = _HALF_KEYS["dq"]
+            return (1024 + 2 * slabs * 64 * 128 + 2 * _STAGES * slabs * keys * 128 + 4 * 64
+                    + bars, width // 4 + keys)
+        rows = _HALF_QROWS
+        kv = 2 * slabs * block * 128
+        ring = 2 * _STAGES * slabs * rows * 128    # Q, dO tiles
+        slot = block * rows * 4
+        return 1024 + kv + ring + slot + 2 * rows * 4 + bars + 8 * 2, width // 4 + rows // 2
     if kernel in ("fwd", "dq"):
         tiles = (1 if kernel == "fwd" else 2) * slabs * 64 * 2 * block
         kv = 2 * _STAGES * slabs * _TILE_K * 128
@@ -198,8 +237,9 @@ def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
 
 def _fma_fwd_tiles(width: int) -> tuple[int, int]:
     """(query rows, keys) of the fp32 forward's tiles at head width
-    ``width``: 128 rows and 64 keys up to 128, then 64 rows and 32 keys."""
-    return (128, 64) if width <= 128 else (64, 32)
+    ``width``: 128 rows and 64 keys up to 128, 64 rows and 32 keys at 256,
+    32 rows and 16 keys from 512 on."""
+    return (128, 64) if width <= 128 else (64, 32) if width <= 256 else (32, 16)
 
 
 def _fma_fwd_bytes(width: int) -> int:
@@ -217,8 +257,9 @@ def _fma_fwd_bytes(width: int) -> int:
 def _fma_bwd_tiles(kernel: str, width: int) -> tuple[int, int]:
     """The fp32 backward ``kernel``'s tiles at head width ``width``: dq's
     (query rows a block, keys a streamed tile), dk/dv's (keys a block, query
-    rows a streamed tile); 64 and 64 up to 128, then 32 and 32."""
-    return (64, 64) if width <= 128 else (32, 32)
+    rows a streamed tile); 64 and 64 up to 128, 32 and 32 at 256, 16 and 16
+    from 512 on."""
+    return (64, 64) if width <= 128 else (32, 32) if width <= 256 else (16, 16)
 
 
 def _fma_bwd_bytes(kernel: str, width: int) -> int:
@@ -242,22 +283,26 @@ def _fma_bwd_bytes(kernel: str, width: int) -> int:
 
 
 def _wide_head_refusal(D: int) -> str:
+    """Why D above 512 is refused: the width-512 designs at D padded to 64
+    columns, in shared-memory bytes (:func:`_wgmma_sums`, and the fp32
+    kernels' :func:`_fma_fwd_bytes` and :func:`_fma_bwd_bytes` at their
+    smallest tiles) and in the columns and registers a warpgroup would own."""
     width = -(-D // 64) * 64
-    rows, keys = _fma_fwd_tiles(width)
-    dq_rows, dq_keys = _fma_bwd_tiles("dq", width)
-    dkv_keys, dkv_rows = _fma_bwd_tiles("dkv", width)
-    need = (f"forward {_fma_fwd_bytes(width):,}; dq {_fma_bwd_bytes('dq', width):,}; "
+    bf16 = "; ".join(f"{name} {_wgmma_sums(k, 64, width)[0]:,}"
+                     for name, k in (("forward", "fwd"), ("dq", "dq"), ("dk/dv", "dkv")))
+    fp32 = (f"forward {_fma_fwd_bytes(width):,}; dq {_fma_bwd_bytes('dq', width):,}; "
             f"dk/dv {_fma_bwd_bytes('dkv', width):,}")
-    return (f"flash kernels take head_dim up to {_KERNEL_D[-1]} (zero-padded to 64, 128 or "
-            f"256), got {D}. At width {width} the fp32 kernels would need, at their "
-            f"smallest tiles (the forward's {rows} query rows and {keys} keys, dq's {dq_rows} "
-            f"rows and {dq_keys} keys, dk/dv's {dkv_keys} keys and {dkv_rows} rows), shared "
-            f"memory bytes a block of: {need}; the card gives a block {SMEM_LIMIT:,} bytes, "
-            f"and a train step needs all three")
+    return (f"flash kernels take head_dim up to {_KERNEL_D[-1]} (zero-padded to 64, 128, 256 "
+            f"or 512), got {D}. At width {width} the width-512 designs would need shared "
+            f"memory bytes a block of: bf16 {bf16}; fp32 (its smallest tiles) {fp32}; the card "
+            f"gives a block {SMEM_LIMIT:,} bytes. Each of the two warpgroups that split O, dQ, "
+            f"dK and dV would own {width // 2} columns ({width // 4} fp32 accumulator registers "
+            f"a thread), more than wgmma's widest product of {_WGMMA_N_MAX}; a train step "
+            f"needs all three kernels")
 
 
 def _kernel_width(D: int) -> int:
-    """The head width the kernels run at: D zero-padded to 64, 128 or 256."""
+    """The head width the kernels run at: D zero-padded to 64, 128, 256 or 512."""
     if not 1 <= D <= _KERNEL_D[-1]:
         raise ValueError(_wide_head_refusal(D))
     return next(w for w in _KERNEL_D if D <= w)
@@ -278,7 +323,11 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     shape. dk/dv: a grid of (KV, B, key blocks), 128 keys a block where
     ``B * KV * ceil(Sk / 128)`` blocks fill the SMs, else 64; at widths
     ``_WGMMA_64_ROWS_D`` 64 keys in 256 threads, two warpgroups owning dV and
-    dK. Shared memory as :func:`_wgmma_sums` counts it. fp32: every kernel
+    dK. At widths ``_HALVES_D`` every kernel takes 256 threads, two
+    warpgroups each owning half of the accumulator's columns: the forward and
+    dq 64-row tiles, dk/dv 64 keys with a grid of (KV, B, 2 * key blocks),
+    each block one half of dK's and dV's columns. Shared memory as
+    :func:`_wgmma_sums` counts it. fp32: every kernel
     takes the FMA route, 256 threads; the forward a grid of (H, B, query
     tiles), the tiles of :func:`_fma_fwd_tiles` and the bytes of
     :func:`_fma_fwd_bytes`; dq and dk/dv the bf16 route's grids, the tiles
@@ -287,7 +336,7 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     width = _kernel_width(D)
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash kernels take bf16 or fp32 operands, got {dtype}")
-    wide = width in _WGMMA_64_ROWS_D
+    wide = width in _WGMMA_64_ROWS_D or width in _HALVES_D
     if dtype == torch.bfloat16 and kernel in ("fwd", "dq"):
         rows = 128 if not wide and B * H * -(-Sq // 128) >= sms else 64
         smem, _ = _wgmma_sums(kernel, rows, width)
@@ -296,7 +345,8 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
         keys = 128 if not wide and B * KV * -(-Sk // 128) >= sms else 64
         smem, _ = _wgmma_sums(kernel, keys, width)
         threads = 256 if wide else 128 * (keys // 64)
-        return Plan("wgmma", keys, (KV, B, -(-Sk // keys)), threads, smem, width)
+        halves = 2 if width in _HALVES_D else 1
+        return Plan("wgmma", keys, (KV, B, halves * -(-Sk // keys)), threads, smem, width)
     if kernel == "fwd":
         rows, _ = _fma_fwd_tiles(width)
         return Plan("fma", rows, (H, B, -(-Sq // rows)), _FMA_THREADS, _fma_fwd_bytes(width),
@@ -327,8 +377,9 @@ def _pad_heads(inner, heads, width: int):
 def _query_tiles(k0: int, keys: int, Sq: int, Sk: int, causal: bool,
                  window: int | None, rows: int = _QROWS) -> tuple[int, int]:
     """(first, count) of the ``rows``-row query tiles (``_QROWS``,
-    ``_PAIR_QROWS`` at width 256, or the fp32 kernel's rows of
-    :func:`_fma_bwd_tiles`) that can see keys ``k0 .. k0 + keys - 1``: the
+    ``_PAIR_QROWS`` at width 256, ``_HALF_QROWS`` at 512, or the fp32
+    kernel's rows of :func:`_fma_bwd_tiles`) that can see keys ``k0 .. k0 +
+    keys - 1``: the
     dk/dv kernels' walk (``query_tiles`` in ``csrc/flash_common.cuh``,
     mirrored here for the CPU tests). Causal starts at the diagonal; the
     window ends ``window - 1`` rows after the last key."""

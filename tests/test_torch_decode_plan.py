@@ -27,7 +27,7 @@ OUT_RTOL, OUT_ATOL_RMS = 2.0 ** -6, 0.05
 
 
 def _bytes(plan, D, elem):
-    """The kernel's shared memory (``smem_bytes`` in csrc/flash_decode.cu),
+    """The kernel's shared memory (``smem_bytes`` in csrc/flash_decode.cuh),
     part by part: K and V of ``split`` keys, the chunk's queries, the
     scores and the combine's weights in fp32."""
     return (2 * plan.split * D * elem + fd.MAX_R * D * elem + fd.MAX_R * plan.split * 4

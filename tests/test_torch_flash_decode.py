@@ -121,7 +121,7 @@ def test_more_than_eight_heads_a_group_bf16(G, window):
 def test_card_operand_checks_take_fp32_and_wide_groups():
     """Off the CPU the wrapper checks the operands before any build: fp32
     and R 16 are taken (the meta tensors here only stop at the device
-    check, as no card is present); fp16, mixed dtypes and D 96 raise."""
+    check, as no card is present); fp16, mixed dtypes and D 640 raise."""
     def meta(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -136,5 +136,5 @@ def test_card_operand_checks_take_fp32_and_wide_groups():
     with pytest.raises(TypeError, match="bf16 or fp32 operands of one dtype"):
         flash_decode(meta(2, 1, 4, 64), meta(2, 1, 256, 64, dtype=torch.bfloat16),
                      meta(2, 1, 256, 64), pos, block_k=64)
-    with pytest.raises(ValueError, match="head_dim up to 256 .*got 320.*232,448"):
-        flash_decode(meta(2, 1, 4, 320), meta(2, 1, 256, 320), meta(2, 1, 256, 320), pos, block_k=64)
+    with pytest.raises(ValueError, match="head_dim up to 512 .*got 640.*232,448"):
+        flash_decode(meta(2, 1, 4, 640), meta(2, 1, 256, 640), meta(2, 1, 256, 640), pos, block_k=64)

@@ -19,13 +19,20 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 
 @pytest.mark.parametrize("shape", [SERVING, TRAINING], ids=["serving", "training"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 512])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     B, Sq, Sk, H, KV = shape
     plan = pa._plan(kernel, B, Sq, Sk, H, KV, D, dtype)
     assert 0 < plan.smem_bytes <= pa.SMEM_LIMIT and plan.width == D
-    if dtype == torch.bfloat16 and D == 256:
+    if dtype == torch.bfloat16 and D == 512:
+        # width 512: 256 threads, two warpgroups each owning half of the
+        # accumulator's columns; the forward and dq 64-row tiles, dk/dv 64
+        # keys and two blocks (one a half of dK's and dV's columns) a key block
+        assert (plan.route, plan.block, plan.threads) == ("wgmma", 64, 256)
+        assert plan.grid == ((KV, B, 2 * -(-Sk // 64)) if kernel == "dkv" else
+                             (H, B, -(-Sq // 64)))
+    elif dtype == torch.bfloat16 and D == 256:
         # width 256: one consumer warpgroup of 64 rows beside the producer
         # at every shape (two would not fit beside it); dk/dv: 64 keys a
         # block, two warpgroups owning dV and dK
@@ -43,16 +50,18 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
         assert plan.grid == ((KV, B, Sk // rows) if kernel == "dkv" else (H, B, Sq // rows))
     elif kernel == "fwd":
         # fp32 forward: register-tiled FMAs, 128 query rows (64 at width
-        # 256, with 32-key tiles) at every shape, 256 threads
-        rows = 64 if D == 256 else 128
+        # 256, with 32-key tiles; 32 at 512, with 16-key tiles) at every
+        # shape, 256 threads
+        rows = {256: 64, 512: 32}.get(D, 128)
         assert (plan.route, plan.block, plan.threads) == ("fma", rows, 256)
         assert plan.grid == (H, B, -(-Sq // rows))
         assert plan.smem_bytes == pa._fma_fwd_bytes(D)
     else:
         # fp32 dq and dk/dv: register-tiled FMAs, 256 threads, the bf16
         # route's grids; dq 64 query rows (64-key tiles), dk/dv 64 keys
-        # (64-row tiles) up to width 128, 32 and 32 at 256, at every shape
-        block = 32 if D == 256 else 64
+        # (64-row tiles) up to width 128, 32 and 32 at 256, 16 and 16 at
+        # 512, at every shape
+        block = {256: 32, 512: 16}.get(D, 64)
         assert (plan.route, plan.block, plan.threads) == ("fma", block, 256)
         assert plan.grid == ((KV, B, Sk // block) if kernel == "dkv" else (H, B, Sq // block))
         assert plan.smem_bytes == pa._fma_bwd_bytes(kernel, D)
@@ -100,6 +109,48 @@ def test_plan_shared_memory_bytes_at_d256(kernel, shape, want):
     assert want <= pa.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("kernel,dtype,parts", [
+    # each kernel's layout at width 512, part by part as its Layout lays it
+    # out (FwdHalvesLayout, DqHalvesLayout, DkvHalvesLayout; fwd32::Layout,
+    # dq32::Layout, dkv32::Layout), alignment slack and barriers included:
+    # Q 64 KiB + 2 x (K, V) of 32 keys at eight slabs
+    ("fwd", torch.bfloat16, dict(q=65_536, ring=2 * 2 * 8 * 32 * 128, barriers=8 * 5)),
+    # Q and dO 128 KiB + 2 x (K, V) of 16 keys + delta
+    ("dq", torch.bfloat16, dict(q_do=131_072, ring=2 * 2 * 8 * 16 * 128, delta=256,
+                                barriers=8 * 5)),
+    # K + V 128 KiB resident + 2 x (Q, dO) of 16 rows (no O) + the fp32 P^T
+    # slot [64 keys, 16 rows] + two delta rows + seven barriers
+    ("dkv", torch.bfloat16, dict(kv=131_072, ring=2 * 2 * 8 * 16 * 128, slot=64 * 16 * 4,
+                                 delta=2 * 16 * 4, barriers=8 * 7)),
+    # fp32 forward: Q of 32 rows + 2 x (K, V) of 16 keys at 16 slabs of 32
+    # columns + P [32, 16]
+    ("fwd", torch.float32, dict(q=16 * 32 * 128, ring=2 * 2 * 16 * 16 * 128, p=32 * 16 * 4,
+                                barriers=8 * 5)),
+    # fp32 dq: Q and dO of 16 rows + 2 x (K, V) of 16 keys + dS [16, 16]
+    ("dq", torch.float32, dict(q_do=2 * 16 * 16 * 128, ring=2 * 2 * 16 * 16 * 128,
+                               ds=16 * 16 * 4, barriers=8 * 5)),
+    # fp32 dk/dv: K and V of 16 keys + 2 x (Q, dO) of 16 rows + P^T and dS^T
+    # [16, 16] + a delta row a stage + seven barriers
+    ("dkv", torch.float32, dict(kv=2 * 16 * 16 * 128, ring=2 * 2 * 16 * 16 * 128,
+                                exchange=2 * 16 * 16 * 4, delta=2 * 16 * 4, barriers=8 * 7)),
+])
+def test_plan_shared_memory_bytes_at_d512(kernel, dtype, parts):
+    want = 1024 + sum(parts.values())
+    for shape in (SERVING, TRAINING, (4, 2048, 2048, 2, 2), (1, 200, 200, 2, 1)):
+        plan = pa._plan(kernel, *shape, 512, dtype)
+        assert plan.smem_bytes == want <= pa.SMEM_LIMIT and plan.width == 512
+    if dtype == torch.bfloat16:
+        smem, regs = pa._wgmma_sums(kernel, 64, 512)
+        # a warpgroup's half of O, dQ, dV or dK (128 fp32) beside its score
+        # tiles fits the 255 registers a thread may hold without a producer
+        # warpgroup, with room for addresses and the softmax's state
+        assert smem == want and regs == 128 + {"fwd": 16, "dq": 16, "dkv": 8}[kernel]
+        assert regs + 64 <= pa._REGS_MAX
+    else:
+        assert want == (pa._fma_fwd_bytes(512) if kernel == "fwd" else
+                        pa._fma_bwd_bytes(kernel, 512))
+
+
 def test_plan_ragged_and_small_grids():
     # a ragged last tile still gets a block; 128 rows only where the blocks fill the SMs
     assert pa._plan("fwd", 2, 200, 200, 8, 4, 128, torch.bfloat16).grid == (8, 2, 4)
@@ -117,6 +168,10 @@ def test_plan_ragged_and_small_grids():
     # width 256 keeps 64-row tiles where 128 would fill the SMs, ragged tiles included
     assert pa._plan("fwd", 1, 2048, 2048, 8, 8, 256, torch.bfloat16, sms=64).block == 64
     assert pa._plan("dq", 3, 200, 200, 4, 2, 256, torch.bfloat16).grid == (4, 3, 4)
+    # width 512: 64-row tiles always; dk/dv two blocks (halves) a key block
+    assert pa._plan("fwd", 1, 2048, 2048, 8, 8, 512, torch.bfloat16, sms=64).block == 64
+    assert pa._plan("dkv", 3, 200, 200, 4, 2, 512, torch.bfloat16).grid == (2, 3, 8)
+    assert pa._plan("dkv", 3, 200, 200, 4, 2, 300, torch.float32).grid == (2, 3, 13)
 
 
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
@@ -167,7 +222,26 @@ def test_query_tiles_of_the_width_256_walk(Sq, Sk, causal, window):
         assert walked == visible
 
 
-@pytest.mark.parametrize("width", [64, 128, 256])
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (2048, 2048, True, None), (256, 256, True, 2), (256, 256, True, 48),
+    (200, 200, True, None), (200, 200, True, 48), (64, 192, False, None),
+    (16, 8, True, 2), (300, 130, True, 100), (130, 300, True, None),
+])
+def test_query_tiles_of_the_width_512_walk(Sq, Sk, causal, window):
+    """The width-512 dk/dv kernel's walk, 64 keys a block over query tiles
+    of ``_HALF_QROWS`` rows: exactly the tiles that hold a visible pair
+    (the kernel skips none)."""
+    keep = pa._keep_mask(Sq, Sk, causal, window, "cpu")
+    rows = pa._HALF_QROWS
+    n_tiles = -(-Sq // rows)
+    for k0 in range(0, Sk, 64):
+        first, count = pa._query_tiles(k0, 64, Sq, Sk, causal, window, rows)
+        seen = torch.nn.functional.pad(keep[:, k0:k0 + 64], (0, 0, 0, n_tiles * rows - Sq))
+        visible = seen.reshape(n_tiles, rows, -1).any(dim=(1, 2)).tolist()
+        assert [first <= i < first + count for i in range(n_tiles)] == visible
+
+
+@pytest.mark.parametrize("width", [64, 128, 256, 512])
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
 def test_fma_backward_layout_fits_the_block(kernel, width):
     """The fp32 dq and dk/dv kernels' shared memory, part by part as their
@@ -177,10 +251,10 @@ def test_fma_backward_layout_fits_the_block(kernel, width):
     stage, the barriers and the alignment slack. It fits the block at every
     width; the block is a multiple of 16 rows (dq's thread holds rows
     g + 16 i, dk/dv's keys g + 8 i of its warpgroup's 8 row groups) and the
-    streamed tile 64 or 32 rows (a row of an exchange tile is 4 or 2
-    positions a lane)."""
+    streamed tile 64, 32 or 16 rows (a row of an exchange tile is 4, 2 or
+    1 positions a lane)."""
     block, tile = pa._fma_bwd_tiles(kernel, width)
-    assert block % 16 == 0 and tile in (64, 32)
+    assert block % 16 == 0 and tile in (64, 32, 16)
     slab = 128                                  # bytes of a 32-column fp32 row
     resident = 2 * (width // 32) * block * slab
     stage = 2 * (width // 32) * tile * slab
@@ -200,7 +274,7 @@ def test_fma_backward_layout_fits_the_block(kernel, width):
     (96, 96, False, None), (64, 192, False, None),       # non-causal, Sq != Sk
     (16, 8, True, 2), (300, 130, True, 100), (130, 300, True, None),
 ])
-@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("width", [128, 256, 512])
 def test_query_tiles_of_the_fp32_walk(width, Sq, Sk, causal, window):
     """The fp32 dk/dv kernel's walk, ``_fma_bwd_tiles("dkv", width)`` keys
     a block over query tiles of its rows: it visits exactly the tiles that
@@ -219,9 +293,14 @@ def test_query_tiles_of_the_fp32_walk(width, Sq, Sk, causal, window):
 
 
 def test_other_head_sizes_and_dtypes_are_stated_refusals():
-    with pytest.raises(ValueError, match=r"head_dim up to 256 .*got 320\. At width 320 .*dk/dv "
-                                         r"255,288; .*232,448 bytes"):
-        pa._plan("fwd", 1, 64, 64, 2, 2, 320, torch.bfloat16)
+    with pytest.raises(ValueError, match=r"head_dim up to 512 .*got 640\. At width 640 .*bf16 "
+                                         r"forward 246,824; dq 247,080; dk/dv 251,064; fp32 .*"
+                                         r"dk/dv 249,016; .*232,448 bytes.*own 320 columns"):
+        pa._plan("fwd", 1, 64, 64, 2, 2, 640, torch.bfloat16)
+    with pytest.raises(ValueError, match=r"head_dim up to 512 .*got 513\. At width 576 .*"
+                                         r"own 288 columns \(144 fp32 accumulator registers a "
+                                         r"thread\), more than wgmma's widest product of 256"):
+        pa._plan("dkv", 1, 64, 64, 2, 2, 513, torch.float32)
     with pytest.raises(TypeError, match="bf16 or fp32"):
         pa._plan("dq", 1, 64, 64, 2, 2, 128, torch.float16)
 

@@ -1,8 +1,10 @@
-"""Head sizes other than 64, 128 and 256: the port's kernels run them
+"""Head sizes other than 64, 128, 256 and 512: the port's kernels run them
 zero-padded to the next of those widths with the true D's softmax scale
 (width 256: bf16 on the tensor-core route, the forward and dq with 64-row
 tiles; fp32 on the FMA kernels, the forward with 64-row tiles and 32-key
-tiles, dq and dk/dv with 32-row tiles and 32 keys).
+tiles, dq and dk/dv with 32-row tiles and 32 keys; width 512: bf16 with two
+warpgroups each owning half of an accumulator's columns, fp32 the forward
+with 32-row tiles and 16-key tiles, dq and dk/dv 16 and 16).
 
 ``_pad_heads`` takes the function it pads around as an argument: on the
 card the kernel launch, here the plain version, so the padding itself is
@@ -37,6 +39,17 @@ def _inputs(B, Sq, Sk, H, KV, D, seed):
 @pytest.mark.parametrize("D", [16, 32, 48, 96, 160, 192, 256])
 @pytest.mark.parametrize("causal,window,kv", [(True, None, 2), (False, None, 4), (True, 12, 1)])
 def test_padded_flash_matches_jax_at_the_true_head_size(D, causal, window, kv):
+    _check_padded_flash(D, causal, window, kv)
+
+
+@pytest.mark.parametrize("D,causal,window,kv", [
+    (320, True, None, 2), (384, False, None, 4), (512, True, 12, 1)])
+def test_padded_flash_matches_jax_past_256(D, causal, window, kv):
+    """Head sizes of 257-512 run at width 512: 320 and 384 padded, 512 as it is."""
+    _check_padded_flash(D, causal, window, kv)
+
+
+def _check_padded_flash(D, causal, window, kv):
     B, S, H = 2, 32, 4
     q, k, v, do = _inputs(B, S, S, H, kv, D, seed=D + kv)
     (o_j, vjp) = jax.vjp(lambda q, k, v: jax_flash(q, k, v, causal, 16, 16, True, window),
@@ -44,7 +57,7 @@ def test_padded_flash_matches_jax_at_the_true_head_size(D, causal, window, kv):
     grads_j = [np.asarray(g) for g in vjp(jnp.asarray(do))]
 
     width = pa._kernel_width(D)
-    assert width == (64 if D <= 64 else 128 if D <= 128 else 256)
+    assert width == (64 if D <= 64 else 128 if D <= 128 else 256 if D <= 256 else 512)
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     o, lse = pa._pad_heads(
         lambda q, k, v, scale: pa.flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -80,7 +93,7 @@ def test_width_256_dkv_layout_fits_the_block():
 
 
 def test_pad_heads_copies_nothing_at_the_kernel_widths():
-    for D in (64, 128, 256):
+    for D in (64, 128, 256, 512):
         q = torch.zeros(1, 8, 2, D)
         seen = []
 
@@ -94,34 +107,42 @@ def test_pad_heads_copies_nothing_at_the_kernel_widths():
 
 @pytest.mark.parametrize("D,width", [(1, 64), (16, 64), (32, 64), (64, 64), (65, 128),
                                      (96, 128), (100, 128), (128, 128), (129, 256),
-                                     (160, 256), (192, 256), (256, 256)])
+                                     (160, 256), (192, 256), (256, 256), (257, 512),
+                                     (300, 512), (384, 512), (512, 512)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_plans_are_made_at_the_padded_width(D, width, dtype):
     for kernel in ("fwd", "dq", "dkv"):
         plan = pa._plan(kernel, 4, 2048, 2048, 8, 8, D, dtype)
         assert plan == pa._plan(kernel, 4, 2048, 2048, 8, 8, width, dtype)
         assert plan.width == width and plan.smem_bytes <= pa.SMEM_LIMIT
-        # bf16 takes the tensor cores at every width, at 256 in 64-row
-        # tiles (64-key blocks for dk/dv); fp32 the FMA kernels: the forward
-        # 128 query rows and 64-key tiles up to 128, 64 and 32 at 256; dq 64
-        # query rows and 64-key tiles, dk/dv 64 keys and 64-row tiles, up to
-        # 128, both 32 and 32 at 256
+        # bf16 takes the tensor cores at every width, at 256 and 512 in
+        # 64-row tiles (64-key blocks for dk/dv, two a key block at 512);
+        # fp32 the FMA kernels: the forward 128 query rows and 64-key tiles
+        # up to 128, 64 and 32 at 256, 32 and 16 at 512; dq 64 query rows
+        # and 64-key tiles, dk/dv 64 keys and 64-row tiles, up to 128, both
+        # 32 and 32 at 256, 16 and 16 at 512
         assert plan.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
         if plan.route == "fma" and kernel == "fwd":
             assert (plan.block, plan.threads, plan.grid) == (
                 pa._fma_fwd_tiles(width)[0], 256, (8, 4, 2048 // pa._fma_fwd_tiles(width)[0]))
             assert plan.smem_bytes == pa._fma_fwd_bytes(width) == {
-                64: 132_136, 128: 230_440, 256: 205_864}[width]
+                64: 132_136, 128: 230_440, 256: 205_864, 512: 199_720}[width]
         elif plan.route == "fma":
-            block = 64 if width <= 128 else 32
+            block = 64 if width <= 128 else 32 if width == 256 else 16
             assert pa._fma_bwd_tiles(kernel, width) == (block, block)
             assert (plan.block, plan.threads, plan.grid) == (block, 256, (8, 4, 2048 // block))
             assert plan.smem_bytes == pa._fma_bwd_bytes(kernel, width) == {
                 ("dq", 64): 115_752, ("dq", 128): 214_056, ("dq", 256): 201_768,
-                ("dkv", 64): 132_664, ("dkv", 128): 230_968, ("dkv", 256): 206_136}[kernel, width]
+                ("dq", 512): 198_696, ("dkv", 64): 132_664, ("dkv", 128): 230_968,
+                ("dkv", 256): 206_136, ("dkv", 512): 199_864}[kernel, width]
         elif width == 256:
             assert (plan.block, plan.threads, plan.grid) == (64, 256, (8, 4, 32))
             assert plan.smem_bytes == pa._wgmma_sums(kernel, 64, 256)[0]
+        elif width == 512:
+            grid = (8, 4, 64) if kernel == "dkv" else (8, 4, 32)
+            assert (plan.block, plan.threads, plan.grid) == (64, 256, grid)
+            assert plan.smem_bytes == pa._wgmma_sums(kernel, 64, 512)[0] == {
+                "fwd": 197_672, "dq": 197_928, "dkv": 201_912}[kernel]
     for B, G, R, L in ((4, 4, 2, 2048), (2, 1, 16, 512)):
         p = fd._plan(B, G, R, L, D, dtype, 132)
         assert p == fd._plan(B, G, R, L, width, dtype, 132) and p.width == width
@@ -134,8 +155,10 @@ def test_head_sizes_past_128_are_refused_with_their_limits():
     one consumer warpgroup of 64 rows beside the producer (a thread may hold
     255 registers there) but not with two (168); dk/dv fits with 64 keys in
     two warpgroups, one owning dV and one dK, and 48-row tiles (not with 128
-    keys); past 256 the fp32 FMA kernels would not fit either, and that is
-    the stated refusal."""
+    keys). Width 512 splits every accumulator over two warpgroups of 256
+    columns; past 512 a warpgroup's share would pass wgmma's widest product
+    (and at 640 every layout a block's shared memory), and that is the
+    stated refusal."""
     assert [pa._wgmma_sums(k, 64, 256) for k in ("fwd", "dq", "dkv")] == [
         (164_904, 160), (197_928, 192), (226_744, 152)]
     for kernel in ("fwd", "dq"):
@@ -157,19 +180,26 @@ def test_head_sizes_past_128_are_refused_with_their_limits():
     assert pa._plan("dkv", 4, 2048, 2048, 8, 8, 256, torch.float32).route == "fma"
     for D in (129, 200, 256):
         assert pa._kernel_width(D) == fd._kernel_width(D) == 256
-    # the sums the refusal states are the fp32 kernels' own at the next
-    # width: the FMA forward's layout (64 rows, 32-key tiles), dq's (32 rows,
-    # 32-key tiles) and dk/dv's (32 keys, 32-row tiles); none fits
-    assert pa._fma_fwd_tiles(320) == (64, 32)
-    assert pa._fma_bwd_tiles("dq", 320) == pa._fma_bwd_tiles("dkv", 320) == (32, 32)
-    sums = [pa._fma_fwd_bytes(320)] + [pa._fma_bwd_bytes(k, 320) for k in ("dq", "dkv")]
-    assert sums == [255_016, 250_920, 255_288]
+    for D in (257, 320, 384, 512):
+        assert pa._kernel_width(D) == fd._kernel_width(D) == 512
+    # the sums the refusal states are the width-512 designs' own at the next
+    # width: the bf16 layouts and the fp32 kernels' at their smallest tiles
+    # (the forward's 32 rows and 16-key tiles, dq's and dk/dv's 16 and 16);
+    # at 576 they fit but a warpgroup's 288 columns pass wgmma's 256, at 640
+    # none fits
+    assert pa._fma_fwd_tiles(640) == (32, 16)
+    assert pa._fma_bwd_tiles("dq", 640) == pa._fma_bwd_tiles("dkv", 640) == (16, 16)
+    sums = [pa._wgmma_sums(k, 64, 640)[0] for k in ("fwd", "dq", "dkv")] + [
+        pa._fma_fwd_bytes(640)] + [pa._fma_bwd_bytes(k, 640) for k in ("dq", "dkv")]
+    assert sums == [246_824, 247_080, 251_064, 248_872, 247_848, 249_016]
     assert min(sums) > pa.SMEM_LIMIT
-    for D in (257, 320):
-        with pytest.raises(ValueError, match=f"head_dim up to 256 .*got {D}.*forward 255,016; "
-                                             f"dq 250,920; dk/dv 255,288.*232,448"):
+    assert 576 // 2 > pa._WGMMA_N_MAX == 512 // 2
+    for D, width, need in ((513, 576, "bf16 forward 222,248; dq 222,504; dk/dv 226,488"),
+                           (640, 640, "bf16 forward 246,824; dq 247,080; dk/dv 251,064")):
+        with pytest.raises(ValueError, match=f"head_dim up to 512 .*got {D}. At width {width} "
+                                             f".*{need}.*232,448.*own {width // 2} columns"):
             pa._kernel_width(D)
-        with pytest.raises(ValueError, match=f"flash_decode kernel takes head_dim up to 256 .*got {D}"):
+        with pytest.raises(ValueError, match=f"flash_decode kernel takes head_dim up to 512 .*got {D}"):
             fd._plan(1, 1, 1, 64, D, torch.bfloat16, 132)
 
 
@@ -194,3 +224,47 @@ def test_padded_decode_matches_jax_at_the_true_head_size(D, window):
                                 scale=D ** -0.5)
     np.testing.assert_allclose(got[..., :D].numpy(), want, **TOL_DECODE)
     assert not got[..., D:].any()
+
+
+@pytest.mark.parametrize("D,window", [(320, None), (512, 40)])
+def test_padded_decode_matches_jax_past_256(D, window):
+    """Decode at width 512: D 320 padded, 512 as it is."""
+    test_padded_decode_matches_jax_at_the_true_head_size(D, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_width_512_plans_at_the_heads_of_512_flagships(dtype):
+    """The four kernels' plans at the shapes the heads-of-512 flagships give
+    them (training B4 S2048 H2 KV2; the request's prefill B4 S128 H2 KV1,
+    its decode steps over a cache of 2,048 slots), taken from meta tensors
+    of those shapes; flash-decode's bytes part by part as ``smem_bytes`` in
+    ``csrc/flash_decode.cuh`` sums them (K and V rows of a block's keys, the
+    chunk's queries, the scores and the combine's weights), its keys a block
+    32 in bf16 and 16 in fp32 (64 KB of K and V). The decode wrapper takes
+    the meta operands past its head-size check and stops at the device
+    check (no card here); D 513 stops at the refusal."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    for B, S, H, KV in ((4, 2048, 2, 2), (4, 128, 2, 1)):
+        q = torch.empty(B, S, H, 512, dtype=dtype, device="meta")
+        k = torch.empty(B, S, KV, 512, dtype=dtype, device="meta")
+        for kernel in ("fwd", "dq", "dkv"):
+            plan = pa._plan(kernel, *q.shape[:1], q.shape[1], k.shape[1], H, KV, q.shape[-1],
+                            q.dtype)
+            assert plan.width == 512 and plan.smem_bytes <= pa.SMEM_LIMIT
+            assert plan.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    qd = torch.empty(4, 1, 2, 512, dtype=dtype, device="meta")
+    cache = torch.empty(4, 1, 2048, 512, dtype=dtype, device="meta")
+    plan = fd._plan(*qd.shape[:3], cache.shape[2], qd.shape[-1], dtype, 132)
+    split = 32 if dtype == torch.bfloat16 else 16
+    parts = dict(kv=2 * split * 512 * elem, q=8 * 512 * elem, scores=8 * split * 4,
+                 weights=8 * (2048 // split) * 4)
+    assert (plan.split, plan.splits, plan.cluster, plan.width) == (split, 2048 // split, False, 512)
+    assert (plan.kv_bytes, plan.q_bytes, plan.score_bytes, plan.weight_bytes) == tuple(parts.values())
+    assert plan.smem_bytes == sum(parts.values()) and plan.kv_bytes == fd._KV_BYTES_MAX
+    assert plan.split % fd.SPLIT_UNIT == 0
+    pos = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(TypeError, match="takes CUDA tensors"):
+        fd.flash_decode(qd, cache, cache, pos)
+    wide = torch.empty(4, 1, 2048, 513, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="head_dim up to 512 .*got 513"):
+        fd.flash_decode(torch.empty(4, 1, 2, 513, dtype=dtype, device="meta"), wide, wide, pos)
