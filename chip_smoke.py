@@ -571,7 +571,7 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}:   {line.strip()}")
                 registers.setdefault(name, {}).setdefault(entry, []).append(line.strip())
-    for name, kernel in (*WIDE_WGMMA.items(), *HALVES_WGMMA.items()):
+    for name, kernel in (*WIDE_WGMMA.items(), *WGMMA_512.items()):
         lines = [ln for entry, got in registers.get(name, {}).items() if kernel[1] in entry
                  for ln in got]
         regs = re.search(r"Used (\d+) registers", " ".join(lines))
@@ -620,19 +620,22 @@ FMA_KERNELS = {"flash_attention_fwd": "flash_fwd_fma", "flash_attention_bwd_dq":
 # the width-256 instantiations of the bf16 forward, dq and dk/dv: (name,
 # the fragment of its mangled name)
 WIDE_WGMMA = {"flash_attention_fwd": ("flash_fwd_wgmma<256, 1>", "flash_fwd_wgmmaILi256ELi1E"),
-              "flash_attention_bwd_dq": ("flash_dq_wgmma<256, 1>", "flash_dq_wgmmaILi256ELi1E"),
-              "flash_attention_bwd_dkv": ("flash_dkv_wgmma_pair<256>",
-                                          "flash_dkv_wgmma_pairILi256E")}
+              "flash_attention_bwd_dq": ("flash_dq_wgmma<256, 1, 1>",
+                                         "flash_dq_wgmmaILi256ELi1ELi1E"),
+              "flash_attention_bwd_dkv": ("flash_dkv_wgmma_pair<256, 1>",
+                                          "flash_dkv_wgmma_pairILi256ELi1E")}
 DKV_PAIR = WIDE_WGMMA["flash_attention_bwd_dkv"][0]
-# the width-512 bf16 kernels: two warpgroups each owning half of an
-# accumulator's columns (name, the fragment of its mangled name)
-HALVES_WGMMA = {
+# the width-512 bf16 kernels (name, the fragment of its mangled name): the
+# forward's two warpgroups each owning half of O's columns; dq and dk/dv the
+# width-256 kernels on each column half, a cluster of two blocks
+WGMMA_512 = {
     "flash_attention_fwd": ("flash_fwd_wgmma_halves<512>", "flash_fwd_wgmma_halvesILi512E"),
-    "flash_attention_bwd_dq": ("flash_dq_wgmma_halves<512>", "flash_dq_wgmma_halvesILi512E"),
-    "flash_attention_bwd_dkv": ("flash_dkv_wgmma_halves<512>", "flash_dkv_wgmma_halvesILi512E")}
+    "flash_attention_bwd_dq": ("flash_dq_wgmma<512, 1, 2>", "flash_dq_wgmmaILi512ELi1ELi2E"),
+    "flash_attention_bwd_dkv": ("flash_dkv_wgmma_pair<512, 2>",
+                                "flash_dkv_wgmma_pairILi512ELi2E")}
 # the libraries of the width-512 instantiations (their mangled names hold
 # "ILi512E"): library -> the fragment of the entries whose tensor-core
-# instructions are counted apart (the bf16 flash kernels' are HALVES_WGMMA's)
+# instructions are counted apart (the bf16 flash kernels' are WGMMA_512's)
 WIDTH_512_ENTRIES = {"flash_attention_fwd": "flash_fwd_fmaILi512E",
                      "flash_attention_bwd_dq": "flash_dq_fmaILi512E",
                      "flash_attention_bwd_dkv": "flash_dkv_fmaILi512E",
@@ -652,7 +655,7 @@ def tensor_core_counts(libs):
     the fused head's forward, dh and dE and the fused BN + ReLU + 1x1-conv
     backward must issue wgmma; the fp32 routes (the FMA kernels) none.
     The width-256 and width-512 forward, dq and dk/dv (``WIDE_WGMMA``,
-    ``HALVES_WGMMA``) must hold it in their own entry functions; with
+    ``WGMMA_512``) must hold it in their own entry functions; with
     ``cuobjdump``, the fp32 kernels' width-512 entries must hold none and
     flash-decode's width-512 entries HMMA (its bf16 ``mma.sync`` route)."""
     from kubeflow_tpu_torch.ops import _build
@@ -676,7 +679,7 @@ def tensor_core_counts(libs):
             counts[name] = {"wgmma": text.count("wgmma.mma_async"), "mma": text.count("mma.sync")}
         log(f"[build] {name}: tensor-core instructions {counts[name]} "
             f"({'cuobjdump -sass' if tool.is_file() else 'nvcc -ptx'})")
-        for table in (WIDE_WGMMA, HALVES_WGMMA):
+        for table in (WIDE_WGMMA, WGMMA_512):
             if name not in table:
                 continue
             # one section a function: SASS "Function : <name>", PTX ".entry <name>("
@@ -685,6 +688,11 @@ def tensor_core_counts(libs):
                            if mangled in part.split(None, 1)[0])
             counts[kernel] = {"HGMMA" if tool.is_file() else "wgmma":
                               body.count("HGMMA" if tool.is_file() else "wgmma.mma_async")}
+            # by shape (SASS "HGMMA.64x64x16", PTX "m64n64k16"): the FLOPs a
+            # block issues a tile, against its bound's, for the PR's notes
+            shapes = re.findall(r"HGMMA\.(\d+x\d+x\d+)" if tool.is_file() else
+                                r"wgmma\.mma_async\.sync\.aligned\.(m\d+n\d+k\d+)", body)
+            counts[kernel]["shapes"] = {sh: shapes.count(sh) for sh in sorted(set(shapes))}
             log(f"[build] {kernel}: tensor-core instructions in its entry function {counts[kernel]}")
     if tool.is_file():
         # the width-512 variants' own entry functions: the bf16 kernels above
@@ -702,7 +710,7 @@ def tensor_core_counts(libs):
                     name != "flash_decode_512" and got["HGMMA"]):
                 raise AssertionError(f"{fragment}: width-512 entries {got}")
     for name in (*WGMMA_LIBS, *(k for k, _ in WIDE_WGMMA.values()),
-                 *(k for k, _ in HALVES_WGMMA.values())):
+                 *(k for k, _ in WGMMA_512.values())):
         if not counts[name].get("HGMMA", counts[name].get("wgmma")):
             raise AssertionError(f"{name} has no wgmma instruction: its bf16 route must use wgmma")
     return counts
@@ -1614,16 +1622,20 @@ def _sdpa_backends(torch, F, q, k, v, **kw):
 
 def phase_heads_512(torch, np):
     """The flash forward, dq and dk/dv and flash-decode at head width 512,
-    in bf16 (the tensor-core kernels, two warpgroups each owning half of an
-    accumulator's columns) and fp32 (the FMA kernels), each route required:
+    in bf16 (the tensor-core kernels: the forward's two warpgroups each
+    owning half of O's columns, dq and dk/dv a cluster of two blocks each
+    owning a column half) and fp32 (the FMA kernels), each route required:
     the heads-of-512 training shape (B4 S2048 H2), the request's prefill
     (GQA 2/1), MQA 8/1, a window, ragged S (with fp32 gradients of bf16
-    operands), rows that see no key, D 300 padded; decode at positions 191
-    and 2047 of a 2,048-slot cache, a window, R 16, a row with no live key
-    and D 300 padded. Each against its plain version under the kernels
-    phases' bounds, a second launch bitwise equal, decode against
-    ``_split_reference`` too; the training shape's profile names the
-    width-512 kernels. Each kernel is timed at the training shape (decode at
+    operands), rows that see no key, D 300 padded, and two cases only the
+    pair can get wrong (Sk not a multiple of the 64-key block, so both
+    blocks of a pair mask keys; key blocks no query sees); decode at
+    positions 191 and 2047 of a 2,048-slot cache, a window, R 16, a row
+    with no live key and D 300 padded. Each against its plain version under
+    the kernels phases' bounds, a second launch bitwise equal, the bf16
+    backward against ``_pair_reference`` (the pair's order of operations)
+    and decode against ``_split_reference`` too; the training shape's
+    profile names the width-512 kernels. Each kernel is timed at the training shape (decode at
     positions 191 and 2047, L2 flushed) with its bound, plain version and
     scaled_dot_product_attention, whose backend is named."""
     import torch.nn.functional as F
@@ -1655,6 +1667,11 @@ def phase_heads_512(torch, np):
         ("ragged_s200_fp32_grads", 3, 200, 200, 2, 1, 512, True, None, True),
         ("dead_rows_sq16_sk8_window2", 2, 16, 8, 2, 1, 512, True, 2, False),
         ("d300_noncausal_sq64_sk192", 2, 64, 192, 2, 1, 300, False, None, False),
+        # the pair's edges: Sk 200 leaves both blocks of the last key block
+        # 8 keys of 64 (dk/dv) and dq's last key tile 8 too; causal Sq 64 <
+        # Sk 256 leaves three key blocks that no query sees
+        ("pair_noncausal_sq40_sk200_gqa_4_2", 2, 40, 200, 4, 2, 512, False, None, False),
+        ("pair_unseen_keys_sq64_sk256", 2, 64, 256, 2, 1, 512, True, None, False),
     ]
     res = {"cases": {}, "decode_cases": {}}
     for dt in (bf16, f32):
@@ -1685,15 +1702,25 @@ def phase_heads_512(torch, np):
                 raise AssertionError(f"D {D} ({name}, {dt}) took {plans}, not {route} at width 512")
             line = [f"fwd err/tol {ratio:.3f} lse_err {lse_err:.2e}"]
             errs = {"fwd": err}
-            for grad, g, w in zip(("dq", "dk", "dv"), grads, want):
+            # the bf16 pair's witness: its own order of operations, the
+            # same bounds
+            wit = (pa._pair_reference(q, k, v, o, lse, do, **kw) if dt == bf16 else
+                   (None,) * 3)
+            for grad, g, w, r in zip(("dq", "dk", "dv"), grads, want, wit):
                 g_ok, g_err, g_ratio, _ = check_out(g, w)
                 ok = ok and g_ok and g.dtype == w.dtype
                 line.append(f"{grad} err/tol {g_ratio:.3f}")
+                if r is not None:
+                    w_ok, _, w_ratio, _ = check_out(g, r)
+                    ok = ok and w_ok
+                    line[-1] += f" (vs _pair_reference {w_ratio:.3f})"
+                    errs[f"{grad}_vs_pair_reference_ratio"] = w_ratio
                 errs[grad] = g_err
+            del wit
             res["cases"][f"{'bf16' if dt == bf16 else 'fp32'}_{name}"] = errs
             log(f"[heads 512] flash {name} ({dt}; D {D} at width 512; "
                 + ", ".join(f"{kn} {p.route} {p.block} {p.threads} threads grid {p.grid} "
-                            f"{p.smem_bytes} B" for kn, p in plans.items())
+                            f"cluster {p.cluster} {p.smem_bytes} B" for kn, p in plans.items())
                 + f"): {'; '.join(line)}; a second launch of all three bitwise equal: {same} "
                 f"(rtol {OUT_RTOL}, atol {OUT_ATOL_RMS}*rms) {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -1790,7 +1817,7 @@ def phase_heads_512(torch, np):
                                                pa.flash_attention_bwd_dkv(q, k, v, o, lse, do)),
                                reps=2)
         names = sorted({n.split(">(")[0] + ">" for run in seen for n in run if "flash_" in n})
-        want_names = ([k for k, _ in HALVES_WGMMA.values()] if dt == bf16 else
+        want_names = ([k for k, _ in WGMMA_512.values()] if dt == bf16 else
                       ["flash_fwd_fma<512, 32, 16>", "flash_dq_fma<512, 16, 16>",
                        "flash_dkv_fma<512, 16, 16>"])
         launched = {w: any(w in n for n in names) for w in want_names}

@@ -76,16 +76,24 @@
 // tiles' traffic, the launch order nor the ring's depth moved it.
 //
 // bf16 at head width 512: dK and dV of 64 keys would take 2 x 64 x 512 fp32,
-// the SM's whole register file. flash_dkv_wgmma_halves keeps the pair
-// kernel's roles and register shape (128 accumulators a thread) over half
-// of the columns: a grid axis of two halves a 64-key block, each computing
-// S^T and dP^T over all 512 columns (m64n16k16 steps) and dV or dK over its
-// 256 (1.5x the kernel's FLOPs: bound at the heads-of-512 training shape,
-// B4 S2048 H2, 6.9e10 FLOP, 0.070 ms; with the recomputed scores 0.104 ms).
-// K and V resident take 128 KiB, so the ring carries Q and dO in 16-row
-// tiles (64 KiB) and no O: warpgroup 1 reads its 64 columns of each O row
-// from device memory for delta, issued before the score product and used
-// after it (201,912 bytes).
+// the SM's whole register file, and K and V resident 128 KiB. So
+// flash_dkv_wgmma_pair<512, 2> runs the pair kernel on each column half, as a
+// cluster of two blocks a 64-key block (grid (KV, B, 2 x key blocks)): block
+// c holds columns 256 c .. 256 c + 255 of K, V, Q and dO (64 KiB resident,
+// 48-row tiles) and owns those of dK and dV. Its S^T and dP^T are partial
+// sums over its columns; after each tile's score product a warpgroup sends
+// its fp32 partials to its twin in the other block by st.async through
+// distributed shared memory and adds the twin's (the same sum in both),
+// then proceeds as at width 256. Every score product is computed once,
+// m64n48k16 steps: exactly the bound's FLOPs (6.9e10 at the heads-of-512
+// training shape, B4 S2048 H2; 0.070 ms), where the first port's grid axis
+// of two halves recomputed S^T and dP^T over all 512 columns in m64n16k16
+// steps (1.5x). O stays out of the ring (two more stages would pass the
+// block's shared memory): one O tile of the block's columns, which
+// warpgroup 1's first thread reloads by TMA for the next ring item once the
+// warpgroup's delta pass has read it; the partial delta, formed with the
+// ring's dO while the score product runs, is swapped with the partials
+// (226,976 bytes with the 24 KiB of receive slots).
 //
 // fp32 operands: flash_dkv_fma, the bf16 route's walk with register-tiled
 // fp32 FMA products (no TF32; bound four causal matmuls at the 67 TF/s fp32
@@ -628,21 +636,30 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   return (int)cudaGetLastError();
 }
 
-// ---- the tensor-core route at head width 256 (bf16): two warpgroups, one
-// owning dV and one dK
+// ---- the tensor-core route at head widths 256 and 512 (bf16): two
+// warpgroups, one owning dV and one dK; at 512 a cluster of two such blocks
+// a key block, one a column half
 
-// Shared memory of flash_dkv_wgmma_pair, in bytes from a 1024-aligned base:
-// K and V (four slabs of 64 keys each, resident), STAGES Q, dO and O tiles
-// of QR rows (four slabs each), the exchange slot of fp32 P^T [64 keys, QR
-// queries] in the accumulators' fragment order, two delta rows of QR, then
-// the mbarriers: K/V, full[STAGES], empty[STAGES], slot full, slot empty.
+// Shared memory of flash_dkv_wgmma_pair<D, CL>, in bytes from a 1024-aligned
+// base: K and V (DL / 64 slabs of 64 keys each, resident; DL = D / CL the
+// block's columns), STAGES Q and dO tiles of QR rows (DL / 64 slabs each),
+// STAGES O tiles at CL 1 (one at CL 2), the exchange slot of fp32 P^T [64
+// keys, QR queries] in the accumulators' fragment order, two delta rows of
+// QR, at CL 2 the receive slots of the peer's partial S^T and dP^T ([QR /
+// 8][128] float4 each) and its partial delta row, then the mbarriers: K/V,
+// full[STAGES], empty[STAGES], slot full, slot empty, and at CL 2 each
+// warpgroup's receive full and free and the O tile's.
 // ops/pallas_attention.py (_wgmma_sums) computes the same bytes; the
 // launcher checks them. QR 48 is the most rows whose two stages fit beside
 // K and V; on an H100, 32-row tiles (with two slots) ran slower: the score
-// products' N = QR sets their rate more than their FLOPs do.
+// products' N = QR sets their rate more than their FLOPs do. At CL 2 O stays
+// out of the ring (its two stages and the receive slots would pass a
+// block's 227 KiB): one O tile, which warpgroup 1 reloads for the next ring
+// item once its delta pass has read it.
+template <int D, int CL>
 struct DkvPairLayout {
-  static constexpr int D = 256;
-  static constexpr int NS = D / 64;
+  static constexpr int DL = D / CL;
+  static constexpr int NS = DL / 64;
   static constexpr int QR = 48;                 // query rows a ring tile
   static constexpr int SLAB_KB = 64 * 128;
   static constexpr int SLAB_Q = QR * 128;
@@ -651,31 +668,48 @@ struct DkvPairLayout {
   static constexpr int Q = V + NS * SLAB_KB;
   static constexpr int DO = Q + flash::STAGES * NS * SLAB_Q;
   static constexpr int O = DO + flash::STAGES * NS * SLAB_Q;
-  static constexpr int X = O + flash::STAGES * NS * SLAB_Q;
+  static constexpr int X = O + (CL == 1 ? flash::STAGES : 1) * NS * SLAB_Q;
   static constexpr int ROWS = X + 64 * QR * 4;
-  static constexpr int BAR = ROWS + 2 * QR * 4;
-  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES + 2);
+  static constexpr int RX = ROWS + 2 * QR * 4;
+  static constexpr int RX_DELTA = RX + 2 * 64 * QR * 4;   // the peer's partial delta row
+  static constexpr int BAR = RX + (CL > 1 ? 2 * 64 * QR * 4 + QR * 4 : 0);
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES + 2) + (CL > 1 ? 40 : 0);
+  static_assert(bytes <= 232448, "the layout must fit a block's shared memory");
 };
 
-template <int D>
+// One block per (kv head, batch row, 64 keys), the lowest keys first, 256
+// threads, thread 0 producing. CL 2 (head width 512): block c of a cluster
+// of two holds columns c DL .. of K, V, Q and dO and owns those of dK and
+// dV; after each tile's S^T (warpgroup 0) and dP^T (warpgroup 1), partial
+// over its columns, each warpgroup swaps them with its twin in the other
+// block (warpgroup 1 its partial delta row too) before P^T and dS^T (the pair
+// pieces of flash_common.cuh): each score product once, m64n48k16 steps.
+// O's tile of the block's columns comes by TMA into one buffer, issued by
+// warpgroup 1's first thread for ring item it + 1 once the delta pass of
+// item it has read it.
+template <int D, int CL>
 __global__ void __launch_bounds__(256, 1)
 flash_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tout,
                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
-                     void* __restrict__ dk, void* __restrict__ dv, int Sq, int Sk, int H, int KV,
-                     int causal, int window, float scale, int out_f32) {
-  static_assert(D == DkvPairLayout::D, "the pair kernel runs at head width 256");
+                     void* __restrict__ dk, void* __restrict__ dv,
+                     int Sq, int Sk, int H, int KV, int causal, int window, float scale,
+                     int out_f32) {
   using namespace flash;
-  using L = DkvPairLayout;
-  constexpr int NS = L::NS, QR = L::QR;
+  using L = DkvPairLayout<D, CL>;
+  constexpr int NS = L::NS, QR = L::QR, DL = L::DL;
+  static_assert(DL == 256, "the pair's warpgroups hold 256 columns of dV or dK");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const uint32_t s_base = smem_u32(smem);
   const uint32_t bar_kv = s_base + L::BAR;
   const uint32_t slot_full = bar_kv + 8 * (1 + 2 * STAGES), slot_empty = slot_full + 8;
+  const uint32_t rx_full = slot_empty + 8, rx_free = rx_full + 16;   // [2] each, a warpgroup's
+  const uint32_t bar_o = rx_free + 16;                                 // the O tile (CL 2)
 
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * 64;      // the lowest keys, the heaviest causal blocks, first
+  const int k0 = (blockIdx.z / CL) * 64;   // the lowest keys, the heaviest causal blocks, first
+  const int d0 = CL > 1 ? (int)cluster_rank() * DL : 0;   // the block's columns
   const int group = H / KV;
   // every tile of the walk holds a query that sees one of the block's keys
   // (tests/test_torch_flash_plan.py), so none is skipped
@@ -684,38 +718,47 @@ flash_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq, const __grid_consta
   if (threadIdx.x == 0) {
     mbar_init(slot_full, 128);
     mbar_init(slot_empty, 128);
+    if (CL > 1)
+      for (int w = 0; w < 2; ++w) {
+        mbar_init(rx_full + 8 * w, 1);
+        mbar_init(rx_free + 8 * w, 4);
+      }
+    if (CL > 1) mbar_init(bar_o, 1);
   }
   init_barriers(bar_kv, 256);
+  if constexpr (CL > 1) cluster_sync();   // both blocks' barriers exist before a remote store
 
   // ---- thread 0 also produces, as flash_dkv_wgmma's does
   int issued = 0;
-  auto refill = [&](int must) {
-    while (issued < n && issued < must + STAGES) {
-      const int j = issued, sj = j % STAGES;
-      const uint32_t empty = bar_empty(bar_kv, sj), full = bar_full(bar_kv, sj);
-      const int parity = ((j / STAGES) & 1) ^ 1;
-      if (j > must && !mbar_try_wait(empty, parity)) break;
-      mbar_wait(empty, parity);
-      const int h = kvh * group + j / qt.count;
-      const int q0 = (qt.first + j % qt.count) * QR;
-      mbar_expect_tx(full, 3 * NS * L::SLAB_Q);
-      for (int s = 0; s < NS; ++s) {
-        const uint32_t off = (sj * NS + s) * L::SLAB_Q;
-        tma_load(s_base + L::Q + off, &tq, 64 * s, h, q0, b, full);
-        tma_load(s_base + L::DO + off, &tdo, 64 * s, h, q0, b, full);
-        tma_load(s_base + L::O + off, &tout, 64 * s, h, q0, b, full);
-      }
-      ++issued;
+  auto issue = [&](int j, int sj) {
+    const int h = kvh * group + j / qt.count;
+    const int q0 = (qt.first + j % qt.count) * QR;
+    const uint32_t full = bar_full(bar_kv, sj);
+    mbar_expect_tx(full, (CL == 1 ? 3 : 2) * NS * L::SLAB_Q);
+    for (int s = 0; s < NS; ++s) {
+      const uint32_t off = (sj * NS + s) * L::SLAB_Q;
+      tma_load(s_base + L::Q + off, &tq, d0 + 64 * s, h, q0, b, full);
+      tma_load(s_base + L::DO + off, &tdo, d0 + 64 * s, h, q0, b, full);
+      if (CL == 1) tma_load(s_base + L::O + off, &tout, 64 * s, h, q0, b, full);
     }
+  };
+  // CL 2: ring item j's O tile (its rows, the block's columns) into the one O buffer
+  auto load_o = [&](int j) {
+    const int h = kvh * group + j / qt.count;
+    const int q0 = (qt.first + j % qt.count) * QR;
+    mbar_expect_tx(bar_o, NS * L::SLAB_Q);
+    for (int s = 0; s < NS; ++s)
+      tma_load(s_base + L::O + s * L::SLAB_Q, &tout, d0 + 64 * s, h, q0, b, bar_o);
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar_kv, 2 * NS * L::SLAB_KB);
     for (int s = 0; s < NS; ++s) {
-      tma_load(s_base + L::K + s * L::SLAB_KB, &tk, 64 * s, kvh, k0, b, bar_kv);
-      tma_load(s_base + L::V + s * L::SLAB_KB, &tv, 64 * s, kvh, k0, b, bar_kv);
+      tma_load(s_base + L::K + s * L::SLAB_KB, &tk, d0 + 64 * s, kvh, k0, b, bar_kv);
+      tma_load(s_base + L::V + s * L::SLAB_KB, &tv, d0 + 64 * s, kvh, k0, b, bar_kv);
     }
-    refill(0);
+    refill(issued, n, 0, bar_kv, issue);
   }
+  if (CL > 1 && threadIdx.x == 128 && n > 0) load_o(0);
   __syncwarp();
 
   // ---- warpgroup 0: S^T = K Q^T, P^T, dV += P^T dO; warpgroup 1: dP^T =
@@ -730,30 +773,36 @@ flash_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq, const __grid_consta
   const uint32_t a_tile = s_base + (wg ? L::V : L::K);
   float4* xs = reinterpret_cast<float4*>(smem + L::X) + tid;     // [QR / 8][128] float4
   float* delta_rows = reinterpret_cast<float*>(smem + L::ROWS);  // [2][QR]
+  Pair pr{};
+  if constexpr (CL > 1)
+    pr = pair_at(s_base + L::RX + wg * 64 * QR * 4, rx_full + 8 * wg, rx_free + 8 * wg);
+  const float4* rx = reinterpret_cast<const float4*>(smem + L::RX + wg * 64 * QR * 4);
+  const float* rx_delta = reinterpret_cast<const float*>(smem + L::RX_DELTA);
 
-  float acc[D / 2];    // dV (warpgroup 0) or dK (1) [64, D]: D / 8 column blocks of 4
+  float acc[DL / 2];   // dV (warpgroup 0) or dK (1) [64, DL]: DL / 8 column blocks of 4
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DL / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(bar_kv, 0);
   for (int it = 0; it < n; ++it) {
     const int st = it % STAGES, lap = it & 1;
     const int h = kvh * group + it / qt.count;
     const int q0 = (qt.first + it % qt.count) * QR;
-    if (threadIdx.x == 0) refill(it);
+    if (threadIdx.x == 0) refill(issued, n, it, bar_kv, issue);
     __syncwarp();
     mbar_wait(bar_full(bar_kv, st), (it / STAGES) & 1);
     const uint32_t q_tile = s_base + L::Q + st * NS * L::SLAB_Q;
     const uint32_t do_tile = s_base + L::DO + st * NS * L::SLAB_Q;
-    const uint32_t o_tile = s_base + L::O + st * NS * L::SLAB_Q;
+    const uint32_t o_tile = s_base + L::O + (CL == 1 ? st * NS * L::SLAB_Q : 0);
     const uint32_t b_tile = wg ? do_tile : q_tile;
+    float* rows = delta_rows + lap * QR;
     float s[QR / 2];   // S^T or dP^T [64 keys, QR queries]
 #pragma unroll
     for (int i = 0; i < QR / 2; ++i) s[i] = 0.f;
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DL / 16; ++kk)
       wgmma_ss_n48(s, desc_k(a_tile, L::SLAB_KB, kk), desc_k(b_tile, L::SLAB_Q, kk), kk > 0);
     wgmma_commit();
 
@@ -770,10 +819,11 @@ flash_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq, const __grid_consta
           col[2 * j + e] = qp < Sq ? __ldg(lse_h + qp) * LOG2E : INFINITY;
         }
     } else {
-      // delta = rowsum(dO * O) of the tile's QR rows from the swizzled
-      // tiles, four threads a row, each one 64-column slab, 32 rows a pass
+      // delta = rowsum(dO * O) of the tile's QR rows (at CL 2 the partial
+      // sum over the block's columns) from the swizzled tiles, four threads
+      // a row, each one 64-column slab, 32 rows a pass
+      if constexpr (CL > 1) mbar_wait(bar_o, it & 1);
       const int part = tid % 4;
-      float* rows = delta_rows + lap * QR;
 #pragma unroll
       for (int r0 = 0; r0 < QR; r0 += 32) {
         const int r = r0 + tid / 4;
@@ -801,15 +851,38 @@ flash_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq, const __grid_consta
         if (r < QR && part == 0) rows[r] = sum;
       }
       named_sync(1, 128);
+      if constexpr (CL == 1) {
 #pragma unroll
-      for (int j = 0; j < QR / 8; ++j) {
-        const float2 d = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
-        col[2 * j] = d.x;
-        col[2 * j + 1] = d.y;
+        for (int j = 0; j < QR / 8; ++j) {
+          const float2 d = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
+          col[2 * j] = d.x;
+          col[2 * j + 1] = d.y;
+        }
+      } else if (tid == 0 && it + 1 < n) {
+        load_o(it + 1);              // every thread of the warpgroup has read this one
       }
     }
     wgmma_wait_all();
     fence_regs(s);
+    if constexpr (CL > 1) {
+      // S^T = S0^T + S1^T (warpgroup 0) or dP^T = dP0^T + dP1^T and delta =
+      // delta0 + delta1 (1) over the pair's column halves
+      pair_send(pr, s, it, tid, 64 * QR * 4 + (wg ? QR * 4 : 0));
+      if (wg == 1 && tid < QR / 4)
+        st_async_u4(mapa(s_base + L::RX_DELTA, cluster_rank() ^ 1) + 16 * tid,
+                    *reinterpret_cast<const uint4*>(rows + 4 * tid), pr.peer_full);
+      pair_add(pr, s, rx, it, tid);
+      if (wg == 1) {
+#pragma unroll
+        for (int j = 0; j < QR / 8; ++j) {
+          const float2 d = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
+          const float2 e = *reinterpret_cast<const float2*>(rx_delta + 8 * j + 2 * t);
+          col[2 * j] = d.x + e.x;
+          col[2 * j + 1] = d.y + e.y;
+        }
+      }
+      pair_release(pr);
+    }
 
     // element x = 4j + 2i + e is (key[i], query q0 + 8j + 2t + e)
     if (wg == 0) {
@@ -857,293 +930,13 @@ flash_dkv_wgmma_pair(const __grid_constant__ CUtensorMap tq, const __grid_consta
       for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
     // dV += P^T dO or dK += dS^T Q, dO and Q read MN-major: one wgmma of
-    // N = D a 16-query step
+    // N = DL a 16-query step
     const uint32_t c_tile = wg ? q_tile : do_tile;
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < QR / 16; ++kk)
       wgmma_rs_n256(acc, a[kk], desc(c_tile + kk * 16 * 128, L::SLAB_Q, 1024), 1);
-    wgmma_commit();
-    if (threadIdx.x == 0) refill(it);   // while it runs
-    __syncwarp();
-    wgmma_wait_all();
-    fence_regs(acc);
-    mbar_arrive(bar_empty(bar_kv, st));
-  }
-
-  // keys past Sk are never stored; a block no query sees stores zeros
-  void* out = wg ? dk : dv;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + key[i]) * KV + kvh) * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int x = 4 * j + 2 * i;
-      if (out_f32)
-        *reinterpret_cast<float2*>(static_cast<float*>(out) + off + 8 * j) =
-            make_float2(acc[x], acc[x + 1]);
-      else
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off + 8 * j) =
-            __floats2bfloat162_rn(acc[x], acc[x + 1]);
-    }
-  }
-}
-
-int launch_wgmma_pair(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                      const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
-                      int causal, int window, float scale, int out_f32, int smem,
-                      cudaStream_t stream) {
-  using L = DkvPairLayout;
-  if (smem != L::bytes) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv, tout, tdo;
-  int err = flash::make_map(&tq, q, L::D, H, Sq, B, L::QR);
-  if (!err) err = flash::make_map(&tdo, dout, L::D, H, Sq, B, L::QR);
-  if (!err) err = flash::make_map(&tout, o, L::D, H, Sq, B, L::QR);
-  if (!err) err = flash::make_map(&tk, k, L::D, KV, Sk, B, 64);
-  if (!err) err = flash::make_map(&tv, v, L::D, KV, Sk, B, 64);
-  if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_dkv_wgmma_pair<L::D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(KV, B, (Sk + 63) / 64);
-  flash_dkv_wgmma_pair<L::D><<<grid, 256, smem, stream>>>(
-      tq, tk, tv, tout, tdo, static_cast<const float*>(lse), dk, dv, Sq, Sk, H, KV, causal,
-      window, scale, out_f32);
-  return (int)cudaGetLastError();
-}
-
-// ---- the tensor-core route at head width 512 (bf16): the pair kernel's
-// roles over one half of dK's and dV's columns a block
-
-// Shared memory of flash_dkv_wgmma_halves, in bytes from a 1024-aligned
-// base: K and V (D / 64 slabs of 64 keys each, resident: 128 KiB at D 512),
-// STAGES Q and dO tiles of QR rows (D / 64 slabs each), the exchange slot of
-// fp32 P^T [64 keys, QR queries] in the accumulators' fragment order, two
-// delta rows of QR, then the mbarriers: K/V, full[STAGES], empty[STAGES],
-// slot full, slot empty. ops/pallas_attention.py (_wgmma_sums) computes the
-// same bytes; the launcher checks them. O stays out of the ring (two stages
-// of Q, dO and O tiles of 16 rows beside K and V would pass a block's 227
-// KiB): delta's O rows are read from device memory.
-template <int D>
-struct DkvHalvesLayout {
-  static constexpr int NS = D / 64;
-  static constexpr int QR = 16;                 // query rows a ring tile
-  static constexpr int SLAB_KB = 64 * 128;
-  static constexpr int SLAB_Q = QR * 128;
-  static constexpr int K = 0;
-  static constexpr int V = K + NS * SLAB_KB;
-  static constexpr int Q = V + NS * SLAB_KB;
-  static constexpr int DO = Q + flash::STAGES * NS * SLAB_Q;
-  static constexpr int X = DO + flash::STAGES * NS * SLAB_Q;
-  static constexpr int ROWS = X + 64 * QR * 4;
-  static constexpr int BAR = ROWS + 2 * QR * 4;
-  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES + 2);
-};
-
-// One block per (kv head, batch row, 64 keys, half of the columns), the
-// lowest keys first, 256 threads, thread 0 producing: flash_dkv_wgmma_pair's
-// roles (warpgroup 0 S^T = K Q^T, P^T, dV += P^T dO; warpgroup 1 dP^T = V
-// dO^T, delta, dS^T from the fp32 P^T of the exchange slot, dK += dS^T Q),
-// with the score products over all D columns and the accumulations over the
-// block's half (blockIdx.z % 2) only: dK and dV of 64 keys at D 512 would
-// take the SM's whole register file. Each half recomputes S^T and dP^T:
-// 1.5x the kernel's FLOPs.
-template <int D>
-__global__ void __launch_bounds__(256, 1)
-flash_dkv_wgmma_halves(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap tdo, const bf16* __restrict__ o,
-                       const float* __restrict__ lse, void* __restrict__ dk,
-                       void* __restrict__ dv, int Sq, int Sk, int H, int KV, int causal,
-                       int window, float scale, int out_f32) {
-  using namespace flash;
-  using L = DkvHalvesLayout<D>;
-  constexpr int NS = L::NS, QR = L::QR, DH = D / 2;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
-  const uint32_t s_base = smem_u32(smem);
-  const uint32_t bar_kv = s_base + L::BAR;
-  const uint32_t slot_full = bar_kv + 8 * (1 + 2 * STAGES), slot_empty = slot_full + 8;
-
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int k0 = (blockIdx.z / 2) * 64;   // the lowest keys, the heaviest causal blocks, first
-  const int half = blockIdx.z % 2;        // dK's and dV's columns half * DH .. + DH - 1
-  const int group = H / KV;
-  // every tile of the walk holds a query that sees one of the block's keys
-  // (tests/test_torch_flash_plan.py), so none is skipped
-  const QueryTiles qt = query_tiles<QR>(k0, 64, Sq, Sk, causal, window);
-  const int n = group * qt.count;         // (query head, query tile) pairs, head by head
-  if (threadIdx.x == 0) {
-    mbar_init(slot_full, 128);
-    mbar_init(slot_empty, 128);
-  }
-  init_barriers(bar_kv, 256);
-
-  int issued = 0;
-  auto issue = [&](int j, int sj) {
-    const int h = kvh * group + j / qt.count;
-    const int q0 = (qt.first + j % qt.count) * QR;
-    const uint32_t full = bar_full(bar_kv, sj);
-    mbar_expect_tx(full, 2 * NS * L::SLAB_Q);
-    for (int s = 0; s < NS; ++s) {
-      const uint32_t off = (sj * NS + s) * L::SLAB_Q;
-      tma_load(s_base + L::Q + off, &tq, 64 * s, h, q0, b, full);
-      tma_load(s_base + L::DO + off, &tdo, 64 * s, h, q0, b, full);
-    }
-  };
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(bar_kv, 2 * NS * L::SLAB_KB);
-    for (int s = 0; s < NS; ++s) {
-      tma_load(s_base + L::K + s * L::SLAB_KB, &tk, 64 * s, kvh, k0, b, bar_kv);
-      tma_load(s_base + L::V + s * L::SLAB_KB, &tv, 64 * s, kvh, k0, b, bar_kv);
-    }
-    refill(issued, n, 0, bar_kv, issue);
-  }
-  __syncwarp();
-
-  // the role comes from a shuffled index, which ptxas knows is warp-uniform
-  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
-  const int tid = threadIdx.x % 128, warp = tid / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int key[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
-  const float sl2 = scale * LOG2E;
-  const uint32_t a_tile = s_base + (wg ? L::V : L::K);
-  float4* xs = reinterpret_cast<float4*>(smem + L::X) + tid;     // [QR / 8][128] float4
-  float* delta_rows = reinterpret_cast<float*>(smem + L::ROWS);  // [2][QR]
-
-  float acc[DH / 2];   // dV (warpgroup 0) or dK (1) [64, DH]: DH / 8 column blocks of 4
-#pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
-
-  mbar_wait(bar_kv, 0);
-  for (int it = 0; it < n; ++it) {
-    const int st = it % STAGES, lap = it & 1;
-    const int h = kvh * group + it / qt.count;
-    const int q0 = (qt.first + it % qt.count) * QR;
-    if (threadIdx.x == 0) refill(issued, n, it, bar_kv, issue);
-    __syncwarp();
-    // loaded before the wait, used after the score product: this thread's
-    // 64 columns of an O row for delta (warpgroup 1: eight threads a row)
-    uint4 ov[8];
-    const int dr = tid / 8, dpart = tid % 8;
-    if (wg == 1) {
-      const int qp = q0 + dr;
-      const bf16* orow = o + (((size_t)b * Sq + min(qp, Sq - 1)) * H + h) * D + 64 * dpart;
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        ov[u] = qp < Sq ? __ldg(reinterpret_cast<const uint4*>(orow) + u) : make_uint4(0, 0, 0, 0);
-    }
-    mbar_wait(bar_full(bar_kv, st), (it / STAGES) & 1);
-    const uint32_t q_tile = s_base + L::Q + st * NS * L::SLAB_Q;
-    const uint32_t do_tile = s_base + L::DO + st * NS * L::SLAB_Q;
-    const uint32_t b_tile = wg ? do_tile : q_tile;
-    float s[QR / 2];   // S^T or dP^T [64 keys, QR queries]
-#pragma unroll
-    for (int i = 0; i < QR / 2; ++i) s[i] = 0.f;
-    fence_regs(s);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n16(s, desc_k(a_tile, L::SLAB_KB, kk), desc_k(b_tile, L::SLAB_Q, kk), kk > 0);
-    wgmma_commit();
-
-    // while it runs: lse * log2(e) (warpgroup 0) or delta (1) of this
-    // thread's columns (queries q0 + 8j + 2t + e) into col[2j + e]
-    float col[QR / 4];
-    if (wg == 0) {
-      const float* lse_h = lse + ((size_t)b * H + h) * Sq;
-#pragma unroll
-      for (int j = 0; j < QR / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qp = q0 + 8 * j + 2 * t + e;
-          col[2 * j + e] = qp < Sq ? __ldg(lse_h + qp) * LOG2E : INFINITY;
-        }
-    } else {
-      // delta = rowsum(dO * O) of the tile's QR rows: eight threads a row,
-      // each one 64-column slab of the swizzled dO tile and its O columns
-      float* rows = delta_rows + lap * QR;
-      const uint8_t* do_row = smem + (do_tile - s_base) + dpart * L::SLAB_Q + dr * 128;
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const uint4 d4 = *reinterpret_cast<const uint4*>(do_row + ((u ^ (dr % 8)) << 4));
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d4);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov[u]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 x = __bfloat1622float2(d2[e]), y = __bfloat1622float2(o2[e]);
-          sum = fmaf(x.x, y.x, sum);
-          sum = fmaf(x.y, y.y, sum);
-        }
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      if (dpart == 0) rows[dr] = sum;
-      named_sync(1, 128);
-#pragma unroll
-      for (int j = 0; j < QR / 8; ++j) {
-        const float2 d = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
-        col[2 * j] = d.x;
-        col[2 * j + 1] = d.y;
-      }
-    }
-    wgmma_wait_all();
-    fence_regs(s);
-
-    // element x = 4j + 2i + e is (key[i], query q0 + 8j + 2t + e)
-    if (wg == 0) {
-      // P^T = exp(S^T * scale - lse) in place; only edge tiles test each
-      // pair (masked pairs, queries past Sq, rows with lse = +inf give 0)
-      if (qtile_edge<QR>(k0, q0, Sq, Sk, causal, window)) {
-#pragma unroll
-        for (int j = 0; j < QR / 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int x = 4 * j + 2 * i + e, qp = q0 + 8 * j + 2 * t + e;
-              const bool keep = qp < Sq && visible(key[i], qp, Sk, causal, window);
-              s[x] = keep ? exp2f(fmaf(s[x], sl2, -col[2 * j + e])) : 0.f;
-            }
-      } else {
-#pragma unroll
-        for (int x = 0; x < QR / 2; ++x)
-          s[x] = exp2f(fmaf(s[x], sl2, -col[2 * (x / 4) + x % 2]));
-      }
-      // the fp32 P^T to warpgroup 1, once it has read the last one
-      mbar_wait(slot_empty, lap ^ 1);
-#pragma unroll
-      for (int j = 0; j < QR / 8; ++j)
-        xs[j * 128] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
-      mbar_arrive(slot_full);
-    } else {
-      // dS^T = P^T (dP^T - delta) * scale, from the fp32 P^T
-      mbar_wait(slot_full, lap);
-#pragma unroll
-      for (int j = 0; j < QR / 8; ++j) {
-        const float4 p4 = xs[j * 128];
-        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-          s[4 * j + m] = p[m] * (s[4 * j + m] - col[2 * j + m % 2]) * scale;
-      }
-      mbar_arrive(slot_empty);
-    }
-    uint32_t a[4];     // P^T or dS^T in bf16: the A operand
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
-
-    // dV += P^T dO or dK += dS^T Q over the block's half of the columns,
-    // dO and Q read MN-major from their slabs half * NS / 2 ..
-    const uint32_t c_tile = (wg ? q_tile : do_tile) + half * (NS / 2) * L::SLAB_Q;
-    fence_regs(acc);
-    wgmma_fence();
-    wgmma_rs_n256(acc, a, desc(c_tile, L::SLAB_Q, 1024), 1);
     wgmma_commit();
     if (threadIdx.x == 0) refill(issued, n, it, bar_kv, issue);   // while it runs
     __syncwarp();
@@ -1157,9 +950,9 @@ flash_dkv_wgmma_halves(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (key[i] >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + key[i]) * KV + kvh) * D + half * DH + 2 * t;
+    const size_t off = (((size_t)b * Sk + key[i]) * KV + kvh) * D + d0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
+    for (int j = 0; j < DL / 8; ++j) {
       const int x = 4 * j + 2 * i;
       if (out_f32)
         *reinterpret_cast<float2*>(static_cast<float*>(out) + off + 8 * j) =
@@ -1169,29 +962,43 @@ flash_dkv_wgmma_halves(const __grid_constant__ CUtensorMap tq,
             __floats2bfloat162_rn(acc[x], acc[x + 1]);
     }
   }
+  // the peer may still arrive on this block's free barriers: neither block
+  // exits before both are done with the other's shared memory
+  if constexpr (CL > 1) cluster_sync();
 }
 
-template <int D>
-int launch_wgmma_halves(const void* q, const void* k, const void* v, const void* o,
-                        const void* lse, const void* dout, void* dk, void* dv, int B, int Sq,
-                        int Sk, int H, int KV, int causal, int window, float scale, int out_f32,
-                        int smem, cudaStream_t stream) {
-  using L = DkvHalvesLayout<D>;
+template <int D, int CL>
+int launch_wgmma_pair(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                      const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+                      int causal, int window, float scale, int out_f32, int smem,
+                      cudaStream_t stream) {
+  using L = DkvPairLayout<D, CL>;
   if (smem != L::bytes) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv, tdo;
+  CUtensorMap tq, tk, tv, tout, tdo;
   int err = flash::make_map(&tq, q, D, H, Sq, B, L::QR);
   if (!err) err = flash::make_map(&tdo, dout, D, H, Sq, B, L::QR);
+  if (!err) err = flash::make_map(&tout, o, D, H, Sq, B, L::QR);
   if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, 64);
   if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, 64);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_dkv_wgmma_halves<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = flash_dkv_wgmma_pair<D, CL>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(KV, B, 2 * ((Sk + 63) / 64));
-  flash_dkv_wgmma_halves<D><<<grid, 256, smem, stream>>>(
-      tq, tk, tv, tdo, static_cast<const bf16*>(o), static_cast<const float*>(lse), dk, dv, Sq,
-      Sk, H, KV, causal, window, scale, out_f32);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(KV, B, CL * ((Sk + 63) / 64));
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = CL;
+  cfg.attrs = &attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv, tout, tdo, static_cast<const float*>(lse), dk,
+                         dv, Sq, Sk, H, KV, causal, window, scale, out_f32);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 template <int D, int BK, int BQ>
@@ -1221,7 +1028,7 @@ int launch_fma(const void* q, const void* k, const void* v, const void* o, const
 // f32: 0 for bf16 operands, 1 for fp32 (which gives dk and dv in fp32).
 // bf16 takes the tensor-core kernels: at D 64 and 128 flash_dkv_wgmma
 // (block_k 64 or 128 keys a block), at D 256 flash_dkv_wgmma_pair (block_k
-// 64), at D 512 flash_dkv_wgmma_halves (block_k 64, two blocks a key block);
+// 64), at D 512 the same as a cluster of two blocks a key block (block_k 64);
 // fp32 the FMA kernel (block_k 64 keys at D 64 and 128 with 64-row tiles, 32
 // and 32 at D 256, 16 and 16 at D 512). smem: the plan's shared-memory bytes, checked
 // against the kernel's own layout.
@@ -1240,8 +1047,8 @@ extern "C" int flash_attention_bwd_dkv_launch(
     if (D == 128 && block_k == 64) return launch_fma<128, 64, 64>(ARGS);
     if (D == 64 && block_k == 64) return launch_fma<64, 64, 64>(ARGS);
   } else {
-    if (D == 512 && block_k == 64) return launch_wgmma_halves<512>(ARGS);
-    if (D == 256 && block_k == 64) return launch_wgmma_pair(ARGS);
+    if (D == 512 && block_k == 64) return launch_wgmma_pair<512, 2>(ARGS);
+    if (D == 256 && block_k == 64) return launch_wgmma_pair<256, 1>(ARGS);
     if (D == 128 && block_k == 128) return launch_wgmma<128, 2>(ARGS);
     if (D == 128 && block_k == 64) return launch_wgmma<128, 1>(ARGS);
     if (D == 64 && block_k == 128) return launch_wgmma<64, 2>(ARGS);

@@ -28,19 +28,29 @@
 // read MN-major from the same tile, one wgmma of N = D a 16-key step. dQ
 // stays in fp32 registers across the key loop.
 //
-// Head width 256 (bf16): <256, 1>, one consumer warpgroup beside the
+// Head width 256 (bf16): <256, 1, 1>, one consumer warpgroup beside the
 // producer in 256 threads, no setmaxnreg: dQ (128 fp32), S and dP (32 each)
 // take 192 of the 255 registers a thread may hold there (168 beside two
 // consumers). Shared memory 197,928 bytes: Q and dO resident (64 KiB), two
 // stages of K and V (128 KiB), delta.
 //
-// Head width 512 (bf16): flash_dq_wgmma_halves. dQ of 64 rows would take
-// 256 fp32 registers a thread, so two warpgroups on the same 64 rows own 256
-// columns of dQ each, thread 0 producing (no producer warpgroup), and both
-// compute S and dP over all 512 columns: 5/3 of the kernel's FLOPs (bound
-// at the heads-of-512 training shape, B4 S2048 H2: 5.2e10 FLOP, 0.052 ms;
-// with the recomputed products 0.087 ms). Q and dO resident take 128 KiB,
-// so K and V stream in 16-key tiles (two stages, 64 KiB): 197,928 bytes.
+// Head width 512 (bf16): flash_dq_wgmma<512, 1, 2>. dQ of 64 rows would
+// take 256 fp32 registers a thread, and Q and dO resident 128 KiB. So the
+// width-256 kernel runs on each column half, as a cluster of two blocks a
+// query tile (grid (H, B, 2 x query tiles)): block c holds columns 256 c ..
+// 256 c + 255 of Q, dO, K and V (the width-256 layout, 64-key tiles) and
+// owns those of dQ. Its S and dP are partial sums over its columns; after
+// each tile's products the consumer warpgroup sends its fp32 partials to its
+// twin in the other block by st.async through distributed shared memory and
+// adds the twin's (S0 + S1 in both: fp32 addition commutes; S's partials
+// travel while dP's product runs), then masks, exponentiates and forms dS
+// as at width 256. Every score product is
+// computed once, m64n64k16 steps: exactly the bound's FLOPs (5.2e10 at the
+// heads-of-512 training shape, B4 S2048 H2; 0.052 ms), where the first
+// port's two warpgroups each recomputed S and dP over all 512 columns in
+// m64n16k16 steps (5/3 of them). The 32 KiB receive slot brings the block to
+// 230,712 bytes. delta = rowsum(dO * O) is read over all 512 columns by
+// both blocks, the same sum in both.
 //
 // fp32 operands: flash_dq_fma, the bf16 route's walk with register-tiled fp32
 // FMA products (no TF32: the route exists to match the plain version's
@@ -233,25 +243,36 @@ flash_dq_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
 // ---- the tensor-core route (bf16)
 
 // Shared memory of flash_dq_wgmma, in bytes from a 1024-aligned base: the Q
-// and dO tiles (D / 64 slabs of BQ rows each), STAGES K and STAGES V tiles,
-// delta [BQ] fp32, then the mbarriers: Q/dO, full[STAGES], empty[STAGES].
-// ops/pallas_attention.py (_plan) computes the same bytes; the launcher
-// checks them.
-template <int D, int NWG>
+// and dO tiles (DL / 64 slabs of BQ rows each, DL = D / CL the block's
+// columns), STAGES K and STAGES V tiles, delta [BQ] fp32, at CL 2 the
+// receive slot of the peer's partial S and dP ([2][8][128] float4: 32 KiB),
+// then the mbarriers: Q/dO, full[STAGES], empty[STAGES], and at CL 2 the
+// slot's full and free. ops/pallas_attention.py (_wgmma_sums) computes the
+// same bytes; the launcher checks them.
+template <int D, int NWG, int CL>
 struct DqLayout {
   static constexpr int BQ = 64 * NWG;
-  static constexpr int NS = D / 64;
+  static constexpr int DL = D / CL;
+  static constexpr int NS = DL / 64;
   static constexpr int SLAB_Q = BQ * 128;
   static constexpr int Q = 0;
   static constexpr int DO = Q + NS * SLAB_Q;
   static constexpr int K = DO + NS * SLAB_Q;
   static constexpr int V = K + flash::STAGES * NS * flash::SLAB_K;
   static constexpr int DELTA = V + flash::STAGES * NS * flash::SLAB_K;
-  static constexpr int BAR = DELTA + 4 * BQ;
-  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
+  static constexpr int RX = DELTA + 4 * BQ;
+  static constexpr int BAR = RX + (CL > 1 ? 2 * 64 * flash::BK * 4 : 0);
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES) + (CL > 1 ? 16 : 0);
+  static_assert(bytes <= 232448, "the layout must fit a block's shared memory");
 };
 
-template <int D, int NWG>
+// CL 2 (head width 512): block c of a cluster of two holds columns c DL ..
+// of Q, dO, K and V and owns those of dQ; both walk the same query tile and
+// key tiles, and after each tile's S and dP (partial over DL columns) the
+// consumer warpgroup swaps them with its twin in the other block (the pair
+// pieces of flash_common.cuh) before p and dS: each score product once,
+// m64n64k16 steps as at width 256.
+template <int D, int NWG, int CL>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -259,19 +280,28 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
                const float* __restrict__ lse, void* __restrict__ dq, int Sq, int Sk, int H,
                int KV, int causal, int window, float scale, int out_f32) {
   using namespace flash;
-  using L = DqLayout<D, NWG>;
-  constexpr int NS = L::NS;
+  using L = DqLayout<D, NWG, CL>;
+  constexpr int NS = L::NS, DL = L::DL;
+  static_assert(CL == 1 || (NWG == 1 && DL == 256), "a pair runs the width-256 tiles");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const uint32_t s_base = smem_u32(smem);
   float* delta_s = reinterpret_cast<float*>(smem + L::DELTA);
   const uint32_t bar_q = s_base + L::BAR;
+  const uint32_t rx_full = bar_q + 8 * (1 + 2 * STAGES), rx_free = rx_full + 8;
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * L::BQ;  // heaviest causal tiles first
+  // heaviest causal tiles first; a pair's two blocks take one query tile
+  const int q0 = (gridDim.z / CL - 1 - blockIdx.z / CL) * L::BQ;
+  const int d0 = CL > 1 ? (int)cluster_rank() * DL : 0;   // the block's columns
   const int kvh = h / (H / KV);
   const KeyTiles kt = key_tiles(q0, L::BQ, Sq, Sk, causal, window);
+  if (CL > 1 && threadIdx.x == 0) {
+    mbar_init(rx_full, 1);
+    mbar_init(rx_free, 4);
+  }
   init_barriers(bar_q, NWG * 128);
+  if constexpr (CL > 1) cluster_sync();   // both blocks' barriers exist before a remote store
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
@@ -280,10 +310,10 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, 2 * NS * L::SLAB_Q);
       for (int s = 0; s < NS; ++s) {
-        tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 64 * s, h, q0, b, bar_q);
-        tma_load(s_base + L::DO + s * L::SLAB_Q, &tdo, 64 * s, h, q0, b, bar_q);
+        tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, d0 + 64 * s, h, q0, b, bar_q);
+        tma_load(s_base + L::DO + s * L::SLAB_Q, &tdo, d0 + 64 * s, h, q0, b, bar_q);
       }
-      produce_kv(&tk, &tv, s_base + L::K, s_base + L::V, NS, bar_q, kt, kvh, b);
+      produce_kv(&tk, &tv, s_base + L::K, s_base + L::V, NS, bar_q, kt, kvh, b, d0);
     }
     return;
   }
@@ -291,21 +321,23 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   // ---- consumers: warpgroup c owns query rows r0 .. r0 + 63
   if (NWG > 1) setmaxnreg_inc<240>();
   const int c = wg - 1;
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = q0 + 64 * c;
   const int r1 = min(r0 + 63, Sq - 1);
   const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
   const float sl2 = scale * LOG2E;
 
-  // delta of the warpgroup's rows: two threads a row, D / 2 columns each
+  // delta of the warpgroup's rows over all D columns (both blocks of a pair
+  // the same bits): two threads a row, D / 2 columns each
   {
-    const int i = threadIdx.x % 128, rr = i / 2, half = i % 2;
+    const int rr = tid / 2, half = tid % 2;
     const int qp = r0 + rr;
     float sum = 0.f;
     if (qp < Sq) {
       const size_t off = (((size_t)b * Sq + qp) * H + h) * D + half * (D / 2);
-#pragma unroll
+#pragma unroll 8
       for (int x = 0; x < D / 2; x += 8) {
         const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + x);
         const uint4 ov = *reinterpret_cast<const uint4*>(o + off + x);
@@ -326,18 +358,23 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     lse2[i] = row[i] < Sq ? lse[((size_t)b * H + h) * Sq + row[i]] * LOG2E : INFINITY;
   }
 
+  Pair pr{};
+  if constexpr (CL > 1) pr = pair_at(s_base + L::RX, rx_full, rx_free);
+  const float4* rx = reinterpret_cast<const float4*>(smem + L::RX);
+
   const uint32_t q_tile = s_base + L::Q + c * 64 * 128;
   const uint32_t do_tile = s_base + L::DO + c * 64 * 128;
-  float acc[D / 2];               // dQ [64, D]: D / 8 column blocks of 4
+  float acc[DL / 2];              // dQ [64, DL]: DL / 8 column blocks of 4
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DL / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(bar_q, 0);
   for (int it = 0; it < kt.count; ++it) {
     const int st = it % STAGES;
     const int k0 = (kt.first + it) * BK;
     mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
-    if (!tile_hidden(k0, r0, r1, Sq, causal, window)) {
+    // a pair's one warpgroup sees every tile of its walk: none is hidden
+    if (CL > 1 || !tile_hidden(k0, r0, r1, Sq, causal, window)) {
       const uint32_t k_tile = s_base + L::K + st * NS * SLAB_K;
       const uint32_t v_tile = s_base + L::V + st * NS * SLAB_K;
       float s[BK / 2], dp[BK / 2];
@@ -347,15 +384,30 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DL / 16; ++kk)
         wgmma_ss_n64(s, desc_k(q_tile, L::SLAB_Q, kk), desc_k(k_tile, SLAB_K, kk), kk > 0);
+      if constexpr (CL > 1) wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DL / 16; ++kk)
         wgmma_ss_n64(dp, desc_k(do_tile, L::SLAB_Q, kk), desc_k(v_tile, SLAB_K, kk), kk > 0);
       wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(s);
-      fence_regs(dp);
+      if constexpr (CL > 1) {
+        // S = S0 + S1 and dP = dP0 + dP1 over the pair's column halves; S's
+        // partials travel while dP's product runs
+        wgmma_wait<1>();
+        fence_regs(s);
+        pair_send(pr, s, it, tid, 2 * 64 * BK * 4);
+        wgmma_wait_all();
+        fence_regs(dp);
+        pair_send(pr, dp, it, tid, 0, BK / 8);
+        pair_add(pr, s, rx, it, tid);
+        pair_add(pr, dp, rx, it, tid, BK / 8);
+        pair_release(pr);
+      } else {
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+      }
 
       const bool edge = tile_edge(k0, r0, r1, Sk, causal, window);
 #pragma unroll
@@ -380,7 +432,7 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_tile<D>(acc, da[kk], k_tile, kk);
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_tile<DL>(acc, da[kk], k_tile, kk);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -391,9 +443,9 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= Sq) continue;
-    const size_t off = (((size_t)b * Sq + row[i]) * H + h) * D + 2 * t;
+    const size_t off = (((size_t)b * Sq + row[i]) * H + h) * D + d0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DL / 8; ++j) {
       const float x0 = acc[4 * j + 2 * i], x1 = acc[4 * j + 2 * i + 1];
       if (out_f32)
         *reinterpret_cast<float2*>(static_cast<float*>(dq) + off + 8 * j) = make_float2(x0, x1);
@@ -402,13 +454,16 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
             __floats2bfloat162_rn(x0, x1);
     }
   }
+  // the peer may still arrive on this block's free barrier: neither block
+  // exits before both are done with the other's shared memory
+  if constexpr (CL > 1) cluster_sync();
 }
 
-template <int D, int NWG>
+template <int D, int NWG, int CL>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o, const void* lse,
                  const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int causal,
                  int window, float scale, int out_f32, int smem, cudaStream_t stream) {
-  using L = DqLayout<D, NWG>;
+  using L = DqLayout<D, NWG, CL>;
   if (smem != L::bytes) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo;
   int err = flash::make_map(&tq, q, D, H, Sq, B, L::BQ);
@@ -416,227 +471,25 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, flash::BK);
   if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, flash::BK);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_dq_wgmma<D, NWG>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = flash_dq_wgmma<D, NWG, CL>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(H, B, (Sq + L::BQ - 1) / L::BQ);
-  flash_dq_wgmma<D, NWG><<<grid, 128 * (NWG + 1), smem, stream>>>(
-      tq, tk, tv, tdo, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), dq, Sq, Sk, H, KV, causal, window, scale, out_f32);
-  return (int)cudaGetLastError();
-}
-
-// ---- the tensor-core route at head width 512 (bf16): two warpgroups on
-// the same 64 rows, each owning half of dQ's columns
-
-// Shared memory of flash_dq_wgmma_halves, in bytes from a 1024-aligned base:
-// the Q and dO tiles (D / 64 slabs of 64 rows each, 128 KiB at D 512),
-// STAGES K and STAGES V tiles of HK keys, delta [64] fp32, then the
-// mbarriers: Q/dO, full[STAGES], empty[STAGES]. ops/pallas_attention.py
-// (_wgmma_sums) computes the same bytes; the launcher checks them. Beside
-// the resident tiles two stages of 32-key tiles (128 KiB) would pass a
-// block's 227 KiB: the ring takes 16 keys a tile.
-template <int D>
-struct DqHalvesLayout {
-  static constexpr int HK = 16;                 // keys a K or V tile
-  static constexpr int NS = D / 64;
-  static constexpr int SLAB_Q = 64 * 128;
-  static constexpr int SLAB_K = HK * 128;
-  static constexpr int Q = 0;
-  static constexpr int DO = Q + NS * SLAB_Q;
-  static constexpr int K = DO + NS * SLAB_Q;
-  static constexpr int V = K + flash::STAGES * NS * SLAB_K;
-  static constexpr int DELTA = V + flash::STAGES * NS * SLAB_K;
-  static constexpr int BAR = DELTA + 4 * 64;
-  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
-};
-
-// One block per (head, batch row, 64 query rows), heaviest causal tiles
-// first, 256 threads and thread 0 producing, as flash_fwd_wgmma_halves:
-// both warpgroups compute S = Q K^T and dP = dO V^T over all D columns and
-// the same dS (the same bits in both), and warpgroup c multiplies dQ[:, c D
-// / 2 ..] += dS K[:, c D / 2 ..], one m64n256k16 a tile. Recomputing S and
-// dP costs two thirds of the kernel's FLOPs again.
-template <int D>
-__global__ void __launch_bounds__(256, 1)
-flash_dq_wgmma_halves(const __grid_constant__ CUtensorMap tq,
-                      const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap tdo, const bf16* __restrict__ o,
-                      const bf16* __restrict__ dout, const float* __restrict__ lse,
-                      void* __restrict__ dq, int Sq, int Sk, int H, int KV, int causal,
-                      int window, float scale, int out_f32) {
-  using namespace flash;
-  using L = DqHalvesLayout<D>;
-  constexpr int NS = L::NS, HK = L::HK, DH = D / 2;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
-  const uint32_t s_base = smem_u32(smem);
-  float* delta_s = reinterpret_cast<float*>(smem + L::DELTA);
-  const uint32_t bar_q = s_base + L::BAR;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64;   // heaviest causal tiles first
-  const int kvh = h / (H / KV);
-  // every tile of the walk holds a key that one of the block's rows sees
-  const KeyTiles kt = key_tiles<HK>(q0, 64, Sq, Sk, causal, window);
-  init_barriers(bar_q, 256);
-
-  int issued = 0;
-  auto issue = [&](int j, int sj) {
-    const int k0 = (kt.first + j) * HK;
-    mbar_expect_tx(bar_full(bar_q, sj), 2 * NS * L::SLAB_K);
-    for (int s = 0; s < NS; ++s) {
-      tma_load(s_base + L::K + (sj * NS + s) * L::SLAB_K, &tk, 64 * s, kvh, k0, b,
-               bar_full(bar_q, sj));
-      tma_load(s_base + L::V + (sj * NS + s) * L::SLAB_K, &tv, 64 * s, kvh, k0, b,
-               bar_full(bar_q, sj));
-    }
-  };
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(bar_q, 2 * NS * L::SLAB_Q);
-    for (int s = 0; s < NS; ++s) {
-      tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 64 * s, h, q0, b, bar_q);
-      tma_load(s_base + L::DO + s * L::SLAB_Q, &tdo, 64 * s, h, q0, b, bar_q);
-    }
-    refill(issued, kt.count, 0, bar_q, issue);
-  }
-  __syncwarp();
-
-  // delta of the block's 64 rows: four threads a row, D / 4 columns each
-  {
-    const int rr = threadIdx.x / 4, part = threadIdx.x % 4;
-    const int qp = q0 + rr;
-    float sum = 0.f;
-    if (qp < Sq) {
-      const size_t off = (((size_t)b * Sq + qp) * H + h) * D + part * (D / 4);
-#pragma unroll 4
-      for (int x = 0; x < D / 4; x += 8) {
-        const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + x);
-        const uint4 ov = *reinterpret_cast<const uint4*>(o + off + x);
-        const bf16* dp = reinterpret_cast<const bf16*>(&dv);
-        const bf16* op = reinterpret_cast<const bf16*>(&ov);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) sum += to_f(dp[e]) * to_f(op[e]);
-      }
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (part == 0) delta_s[rr] = sum;
-    __syncthreads();
-  }
-
-  // warpgroup c owns dQ's columns c DH .. c DH + DH - 1
-  const int c = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r1 = min(q0 + 63, Sq - 1);
-  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
-  const float sl2 = scale * LOG2E;
-  float delta[2], lse2[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    delta[i] = delta_s[16 * warp + g + 8 * i];
-    lse2[i] = row[i] < Sq ? lse[((size_t)b * H + h) * Sq + row[i]] * LOG2E : INFINITY;
-  }
-
-  float acc[DH / 2];              // dQ [64, DH]: DH / 8 column blocks of 4
-#pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
-
-  mbar_wait(bar_q, 0);
-  for (int it = 0; it < kt.count; ++it) {
-    const int st = it % STAGES;
-    const int k0 = (kt.first + it) * HK;
-    if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);
-    __syncwarp();
-    mbar_wait(bar_full(bar_q, st), (it / STAGES) & 1);
-    const uint32_t k_tile = s_base + L::K + st * NS * L::SLAB_K;
-    const uint32_t v_tile = s_base + L::V + st * NS * L::SLAB_K;
-    float s[HK / 2], dp[HK / 2];
-#pragma unroll
-    for (int i = 0; i < HK / 2; ++i) s[i] = dp[i] = 0.f;
-    fence_regs(s);
-    fence_regs(dp);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n16(s, desc_k(s_base + L::Q, L::SLAB_Q, kk), desc_k(k_tile, L::SLAB_K, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n16(dp, desc_k(s_base + L::DO, L::SLAB_Q, kk), desc_k(v_tile, L::SLAB_K, kk),
-                   kk > 0);
-    wgmma_commit();
-    if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);   // while they run
-    __syncwarp();
-    wgmma_wait_all();
-    fence_regs(s);
-    fence_regs(dp);
-
-    const bool edge = tile_edge<HK>(k0, q0, r1, Sk, causal, window);
-#pragma unroll
-    for (int j = 0; j < HK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int x = 4 * j + 2 * i + e;
-          const bool keep = !edge || visible(k0 + 8 * j + 2 * t + e, row[i], Sk, causal, window);
-          // masked scores and rows with lse = +inf give p = 0
-          const float p = keep ? exp2f(fmaf(s[x], sl2, -lse2[i])) : 0.f;
-          s[x] = p * (dp[x] - delta[i]) * scale;
-        }
-    uint32_t da[4];               // dS in bf16: the A operand of dS K
-#pragma unroll
-    for (int r = 0; r < 4; ++r) da[r] = pack_bf16(s[2 * r], s[2 * r + 1]);
-
-    // dQ[:, c DH ..] += dS K[:, c DH ..], K read MN-major from its slabs c NS / 2 ..
-    fence_regs(acc);
-    wgmma_fence();
-    wgmma_rs_n256(acc, da, desc(k_tile + c * (NS / 2) * L::SLAB_K, L::SLAB_K, 1024), 1);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    mbar_arrive(bar_empty(bar_q, st));
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= Sq) continue;
-    const size_t off = (((size_t)b * Sq + row[i]) * H + h) * D + c * DH + 2 * t;
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      const float x0 = acc[4 * j + 2 * i], x1 = acc[4 * j + 2 * i + 1];
-      if (out_f32)
-        *reinterpret_cast<float2*>(static_cast<float*>(dq) + off + 8 * j) = make_float2(x0, x1);
-      else
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dq) + off + 8 * j) =
-            __floats2bfloat162_rn(x0, x1);
-    }
-  }
-}
-
-template <int D>
-int launch_wgmma_halves(const void* q, const void* k, const void* v, const void* o,
-                        const void* lse, const void* dout, void* dq, int B, int Sq, int Sk, int H,
-                        int KV, int causal, int window, float scale, int out_f32, int smem,
-                        cudaStream_t stream) {
-  using L = DqHalvesLayout<D>;
-  if (smem != L::bytes) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv, tdo;
-  int err = flash::make_map(&tq, q, D, H, Sq, B, 64);
-  if (!err) err = flash::make_map(&tdo, dout, D, H, Sq, B, 64);
-  if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, L::HK);
-  if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, L::HK);
-  if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_dq_wgmma_halves<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(H, B, (Sq + 63) / 64);
-  flash_dq_wgmma_halves<D><<<grid, 256, smem, stream>>>(
-      tq, tk, tv, tdo, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), dq, Sq, Sk, H, KV, causal, window, scale, out_f32);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, B, CL * ((Sq + L::BQ - 1) / L::BQ));
+  cfg.blockDim = dim3(128 * (NWG + 1));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = CL;
+  cfg.attrs = &attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv, tdo, static_cast<const bf16*>(o),
+                         static_cast<const bf16*>(dout), static_cast<const float*>(lse), dq, Sq,
+                         Sk, H, KV, causal, window, scale, out_f32);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 template <int D, int BQ, int BK>
@@ -664,8 +517,8 @@ int launch_fma(const void* q, const void* k, const void* v, const void* o, const
 }  // namespace
 
 // f32: 0 for bf16 operands, 1 for fp32. bf16 takes the tensor-core kernel:
-// block_q 64 or 128 at D 64 and 128, 64 at D 256 and 512 (at 512 the two
-// warpgroups' halves of dQ); fp32 the FMA kernel: block_q 64 at D 64 and 128
+// block_q 64 or 128 at D 64 and 128, 64 at D 256 and 512 (at 512 a cluster
+// of two blocks a query tile, each owning half of dQ); fp32 the FMA kernel: block_q 64 at D 64 and 128
 // (64-key tiles), 32 at D 256 (32-key tiles), 16 at D 512 (16-key tiles),
 // dq in fp32. smem: the plan's shared-memory bytes, checked against the
 // kernel's own layout.
@@ -684,12 +537,12 @@ extern "C" int flash_attention_bwd_dq_launch(
     if (D == 128 && block_q == 64) return launch_fma<128, 64, 64>(ARGS);
     if (D == 64 && block_q == 64) return launch_fma<64, 64, 64>(ARGS);
   } else {
-    if (D == 512 && block_q == 64) return launch_wgmma_halves<512>(ARGS);
-    if (D == 256 && block_q == 64) return launch_wgmma<256, 1>(ARGS);
-    if (D == 128 && block_q == 128) return launch_wgmma<128, 2>(ARGS);
-    if (D == 128 && block_q == 64) return launch_wgmma<128, 1>(ARGS);
-    if (D == 64 && block_q == 128) return launch_wgmma<64, 2>(ARGS);
-    if (D == 64 && block_q == 64) return launch_wgmma<64, 1>(ARGS);
+    if (D == 512 && block_q == 64) return launch_wgmma<512, 1, 2>(ARGS);
+    if (D == 256 && block_q == 64) return launch_wgmma<256, 1, 1>(ARGS);
+    if (D == 128 && block_q == 128) return launch_wgmma<128, 2, 1>(ARGS);
+    if (D == 128 && block_q == 64) return launch_wgmma<128, 1, 1>(ARGS);
+    if (D == 64 && block_q == 128) return launch_wgmma<64, 2, 1>(ARGS);
+    if (D == 64 && block_q == 64) return launch_wgmma<64, 1, 1>(ARGS);
   }
 #undef ARGS
   return (int)cudaErrorInvalidValue;

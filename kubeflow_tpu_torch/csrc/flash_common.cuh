@@ -5,15 +5,17 @@
 // Two routes. bf16 operands take the tensor-core kernels: tiles arrive by
 // TMA (cp.async.bulk.tensor) into a ring of shared memory stages guarded by
 // mbarriers, a producer (a warpgroup for the forward and dq, thread 0 for
-// dk/dv and for every kernel at head width 512) issues the copies, and
+// dk/dv and for the forward at head width 512) issues the copies, and
 // consumer warpgroups multiply with wgmma (Hopper's warpgroup MMA, bf16
 // operands, fp32 accumulators). The forward and dq stream K/V tiles past a
 // resident query tile; dk/dv streams Q/dO/O tiles past resident K/V (at head
 // width 256 in tiles of 48 query rows, its two consumer warpgroups owning dV
 // and dK). At head width 512 an accumulator of 64 rows would take a thread's
-// every register, so two warpgroups each own 256 of its columns (the
-// forward's O, dq's dQ; dk/dv's dV and dK, halved over the grid) and both
-// compute the scores over all 512. fp32 operands take the FMA
+// every register: the forward's two warpgroups each own 256 of O's columns
+// and both compute the scores over all 512; dq and dk/dv run their width-256
+// kernels on the two column halves as a cluster of two blocks, which swap
+// their partial score products (the pair pieces below), so every score
+// product is computed once. fp32 operands take the FMA
 // kernels (flash_fwd_fma, flash_dq_fma, flash_dkv_fma): the same walks with
 // register-tiled fp32 FMA products (the fma32 pieces below) fed by the same
 // kind of TMA ring, thread 0 issuing the copies between its own products.
@@ -158,20 +160,21 @@ __device__ __forceinline__ void init_barriers(uint32_t bar_q, int consumers) {
 }
 
 // The producer thread's loop: K and V tiles kt.first .. of kv head kvh and
-// batch row b into the ring (ns 64-column slabs a tile, stage st at
-// k_smem / v_smem + st * ns * SLAB_K), each stage refilled once its
+// batch row b into the ring (ns 64-column slabs a tile from column d0, stage
+// st at k_smem / v_smem + st * ns * SLAB_K), each stage refilled once its
 // consumers have released it.
 __device__ __forceinline__ void produce_kv(const CUtensorMap* tk, const CUtensorMap* tv,
                                            uint32_t k_smem, uint32_t v_smem, int ns,
-                                           uint32_t bar_q, KeyTiles kt, int kvh, int b) {
+                                           uint32_t bar_q, KeyTiles kt, int kvh, int b,
+                                           int d0 = 0) {
   for (int it = 0; it < kt.count; ++it) {
     const int st = it % STAGES;
     const int k0 = (kt.first + it) * BK;
     mbar_wait(bar_empty(bar_q, st), ((it / STAGES) & 1) ^ 1);
     mbar_expect_tx(bar_full(bar_q, st), 2 * ns * SLAB_K);
     for (int s = 0; s < ns; ++s) {
-      tma_load(k_smem + (st * ns + s) * SLAB_K, tk, 64 * s, kvh, k0, b, bar_full(bar_q, st));
-      tma_load(v_smem + (st * ns + s) * SLAB_K, tv, 64 * s, kvh, k0, b, bar_full(bar_q, st));
+      tma_load(k_smem + (st * ns + s) * SLAB_K, tk, d0 + 64 * s, kvh, k0, b, bar_full(bar_q, st));
+      tma_load(v_smem + (st * ns + s) * SLAB_K, tv, d0 + 64 * s, kvh, k0, b, bar_full(bar_q, st));
     }
   }
 }
@@ -191,6 +194,77 @@ __device__ __forceinline__ void refill(int& issued, int count, int must, uint32_
     issue(j, sj);
     ++issued;
   }
+}
+
+// ---- the pair: dq and dk/dv at head width 512 (bf16)
+//
+// Block c = 0, 1 of a cluster of two holds columns c DL .. c DL + DL - 1
+// (DL = 256) of every operand it reads and runs the width-256 kernel's tiles
+// on them, so its score products are partial sums over its columns. After
+// each tile's products a warpgroup swaps its fp32 partials with its twin in
+// the other block (the same threadIdx there holds the same elements) and
+// adds them: fp32 addition commutes, so both blocks hold the same bits of
+// S0 + S1, and masking, exp and dS follow the sum. A receive slot holds
+// float4s, thread tid's j-th at j * 128 + tid. Two mbarriers guard it:
+// `full` in the receiver (armed with the bytes by one of its threads,
+// counted down by the sender's st.async) and `free` in the sender (one
+// arrival from each of the receiver's four warps once they read the slot,
+// through mbar_arrive_remote). Both blocks of a pair walk the same tiles, so
+// they swap the same number of times.
+struct Pair {
+  uint32_t full, free;              // this block's barriers
+  uint32_t peer_rx, peer_full;      // the peer's slot and full barrier (shared::cluster)
+  uint32_t peer_free;               // the peer's free barrier (shared::cluster)
+};
+
+// A warpgroup's side of a pair: rx, full and free are this block's
+// shared-memory addresses of the warpgroup's slot and barriers; the peer's
+// are the same addresses in the other block.
+__device__ __forceinline__ Pair pair_at(uint32_t rx, uint32_t full, uint32_t free) {
+  const uint32_t peer = cluster_rank() ^ 1;
+  return {full, free, mapa(rx, peer), mapa(full, peer), mapa(free, peer)};
+}
+
+// Step 1 of swap number seq (at = 0): once the peer has read the last one,
+// arm this block's full barrier with the bytes the peer sends (the
+// warpgroup's thread tid 0) and send this thread's N partials to the peer's
+// slot, float4 `at` on. A later call with at > 0 sends more of the same swap.
+template <int N>
+__device__ __forceinline__ void pair_send(const Pair& pr, const float (&x)[N], int seq, int tid,
+                                          int bytes, int at = 0) {
+  static_assert(N % 4 == 0, "partials go by float4");
+  if (at == 0) {
+    mbar_wait_cluster(pr.free, (seq & 1) ^ 1);
+    if (tid == 0) mbar_expect_tx(pr.full, bytes);
+  }
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float4 v = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+    st_async_u4(pr.peer_rx + ((at + j) * 128 + tid) * 16, *reinterpret_cast<const uint4*>(&v),
+                pr.peer_full);
+  }
+}
+
+// Step 2: wait for the peer's partials of swap seq (at = 0) and add those
+// of this block's slot rx, float4 `at` on, to this thread's.
+template <int N>
+__device__ __forceinline__ void pair_add(const Pair& pr, float (&x)[N], const float4* rx, int seq,
+                                         int tid, int at = 0) {
+  if (at == 0) mbar_wait(pr.full, seq & 1);
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float4 r = rx[(at + j) * 128 + tid];
+    x[4 * j] += r.x;
+    x[4 * j + 1] += r.y;
+    x[4 * j + 2] += r.z;
+    x[4 * j + 3] += r.w;
+  }
+}
+
+// Step 3: this warp has read the slot; the peer may send the next swap.
+__device__ __forceinline__ void pair_release(const Pair& pr) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive_remote(pr.peer_free);
 }
 
 // ---- the fp32 FMA route: threads as GS row groups g (16 of a block's 256

@@ -141,6 +141,33 @@ __device__ __forceinline__ void st_async_u4(uint32_t addr, uint4 v, uint32_t bar
       :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar) : "memory");
 }
 
+// An arrival on the mbarrier at shared::cluster address bar (another
+// block's, from mapa), releasing this thread's earlier accesses at cluster
+// scope: the receiver of a slot tells its sender that it read it.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// mbar_wait with acquire at cluster scope, for a barrier of this block that
+// another block of the cluster arrives on (mbar_arrive_remote).
+__device__ __forceinline__ uint32_t mbar_try_wait_cluster(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  if (mbar_try_wait_cluster(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait_cluster(bar, parity))
+    if (global_ns() - t0 > 2000000000ull) __trap();
+}
+
 // A flag between thread blocks in global memory: set with release at GPU
 // scope (the block's earlier stores, ordered before it by a block barrier,
 // are visible to whoever sees it), waited for with acquire. The wait traps

@@ -51,15 +51,19 @@ registers), and dk/dv in blocks of 64 keys whose two consumer warpgroups
 each own one of dK and dV (one warpgroup holding both, with S^T and dP^T,
 would need 320 registers a thread, and 64-row ring tiles would pass the
 block's shared memory: :func:`_wgmma_sums`); warpgroup 0 hands its fp32
-P^T to warpgroup 1 through shared memory. At 512 (``_HALVES_D``) an
-accumulator of 64 rows would take a thread's every register, so two
-warpgroups on the same rows each own 256 of its columns and both compute the
-scores over all 512: the forward (O's halves) and dq (dQ's halves) in
-64-row tiles, K/V streamed in 32- and 16-key tiles; dk/dv in blocks of 64
-keys and one half of dK's and dV's columns (a grid axis of two halves), the
-width-256 pair's roles over 16-row Q and dO tiles, O's rows for delta read
-from device memory. No producer warpgroup at 512: thread 0 issues the
-copies between its own products. fp32 takes the FMA kernels at every width
+P^T to warpgroup 1 through shared memory. At 512 an accumulator of 64 rows
+would take a thread's every register. In the forward (``_HALVES_D``) two
+warpgroups on the same 64 rows each own 256 of O's columns and both compute
+the scores over all 512, K/V streamed in 32-key tiles, thread 0 issuing the
+copies between its own products. dq and dk/dv (``_PAIR_D``) run their
+width-256 kernels on the two column halves as a cluster of
+``_PAIR_CLUSTER`` blocks (a grid axis of twice the tiles): each block holds
+256 columns of every operand, computes its partial score products over
+them and swaps them with the other block through distributed shared
+memory, so every score product is computed once; dk/dv keeps one O tile,
+loaded one ring item ahead, and swaps its partial delta too
+(:func:`_pair_reference` is their order of operations in plain PyTorch).
+fp32 takes the FMA kernels at every width
 (at 512 the forward 32 rows and 16-key tiles, dq and dk/dv 16 and 16). Any
 head size D up to 512 runs on
 them: :func:`_pad_heads` zero-pads the head axis to the next width and
@@ -69,8 +73,8 @@ unpadded ones, and cuts the padded columns off o, dq, dk and dv (products
 with zero columns). At D 64, 128, 256 and 512 nothing is copied. D above
 512 is a stated refusal: the message gives the shared memory the width-512
 designs would need at D padded to 64 columns against the card's limit, and
-the columns each of their two warpgroups would own against wgmma's widest
-product.
+the columns each of their two warpgroups or blocks would own against wgmma's
+widest product.
 
 What every kernel does:
 
@@ -114,10 +118,15 @@ _KERNEL_D = (64, 128, 256, 512)   # head widths the kernels are compiled for
 # each), Q, dO and O in ``_PAIR_QROWS``-row tiles
 _WGMMA_64_ROWS_D = (256,)
 # widths where one warpgroup's accumulator of 64 rows would take every
-# register a thread has (256 fp32 at 512): two warpgroups each own half of
-# the columns of O (forward), dQ (dq), or of dK and dV (dk/dv, whose blocks
-# take one half each)
+# register a thread has (256 fp32 at 512): the forward's two warpgroups each
+# own half of O's columns
 _HALVES_D = (512,)
+# ... and where dq and dk/dv run their width-256 kernels (``_PAIR_COLS``
+# columns a block) on the column halves, as a cluster of ``_PAIR_CLUSTER``
+# blocks that swap their partial score products
+_PAIR_D = (512,)
+_PAIR_CLUSTER = 2
+_PAIR_COLS = 256
 
 
 def _group_of(q, k, v):
@@ -159,8 +168,7 @@ _TILE_K = 64                # keys a tile on both routes
 _STAGES = 2                 # ring tiles in flight on the tensor-core route
 _QROWS = 64                 # query rows of a dk/dv ring tile
 _PAIR_QROWS = 48            # ... at the widths of ``_WGMMA_64_ROWS_D``
-_HALF_KEYS = {"fwd": 32, "dq": 16}   # keys a K/V ring tile at the widths of ``_HALVES_D``
-_HALF_QROWS = 16            # query rows of a dk/dv ring tile there
+_HALF_KEYS = {"fwd": 32}    # keys a K/V ring tile of the forward at the widths of ``_HALVES_D``
 _WGMMA_N_MAX = 256          # the widest wgmma product, in columns
 _FMA_THREADS = 256          # threads of the fp32 FMA kernels
 
@@ -171,8 +179,9 @@ class Plan:
     tensor-core kernel, "fma" the fp32 kernel of register-tiled FMAs;
     ``block`` is the query
     rows a block (forward, dq) or the keys a block (dk/dv); ``width`` the
-    head width the kernel runs at (the head size zero-padded to 64, 128 or
-    256)."""
+    head width the kernel runs at (the head size zero-padded to 64, 128,
+    256 or 512); ``cluster`` the blocks of a thread-block cluster along the
+    grid's last axis (2 for dq and dk/dv at the widths of ``_PAIR_D``)."""
 
     route: str
     block: int
@@ -180,6 +189,7 @@ class Plan:
     threads: int
     smem_bytes: int
     width: int
+    cluster: int = 1
 
 
 def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
@@ -193,32 +203,39 @@ def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
     tiles of 64 rows and each consumer warpgroup's two delta/lse rows, and at
     the widths of ``_WGMMA_64_ROWS_D`` tiles of ``_PAIR_QROWS`` rows, the
     fp32 P^T exchange slot, two delta rows and the slot's two mbarriers.
-    From width 512 on (``_HALVES_D``; the refusal sums wider ones) the
-    64-row forward holds Q and K/V tiles of ``_HALF_KEYS["fwd"]`` keys, dq
-    Q, dO, tiles of ``_HALF_KEYS["dq"]`` keys and delta, dk/dv K and V, Q and
-    dO tiles of ``_HALF_QROWS`` rows (no O), the slot, two delta rows and
-    the slot's mbarriers. The launchers check the same sums. Registers: a
-    consumer warpgroup's 64 rows of fp32 accumulators over its 128 threads:
-    O and S (forward), dQ, S and dP (dq), dK, dV, S^T and dP^T (dk/dv), or
-    at the wide widths the busier of the pair's two: dV and S^T, or dK and
-    dP^T; from 512 on half of O or dQ beside S (and dP), or half of dV or dK
-    beside S^T or dP^T."""
+    From width 512 on (the refusal sums wider ones) the 64-row forward
+    (``_HALVES_D``) holds Q and K/V tiles of ``_HALF_KEYS["fwd"]`` keys; a
+    block of dq's or dk/dv's pair (``_PAIR_D``) the width-256 layout over its
+    half of the columns (slabs of 64 columns, rounded up), one O tile at
+    dk/dv, and the receive slots of the other block's partials: dq's S and
+    dP [64, 64] fp32 and their two mbarriers, dk/dv's S^T and dP^T [block,
+    ``_PAIR_QROWS``] fp32, its partial delta row and five mbarriers. The
+    launchers check the same sums. Registers: a consumer warpgroup's 64 rows
+    of fp32 accumulators over its 128 threads: O and S (forward), dQ, S and
+    dP (dq), dK, dV, S^T and dP^T (dk/dv), or at the wide widths the busier
+    of the pair's two: dV and S^T, or dK and dP^T; from 512 on half of O
+    beside S, a block's dQ beside S and dP, or its dV or dK beside S^T or
+    dP^T."""
     bars = 8 * (1 + 2 * _STAGES)
     slabs = width // 64                     # 64-column bf16 slabs of a row
-    if width >= _HALVES_D[0]:
-        if kernel == "fwd":
-            keys = _HALF_KEYS["fwd"]
-            return (1024 + slabs * 64 * 128 + 2 * _STAGES * slabs * keys * 128 + bars,
-                    width // 4 + keys // 2)
+    if width >= _HALVES_D[0] and kernel == "fwd":
+        keys = _HALF_KEYS["fwd"]
+        return (1024 + slabs * 64 * 128 + 2 * _STAGES * slabs * keys * 128 + bars,
+                width // 4 + keys // 2)
+    if width >= _PAIR_D[0]:
+        half = -(-width // _PAIR_CLUSTER // 64)     # slabs of a block's columns
         if kernel == "dq":
-            keys = _HALF_KEYS["dq"]
-            return (1024 + 2 * slabs * 64 * 128 + 2 * _STAGES * slabs * keys * 128 + 4 * 64
-                    + bars, width // 4 + keys)
-        rows = _HALF_QROWS
-        kv = 2 * slabs * block * 128
-        ring = 2 * _STAGES * slabs * rows * 128    # Q, dO tiles
+            tiles = 2 * half * 64 * 128            # Q, dO
+            kv = 2 * _STAGES * half * _TILE_K * 128
+            rx = 2 * 64 * _TILE_K * 4              # the other block's S and dP
+            return 1024 + tiles + kv + 4 * 64 + rx + bars + 8 * 2, half * 32 + _TILE_K
+        rows = _PAIR_QROWS
+        kv = 2 * half * block * 128
+        ring = (2 * _STAGES + 1) * half * rows * 128   # Q, dO tiles and one O tile
         slot = block * rows * 4
-        return 1024 + kv + ring + slot + 2 * rows * 4 + bars + 8 * 2, width // 4 + rows // 2
+        rx = 2 * block * rows * 4 + rows * 4       # the other block's S^T, dP^T and delta
+        return (1024 + kv + ring + slot + 2 * rows * 4 + rx + bars + 8 * 2 + 8 * 5,
+                half * 32 + rows // 2)
     if kernel in ("fwd", "dq"):
         tiles = (1 if kernel == "fwd" else 2) * slabs * 64 * 2 * block
         kv = 2 * _STAGES * slabs * _TILE_K * 128
@@ -295,10 +312,11 @@ def _wide_head_refusal(D: int) -> str:
     return (f"flash kernels take head_dim up to {_KERNEL_D[-1]} (zero-padded to 64, 128, 256 "
             f"or 512), got {D}. At width {width} the width-512 designs would need shared "
             f"memory bytes a block of: bf16 {bf16}; fp32 (its smallest tiles) {fp32}; the card "
-            f"gives a block {SMEM_LIMIT:,} bytes. Each of the two warpgroups that split O, dQ, "
-            f"dK and dV would own {width // 2} columns ({width // 4} fp32 accumulator registers "
-            f"a thread), more than wgmma's widest product of {_WGMMA_N_MAX}; a train step "
-            f"needs all three kernels")
+            f"gives a block {SMEM_LIMIT:,} bytes. Each of the forward's two warpgroups that "
+            f"split O, and each of the two blocks of a cluster that split dQ, dK and dV, would "
+            f"own {width // 2} columns ({width // 4} fp32 accumulator registers a thread), more "
+            f"than wgmma's widest product of {_WGMMA_N_MAX}; a train step needs all three "
+            f"kernels")
 
 
 def _kernel_width(D: int) -> int:
@@ -323,11 +341,11 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     shape. dk/dv: a grid of (KV, B, key blocks), 128 keys a block where
     ``B * KV * ceil(Sk / 128)`` blocks fill the SMs, else 64; at widths
     ``_WGMMA_64_ROWS_D`` 64 keys in 256 threads, two warpgroups owning dV and
-    dK. At widths ``_HALVES_D`` every kernel takes 256 threads, two
-    warpgroups each owning half of the accumulator's columns: the forward and
-    dq 64-row tiles, dk/dv 64 keys with a grid of (KV, B, 2 * key blocks),
-    each block one half of dK's and dV's columns. Shared memory as
-    :func:`_wgmma_sums` counts it. fp32: every kernel
+    dK. At widths ``_HALVES_D`` the forward takes 64-row tiles in 256
+    threads, two warpgroups each owning half of O's columns; at ``_PAIR_D``
+    dq and dk/dv take the width-256 launch on each column half, as clusters
+    of ``_PAIR_CLUSTER`` blocks along the grid's last axis (twice the query
+    tiles or key blocks). Shared memory as :func:`_wgmma_sums` counts it. fp32: every kernel
     takes the FMA route, 256 threads; the forward a grid of (H, B, query
     tiles), the tiles of :func:`_fma_fwd_tiles` and the bytes of
     :func:`_fma_fwd_bytes`; dq and dk/dv the bf16 route's grids, the tiles
@@ -336,17 +354,19 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     width = _kernel_width(D)
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash kernels take bf16 or fp32 operands, got {dtype}")
-    wide = width in _WGMMA_64_ROWS_D or width in _HALVES_D
+    wide = width in _WGMMA_64_ROWS_D or width in _HALVES_D or width in _PAIR_D
+    cluster = _PAIR_CLUSTER if width in _PAIR_D and kernel != "fwd" else 1
     if dtype == torch.bfloat16 and kernel in ("fwd", "dq"):
         rows = 128 if not wide and B * H * -(-Sq // 128) >= sms else 64
         smem, _ = _wgmma_sums(kernel, rows, width)
-        return Plan("wgmma", rows, (H, B, -(-Sq // rows)), 128 * (rows // 64 + 1), smem, width)
+        return Plan("wgmma", rows, (H, B, cluster * -(-Sq // rows)), 128 * (rows // 64 + 1),
+                    smem, width, cluster)
     if dtype == torch.bfloat16:
         keys = 128 if not wide and B * KV * -(-Sk // 128) >= sms else 64
         smem, _ = _wgmma_sums(kernel, keys, width)
         threads = 256 if wide else 128 * (keys // 64)
-        halves = 2 if width in _HALVES_D else 1
-        return Plan("wgmma", keys, (KV, B, halves * -(-Sk // keys)), threads, smem, width)
+        return Plan("wgmma", keys, (KV, B, cluster * -(-Sk // keys)), threads, smem, width,
+                    cluster)
     if kernel == "fwd":
         rows, _ = _fma_fwd_tiles(width)
         return Plan("fma", rows, (H, B, -(-Sq // rows)), _FMA_THREADS, _fma_fwd_bytes(width),
@@ -377,9 +397,8 @@ def _pad_heads(inner, heads, width: int):
 def _query_tiles(k0: int, keys: int, Sq: int, Sk: int, causal: bool,
                  window: int | None, rows: int = _QROWS) -> tuple[int, int]:
     """(first, count) of the ``rows``-row query tiles (``_QROWS``,
-    ``_PAIR_QROWS`` at width 256, ``_HALF_QROWS`` at 512, or the fp32
-    kernel's rows of :func:`_fma_bwd_tiles`) that can see keys ``k0 .. k0 +
-    keys - 1``: the
+    ``_PAIR_QROWS`` at widths 256 and 512, or the fp32 kernel's rows of
+    :func:`_fma_bwd_tiles`) that can see keys ``k0 .. k0 + keys - 1``: the
     dk/dv kernels' walk (``query_tiles`` in ``csrc/flash_common.cuh``,
     mirrored here for the CPU tests). Causal starts at the diagonal; the
     window ends ``window - 1`` rows after the last key."""
@@ -388,6 +407,19 @@ def _query_tiles(k0: int, keys: int, Sq: int, Sk: int, causal: bool,
     q_hi = min(Sq - 1, k_last + window - 1) if causal and window else Sq - 1
     first = q_lo // rows
     return first, (q_hi // rows - first + 1 if q_hi >= q_lo else 0)
+
+
+def _key_tiles(q0: int, rows: int, Sq: int, Sk: int, causal: bool,
+               window: int | None, keys: int = _TILE_K) -> tuple[int, int]:
+    """(first, count) of the ``keys``-key tiles that query rows ``q0 .. q0
+    + rows - 1`` can see: the forward's and dq's walk (``key_tiles`` in
+    ``csrc/flash_common.cuh``, mirrored here for the CPU tests; the width-512
+    dq pair skips none of its tiles). Causal ends at the last row's
+    diagonal; the window starts ``window - 1`` keys before the first row."""
+    k_hi = min(Sk - 1, q0 + rows - 1, Sq - 1) if causal else Sk - 1
+    k_lo = max(0, q0 - window + 1) if causal and window else 0
+    first = k_lo // keys
+    return first, (k_hi // keys - first + 1 if k_hi >= k_lo else 0)
 
 
 @functools.cache
@@ -506,6 +538,48 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal=True, window=N
     dq = torch.einsum("bgrqk,bkgd->bqgrd", _acc(ds.to(k.dtype)), _acc(k))
     dv = torch.einsum("bgrqk,bqgrd->bkgd", _acc(p.to(do.dtype)), dog)
     dk = torch.einsum("bgrqk,bqgrd->bkgd", _acc(ds.to(q.dtype)), qg)
+    return (dq.reshape(B, Sq, H, D).to(grad_dtype or q.dtype),
+            dk.to(grad_dtype or k.dtype), dv.to(grad_dtype or v.dtype))
+
+
+def _pair_reference(q, k, v, o, lse, do, *, causal=True, window=None, grad_dtype=None,
+                    scale=None):
+    """The order of operations of the bf16 dq and dk/dv kernels at the
+    widths of ``_PAIR_D``, in plain PyTorch: (dq, dk, dv), a witness for
+    their checks on the card.
+
+    The two blocks of a cluster hold the head's first ``_PAIR_COLS``
+    columns and the rest (zero-padded columns add nothing), so S and dP
+    (S^T and dP^T) are the fp32 sum of the two halves' partial products,
+    and dk/dv's delta = rowsum(do * o) the sum of the halves' partial row
+    sums (dq's block takes it over every column). Then the kernels'
+    roundings, as :func:`flash_attention_backward_plain`: p rounded to do's
+    dtype before p^T do, ds to the operand dtype before ds k and ds^T q,
+    fp32 accumulation, the GQA group summed in fp32."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    group = H // KV
+    scale = D ** -0.5 if scale is None else scale
+    c = _PAIR_COLS
+    qg = _acc(q).reshape(B, Sq, KV, group, D)
+    dog = _acc(do).reshape(B, Sq, KV, group, D)
+
+    def scores(a, b):
+        """[B, KV, group, Sq, Sk]: the two column halves' partial products, summed."""
+        part = [torch.einsum("bqgrd,bkgd->bgrqk", a[..., i:i + c], _acc(b)[..., i:i + c])
+                for i in (0, c)]
+        return part[0] + part[1]
+
+    prod = _acc(do) * _acc(o)                              # [B, Sq, H, D]
+    deltas = (prod.sum(-1), prod[..., :c].sum(-1) + prod[..., c:].sum(-1))   # dq's, dk/dv's
+    lse = lse.reshape(B, KV, group, Sq, 1)
+    keep = _keep_mask(Sq, Sk, causal, window, q.device)
+    p = torch.where(keep, torch.exp(scores(qg, k) * scale - lse), 0.0)
+    dp = scores(dog, v)
+    ds = [p * (dp - d.permute(0, 2, 1).reshape(B, KV, group, Sq, 1)) * scale for d in deltas]
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", _acc(ds[0].to(k.dtype)), _acc(k))
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", _acc(p.to(do.dtype)), dog)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", _acc(ds[1].to(q.dtype)), qg)
     return (dq.reshape(B, Sq, H, D).to(grad_dtype or q.dtype),
             dk.to(grad_dtype or k.dtype), dv.to(grad_dtype or v.dtype))
 

@@ -25,13 +25,16 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     B, Sq, Sk, H, KV = shape
     plan = pa._plan(kernel, B, Sq, Sk, H, KV, D, dtype)
     assert 0 < plan.smem_bytes <= pa.SMEM_LIMIT and plan.width == D
+    assert plan.cluster == 1 or (dtype == torch.bfloat16 and D == 512)
     if dtype == torch.bfloat16 and D == 512:
-        # width 512: 256 threads, two warpgroups each owning half of the
-        # accumulator's columns; the forward and dq 64-row tiles, dk/dv 64
-        # keys and two blocks (one a half of dK's and dV's columns) a key block
+        # width 512: 256 threads; the forward 64-row tiles, two warpgroups
+        # each owning half of O's columns; dq (64 query rows) and dk/dv (64
+        # keys) the width-256 launch on each column half, a cluster of two
+        # blocks along the grid's last axis
         assert (plan.route, plan.block, plan.threads) == ("wgmma", 64, 256)
+        assert plan.cluster == (1 if kernel == "fwd" else 2)
         assert plan.grid == ((KV, B, 2 * -(-Sk // 64)) if kernel == "dkv" else
-                             (H, B, -(-Sq // 64)))
+                             (H, B, plan.cluster * -(-Sq // 64)))
     elif dtype == torch.bfloat16 and D == 256:
         # width 256: one consumer warpgroup of 64 rows beside the producer
         # at every shape (two would not fit beside it); dk/dv: 64 keys a
@@ -111,17 +114,22 @@ def test_plan_shared_memory_bytes_at_d256(kernel, shape, want):
 
 @pytest.mark.parametrize("kernel,dtype,parts", [
     # each kernel's layout at width 512, part by part as its Layout lays it
-    # out (FwdHalvesLayout, DqHalvesLayout, DkvHalvesLayout; fwd32::Layout,
-    # dq32::Layout, dkv32::Layout), alignment slack and barriers included:
-    # Q 64 KiB + 2 x (K, V) of 32 keys at eight slabs
+    # out (FwdHalvesLayout, DqLayout<512, 1, 2>, DkvPairLayout<512, 2>;
+    # fwd32::Layout, dq32::Layout, dkv32::Layout), alignment slack and
+    # barriers included: Q 64 KiB + 2 x (K, V) of 32 keys at eight slabs
     ("fwd", torch.bfloat16, dict(q=65_536, ring=2 * 2 * 8 * 32 * 128, barriers=8 * 5)),
-    # Q and dO 128 KiB + 2 x (K, V) of 16 keys + delta
-    ("dq", torch.bfloat16, dict(q_do=131_072, ring=2 * 2 * 8 * 16 * 128, delta=256,
-                                barriers=8 * 5)),
-    # K + V 128 KiB resident + 2 x (Q, dO) of 16 rows (no O) + the fp32 P^T
-    # slot [64 keys, 16 rows] + two delta rows + seven barriers
-    ("dkv", torch.bfloat16, dict(kv=131_072, ring=2 * 2 * 8 * 16 * 128, slot=64 * 16 * 4,
-                                 delta=2 * 16 * 4, barriers=8 * 7)),
+    # a block of the pair, its 256 columns: Q and dO 64 KiB + 2 x (K, V) of
+    # 64 keys + delta + the receive slot of the other block's S and dP [64,
+    # 64] fp32 + five barriers and the slot's two
+    ("dq", torch.bfloat16, dict(q_do=65_536, ring=2 * 2 * 4 * 64 * 128, delta=256,
+                                rx=2 * 64 * 64 * 4, barriers=8 * 5 + 8 * 2)),
+    # a block of the pair, its 256 columns: K + V 64 KiB resident + 2 x (Q,
+    # dO) of 48 rows + one O tile + the fp32 P^T slot [64 keys, 48 rows] +
+    # two delta rows + the receive slots of the other block's S^T and dP^T
+    # [64, 48] fp32 and its delta row + seven barriers and five more
+    ("dkv", torch.bfloat16, dict(kv=65_536, ring=2 * 2 * 4 * 48 * 128, o=4 * 48 * 128,
+                                 slot=64 * 48 * 4, delta=2 * 48 * 4,
+                                 rx=2 * 64 * 48 * 4 + 48 * 4, barriers=8 * 7 + 8 * 5)),
     # fp32 forward: Q of 32 rows + 2 x (K, V) of 16 keys at 16 slabs of 32
     # columns + P [32, 16]
     ("fwd", torch.float32, dict(q=16 * 32 * 128, ring=2 * 2 * 16 * 16 * 128, p=32 * 16 * 4,
@@ -141,11 +149,12 @@ def test_plan_shared_memory_bytes_at_d512(kernel, dtype, parts):
         assert plan.smem_bytes == want <= pa.SMEM_LIMIT and plan.width == 512
     if dtype == torch.bfloat16:
         smem, regs = pa._wgmma_sums(kernel, 64, 512)
-        # a warpgroup's half of O, dQ, dV or dK (128 fp32) beside its score
-        # tiles fits the 255 registers a thread may hold without a producer
-        # warpgroup, with room for addresses and the softmax's state
-        assert smem == want and regs == 128 + {"fwd": 16, "dq": 16, "dkv": 8}[kernel]
-        assert regs + 64 <= pa._REGS_MAX
+        # a warpgroup's 256 columns of O, dQ, dV or dK (128 fp32) beside its
+        # score tiles (the forward's S, dq's S and dP, dk/dv's S^T or dP^T)
+        # leave room for addresses and the softmax's state in the 255
+        # registers a thread may hold (ptxas gave 170, 254 and 235)
+        assert smem == want and regs == 128 + {"fwd": 16, "dq": 64, "dkv": 24}[kernel]
+        assert regs + 48 <= pa._REGS_MAX
     else:
         assert want == (pa._fma_fwd_bytes(512) if kernel == "fwd" else
                         pa._fma_bwd_bytes(kernel, 512))
@@ -168,9 +177,12 @@ def test_plan_ragged_and_small_grids():
     # width 256 keeps 64-row tiles where 128 would fill the SMs, ragged tiles included
     assert pa._plan("fwd", 1, 2048, 2048, 8, 8, 256, torch.bfloat16, sms=64).block == 64
     assert pa._plan("dq", 3, 200, 200, 4, 2, 256, torch.bfloat16).grid == (4, 3, 4)
-    # width 512: 64-row tiles always; dk/dv two blocks (halves) a key block
+    # width 512: 64-row tiles always; dq and dk/dv a cluster of two blocks
+    # (one a column half) a query tile or key block
     assert pa._plan("fwd", 1, 2048, 2048, 8, 8, 512, torch.bfloat16, sms=64).block == 64
     assert pa._plan("dkv", 3, 200, 200, 4, 2, 512, torch.bfloat16).grid == (2, 3, 8)
+    assert pa._plan("dq", 3, 200, 200, 4, 2, 512, torch.bfloat16).grid == (4, 3, 8)
+    assert pa._plan("dq", 3, 200, 200, 4, 2, 300, torch.bfloat16).cluster == 2
     assert pa._plan("dkv", 3, 200, 200, 4, 2, 300, torch.float32).grid == (2, 3, 13)
 
 
@@ -228,11 +240,12 @@ def test_query_tiles_of_the_width_256_walk(Sq, Sk, causal, window):
     (16, 8, True, 2), (300, 130, True, 100), (130, 300, True, None),
 ])
 def test_query_tiles_of_the_width_512_walk(Sq, Sk, causal, window):
-    """The width-512 dk/dv kernel's walk, 64 keys a block over query tiles
-    of ``_HALF_QROWS`` rows: exactly the tiles that hold a visible pair
-    (the kernel skips none)."""
+    """The width-512 dk/dv pair's walk (both blocks of a cluster walk it),
+    64 keys a block over query tiles of ``_PAIR_QROWS`` rows: exactly the
+    tiles that hold a visible pair (the kernel skips none, and each of its
+    tiles is a swap both blocks make)."""
     keep = pa._keep_mask(Sq, Sk, causal, window, "cpu")
-    rows = pa._HALF_QROWS
+    rows = pa._PAIR_QROWS
     n_tiles = -(-Sq // rows)
     for k0 in range(0, Sk, 64):
         first, count = pa._query_tiles(k0, 64, Sq, Sk, causal, window, rows)
@@ -294,7 +307,7 @@ def test_query_tiles_of_the_fp32_walk(width, Sq, Sk, causal, window):
 
 def test_other_head_sizes_and_dtypes_are_stated_refusals():
     with pytest.raises(ValueError, match=r"head_dim up to 512 .*got 640\. At width 640 .*bf16 "
-                                         r"forward 246,824; dq 247,080; dk/dv 251,064; fp32 .*"
+                                         r"forward 246,824; dq 279,864; dk/dv 274,080; fp32 .*"
                                          r"dk/dv 249,016; .*232,448 bytes.*own 320 columns"):
         pa._plan("fwd", 1, 64, 64, 2, 2, 640, torch.bfloat16)
     with pytest.raises(ValueError, match=r"head_dim up to 512 .*got 513\. At width 576 .*"
@@ -329,3 +342,107 @@ def test_fp32_plain_forward_and_backward_match_jax(B, Sq, Sk, H, KV, causal, win
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), w, **TOL)
+
+
+@pytest.mark.parametrize("D", [513, 576, 640])
+def test_wider_heads_name_the_bytes_of_the_width_512_designs(D):
+    """Past 512 the refusal states what the width-512 designs would need at
+    D padded to 64: the forward's two warpgroups over all columns, and a
+    block of dq's and dk/dv's pairs over its half (rounded up to 64-column
+    slabs), the receive slots included; every bf16 design passes the card's
+    shared memory or wgmma's widest product."""
+    width = -(-D // 64) * 64
+    sums = {k: pa._wgmma_sums(k, 64, width)[0] for k in ("fwd", "dq", "dkv")}
+    half = -(-width // 2 // 64)
+    assert sums["dq"] == (1024 + 2 * half * 64 * 128 + 2 * 2 * half * 64 * 128 + 4 * 64
+                          + 2 * 64 * 64 * 4 + 8 * 5 + 8 * 2)
+    assert sums["dkv"] == (1024 + 2 * half * 64 * 128 + 5 * half * 48 * 128 + 64 * 48 * 4
+                           + 2 * 48 * 4 + 2 * 64 * 48 * 4 + 48 * 4 + 8 * 7 + 8 * 5)
+    assert max(sums.values()) > pa.SMEM_LIMIT or width // 2 > pa._WGMMA_N_MAX
+    want = f"bf16 forward {sums['fwd']:,}; dq {sums['dq']:,}; dk/dv {sums['dkv']:,}"
+    for kernel in ("fwd", "dq", "dkv"):
+        with pytest.raises(ValueError, match=f"got {D}\\. At width {width} .*{want}.*own "
+                                             f"{width // 2} columns"):
+            pa._plan(kernel, 1, 64, 64, 2, 1, D, torch.bfloat16)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (2048, 2048, True, None),
+    (256, 256, True, 2), (256, 256, True, 48), (256, 256, True, 100), (256, 256, True, 1000),
+    (200, 200, True, None), (200, 200, True, 48),        # ragged query and key tiles
+    (96, 96, False, None), (64, 192, False, None), (40, 200, False, None),
+    (16, 8, True, 2), (300, 130, True, 100), (130, 300, True, None), (64, 256, True, None),
+])
+def test_key_tiles_of_the_width_512_dq_walk(Sq, Sk, causal, window):
+    """The width-512 dq pair's walk (both blocks of a cluster walk it), 64
+    query rows a block over 64-key tiles (``_key_tiles``, the kernel's
+    ``key_tiles``): exactly the tiles that hold a visible pair, so each of
+    them is a swap both blocks make and none is skipped."""
+    plan = pa._plan("dq", 1, Sq, Sk, 2, 1, 512, torch.bfloat16)
+    rows, keys = plan.block, pa._TILE_K
+    keep = pa._keep_mask(Sq, Sk, causal, window, "cpu")
+    n_tiles = -(-Sk // keys)
+    for q0 in range(0, Sq, rows):
+        first, count = pa._key_tiles(q0, rows, Sq, Sk, causal, window)
+        visible = [bool(keep[q0:q0 + rows, j * keys:(j + 1) * keys].any())
+                   for j in range(n_tiles)]
+        assert [first <= j < first + count for j in range(n_tiles)] == visible
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window", [
+    (1, 32, 32, 2, 2, 512, True, None),
+    (1, 16, 48, 4, 2, 512, False, None),      # Sq != Sk, GQA
+    (2, 32, 32, 2, 1, 512, True, 12),         # a window, MQA
+    (1, 32, 32, 2, 1, 300, True, None),       # D 300: the second half is 44 columns
+])
+def test_pair_reference_matches_jax_backward(B, Sq, Sk, H, KV, D, causal, window):
+    """``_pair_reference`` (S and dP as the sum of two column halves'
+    partial products, dk/dv's delta as two partial row sums) against the
+    JAX Pallas backward in interpret mode, fp32: the split adds one rounding
+    to each score, dP and delta, within ``TOL``'s summation-order bound."""
+    q, k, v, do = _inputs(B, Sq, Sk, H, KV, D, seed=D + Sq + Sk)
+    want_o, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, causal, 16, 16, None, window),
+                          *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = pa.flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **TOL)
+    got = pa._pair_reference(tq, tk, tv, o, lse, tdo, causal=causal, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("f32_grads", [False, True], ids=["bf16_grads", "fp32_grads"])
+def test_pair_reference_in_bf16_keeps_the_plain_roundings(f32_grads):
+    """In bf16 the split moves a score by one fp32 rounding, so a rounded p
+    or ds lands at most one bf16 step from the plain backward's: the two
+    agree within the card checks' bounds (``chip_smoke.check_out``: 2^-6
+    of the value plus 0.05 of the rms), and in their dtypes."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(2, 40, 40, 4, 2, 512, seed=7))
+    o, lse = pa.flash_attention_plain(q, k, v, causal=True)
+    kw = dict(causal=True, grad_dtype=torch.float32 if f32_grads else None)
+    got = pa._pair_reference(q, k, v, o, lse, do, **kw)
+    want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == (torch.float32 if f32_grads else torch.bfloat16)
+        g, w = g.float(), w.float()
+        rms = w.pow(2).mean().sqrt()
+        assert bool(((g - w).abs() <= 2.0 ** -6 * w.abs() + 0.05 * rms).all())
+
+
+def test_pair_swap_probe_skips_exactly_the_swap():
+    """``benchmarks/pair_swap.py`` times the width-512 pairs against copies
+    whose three pair pieces return at once: it finds each piece's line in
+    ``csrc/flash_common.cuh`` once, and without a card it exits with a
+    message."""
+    from kubeflow_tpu_torch.benchmarks import pair_swap
+    from kubeflow_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "flash_common.cuh").read_text()
+    out = pair_swap.skipped_swap_header(src)
+    assert out.count("\n  return;") - src.count("\n  return;") == len(pair_swap.SKIPPED) == 3
+    for line in pair_swap.SKIPPED:
+        assert line + "\n  return;" in out
+    assert pair_swap.main() == 1

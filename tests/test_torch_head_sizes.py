@@ -116,7 +116,8 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
         assert plan == pa._plan(kernel, 4, 2048, 2048, 8, 8, width, dtype)
         assert plan.width == width and plan.smem_bytes <= pa.SMEM_LIMIT
         # bf16 takes the tensor cores at every width, at 256 and 512 in
-        # 64-row tiles (64-key blocks for dk/dv, two a key block at 512);
+        # 64-row tiles (64-key blocks for dk/dv; at 512 dq and dk/dv a
+        # cluster of two blocks, one a column half, a tile or key block);
         # fp32 the FMA kernels: the forward 128 query rows and 64-key tiles
         # up to 128, 64 and 32 at 256, 32 and 16 at 512; dq 64 query rows
         # and 64-key tiles, dk/dv 64 keys and 64-row tiles, up to 128, both
@@ -139,10 +140,11 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
             assert (plan.block, plan.threads, plan.grid) == (64, 256, (8, 4, 32))
             assert plan.smem_bytes == pa._wgmma_sums(kernel, 64, 256)[0]
         elif width == 512:
-            grid = (8, 4, 64) if kernel == "dkv" else (8, 4, 32)
+            grid = (8, 4, 32) if kernel == "fwd" else (8, 4, 64)
             assert (plan.block, plan.threads, plan.grid) == (64, 256, grid)
+            assert plan.cluster == (1 if kernel == "fwd" else 2)
             assert plan.smem_bytes == pa._wgmma_sums(kernel, 64, 512)[0] == {
-                "fwd": 197_672, "dq": 197_928, "dkv": 201_912}[kernel]
+                "fwd": 197_672, "dq": 230_712, "dkv": 226_976}[kernel]
     for B, G, R, L in ((4, 4, 2, 2048), (2, 1, 16, 512)):
         p = fd._plan(B, G, R, L, D, dtype, 132)
         assert p == fd._plan(B, G, R, L, width, dtype, 132) and p.width == width
@@ -155,10 +157,11 @@ def test_head_sizes_past_128_are_refused_with_their_limits():
     one consumer warpgroup of 64 rows beside the producer (a thread may hold
     255 registers there) but not with two (168); dk/dv fits with 64 keys in
     two warpgroups, one owning dV and one dK, and 48-row tiles (not with 128
-    keys). Width 512 splits every accumulator over two warpgroups of 256
-    columns; past 512 a warpgroup's share would pass wgmma's widest product
-    (and at 640 every layout a block's shared memory), and that is the
-    stated refusal."""
+    keys). Width 512 splits every accumulator's columns in two: the
+    forward's over two warpgroups, dq's and dk/dv's over the two blocks of
+    a cluster; past 512 a warpgroup's or block's share would pass wgmma's
+    widest product (and at 640 every layout a block's shared memory), and
+    that is the stated refusal."""
     assert [pa._wgmma_sums(k, 64, 256) for k in ("fwd", "dq", "dkv")] == [
         (164_904, 160), (197_928, 192), (226_744, 152)]
     for kernel in ("fwd", "dq"):
@@ -185,17 +188,18 @@ def test_head_sizes_past_128_are_refused_with_their_limits():
     # the sums the refusal states are the width-512 designs' own at the next
     # width: the bf16 layouts and the fp32 kernels' at their smallest tiles
     # (the forward's 32 rows and 16-key tiles, dq's and dk/dv's 16 and 16);
-    # at 576 they fit but a warpgroup's 288 columns pass wgmma's 256, at 640
-    # none fits
+    # at 576 the forward's fits but a warpgroup's 288 columns pass wgmma's
+    # 256, and the pairs' blocks (five slabs a half) pass the shared memory;
+    # at 640 none fits
     assert pa._fma_fwd_tiles(640) == (32, 16)
     assert pa._fma_bwd_tiles("dq", 640) == pa._fma_bwd_tiles("dkv", 640) == (16, 16)
     sums = [pa._wgmma_sums(k, 64, 640)[0] for k in ("fwd", "dq", "dkv")] + [
         pa._fma_fwd_bytes(640)] + [pa._fma_bwd_bytes(k, 640) for k in ("dq", "dkv")]
-    assert sums == [246_824, 247_080, 251_064, 248_872, 247_848, 249_016]
+    assert sums == [246_824, 279_864, 274_080, 248_872, 247_848, 249_016]
     assert min(sums) > pa.SMEM_LIMIT
     assert 576 // 2 > pa._WGMMA_N_MAX == 512 // 2
-    for D, width, need in ((513, 576, "bf16 forward 222,248; dq 222,504; dk/dv 226,488"),
-                           (640, 640, "bf16 forward 246,824; dq 247,080; dk/dv 251,064")):
+    for D, width, need in ((513, 576, "bf16 forward 222,248; dq 279,864; dk/dv 274,080"),
+                           (640, 640, "bf16 forward 246,824; dq 279,864; dk/dv 274,080")):
         with pytest.raises(ValueError, match=f"head_dim up to 512 .*got {D}. At width {width} "
                                              f".*{need}.*232,448.*own {width // 2} columns"):
             pa._kernel_width(D)

@@ -64,9 +64,10 @@ def _close(got, want, what=""):
 ])
 def test_heads_of_512_take_their_routes(dtype, routes):
     """The model's attention shapes at width 512: bf16 on the tensor-core
-    route (the forward and dq in 64-row tiles, two warpgroups each owning
-    half of O's or dQ's columns; dk/dv in 64-key blocks, two a key block,
-    each one half of dK's and dV's columns); fp32 on the FMA kernels (the
+    route (the forward in 64-row tiles, two warpgroups each owning half of
+    O's columns; dq in 64-row tiles and dk/dv in 64-key blocks, each a
+    cluster of two blocks, one a half of dQ's or of dK's and dV's columns);
+    fp32 on the FMA kernels (the
     forward 32 query rows and 16-key tiles, dq 16 query rows and 16-key
     tiles, dk/dv 16 keys and 16-row tiles)."""
     model = _port_model()
@@ -75,8 +76,9 @@ def test_heads_of_512_take_their_routes(dtype, routes):
         plan = pa._plan(kernel, B, S, S, WIDE["num_heads"], 1, 512, dtype)
         assert (plan.route, plan.width) == (route, 512), kernel
         if route == "wgmma":
-            grid = (1, B, 2) if kernel == "dkv" else (WIDE["num_heads"], B, 1)
-            assert (plan.block, plan.threads, plan.grid) == (64, 256, grid)
+            cluster = 1 if kernel == "fwd" else 2
+            grid = (1, B, 2) if kernel == "dkv" else (WIDE["num_heads"], B, cluster)
+            assert (plan.block, plan.threads, plan.grid, plan.cluster) == (64, 256, grid, cluster)
             assert plan.smem_bytes == pa._wgmma_sums(kernel, 64, 512)[0]
         if route == "fma" and kernel == "fwd":
             assert (plan.block, plan.threads, plan.grid) == (32, 256, (WIDE["num_heads"], B,
