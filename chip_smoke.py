@@ -49,7 +49,9 @@ Phases, each of which fails the run with a non-zero exit:
             bound, TFLOP/s, plain version and scaled_dot_product_attention,
             the timed inputs' outputs held against the plain versions too,
             the profile naming the width-256 kernels (dk/dv's at 160 and
-            192 too); a ``generate`` request
+            192 too); the fp32 forward, dq and dk/dv timed likewise at the
+            heads-of-256 training shape (B4 S2048 H4), flash-decode in bf16
+            and fp32; a ``generate`` request
             of a 2-layer model of heads of 256 (launches counted), and one
             train step of that model at each of 8 seeds against the CPU
             (loss, and the relative error of the whole gradient and of each
@@ -57,8 +59,10 @@ Phases, each of which fails the run with a non-zero exit:
 2c. heads 512  the flash forward, dq and dk/dv and flash-decode at head
             width 512, in bf16 (the tensor-core kernels, two warpgroups each
             owning half of an accumulator's columns) and fp32 (the FMA
-            kernels), each route required: the heads-of-512 training shape
-            (B4 S2048 H2), the request's prefill (GQA 2/1), MQA 8/1, a
+            kernels), dq and dk/dv on both routes a cluster of two blocks
+            each owning a column half, each route and cluster required, the
+            backward held against ``_pair_reference`` too: the heads-of-512
+            training shape (B4 S2048 H2), the request's prefill (GQA 2/1), MQA 8/1, a
             window, ragged S with fp32 gradients, rows that see no key, D
             300 padded; decode at positions 191 and 2047, a window, R 16, a
             row with no live key, D 300. Each against its plain version
@@ -344,6 +348,10 @@ SCALAR_FP32_FWD_MS = {"flash_attention_fwd": 3.2493, "fused_head_fwd": 51.99}
 # kernel table, rows 2 and 3: H100 80GB HBM3, 700 W), printed beside the FMA
 # kernels' times
 SCALAR_FP32_BWD_MS = {"dq": 3.6041, "dkv": 3.2928}
+# the first port's fp32 dq and dk/dv at head width 512 (16-row, 16-key
+# tiles) at the heads-of-512 training shape (PERF.md's kernel table, rows 2
+# and 3: H100 80GB HBM3, 700 W), printed beside the pairs' times
+FIRST_FP32_512_MS = {"dq": 4.8490, "dkv": 3.9495}
 # card (bf16 weights and activations) vs CPU (fp32) on the last prefill
 # logits of a 2-layer model, logits std ~1: the card measured 0.0699 on an
 # H100 in every run recorded in PERF.md; the limit is twice that.
@@ -596,6 +604,14 @@ def phase_build():
         registers[fragment] = lines
         if any(spills):
             raise AssertionError(f"{fragment} spills: {lines}")
+    # the width-512 fp32 pairs by name (their spills are FMA_KERNELS' check)
+    for name, (kernel, fragment) in FMA_512.items():
+        lines = [ln for entry, got in registers.get(name, {}).items() if fragment in entry
+                 for ln in got]
+        regs = re.search(r"Used (\d+) registers", " ".join(lines))
+        if regs is None:
+            raise AssertionError(f"{name}: no ptxas report of {kernel}")
+        log(f"[build] {kernel}: {regs[1]} registers")
     # every width-512 instantiation's registers and spill bytes (flash-decode's
     # fp32 FMA route holds 128 accumulators a thread there: its spills, if
     # any, are stated here, not refused)
@@ -633,6 +649,12 @@ WGMMA_512 = {
     "flash_attention_bwd_dq": ("flash_dq_wgmma<512, 1, 2>", "flash_dq_wgmmaILi512ELi1ELi2E"),
     "flash_attention_bwd_dkv": ("flash_dkv_wgmma_pair<512, 2>",
                                 "flash_dkv_wgmma_pairILi512ELi2E")}
+# the width-512 fp32 dq and dk/dv: the width-256 FMA kernels on each column
+# half, a cluster of two blocks (name, the fragment of its mangled name)
+FMA_512 = {"flash_attention_bwd_dq": ("flash_dq_fma<512, 32, 32, 2>",
+                                      "flash_dq_fmaILi512ELi32ELi32ELi2E"),
+           "flash_attention_bwd_dkv": ("flash_dkv_fma<512, 32, 32, 2>",
+                                       "flash_dkv_fmaILi512ELi32ELi32ELi2E")}
 # the libraries of the width-512 instantiations (their mangled names hold
 # "ILi512E"): library -> the fragment of the entries whose tensor-core
 # instructions are counted apart (the bf16 flash kernels' are WGMMA_512's)
@@ -1249,6 +1271,43 @@ WIDE_HEADS = dict(vocab_size=4096, num_layers=2, num_heads=2, embed_dim=512, mlp
 WIDE_HEADS_PROMPT, WIDE_HEADS_NEW = 64, 16
 
 
+def flash_times(torch, F, pa, q, k, v, do, *, kernel_iters, lib_iters):
+    """The flash forward, dq and dk/dv on causal [B, S, H, D] operands (L2
+    warm), their plain versions and scaled_dot_product_attention's forward
+    and whole backward on the same operands, in device ms, with each
+    kernel's bound at its dtype's peak and the TFLOP/s of the bound's work:
+    (times, bounds, tflops, o, lse)."""
+    B, S, H, D = q.shape
+    o, lse = pa.flash_attention(q, k, v, True, S, S, return_lse=True)
+    qt, kt_, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt_, vt, is_causal=True)
+    do_lib = do.transpose(1, 2).contiguous()
+    times = dict(
+        fwd=device_ms(torch, lambda: pa.flash_attention(q, k, v, True, S, S), cold=False,
+                      iters=kernel_iters),
+        fwd_plain=device_ms(torch, lambda: pa.flash_attention_plain(q, k, v), cold=False, iters=3),
+        fwd_lib=device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt.detach(), kt_.detach(), vt.detach(), is_causal=True), cold=False, iters=lib_iters),
+        dq=device_ms(torch, lambda: pa.flash_attention_bwd_dq(q, k, v, o, lse, do), cold=False,
+                     iters=kernel_iters),
+        dkv=device_ms(torch, lambda: pa.flash_attention_bwd_dkv(q, k, v, o, lse, do),
+                      cold=False, iters=kernel_iters),
+        bwd_plain=device_ms(torch, lambda: pa.flash_attention_backward_plain(
+            q, k, v, o, lse, do), cold=False, iters=3),
+        bwd_lib=device_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qt, kt_, vt), do_lib, retain_graph=True), cold=False, iters=lib_iters),
+    )
+    pairs = causal_pairs(B, H, S, S)
+    operand = q.element_size() * B * S * H * D
+    lse_bytes = 4 * B * H * S
+    rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    bounds = {"fwd": bound_ms(4 * operand + lse_bytes, 2 * 2 * D * pairs, rate),
+              "dq": bound_ms(6 * operand + lse_bytes, 3 * 2 * D * pairs, rate),
+              "dkv": bound_ms(7 * operand + lse_bytes, 4 * 2 * D * pairs, rate)}
+    tflops = {kn: n * 2 * D * pairs / times[kn] / 1e9 for kn, n in (("fwd", 2), ("dq", 3), ("dkv", 4))}
+    return times, bounds, tflops, o, lse
+
+
 def phase_wide_heads(torch, np):
     """The flash forward, dq and dk/dv at head sizes 160, 192 and 256 (run at
     width 256: bf16 on the tensor-core route, dk/dv on the two-warpgroup
@@ -1258,8 +1317,9 @@ def phase_wide_heads(torch, np):
     the kernels phases; each kernel timed at D 256 beside its bound, its
     plain version and scaled_dot_product_attention on the same inputs, whose
     outputs are held against the plain versions too, the profile's kernel
-    names showing the route (for dk/dv at 160 and 192 too); then a generate
-    request, and the train steps of :func:`wide_train_steps`, of heads of
+    names showing the route (for dk/dv at 160 and 192 too), the fp32 route
+    at the heads-of-256 training shape and flash-decode in both dtypes;
+    then a generate request, and the train steps of :func:`wide_train_steps`, of heads of
     256 against the CPU."""
     import torch.nn.functional as F
 
@@ -1416,24 +1476,8 @@ def phase_wide_heads(torch, np):
     # cache with heads of 256 (B4 G4 R2 L2048, pos 191 and 2047)
     B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, TRAIN["num_heads"], 256
     q, k, v, do = (randn(B, S, H, D) for _ in range(4))
-    o, lse = pa.flash_attention(q, k, v, True, S, S, return_lse=True)
-    qt, kt_, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qt, kt_, vt, is_causal=True)
-    do_lib = do.transpose(1, 2).contiguous()
-    times = dict(
-        fwd=device_ms(torch, lambda: pa.flash_attention(q, k, v, True, S, S), cold=False, iters=5),
-        fwd_plain=device_ms(torch, lambda: pa.flash_attention_plain(q, k, v), cold=False, iters=3),
-        fwd_lib=device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt.detach(), kt_.detach(), vt.detach(), is_causal=True), cold=False),
-        dq=device_ms(torch, lambda: pa.flash_attention_bwd_dq(q, k, v, o, lse, do), cold=False,
-                     iters=5),
-        dkv=device_ms(torch, lambda: pa.flash_attention_bwd_dkv(q, k, v, o, lse, do),
-                      cold=False, iters=5),
-        bwd_plain=device_ms(torch, lambda: pa.flash_attention_backward_plain(
-            q, k, v, o, lse, do), cold=False, iters=3),
-        bwd_lib=device_ms(torch, lambda: torch.autograd.grad(
-            o_lib, (qt, kt_, vt), do_lib, retain_graph=True), cold=False),
-    )
+    times, bounds, tflops, o, lse = flash_times(torch, F, pa, q, k, v, do, kernel_iters=5,
+                                                lib_iters=30)
     # the timed inputs' o, lse, dq, dk and dv against the plain versions
     grads = (pa.flash_attention_bwd_dq(q, k, v, o, lse, do),
              *pa.flash_attention_bwd_dkv(q, k, v, o, lse, do))
@@ -1458,14 +1502,7 @@ def phase_wide_heads(torch, np):
         raise AssertionError("a flash kernel disagrees with its plain version on the timed D 256 inputs")
     del grads
     torch.cuda.empty_cache()
-    pairs = causal_pairs(B, H, S, S)
-    operand = 2 * B * S * H * D
-    lse_bytes = 4 * B * H * S
-    bounds = {"fwd": bound_ms(4 * operand + lse_bytes, 2 * 2 * D * pairs),
-              "dq": bound_ms(6 * operand + lse_bytes, 3 * 2 * D * pairs),
-              "dkv": bound_ms(7 * operand + lse_bytes, 4 * 2 * D * pairs)}
     plans = {kn: pa._plan(kn, B, S, S, H, H, D, bf16, sms) for kn in ("fwd", "dq", "dkv")}
-    tflops = {kn: n * 2 * D * pairs / times[kn] / 1e9 for kn, n in (("fwd", 2), ("dq", 3), ("dkv", 4))}
     # the kernels the forward, dq and dk/dv launched, by the profiler's names
     seen = _device_kernels(torch, lambda: (pa.flash_attention(q, k, v, True, S, S),
                                            pa.flash_attention_bwd_dq(q, k, v, o, lse, do),
@@ -1490,22 +1527,55 @@ def phase_wide_heads(torch, np):
     if res["routes"] != wide_routes(bf16) or not all(launched.values()):
         raise AssertionError(f"D 256 forward, dq and dk/dv did not take the tensor-core route: "
                              f"{res['routes']}, {sorted(names)}")
-    del q, k, v, do, o, lse, qt, kt_, vt, o_lib, do_lib
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    # the fp32 route at D 256, timed at the heads-of-256 flagship's training
+    # shape (B4 S2048 H4: the H * D of the heads-of-512 shape, so the work of
+    # the fp32 width-512 pairs without their swap), SDPA on the fp32 operands
+    H = WIDE_FLAGSHIP_TRAIN["num_heads"]
+    q, k, v, do = (randn(B, S, H, D, dtype=f32) for _ in range(4))
+    times, bounds, tflops, o, lse = flash_times(torch, F, pa, q, k, v, do, kernel_iters=3,
+                                                lib_iters=3)
+    plans = {kn: pa._plan(kn, B, S, S, H, H, D, f32, sms) for kn in ("fwd", "dq", "dkv")}
+    if {p.route for p in plans.values()} != {"fma"}:
+        raise AssertionError(f"D 256 fp32 did not take the FMA route: {plans}")
+    res["fp32_d256"] = dict(times=times, bounds=bounds, tflops=tflops)
+    for kn, label, plain, lib in (("fwd", "forward", "fwd_plain", "fwd_lib"),
+                                  ("dq", "dq", "bwd_plain", "bwd_lib"),
+                                  ("dkv", "dk/dv", "bwd_plain", "bwd_lib")):
+        log(f"[wide heads] D 256 fp32 {label} at the heads-of-256 training shape B{B} S{S} H{H} "
+            f"KV{H} causal, L2 warm ({plans[kn].route}, {plans[kn].block}, {plans[kn].threads} "
+            f"threads, {plans[kn].smem_bytes} B): kernel_ms {times[kn]:.4f} ({tflops[kn]:.1f} "
+            f"TFLOP/s of the bound's work) bound_ms {bounds[kn][0]:.5f} ({bounds[kn][1]}) "
+            f"plain_ms {times[plain]:.4f} library_ms {times[lib]:.4f} ({times[kn] / times[lib]:.2f}x"
+            f"; scaled_dot_product_attention on the fp32 operands"
+            f"{' backward, dq dk dv together' if kn != 'fwd' else ''})")
+    log(f"[wide heads] D 256 fp32 dq + dk/dv {times['dq'] + times['dkv']:.4f} ms against "
+        f"scaled_dot_product_attention's fp32 backward {times['bwd_lib']:.4f} "
+        f"({(times['dq'] + times['dkv']) / times['bwd_lib']:.3f}x)")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
     B, G, R, D, L = BATCH, 4, 2, 256, FLAGSHIP["max_seq_len"]
-    kc, vc, qd = randn(B, G, L, D), randn(B, G, L, D), randn(B, G, R, D)
-    for p in (PROMPT + (NEW - 2) // 2, L - 1):
-        pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
-        ms = device_ms(torch, lambda: flash_decode(qd, kc, vc, pos), cold=True)
-        plain_ms = device_ms(torch, lambda: flash_decode_plain(qd, kc, vc, pos), cold=True)
-        k_live, v_live = kc[:, :, :p + 1], vc[:, :, :p + 1]
-        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qd.view(B, G * R, 1, D), k_live, v_live, enable_gqa=True), cold=True)
-        n_bytes = 2 * (2 * B * G * R * D) + 2 * (2 * B * G * (p + 1) * D) + 4 * B
-        bms, by = bound_ms(n_bytes, 4 * B * G * R * (p + 1) * D)
-        res[f"decode_d256_pos{p}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                          bound_ms=bms, bound_by=by)
-        log(f"[wide heads] flash_decode D 256 B{B} G{G} R{R} L{L} pos {p}, L2 flushed: kernel_ms "
-            f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {bms:.5f} ({by})")
+    for dt in (bf16, f32):
+        tag, elem = ("", 2) if dt == bf16 else ("_fp32", 4)
+        kc, vc, qd = (randn(*shape, dtype=dt) for shape in ((B, G, L, D), (B, G, L, D),
+                                                            (B, G, R, D)))
+        for p in (PROMPT + (NEW - 2) // 2, L - 1):
+            pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+            ms = device_ms(torch, lambda: flash_decode(qd, kc, vc, pos), cold=True)
+            plain_ms = device_ms(torch, lambda: flash_decode_plain(qd, kc, vc, pos), cold=True)
+            k_live, v_live = kc[:, :, :p + 1], vc[:, :, :p + 1]
+            lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qd.view(B, G * R, 1, D), k_live, v_live, enable_gqa=True), cold=True)
+            n_bytes = 2 * (elem * B * G * R * D) + 2 * (elem * B * G * (p + 1) * D) + 4 * B
+            bms, by = bound_ms(n_bytes, 4 * B * G * R * (p + 1) * D,
+                               BF16_FLOPS_PER_S if dt == bf16 else FP32_FLOPS_PER_S)
+            res[f"decode_d256{tag}_pos{p}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                   bound_ms=bms, bound_by=by)
+            log(f"[wide heads] flash_decode D 256 ({dt}) B{B} G{G} R{R} L{L} pos {p}, L2 "
+                f"flushed: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+                f"bound_ms {bms:.5f} ({by})")
+        del kc, vc, qd
 
     check(late)
 
@@ -1624,7 +1694,8 @@ def phase_heads_512(torch, np):
     """The flash forward, dq and dk/dv and flash-decode at head width 512,
     in bf16 (the tensor-core kernels: the forward's two warpgroups each
     owning half of O's columns, dq and dk/dv a cluster of two blocks each
-    owning a column half) and fp32 (the FMA kernels), each route required:
+    owning a column half) and fp32 (the FMA kernels, dq and dk/dv a cluster
+    of two blocks too), each route and cluster required:
     the heads-of-512 training shape (B4 S2048 H2), the request's prefill
     (GQA 2/1), MQA 8/1, a window, ragged S (with fp32 gradients of bf16
     operands), rows that see no key, D 300 padded, and two cases only the
@@ -1632,12 +1703,13 @@ def phase_heads_512(torch, np):
     blocks of a pair mask keys; key blocks no query sees); decode at
     positions 191 and 2047 of a 2,048-slot cache, a window, R 16, a row
     with no live key and D 300 padded. Each against its plain version under
-    the kernels phases' bounds, a second launch bitwise equal, the bf16
-    backward against ``_pair_reference`` (the pair's order of operations)
+    the kernels phases' bounds, a second launch bitwise equal, the backward
+    of both routes against ``_pair_reference`` (the pairs' order of operations)
     and decode against ``_split_reference`` too; the training shape's
     profile names the width-512 kernels. Each kernel is timed at the training shape (decode at
     positions 191 and 2047, L2 flushed) with its bound, plain version and
-    scaled_dot_product_attention, whose backend is named."""
+    scaled_dot_product_attention, whose backend is named; the fp32 dq and
+    dk/dv beside the first port's 16-row, 16-key kernels (``FIRST_FP32_512_MS``)."""
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops import pallas_attention as pa
@@ -1697,24 +1769,22 @@ def phase_heads_512(torch, np):
             lse_ok, lse_err = check_lse(lse, lse_ref)
             ok = ok and lse_ok and check_dead_rows(o, lse_ref) and o.dtype == dt and same
             plans = {kn: pa._plan(kn, b_, sq, sk, h_, kv, D, dt, sms) for kn in ("fwd", "dq", "dkv")}
+            # both routes: the forward one block, dq and dk/dv a pair of two
             if {p.route for p in plans.values()} != {route} or any(
-                    p.width != 512 for p in plans.values()):
-                raise AssertionError(f"D {D} ({name}, {dt}) took {plans}, not {route} at width 512")
+                    p.width != 512 or p.cluster != (1 if kn == "fwd" else 2)
+                    for kn, p in plans.items()):
+                raise AssertionError(f"D {D} ({name}, {dt}) took {plans}, not {route} at width "
+                                     f"512 with dq's and dk/dv's cluster 2")
             line = [f"fwd err/tol {ratio:.3f} lse_err {lse_err:.2e}"]
             errs = {"fwd": err}
-            # the bf16 pair's witness: its own order of operations, the
-            # same bounds
-            wit = (pa._pair_reference(q, k, v, o, lse, do, **kw) if dt == bf16 else
-                   (None,) * 3)
+            # the pair's witness: its own order of operations, the same bounds
+            wit = pa._pair_reference(q, k, v, o, lse, do, **kw)
             for grad, g, w, r in zip(("dq", "dk", "dv"), grads, want, wit):
                 g_ok, g_err, g_ratio, _ = check_out(g, w)
-                ok = ok and g_ok and g.dtype == w.dtype
-                line.append(f"{grad} err/tol {g_ratio:.3f}")
-                if r is not None:
-                    w_ok, _, w_ratio, _ = check_out(g, r)
-                    ok = ok and w_ok
-                    line[-1] += f" (vs _pair_reference {w_ratio:.3f})"
-                    errs[f"{grad}_vs_pair_reference_ratio"] = w_ratio
+                w_ok, _, w_ratio, _ = check_out(g, r)
+                ok = ok and g_ok and w_ok and g.dtype == w.dtype
+                line.append(f"{grad} err/tol {g_ratio:.3f} (vs _pair_reference {w_ratio:.3f})")
+                errs[f"{grad}_vs_pair_reference_ratio"] = w_ratio
                 errs[grad] = g_err
             del wit
             res["cases"][f"{'bf16' if dt == bf16 else 'fp32'}_{name}"] = errs
@@ -1776,41 +1846,13 @@ def phase_heads_512(torch, np):
     for dt in (bf16, f32):
         tag = "bf16" if dt == bf16 else "fp32"
         rate = BF16_FLOPS_PER_S if dt == bf16 else FP32_FLOPS_PER_S
-        q, k, v, do = (randn(B, S, H, D, dtype=dt) for _ in range(4))
-        o, lse = pa.flash_attention(q, k, v, True, S, S, return_lse=True)
-        qt, kt_, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-        o_lib = F.scaled_dot_product_attention(qt, kt_, vt, is_causal=True)
-        do_lib = do.transpose(1, 2).contiguous()
-        took, lib_kernels = _sdpa_backends(torch, F, qt.detach(), kt_.detach(), vt.detach(),
-                                           is_causal=True)
-        slow = dt == f32
-        times = dict(
-            fwd=device_ms(torch, lambda: pa.flash_attention(q, k, v, True, S, S), cold=False,
-                          iters=3 if slow else 5),
-            fwd_plain=device_ms(torch, lambda: pa.flash_attention_plain(q, k, v), cold=False,
-                                iters=3),
-            fwd_lib=device_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt.detach(), kt_.detach(), vt.detach(), is_causal=True), cold=False,
-                iters=3 if slow else 10),
-            dq=device_ms(torch, lambda: pa.flash_attention_bwd_dq(q, k, v, o, lse, do),
-                         cold=False, iters=3 if slow else 5),
-            dkv=device_ms(torch, lambda: pa.flash_attention_bwd_dkv(q, k, v, o, lse, do),
-                          cold=False, iters=3 if slow else 5),
-            bwd_plain=device_ms(torch, lambda: pa.flash_attention_backward_plain(
-                q, k, v, o, lse, do), cold=False, iters=3),
-            bwd_lib=device_ms(torch, lambda: torch.autograd.grad(
-                o_lib, (qt, kt_, vt), do_lib, retain_graph=True), cold=False,
-                iters=3 if slow else 10),
-        )
-        pairs = causal_pairs(B, H, S, S)
         elem = 2 if dt == bf16 else 4
-        operand = elem * B * S * H * D
-        lse_bytes = 4 * B * H * S
-        bounds = {"fwd": bound_ms(4 * operand + lse_bytes, 2 * 2 * D * pairs, rate),
-                  "dq": bound_ms(6 * operand + lse_bytes, 3 * 2 * D * pairs, rate),
-                  "dkv": bound_ms(7 * operand + lse_bytes, 4 * 2 * D * pairs, rate)}
-        tflops = {kn: n * 2 * D * pairs / times[kn] / 1e9
-                  for kn, n in (("fwd", 2), ("dq", 3), ("dkv", 4))}
+        q, k, v, do = (randn(B, S, H, D, dtype=dt) for _ in range(4))
+        took, lib_kernels = _sdpa_backends(torch, F, *(x.transpose(1, 2).contiguous()
+                                                       for x in (q, k, v)), is_causal=True)
+        times, bounds, tflops, o, lse = flash_times(
+            torch, F, pa, q, k, v, do, kernel_iters=3 if dt == f32 else 5,
+            lib_iters=3 if dt == f32 else 10)
         plans = {kn: pa._plan(kn, B, S, S, H, H, D, dt, sms) for kn in ("fwd", "dq", "dkv")}
         seen = _device_kernels(torch, lambda: (pa.flash_attention(q, k, v, True, S, S),
                                                pa.flash_attention_bwd_dq(q, k, v, o, lse, do),
@@ -1818,19 +1860,26 @@ def phase_heads_512(torch, np):
                                reps=2)
         names = sorted({n.split(">(")[0] + ">" for run in seen for n in run if "flash_" in n})
         want_names = ([k for k, _ in WGMMA_512.values()] if dt == bf16 else
-                      ["flash_fwd_fma<512, 32, 16>", "flash_dq_fma<512, 16, 16>",
-                       "flash_dkv_fma<512, 16, 16>"])
+                      ["flash_fwd_fma<512, 32, 16>", *(k for k, _ in FMA_512.values())])
         launched = {w: any(w in n for n in names) for w in want_names}
         for kn, label, plain, lib in (("fwd", "forward", "fwd_plain", "fwd_lib"),
                                       ("dq", "dq", "bwd_plain", "bwd_lib"),
                                       ("dkv", "dk/dv", "bwd_plain", "bwd_lib")):
             log(f"[heads 512] D 512 {label} ({tag}) at the training shape B{B} S{S} H{H} KV{H} "
                 f"causal, L2 warm ({plans[kn].route}, {plans[kn].block}, {plans[kn].threads} "
-                f"threads, {plans[kn].smem_bytes} B): kernel_ms {times[kn]:.4f} "
-                f"({tflops[kn]:.1f} TFLOP/s of the bound's work) bound_ms {bounds[kn][0]:.5f} "
+                f"threads, cluster {plans[kn].cluster}, {plans[kn].smem_bytes} B): kernel_ms "
+                f"{times[kn]:.4f} ({tflops[kn]:.1f} TFLOP/s of the bound's work) bound_ms "
+                f"{bounds[kn][0]:.5f} "
                 f"({bounds[kn][1]}) plain_ms {times[plain]:.4f} library_ms {times[lib]:.4f} "
                 f"({times[kn] / times[lib]:.2f}x; scaled_dot_product_attention"
-                f"{' backward, dq dk dv together' if kn != 'fwd' else ''})")
+                f"{' backward, dq dk dv together' if kn != 'fwd' else ''})"
+                + (f"; the first port's 16-row, 16-key kernel {FIRST_FP32_512_MS[kn]}"
+                   if dt == f32 and kn in FIRST_FP32_512_MS else ""))
+        if dt == f32:
+            log(f"[heads 512] D 512 fp32 dq + dk/dv {times['dq'] + times['dkv']:.4f} ms (the "
+                f"first port's {sum(FIRST_FP32_512_MS.values()):.4f}) against "
+                f"scaled_dot_product_attention's fp32 backward {times['bwd_lib']:.4f} "
+                f"({(times['dq'] + times['dkv']) / times['bwd_lib']:.3f}x)")
         log(f"[heads 512] D 512 ({tag}) scaled_dot_product_attention: backends that take it "
             f"{took}; a default call's kernels {lib_kernels}")
         log(f"[heads 512] D 512 ({tag}) kernels in the profile of a forward, a dq and a dk/dv: "
@@ -1839,7 +1888,7 @@ def phase_heads_512(torch, np):
             raise AssertionError(f"D 512 ({tag}) did not launch {want_names}: {names}")
         res["timed"][tag] = dict(times=times, bounds=bounds, tflops=tflops, sdpa_backends=took,
                                  sdpa_kernels=lib_kernels, kernels_seen=names)
-        del q, k, v, do, o, lse, qt, kt_, vt, o_lib, do_lib
+        del q, k, v, do, o, lse
         torch.cuda.empty_cache()
 
         G, R, L = HEADS_512_SERVE["num_kv_heads"], 2, FLAGSHIP["max_seq_len"]

@@ -118,12 +118,26 @@
 // rows read from device memory (loaded before the score product, used after
 // it), and shared through the stage's delta row under
 // the P^T barrier. Only edge tiles mask. D 64 and 128 take 64 keys and
-// 64-row tiles (230,968 bytes at D 128), D 256 32 and 32 (206,136 bytes), D
-// 512 16 and 16 (199,864 bytes). The
-// TPU kernel's roundings of P and dS to the operands' type are the identity
-// in fp32. What bounds it on an H100 (a clock64-stamped scratch copy, not
-// committed): the two FMA loops take most of a warp's cycles, below the
-// fp32 issue rate, and each tile's P^T step most of the rest.
+// 64-row tiles (230,968 bytes at D 128), D 256 32 and 32 (206,136 bytes).
+// The TPU kernel's roundings of P and dS to the operands' type are the
+// identity in fp32. What bounds it on an H100 (a clock64-stamped scratch
+// copy, not committed): the two FMA loops take most of a warp's cycles,
+// below the fp32 issue rate, and each tile's P^T step most of the rest.
+//
+// Head width 512 (fp32): flash_dkv_fma<512, 32, 32, 2>. K and V resident at
+// 512 columns would leave room for 16 keys and 16-row tiles only (2 keys by
+// 1 row of scores a thread). So, as the bf16 pair, the width-256 kernel runs
+// on each column half as a cluster of two blocks a 32-key block (grid (KV,
+// B, 2 x key blocks)): block c holds columns 256 c .. 256 c + 255 of K, V,
+// Q and dO and owns those of dK and dV. After each ring item's score
+// product, partial over its columns, each warpgroup sends its 8 fp32
+// partials a thread (S^T from warpgroup 0, dP^T from 1) to its twin
+// warpgroup in the other block by st.async, forms the partial delta of its
+// half of the rows (O's rows of the block's columns from device memory)
+// while they travel, sends that too (one float a row), and adds the twin's
+// partials and partial delta: the same bits of S^T, dP^T and delta in both
+// blocks. Then P^T, dS^T and the accumulations as at width 256. 214,488
+// bytes; exactly the bound's FLOPs.
 
 #include "flash_common.cuh"
 
@@ -139,17 +153,21 @@ namespace dkv32 {
 constexpr int THR = 256;
 constexpr int GS = 8;             // row groups of a warpgroup (16 lanes each)
 
-// Shared memory of flash_dkv_fma<D, BK, BQ>, in bytes from a 1024-aligned
-// base: the K and V tiles (D / 32 slabs of BK rows of 32 fp32 columns each,
-// resident), STAGES ring stages (the Q tile's D / 32 slabs of BQ rows, then
-// the dO tile's), the fp32 P^T and dS^T tiles [BK][BQ], each stage's delta
-// row [STAGES][BQ], then the mbarriers: K/V, full[STAGES], empty[STAGES],
-// P full, P empty. `bytes` adds the slack for aligning the dynamic base;
-// ops/pallas_attention.py (_fma_bwd_bytes) sums the same and the launcher
-// checks it.
-template <int D, int BK, int BQ>
+// Shared memory of flash_dkv_fma<D, BK, BQ, CL>, in bytes from a 1024-aligned
+// base: the K and V tiles (DL / 32 slabs of BK rows of 32 fp32 columns each,
+// resident; DL = D / CL the block's columns), STAGES ring stages (the Q
+// tile's DL / 32 slabs of BQ rows, then the dO tile's), the fp32 P^T and
+// dS^T tiles [BK][BQ], each stage's delta row [STAGES][BQ], at CL 2 each
+// warpgroup's receive slot of the peer's partial S^T or dP^T ([2][128]
+// float4) and the peer's partial delta row [BQ], then the mbarriers: K/V,
+// full[STAGES], empty[STAGES], P full, P empty, and at CL 2 each
+// warpgroup's receive full and free. `bytes` adds the slack for aligning the
+// dynamic base; ops/pallas_attention.py (_fma_bwd_bytes) sums the same and
+// the launcher checks it.
+template <int D, int BK, int BQ, int CL>
 struct Layout {
-  static constexpr int NS = D / 32;
+  static constexpr int DL = D / CL;
+  static constexpr int NS = DL / 32;
   static constexpr int SLAB_K = BK * 128;
   static constexpr int SLAB_Q = BQ * 128;
   static constexpr int STAGE = 2 * NS * SLAB_Q;
@@ -159,9 +177,12 @@ struct Layout {
   static constexpr int P = RING + flash::STAGES * STAGE;
   static constexpr int DS = P + BK * BQ * 4;
   static constexpr int ROWS = DS + BK * BQ * 4;
-  static constexpr int BAR = ROWS + flash::STAGES * BQ * 4;
-  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES + 2);
+  static constexpr int RX = ROWS + flash::STAGES * BQ * 4;
+  static constexpr int RX_DELTA = RX + 2 * BK * BQ * 4;
+  static constexpr int BAR = RX + (CL > 1 ? 2 * BK * BQ * 4 + BQ * 4 : 0);
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES + 2) + (CL > 1 ? 32 : 0);
   static_assert(bytes <= 232448, "the layout must fit a block's shared memory");
+  static_assert(CL == 1 || (DL == 256 && BK * BQ == 1024), "a pair swaps 8 partials a thread");
 };
 
 // One block per (kv head, batch row, BK keys), the lowest keys first. Thread
@@ -171,8 +192,14 @@ struct Layout {
 // warpgroup 0 wrote, and dK += dS^T Q. Each runs one score product and one
 // accumulation a tile, of the forward's shapes (8 x 4 scores, 8 x 8 of the
 // accumulator at D 128), in its own registers; the roles differ only in
-// their tiles' addresses and the P^T step.
-template <int D, int BK, int BQ>
+// their tiles' addresses and the P^T step. CL 2 (head width 512): block c of
+// a cluster of two holds columns c DL .. of K, V, Q and dO and owns those of
+// dK and dV; both walk the same ring items, and after each item's S^T or
+// dP^T (partial over DL columns) each warpgroup swaps it, and the partial
+// delta of its half of the rows, with its twin in the other block (the pair
+// pieces of flash_common.cuh), the delta's partial formed while the
+// partials travel.
+template <int D, int BK, int BQ, int CL>
 __global__ void __launch_bounds__(THR, 1)
 flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -180,11 +207,11 @@ flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
               float* __restrict__ dv, int Sq, int Sk, int H, int KV, int causal, int window,
               float scale) {
   using namespace flash;
-  using L = Layout<D, BK, BQ>;
+  using L = Layout<D, BK, BQ, CL>;
   constexpr int NS = L::NS;
   constexpr int R = BK / GS;      // keys a thread
   constexpr int J = BQ / 16;      // query rows a thread of each score tile
-  constexpr int DH = D / 64;      // 4-column groups of dK or dV a thread
+  constexpr int DH = L::DL / 64;  // 4-column groups of dK or dV a thread
   constexpr int U = BQ / 2 / GS;  // delta rows a thread (each warpgroup half the tile's)
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -195,9 +222,11 @@ flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const uint32_t s_base = smem_u32(smem);
   const uint32_t bar_kv = s_base + L::BAR;
   const uint32_t p_full = bar_kv + 8 * (1 + 2 * STAGES), p_empty = p_full + 8;
+  const uint32_t rx_full = p_empty + 8, rx_free = rx_full + 16;   // [2] each, a warpgroup's
 
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * BK;      // the lowest keys, the heaviest causal blocks, first
+  const int k0 = (blockIdx.z / CL) * BK;   // the lowest keys, the heaviest causal blocks, first
+  const int d0 = CL > 1 ? (int)cluster_rank() * L::DL : 0;   // the block's columns
   const int group = H / KV;
   // every tile of the walk holds a query that sees one of the block's keys
   // (tests/test_torch_flash_plan.py), so none is skipped
@@ -206,8 +235,14 @@ flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   if (threadIdx.x == 0) {
     mbar_init(p_full, THR / 32);       // every warp, once its delta rows (and P^T) are in
     mbar_init(p_empty, THR / 64);      // warpgroup 1's warps, once they read P^T
+    if (CL > 1)
+      for (int w = 0; w < 2; ++w) {
+        mbar_init(rx_full + 8 * w, 1);
+        mbar_init(rx_free + 8 * w, 4);
+      }
   }
   init_barriers(bar_kv, THR / 32);     // empty: one arrival a warp
+  if constexpr (CL > 1) cluster_sync();   // both blocks' barriers exist before a remote store
 
   int issued = 0;
   auto issue = [&](int j, int sj) {
@@ -216,8 +251,8 @@ flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     const uint32_t dst = s_base + L::RING + sj * L::STAGE;
     mbar_expect_tx(bar_full(bar_kv, sj), L::STAGE);
     for (int s = 0; s < NS; ++s) {
-      tma_load(dst + s * L::SLAB_Q, &tq, 32 * s, h, q0, b, bar_full(bar_kv, sj));
-      tma_load(dst + (NS + s) * L::SLAB_Q, &tdo, 32 * s, h, q0, b, bar_full(bar_kv, sj));
+      tma_load(dst + s * L::SLAB_Q, &tq, d0 + 32 * s, h, q0, b, bar_full(bar_kv, sj));
+      tma_load(dst + (NS + s) * L::SLAB_Q, &tdo, d0 + 32 * s, h, q0, b, bar_full(bar_kv, sj));
     }
   };
   // thread 128 (warpgroup 1's first) issues the copies: warpgroup 0's P^T
@@ -226,8 +261,8 @@ flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   if (threadIdx.x == PT) {
     mbar_expect_tx(bar_kv, 2 * NS * L::SLAB_K);
     for (int s = 0; s < NS; ++s) {
-      tma_load(s_base + L::K + s * L::SLAB_K, &tk, 32 * s, kvh, k0, b, bar_kv);
-      tma_load(s_base + L::V + s * L::SLAB_K, &tv, 32 * s, kvh, k0, b, bar_kv);
+      tma_load(s_base + L::K + s * L::SLAB_K, &tk, d0 + 32 * s, kvh, k0, b, bar_kv);
+      tma_load(s_base + L::V + s * L::SLAB_K, &tv, d0 + 32 * s, kvh, k0, b, bar_kv);
     }
     refill(issued, n, 0, bar_kv, issue);
   }
@@ -235,11 +270,18 @@ flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
 
   // the role comes from a shuffled index, which the compiler knows is warp-uniform
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
-  const int g = (threadIdx.x & 127) >> 4, x = threadIdx.x & 15, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x & 127;
+  const int g = tid >> 4, x = threadIdx.x & 15, lane = threadIdx.x & 31;
   const int kg = g & 7;
   const float sl2 = scale * LOG2E;
   const float* A = fs + (wg ? L::V : L::K) / 4;      // K (S^T) or V (dP^T), resident
   float* X = wg ? dts : pts;                          // this warpgroup's P^T or dS^T tile
+  Pair pr{};
+  if constexpr (CL > 1)
+    pr = pair_at(s_base + L::RX + wg * BK * BQ * 4, rx_full + 8 * wg, rx_free + 8 * wg);
+  const float4* rx = reinterpret_cast<const float4*>(smem + L::RX + wg * BK * BQ * 4);
+  const float* rx_delta = reinterpret_cast<const float*>(smem + L::RX_DELTA);
+  const uint32_t peer_delta = CL > 1 ? mapa(s_base + L::RX_DELTA, cluster_rank() ^ 1) : 0;
   float acc[R][4 * DH];                               // dV (warpgroup 0) or dK (1)
 #pragma unroll
   for (int i = 0; i < R; ++i)
@@ -269,7 +311,8 @@ flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int qp = q0 + BQ / 2 * wg + g + GS * u;
-      fma32::load_row<DH>(ov[u], qp < Sq ? o + (((size_t)b * Sq + qp) * H + h) * D : nullptr, x);
+      fma32::load_row<DH>(ov[u], qp < Sq ? o + (((size_t)b * Sq + qp) * H + h) * D + d0 : nullptr,
+                          x);
     }
     mbar_wait(bar_full(bar_kv, st), (it / STAGES) & 1);
     const float* Qt = fs + (L::RING + st * L::STAGE) / 4;
@@ -286,15 +329,36 @@ flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     if (threadIdx.x == PT) refill(issued, n, it, bar_kv, issue);   // if free by now
     __syncwarp();
 
-    // this warpgroup's half of the tile's delta = rowsum(dO * O) into the
-    // stage's row
-    float* rows = rows_s + st * BQ;
+    // S^T = S0^T + S1^T or dP^T = dP0^T + dP1^T over the pair's column
+    // halves: the partials leave first, then this warpgroup's half of the
+    // tile's delta = rowsum(dO * O) (at CL 2 the block's columns' partial,
+    // which follows them) is formed while they travel
+    float part[R * J];
+    if constexpr (CL > 1) {
+#pragma unroll
+      for (int e = 0; e < R * J; ++e) part[e] = s[e / J][e % J];
+      pair_send(pr, part, it, tid, BK * BQ * 4 + BQ / 2 * 4);
+    }
+    float d[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int r = BQ / 2 * wg + g + GS * u;
-      const float d = fma32::row_delta<DH>(dOt + r * 32, L::SLAB_Q / 4, ov[u], x, kg);
-      if (x == 0) rows[r] = d;
+      d[u] = fma32::row_delta<DH>(dOt + r * 32, L::SLAB_Q / 4, ov[u], x, kg);
+      if (CL > 1 && x == 0) pair_send_one(pr, peer_delta + 4 * r, d[u]);
     }
+    if constexpr (CL > 1) {
+      pair_add(pr, part, rx, it, tid);
+#pragma unroll
+      for (int u = 0; u < U; ++u) d[u] += rx_delta[BQ / 2 * wg + g + GS * u];
+      pair_release(pr);
+#pragma unroll
+      for (int e = 0; e < R * J; ++e) s[e / J][e % J] = part[e];
+    }
+    // into the stage's row
+    float* rows = rows_s + st * BQ;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (x == 0) rows[BQ / 2 * wg + g + GS * u] = d[u];
     if (wg == 0) {
       // P^T = exp(S^T * scale - lse), masks only on edge tiles, into the P^T
       // tile once warpgroup 1 read the last one
@@ -345,12 +409,15 @@ flash_dkv_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   for (int i = 0; i < R; ++i) {
     const int kp = k0 + g + GS * i;
     if (kp >= Sk) continue;
-    float* orow = out + (((size_t)b * Sk + kp) * KV + kvh) * D + 4 * x;
+    float* orow = out + (((size_t)b * Sk + kp) * KV + kvh) * D + d0 + 4 * x;
 #pragma unroll
     for (int hh = 0; hh < DH; ++hh)
       *reinterpret_cast<float4*>(orow + 64 * hh) =
           make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2], acc[i][4 * hh + 3]);
   }
+  // the peer may still arrive on this block's free barriers: neither block
+  // exits before both are done with the other's shared memory
+  if constexpr (CL > 1) cluster_sync();
 }
 
 }  // namespace dkv32
@@ -1001,11 +1068,11 @@ int launch_wgmma_pair(const void* q, const void* k, const void* v, const void* o
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-template <int D, int BK, int BQ>
+template <int D, int BK, int BQ, int CL>
 int launch_fma(const void* q, const void* k, const void* v, const void* o, const void* lse,
                const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
                int causal, int window, float scale, int out_f32, int smem, cudaStream_t stream) {
-  using L = dkv32::Layout<D, BK, BQ>;
+  using L = dkv32::Layout<D, BK, BQ, CL>;
   if (smem != L::bytes || !out_f32) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo;
   int err = flash::make_map(&tq, q, D, H, Sq, B, BQ, true);
@@ -1013,14 +1080,25 @@ int launch_fma(const void* q, const void* k, const void* v, const void* o, const
   if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, BK, true);
   if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, BK, true);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(dkv32::flash_dkv_fma<D, BK, BQ>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = dkv32::flash_dkv_fma<D, BK, BQ, CL>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(KV, B, (Sk + BK - 1) / BK);
-  dkv32::flash_dkv_fma<D, BK, BQ><<<grid, dkv32::THR, smem, stream>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(o), static_cast<const float*>(lse),
-      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, KV, causal, window, scale);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(KV, B, CL * ((Sk + BK - 1) / BK));
+  cfg.blockDim = dim3(dkv32::THR);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = CL;
+  cfg.attrs = &attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv, tdo, static_cast<const float*>(o),
+                         static_cast<const float*>(lse), static_cast<float*>(dk),
+                         static_cast<float*>(dv), Sq, Sk, H, KV, causal, window, scale);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1030,8 +1108,9 @@ int launch_fma(const void* q, const void* k, const void* v, const void* o, const
 // (block_k 64 or 128 keys a block), at D 256 flash_dkv_wgmma_pair (block_k
 // 64), at D 512 the same as a cluster of two blocks a key block (block_k 64);
 // fp32 the FMA kernel (block_k 64 keys at D 64 and 128 with 64-row tiles, 32
-// and 32 at D 256, 16 and 16 at D 512). smem: the plan's shared-memory bytes, checked
-// against the kernel's own layout.
+// and 32 at D 256, and at D 512 as a cluster of two blocks a key block).
+// smem: the plan's shared-memory bytes, checked against the kernel's own
+// layout.
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
@@ -1042,10 +1121,10 @@ extern "C" int flash_attention_bwd_dkv_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, dout, dk, dv, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
   if (f32) {
-    if (D == 512 && block_k == 16) return launch_fma<512, 16, 16>(ARGS);
-    if (D == 256 && block_k == 32) return launch_fma<256, 32, 32>(ARGS);
-    if (D == 128 && block_k == 64) return launch_fma<128, 64, 64>(ARGS);
-    if (D == 64 && block_k == 64) return launch_fma<64, 64, 64>(ARGS);
+    if (D == 512 && block_k == 32) return launch_fma<512, 32, 32, 2>(ARGS);
+    if (D == 256 && block_k == 32) return launch_fma<256, 32, 32, 1>(ARGS);
+    if (D == 128 && block_k == 64) return launch_fma<128, 64, 64, 1>(ARGS);
+    if (D == 64 && block_k == 64) return launch_fma<64, 64, 64, 1>(ARGS);
   } else {
     if (D == 512 && block_k == 64) return launch_wgmma_pair<512, 2>(ARGS);
     if (D == 256 && block_k == 64) return launch_wgmma_pair<256, 1>(ARGS);

@@ -69,12 +69,26 @@
 // dQ += dS K, K read from the ring again. Only edge tiles mask. Q, dO, two
 // stages and the dS tile fill the block: D 64 and 128 take 64 query rows and
 // 64-key tiles (214,056 bytes at D 128), D 256 32 rows and 32-key tiles
-// (201,768 bytes), D 512 16 rows and 16-key tiles (198,696 bytes). The TPU
-// kernel's rounding of ds to the operands' type is the identity in fp32. What bounds it on an H100 (a clock64-stamped scratch
+// (201,768 bytes). The TPU kernel's rounding of ds to the operands' type is
+// the identity in fp32. What bounds it on an H100 (a clock64-stamped scratch
 // copy, not committed): the two FMA loops take nearly all of a warp's
 // cycles, below the fp32 issue rate; 128 rows and 32-key tiles, a warpgroup
 // each for S and dP (8 x 4 scores a thread, dS handed between them) and that
 // split with one half of dQ a tile late all ran slower.
+//
+// Head width 512 (fp32): flash_dq_fma<512, 32, 32, 2>. Q and dO resident at
+// 512 columns would leave room for 16 rows and 16-key tiles only (a thread's
+// one score of S and of dP fed 2 FMAs a shared-memory load, where 32 x 32
+// feeds 4). So, as the bf16 pair, the width-256 kernel runs on each column
+// half as a cluster of two blocks a query tile (grid (H, B, 2 x query
+// tiles)): block c holds columns 256 c .. 256 c + 255 of Q, dO, K and V and
+// owns those of dQ; after each tile's S and dP (partial over its columns) all
+// 256 threads send their 8 fp32 partials to their twins by st.async (one
+// 8 KiB slot of 256 threads, its free barrier counting eight warps) and add
+// the twins', then mask, exponentiate and form dS as at width 256. delta is
+// read over all 512 columns of dO and O from device memory by both blocks
+// (the same bits in both) before the walk. 209,976 bytes; exactly the
+// bound's FLOPs (each score product once).
 
 #include "flash_common.cuh"
 
@@ -89,16 +103,20 @@ namespace dq32 {
 
 constexpr int THR = 256;
 
-// Shared memory of flash_dq_fma<D, BQ, BK>, in bytes from a 1024-aligned
-// base: the Q and dO tiles (D / 32 slabs of BQ rows of 32 fp32 columns each,
-// resident), STAGES ring stages (the K tile's D / 32 slabs of BK rows, then
-// the V tile's), the fp32 dS tile [BQ][BK], then the mbarriers: Q/dO,
-// full[STAGES], empty[STAGES]. `bytes` adds the slack for aligning the
-// dynamic base; ops/pallas_attention.py (_fma_bwd_bytes) sums the same and
-// the launcher checks it.
-template <int D, int BQ, int BK>
+// Shared memory of flash_dq_fma<D, BQ, BK, CL>, in bytes from a 1024-aligned
+// base: the Q and dO tiles (DL / 32 slabs of BQ rows of 32 fp32 columns
+// each, resident; DL = D / CL the block's columns), STAGES ring stages (the
+// K tile's DL / 32 slabs of BK rows, then the V tile's), the fp32 dS tile
+// [BQ][BK], at CL 2 the receive slot of the peer's partial S and dP
+// ([2][THR] float4: the block's 256 threads, 8 partials each), then the
+// mbarriers: Q/dO, full[STAGES], empty[STAGES], and at CL 2 the slot's full
+// and free. `bytes` adds the slack for aligning the dynamic base;
+// ops/pallas_attention.py (_fma_bwd_bytes) sums the same and the launcher
+// checks it.
+template <int D, int BQ, int BK, int CL>
 struct Layout {
-  static constexpr int NS = D / 32;
+  static constexpr int DL = D / CL;
+  static constexpr int NS = DL / 32;
   static constexpr int SLAB_Q = BQ * 128;
   static constexpr int SLAB_K = BK * 128;
   static constexpr int STAGE = 2 * NS * SLAB_K;
@@ -106,39 +124,56 @@ struct Layout {
   static constexpr int DO = Q + NS * SLAB_Q;
   static constexpr int KV = DO + NS * SLAB_Q;
   static constexpr int DS = KV + flash::STAGES * STAGE;
-  static constexpr int BAR = DS + BQ * BK * 4;
-  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
+  static constexpr int RX = DS + BQ * BK * 4;
+  static constexpr int BAR = RX + (CL > 1 ? 2 * BQ * BK * 4 : 0);
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES) + (CL > 1 ? 16 : 0);
   static_assert(bytes <= 232448, "the layout must fit a block's shared memory");
+  static_assert(CL == 1 || (DL == 256 && BQ * BK == 4 * THR), "a pair swaps 8 partials a thread");
 };
 
 // One block per (head, batch row, query tile of BQ rows), heaviest causal
 // tiles first; thread (g, x) holds S and dP of rows g + 16 i and keys
-// x + 16 j (R x J) and dQ of the same rows (R x 4 DH).
-template <int D, int BQ, int BK>
+// x + 16 j (R x J) and dQ of the same rows (R x 4 DH). CL 2 (head width
+// 512): block c of a cluster of two holds columns c DL .. of Q, dO, K and V
+// and owns those of dQ; both walk the same query tile and key tiles, and
+// after each tile's S and dP (partial over DL columns) all 256 threads swap
+// them with their twins in the other block (the pair pieces of
+// flash_common.cuh, one slot of THR threads) before p and dS. delta is read
+// over all D columns from device memory by both blocks: the same bits.
+template <int D, int BQ, int BK, int CL>
 __global__ void __launch_bounds__(THR, 1)
 flash_dq_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-             const float* __restrict__ o, const float* __restrict__ lse, float* __restrict__ dq,
-             int Sq, int Sk, int H, int KV, int causal, int window, float scale) {
+             const float* __restrict__ o, const float* __restrict__ dout,
+             const float* __restrict__ lse, float* __restrict__ dq, int Sq, int Sk, int H, int KV,
+             int causal, int window, float scale) {
   using namespace flash;
-  using L = Layout<D, BQ, BK>;
+  using L = Layout<D, BQ, BK, CL>;
   constexpr int NS = L::NS;
   constexpr int R = BQ / 16;      // rows a thread
   constexpr int J = BK / 16;      // keys a thread of each score tile
-  constexpr int DH = D / 64;      // 4-column groups of dQ a thread
+  constexpr int DH = L::DL / 64;  // 4-column groups of dQ a thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const float* fs = reinterpret_cast<const float*>(smem);
   float* dss = reinterpret_cast<float*>(smem + L::DS);
   const uint32_t s_base = smem_u32(smem);
   const uint32_t bar_q = s_base + L::BAR;
+  const uint32_t rx_full = bar_q + 8 * (1 + 2 * STAGES), rx_free = rx_full + 8;
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // heaviest causal tiles first
+  // heaviest causal tiles first; a pair's two blocks take one query tile
+  const int q0 = (gridDim.z / CL - 1 - blockIdx.z / CL) * BQ;
   const int q1 = min(q0 + BQ - 1, Sq - 1);
+  const int d0 = CL > 1 ? (int)cluster_rank() * L::DL : 0;   // the block's columns
   const int kvh = h / (H / KV);
   const KeyTiles kt = key_tiles<BK>(q0, BQ, Sq, Sk, causal, window);
+  if (CL > 1 && threadIdx.x == 0) {
+    mbar_init(rx_full, 1);
+    mbar_init(rx_free, THR / 32);
+  }
   init_barriers(bar_q, THR / 32);                      // empty: one arrival a warp
+  if constexpr (CL > 1) cluster_sync();   // both blocks' barriers exist before a remote store
 
   int issued = 0;
   auto issue = [&](int j, int sj) {
@@ -146,15 +181,15 @@ flash_dq_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     const uint32_t dst = s_base + L::KV + sj * L::STAGE;
     mbar_expect_tx(bar_full(bar_q, sj), L::STAGE);
     for (int s = 0; s < NS; ++s) {
-      tma_load(dst + s * L::SLAB_K, &tk, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
-      tma_load(dst + (NS + s) * L::SLAB_K, &tv, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
+      tma_load(dst + s * L::SLAB_K, &tk, d0 + 32 * s, kvh, k0, b, bar_full(bar_q, sj));
+      tma_load(dst + (NS + s) * L::SLAB_K, &tv, d0 + 32 * s, kvh, k0, b, bar_full(bar_q, sj));
     }
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar_q, 2 * NS * L::SLAB_Q);
     for (int s = 0; s < NS; ++s) {
-      tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 32 * s, h, q0, b, bar_q);
-      tma_load(s_base + L::DO + s * L::SLAB_Q, &tdo, 32 * s, h, q0, b, bar_q);
+      tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, d0 + 32 * s, h, q0, b, bar_q);
+      tma_load(s_base + L::DO + s * L::SLAB_Q, &tdo, d0 + 32 * s, h, q0, b, bar_q);
     }
     refill(issued, kt.count, 0, bar_q, issue);
   }
@@ -164,18 +199,30 @@ flash_dq_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   const int kg = g & 7;
   const float sl2 = scale * LOG2E;
 
-  // delta = rowsum(dO * O) and lse * log2(e) of rows g + 16 i, once
-  mbar_wait(bar_q, 0);
+  // delta = rowsum(dO * O) and lse * log2(e) of rows g + 16 i, once: from
+  // the resident dO, or at CL 2 over all D columns from device memory
+  if constexpr (CL == 1) mbar_wait(bar_q, 0);
   float delta[R], lse2[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int row = q0 + g + 16 * i;
-    float4 ov[DH];
-    fma32::load_row<DH>(ov, row < Sq ? o + (((size_t)b * Sq + row) * H + h) * D : nullptr, x);
-    delta[i] = fma32::row_delta<DH>(fs + L::DO / 4 + (g + 16 * i) * 32, L::SLAB_Q / 4, ov, x, kg);
+    const size_t off = (((size_t)b * Sq + row) * H + h) * D;
+    if constexpr (CL > 1) {
+      delta[i] = fma32::row_delta_global<D / 64>(row < Sq ? dout + off : nullptr,
+                                                 row < Sq ? o + off : nullptr, x);
+    } else {
+      float4 ov[DH];
+      fma32::load_row<DH>(ov, row < Sq ? o + off : nullptr, x);
+      delta[i] = fma32::row_delta<DH>(fs + L::DO / 4 + (g + 16 * i) * 32, L::SLAB_Q / 4, ov, x, kg);
+    }
     // a row past Sq, or one that sees no key (lse +inf), gives p = 0
     lse2[i] = row < Sq ? lse[((size_t)b * H + h) * Sq + row] * LOG2E : INFINITY;
   }
+  if constexpr (CL > 1) mbar_wait(bar_q, 0);
+
+  Pair pr{};
+  if constexpr (CL > 1) pr = pair_at(s_base + L::RX, rx_full, rx_free);
+  const float4* rx = reinterpret_cast<const float4*>(smem + L::RX);
 
   float acc[R][4 * DH];           // dQ
 #pragma unroll
@@ -204,6 +251,17 @@ flash_dq_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
                                      L::SLAB_K / 4, g, x);
     if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);   // if free by now
     __syncwarp();
+    if constexpr (CL > 1) {
+      // S = S0 + S1 and dP = dP0 + dP1 over the pair's column halves
+      float part[2 * R * J];
+#pragma unroll
+      for (int e = 0; e < 2 * R * J; ++e) part[e] = sd[e / (R * J)][e / J % R][e % J];
+      pair_send<2 * R * J, THR>(pr, part, it, threadIdx.x, 2 * BQ * BK * 4);
+      pair_add<2 * R * J, THR>(pr, part, rx, it, threadIdx.x);
+      pair_release(pr);
+#pragma unroll
+      for (int e = 0; e < 2 * R * J; ++e) sd[e / (R * J)][e / J % R][e % J] = part[e];
+    }
 
     // dS = P (dP - delta) * scale, P = exp(S * scale - lse); masks only on
     // edge tiles (masked scores and rows with lse = +inf give p = 0)
@@ -230,12 +288,15 @@ flash_dq_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   for (int i = 0; i < R; ++i) {
     const int row = q0 + g + 16 * i;
     if (row >= Sq) continue;
-    float* drow = dq + (((size_t)b * Sq + row) * H + h) * D;
+    float* drow = dq + (((size_t)b * Sq + row) * H + h) * D + d0;
 #pragma unroll
     for (int hh = 0; hh < DH; ++hh)
       *reinterpret_cast<float4*>(drow + 4 * x + 64 * hh) =
           make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2], acc[i][4 * hh + 3]);
   }
+  // the peer may still arrive on this block's free barrier: neither block
+  // exits before both are done with the other's shared memory
+  if constexpr (CL > 1) cluster_sync();
 }
 
 }  // namespace dq32
@@ -492,11 +553,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-template <int D, int BQ, int BK>
+template <int D, int BQ, int BK, int CL>
 int launch_fma(const void* q, const void* k, const void* v, const void* o, const void* lse,
                const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int causal,
                int window, float scale, int out_f32, int smem, cudaStream_t stream) {
-  using L = dq32::Layout<D, BQ, BK>;
+  using L = dq32::Layout<D, BQ, BK, CL>;
   if (smem != L::bytes || !out_f32) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo;
   int err = flash::make_map(&tq, q, D, H, Sq, B, BQ, true);
@@ -504,24 +565,35 @@ int launch_fma(const void* q, const void* k, const void* v, const void* o, const
   if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, BK, true);
   if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, BK, true);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(dq32::flash_dq_fma<D, BQ, BK>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = dq32::flash_dq_fma<D, BQ, BK, CL>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  dq32::flash_dq_fma<D, BQ, BK><<<grid, dq32::THR, smem, stream>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(o), static_cast<const float*>(lse),
-      static_cast<float*>(dq), Sq, Sk, H, KV, causal, window, scale);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, B, CL * ((Sq + BQ - 1) / BQ));
+  cfg.blockDim = dim3(dq32::THR);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = CL;
+  cfg.attrs = &attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv, tdo, static_cast<const float*>(o),
+                         static_cast<const float*>(dout), static_cast<const float*>(lse),
+                         static_cast<float*>(dq), Sq, Sk, H, KV, causal, window, scale);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // f32: 0 for bf16 operands, 1 for fp32. bf16 takes the tensor-core kernel:
-// block_q 64 or 128 at D 64 and 128, 64 at D 256 and 512 (at 512 a cluster
-// of two blocks a query tile, each owning half of dQ); fp32 the FMA kernel: block_q 64 at D 64 and 128
-// (64-key tiles), 32 at D 256 (32-key tiles), 16 at D 512 (16-key tiles),
-// dq in fp32. smem: the plan's shared-memory bytes, checked against the
-// kernel's own layout.
+// block_q 64 or 128 at D 64 and 128, 64 at D 256 and 512; fp32 the FMA
+// kernel: block_q 64 at D 64 and 128 (64-key tiles), 32 at D 256 and 512
+// (32-key tiles), dq in fp32. At D 512 both routes launch a cluster of two
+// blocks a query tile, each owning half of dQ. smem: the plan's
+// shared-memory bytes, checked against the kernel's own layout.
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dq, int B, int Sq, int Sk, int H, int KV, int D,
@@ -532,10 +604,10 @@ extern "C" int flash_attention_bwd_dq_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, dout, dq, B, Sq, Sk, H, KV, causal, window, scale, out_f32, smem, s
   if (f32) {
-    if (D == 512 && block_q == 16) return launch_fma<512, 16, 16>(ARGS);
-    if (D == 256 && block_q == 32) return launch_fma<256, 32, 32>(ARGS);
-    if (D == 128 && block_q == 64) return launch_fma<128, 64, 64>(ARGS);
-    if (D == 64 && block_q == 64) return launch_fma<64, 64, 64>(ARGS);
+    if (D == 512 && block_q == 32) return launch_fma<512, 32, 32, 2>(ARGS);
+    if (D == 256 && block_q == 32) return launch_fma<256, 32, 32, 1>(ARGS);
+    if (D == 128 && block_q == 64) return launch_fma<128, 64, 64, 1>(ARGS);
+    if (D == 64 && block_q == 64) return launch_fma<64, 64, 64, 1>(ARGS);
   } else {
     if (D == 512 && block_q == 64) return launch_wgmma<512, 1, 2>(ARGS);
     if (D == 256 && block_q == 64) return launch_wgmma<256, 1, 1>(ARGS);

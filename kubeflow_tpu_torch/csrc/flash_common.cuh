@@ -18,7 +18,8 @@
 // product is computed once. fp32 operands take the FMA
 // kernels (flash_fwd_fma, flash_dq_fma, flash_dkv_fma): the same walks with
 // register-tiled fp32 FMA products (the fma32 pieces below) fed by the same
-// kind of TMA ring, thread 0 issuing the copies between its own products.
+// kind of TMA ring, thread 0 issuing the copies between its own products;
+// at width 512 fp32 dq and dk/dv are pairs of width-256 blocks too.
 //
 // The generic Hopper pieces (mbarriers, TMA, descriptors, wgmma wrappers,
 // the tensor-map encoder) live in hopper_common.cuh; here are the
@@ -196,40 +197,41 @@ __device__ __forceinline__ void refill(int& issued, int count, int must, uint32_
   }
 }
 
-// ---- the pair: dq and dk/dv at head width 512 (bf16)
+// ---- the pair: dq and dk/dv at head width 512
 //
 // Block c = 0, 1 of a cluster of two holds columns c DL .. c DL + DL - 1
 // (DL = 256) of every operand it reads and runs the width-256 kernel's tiles
 // on them, so its score products are partial sums over its columns. After
-// each tile's products a warpgroup swaps its fp32 partials with its twin in
-// the other block (the same threadIdx there holds the same elements) and
-// adds them: fp32 addition commutes, so both blocks hold the same bits of
-// S0 + S1, and masking, exp and dS follow the sum. A receive slot holds
-// float4s, thread tid's j-th at j * 128 + tid. Two mbarriers guard it:
-// `full` in the receiver (armed with the bytes by one of its threads,
-// counted down by the sender's st.async) and `free` in the sender (one
-// arrival from each of the receiver's four warps once they read the slot,
-// through mbar_arrive_remote). Both blocks of a pair walk the same tiles, so
-// they swap the same number of times.
+// each tile's products a slot's threads (a warpgroup of the bf16 kernels and
+// of the fp32 dk/dv, all 256 of the fp32 dq) swap their fp32 partials with
+// their twins in the other block (the same threadIdx there holds the same
+// elements) and add them: fp32 addition commutes, so both blocks hold the
+// same bits of S0 + S1, and masking, exp and dS follow the sum. A receive
+// slot of T threads holds float4s, thread tid's j-th at j * T + tid. Two
+// mbarriers guard it: `full` in the receiver (armed with the bytes by one of
+// its threads, counted down by the sender's st.async) and `free` in the
+// sender (one arrival from each of the receiver's T / 32 warps once they
+// read the slot, through mbar_arrive_remote). Both blocks of a pair walk the
+// same tiles, so they swap the same number of times.
 struct Pair {
   uint32_t full, free;              // this block's barriers
   uint32_t peer_rx, peer_full;      // the peer's slot and full barrier (shared::cluster)
   uint32_t peer_free;               // the peer's free barrier (shared::cluster)
 };
 
-// A warpgroup's side of a pair: rx, full and free are this block's
-// shared-memory addresses of the warpgroup's slot and barriers; the peer's
-// are the same addresses in the other block.
+// One side of a pair (a warpgroup's, or the whole block's for the fp32 dq):
+// rx, full and free are this block's shared-memory addresses of that side's
+// slot and barriers; the peer's are the same addresses in the other block.
 __device__ __forceinline__ Pair pair_at(uint32_t rx, uint32_t full, uint32_t free) {
   const uint32_t peer = cluster_rank() ^ 1;
   return {full, free, mapa(rx, peer), mapa(full, peer), mapa(free, peer)};
 }
 
 // Step 1 of swap number seq (at = 0): once the peer has read the last one,
-// arm this block's full barrier with the bytes the peer sends (the
-// warpgroup's thread tid 0) and send this thread's N partials to the peer's
-// slot, float4 `at` on. A later call with at > 0 sends more of the same swap.
-template <int N>
+// arm this block's full barrier with the bytes the peer sends (the slot's
+// thread tid 0) and send this thread's N partials to the peer's slot, float4
+// `at` on. A later call with at > 0 sends more of the same swap.
+template <int N, int T = 128>
 __device__ __forceinline__ void pair_send(const Pair& pr, const float (&x)[N], int seq, int tid,
                                           int bytes, int at = 0) {
   static_assert(N % 4 == 0, "partials go by float4");
@@ -240,20 +242,26 @@ __device__ __forceinline__ void pair_send(const Pair& pr, const float (&x)[N], i
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
     const float4 v = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
-    st_async_u4(pr.peer_rx + ((at + j) * 128 + tid) * 16, *reinterpret_cast<const uint4*>(&v),
+    st_async_u4(pr.peer_rx + ((at + j) * T + tid) * 16, *reinterpret_cast<const uint4*>(&v),
                 pr.peer_full);
   }
 }
 
+// Step 1b: one float more of the swap step 1 began (its bytes counted
+// there), to the peer's shared::cluster address peer_at.
+__device__ __forceinline__ void pair_send_one(const Pair& pr, uint32_t peer_at, float v) {
+  st_async_b32(peer_at, __float_as_uint(v), pr.peer_full);
+}
+
 // Step 2: wait for the peer's partials of swap seq (at = 0) and add those
 // of this block's slot rx, float4 `at` on, to this thread's.
-template <int N>
+template <int N, int T = 128>
 __device__ __forceinline__ void pair_add(const Pair& pr, float (&x)[N], const float4* rx, int seq,
                                          int tid, int at = 0) {
   if (at == 0) mbar_wait(pr.full, seq & 1);
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
-    const float4 r = rx[(at + j) * 128 + tid];
+    const float4 r = rx[(at + j) * T + tid];
     x[4 * j] += r.x;
     x[4 * j + 1] += r.y;
     x[4 * j + 2] += r.z;
@@ -417,6 +425,28 @@ __device__ __forceinline__ float row_delta(const float* dO, int slab, const floa
     sum = fmaf(d.y, ov[h].y, sum);
     sum = fmaf(d.z, ov[h].z, sum);
     sum = fmaf(d.w, ov[h].w, sum);
+  }
+#pragma unroll
+  for (int off = 1; off < 16; off *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  return sum;
+}
+
+// delta = rowsum(dO . O) of a row read whole from device memory (its D =
+// 64 DH floats at d and at o; nullptr past Sq gives 0), over the 16 lanes of
+// its group, the same sum in both blocks of a pair. Both half warps call it
+// together.
+template <int DH>
+__device__ __forceinline__ float row_delta_global(const float* d, const float* o, int x) {
+  float4 dv[DH], ov[DH];
+  load_row<DH>(dv, d, x);
+  load_row<DH>(ov, o, x);
+  float sum = 0.f;
+#pragma unroll
+  for (int h = 0; h < DH; ++h) {
+    sum = fmaf(dv[h].x, ov[h].x, sum);
+    sum = fmaf(dv[h].y, ov[h].y, sum);
+    sum = fmaf(dv[h].z, ov[h].z, sum);
+    sum = fmaf(dv[h].w, ov[h].w, sum);
   }
 #pragma unroll
   for (int off = 1; off < 16; off *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);

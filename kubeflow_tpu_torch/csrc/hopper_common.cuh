@@ -141,6 +141,12 @@ __device__ __forceinline__ void st_async_u4(uint32_t addr, uint4 v, uint32_t bar
       :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar) : "memory");
 }
 
+// The same for 4 bytes.
+__device__ __forceinline__ void st_async_b32(uint32_t addr, uint32_t v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               :: "r"(addr), "r"(v), "r"(bar) : "memory");
+}
+
 // An arrival on the mbarrier at shared::cluster address bar (another
 // block's, from mapa), releasing this thread's earlier accesses at cluster
 // scope: the receiver of a slot tells its sender that it read it.

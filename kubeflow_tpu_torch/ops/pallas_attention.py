@@ -39,9 +39,11 @@ Two routes, chosen by :func:`_plan` from the operands' dtype and width:
   the bf16 width-256 kernel's (one S^T, P^T and dV, the other dP^T, dS^T
   and dK, P^T handed over through shared memory), a thread 8 x 4 scores and
   8 x 8 of its accumulator at width 128; both take 32 and 32 at width 256
-  (:func:`_fma_bwd_tiles`, :func:`_fma_bwd_bytes`). dk/dv reads O from
-  device memory for delta, which its warpgroups share through shared
-  memory. The TPU kernels' rounding points are the identity in fp32.
+  (:func:`_fma_bwd_tiles`, :func:`_fma_bwd_bytes`), and at 512 run those
+  width-256 kernels on the two column halves as a cluster of two blocks,
+  as the bf16 pairs below do. dk/dv reads O from device memory for delta,
+  which its warpgroups share through shared memory. The TPU kernels'
+  rounding points are the identity in fp32.
 
 The kernels are compiled for head widths 64, 128, 256 and 512. bf16 takes
 the tensor cores in all three kernels at every width. At 256
@@ -63,9 +65,11 @@ them and swaps them with the other block through distributed shared
 memory, so every score product is computed once; dk/dv keeps one O tile,
 loaded one ring item ahead, and swaps its partial delta too
 (:func:`_pair_reference` is their order of operations in plain PyTorch).
-fp32 takes the FMA kernels at every width
-(at 512 the forward 32 rows and 16-key tiles, dq and dk/dv 16 and 16). Any
-head size D up to 512 runs on
+fp32 takes the FMA kernels at every width (at 512 the forward 32 rows and
+16-key tiles; dq and dk/dv the same pairs of width-256 blocks, 32 and 32
+a block, each block's 256 threads swapping 8 partials, dk/dv's partial
+delta too, dq's delta read over every column by both). Any head size D up
+to 512 runs on
 them: :func:`_pad_heads` zero-pads the head axis to the next width and
 launches with the true ``D ** -0.5`` as the
 softmax scale, so the scores, the softmax and delta = rowsum(dO·O) are the
@@ -274,9 +278,10 @@ def _fma_fwd_bytes(width: int) -> int:
 def _fma_bwd_tiles(kernel: str, width: int) -> tuple[int, int]:
     """The fp32 backward ``kernel``'s tiles at head width ``width``: dq's
     (query rows a block, keys a streamed tile), dk/dv's (keys a block, query
-    rows a streamed tile); 64 and 64 up to 128, 32 and 32 at 256, 16 and 16
-    from 512 on."""
-    return (64, 64) if width <= 128 else (32, 32) if width <= 256 else (16, 16)
+    rows a streamed tile); 64 and 64 up to 128, 32 and 32 from 256 on (at
+    the widths of ``_PAIR_D`` a block of the pair's, over its half of the
+    columns)."""
+    return (64, 64) if width <= 128 else (32, 32)
 
 
 def _fma_bwd_bytes(kernel: str, width: int) -> int:
@@ -288,22 +293,30 @@ def _fma_bwd_bytes(kernel: str, width: int) -> int:
     and dO), the fp32 tiles rows pass through [block, tile] (dq's dS, dk/dv's
     P^T and dS^T) and dk/dv's delta row of each stage, and the mbarriers
     (the resident tiles', full and empty a stage, dk/dv's P^T full and
-    empty)."""
+    empty). From ``_PAIR_D`` on (the refusal sums wider ones) a block of the
+    pair holds its half of the columns (in 32-column slabs, rounded up) and
+    the receive slots of the other block's partials: dq's S and dP [block,
+    tile] and their two mbarriers; dk/dv's S^T and dP^T [block, tile], its
+    partial delta row and each warpgroup's two mbarriers."""
     block, tile = _fma_bwd_tiles(kernel, width)
-    resident = 2 * 4 * block * width
-    ring = _STAGES * 2 * 4 * tile * width
+    pair = width >= _PAIR_D[0]
+    cols = -(-width // _PAIR_CLUSTER // 32) * 32 if pair else width
+    resident = 2 * 4 * block * cols
+    ring = _STAGES * 2 * 4 * tile * cols
     if kernel == "dq":
-        return 1024 + resident + ring + 4 * block * tile + 8 * (1 + 2 * _STAGES)
+        rx = 2 * 4 * block * tile + 8 * 2 if pair else 0
+        return 1024 + resident + ring + 4 * block * tile + 8 * (1 + 2 * _STAGES) + rx
     exchange = 2 * 4 * block * tile
     rows = _STAGES * 4 * tile
-    return 1024 + resident + ring + exchange + rows + 8 * (1 + 2 * _STAGES + 2)
+    rx = 2 * 4 * block * tile + 4 * tile + 8 * 4 if pair else 0
+    return 1024 + resident + ring + exchange + rows + 8 * (1 + 2 * _STAGES + 2) + rx
 
 
 def _wide_head_refusal(D: int) -> str:
     """Why D above 512 is refused: the width-512 designs at D padded to 64
     columns, in shared-memory bytes (:func:`_wgmma_sums`, and the fp32
     kernels' :func:`_fma_fwd_bytes` and :func:`_fma_bwd_bytes` at their
-    smallest tiles) and in the columns and registers a warpgroup would own."""
+    width-512 tiles) and in the columns and registers a warpgroup would own."""
     width = -(-D // 64) * 64
     bf16 = "; ".join(f"{name} {_wgmma_sums(k, 64, width)[0]:,}"
                      for name, k in (("forward", "fwd"), ("dq", "dq"), ("dk/dv", "dkv")))
@@ -311,7 +324,7 @@ def _wide_head_refusal(D: int) -> str:
             f"dk/dv {_fma_bwd_bytes('dkv', width):,}")
     return (f"flash kernels take head_dim up to {_KERNEL_D[-1]} (zero-padded to 64, 128, 256 "
             f"or 512), got {D}. At width {width} the width-512 designs would need shared "
-            f"memory bytes a block of: bf16 {bf16}; fp32 (its smallest tiles) {fp32}; the card "
+            f"memory bytes a block of: bf16 {bf16}; fp32 (its width-512 tiles) {fp32}; the card "
             f"gives a block {SMEM_LIMIT:,} bytes. Each of the forward's two warpgroups that "
             f"split O, and each of the two blocks of a cluster that split dQ, dK and dV, would "
             f"own {width // 2} columns ({width // 4} fp32 accumulator registers a thread), more "
@@ -349,7 +362,8 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     takes the FMA route, 256 threads; the forward a grid of (H, B, query
     tiles), the tiles of :func:`_fma_fwd_tiles` and the bytes of
     :func:`_fma_fwd_bytes`; dq and dk/dv the bf16 route's grids, the tiles
-    of :func:`_fma_bwd_tiles` and the bytes of :func:`_fma_bwd_bytes`.
+    of :func:`_fma_bwd_tiles` and the bytes of :func:`_fma_bwd_bytes`, at
+    ``_PAIR_D`` the same clusters of ``_PAIR_CLUSTER`` blocks.
     """
     width = _kernel_width(D)
     if dtype not in (torch.bfloat16, torch.float32):
@@ -372,8 +386,9 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
         return Plan("fma", rows, (H, B, -(-Sq // rows)), _FMA_THREADS, _fma_fwd_bytes(width),
                     width)
     block, _ = _fma_bwd_tiles(kernel, width)
-    grid = (KV, B, -(-Sk // block)) if kernel == "dkv" else (H, B, -(-Sq // block))
-    return Plan("fma", block, grid, _FMA_THREADS, _fma_bwd_bytes(kernel, width), width)
+    grid = ((KV, B, cluster * -(-Sk // block)) if kernel == "dkv" else
+            (H, B, cluster * -(-Sq // block)))
+    return Plan("fma", block, grid, _FMA_THREADS, _fma_bwd_bytes(kernel, width), width, cluster)
 
 
 def _pad_heads(inner, heads, width: int):
@@ -544,9 +559,9 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal=True, window=N
 
 def _pair_reference(q, k, v, o, lse, do, *, causal=True, window=None, grad_dtype=None,
                     scale=None):
-    """The order of operations of the bf16 dq and dk/dv kernels at the
-    widths of ``_PAIR_D``, in plain PyTorch: (dq, dk, dv), a witness for
-    their checks on the card.
+    """The order of operations of the dq and dk/dv kernels of both routes
+    (bf16 and fp32) at the widths of ``_PAIR_D``, in plain PyTorch: (dq,
+    dk, dv), a witness for their checks on the card.
 
     The two blocks of a cluster hold the head's first ``_PAIR_COLS``
     columns and the rest (zero-padded columns add nothing), so S and dP

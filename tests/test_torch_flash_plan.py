@@ -25,7 +25,7 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     B, Sq, Sk, H, KV = shape
     plan = pa._plan(kernel, B, Sq, Sk, H, KV, D, dtype)
     assert 0 < plan.smem_bytes <= pa.SMEM_LIMIT and plan.width == D
-    assert plan.cluster == 1 or (dtype == torch.bfloat16 and D == 512)
+    assert plan.cluster == (2 if D == 512 and kernel != "fwd" else 1)
     if dtype == torch.bfloat16 and D == 512:
         # width 512: 256 threads; the forward 64-row tiles, two warpgroups
         # each owning half of O's columns; dq (64 query rows) and dk/dv (64
@@ -62,11 +62,13 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     else:
         # fp32 dq and dk/dv: register-tiled FMAs, 256 threads, the bf16
         # route's grids; dq 64 query rows (64-key tiles), dk/dv 64 keys
-        # (64-row tiles) up to width 128, 32 and 32 at 256, 16 and 16 at
-        # 512, at every shape
-        block = {256: 32, 512: 16}.get(D, 64)
+        # (64-row tiles) up to width 128, 32 and 32 from 256 on, at every
+        # shape; at 512 the width-256 kernels on each column half, a cluster
+        # of two blocks along the grid's last axis
+        block = 64 if D <= 128 else 32
         assert (plan.route, plan.block, plan.threads) == ("fma", block, 256)
-        assert plan.grid == ((KV, B, Sk // block) if kernel == "dkv" else (H, B, Sq // block))
+        assert plan.grid == ((KV, B, plan.cluster * Sk // block) if kernel == "dkv" else
+                             (H, B, plan.cluster * Sq // block))
         assert plan.smem_bytes == pa._fma_bwd_bytes(kernel, D)
 
 
@@ -134,13 +136,20 @@ def test_plan_shared_memory_bytes_at_d256(kernel, shape, want):
     # columns + P [32, 16]
     ("fwd", torch.float32, dict(q=16 * 32 * 128, ring=2 * 2 * 16 * 16 * 128, p=32 * 16 * 4,
                                 barriers=8 * 5)),
-    # fp32 dq: Q and dO of 16 rows + 2 x (K, V) of 16 keys + dS [16, 16]
-    ("dq", torch.float32, dict(q_do=2 * 16 * 16 * 128, ring=2 * 2 * 16 * 16 * 128,
-                               ds=16 * 16 * 4, barriers=8 * 5)),
-    # fp32 dk/dv: K and V of 16 keys + 2 x (Q, dO) of 16 rows + P^T and dS^T
-    # [16, 16] + a delta row a stage + seven barriers
-    ("dkv", torch.float32, dict(kv=2 * 16 * 16 * 128, ring=2 * 2 * 16 * 16 * 128,
-                                exchange=2 * 16 * 16 * 4, delta=2 * 16 * 4, barriers=8 * 7)),
+    # fp32 dq, a block of the pair, its 256 columns (eight 32-column slabs):
+    # Q and dO of 32 rows + 2 x (K, V) of 32 keys + dS [32, 32] + the
+    # receive slot of the other block's S and dP (256 threads, 8 fp32 each)
+    # + five barriers and the slot's two
+    ("dq", torch.float32, dict(q_do=2 * 8 * 32 * 128, ring=2 * 2 * 8 * 32 * 128,
+                               ds=32 * 32 * 4, rx=256 * 8 * 4, barriers=8 * 5 + 8 * 2)),
+    # fp32 dk/dv, a block of the pair: K and V of 32 keys + 2 x (Q, dO) of
+    # 32 rows + P^T and dS^T [32, 32] + a delta row a stage + each
+    # warpgroup's receive slot of the other block's S^T or dP^T (128
+    # threads, 8 fp32 each) and its partial delta row + seven barriers and
+    # each warpgroup's two
+    ("dkv", torch.float32, dict(kv=2 * 8 * 32 * 128, ring=2 * 2 * 8 * 32 * 128,
+                                exchange=2 * 32 * 32 * 4, delta=2 * 32 * 4,
+                                rx=2 * 128 * 8 * 4 + 32 * 4, barriers=8 * 7 + 8 * 4)),
 ])
 def test_plan_shared_memory_bytes_at_d512(kernel, dtype, parts):
     want = 1024 + sum(parts.values())
@@ -183,7 +192,8 @@ def test_plan_ragged_and_small_grids():
     assert pa._plan("dkv", 3, 200, 200, 4, 2, 512, torch.bfloat16).grid == (2, 3, 8)
     assert pa._plan("dq", 3, 200, 200, 4, 2, 512, torch.bfloat16).grid == (4, 3, 8)
     assert pa._plan("dq", 3, 200, 200, 4, 2, 300, torch.bfloat16).cluster == 2
-    assert pa._plan("dkv", 3, 200, 200, 4, 2, 300, torch.float32).grid == (2, 3, 13)
+    # the fp32 pair too: two blocks for each of 7 blocks of 32 keys
+    assert pa._plan("dkv", 3, 200, 200, 4, 2, 300, torch.float32).grid == (2, 3, 14)
 
 
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
@@ -261,20 +271,29 @@ def test_fma_backward_layout_fits_the_block(kernel, width):
     ``Layout`` in ``csrc/flash_attention_bwd_{dq,dkv}.cu`` lays it out: the
     resident tiles, two ring stages, the exchange tiles (dq's dS; dk/dv's
     P^T and dS^T, which its two warpgroups hand over), dk/dv's delta row a
-    stage, the barriers and the alignment slack. It fits the block at every
-    width; the block is a multiple of 16 rows (dq's thread holds rows
-    g + 16 i, dk/dv's keys g + 8 i of its warpgroup's 8 row groups) and the
-    streamed tile 64, 32 or 16 rows (a row of an exchange tile is 4, 2 or
-    1 positions a lane)."""
+    stage, the barriers and the alignment slack; at width 512 a block of
+    the pair, over its 256 columns, with the receive slots of the other
+    block's partials (dq's S and dP, dk/dv's S^T, dP^T and partial delta)
+    and their barriers. It fits the block at every width; the block is a
+    multiple of 16 rows (dq's thread holds rows g + 16 i, dk/dv's keys
+    g + 8 i of its warpgroup's 8 row groups) and the streamed tile 64 or
+    32 rows (a row of an exchange tile is 4 or 2 positions a lane)."""
     block, tile = pa._fma_bwd_tiles(kernel, width)
-    assert block % 16 == 0 and tile in (64, 32, 16)
+    assert block % 16 == 0 and tile in (64, 32)
+    pair = width == 512
+    cols = width // 2 if pair else width        # a block's columns
     slab = 128                                  # bytes of a 32-column fp32 row
-    resident = 2 * (width // 32) * block * slab
-    stage = 2 * (width // 32) * tile * slab
+    resident = 2 * (cols // 32) * block * slab
+    stage = 2 * (cols // 32) * tile * slab
     exchange = (2 if kernel == "dkv" else 1) * 4 * block * tile
     rows = 2 * 4 * tile if kernel == "dkv" else 0
     bars = 8 * (1 + 2 * 2 + (2 if kernel == "dkv" else 0))
-    want = 1024 + resident + 2 * stage + exchange + rows + bars
+    # the pair's receive slots: 8 partials a thread of its slot's threads
+    # (dq's 256, each dk/dv warpgroup's 128), dk/dv's partial delta row, and
+    # each slot's full and free barriers
+    rx = 0 if not pair else (256 * 8 * 4 + 8 * 2 if kernel == "dq" else
+                             2 * 128 * 8 * 4 + 4 * tile + 2 * 8 * 2)
+    want = 1024 + resident + 2 * stage + exchange + rows + bars + rx
     assert pa._fma_bwd_bytes(kernel, width) == want <= pa.SMEM_LIMIT
     plan = pa._plan(kernel, 4, 2048, 2048, 8, 8, width, torch.float32)
     assert (plan.route, plan.block, plan.smem_bytes) == ("fma", block, want)
@@ -290,9 +309,10 @@ def test_fma_backward_layout_fits_the_block(kernel, width):
 @pytest.mark.parametrize("width", [128, 256, 512])
 def test_query_tiles_of_the_fp32_walk(width, Sq, Sk, causal, window):
     """The fp32 dk/dv kernel's walk, ``_fma_bwd_tiles("dkv", width)`` keys
-    a block over query tiles of its rows: it visits exactly the tiles that
-    hold a visible (query, key) pair, found by brute force, so the kernel
-    skips none."""
+    a block over query tiles of its rows (at 512 both blocks of a pair walk
+    it): it visits exactly the tiles that hold a visible (query, key) pair,
+    found by brute force, so the kernel skips none and both blocks of a
+    pair swap as often."""
     keys, rows = pa._fma_bwd_tiles("dkv", width)
     keep = pa._keep_mask(Sq, Sk, causal, window, "cpu")
     n_tiles = -(-Sq // rows)
@@ -308,7 +328,7 @@ def test_query_tiles_of_the_fp32_walk(width, Sq, Sk, causal, window):
 def test_other_head_sizes_and_dtypes_are_stated_refusals():
     with pytest.raises(ValueError, match=r"head_dim up to 512 .*got 640\. At width 640 .*bf16 "
                                          r"forward 246,824; dq 279,864; dk/dv 274,080; fp32 .*"
-                                         r"dk/dv 249,016; .*232,448 bytes.*own 320 columns"):
+                                         r"dk/dv 263,640; .*232,448 bytes.*own 320 columns"):
         pa._plan("fwd", 1, 64, 64, 2, 2, 640, torch.bfloat16)
     with pytest.raises(ValueError, match=r"head_dim up to 512 .*got 513\. At width 576 .*"
                                          r"own 288 columns \(144 fp32 accumulator registers a "
@@ -433,16 +453,72 @@ def test_pair_reference_in_bf16_keeps_the_plain_roundings(f32_grads):
 
 
 def test_pair_swap_probe_skips_exactly_the_swap():
-    """``benchmarks/pair_swap.py`` times the width-512 pairs against copies
-    whose three pair pieces return at once: it finds each piece's line in
-    ``csrc/flash_common.cuh`` once, and without a card it exits with a
-    message."""
+    """``benchmarks/pair_swap.py`` times the width-512 pairs of both routes
+    against copies whose four pair pieces return at once: it finds each
+    piece's line in ``csrc/flash_common.cuh`` once; without a card it exits
+    with a message."""
     from kubeflow_tpu_torch.benchmarks import pair_swap
     from kubeflow_tpu_torch.ops import _build
 
     src = (_build.CSRC / "flash_common.cuh").read_text()
     out = pair_swap.skipped_swap_header(src)
-    assert out.count("\n  return;") - src.count("\n  return;") == len(pair_swap.SKIPPED) == 3
+    assert out.count("\n  return;") - src.count("\n  return;") == len(pair_swap.SKIPPED) == 4
     for line in pair_swap.SKIPPED:
         assert line + "\n  return;" in out
     assert pair_swap.main() == 1
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (2048, 2048, True, None),
+    (256, 256, True, 2), (256, 256, True, 48), (256, 256, True, 100), (256, 256, True, 1000),
+    (200, 200, True, None), (200, 200, True, 48),        # ragged query and key tiles
+    (96, 96, False, None), (64, 192, False, None), (40, 200, False, None),
+    (16, 8, True, 2), (300, 130, True, 100), (130, 300, True, None), (64, 256, True, None),
+])
+def test_key_tiles_of_the_fp32_width_512_dq_walk(Sq, Sk, causal, window):
+    """The fp32 width-512 dq pair's walk (both blocks of a cluster walk it),
+    32 query rows a block over 32-key tiles (``_key_tiles``, the kernel's
+    ``key_tiles<32>``): exactly the tiles that hold a visible pair, found by
+    brute force, so each of them is a swap both blocks make."""
+    plan = pa._plan("dq", 1, Sq, Sk, 2, 1, 512, torch.float32)
+    rows, keys = pa._fma_bwd_tiles("dq", 512)
+    assert (plan.block, plan.cluster, rows, keys) == (32, 2, 32, 32)
+    keep = pa._keep_mask(Sq, Sk, causal, window, "cpu")
+    n_tiles = -(-Sk // keys)
+    for q0 in range(0, Sq, rows):
+        first, count = pa._key_tiles(q0, rows, Sq, Sk, causal, window, keys)
+        visible = [bool(keep[q0:q0 + rows, j * keys:(j + 1) * keys].any())
+                   for j in range(n_tiles)]
+        assert [first <= j < first + count for j in range(n_tiles)] == visible
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_fma_pair_layout_offsets(kernel):
+    """The fp32 width-512 pair's ``Layout`` (``dq32::Layout<512, 32, 32,
+    2>``, ``dkv32::Layout<512, 32, 32, 2>``) as the ``.cu`` lays it out,
+    offset by offset: every TMA tile starts on a 1024-byte boundary (the
+    128-byte swizzle's period), the receive slot on 16 bytes (float4 by
+    st.async), the barriers on 8; its end plus the alignment slack is
+    ``_fma_bwd_bytes``, within the block's shared memory."""
+    block, tile = pa._fma_bwd_tiles(kernel, 512)
+    ns = 256 // 32                                  # a block's 32-column slabs
+    res_slab, ring_slab = block * 128, tile * 128
+    offsets = {"resident": 0, "resident2": ns * res_slab, "ring": 2 * ns * res_slab}
+    stage = 2 * ns * ring_slab
+    after_ring = offsets["ring"] + 2 * stage
+    if kernel == "dq":
+        offsets.update(ds=after_ring, rx=after_ring + 4 * block * tile)
+        offsets["bar"] = offsets["rx"] + 256 * 8 * 4
+        n_bars = 1 + 2 * 2 + 2
+    else:
+        offsets.update(p=after_ring, ds=after_ring + 4 * block * tile)
+        offsets["rows"] = offsets["ds"] + 4 * block * tile
+        offsets["rx"] = offsets["rows"] + 2 * 4 * tile
+        offsets["rx_delta"] = offsets["rx"] + 2 * 128 * 8 * 4
+        offsets["bar"] = offsets["rx_delta"] + 4 * tile
+        n_bars = 1 + 2 * 2 + 2 + 4
+    assert all(offsets[k] % 1024 == 0 for k in ("resident", "resident2", "ring"))
+    assert stage % 1024 == 0 and offsets["rx"] % 16 == 0 and offsets["bar"] % 8 == 0
+    want = 1024 + offsets["bar"] + 8 * n_bars
+    assert pa._fma_bwd_bytes(kernel, 512) == want <= pa.SMEM_LIMIT
+    assert want == {"dq": 209_976, "dkv": 214_488}[kernel]

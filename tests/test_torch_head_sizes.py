@@ -121,7 +121,8 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
         # fp32 the FMA kernels: the forward 128 query rows and 64-key tiles
         # up to 128, 64 and 32 at 256, 32 and 16 at 512; dq 64 query rows
         # and 64-key tiles, dk/dv 64 keys and 64-row tiles, up to 128, both
-        # 32 and 32 at 256, 16 and 16 at 512
+        # 32 and 32 from 256 on (at 512 a cluster of two blocks, one a
+        # column half, a query tile or key block)
         assert plan.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
         if plan.route == "fma" and kernel == "fwd":
             assert (plan.block, plan.threads, plan.grid) == (
@@ -129,13 +130,15 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
             assert plan.smem_bytes == pa._fma_fwd_bytes(width) == {
                 64: 132_136, 128: 230_440, 256: 205_864, 512: 199_720}[width]
         elif plan.route == "fma":
-            block = 64 if width <= 128 else 32 if width == 256 else 16
+            block = 64 if width <= 128 else 32
+            cluster = 2 if width == 512 else 1
             assert pa._fma_bwd_tiles(kernel, width) == (block, block)
-            assert (plan.block, plan.threads, plan.grid) == (block, 256, (8, 4, 2048 // block))
+            assert (plan.block, plan.threads, plan.grid, plan.cluster) == (
+                block, 256, (8, 4, cluster * 2048 // block), cluster)
             assert plan.smem_bytes == pa._fma_bwd_bytes(kernel, width) == {
                 ("dq", 64): 115_752, ("dq", 128): 214_056, ("dq", 256): 201_768,
-                ("dq", 512): 198_696, ("dkv", 64): 132_664, ("dkv", 128): 230_968,
-                ("dkv", 256): 206_136, ("dkv", 512): 199_864}[kernel, width]
+                ("dq", 512): 209_976, ("dkv", 64): 132_664, ("dkv", 128): 230_968,
+                ("dkv", 256): 206_136, ("dkv", 512): 214_488}[kernel, width]
         elif width == 256:
             assert (plan.block, plan.threads, plan.grid) == (64, 256, (8, 4, 32))
             assert plan.smem_bytes == pa._wgmma_sums(kernel, 64, 256)[0]
@@ -186,16 +189,17 @@ def test_head_sizes_past_128_are_refused_with_their_limits():
     for D in (257, 320, 384, 512):
         assert pa._kernel_width(D) == fd._kernel_width(D) == 512
     # the sums the refusal states are the width-512 designs' own at the next
-    # width: the bf16 layouts and the fp32 kernels' at their smallest tiles
-    # (the forward's 32 rows and 16-key tiles, dq's and dk/dv's 16 and 16);
-    # at 576 the forward's fits but a warpgroup's 288 columns pass wgmma's
-    # 256, and the pairs' blocks (five slabs a half) pass the shared memory;
-    # at 640 none fits
+    # width: the bf16 layouts and the fp32 kernels' at their width-512 tiles
+    # (the forward's 32 rows and 16-key tiles; dq's and dk/dv's pairs, 32
+    # and 32 over a block's half of the columns, 320 at 640, with the
+    # receive slots); at 576 the forward's fits but a warpgroup's 288
+    # columns pass wgmma's 256, and the pairs' blocks (five slabs a half)
+    # pass the shared memory; at 640 none fits
     assert pa._fma_fwd_tiles(640) == (32, 16)
-    assert pa._fma_bwd_tiles("dq", 640) == pa._fma_bwd_tiles("dkv", 640) == (16, 16)
+    assert pa._fma_bwd_tiles("dq", 640) == pa._fma_bwd_tiles("dkv", 640) == (32, 32)
     sums = [pa._wgmma_sums(k, 64, 640)[0] for k in ("fwd", "dq", "dkv")] + [
         pa._fma_fwd_bytes(640)] + [pa._fma_bwd_bytes(k, 640) for k in ("dq", "dkv")]
-    assert sums == [246_824, 279_864, 274_080, 248_872, 247_848, 249_016]
+    assert sums == [246_824, 279_864, 274_080, 248_872, 259_128, 263_640]
     assert min(sums) > pa.SMEM_LIMIT
     assert 576 // 2 > pa._WGMMA_N_MAX == 512 // 2
     for D, width, need in ((513, 576, "bf16 forward 222,248; dq 279,864; dk/dv 274,080"),

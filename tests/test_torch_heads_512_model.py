@@ -67,9 +67,9 @@ def test_heads_of_512_take_their_routes(dtype, routes):
     route (the forward in 64-row tiles, two warpgroups each owning half of
     O's columns; dq in 64-row tiles and dk/dv in 64-key blocks, each a
     cluster of two blocks, one a half of dQ's or of dK's and dV's columns);
-    fp32 on the FMA kernels (the
-    forward 32 query rows and 16-key tiles, dq 16 query rows and 16-key
-    tiles, dk/dv 16 keys and 16-row tiles)."""
+    fp32 on the FMA kernels (the forward 32 query rows and 16-key tiles;
+    dq 32 query rows and 32-key tiles, dk/dv 32 keys and 32-row tiles, each
+    a cluster of two blocks, one a column half)."""
     model = _port_model()
     assert model.cfg.head_dim == 512 and model.cfg.kv_heads == 1
     for kernel, route in routes.items():
@@ -85,8 +85,11 @@ def test_heads_of_512_take_their_routes(dtype, routes):
                                                                        -(-S // 32)))
             assert plan.smem_bytes == pa._fma_fwd_bytes(512)
         elif route == "fma":
+            # the width-256 FMA kernels on each column half: 32 rows or keys
+            # a block, a cluster of two blocks a tile
             heads = 1 if kernel == "dkv" else WIDE["num_heads"]
-            assert (plan.block, plan.threads, plan.grid) == (16, 256, (heads, B, -(-S // 16)))
+            assert (plan.block, plan.threads, plan.grid, plan.cluster) == (
+                32, 256, (heads, B, 2 * -(-S // 32)), 2)
             assert plan.smem_bytes == pa._fma_bwd_bytes(kernel, 512)
 
 
