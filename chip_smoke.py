@@ -13,7 +13,11 @@ Phases, each of which fails the run with a non-zero exit:
             and the least time the card could take (bound); the forward and
             the two backward kernels also at the training shape, with their
             TFLOP/s of the bound's work, and on their fp32 route (fp32 cases
-            against the plain versions, TF32 off); flash-decode also in fp32,
+            against the plain versions, TF32 off); every case under the bound
+            of its operands' dtype (``out_bound``: bf16 operands, fp32
+            gradients of bf16 operands among them, ``OUT_RTOL`` and
+            ``OUT_ATOL_RMS``; fp32 operands the tighter ``OUT_RTOL_F32`` and
+            ``OUT_ATOL_RMS_F32``); flash-decode also in fp32,
             at 12 and 16 query heads a group, at positions on and around the
             edges of its per-row runs and a window across one, each against
             its own order of operations (``_split_reference``) too, two
@@ -59,13 +63,17 @@ Phases, each of which fails the run with a non-zero exit:
 2c. heads 512  the flash forward, dq and dk/dv and flash-decode at head
             width 512, in bf16 (the tensor-core kernels, two warpgroups each
             owning half of an accumulator's columns) and fp32 (the FMA
-            kernels), dq and dk/dv on both routes a cluster of two blocks
-            each owning a column half, each route and cluster required, the
-            backward held against ``_pair_reference`` too: the heads-of-512
+            kernels), dq and dk/dv on both routes and the fp32 forward a
+            cluster of two blocks each owning a column half, each route and
+            cluster required, the backward held against ``_pair_reference``
+            and the fp32 forward against ``_pair_forward_reference`` too;
+            each fp32 route's TF32 control (the plain version on operands
+            rounded to TF32's mantissa) must fail the fp32 bound, at widths
+            64, 128, 256 and 512 (``CONTROL_FLASH``, ``CONTROL_DECODE``): the heads-of-512
             training shape (B4 S2048 H2), the request's prefill (GQA 2/1), MQA 8/1, a
             window, ragged S with fp32 gradients, rows that see no key, D
             300 padded; decode at positions 191 and 2047, a window, R 16, a
-            row with no live key, D 300. Each against its plain version
+            row with no live key on both combines, D 300. Each against its plain version
             under the bounds above, a second launch bitwise equal, decode
             against ``_split_reference`` too, the profile naming the
             width-512 kernels; each timed with its bound, plain version and
@@ -334,6 +342,19 @@ TRAIN_STEPS, MOE_STEPS = 5, 5
 # live range, which moves outputs by a sizeable fraction of their rms.
 OUT_RTOL = 2.0 ** -6
 OUT_ATOL_RMS = 0.05
+# fp32 operands (the flash kernels' and flash-decode's fp32 routes): the
+# kernel and the plain version both compute in fp32 and differ in summation
+# order only. On an H100 80GB HBM3 (700 W) every fp32 case's largest error
+# stayed under 2.5e-5 of its output's rms (err/tol below 0.0005 under the
+# bf16 bound above); against 2^-14 of the value plus 2^-14 of the rms the
+# worst case read 0.59 (dq at the heads-of-512 training shape, B4 S2048 D512
+# causal) and the TF32 controls 20.6 to 79.2 (``fp32_bound_controls``: the
+# plain versions on operands rounded to TF32's 10-bit mantissa). The bound
+# is twice that, 2^-13 and 2^-13: about 3.4 times the worst sound reading,
+# and every control above it about 10 times over, so a kernel whose products
+# ran at TF32 or bf16 precision fails it.
+OUT_RTOL_F32 = 2.0 ** -13
+OUT_ATOL_RMS_F32 = 2.0 ** -13
 LSE_ATOL = 1e-3               # fp32 throughout; differs only in summation order
 # the first port's scalar flash kernels on this card (PERF.md's kernel table:
 # H100 80GB HBM3, 700 W), printed beside this run's times
@@ -348,10 +369,11 @@ SCALAR_FP32_FWD_MS = {"flash_attention_fwd": 3.2493, "fused_head_fwd": 51.99}
 # kernel table, rows 2 and 3: H100 80GB HBM3, 700 W), printed beside the FMA
 # kernels' times
 SCALAR_FP32_BWD_MS = {"dq": 3.6041, "dkv": 3.2928}
-# the first port's fp32 dq and dk/dv at head width 512 (16-row, 16-key
-# tiles) at the heads-of-512 training shape (PERF.md's kernel table, rows 2
-# and 3: H100 80GB HBM3, 700 W), printed beside the pairs' times
-FIRST_FP32_512_MS = {"dq": 4.8490, "dkv": 3.9495}
+# the first port's fp32 kernels at head width 512 (one block over all 512
+# columns: the forward's 32-row, 16-key tiles, dq's and dk/dv's 16 and 16) at
+# the heads-of-512 training shape (PERF.md's kernel table, rows 1-3: H100
+# 80GB HBM3, 700 W), printed beside the pairs' times
+FIRST_FP32_512_MS = {"fwd": 2.0368, "dq": 4.8490, "dkv": 3.9495}
 # card (bf16 weights and activations) vs CPU (fp32) on the last prefill
 # logits of a 2-layer model, logits std ~1: the card measured 0.0699 on an
 # H100 in every run recorded in PERF.md; the limit is twice that.
@@ -515,13 +537,28 @@ def device_ms(torch, fn, *, cold: bool, iters=30, warmup=3):
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def check_out(o, ref):
-    """(ok, max abs error, worst |error| / tolerance, rms of ref) of a bf16
-    kernel output against its plain version; ``ok`` also needs finite output."""
+def out_bound(operands):
+    """(rtol, atol as a multiple of the rms) of a kernel check, chosen by
+    the dtype of the kernel's operands, never by its output's: fp32
+    gradients of bf16 operands keep the bf16 bound."""
+    return (OUT_RTOL_F32, OUT_ATOL_RMS_F32) if operands.itemsize == 4 else (OUT_RTOL, OUT_ATOL_RMS)
+
+
+def bound_note(operands) -> str:
+    rtol, atol = out_bound(operands)
+    return f"rtol {rtol}, atol {atol}*rms"
+
+
+def check_out(o, ref, operands):
+    """(ok, max abs error, worst |error| / tolerance, rms of ref) of a
+    kernel output against its plain version under the bound of its
+    ``operands``' dtype (:func:`out_bound`); ``ok`` also needs finite
+    output."""
+    rtol, atol = out_bound(operands)
     o, ref = o.float(), ref.float()
     rms = ref.pow(2).mean().sqrt().item()
     err = (o - ref).abs()
-    ratio = (err / (OUT_RTOL * ref.abs() + OUT_ATOL_RMS * rms)).max().item()
+    ratio = (err / (rtol * ref.abs() + atol * rms)).max().item()
     ok = bool(o.isfinite().all()) and ratio <= 1.0
     return ok, err.max().item(), ratio, rms
 
@@ -649,9 +686,12 @@ WGMMA_512 = {
     "flash_attention_bwd_dq": ("flash_dq_wgmma<512, 1, 2>", "flash_dq_wgmmaILi512ELi1ELi2E"),
     "flash_attention_bwd_dkv": ("flash_dkv_wgmma_pair<512, 2>",
                                 "flash_dkv_wgmma_pairILi512ELi2E")}
-# the width-512 fp32 dq and dk/dv: the width-256 FMA kernels on each column
-# half, a cluster of two blocks (name, the fragment of its mangled name)
-FMA_512 = {"flash_attention_bwd_dq": ("flash_dq_fma<512, 32, 32, 2>",
+# the width-512 fp32 forward, dq and dk/dv: the width-256 FMA kernels on each
+# column half, a cluster of two blocks (name, the fragment of its mangled
+# name)
+FMA_512 = {"flash_attention_fwd": ("flash_fwd_fma<512, 64, 32, 2>",
+                                   "flash_fwd_fmaILi512ELi64ELi32ELi2E"),
+           "flash_attention_bwd_dq": ("flash_dq_fma<512, 32, 32, 2>",
                                       "flash_dq_fmaILi512ELi32ELi32ELi2E"),
            "flash_attention_bwd_dkv": ("flash_dkv_fma<512, 32, 32, 2>",
                                        "flash_dkv_fmaILi512ELi32ELi32ELi2E")}
@@ -751,7 +791,7 @@ def check_forward(torch, cases, randn, sms):
         torch.cuda.synchronize()
         o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        ok, err, ratio, rms = check_out(o, o_ref)
+        ok, err, ratio, rms = check_out(o, o_ref, dt)
         lse_ok, lse_err = check_lse(lse, lse_ref)
         dead_ok = check_dead_rows(o, lse_ref)
         ok = ok and lse_ok and dead_ok and o.dtype == dt
@@ -759,8 +799,8 @@ def check_forward(torch, cases, randn, sms):
         log(f"[kernels] flash_attention_fwd {name} ({dt}; {plan.route}, {plan.block}-row tiles, "
             f"D {D} at width {plan.width}): "
             f"max_abs_err {err:.3e} "
-            f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, atol "
-            f"{OUT_ATOL_RMS}*rms) lse_err {lse_err:.3e} (atol {LSE_ATOL}; +inf rows "
+            f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; {bound_note(dt)}) lse_err "
+            f"{lse_err:.3e} (atol {LSE_ATOL}; +inf rows "
             f"{int((~lse_ref.isfinite()).sum())}, o = 0 there: {dead_ok}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention_fwd disagrees with its plain version ({name})")
@@ -926,13 +966,13 @@ def phase_kernels(torch):
         plan = _decode_plan(B, G, R, L, D, dt, sms)
         o_split = _split_reference(qd, kg, vg, pos, window, plan)
         torch.cuda.synchronize()
-        ok, err, ratio, rms = check_out(o, o_ref)
-        w_ratio = _decode_witness(torch, o, o_split)
+        ok, err, ratio, rms = check_out(o, o_ref, dt)
+        w_ratio = _decode_witness(torch, o, o_split, dt)
         ok = ok and o.dtype == dt and w_ratio <= 1.0
         log(f"[kernels] flash_decode {name} ({dt}, R {R}, D {D} at width {plan.width}) "
             f"window={window}: max_abs_err {err:.3e} "
-            f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol {OUT_RTOL}, atol "
-            f"{OUT_ATOL_RMS}*rms); vs _split_reference (split {plan.split} x {plan.splits}) "
+            f"(rms {rms:.3e}, worst err/tol {ratio:.3f}; {bound_note(dt)}); vs "
+            f"_split_reference (split {plan.split} x {plan.splits}) "
             f"worst err/tol {w_ratio:.3f} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_decode disagrees with its plain version ({name})")
@@ -971,7 +1011,7 @@ def phase_kernels(torch):
         o_cl = flash_decode(qd, kc, vc, pos)
         o_ws = _decode_launch(qd, kc, vc, pos, None, plan_ws)
         torch.cuda.synchronize()
-        ok, err, ratio, _ = check_out(o_ws, flash_decode_plain(qd, kc, vc, pos))
+        ok, err, ratio, _ = check_out(o_ws, flash_decode_plain(qd, kc, vc, pos), bf16)
         log(f"[kernels] flash_decode workspace combine at the flagship, pos {pos_list}: worst "
             f"err/tol {ratio:.3f}; bitwise equal to the cluster combine: "
             f"{torch.equal(o_cl, o_ws)} {'ok' if ok else 'FAIL'}")
@@ -1028,14 +1068,14 @@ def phase_kernels(torch):
     return results
 
 
-def _decode_witness(torch, o, o_split):
+def _decode_witness(torch, o, o_split, operands):
     """Worst |error| / tolerance of the kernel against ``_split_reference``,
     its own order of operations in plain PyTorch: the two round the same
     probabilities against the same per-split maxima, so they differ only in
     fp32 summation order (a probability near a bf16 rounding edge may land
-    one step apart) and in the final cast: bf16 within 2^-7·|ref| + 2^-8·rms,
-    fp32 within 2^-14·|ref| + 2^-14·rms."""
-    rtol, atol = (2.0 ** -14, 2.0 ** -14) if o.dtype == torch.float32 else (2.0 ** -7, 2.0 ** -8)
+    one step apart) and in the final cast: bf16 operands within 2^-7·|ref| +
+    2^-8·rms, fp32 operands within 2^-14·|ref| + 2^-14·rms."""
+    rtol, atol = (2.0 ** -14, 2.0 ** -14) if operands == torch.float32 else (2.0 ** -7, 2.0 ** -8)
     o, ref = o.float(), o_split.float()
     rms = ref.pow(2).mean().sqrt().item()
     return ((o - ref).abs() / (rtol * ref.abs() + atol * rms + 1e-30)).max().item()
@@ -1123,14 +1163,14 @@ def phase_kernels_bwd(torch):
             route = pa._plan("dq", B, Sq, Sk, H, KV, D, dt, sms)
             route_kv = pa._plan("dkv", B, Sq, Sk, H, KV, D, dt, sms)
             for grad, g, w in zip(("dq", "dk", "dv"), got, want):
-                ok, err, ratio, rms = check_out(g, w)
+                ok, err, ratio, rms = check_out(g, w, dt)
                 ok = ok and g.dtype == w.dtype and again
                 where = (f"dq: {route.route}, {route.block}-row tiles; " if grad == "dq" else
                          f"dk/dv: {route_kv.route}, {route_kv.block} keys a block; ") + (
                     f"D {D} at width {route.width}; ")
                 log(f"[kernels] flash_attention_bwd {name} {grad} ({where}operands {dt}, {g.dtype}): "
-                    f"max_abs_err {err:.3e} (rms {rms:.3e}, worst err/tol {ratio:.3f}; rtol "
-                    f"{OUT_RTOL}, atol {OUT_ATOL_RMS}*rms)"
+                    f"max_abs_err {err:.3e} (rms {rms:.3e}, worst err/tol {ratio:.3f}; "
+                    f"{bound_note(dt)})"
                     + (f"; a second launch bitwise equal: {again}" if dt == f32 else "")
                     + f" {'ok' if ok else 'FAIL'}")
                 if not ok:
@@ -1400,7 +1440,7 @@ def phase_wide_heads(torch, np):
             o_ref, lse_ref = pa.flash_attention_plain(q, k, v, causal=causal, window=window)
             want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
-            ok, err, ratio, rms = check_out(o, o_ref)
+            ok, err, ratio, rms = check_out(o, o_ref, dt)
             lse_ok, lse_err = check_lse(lse, lse_ref)
             ok = ok and lse_ok and check_dead_rows(o, lse_ref) and o.dtype == dt and again
             plans = {kn: pa._plan(kn, B, Sq, Sk, H, KV, D, dt, sms) for kn in ("fwd", "dq", "dkv")}
@@ -1413,7 +1453,7 @@ def phase_wide_heads(torch, np):
             if dt == bf16:
                 worst["fwd"] = max(worst["fwd"], err)
             for grad, g, w in zip(("dq", "dk", "dv"), grads, want):
-                g_ok, g_err, g_ratio, _ = check_out(g, w)
+                g_ok, g_err, g_ratio, _ = check_out(g, w, dt)
                 ok = ok and g_ok and g.dtype == w.dtype
                 line.append(f"{grad} err/tol {g_ratio:.3f}")
                 key = "dq" if grad == "dq" else "dkv"
@@ -1427,7 +1467,7 @@ def phase_wide_heads(torch, np):
             log(f"[wide heads] flash {name} ({dt}; D {D} at width {plans['fwd'].width}; "
                 + ", ".join(f"{kn} {p.route} {p.block}-row tiles {p.smem_bytes} B"
                             for kn, p in plans.items())
-                + f"): {'; '.join(line)} (rtol {OUT_RTOL}, atol {OUT_ATOL_RMS}*rms) "
+                + f"): {'; '.join(line)} ({bound_note(dt)}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"a flash kernel disagrees with its plain version at D {D} ({name})")
@@ -1459,13 +1499,14 @@ def phase_wide_heads(torch, np):
         torch.cuda.synchronize()
         o_ref = flash_decode_plain(qd, kg, vg, pos, window=window)
         plan = decode_plan(B, G, R, L, D, dt, sms)
-        w_ratio = _decode_witness(torch, o, _split_reference(qd, kg, vg, pos, window, plan))
-        ok, err, ratio, rms = check_out(o, o_ref)
+        w_ratio = _decode_witness(torch, o, _split_reference(qd, kg, vg, pos, window, plan), dt)
+        ok, err, ratio, rms = check_out(o, o_ref, dt)
         ok = ok and o.dtype == dt and w_ratio <= 1.0
         log(f"[wide heads] flash_decode {name} ({dt}, R {R}, D {D} at width {plan.width}, split "
             f"{plan.split} x {plan.splits}, {'cluster' if plan.cluster else 'workspace'} combine) "
-            f"window={window}: max_abs_err {err:.3e} (worst err/tol {ratio:.3f}); vs "
-            f"_split_reference worst err/tol {w_ratio:.3f} {'ok' if ok else 'FAIL'}")
+            f"window={window}: max_abs_err {err:.3e} (worst err/tol {ratio:.3f}; "
+            f"{bound_note(dt)}); vs _split_reference worst err/tol {w_ratio:.3f} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_decode disagrees with its plain version at D {D} ({name})")
         if dt == bf16:
@@ -1483,7 +1524,7 @@ def phase_wide_heads(torch, np):
              *pa.flash_attention_bwd_dkv(q, k, v, o, lse, do))
     torch.cuda.synchronize()
     o_ref, lse_ref = pa.flash_attention_plain(q, k, v)
-    ok, err, ratio, _ = check_out(o, o_ref)
+    ok, err, ratio, _ = check_out(o, o_ref, bf16)
     lse_ok, lse_err = check_lse(lse, lse_ref)
     ok = ok and lse_ok
     worst["fwd"] = max(worst["fwd"], err)
@@ -1491,12 +1532,12 @@ def phase_wide_heads(torch, np):
     del o_ref, lse_ref
     for grad, g, w in zip(("dq", "dk", "dv"), grads,
                           pa.flash_attention_backward_plain(q, k, v, o, lse, do)):
-        g_ok, g_err, g_ratio, _ = check_out(g, w)
+        g_ok, g_err, g_ratio, _ = check_out(g, w, bf16)
         ok = ok and g_ok
         worst["dq" if grad == "dq" else "dkv"] = max(worst["dq" if grad == "dq" else "dkv"], g_err)
         line.append(f"{grad} err/tol {g_ratio:.3f}")
     log(f"[wide heads] flash d256_timed_inputs (B{B} S{S} H{H} KV{H} causal, the inputs timed "
-        f"above): {'; '.join(line)} (rtol {OUT_RTOL}, atol {OUT_ATOL_RMS}*rms) "
+        f"above): {'; '.join(line)} ({bound_note(bf16)}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("a flash kernel disagrees with its plain version on the timed D 256 inputs")
@@ -1627,7 +1668,7 @@ def wide_train_steps(torch, np, kt, cfg, tag="wide heads"):
     and with it the fp32 route's loss within ``TRAIN_LOSS_ATOL``, its whole
     gradient's and each parameter's relative L2 error within
     ``WIDE_FP32_GRAD_RTOL``, its gradient norm within ``TRAIN_GNORM_RTOL``,
-    and one launch of each flash kernel a layer in the bf16 step."""
+    and one launch of each flash kernel a layer in each of the two steps."""
     def make(dtype, where):
         return kt.TransformerLM(dataclasses.replace(cfg, dtype=dtype), device=where)
 
@@ -1638,19 +1679,22 @@ def wide_train_steps(torch, np, kt, cfg, tag="wide heads"):
         before = [c.launches for c in _flash_counters().values()]
         got = _one_step_vs_cpu(torch, kt, make, sd, tokens, chunk=TRAIN_CHUNK, grads_out=grads)
         launched = [c.launches - b for c, b in zip(_flash_counters().values(), before)]
+        before = [c.launches for c in _flash_counters().values()]
         got32 = _one_step_vs_cpu(torch, kt, make, sd, tokens, card_dtype=torch.float32,
                                  chunk=TRAIN_CHUNK, grads_out=grads, cpu_from=got)
+        launched32 = [c.launches - b for c, b in zip(_flash_counters().values(), before)]
         (loss_f, norm_f), (loss_h, norm_h) = got32["cuda"], got["cpu"]
         whole, per = _grad_errors(torch, grads["cuda_fp32"], grads["cpu"])
         worst_p = max(per.values())
         d_loss, d_norm = abs(loss_f - loss_h), abs(norm_f - norm_h) / norm_h
         ok = (bool(np.isfinite([loss_f, norm_f]).all()) and d_loss <= TRAIN_LOSS_ATOL
               and whole <= WIDE_FP32_GRAD_RTOL and worst_p <= WIDE_FP32_GRAD_RTOL
-              and d_norm <= TRAIN_GNORM_RTOL and launched == [cfg.num_layers] * 3)
+              and d_norm <= TRAIN_GNORM_RTOL
+              and launched == launched32 == [cfg.num_layers] * 3)
         note = (f"; fp32: loss |diff| {d_loss:.2e}, grad norm rel diff {d_norm:.2e} (rtol "
                 f"{TRAIN_GNORM_RTOL}), gradient rel L2 err {whole:.3e}, worst parameter "
                 f"{worst_p:.3e} (rtol {WIDE_FP32_GRAD_RTOL}); flash launches in the bf16 step "
-                f"{launched}")
+                f"{launched}, in the fp32 step {launched32}")
         return got, grads["cuda"], grads["cpu"], note, ok
 
     return _seeded_grad_check(torch, np, tag, one_seed, TRAIN_LOSS_ATOL, WIDE_GRAD_RTOL,
@@ -1690,22 +1734,89 @@ def _sdpa_backends(torch, F, q, k, v, **kw):
     return took, names
 
 
+def _tf32(torch, x):
+    """fp32 ``x`` rounded to nearest (ties to even) at TF32's 10 explicit
+    mantissa bits: what a product at TF32 precision reads of its operands."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0xFFF + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+# the TF32 controls' shapes: the flash kernels' (B, S, H, KV, D, causal) and
+# flash-decode's (B, G, R, D, L, positions), at every width the fp32 bound holds
+CONTROL_FLASH = ((3, 200, 2, 1, 512, True),            # phase 2c's case
+                 (4, 2048, 4, 4, 256, True),            # heads of 256, the training shape
+                 (4, 2048, 8, 8, 128, True),            # the training flagship
+                 (2, 512, 4, 2, 64, False))
+CONTROL_DECODE = ((4, 1, 2, 512, 2048, [191, 700, 1500, 2047]),  # the heads-of-512 request
+                  (4, 4, 2, 256, 2048, [191, 191, 191, 191]),
+                  (4, 4, 2, 128, 2048, [191, 191, 191, 191]),    # the serving flagship
+                  (2, 2, 4, 64, 512, [63, 500]))
+
+
+def fp32_bound_controls(torch, randn):
+    """The lower-precision controls of the fp32 routes (the flash forward,
+    dq, dk/dv and flash-decode) at every width the fp32 bound holds (the
+    shapes of ``CONTROL_FLASH`` and ``CONTROL_DECODE``), each on its own
+    line: the plain version on operands rounded to TF32's 10-bit mantissa
+    (:func:`_tf32`), held against the plain version on the fp32 operands
+    under the fp32 bound (:func:`out_bound`). Each must read err/tol above
+    1, so that a kernel whose products ran at TF32 or bf16 precision fails
+    the bound; one that does not means the bound is too loose, and the
+    phase fails."""
+    from kubeflow_tpu_torch.ops import pallas_attention as pa
+    from kubeflow_tpu_torch.ops.flash_decode import flash_decode_plain
+
+    f32 = torch.float32
+    ratios = {}
+    for B, S, H, KV, D, causal in CONTROL_FLASH:
+        q, k, v, do = (randn(*shape, dtype=f32) for shape in (
+            (B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+        o, lse = pa.flash_attention_plain(q, k, v, causal=causal)
+        o_t, _ = pa.flash_attention_plain(*(_tf32(torch, x) for x in (q, k, v)), causal=causal)
+        want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal)
+        got = pa.flash_attention_backward_plain(*(_tf32(torch, x) for x in (q, k, v, o)), lse,
+                                                _tf32(torch, do), causal=causal)
+        shape = f"B{B} S{S} H{H} KV{KV} D{D}{' causal' if causal else ''}"
+        ratios[f"forward, {shape}"] = check_out(o_t, o, f32)[2]
+        ratios[f"dq, {shape}"] = check_out(got[0], want[0], f32)[2]
+        ratios[f"dk/dv, {shape}"] = max(check_out(g, w, f32)[2] for g, w in zip(got[1:], want[1:]))
+        del q, k, v, do, o, lse, o_t, want, got
+    for B, G, R, D, L, pos_list in CONTROL_DECODE:
+        kc, vc, qd = (randn(*shape, dtype=f32) for shape in ((B, G, L, D), (B, G, L, D),
+                                                             (B, G, R, D)))
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=qd.device)
+        ratios[f"flash-decode, B{B} G{G} R{R} D{D} L{L} pos {pos_list}"] = check_out(
+            flash_decode_plain(*(_tf32(torch, x) for x in (qd, kc, vc)), pos),
+            flash_decode_plain(qd, kc, vc, pos), f32)[2]
+    for route, ratio in ratios.items():
+        log(f"[fp32 bound] control, {route}: the plain version on operands rounded to TF32's "
+            f"10-bit mantissa against it on the fp32 operands: worst err/tol {ratio:.2f} under "
+            f"the fp32 bound ({bound_note(f32)}), must be above 1: "
+            f"{'ok' if ratio > 1.0 else 'FAIL'}")
+    if min(ratios.values()) <= 1.0:
+        raise AssertionError(f"a TF32 control passes the fp32 bound: {ratios}")
+    return ratios
+
+
 def phase_heads_512(torch, np):
     """The flash forward, dq and dk/dv and flash-decode at head width 512,
     in bf16 (the tensor-core kernels: the forward's two warpgroups each
     owning half of O's columns, dq and dk/dv a cluster of two blocks each
-    owning a column half) and fp32 (the FMA kernels, dq and dk/dv a cluster
-    of two blocks too), each route and cluster required:
+    owning a column half) and fp32 (the FMA kernels, the forward, dq and
+    dk/dv a cluster of two blocks each), each route and cluster required:
     the heads-of-512 training shape (B4 S2048 H2), the request's prefill
     (GQA 2/1), MQA 8/1, a window, ragged S (with fp32 gradients of bf16
     operands), rows that see no key, D 300 padded, and two cases only the
     pair can get wrong (Sk not a multiple of the 64-key block, so both
     blocks of a pair mask keys; key blocks no query sees); decode at
     positions 191 and 2047 of a 2,048-slot cache, a window, R 16, a row
-    with no live key and D 300 padded. Each against its plain version under
-    the kernels phases' bounds, a second launch bitwise equal, the backward
-    of both routes against ``_pair_reference`` (the pairs' order of operations)
-    and decode against ``_split_reference`` too; the training shape's
+    with no live key (on both combines) and D 300 padded. Each against its
+    plain version under the bound of its operands' dtype (:func:`out_bound`),
+    a second launch bitwise equal, the backward of both routes against
+    ``_pair_reference`` (the pairs' order of operations), the fp32 forward
+    against ``_pair_forward_reference`` and decode against
+    ``_split_reference`` too; each fp32 route's TF32 control
+    (:func:`fp32_bound_controls`); the training shape's
     profile names the width-512 kernels. Each kernel is timed at the training shape (decode at
     positions 191 and 2047, L2 flushed) with its bound, plain version and
     scaled_dot_product_attention, whose backend is named; the fp32 dq and
@@ -1765,23 +1876,33 @@ def phase_heads_512(torch, np):
             o_ref, lse_ref = pa.flash_attention_plain(q, k, v, causal=causal, window=window)
             want = pa.flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
-            ok, err, ratio, _ = check_out(o, o_ref)
+            ok, err, ratio, _ = check_out(o, o_ref, dt)
             lse_ok, lse_err = check_lse(lse, lse_ref)
             ok = ok and lse_ok and check_dead_rows(o, lse_ref) and o.dtype == dt and same
             plans = {kn: pa._plan(kn, b_, sq, sk, h_, kv, D, dt, sms) for kn in ("fwd", "dq", "dkv")}
-            # both routes: the forward one block, dq and dk/dv a pair of two
+            # both routes: dq and dk/dv a pair of two blocks; the forward a
+            # pair on the fp32 route, one block of two halves on the bf16 one
             if {p.route for p in plans.values()} != {route} or any(
-                    p.width != 512 or p.cluster != (1 if kn == "fwd" else 2)
+                    p.width != 512 or p.cluster != (1 if kn == "fwd" and dt == bf16 else 2)
                     for kn, p in plans.items()):
                 raise AssertionError(f"D {D} ({name}, {dt}) took {plans}, not {route} at width "
-                                     f"512 with dq's and dk/dv's cluster 2")
+                                     f"512 with the pairs' cluster 2")
             line = [f"fwd err/tol {ratio:.3f} lse_err {lse_err:.2e}"]
             errs = {"fwd": err}
+            if dt == f32:
+                # the fp32 forward pair's witness: its own order of operations
+                o_w, lse_w = pa._pair_forward_reference(q, k, v, causal=causal, window=window)
+                w_ok, _, w_ratio, _ = check_out(o, o_w, dt)
+                wl_ok, wl_err = check_lse(lse, lse_w)
+                ok = ok and w_ok and wl_ok
+                line[0] += f" (vs _pair_forward_reference {w_ratio:.3f}, lse_err {wl_err:.2e})"
+                errs["fwd_vs_pair_forward_reference_ratio"] = w_ratio
+                del o_w, lse_w
             # the pair's witness: its own order of operations, the same bounds
             wit = pa._pair_reference(q, k, v, o, lse, do, **kw)
             for grad, g, w, r in zip(("dq", "dk", "dv"), grads, want, wit):
-                g_ok, g_err, g_ratio, _ = check_out(g, w)
-                w_ok, _, w_ratio, _ = check_out(g, r)
+                g_ok, g_err, g_ratio, _ = check_out(g, w, dt)
+                w_ok, _, w_ratio, _ = check_out(g, r, dt)
                 ok = ok and g_ok and w_ok and g.dtype == w.dtype
                 line.append(f"{grad} err/tol {g_ratio:.3f} (vs _pair_reference {w_ratio:.3f})")
                 errs[f"{grad}_vs_pair_reference_ratio"] = w_ratio
@@ -1792,20 +1913,27 @@ def phase_heads_512(torch, np):
                 + ", ".join(f"{kn} {p.route} {p.block} {p.threads} threads grid {p.grid} "
                             f"cluster {p.cluster} {p.smem_bytes} B" for kn, p in plans.items())
                 + f"): {'; '.join(line)}; a second launch of all three bitwise equal: {same} "
-                f"(rtol {OUT_RTOL}, atol {OUT_ATOL_RMS}*rms) {'ok' if ok else 'FAIL'}")
+                f"({bound_note(dt)}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"a width-512 flash kernel disagrees with its plain version "
                                      f"({name}, {dt})")
             del q, k, v, do, got, again, o, lse, grads, o_ref, lse_ref, want
         torch.cuda.empty_cache()
+    res["fp32_bound_controls"] = fp32_bound_controls(torch, randn)
 
     dec_cases = [
         # name, (B, G, R, D, L), positions, window
         ("pos191", (BATCH, 1, 2, 512, 2048), [191] * BATCH, None),
         ("pos2047", (BATCH, 1, 2, 512, 2048), [2047] * BATCH, None),
+        # rows of 1, 8, 33 and 64 live runs (bf16; fp32 1, 16, 65, 128): one
+        # block's combine, and groups of 16 with a ragged last one
+        ("per_row_pos", (BATCH, 1, 2, 512, 2048), [0, 255, 1024, 2047], None),
         ("per_row_pos_window_100", (BATCH, 1, 2, 512, 2048), [0, 255, 1024, 2047], 100),
         ("r16_cluster", (2, 1, 16, 512, 256), [100, 255], None),
         ("no_live_key_row", (2, 2, 4, 512, 256), [-1, 130], None),
+        # the workspace combine (64 or 128 splits a row) with a row that has
+        # no live key, and rows whose live keys fill one run or part of one
+        ("no_live_key_row_workspace", (BATCH, 1, 2, 512, 2048), [-1, 0, 15, 16], None),
         ("d300_pos191", (2, 1, 2, 300, 512), [191, 511], None),
     ]
     for dt in (bf16, f32):
@@ -1824,15 +1952,17 @@ def phase_heads_512(torch, np):
             torch.cuda.synchronize()
             o_ref = flash_decode_plain(qd, kg, vg, pos, window=window)
             plan = decode_plan(b_, G, R, L, D, dt, sms)
-            w_ratio = _decode_witness(torch, o, _split_reference(qd, kg, vg, pos, window, plan))
-            ok, err, ratio, _ = check_out(o, o_ref)
+            w_ratio = _decode_witness(torch, o, _split_reference(qd, kg, vg, pos, window, plan),
+                                      dt)
+            ok, err, ratio, _ = check_out(o, o_ref, dt)
             ok = ok and o.dtype == dt and w_ratio <= 1.0 and same and plan.width == 512
             res["decode_cases"][f"{'bf16' if dt == bf16 else 'fp32'}_{name}"] = err
             log(f"[heads 512] flash_decode {name} ({dt}, B{b_} G{G} R{R}, D {D} at width "
                 f"{plan.width}, split {plan.split} x {plan.splits}, "
                 f"{'cluster' if plan.cluster else 'workspace'} combine) window={window}: "
-                f"max_abs_err {err:.3e} (worst err/tol {ratio:.3f}); vs _split_reference worst "
-                f"err/tol {w_ratio:.3f}; a second launch bitwise equal: {same} "
+                f"max_abs_err {err:.3e} (worst err/tol {ratio:.3f}; {bound_note(dt)}); vs "
+                f"_split_reference worst err/tol {w_ratio:.3f}; a second launch bitwise equal: "
+                f"{same} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_decode disagrees with its plain version at width "
@@ -1859,8 +1989,7 @@ def phase_heads_512(torch, np):
                                                pa.flash_attention_bwd_dkv(q, k, v, o, lse, do)),
                                reps=2)
         names = sorted({n.split(">(")[0] + ">" for run in seen for n in run if "flash_" in n})
-        want_names = ([k for k, _ in WGMMA_512.values()] if dt == bf16 else
-                      ["flash_fwd_fma<512, 32, 16>", *(k for k, _ in FMA_512.values())])
+        want_names = [k for k, _ in (WGMMA_512 if dt == bf16 else FMA_512).values()]
         launched = {w: any(w in n for n in names) for w in want_names}
         for kn, label, plain, lib in (("fwd", "forward", "fwd_plain", "fwd_lib"),
                                       ("dq", "dq", "bwd_plain", "bwd_lib"),
@@ -1873,11 +2002,11 @@ def phase_heads_512(torch, np):
                 f"({bounds[kn][1]}) plain_ms {times[plain]:.4f} library_ms {times[lib]:.4f} "
                 f"({times[kn] / times[lib]:.2f}x; scaled_dot_product_attention"
                 f"{' backward, dq dk dv together' if kn != 'fwd' else ''})"
-                + (f"; the first port's 16-row, 16-key kernel {FIRST_FP32_512_MS[kn]}"
-                   if dt == f32 and kn in FIRST_FP32_512_MS else ""))
+                + (f"; the first port's one-block kernel {FIRST_FP32_512_MS[kn]}"
+                   if dt == f32 else ""))
         if dt == f32:
             log(f"[heads 512] D 512 fp32 dq + dk/dv {times['dq'] + times['dkv']:.4f} ms (the "
-                f"first port's {sum(FIRST_FP32_512_MS.values()):.4f}) against "
+                f"first port's {FIRST_FP32_512_MS['dq'] + FIRST_FP32_512_MS['dkv']:.4f}) against "
                 f"scaled_dot_product_attention's fp32 backward {times['bwd_lib']:.4f} "
                 f"({(times['dq'] + times['dkv']) / times['bwd_lib']:.3f}x)")
         log(f"[heads 512] D 512 ({tag}) scaled_dot_product_attention: backends that take it "
@@ -4290,7 +4419,7 @@ def phase_ring(torch):
         torch.cuda.synchronize()
         rise = (lc - own).mean().item()
         for grad, g, w in zip(("dq", "dk", "dv"), got, want):
-            ok, err, ratio, rms = check_out(g, w)
+            ok, err, ratio, rms = check_out(g, w, bf16)
             ok = ok and g.dtype == f32
             log(f"[ring] global-lse backward {name} {grad} (chunk {c} rows, causal {causal}, fp32 "
                 f"gradients, global lse above the chunk's own by {rise:.3f} on average): max_abs_err "
@@ -4314,10 +4443,10 @@ def phase_ring(torch):
             torch.cuda.synchronize()
             launches = {name: fn.launches for name, fn in counters.items()}
             want = n * (n + 1) // 2 if causal else n * n
-            checks = [("o", *check_out(o, o1)[:3])]
+            checks = [("o", *check_out(o, o1, bf16)[:3])]
             lse_ok, lse_err = check_lse(lse, lse1)
             checks.append(("lse", lse_ok, lse_err, lse_err / LSE_ATOL))
-            checks += [(g, *check_out(x, y)[:3]) for g, x, y in zip(("dq", "dk", "dv"), grads,
+            checks += [(g, *check_out(x, y, bf16)[:3]) for g, x, y in zip(("dq", "dk", "dv"), grads,
                                                                     (dq1, dk1, dv1))]
             # few calls a timing: the host enqueues a walk's ~100-200 operations
             # more slowly than the card runs them, and all of them must be queued
@@ -4420,7 +4549,7 @@ def phase_expert_walk(torch):
     checks = {}
     for what, a, b in zip(("y", "dx", "drouter", "dwi", "dwo"),
                           (got["a2a"][0], *got["a2a"][1]), (got["gather"][0], *got["gather"][1])):
-        ok, err, ratio, _ = check_out(a, b)
+        ok, err, ratio, _ = check_out(a, b, cfg.dtype)
         checks[what] = (ok, err, ratio)
     log(f"[expert walk] one MoE layer (E {cfg.embed_dim}, {cfg.num_experts} experts of "
         f"{cfg.expert_hidden_dim}, top-{k}, batch [{MOE_BATCH}, {MOE_SEQ}]), dispatch a2a over "
@@ -4525,7 +4654,7 @@ def phase_seq_moe_walk(torch):
         checks = {}
         for what, a, b in zip(("y", "dx", "drouter", "dwi", "dwo"), (got[0], *got[1]),
                               (whole[0], *whole[1])):
-            ok, err, ratio, _ = check_out(a, b)
+            ok, err, ratio, _ = check_out(a, b, cfg.dtype)
             checks[what] = (ok, err, ratio)
 
         def walk(run):
@@ -4616,7 +4745,7 @@ def phase_tensor_walk(torch):
     names = ["y", "dx"] + [n for n, _ in block.named_parameters()]
     for what, a, b in zip(names, (got["split"][0], *got["split"][1]),
                           (got["whole"][0], *got["whole"][1])):
-        ok, err, ratio, _ = check_out(a, b)
+        ok, err, ratio, _ = check_out(a, b, cfg.dtype)
         checks[what] = (ok, err, ratio)
     heads = cfg.num_heads // TENSOR_WALK_TP
     log(f"[tensor walk] one dense block at the training width (E {cfg.embed_dim}, {cfg.num_heads} "
@@ -5447,7 +5576,8 @@ def shootout_main() -> None:
         b_o, b_grads = ab.fwd_bwd(fns["block"], q, k, v)
         flash, blockwise = (o, *grads), (b_o, *b_grads)
         held[seq] = {n: dict(ok=True, max_abs_err=0.0, err_over_tol=0.0) for n in (*names, "lse")}
-        apart[seq] = {"flash": {n: check_out(f, w)[2] for n, f, w in zip(names, flash, blockwise)},
+        apart[seq] = {"flash": {n: check_out(f, w, q.dtype)[2]
+                                for n, f, w in zip(names, flash, blockwise)},
                       "flash_on_slices": dict.fromkeys(names, 0.0),
                       "plain": dict.fromkeys(names, 0.0)}
         do = torch.ones_like(q)
@@ -5462,10 +5592,11 @@ def shootout_main() -> None:
             ok, err = check_lse(lse[b:b + 1, h:h + 1], lse_ref)
             rows = [("lse", ok, err, 0.0)]
             for n, got, want, fp32 in zip(names, flash, plain, blockwise):
-                ok, err, ratio, _ = check_out(part(got), want)
+                ok, err, ratio, _ = check_out(part(got), want, q.dtype)
                 rows.append((n, ok, err, ratio))
                 for side, t in (("flash_on_slices", part(got)), ("plain", want)):
-                    apart[seq][side][n] = max(apart[seq][side][n], check_out(t, part(fp32))[2])
+                    apart[seq][side][n] = max(apart[seq][side][n],
+                                              check_out(t, part(fp32), q.dtype)[2])
             for n, ok, err, ratio in rows:
                 worst = held[seq][n]
                 worst.update(ok=worst["ok"] and ok, max_abs_err=max(worst["max_abs_err"], err),

@@ -51,9 +51,23 @@
 // swizzle), thread 0 issuing the copies between its own products. Q, two
 // stages and the fp32 P tile fill the block: D 64 and 128 take 128 query
 // rows and 64-key tiles (230,440 bytes at D 128), D 256 64 rows and 32-key
-// tiles (205,864 bytes), D 512 32 rows and 16-key tiles (199,720 bytes). P
-// is not rounded (the TPU kernel's astype of p to the operands' type is the
-// identity in fp32) and l sums the same p.
+// tiles (205,864 bytes). P is not rounded (the TPU kernel's astype of p to
+// the operands' type is the identity in fp32) and l sums the same p.
+//
+// Head width 512 (fp32): flash_fwd_fma<512, 64, 32, 2>. Q resident at 512
+// columns would leave room for 32 rows and 16-key tiles only (a thread's 2 x 1
+// scores fed 2.7 FMAs a shared-memory load, where 64-row, 32-key tiles feed
+// 5.3).
+// So, as the width-512 dq and dk/dv pairs, the width-256 kernel runs on each
+// column half as a cluster of two blocks a query tile (grid (H, B, 2 x query
+// tiles)): block c holds columns 256 c .. 256 c + 255 of Q, K and V and owns
+// those of O; after each tile's S (partial over its columns) all 256 threads
+// send their 8 fp32 partials to their twins by st.async (one 8 KiB slot, its
+// free barrier counting eight warps) and add the twins'. fp32 addition
+// commutes, so both blocks hold the same bits of S, and the mask, the online
+// softmax and P follow the sum alike in both; each block multiplies P by its
+// own 256 columns of V. Block 0 writes lse. 214,072 bytes; exactly the
+// bound's FLOPs (each score product once).
 
 #include "flash_common.cuh"
 
@@ -469,25 +483,31 @@ namespace fwd32 {
 
 constexpr int THR = 256;
 
-// Shared memory of flash_fwd_fma<D, BQ, BK>, in bytes from a 1024-aligned
-// base: the Q tile (D / 32 slabs of BQ rows of 32 fp32 columns, 128-byte
-// rows), STAGES ring stages (the K tile's D / 32 slabs of BK rows, then the
-// V tile's), the fp32 P tile [BQ][BK], then the mbarriers: Q, full[STAGES],
-// empty[STAGES]. `bytes` adds the slack for aligning the dynamic base;
+// Shared memory of flash_fwd_fma<D, BQ, BK, CL>, in bytes from a
+// 1024-aligned base: the Q tile (DL / 32 slabs of BQ rows of 32 fp32
+// columns, 128-byte rows; DL = D / CL the block's columns), STAGES ring
+// stages (the K tile's DL / 32 slabs of BK rows, then the V tile's), the
+// fp32 P tile [BQ][BK], at CL 2 the receive slot of the peer's partial S
+// ([2][THR] float4: the block's 256 threads, 8 partials each), then the
+// mbarriers: Q, full[STAGES], empty[STAGES], and at CL 2 the slot's full and
+// free. `bytes` adds the slack for aligning the dynamic base;
 // ops/pallas_attention.py (_fma_fwd_bytes) sums the same and the launcher
 // checks it.
-template <int D, int BQ, int BK>
+template <int D, int BQ, int BK, int CL>
 struct Layout {
-  static constexpr int NS = D / 32;
+  static constexpr int DL = D / CL;
+  static constexpr int NS = DL / 32;
   static constexpr int SLAB_Q = BQ * 128;
   static constexpr int SLAB_K = BK * 128;
   static constexpr int STAGE = 2 * NS * SLAB_K;
   static constexpr int Q = 0;
   static constexpr int KV = Q + NS * SLAB_Q;
   static constexpr int P = KV + flash::STAGES * STAGE;
-  static constexpr int BAR = P + BQ * BK * 4;
-  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES);
+  static constexpr int RX = P + BQ * BK * 4;
+  static constexpr int BAR = RX + (CL > 1 ? BQ * BK * 4 : 0);
+  static constexpr int bytes = 1024 + BAR + 8 * (1 + 2 * flash::STAGES) + (CL > 1 ? 16 : 0);
   static_assert(bytes <= 232448, "the layout must fit a block's shared memory");
+  static_assert(CL == 1 || (DL == 256 && BQ * BK == 8 * THR), "a pair swaps 8 partials a thread");
 };
 
 // One block per (head, batch row, query tile of BQ rows), heaviest causal
@@ -499,33 +519,47 @@ struct Layout {
 // own accumulators, and the P rows it multiplies by V are the ones its group
 // wrote, so P passes through a warp's own rows of the P tile behind a
 // __syncwarp and no block barrier. Only thread 0 (issuing the copies) and
-// the ring's mbarriers join the warps.
-template <int D, int BQ, int BK>
+// the ring's mbarriers join the warps. CL 2 (head width 512): block c of a
+// cluster of two holds columns c DL .. of Q, K and V and owns those of O;
+// both walk the same query tile and key tiles, and after each tile's S
+// (partial over DL columns) all 256 threads swap it with their twins in the
+// other block (the pair pieces of flash_common.cuh, one slot of THR
+// threads) before the mask and the softmax. Block 0 writes lse.
+template <int D, int BQ, int BK, int CL>
 __global__ void __launch_bounds__(THR, 1)
 flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
               float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal, int window,
               float scale) {
   using namespace flash;
-  using L = Layout<D, BQ, BK>;
+  using L = Layout<D, BQ, BK, CL>;
   constexpr int NS = L::NS;
   constexpr int R = BQ / 16;      // rows a thread
   constexpr int J = BK / 16;      // keys a thread of each score tile
-  constexpr int DH = D / 64;      // 4-column groups of O a thread
-  static_assert(J == 4 || J == 2 || J == 1, "tiles of 64, 32 or 16 keys");
+  constexpr int DH = L::DL / 64;  // 4-column groups of O a thread
+  static_assert(J == 4 || J == 2, "tiles of 64 or 32 keys");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   const float* fs = reinterpret_cast<const float*>(smem);
   float* ps = reinterpret_cast<float*>(smem + L::P);
   const uint32_t s_base = smem_u32(smem);
   const uint32_t bar_q = s_base + L::BAR;
+  const uint32_t rx_full = bar_q + 8 * (1 + 2 * STAGES), rx_free = rx_full + 8;
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // heaviest causal tiles first
+  // heaviest causal tiles first; a pair's two blocks take one query tile
+  const int q0 = (gridDim.z / CL - 1 - blockIdx.z / CL) * BQ;
   const int q1 = min(q0 + BQ - 1, Sq - 1);
+  const int rank = CL > 1 ? (int)cluster_rank() : 0;
+  const int d0 = rank * L::DL;                         // the block's columns
   const int kvh = h / (H / KV);
   const KeyTiles kt = key_tiles<BK>(q0, BQ, Sq, Sk, causal, window);
+  if (CL > 1 && threadIdx.x == 0) {
+    mbar_init(rx_full, 1);
+    mbar_init(rx_free, THR / 32);
+  }
   init_barriers(bar_q, THR / 32);                      // empty: one arrival a warp
+  if constexpr (CL > 1) cluster_sync();   // both blocks' barriers exist before a remote store
 
   int issued = 0;
   auto issue = [&](int j, int sj) {
@@ -533,14 +567,14 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     const uint32_t dst = s_base + L::KV + sj * L::STAGE;
     mbar_expect_tx(bar_full(bar_q, sj), L::STAGE);
     for (int s = 0; s < NS; ++s) {
-      tma_load(dst + s * L::SLAB_K, &tk, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
-      tma_load(dst + (NS + s) * L::SLAB_K, &tv, 32 * s, kvh, k0, b, bar_full(bar_q, sj));
+      tma_load(dst + s * L::SLAB_K, &tk, d0 + 32 * s, kvh, k0, b, bar_full(bar_q, sj));
+      tma_load(dst + (NS + s) * L::SLAB_K, &tv, d0 + 32 * s, kvh, k0, b, bar_full(bar_q, sj));
     }
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar_q, NS * L::SLAB_Q);
     for (int s = 0; s < NS; ++s)
-      tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, 32 * s, h, q0, b, bar_q);
+      tma_load(s_base + L::Q + s * L::SLAB_Q, &tq, d0 + 32 * s, h, q0, b, bar_q);
     refill(issued, kt.count, 0, bar_q, issue);
   }
   __syncwarp();
@@ -548,6 +582,9 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const int g = threadIdx.x >> 4, x = threadIdx.x & 15, lane = threadIdx.x & 31;
   const int kg = g & 7;
   const float sl2 = scale * LOG2E;
+  Pair pr{};
+  if constexpr (CL > 1) pr = pair_at(s_base + L::RX, rx_full, rx_free);
+  const float4* rx = reinterpret_cast<const float4*>(smem + L::RX);
   float acc[R][4 * DH];
   float m[R], l[R];               // l: this thread's part of the row sums
 #pragma unroll
@@ -579,6 +616,17 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     // the next tile, if its stage is free by now
     if (threadIdx.x == 0) refill(issued, kt.count, it, bar_q, issue);
     __syncwarp();
+    if constexpr (CL > 1) {
+      // S = S0 + S1 over the pair's column halves
+      float part[R * J];
+#pragma unroll
+      for (int e = 0; e < R * J; ++e) part[e] = s[e / J][e % J];
+      pair_send<R * J, THR>(pr, part, it, threadIdx.x, BQ * BK * 4);
+      pair_add<R * J, THR>(pr, part, rx, it, threadIdx.x);
+      pair_release(pr);
+#pragma unroll
+      for (int e = 0; e < R * J; ++e) s[e / J][e % J] = part[e];
+    }
 
     if (tile_edge<BK>(k0, q0, q1, Sk, causal, window)) {
 #pragma unroll
@@ -629,38 +677,51 @@ flash_fwd_fma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     if (row >= Sq) continue;
     // a row that saw no key gives 0 (and lse +inf), the TPU kernel's l_safe
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    float* orow = o + (((size_t)b * Sq + row) * H + h) * D;
+    float* orow = o + (((size_t)b * Sq + row) * H + h) * D + d0;
 #pragma unroll
     for (int hh = 0; hh < DH; ++hh)
       *reinterpret_cast<float4*>(orow + 4 * x + 64 * hh) =
           make_float4(acc[i][4 * hh] * inv, acc[i][4 * hh + 1] * inv, acc[i][4 * hh + 2] * inv,
                       acc[i][4 * hh + 3] * inv);
-    if (x == 0)
+    if (x == 0 && rank == 0)
       lse[((size_t)b * H + h) * Sq + row] = l[i] == 0.f ? INFINITY : m[i] * scale + logf(l[i]);
   }
+  // the peer may still arrive on this block's free barrier: neither block
+  // exits before both are done with the other's shared memory
+  if constexpr (CL > 1) cluster_sync();
 }
 
 }  // namespace fwd32
 
-template <int D, int BQ, int BK>
+template <int D, int BQ, int BK, int CL>
 int launch_fma(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Sq,
                int Sk, int H, int KV, int causal, int window, float scale, int smem,
                cudaStream_t stream) {
-  using L = fwd32::Layout<D, BQ, BK>;
+  using L = fwd32::Layout<D, BQ, BK, CL>;
   if (smem != L::bytes) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   int err = flash::make_map(&tq, q, D, H, Sq, B, BQ, true);
   if (!err) err = flash::make_map(&tk, k, D, KV, Sk, B, BK, true);
   if (!err) err = flash::make_map(&tv, v, D, KV, Sk, B, BK, true);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(fwd32::flash_fwd_fma<D, BQ, BK>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = fwd32::flash_fwd_fma<D, BQ, BK, CL>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  fwd32::flash_fwd_fma<D, BQ, BK><<<grid, fwd32::THR, smem, stream>>>(
-      tq, tk, tv, static_cast<float*>(o), static_cast<float*>(lse), Sq, Sk, H, KV, causal, window,
-      scale);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, B, CL * ((Sq + BQ - 1) / BQ));
+  cfg.blockDim = dim3(fwd32::THR);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = CL;
+  cfg.attrs = &attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv, static_cast<float*>(o),
+                         static_cast<float*>(lse), Sq, Sk, H, KV, causal, window, scale);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -668,7 +729,8 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, void* lse, 
 // f32: 0 for bf16 operands, 1 for fp32. bf16 takes the tensor-core kernel:
 // block_q 64 or 128 at D 64 and 128, 64 at D 256 and 512 (at 512 the two
 // warpgroups' halves of O); fp32 the FMA kernel: block_q 128 at D 64 and 128
-// (64-key tiles), 64 at D 256 (32-key tiles), 32 at D 512 (16-key tiles).
+// (64-key tiles), 64 at D 256 and 512 (32-key tiles; at 512 a cluster of two
+// blocks a query tile, each owning half of O).
 // smem: the plan's shared-memory bytes, checked against the kernel's own
 // layout.
 extern "C" int flash_attention_fwd_launch(
@@ -680,10 +742,10 @@ extern "C" int flash_attention_fwd_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ARGS q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, smem, s
   if (f32) {
-    if (D == 512 && block_q == 32) return launch_fma<512, 32, 16>(ARGS);
-    if (D == 256 && block_q == 64) return launch_fma<256, 64, 32>(ARGS);
-    if (D == 128 && block_q == 128) return launch_fma<128, 128, 64>(ARGS);
-    if (D == 64 && block_q == 128) return launch_fma<64, 128, 64>(ARGS);
+    if (D == 512 && block_q == 64) return launch_fma<512, 64, 32, 2>(ARGS);
+    if (D == 256 && block_q == 64) return launch_fma<256, 64, 32, 1>(ARGS);
+    if (D == 128 && block_q == 128) return launch_fma<128, 128, 64, 1>(ARGS);
+    if (D == 64 && block_q == 128) return launch_fma<64, 128, 64, 1>(ARGS);
   } else {
     if (D == 512 && block_q == 64) return launch_wgmma_halves<512>(ARGS);
     if (D == 256 && block_q == 64) return launch_wgmma<256, 1>(ARGS);

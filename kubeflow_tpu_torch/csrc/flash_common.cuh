@@ -19,7 +19,8 @@
 // kernels (flash_fwd_fma, flash_dq_fma, flash_dkv_fma): the same walks with
 // register-tiled fp32 FMA products (the fma32 pieces below) fed by the same
 // kind of TMA ring, thread 0 issuing the copies between its own products;
-// at width 512 fp32 dq and dk/dv are pairs of width-256 blocks too.
+// at width 512 the fp32 forward, dq and dk/dv are pairs of width-256 blocks
+// too.
 //
 // The generic Hopper pieces (mbarriers, TMA, descriptors, wgmma wrappers,
 // the tensor-map encoder) live in hopper_common.cuh; here are the
@@ -197,16 +198,17 @@ __device__ __forceinline__ void refill(int& issued, int count, int must, uint32_
   }
 }
 
-// ---- the pair: dq and dk/dv at head width 512
+// ---- the pair: dq and dk/dv at head width 512, and the fp32 forward there
 //
 // Block c = 0, 1 of a cluster of two holds columns c DL .. c DL + DL - 1
 // (DL = 256) of every operand it reads and runs the width-256 kernel's tiles
 // on them, so its score products are partial sums over its columns. After
 // each tile's products a slot's threads (a warpgroup of the bf16 kernels and
-// of the fp32 dk/dv, all 256 of the fp32 dq) swap their fp32 partials with
-// their twins in the other block (the same threadIdx there holds the same
-// elements) and add them: fp32 addition commutes, so both blocks hold the
-// same bits of S0 + S1, and masking, exp and dS follow the sum. A receive
+// of the fp32 dk/dv, all 256 of the fp32 forward and dq) swap their fp32
+// partials with their twins in the other block (the same threadIdx there
+// holds the same elements) and add them: fp32 addition commutes, so both
+// blocks hold the same bits of S0 + S1, and masking, exp, the forward's
+// online softmax and dS follow the sum. A receive
 // slot of T threads holds float4s, thread tid's j-th at j * T + tid. Two
 // mbarriers guard it: `full` in the receiver (armed with the bytes by one of
 // its threads, counted down by the sender's st.async) and `free` in the
@@ -219,9 +221,10 @@ struct Pair {
   uint32_t peer_free;               // the peer's free barrier (shared::cluster)
 };
 
-// One side of a pair (a warpgroup's, or the whole block's for the fp32 dq):
-// rx, full and free are this block's shared-memory addresses of that side's
-// slot and barriers; the peer's are the same addresses in the other block.
+// One side of a pair (a warpgroup's, or the whole block's for the fp32
+// forward and dq): rx, full and free are this block's shared-memory
+// addresses of that side's slot and barriers; the peer's are the same
+// addresses in the other block.
 __device__ __forceinline__ Pair pair_at(uint32_t rx, uint32_t full, uint32_t free) {
   const uint32_t peer = cluster_rank() ^ 1;
   return {full, free, mapa(rx, peer), mapa(full, peer), mapa(free, peer)};
@@ -331,17 +334,14 @@ __device__ __forceinline__ void dot_rows(float (&acc)[NP][R][J], const float* co
 
 // This thread's J values of one row of an fp32 [rows][16 J] tile (a row of
 // P, dS, P^T or dS^T): column x + 16 j at position J x + j, the row's
-// 16-byte chunks swizzled by kg = row % 8 (by kg % 4 in a row of 16
-// columns, which has four chunks).
+// 16-byte chunks swizzled by kg = row % 8.
 template <int J>
 __device__ __forceinline__ void put_row(float* row, const float (&v)[J], int x, int kg) {
-  static_assert(J == 4 || J == 2 || J == 1, "rows of 64, 32 or 16 columns");
+  static_assert(J == 4 || J == 2, "rows of 64 or 32 columns");
   if constexpr (J == 4)
     *reinterpret_cast<float4*>(row + 4 * (x ^ kg)) = make_float4(v[0], v[1], v[2], v[3]);
-  else if constexpr (J == 2)
-    *reinterpret_cast<float2*>(row + 4 * ((x >> 1) ^ kg) + 2 * (x & 1)) = make_float2(v[0], v[1]);
   else
-    row[4 * ((x >> 2) ^ (kg & 3)) + (x & 3)] = v[0];
+    *reinterpret_cast<float2*>(row + 4 * ((x >> 1) ^ kg) + 2 * (x & 1)) = make_float2(v[0], v[1]);
 }
 
 // The values put_row<J> wrote at this thread's positions of a row.
@@ -350,35 +350,33 @@ __device__ __forceinline__ void get_row(const float* row, float (&v)[J], int x, 
   if constexpr (J == 4) {
     const float4 t = *reinterpret_cast<const float4*>(row + 4 * (x ^ kg));
     v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else if constexpr (J == 2) {
+  } else {
     const float2 t = *reinterpret_cast<const float2*>(row + 4 * ((x >> 1) ^ kg) + 2 * (x & 1));
     v[0] = t.x, v[1] = t.y;
-  } else {
-    v[0] = row[4 * ((x >> 2) ^ (kg & 3)) + (x & 3)];
   }
 }
 
 // acc[i][4 h + e] += sum over c of P[g + GS i][c] V[c][4 x + 64 h + e]: P
 // the [.., 16 J] tile of put_row (the rows this thread's half warp wrote), V
 // a tile of 16 J rows in slabs v_slab floats apart. Position 4 q + e of a P
-// row is column q + 16 e (J 4), 2 q + e / 2 + 16 (e % 2) (J 2), or 4 q + e
-// (J 1); per 4 positions, R loads of P and 4 DH of V feed 16 R DH FMAs. The
-// loop is unrolled whole, which ran faster on an H100 than unrolling it by 2.
+// row is column q + 16 e (J 4) or 2 q + e / 2 + 16 (e % 2) (J 2); per 4
+// positions, R loads of P and 4 DH of V feed 16 R DH FMAs. The loop is
+// unrolled whole, which ran faster on an H100 than unrolling it by 2.
 template <int R, int J, int DH, int GS = 16>
 __device__ __forceinline__ void acc_rows(float (&acc)[R][4 * DH], const float* P,
                                          const float* V, int v_slab, int g, int x) {
+  static_assert(J == 4 || J == 2, "rows of 64 or 32 columns");
   constexpr int N = 16 * J;
   const int kg = g & 7, kx = x & 7;
-  const int pk = kg & (N / 4 - 1);     // put_row's chunk swizzle of these rows
 #pragma unroll
   for (int q = 0; q < N / 4; ++q) {
     float4 pv[R];
 #pragma unroll
     for (int i = 0; i < R; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(P + (g + GS * i) * N + 4 * (q ^ pk));
+      pv[i] = *reinterpret_cast<const float4*>(P + (g + GS * i) * N + 4 * (q ^ kg));
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int c = J == 4 ? q + 16 * e : J == 2 ? 2 * q + (e >> 1) + 16 * (e & 1) : 4 * q + e;
+      const int c = J == 4 ? q + 16 * e : 2 * q + (e >> 1) + 16 * (e & 1);
       float4 vv[DH];
 #pragma unroll
       for (int h = 0; h < DH; ++h)

@@ -14,7 +14,8 @@
 // at most `chunk` keys (a multiple of 16, S * chunk >= L); cluster: 1 to
 // combine through a cluster of the S blocks (S <= 16), 0 through the
 // workspaces. ws_o [B, G, R, S, D] and ws_ml [B, G, R, S] (float2) fp32
-// workspaces; tickets [B, G, chunks] int32, zero before the first launch and
+// workspaces; tickets [B, G, chunks] then [B, G, chunks, ceil(S / 16)] int32
+// (a row's, then its groups' of 16 runs), zero before the first launch and
 // left zero by every launch; smem must equal the block's bytes. The wrapper's
 // plan (ops/flash_decode.py _plan) picks S, chunk and cluster.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,

@@ -33,7 +33,9 @@
 //   flagship's mean position, 192 live keys, 12 blocks of 16 a row, where
 //   fixed splits of 128 would leave 2 blocks with all the work), and dead
 //   slots are never read: the counterpart of the TPU kernel's
-//   scalar-prefetch clamp. A block past the range writes an empty partial.
+//   scalar-prefetch clamp. Runs 0 .. n_live - 1 (n_live = ceil(len / per))
+//   hold the live keys; a block past them writes no partial and, on the
+//   workspace route, returns at once.
 // - a block first issues every load of its run at once (cp.async, 16 bytes a
 //   thread; K and the queries in one group, V in a second, so the scores
 //   start while V still arrives). A bf16 block of at least 32 keys then
@@ -48,23 +50,31 @@
 //   (m, l) and rounds the probabilities to the operands' type (the TPU
 //   kernel's p.astype(v.dtype), :88; the identity in fp32). The partial
 //   (m, l, o[D]) of each head is fp32.
-// - the combine is the same launch, by the route the wrapper's plan picks.
-//   With S <= 16 the S blocks of a (b, g, chunk) form a thread-block
-//   cluster (on an H100 at the serving flagship, chip_smoke.py's timing,
-//   8% faster than the workspace combine at pos 191, 1.5% slower at pos
-//   2047): each keeps its partial in shared memory, a cluster barrier, and
-//   block 0 reads all S partials through
-//   distributed shared memory (one round trip for up to 8 (head, column)
-//   pairs a thread; at D 256 a thread's 16 pairs take two, at D 512 its 32
-//   four), rescales each by
-//   exp(m_s - m), divides by the sum of the rescaled l (0 where no run has a
-//   live key: the TPU kernel's l_safe) and casts once; a second barrier
-//   keeps the others alive until it has read them. With more blocks the
-//   partials go to a workspace (it stays in L2) and each block takes a
-//   ticket (an atomic counter of its (b, g, chunk)); the block that takes
-//   the last one combines them the same way and sets the counter back to 0.
-//   The sums run in block order, so two launches on the same inputs give
-//   the same bits.
+// - the combine is the same launch, by the route the wrapper's plan picks,
+//   over the n_live live runs only (a run past them would add only zero
+//   terms), in block order, so two launches on the same inputs give the
+//   same bits. With S <= 16 the S blocks of a (b, g, chunk) form a
+//   thread-block cluster (chip_smoke.py times it beside the workspace
+//   combine at the serving flagship, pos 191 and 2047): each keeps its
+//   partial in shared memory, a cluster barrier, and block 0 reads the live
+//   partials through distributed shared memory, rescales each by exp(m_s -
+//   m), divides by the sum of the rescaled l (0 where no run has a live
+//   key: the TPU kernel's l_safe) and casts once; a second barrier keeps
+//   the others alive until it has read them. With more blocks the live
+//   runs' partials go to a workspace (it stays in L2) and each live block
+//   takes a ticket (an atomic counter). The block that takes the last
+//   ticket combines them, except at width 512 past 32 live runs (FOLD_RUNS;
+//   a block's 64 KB of K and V hold 32 bf16 or 16 fp32 keys there, so a
+//   full 2,048-slot cache is 64 or 128 runs): such a row is cut into groups
+//   of 16 runs (GROUP), each group's last block folds its runs into one
+//   partial, on as many SMs as there are groups, and the last of those
+//   combines the groups' partials. A combining block stages the partials
+//   into its shared memory by every thread's 16-byte copies (cp.async, two
+//   stages in flight) before it sums them, so no thread waits on one load
+//   after another. On an H100 a stage of 32 KB took ~2.7 us and the two
+//   levels ~14-19 us in all (benchmarks/decode_combine.py, two heads a
+//   chunk), hence 32 runs: one block's 8 stages at 64 bf16 runs cost more.
+//   A row with no live key gets its zeros from block 0.
 
 #pragma once
 
@@ -81,8 +91,9 @@ constexpr int THREADS = 128;
 constexpr int NW = THREADS / 32;
 constexpr int TPK = 8;           // threads that score one key together
 constexpr int UNIT = 16;         // a row's split is a multiple of this many keys
-constexpr int CB = 16;           // partials the combine loads ahead
 constexpr int MMA_KEYS = 32;     // the least keys of a block on the tensor cores
+constexpr int GROUP = 16;        // runs a first-level group of the workspace combine folds
+constexpr int FOLD_RUNS = 32;    // live runs one block combines alone at width 512, at most
 constexpr int MAX_CLUSTER = 16;  // blocks a cluster may hold (non-portable above 8)
 
 using hopper::cluster_arrive;
@@ -150,6 +161,125 @@ __device__ __forceinline__ void unpack(const uint4& raw, float (&f)[4]) {
   f[2] = __uint_as_float(raw.z), f[3] = __uint_as_float(raw.w);
 }
 
+// The ticket of a set of `arrivals` blocks (the pattern of cooperative
+// groups' grid barrier: the block's stores, a block barrier, one thread's
+// fence and atomic; the barrier orders the other threads' stores before the
+// fence): true in the block that takes the last one, which sets it back to
+// 0 for the next launch.
+__device__ __forceinline__ bool last_of(int* ticket, int arrivals, int* last_s) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const int last = atomicAdd(ticket, 1) == arrivals - 1;
+    if (last) {
+      __threadfence();
+      *ticket = 0;
+    }
+    *last_s = last;
+  }
+  __syncthreads();
+  return *last_s != 0;
+}
+
+// The combine of the cnt partials first, first + stride, ... of a chunk's
+// nr heads (head r's partial j at ws_o[(part0 + r * S + j) * D], its (m, l)
+// at ws_ml[part0 + r * S + j]; in L2). They go to shared memory (stg: the
+// block's K and V area, read by now) in stages of hb partials, the first
+// two stages issued at once and each later one as soon as a buffer is
+// read, every thread's 16-byte copies in flight together (cp.async);
+// meanwhile one warp a head loads their (m, l), takes m the largest m_j of
+// a partial with l_j > 0, the weights w_j = exp(m_j - m) (0 where l_j = 0)
+// into wts and l the weighted sum of l_j. Then thread t sums w_j o_j of
+// its (head, column) pairs u = t + THREADS k in block order, a stage at a
+// time from shared memory, and writes o / l (0 where l = 0) to out, or with
+// `fold` keeps (m, l, o) as the partial at `first`.
+template <int D, typename T, int NR>
+__device__ __forceinline__ void combine(float* ws_o, float2* ws_ml, T* out,
+                                        float* stg, float* wts, float* mc, float* lc,
+                                        size_t part0, int S, int nr, int hb, int first,
+                                        int stride, int cnt, bool fold) {
+  constexpr int NP = (NR * D + THREADS - 1) / THREADS;   // (head, column) pairs a thread
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int stages = (cnt + hb - 1) / hb;
+  auto fetch = [&](int i) {             // a warp a partial's row of D fp32 at a time
+    const int j0 = i * hb, sb = min(hb, cnt - j0);
+    float* dst = stg + (size_t)(i & 1) * nr * hb * D;
+    for (int rj = warp; rj < nr * sb; rj += NW) {
+      const int r = rj / sb, j = rj - r * sb;
+      float* d = dst + ((size_t)r * hb + j) * D;
+      const float* src = ws_o + (part0 + (size_t)r * S + first + (size_t)(j0 + j) * stride) * D;
+#pragma unroll
+      for (int c = lane; c < D / 4; c += 32) cp_async16(d + 4 * c, src + 4 * c);
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+  if (stages > 1) fetch(1);
+  for (int r = warp; r < nr; r += NW) {
+    const float2* ml = ws_ml + part0 + (size_t)r * S + first;
+    const float2 v0 = lane < cnt ? __ldcg(ml + (size_t)lane * stride) : make_float2(-INFINITY, 0.f);
+    float m = v0.y > 0.f ? v0.x : -INFINITY;
+    for (int j = lane + 32; j < cnt; j += 32) {
+      const float2 v = __ldcg(ml + (size_t)j * stride);
+      if (v.y > 0.f) m = fmaxf(m, v.x);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float l = 0.f;
+    if (lane < cnt) {
+      const float w = v0.y > 0.f ? expf(v0.x - m) : 0.f;
+      wts[r * S + lane] = w;
+      l = w * v0.y;
+    }
+    for (int j = lane + 32; j < cnt; j += 32) {
+      const float2 v = __ldcg(ml + (size_t)j * stride);
+      const float w = v.y > 0.f ? expf(v.x - m) : 0.f;
+      wts[r * S + j] = w;
+      l += w * v.y;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      mc[r] = m;
+      lc[r] = l;
+    }
+  }
+  float acc[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) acc[k] = 0.f;
+  for (int i = 0; i < stages; ++i) {
+    if (i + 1 < stages)
+      cp_async_wait<1>();               // stage i (stage i + 1 may still be in flight)
+    else
+      cp_async_wait<0>();
+    __syncthreads();                    // every thread's copies of stage i, and the weights
+    const int j0 = i * hb, sb = min(hb, cnt - j0);
+    const float* src = stg + (size_t)(i & 1) * nr * hb * D;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int u = t + k * THREADS, r = u / D;
+      if (r >= nr) continue;
+      const float* w = wts + r * S + j0;
+      const float* x = src + (size_t)r * hb * D + u % D;
+      for (int j = 0; j < sb; ++j) acc[k] = fmaf(w[j], x[(size_t)j * D], acc[k]);
+    }
+    __syncthreads();                    // stage i is read: its buffer takes stage i + 2
+    if (i + 2 < stages) fetch(i + 2);
+  }
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const int u = t + k * THREADS, r = u / D;
+    if (r >= nr) continue;
+    if (fold) {
+      ws_o[(part0 + (size_t)r * S + first) * D + u % D] = acc[k];
+    } else {
+      const float l = lc[r];
+      out[u] = from_f<T>(l == 0.f ? 0.f : acc[k] / l);
+    }
+  }
+  if (fold && t < nr) ws_ml[part0 + (size_t)t * S + first] = make_float2(mc[t], lc[t]);
+}
+
 // Shared memory of one block, in bytes: K and V rows of the most keys a
 // block takes (chunk), the chunk's queries [MAX_R][D] in T, the scores
 // [MAX_R][chunk] and the combine's weights [MAX_R][S] in fp32.
@@ -185,8 +315,8 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
   float* ps = reinterpret_cast<float*>(qs + MAX_R * D);   // [MAX_R][chunk]
   float* wts = ps + MAX_R * chunk;                        // [MAX_R][S]
   float* po = reinterpret_cast<float*>(ks);               // CL: this block's o [NR][D], K read
-  __shared__ float m_s[NR], l_s[NR], lc_s[NR];
-  __shared__ int last_s;
+  __shared__ float m_s[NR], l_s[NR], mc_s[NR], lc_s[NR];
+  __shared__ int n_live_s, last_s;
 
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
   const int S = gridDim.x, s = blockIdx.x, ch = blockIdx.y, bg = blockIdx.z, b = bg / G;
@@ -198,6 +328,10 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
   const int lo = window > 0 ? max(0, p - window + 1) : 0;
   const int len = hi - lo + 1;
   const int per = len > 0 ? ((len + S - 1) / S + UNIT - 1) / UNIT * UNIT : 0;
+  // runs 0 .. n_live - 1 hold the live keys, each at least one; the others
+  // none, and they write no partial
+  const int n_live = per > 0 ? (len + per - 1) / per : 0;
+  if (t == 0) n_live_s = n_live;        // read again by the combine, after a barrier
   const int k0 = lo + s * per;
   int n = min(hi, k0 + per - 1) - k0 + 1;   // live keys of this block (<= 0: none)
   // n is opaque to the optimiser: CUDA 12.8's nvcc ran the softmax's loops
@@ -205,6 +339,13 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
   asm volatile("" : "+r"(n));
   // the partial of head r0 + r of this block: (bg * R + r0 + r) * S + s
   const size_t part0 = ((size_t)bg * R + r0) * S;
+  if (!CL && s >= n_live) {
+    // no live key: no partial and no ticket. With none in the whole row,
+    // block 0 writes the chunk's heads' zeros (the TPU kernel's l_safe)
+    if (n_live == 0 && s == 0)
+      for (int i = t; i < nr * D; i += THREADS) o[((size_t)bg * R + r0) * D + i] = from_f<T>(0.f);
+    return;
+  }
 
   if (n > 0) {
     const bool mma = MMA && n >= MMA_KEYS;
@@ -450,33 +591,23 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
         }
     if (!CL && t < nr) ws_ml[part0 + (size_t)t * S + s] = make_float2(m_s[t], l_s[t]);
     }
-  } else if constexpr (CL) {
-    for (int i = t; i < NR * D; i += THREADS) po[i] = 0.f;
-    if (t < NR) {
-      m_s[t] = -INFINITY;
-      l_s[t] = 0.f;
-    }
-  } else {
-    // an empty partial, written whole so that the combine reads only what
-    // this launch wrote (it stays in L2)
-    for (int i = t; i < nr * D; i += THREADS)
-      ws_o[(part0 + (size_t)(i / D) * S + s) * D + i % D] = 0.f;
-    if (t < nr) ws_ml[part0 + (size_t)t * S + s] = make_float2(-INFINITY, 0.f);
   }
 
   constexpr int NP = (NR * D + THREADS - 1) / THREADS;   // (head, column) pairs a thread
-  constexpr int KB = NP < 8 ? NP : 8;                      // pairs a cluster-combine load batch
+  // pairs a cluster-combine load batch (8 spilled at D 512, R 2)
+  constexpr int KB = NP < 4 ? NP : 4;
   if constexpr (CL) {
-    // the combine inside the cluster: block 0 reads every block's (m, l) and
-    // o from its shared memory (all loads of a thread at once), weights and
-    // sums them in block order as below; a second cluster barrier keeps
-    // every block alive until block 0 has read it
+    // the combine inside the cluster: block 0 reads the live blocks' (m, l)
+    // and o from their shared memory (a batch's loads of a thread at once),
+    // weights and sums them in block order as below; a second cluster
+    // barrier keeps every block alive until block 0 has read it
     cluster_arrive();
     cluster_wait();
     if (s == 0) {
+      const int nl = n_live_s;
       for (int r = warp; r < nr; r += NW) {
         float mj = -INFINITY, lj = 0.f;
-        if (lane < S) {
+        if (lane < nl) {
           mj = ld_cluster(mapa(smem_u32(m_s + r), lane));
           lj = ld_cluster(mapa(smem_u32(l_s + r), lane));
         }
@@ -485,7 +616,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
         for (int off = 16; off > 0; off >>= 1)
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
         const float w = lj > 0.f ? expf(mj - m) : 0.f;
-        if (lane < S) wts[r * S + lane] = w;
+        if (lane < nl) wts[r * S + lane] = w;
         float l = w * lj;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
@@ -500,7 +631,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
         for (int k = 0; k < KB; ++k) {
           const uint32_t a = smem_u32(po + min(t + (k0 + k) * THREADS, NR * D - 1));
 #pragma unroll
-          for (int j = 0; j < MAX_CLUSTER; ++j) x[k][j] = j < S ? ld_cluster(mapa(a, j)) : 0.f;
+          for (int j = 0; j < MAX_CLUSTER; ++j) x[k][j] = j < nl ? ld_cluster(mapa(a, j)) : 0.f;
         }
         if (k0 == 0) __syncthreads();
 #pragma unroll
@@ -510,7 +641,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
           float acc = 0.f;
 #pragma unroll
           for (int j = 0; j < MAX_CLUSTER; ++j)
-            if (j < S) acc = fmaf(wts[r * S + j], x[k][j], acc);
+            if (j < nl) acc = fmaf(wts[r * S + j], x[k][j], acc);
           const float l = lc_s[r];
           o[((size_t)bg * R + r0 + r) * D + u % D] = from_f<T>(l == 0.f ? 0.f : acc / l);
         }
@@ -521,88 +652,30 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
     return;
   }
 
-  // the ticket (the pattern of cooperative groups' grid barrier: the
-  // block's stores, a block barrier, one thread's fence and atomic; the
-  // barrier orders the other threads' stores before the fence): the block
-  // that completes the (b, g, chunk) combines
-  __syncthreads();
-  int* ticket = tickets + (size_t)bg * gridDim.y + ch;
-  if (t == 0) {
-    __threadfence();
-    const int last = atomicAdd(ticket, 1) == S - 1;
-    if (last) {
-      __threadfence();
-      *ticket = 0;                      // for the next launch
-    }
-    last_s = last;
-  }
-  __syncthreads();
-  if (!last_s) return;
-
-  // the combine. Thread t takes (head, column) pairs u = t + THREADS k and
-  // loads the first CB blocks' o of its first pairs at once; meanwhile one
-  // warp a head loads the S (m, l), takes m the largest m_s of a block with a
-  // live key, the weights w_s = exp(m_s - m) (0 for a block with none) and
-  // l the weighted sum of l_s; then each pair sums w_s o_s in block order,
-  // CB partials a load batch.
-  constexpr int NPF = NP < 2 ? NP : 2;                    // pairs loaded ahead
-  float x0[NPF][CB];
-#pragma unroll
-  for (int k = 0; k < NPF; ++k) {
-    const int u = t + k * THREADS, r = min(u / D, nr - 1);
-#pragma unroll
-    for (int i = 0; i < CB; ++i)
-      x0[k][i] = i < S ? __ldcg(ws_o + (part0 + (size_t)r * S + i) * D + u % D) : 0.f;
-  }
-  for (int r = warp; r < nr; r += NW) {
-    const float2* ml = ws_ml + part0 + (size_t)r * S;
-    const float2 v0 = lane < S ? __ldcg(ml + lane) : make_float2(-INFINITY, 0.f);
-    float m = v0.y > 0.f ? v0.x : -INFINITY;
-    for (int j = lane + 32; j < S; j += 32) {
-      const float2 v = __ldcg(ml + j);
-      if (v.y > 0.f) m = fmaxf(m, v.x);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float l = 0.f;
-    if (lane < S) {
-      const float w = v0.y > 0.f ? expf(v0.x - m) : 0.f;
-      wts[r * S + lane] = w;
-      l = w * v0.y;
-    }
-    for (int j = lane + 32; j < S; j += 32) {
-      const float2 v = __ldcg(ml + j);
-      const float w = v.y > 0.f ? expf(v.x - m) : 0.f;
-      wts[r * S + j] = w;
-      l += w * v.y;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (lane == 0) l_s[r] = l;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    const int u = t + k * THREADS, r = u / D, col = u % D;
-    if (r >= nr) continue;
-    const float* w = wts + r * S;
-    const float* src = ws_o + (part0 + (size_t)r * S) * D + col;
-    float acc = 0.f;
-    for (int j0 = 0; j0 < S; j0 += CB) {
-      float xb[CB];
-#pragma unroll
-      for (int i = 0; i < CB; ++i) {
-        if (k < NPF && j0 == 0)
-          xb[i] = x0[k < NPF ? k : 0][i];
-        else
-          xb[i] = j0 + i < S ? __ldcg(src + (size_t)(j0 + i) * D) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < CB; ++i)
-        if (j0 + i < S) acc = fmaf(w[j0 + i], xb[i], acc);
-    }
-    const float l = l_s[r];
-    o[((size_t)bg * R + r0 + r) * D + col] = from_f<T>(l == 0.f ? 0.f : acc / l);
+  // The combine through the workspace. A row of at most FOLD_RUNS live
+  // runs, and every row below width 512, combines in one level: the block
+  // that takes the row's n_live-th ticket combines the runs. A longer row
+  // at width 512 is cut into groups of GROUP runs: the block that
+  // completes a group folds its runs into one partial (in place of the
+  // group's first run's), then takes the row's ticket, and the block that
+  // completes the row combines the groups' partials (at stride GROUP). So
+  // no block reads a long row's partials alone, and the groups fold on as
+  // many SMs at once. The row tickets come first ([B, G, chunks]), then
+  // the groups' ([B, G, chunks, ceil(S / GROUP)]). The groups only at
+  // width 512: compiled in below it, where a row's partials are half the
+  // bytes or less, they slowed the one-level rows by up to 15% on an H100.
+  const int nl = n_live_s, n_groups = (nl + GROUP - 1) / GROUP;
+  const bool two = D == 512 && nl > FOLD_RUNS;
+  const int row = bg * gridDim.y + ch;
+  int* group = tickets + (size_t)gridDim.z * gridDim.y + (size_t)row * ((S + GROUP - 1) / GROUP);
+  const int HB = chunk * (int)sizeof(T) / (4 * nr);   // partials a stage (chunk >= 16, nr <= 8)
+  for (int level = two ? 0 : 1; level < 2; ++level) {
+    const bool fold = level == 0;     // this block's group, or the row
+    const int first = fold ? s / GROUP * GROUP : 0, stride = two && !fold ? GROUP : 1;
+    const int cnt = fold ? min(GROUP, nl - first) : two ? n_groups : nl;
+    if (!last_of(fold ? group + s / GROUP : tickets + row, cnt, &last_s)) return;
+    combine<D, T, NR>(ws_o, ws_ml, o + ((size_t)bg * R + r0) * D, reinterpret_cast<float*>(ks),
+                      wts, mc_s, lc_s, part0, S, nr, HB, first, stride, cnt, fold);
   }
 }
 

@@ -35,14 +35,20 @@ What the design does about it (the source's header has the details):
   combined in block order in the same launch (through distributed shared
   memory when its blocks form a cluster of at most 16, else by the last
   block to finish, through a workspace: the plan's ``cluster`` picks), so
-  the result is the same on every run. :func:`_split_reference` is that order in plain PyTorch, a
-  witness for the tests and the chip smoke.
+  the result is the same on every run. Only the runs that hold a live key
+  (the first ``n_live``, :func:`_live_runs`) write a partial and take part
+  in the combine. On the workspace route a row of more than 32 live runs
+  at width 512 is combined in two levels (:func:`_combine_groups`):
+  the last block of each group of 16 runs folds them into one partial, and
+  the last of those folds the groups' partials, so no block reads every
+  partial of a long row alone. :func:`_split_reference` is that order in plain
+  PyTorch, a witness for the tests and the chip smoke.
 
 bf16 and fp32 operands (one dtype). The kernel is compiled for head widths 64,
 128, 256 and 512 (at 256 a thread takes two output columns of the value
-product and the cluster combine loads its 16 (head, column) pairs in two
-batches, at 512 four columns and 32 pairs in four batches; a block's 64 KB
-of K and V hold 32 bf16 or 16 fp32 keys there); any head size D up to 512
+product, at 512 four, and the cluster combine loads a thread's (head,
+column) pairs four at a time, 16 of them at 256 and 32 at 512 for 8 heads;
+a block's 64 KB of K and V hold 32 bf16 or 16 fp32 keys at 512); any head size D up to 512
 runs at D padded to the next width: the wrapper
 zero-pads q (one row a head) and cuts o, and the kernel reads the cache at
 its true D and zero-fills the columns past D in shared memory, so no step
@@ -67,6 +73,8 @@ SPLIT_UNIT = 16        # a row's split is a multiple of this many keys
 _WAVES = 2             # the grid should fill about this many waves of SMs
 _KV_BYTES_MAX = 65536  # K and V of one block, staged whole: 3 blocks fit an SM
 MAX_CLUSTER = 16       # a thread-block cluster's most blocks on Hopper (non-portable above 8)
+COMBINE_GROUP = 16     # runs a first-level group of the workspace combine folds (GROUP)
+FOLD_RUNS = 32         # live runs one block combines alone at width 512, at most (FOLD_RUNS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +156,25 @@ def _row_splits(pos: int, L: int, window, splits: int):
     return lo, hi, per
 
 
+def _live_runs(lo: int, hi: int, per: int) -> int:
+    """The kernel's ``n_live`` for a row cut as :func:`_row_splits` says:
+    runs ``0 .. n_live - 1`` hold its live keys, at least one each, and the
+    runs past them hold none, write no partial and take no part in the
+    combine. 0 when no key is live."""
+    return -(-(hi - lo + 1) // per) if per else 0
+
+
+def _combine_groups(n_live: int, cluster: bool, width: int):
+    """The workspace combine's first level: the runs ``0 .. n_live - 1`` cut
+    into groups of :data:`COMBINE_GROUP` (each folded into one partial by
+    its last block, then the groups' partials by the last of those), or
+    ``None`` where one block combines the runs directly: on the cluster
+    route, below width 512, and for at most :data:`FOLD_RUNS` runs."""
+    if cluster or width != 512 or n_live <= FOLD_RUNS:
+        return None
+    return [range(g, min(g + COMBINE_GROUP, n_live)) for g in range(0, n_live, COMBINE_GROUP)]
+
+
 def _check(q, k_cache, v_cache, block_k):
     B, G, R, D = q.shape
     L = k_cache.shape[2]
@@ -194,11 +221,15 @@ def flash_decode_plain(q, k_cache, v_cache, pos, *, window=None, scale=None):
 def _split_reference(q, k_cache, v_cache, pos, window, plan):
     """The kernel's order of operations in plain PyTorch (a witness, never
     on the main path): each row's live range is cut into ``plan.splits``
-    runs (:func:`_row_splits`); run ``s`` folds its keys into (m_s, l_s,
-    o_s) in fp32, its probabilities rounded to the operands' dtype against
-    m_s; the combine rescales each run by exp(m_s - m), skips runs with no
-    key, and divides by the rescaled sum of l (0 where no key is live). Sums
-    differ from the kernel's in order only."""
+    runs (:func:`_row_splits`), of which the first ``n_live``
+    (:func:`_live_runs`) hold its keys; live run ``s`` folds its keys into
+    (m_s, l_s, o_s) in fp32, its probabilities rounded to the operands'
+    dtype against m_s; the combine takes the live runs in block order,
+    rescales each by exp(m_s - m) and divides by the rescaled sum of l (0
+    where no key is live). Where the plan's workspace combine cuts the runs
+    into groups (:func:`_combine_groups`), each group is first folded so
+    into (m_g, l_g, o_g), o_g unnormalized, and the groups' partials then
+    combine the same way. Sums differ from the kernel's in order only."""
     B, G, R, D = q.shape
     L = k_cache.shape[2]
     S = plan.splits
@@ -207,26 +238,39 @@ def _split_reference(q, k_cache, v_cache, pos, window, plan):
         lo, hi, per = _row_splits(p, L, window, S)
         if per == 0:
             continue
-        idx = lo + torch.arange(S * per, device=q.device)
-        live = idx <= hi                                       # [S * per]
+        n_live = _live_runs(lo, hi, per)
+        idx = lo + torch.arange(n_live * per, device=q.device)
+        live = idx <= hi                                       # [n_live * per]
         idx = idx.clamp(max=hi)
-        k = torch.where(live[:, None], k_cache[b][:, idx], 0).float()   # [G, S * per, D]
+        k = torch.where(live[:, None], k_cache[b][:, idx], 0).float()   # [G, n_live * per, D]
         v = torch.where(live[:, None], v_cache[b][:, idx], 0)
         s = torch.einsum("grd,gkd->grk", q[b].float(), k) * (D ** -0.5)
-        live_s = live.view(S, per)
-        s = s.view(G, R, S, per).masked_fill(~live_s, NEG_INF)
-        m_s = s.amax(dim=-1, keepdim=True)                     # [G, R, S, 1]
+        live_s = live.view(n_live, per)
+        s = s.view(G, R, n_live, per).masked_fill(~live_s, NEG_INF)
+        m_s = s.amax(dim=-1, keepdim=True)                     # [G, R, n_live, 1]
         pr = torch.exp(s - m_s) * live_s
-        l_s = pr.sum(dim=-1)                                   # [G, R, S]
+        l_s = pr.sum(dim=-1)                                   # [G, R, n_live]
         o_s = torch.einsum("grsk,gskd->grsd", pr.to(v.dtype).float(),
-                           v.float().view(G, S, per, D))
+                           v.float().view(G, n_live, per, D))
         m_s = m_s.squeeze(-1)
-        m = torch.where(l_s > 0, m_s, -torch.inf).amax(dim=-1, keepdim=True)
-        w = torch.where(l_s > 0, torch.exp(m_s - m), 0.0)
-        l = (w * l_s).sum(dim=-1)[..., None]
-        o = (w[..., None] * o_s).sum(dim=-2)
-        out[b] = (o / l).to(q.dtype)
+        groups = _combine_groups(n_live, plan.cluster, plan.width)
+        if groups is not None:
+            folded = [_fold(m_s[..., g.start:g.stop], l_s[..., g.start:g.stop],
+                            o_s[..., g.start:g.stop, :]) for g in groups]
+            m_s, l_s, o_s = (torch.stack(t, dim=d) for t, d in zip(zip(*folded), (-1, -1, -2)))
+        m, l, o = _fold(m_s, l_s, o_s)
+        out[b] = (o / l[..., None]).to(q.dtype)
     return out
+
+
+def _fold(m_s, l_s, o_s):
+    """Partials (m_s, l_s, o_s) [..., n], [..., n], [..., n, D] folded into
+    one, as the kernel's combine does: m the largest m_s of a partial with
+    l_s > 0, the weights exp(m_s - m) (0 where l_s is 0), l and o their
+    weighted sums (o unnormalized)."""
+    m = torch.where(l_s > 0, m_s, -torch.inf).amax(dim=-1)
+    w = torch.where(l_s > 0, torch.exp(m_s - m[..., None]), 0.0)
+    return m, (w * l_s).sum(dim=-1), (w[..., None] * o_s).sum(dim=-2)
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, window=None, block_k: int = 256):
@@ -280,7 +324,9 @@ def _launch(q, k_cache, v_cache, pos, window, plan):
     W = plan.width
     stream = torch.cuda.current_stream(q.device).cuda_stream
     n_part = B * G * R * plan.splits
-    ws, tickets = _workspace.workspace(q.device, stream, n_part * (W + 2), B * G * plan.chunks)
+    # a ticket a (row, group, chunk), and one a group of runs of its combine
+    n_tickets = B * G * plan.chunks * (1 + -(-plan.splits // COMBINE_GROUP))
+    ws, tickets = _workspace.workspace(q.device, stream, n_part * (W + 2), n_tickets)
     qp = q if W == D else torch.nn.functional.pad(q, (0, W - D))
     out = torch.empty_like(qp)
     _build.launch(

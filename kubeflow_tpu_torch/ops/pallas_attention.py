@@ -39,11 +39,11 @@ Two routes, chosen by :func:`_plan` from the operands' dtype and width:
   the bf16 width-256 kernel's (one S^T, P^T and dV, the other dP^T, dS^T
   and dK, P^T handed over through shared memory), a thread 8 x 4 scores and
   8 x 8 of its accumulator at width 128; both take 32 and 32 at width 256
-  (:func:`_fma_bwd_tiles`, :func:`_fma_bwd_bytes`), and at 512 run those
-  width-256 kernels on the two column halves as a cluster of two blocks,
-  as the bf16 pairs below do. dk/dv reads O from device memory for delta,
-  which its warpgroups share through shared memory. The TPU kernels'
-  rounding points are the identity in fp32.
+  (:func:`_fma_bwd_tiles`, :func:`_fma_bwd_bytes`). At 512 all three run
+  their width-256 kernels on the two column halves as a cluster of two
+  blocks, as the bf16 dq and dk/dv pairs below do. dk/dv reads O from
+  device memory for delta, which its warpgroups share through shared
+  memory. The TPU kernels' rounding points are the identity in fp32.
 
 The kernels are compiled for head widths 64, 128, 256 and 512. bf16 takes
 the tensor cores in all three kernels at every width. At 256
@@ -64,12 +64,13 @@ width-256 kernels on the two column halves as a cluster of
 them and swaps them with the other block through distributed shared
 memory, so every score product is computed once; dk/dv keeps one O tile,
 loaded one ring item ahead, and swaps its partial delta too
-(:func:`_pair_reference` is their order of operations in plain PyTorch).
-fp32 takes the FMA kernels at every width (at 512 the forward 32 rows and
-16-key tiles; dq and dk/dv the same pairs of width-256 blocks, 32 and 32
-a block, each block's 256 threads swapping 8 partials, dk/dv's partial
-delta too, dq's delta read over every column by both). Any head size D up
-to 512 runs on
+(:func:`_pair_reference` is their order of operations in plain PyTorch,
+:func:`_pair_forward_reference` the fp32 forward pair's).
+fp32 takes the FMA kernels at every width (at 512 the forward, dq and
+dk/dv the same pairs of width-256 blocks: the forward 64 rows and 32-key
+tiles a block, dq and dk/dv 32 and 32, each block's 256 threads swapping 8
+partials, dk/dv's partial delta too, dq's delta read over every column by
+both). Any head size D up to 512 runs on
 them: :func:`_pad_heads` zero-pads the head axis to the next width and
 launches with the true ``D ** -0.5`` as the
 softmax scale, so the scores, the softmax and delta = rowsum(dO·O) are the
@@ -185,7 +186,8 @@ class Plan:
     rows a block (forward, dq) or the keys a block (dk/dv); ``width`` the
     head width the kernel runs at (the head size zero-padded to 64, 128,
     256 or 512); ``cluster`` the blocks of a thread-block cluster along the
-    grid's last axis (2 for dq and dk/dv at the widths of ``_PAIR_D``)."""
+    grid's last axis (2 at the widths of ``_PAIR_D`` for dq and dk/dv, and
+    for the fp32 forward)."""
 
     route: str
     block: int
@@ -258,9 +260,10 @@ def _wgmma_sums(kernel: str, block: int, width: int) -> tuple[int, int]:
 
 def _fma_fwd_tiles(width: int) -> tuple[int, int]:
     """(query rows, keys) of the fp32 forward's tiles at head width
-    ``width``: 128 rows and 64 keys up to 128, 64 rows and 32 keys at 256,
-    32 rows and 16 keys from 512 on."""
-    return (128, 64) if width <= 128 else (64, 32) if width <= 256 else (32, 16)
+    ``width``: 128 rows and 64 keys up to 128, 64 rows and 32 keys from 256
+    on (at the widths of ``_PAIR_D`` a block of the pair's, over its half of
+    the columns)."""
+    return (128, 64) if width <= 128 else (64, 32)
 
 
 def _fma_fwd_bytes(width: int) -> int:
@@ -269,10 +272,16 @@ def _fma_fwd_bytes(width: int) -> int:
     ``csrc/flash_attention_fwd.cu`` sums it (the launcher checks it): 1024
     bytes of alignment slack, the fp32 Q tile, ``_STAGES`` fp32 K and V
     tiles, the fp32 P tile [rows, keys], the mbarriers (Q, full and empty a
-    stage)."""
+    stage). From ``_PAIR_D`` on (the refusal sums wider ones) a block of the
+    pair holds its half of the columns (in 32-column slabs, rounded up) and
+    the receive slot of the other block's partial S [rows, keys] with its
+    two mbarriers."""
     rows, keys = _fma_fwd_tiles(width)
-    return (1024 + 4 * rows * width + _STAGES * 2 * 4 * keys * width + 4 * rows * keys
-            + 8 * (1 + 2 * _STAGES))
+    pair = width >= _PAIR_D[0]
+    cols = -(-width // _PAIR_CLUSTER // 32) * 32 if pair else width
+    rx = 4 * rows * keys + 8 * 2 if pair else 0
+    return (1024 + 4 * rows * cols + _STAGES * 2 * 4 * keys * cols + 4 * rows * keys
+            + 8 * (1 + 2 * _STAGES) + rx)
 
 
 def _fma_bwd_tiles(kernel: str, width: int) -> tuple[int, int]:
@@ -362,14 +371,16 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
     takes the FMA route, 256 threads; the forward a grid of (H, B, query
     tiles), the tiles of :func:`_fma_fwd_tiles` and the bytes of
     :func:`_fma_fwd_bytes`; dq and dk/dv the bf16 route's grids, the tiles
-    of :func:`_fma_bwd_tiles` and the bytes of :func:`_fma_bwd_bytes`, at
-    ``_PAIR_D`` the same clusters of ``_PAIR_CLUSTER`` blocks.
+    of :func:`_fma_bwd_tiles` and the bytes of :func:`_fma_bwd_bytes`; at
+    ``_PAIR_D`` all three the same clusters of ``_PAIR_CLUSTER`` blocks.
     """
     width = _kernel_width(D)
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash kernels take bf16 or fp32 operands, got {dtype}")
     wide = width in _WGMMA_64_ROWS_D or width in _HALVES_D or width in _PAIR_D
-    cluster = _PAIR_CLUSTER if width in _PAIR_D and kernel != "fwd" else 1
+    # the pairs: dq and dk/dv on both routes, the forward on the fp32 one
+    pair = width in _PAIR_D and (kernel != "fwd" or dtype == torch.float32)
+    cluster = _PAIR_CLUSTER if pair else 1
     if dtype == torch.bfloat16 and kernel in ("fwd", "dq"):
         rows = 128 if not wide and B * H * -(-Sq // 128) >= sms else 64
         smem, _ = _wgmma_sums(kernel, rows, width)
@@ -383,8 +394,8 @@ def _plan(kernel: str, B: int, Sq: int, Sk: int, H: int, KV: int, D: int, dtype,
                     cluster)
     if kernel == "fwd":
         rows, _ = _fma_fwd_tiles(width)
-        return Plan("fma", rows, (H, B, -(-Sq // rows)), _FMA_THREADS, _fma_fwd_bytes(width),
-                    width)
+        return Plan("fma", rows, (H, B, cluster * -(-Sq // rows)), _FMA_THREADS,
+                    _fma_fwd_bytes(width), width, cluster)
     block, _ = _fma_bwd_tiles(kernel, width)
     grid = ((KV, B, cluster * -(-Sk // block)) if kernel == "dkv" else
             (H, B, cluster * -(-Sq // block)))
@@ -598,6 +609,52 @@ def _pair_reference(q, k, v, o, lse, do, *, causal=True, window=None, grad_dtype
     return (dq.reshape(B, Sq, H, D).to(grad_dtype or q.dtype),
             dk.to(grad_dtype or k.dtype), dv.to(grad_dtype or v.dtype))
 
+
+
+def _pair_forward_reference(q, k, v, *, causal=True, window=None, scale=None):
+    """The order of operations of the fp32 forward at the widths of
+    ``_PAIR_D`` (``flash_fwd_fma<512, 64, 32, 2>``), in plain PyTorch: (o,
+    lse), a witness for its checks on the card.
+
+    S is the fp32 sum of the two column halves' partial products (the two
+    blocks of a cluster hold the head's first ``_PAIR_COLS`` columns and the
+    rest), masked; then the kernel's online softmax over key tiles of
+    ``_fma_fwd_tiles`` keys in order: the running max m (a row that has seen
+    no key keeps -inf and rescales by 0), p = 2^(s * scale * log2 e - m *
+    scale * log2 e) unrounded, l and O rescaled by the change of m and
+    added to; O / l at the end (0 where l is 0) and lse = m * scale + log l
+    (+inf there). A tile no row of the block sees changes nothing, so every
+    tile is walked. Sums differ from the kernel's in order only."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    group = H // KV
+    scale = D ** -0.5 if scale is None else scale
+    c = _PAIR_COLS
+    keys = _fma_fwd_tiles(_PAIR_D[0])[1]
+    sl2 = scale * 1.4426950408889634
+    qg, kf, vf = _acc(q).reshape(B, Sq, KV, group, D), _acc(k), _acc(v)
+    part = [torch.einsum("bqgrd,bkgd->bgrqk", qg[..., i:i + c], kf[..., i:i + c])
+            for i in (0, c)]
+    s = (part[0] + part[1]).masked_fill(~_keep_mask(Sq, Sk, causal, window, q.device),
+                                        -torch.inf)
+    del part
+    m = s.new_full((B, KV, group, Sq), -torch.inf)
+    l = s.new_zeros((B, KV, group, Sq))
+    acc = s.new_zeros((B, KV, group, Sq, D))
+    for k0 in range(0, Sk, keys):
+        st = s[..., k0:k0 + keys]
+        mx = torch.maximum(m, st.amax(-1))
+        m_use = torch.where(mx == -torch.inf, 0.0, mx)
+        corr = torch.exp2((m - m_use) * sl2)
+        p = torch.exp2(st * sl2 - (m_use * sl2)[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bgrqk,bkgd->bgrqd", p,
+                                                   vf[:, k0:k0 + keys])
+        m = mx
+    o = acc / torch.where(l == 0, 1.0, l)[..., None]
+    lse = torch.where(l == 0, torch.inf, m * scale + torch.log(torch.where(l == 0, 1.0, l)))
+    return (o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype),
+            lse.reshape(B, H, Sq))
 
 def _check_backward(q, k, v, o, lse, do, causal, window, grad_dtype):
     B, Sq, H, D = q.shape

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from kubeflow_tpu.ops.pallas_attention import _flash_forward as _jax_flash_forward
 from kubeflow_tpu.ops.pallas_attention import flash_attention as jax_flash
 from kubeflow_tpu_torch.ops import pallas_attention as pa
 
@@ -25,7 +26,9 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
     B, Sq, Sk, H, KV = shape
     plan = pa._plan(kernel, B, Sq, Sk, H, KV, D, dtype)
     assert 0 < plan.smem_bytes <= pa.SMEM_LIMIT and plan.width == D
-    assert plan.cluster == (2 if D == 512 and kernel != "fwd" else 1)
+    # width 512: dq and dk/dv a pair on both routes, the forward on fp32's
+    assert plan.cluster == (2 if D == 512 and (kernel != "fwd" or dtype == torch.float32)
+                            else 1)
     if dtype == torch.bfloat16 and D == 512:
         # width 512: 256 threads; the forward 64-row tiles, two warpgroups
         # each owning half of O's columns; dq (64 query rows) and dk/dv (64
@@ -52,12 +55,13 @@ def test_plan_route_tiles_grid_and_shared_memory(kernel, D, dtype, shape):
         assert (plan.route, plan.block, plan.threads) == ("wgmma", rows, threads)
         assert plan.grid == ((KV, B, Sk // rows) if kernel == "dkv" else (H, B, Sq // rows))
     elif kernel == "fwd":
-        # fp32 forward: register-tiled FMAs, 128 query rows (64 at width
-        # 256, with 32-key tiles; 32 at 512, with 16-key tiles) at every
-        # shape, 256 threads
-        rows = {256: 64, 512: 32}.get(D, 128)
+        # fp32 forward: register-tiled FMAs, 128 query rows (64 from width
+        # 256 on, with 32-key tiles) at every shape, 256 threads; at 512 the
+        # width-256 kernel on each column half, a cluster of two blocks
+        # along the grid's last axis
+        rows = 128 if D <= 128 else 64
         assert (plan.route, plan.block, plan.threads) == ("fma", rows, 256)
-        assert plan.grid == (H, B, -(-Sq // rows))
+        assert plan.grid == (H, B, plan.cluster * -(-Sq // rows))
         assert plan.smem_bytes == pa._fma_fwd_bytes(D)
     else:
         # fp32 dq and dk/dv: register-tiled FMAs, 256 threads, the bf16
@@ -132,10 +136,12 @@ def test_plan_shared_memory_bytes_at_d256(kernel, shape, want):
     ("dkv", torch.bfloat16, dict(kv=65_536, ring=2 * 2 * 4 * 48 * 128, o=4 * 48 * 128,
                                  slot=64 * 48 * 4, delta=2 * 48 * 4,
                                  rx=2 * 64 * 48 * 4 + 48 * 4, barriers=8 * 7 + 8 * 5)),
-    # fp32 forward: Q of 32 rows + 2 x (K, V) of 16 keys at 16 slabs of 32
-    # columns + P [32, 16]
-    ("fwd", torch.float32, dict(q=16 * 32 * 128, ring=2 * 2 * 16 * 16 * 128, p=32 * 16 * 4,
-                                barriers=8 * 5)),
+    # fp32 forward, a block of the pair, its 256 columns (eight 32-column
+    # slabs): Q of 64 rows + 2 x (K, V) of 32 keys + P [64, 32] + the
+    # receive slot of the other block's partial S (256 threads, 8 fp32
+    # each) + three barriers a stage and Q's, and the slot's two
+    ("fwd", torch.float32, dict(q=8 * 64 * 128, ring=2 * 2 * 8 * 32 * 128, p=64 * 32 * 4,
+                                rx=256 * 8 * 4, barriers=8 * 5 + 8 * 2)),
     # fp32 dq, a block of the pair, its 256 columns (eight 32-column slabs):
     # Q and dO of 32 rows + 2 x (K, V) of 32 keys + dS [32, 32] + the
     # receive slot of the other block's S and dP (256 threads, 8 fp32 each)
@@ -522,3 +528,103 @@ def test_fma_pair_layout_offsets(kernel):
     want = 1024 + offsets["bar"] + 8 * n_bars
     assert pa._fma_bwd_bytes(kernel, 512) == want <= pa.SMEM_LIMIT
     assert want == {"dq": 209_976, "dkv": 214_488}[kernel]
+
+
+def test_fma_forward_pair_layout_offsets():
+    """The fp32 width-512 forward's ``fwd32::Layout<512, 64, 32, 2>`` as the
+    ``.cu`` lays it out, offset by offset: the Q tile and each ring stage on
+    1024 bytes (the 128-byte swizzle's period), the receive slot on 16 (float4
+    by st.async), the barriers on 8; 8 partial scores a thread of its 256 fill
+    the slot (64 rows by 32 keys); its end plus the alignment slack is
+    ``_fma_fwd_bytes(512)``, within the block's shared memory. The plan
+    launches it as a cluster of two blocks a query tile of 64 rows."""
+    rows, keys = pa._fma_fwd_tiles(512)
+    assert (rows, keys) == (64, 32) and rows * keys == 8 * pa._FMA_THREADS
+    ns = 256 // 32                                  # a block's 32-column slabs
+    q_slab, kv_slab = rows * 128, keys * 128
+    offsets = {"q": 0, "ring": ns * q_slab}
+    stage = 2 * ns * kv_slab
+    offsets["p"] = offsets["ring"] + 2 * stage
+    offsets["rx"] = offsets["p"] + 4 * rows * keys
+    offsets["bar"] = offsets["rx"] + 4 * rows * keys
+    assert offsets["q"] % 1024 == 0 and offsets["ring"] % 1024 == 0 and stage % 1024 == 0
+    assert offsets["rx"] % 16 == 0 and offsets["bar"] % 8 == 0
+    want = 1024 + offsets["bar"] + 8 * (1 + 2 * 2 + 2)
+    assert pa._fma_fwd_bytes(512) == want == 214_072 <= pa.SMEM_LIMIT
+    # the width-256 kernel's layout plus the slot and its two barriers
+    assert want == pa._fma_fwd_bytes(256) + 4 * rows * keys + 8 * 2
+    for B, S, H, KV in ((4, 2048, 2, 2), (4, 128, 2, 1), (3, 200, 2, 1), (1, 16, 8, 1)):
+        plan = pa._plan("fwd", B, S, S, H, KV, 512, torch.float32)
+        assert (plan.route, plan.block, plan.cluster, plan.smem_bytes) == ("fma", 64, 2, want)
+        assert plan.grid == (H, B, 2 * -(-S // 64)) and plan.threads == 256
+        # the bf16 forward keeps its two warpgroups' halves of O, one block
+        assert pa._plan("fwd", B, S, S, H, KV, 512, torch.bfloat16).cluster == 1
+    # D 300 runs the same pair at width 512
+    assert pa._plan("fwd", 1, 40, 40, 2, 1, 300, torch.float32).cluster == 2
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (2048, 2048, True, None),
+    (256, 256, True, 2), (256, 256, True, 48), (256, 256, True, 100), (256, 256, True, 1000),
+    (200, 200, True, None), (200, 200, True, 48),        # ragged query and key tiles
+    (96, 96, False, None), (64, 192, False, None), (40, 200, False, None),
+    (16, 8, True, 2), (300, 130, True, 100), (130, 300, True, None), (64, 256, True, None),
+])
+def test_key_tiles_of_the_fp32_width_512_forward_walk(Sq, Sk, causal, window):
+    """The fp32 width-512 forward pair's walk (both blocks of a cluster walk
+    it), 64 query rows a block over 32-key tiles (``_key_tiles``, the
+    kernel's ``key_tiles<32>``): exactly the tiles that hold a visible pair,
+    found by brute force, so each of them is a swap both blocks make."""
+    plan = pa._plan("fwd", 1, Sq, Sk, 2, 1, 512, torch.float32)
+    rows, keys = pa._fma_fwd_tiles(512)
+    assert (plan.block, plan.cluster) == (rows, 2)
+    keep = pa._keep_mask(Sq, Sk, causal, window, "cpu")
+    n_tiles = -(-Sk // keys)
+    for q0 in range(0, Sq, rows):
+        first, count = pa._key_tiles(q0, rows, Sq, Sk, causal, window, keys)
+        visible = [bool(keep[q0:q0 + rows, j * keys:(j + 1) * keys].any())
+                   for j in range(n_tiles)]
+        assert [first <= j < first + count for j in range(n_tiles)] == visible
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window", [
+    (1, 40, 40, 2, 1, 512, True, 12),         # a window; Sk 40 ragged to 32-key tiles
+    (2, 24, 40, 2, 2, 512, True, None),       # Sq < Sk: causal from position 0
+    (1, 16, 48, 4, 2, 512, False, None),      # non-causal, GQA
+    (1, 40, 40, 2, 1, 300, True, 12),         # D 300: the second half is 44 columns
+])
+def test_pair_forward_reference_matches_jax_forward(B, Sq, Sk, H, KV, D, causal, window):
+    """``_pair_forward_reference`` (S as the sum of two column halves'
+    partial products, then the fp32 kernel's online softmax over 32-key
+    tiles) against the JAX Pallas forward in interpret mode, fp32: o and lse
+    within ``TOL``, the summation-order bound of the other fp32 checks (the
+    split adds one rounding to each score)."""
+    q, k, v, _ = _inputs(B, Sq, Sk, H, KV, D, seed=D + Sq + Sk + 1)
+    bq = 8
+    want_o, want_lse = _jax_flash_forward(
+        *(jnp.asarray(x).transpose(0, 2, 1, 3) for x in (q, k, v)), causal=causal, block_q=bq,
+        block_k=8, interpret=True, save_residuals=True, window=window)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    o, lse = pa._pair_forward_reference(tq, tk, tv, causal=causal, window=window)
+    assert o.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o).transpose(0, 2, 1, 3), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], **TOL)
+    # and the plain forward, whose single softmax it reorders
+    o_p, lse_p = pa.flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(o.numpy(), o_p.numpy(), **TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_p.numpy(), **TOL)
+
+
+def test_pair_forward_reference_dead_rows_and_bf16():
+    """Rows that see no key give o = 0 and lse = +inf, as the kernel; in
+    bf16 the witness keeps the operands' dtype for o."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(2, 16, 8, 2, 1, 512, seed=3))
+    o, lse = pa._pair_forward_reference(q, k, v, causal=True, window=2)
+    o_p, lse_p = pa.flash_attention_plain(q, k, v, causal=True, window=2)
+    dead = ~lse_p.isfinite()
+    assert int(dead.sum()) == 2 * 2 * 7
+    assert bool((lse[dead] == torch.inf).all()) and bool((o.permute(0, 2, 1, 3)[dead] == 0).all())
+    np.testing.assert_allclose(o.numpy(), o_p.numpy(), **TOL)
+    o16, _ = pa._pair_forward_reference(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=True,
+                                        window=2)
+    assert o16.dtype == torch.bfloat16

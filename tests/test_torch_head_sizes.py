@@ -119,16 +119,17 @@ def test_plans_are_made_at_the_padded_width(D, width, dtype):
         # 64-row tiles (64-key blocks for dk/dv; at 512 dq and dk/dv a
         # cluster of two blocks, one a column half, a tile or key block);
         # fp32 the FMA kernels: the forward 128 query rows and 64-key tiles
-        # up to 128, 64 and 32 at 256, 32 and 16 at 512; dq 64 query rows
-        # and 64-key tiles, dk/dv 64 keys and 64-row tiles, up to 128, both
-        # 32 and 32 from 256 on (at 512 a cluster of two blocks, one a
+        # up to 128, 64 and 32 from 256 on; dq 64 query rows and 64-key
+        # tiles, dk/dv 64 keys and 64-row tiles, up to 128, both 32 and 32
+        # from 256 on (at 512 all three a cluster of two blocks, one a
         # column half, a query tile or key block)
         assert plan.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
         if plan.route == "fma" and kernel == "fwd":
-            assert (plan.block, plan.threads, plan.grid) == (
-                pa._fma_fwd_tiles(width)[0], 256, (8, 4, 2048 // pa._fma_fwd_tiles(width)[0]))
+            rows, cluster = pa._fma_fwd_tiles(width)[0], 2 if width == 512 else 1
+            assert (plan.block, plan.threads, plan.grid, plan.cluster) == (
+                rows, 256, (8, 4, cluster * 2048 // rows), cluster)
             assert plan.smem_bytes == pa._fma_fwd_bytes(width) == {
-                64: 132_136, 128: 230_440, 256: 205_864, 512: 199_720}[width]
+                64: 132_136, 128: 230_440, 256: 205_864, 512: 214_072}[width]
         elif plan.route == "fma":
             block = 64 if width <= 128 else 32
             cluster = 2 if width == 512 else 1
@@ -190,16 +191,16 @@ def test_head_sizes_past_128_are_refused_with_their_limits():
         assert pa._kernel_width(D) == fd._kernel_width(D) == 512
     # the sums the refusal states are the width-512 designs' own at the next
     # width: the bf16 layouts and the fp32 kernels' at their width-512 tiles
-    # (the forward's 32 rows and 16-key tiles; dq's and dk/dv's pairs, 32
-    # and 32 over a block's half of the columns, 320 at 640, with the
-    # receive slots); at 576 the forward's fits but a warpgroup's 288
-    # columns pass wgmma's 256, and the pairs' blocks (five slabs a half)
-    # pass the shared memory; at 640 none fits
-    assert pa._fma_fwd_tiles(640) == (32, 16)
+    # (the three pairs over a block's half of the columns, 320 at 640, with
+    # the receive slots: the forward's 64 rows and 32-key tiles, dq's and
+    # dk/dv's 32 and 32); at 576 the bf16 forward's fits but a warpgroup's
+    # 288 columns pass wgmma's 256, and the pairs' blocks (five slabs a
+    # half) pass the shared memory; at 640 none fits
+    assert pa._fma_fwd_tiles(640) == (64, 32)
     assert pa._fma_bwd_tiles("dq", 640) == pa._fma_bwd_tiles("dkv", 640) == (32, 32)
     sums = [pa._wgmma_sums(k, 64, 640)[0] for k in ("fwd", "dq", "dkv")] + [
         pa._fma_fwd_bytes(640)] + [pa._fma_bwd_bytes(k, 640) for k in ("dq", "dkv")]
-    assert sums == [246_824, 279_864, 274_080, 248_872, 259_128, 263_640]
+    assert sums == [246_824, 279_864, 274_080, 263_224, 259_128, 263_640]
     assert min(sums) > pa.SMEM_LIMIT
     assert 576 // 2 > pa._WGMMA_N_MAX == 512 // 2
     for D, width, need in ((513, 576, "bf16 forward 222,248; dq 279,864; dk/dv 274,080"),

@@ -67,7 +67,7 @@ def test_heads_of_512_take_their_routes(dtype, routes):
     route (the forward in 64-row tiles, two warpgroups each owning half of
     O's columns; dq in 64-row tiles and dk/dv in 64-key blocks, each a
     cluster of two blocks, one a half of dQ's or of dK's and dV's columns);
-    fp32 on the FMA kernels (the forward 32 query rows and 16-key tiles;
+    fp32 on the FMA kernels (the forward 64 query rows and 32-key tiles,
     dq 32 query rows and 32-key tiles, dk/dv 32 keys and 32-row tiles, each
     a cluster of two blocks, one a column half)."""
     model = _port_model()
@@ -81,8 +81,10 @@ def test_heads_of_512_take_their_routes(dtype, routes):
             assert (plan.block, plan.threads, plan.grid, plan.cluster) == (64, 256, grid, cluster)
             assert plan.smem_bytes == pa._wgmma_sums(kernel, 64, 512)[0]
         if route == "fma" and kernel == "fwd":
-            assert (plan.block, plan.threads, plan.grid) == (32, 256, (WIDE["num_heads"], B,
-                                                                       -(-S // 32)))
+            # the width-256 forward on each column half: 64 rows a block, a
+            # cluster of two blocks a query tile
+            assert (plan.block, plan.threads, plan.grid, plan.cluster) == (
+                64, 256, (WIDE["num_heads"], B, 2 * -(-S // 64)), 2)
             assert plan.smem_bytes == pa._fma_fwd_bytes(512)
         elif route == "fma":
             # the width-256 FMA kernels on each column half: 32 rows or keys
